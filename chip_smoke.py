@@ -9,9 +9,10 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 
 1. card check: CUDA must be available; prints the card's name and
    power limit (nvidia-smi);
-2. build: compiles the CUDA ragged paged-attention kernel and the
-   Triton RMSNorm kernel from the sources in the checkout, printing
-   nvcc's register/spill report;
+2. build: compiles the CUDA kernels (ragged paged attention, flash
+   attention; one nvcc per source, started together) and the Triton
+   RMSNorm kernels from the sources in the checkout, printing nvcc's
+   register/spill report;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the Llama-2-7B serving step below, in bf16 and fp32, with
    the kernel's time, the plain version's time, the least time the card
@@ -22,7 +23,24 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 5. the slice at full width: Llama-2-7B (32 layers, bf16, seeded random
    weights) served by ``ContinuousBatchingEngine`` — 12 requests of
    32-512 prompt tokens through 8 slots, 32 new tokens each — with
-   the kernels' launch counters checked against the micro-rounds run.
+   the kernels' launch counters checked against the micro-rounds run;
+6. the RMSNorm backward kernel against its plain version at the train
+   step's (rows, h) = (16384, 4096), bf16 and fp32, with its time, bound
+   and the backward of ``F.rms_norm`` as the yardstick;
+7. the flash-attention forward, dQ and dK/dV kernels against their plain
+   versions: causal at BH 32, S 2048, d 128 in bf16 and fp32, a GQA case
+   (8 KV heads), a padded-key case (``kv_valid`` 2000) and an unpadded
+   S 2000; then at the train step's shape (BH 256, S 2048, bf16) with
+   times, bounds and ``F.scaled_dot_product_attention`` forward and
+   backward as the yardsticks;
+8. tiny training parity: ``build_train_step`` with full remat for 5
+   AdamW steps on the card (kernels) and on the CPU (plain versions),
+   fp32, TF32 off, from the same weights — losses and weights agree;
+9. the training slice at full width: Llama-2-7B widths with 8 layers
+   (the one cut: 32 layers of bf16 weights, gradients and fp32 AdamW
+   moments do not fit one 80 GB card), vocab 32000, one (1, 8, 2048)
+   batch, 2 warm-up and 5 timed steps, every step's launch counts
+   checked, the loss falling, and a profiler breakdown of one step.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -31,6 +49,7 @@ result line, when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -307,6 +326,7 @@ def serve_7b_phase(torch, L, D, rn, pa):
     if eng.mgr.num_free_pages != eng.mgr.usable_pages:
         raise AssertionError("pages leaked after the serve")
     breakdown = step_breakdown(torch, eng, params, cfg.vocab_size)
+    del eng, params          # the training phases need the memory
     generated = new_tokens * len(rids)
     return dict(
         breakdown=breakdown,
@@ -322,12 +342,18 @@ def serve_7b_phase(torch, L, D, rn, pa):
         launches=launches)
 
 
-def _kernel_ms_by_kind(prof):
-    """Device time (ms) of one profiled window by kind of kernel, and
-    the window's largest kernels."""
+MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+SERVE_KINDS = (("ragged_paged_attention", ("ragged_paged_attention",)),
+               ("rms_norm_fwd", ("rms_norm",)), ("matmul", MATMUL_NAMES))
+
+
+def _kernel_ms_by_kind(prof, kinds=SERVE_KINDS, n_top=6):
+    """Device time (ms) of one profiled window by kind of kernel (the
+    first kind whose name fragment the kernel's name holds, else
+    "other"), and the window's largest kernels."""
     from torch.autograd import DeviceType
-    kinds = dict(ragged_paged_attention=0.0, rms_norm_fwd=0.0, matmul=0.0,
-                 other=0.0)
+    out = {kind: 0.0 for kind, _ in kinds}
+    out["other"] = 0.0
     top = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -336,15 +362,28 @@ def _kernel_ms_by_kind(prof):
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        kind = ("ragged_paged_attention" if "ragged_paged_attention" in name
-                else "rms_norm_fwd" if "rms_norm" in name
-                else "matmul" if any(s in name for s in (
-                    "gemm", "gemv", "xmma", "cutlass", "nvjet"))
-                else "other")
-        kinds[kind] += us / 1e3
+        kind = next((k for k, frags in kinds
+                     if any(f in name for f in frags)), "other")
+        out[kind] += us / 1e3
         top.append((us / 1e3, e.key[:60], e.count))
     top.sort(reverse=True)
-    return kinds, [dict(ms=t, kernel=k, calls=c) for t, k, c in top[:6]]
+    return out, [dict(ms=t, kernel=k, calls=c) for t, k, c in top[:n_top]]
+
+
+def profiled_ms(torch, fn, iters: int = 5) -> float:
+    """Device time per call of ``fn`` summed over every kernel it runs,
+    from torch.profiler — for library calls that go through autograd
+    and cannot be captured in a CUDA graph."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kinds, _ = _kernel_ms_by_kind(prof, ())
+    return sum(kinds.values()) / iters
 
 
 def step_breakdown(torch, eng, params, vocab):
@@ -384,6 +423,334 @@ def step_breakdown(torch, eng, params, vocab):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the RMSNorm backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def rms_norm_bwd_phase(torch, rn):
+    """rms_norm_bwd at the train step's (rows, h) = (16384, 4096)."""
+    rows, h, eps = 16384, 4096, 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    report = {}
+    # tolerances: dx is one rounding of an fp32 value whose row sums run
+    # in another order (one bf16 step, 8 mantissa bits); dw sums 16384
+    # rows in another order (blocks of 32, then the blocks) before its
+    # one rounding
+    for dt, kind, tol in (
+            (torch.bfloat16, "bf16", dict(dx=(1.6e-2, 1e-4),
+                                          dw=(1.6e-2, 1e-2))),
+            (torch.float32, "fp32", dict(dx=(1e-5, 1e-5),
+                                         dw=(1e-5, 1e-3)))):
+        x = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+        g = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        dx, dw = rn.rms_norm_bwd_kernel(x, w, g, eps)
+        torch.cuda.synchronize()
+        pdx, pdw = rn.rms_norm_bwd_plain(x, w, g, eps)
+        err = max(check_close(torch, f"rms_norm_bwd dx {kind}", dx, pdx,
+                              *tol["dx"]),
+                  check_close(torch, f"rms_norm_bwd dw {kind}", dw, pdw,
+                              *tol["dw"]))
+        isz = x.element_size()
+        nbytes = 3 * rows * h * isz + 2 * h * isz
+        bms, by = bound_ms(nbytes, 10 * rows * h, "fp32")
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
+        lib = profiled_ms(torch, lambda: torch.autograd.grad(
+            y, (xl, wl), g, retain_graph=True))
+        report[kind] = dict(
+            shape=[rows, h], max_abs_err=err, tol=tol,
+            ms=device_ms(torch, lambda: rn.rms_norm_bwd_kernel(x, w, g, eps)),
+            plain_ms=device_ms(torch, lambda: rn.rms_norm_bwd_plain(
+                x, w, g, eps), iters=5, replays=2),
+            bound_ms=bms, bound_by=by, library_ms=lib)
+        del x, g, w, xl, wl, y, dx, dw, pdx, pdw
+        torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# tolerances: fp32 differs in summation order and the online (kernel) vs
+# one-pass (plain) softmax; in bf16 each output is one bf16 rounding of
+# an fp32 value, and P and dS are rounded to bf16 before their products
+# at other points of the online softmax than in the plain version
+FLASH_TOL = {"bf16": (2e-2, 2e-2), "fp32": (1e-4, 1e-4)}
+
+
+def _flash_inputs(torch, bh, s, d, dt, rep=1, seed=SEED):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape_kv = (bh // rep, s, d)
+    q = torch.randn((bh, s, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn(shape_kv, generator=gen, device="cuda").to(dt)
+    v = torch.randn(shape_kv, generator=gen, device="cuda").to(dt)
+    do = torch.randn((bh, s, d), generator=gen, device="cuda").to(dt)
+    return q, k, v, do
+
+
+def _flash_check(torch, fa, name, kind, q, k, v, do, rep, kv_valid):
+    """Each of the three kernels against the plain versions; returns
+    the largest |kernel - plain| over out, lse, dq, dk and dv."""
+    sc = 1.0 / math.sqrt(q.shape[-1])
+    args = (sc, True, kv_valid, 0, rep)
+    out, lse = fa.flash_fwd_kernel(q, k, v, *args)
+    delta = fa._delta(out, do)
+    dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, *args)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    pout, plse = fa.flash_fwd_plain(q, k, v, *args)
+    rtol, atol = FLASH_TOL[kind]
+    errs = [check_close(torch, f"{name} out", out, pout, rtol, atol),
+            check_close(torch, f"{name} lse", lse, plse, 1e-5, 1e-5)]
+    del pout, plse
+    # the backward from the kernel's own out and lse, as autograd runs it
+    grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
+    for g_name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        errs.append(check_close(torch, f"{name} {g_name}", got, want, rtol,
+                                atol))
+    return max(errs)
+
+
+def flash_phase(torch, fa):
+    d = 128
+    checks = {}
+    for name, bh, s, dt, kind, rep, kv_valid in (
+            ("causal_bf16", 32, 2048, torch.bfloat16, "bf16", 1, None),
+            ("causal_fp32", 32, 2048, torch.float32, "fp32", 1, None),
+            ("gqa_nkv8_bf16", 32, 2048, torch.bfloat16, "bf16", 4, None),
+            ("kv_valid2000_bf16", 32, 2048, torch.bfloat16, "bf16", 1, 2000),
+            ("s2000_bf16", 32, 2000, torch.bfloat16, "bf16", 1, None)):
+        q, k, v, do = _flash_inputs(torch, bh, s, d, dt, rep)
+        checks[name] = dict(
+            bh=bh, s=s, kv_rep=rep, kv_valid=kv_valid,
+            max_abs_err=_flash_check(torch, fa, name, kind, q, k, v, do, rep,
+                                     kv_valid),
+            tol=FLASH_TOL[kind])
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # the train step's shape: B*nh = 8*32 = 256 rows, S 2048, causal, bf16
+    bh, s = 256, 2048
+    q, k, v, do = _flash_inputs(torch, bh, s, d, torch.bfloat16)
+    sc = 1.0 / math.sqrt(d)
+    err = _flash_check(torch, fa, "step_bf16", "bf16", q, k, v, do, 1, None)
+    torch.cuda.empty_cache()
+    out, lse = fa.flash_fwd_kernel(q, k, v, sc, True)
+    delta = fa._delta(out, do)
+    isz = q.element_size()
+    mat = bh * s * d * isz                         # one (BH, S, D) tensor
+    row = bh * s * 4                               # one fp32 (BH, S) row
+    pairs = bh * s * s / 2                         # causal: half the square
+    fwd = dict(ms=device_ms(torch, lambda: fa.flash_fwd_kernel(
+        q, k, v, sc, True), iters=10, replays=3))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(4 * mat + row,
+                                                4 * d * pairs, "bf16")
+    dq = dict(ms=device_ms(torch, lambda: fa.flash_bwd_dq_kernel(
+        q, k, v, do, lse, delta, sc, True), iters=10, replays=3))
+    dq["bound_ms"], dq["bound_by"] = bound_ms(5 * mat + 2 * row,
+                                              6 * d * pairs, "bf16")
+    dkv = dict(ms=device_ms(torch, lambda: fa.flash_bwd_dkv_kernel(
+        q, k, v, do, lse, delta, sc, True), iters=10, replays=3))
+    dkv["bound_ms"], dkv["bound_by"] = bound_ms(6 * mat + 2 * row,
+                                                8 * d * pairs, "bf16")
+    fwd["plain_ms"] = eager_ms(torch, lambda: fa.flash_fwd_plain(
+        q, k, v, sc, True), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # the plain backward computes dq, dk and dv in one call
+    dq["plain_ms"] = dkv["plain_ms"] = eager_ms(
+        torch, lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, sc, True),
+        iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # yardstick: one PyTorch call, (B, H, S, D) = (1, 256, 2048, 128);
+    # its backward computes dq, dk and dv together
+    q4, k4, v4, do4 = (t.reshape(1, bh, s, d) for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd["library_ms"] = device_ms(torch, lambda: sdpa(q4, k4, v4,
+                                                      is_causal=True))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    o4 = sdpa(ql, kl, vl, is_causal=True)
+    dq["library_ms"] = dkv["library_ms"] = profiled_ms(
+        torch, lambda: torch.autograd.grad(o4, (ql, kl, vl), do4,
+                                           retain_graph=True))
+    # fp32 at the check shape (BH 32), for the record
+    q, k, v, do = _flash_inputs(torch, 32, s, d, torch.float32)
+    out32, lse32 = fa.flash_fwd_kernel(q, k, v, sc, True)
+    delta32 = fa._delta(out32, do)
+    fp32 = dict(bh=32, s=s, fwd_bound_ms=bound_ms(
+        0, 4 * d * 32 * s * s / 2, "fp32")[0])
+    for key, fn in (
+            ("fwd_ms", lambda: fa.flash_fwd_kernel(q, k, v, sc, True)),
+            ("dq_ms", lambda: fa.flash_bwd_dq_kernel(
+                q, k, v, do, lse32, delta32, sc, True)),
+            ("dkv_ms", lambda: fa.flash_bwd_dkv_kernel(
+                q, k, v, do, lse32, delta32, sc, True))):
+        fp32[key] = device_ms(torch, fn, iters=5, replays=2)
+    del q, k, v, do, q4, k4, v4, do4, ql, kl, vl, o4, out, lse, delta
+    torch.cuda.empty_cache()
+    for r in (fwd, dq, dkv):
+        r["max_abs_err"] = err
+    return dict(checks=checks, step_shape=dict(bh=bh, s=s, d=d, dtype="bf16",
+                                               fwd=fwd, dq=dq, dkv=dkv),
+                fp32_bh32=fp32)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tiny training parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def train_parity_phase(torch, L):
+    """5 AdamW steps of build_train_step (full remat, two microbatches)
+    on the card and on the CPU from the same fp32 weights. S = 100 is
+    not a multiple of any tile; 2 query heads share one KV head."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=1, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    rng = np.random.RandomState(SEED)
+    steps, lr = 5, 1e-3
+    ids = rng.randint(0, cfg.vocab_size, (steps, 2, 1, 100)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=-1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step, _ = L.build_train_step(cfg, learning_rate=lr, remat=True,
+                                     device=dev)
+        params = {k: v.clone().to(dev) for k, v in params_cpu.items()}
+        opt = L.init_opt_state(params)
+        losses = []
+        for i in range(steps):
+            loss, params, opt = step(params, opt,
+                                     torch.from_numpy(ids[i]).to(dev),
+                                     torch.from_numpy(labels[i]).to(dev))
+            losses.append(float(loss))
+        runs[dev] = (losses, {k: v.cpu() for k, v in params.items()})
+    # tolerances: fp32 on both sides, sums in other orders (cuBLAS vs the
+    # CPU, online vs one-pass softmax), so the losses agree to fp32
+    # rounding. AdamW divides each gradient element by its own running
+    # RMS: where an element sits within the two devices' rounding noise,
+    # its update direction is noise, and a weight may differ by up to
+    # 2·lr a step. So: every weight within 2·lr·steps, and all but a
+    # 1e-4 share of the elements within (rtol 1e-4, atol 1e-5)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+    err, outside, total = 0.0, 0, 0
+    for k, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][k]
+        diff = (got - want).abs()
+        err = max(err, diff.max().item())
+        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+        total += want.numel()
+        if diff.max().item() > 2 * lr * steps:
+            raise AssertionError(f"train parity {k}: max |diff| "
+                                 f"{diff.max().item()} > 2·lr·steps")
+    if outside > 1e-4 * total:
+        raise AssertionError(f"train parity: {outside} of {total} weights "
+                             "outside (rtol 1e-4, atol 1e-5)")
+    return dict(steps=steps, losses_card=runs["cuda"][0],
+                losses_cpu=runs["cpu"][0], max_abs_param_err=err,
+                weights_outside_tight_tol=outside, weights=total)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training slice at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_KINDS = (("flash_fwd", ("flash_attention_fwd",)),
+               ("flash_bwd", ("flash_attention_bwd",)),
+               ("rms_norm", ("rms_norm",)), ("matmul", MATMUL_NAMES))
+
+
+def train_7b_phase(torch, L, rn, fa):
+    cfg = L.llama2_7b(num_hidden_layers=8, dtype=torch.bfloat16)
+    n_layers = cfg.num_hidden_layers
+    step, init = L.build_train_step(cfg, learning_rate=1e-4, remat=True,
+                                    device="cuda")
+    t0 = time.perf_counter()
+    params, opt = init(seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = 8, 2048
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, cfg.vocab_size, (1, b, s)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+    counters = {"rms_norm_fwd": rn.rms_norm,
+                "rms_norm_bwd": rn.rms_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    # per step (one microbatch): RMSNorm forward 2L+1, and 2L more in the
+    # remat replay; backward 2L+1; flash forward L, and L in the replay;
+    # dQ and dK/dV once per layer
+    want = {"rms_norm_fwd": 4 * n_layers + 1,
+            "rms_norm_bwd": 2 * n_layers + 1,
+            "flash_attention_fwd": 2 * n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers}
+    totals = {k: 0 for k in counters}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(7):                       # 2 warm-up + 5 timed steps
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, opt = step(params, opt, ids, labels)
+        losses.append(float(loss))           # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"step {i}: launch counts {got} != {want}")
+        for k in totals:
+            totals[k] += got[k]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over 7 steps: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[2:]
+    mean_ms = float(np.mean(timed))
+    tokens = b * s
+    tok_s = tokens / (mean_ms / 1e3)
+    # bench.py's accounting: 6 FLOPs per matmul parameter and token (the
+    # embedding gather excluded) + causal attention 6·L·S·h
+    n_params = L.param_count(cfg)
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
+    flops_per_token = 6.0 * n_matmul + 6.0 * n_layers * s * cfg.hidden_size
+    mfu = flops_per_token * tok_s / PEAK_OPS_PER_S["bf16"]
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, params, opt = step(params, opt, ids, labels)
+        torch.cuda.synchronize()
+    kinds, top = _kernel_ms_by_kind(prof, TRAIN_KINDS, n_top=14)
+    busy = sum(kinds.values())
+    del params, opt, step, init, loss
+    return dict(
+        layers=n_layers, reduced="num_hidden_layers 32 -> 8 (memory)",
+        params=n_params, init_s=init_s, batch=[1, b, s], lr=1e-4,
+        remat="full", losses=losses, step_ms=step_ms, mean_step_ms=mean_ms,
+        tokens_per_s=tok_s, flops_per_token=flops_per_token,
+        mfu_vs_989tflops=mfu, peak_mem_gb=peak_gb,
+        launches_per_step=want, launches=totals,
+        breakdown=dict(kernel_ms=kinds, top_kernels=top, device_busy_ms=busy,
+                       wall_ms=mean_ms, idle_share=1 - busy / mean_ms))
+
+
+def _kernel_entry(name, route, source, replaces, train, r):
+    """One entry of the kernels line: launches from the training run,
+    the rest from the kernel's own phase."""
+    return dict(name=name, route=route, source=source, replaces=replaces,
+                launches=train["launches"][name],
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -397,20 +764,23 @@ def main() -> int:
     from paddle_tpu_torch.inference import decoding as D
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import _common
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
 
     card = card_line()
-    print(f"[1/5] card: {card} (torch {torch.__version__}, CUDA "
+    print(f"[1/9] card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
-    # phase 2: nvcc in the background while Triton compiles its kernel
+    # phase 2: nvcc in the background (one process per source, started
+    # together) while Triton compiles its kernels
     t0 = time.perf_counter()
     errors = []
+    sources = ["ragged_paged_attention", "flash_attention"]
 
     def build():
         try:
-            _common.build_cuda_sources(["ragged_paged_attention"])
+            _common.build_cuda_sources(sources)
         except BaseException as e:       # re-raised below, on this thread
             errors.append(e)
 
@@ -418,37 +788,56 @@ def main() -> int:
     th.start()
     x = torch.ones(4, 4096, device="cuda", dtype=torch.bfloat16)
     rn.rms_norm_kernel(x, x[0], 1e-5)
+    rn.rms_norm_bwd_kernel(x, x[0], x, 1e-5)
     torch.cuda.synchronize()
     th.join()
     if errors:
         raise errors[0]
-    for line in _common.build_logs.get("ragged_paged_attention",
-                                       "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    print(f"[2/5] built both kernels in {time.perf_counter() - t0:.1f} s",
+    for name in sources:
+        for line in _common.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
+    print(f"[2/9] built every kernel in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     rms = rms_norm_phase(torch, rn)
-    print("[3/5] rms_norm kernel vs plain:", json.dumps(rms), flush=True)
+    print("[3/9] rms_norm kernel vs plain:", json.dumps(rms), flush=True)
     attn = attention_phase(torch, pa)
-    print("[3/5] ragged attention kernel vs plain:", json.dumps(attn),
+    print("[3/9] ragged attention kernel vs plain:", json.dumps(attn),
           flush=True)
 
     parity = parity_phase(torch, L, D)
-    print("[4/5] tiny engine, card == cpu tokens:", json.dumps(parity),
+    print("[4/9] tiny engine, card == cpu tokens:", json.dumps(parity),
           flush=True)
 
     serve = serve_7b_phase(torch, L, D, rn, pa)
-    print(f"[5/5] Llama-2-7B bf16 serve on {card}:", json.dumps(serve),
+    print(f"[5/9] Llama-2-7B bf16 serve on {card}:", json.dumps(serve),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rms_bwd = rms_norm_bwd_phase(torch, rn)
+    print("[6/9] rms_norm backward kernel vs plain:", json.dumps(rms_bwd),
+          flush=True)
+    flash = flash_phase(torch, fa)
+    print("[7/9] flash attention kernels vs plain:", json.dumps(flash),
+          flush=True)
+    tparity = train_parity_phase(torch, L)
+    print("[8/9] tiny training, card == cpu:", json.dumps(tparity),
+          flush=True)
+    train = train_7b_phase(torch, L, rn, fa)
+    print(f"[9/9] Llama-2-7B widths, 8 layers, bf16 training on {card}:",
+          json.dumps(train), flush=True)
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     kernels = [
+        # the forward runs on both main paths: the serve's launches plus
+        # the training run's
         dict(name="rms_norm_fwd", route="triton",
              source="paddle_tpu_torch/ops/rms_norm.py",
              replaces="paddle_tpu/ops/rms_norm.py:48",
-             launches=serve["launches"]["rms_norm_fwd"],
+             launches=serve["launches"]["rms_norm_fwd"]
+             + train["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -459,11 +848,23 @@ def main() -> int:
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
+        _kernel_entry("rms_norm_bwd", "triton",
+                      "paddle_tpu_torch/ops/rms_norm.py",
+                      "paddle_tpu/ops/rms_norm.py:55", train, rms_bwd["bf16"]),
     ]
+    step = flash["step_shape"]
+    for name, key, line in (("flash_attention_fwd", "fwd", 41),
+                            ("flash_attention_bwd_dq", "dq", 172),
+                            ("flash_attention_bwd_dkv", "dkv", 224)):
+        kernels.append(_kernel_entry(
+            name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            f"paddle_tpu/ops/flash_attention.py:{line}", train, step[key]))
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite measurement in {k}")
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never ran on its main path")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,16 @@ plain version, an op given CUDA tensors launches its kernel (or raises).
 Entry points (the serving engine, the KV-cache manager) run on the card
 unless the caller passes ``device="cpu"``.
 
-Ported so far: the unified greedy serving path —
-``inference.decoding.ContinuousBatchingEngine`` over
-``models.llama.ragged_step``, with the RMSNorm forward and ragged paged
-attention kernels.
+Ported so far:
+
+- the unified greedy serving path —
+  ``inference.decoding.ContinuousBatchingEngine`` over
+  ``models.llama.ragged_step``, with the RMSNorm forward and ragged
+  paged attention kernels;
+- the one-device Llama training step — ``models.llama.build_train_step``
+  (forward, backward with full remat, AdamW) over
+  ``models.llama.forward_stacked``, with the RMSNorm forward and
+  backward and the flash attention forward, dQ and dK/dV kernels.
 """
 
 __version__ = "0.1.0"

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..models import llama as L
-from ..ops._common import resolve_device
+from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
 from .sampling import greedy_rows
 
@@ -38,12 +38,6 @@ def token_checksum(tokens) -> int:
     JAX package's ``observability.journal.token_checksum``)."""
     a = np.asarray(list(tokens), np.int32)
     return zlib.crc32(a.astype("<i4").tobytes()) & 0xFFFFFFFF
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        "of the PyTorch/CUDA port")
 
 
 @dataclass

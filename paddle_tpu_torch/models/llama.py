@@ -1,4 +1,5 @@
-"""Llama family, serving side — counterpart of ``paddle_tpu/models/llama.py``.
+"""Llama family — counterpart of ``paddle_tpu/models/llama.py``: the
+serving step and the one-device training step.
 
 Weights use the JAX package's stacked layout (per-layer tensors stacked
 on a leading L axis) and its ``x @ W`` orientation (``wq`` is
@@ -8,8 +9,10 @@ package carry across as a plain copy (:func:`params_from_numpy`).
 Decoder math follows Llama-2: RMSNorm → QKV (GQA) → RoPE → attention →
 out-proj → residual; RMSNorm → SwiGLU MLP → residual. The projections
 and ``lm_head`` are plain large products (``torch.matmul``), as the JAX
-package leaves them to XLA; RMSNorm and the ragged paged attention are
-the kernels (``ops/rms_norm.py``, ``ops/paged_attention.py``).
+package leaves them to XLA. The kernels: RMSNorm forward and backward
+(``ops/rms_norm.py``), the ragged paged attention of the serving step
+(``ops/paged_attention.py``) and the causal flash attention forward and
+backward of the training step (``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
 from ..ops import rope as rope_ops
-from ..ops._common import resolve_device
+from ..ops._common import not_ported as _later, resolve_device
 from ..ops.rms_norm import rms_norm
 
 #: per-layer tensors in the stacked layout (leading L axis)
@@ -223,3 +228,197 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     h_last = x[0][last_idx.long()]
     logits = h_last @ params["lm_head"]
     return logits, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Training: the differentiable forward, the loss and the one-device step
+# ---------------------------------------------------------------------------
+
+def decoder_layer(p, x, cos, sin, config: LlamaConfig):
+    """One decoder layer — ``_decoder_layer_manual`` with ``mp_axis =
+    fsdp_axis = sep_axis = None``. ``p`` holds one layer's weights
+    (``wq`` (h, h), …, ``ln1`` (h,)); ``x`` is (B, S, h); ``cos``/``sin``
+    are (S, d). Causal attention goes through the flash kernels."""
+    b, s, _ = x.shape
+    d = config.head_dim
+    eps = config.rms_norm_eps
+    xn = rms_norm(x, p["ln1"], eps)
+    q = (xn @ p["wq"]).reshape(b, s, -1, d)
+    k = (xn @ p["wk"]).reshape(b, s, -1, d)
+    v = (xn @ p["wv"]).reshape(b, s, -1, d)
+    q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+    attn = fa.sdpa_array(q, k, v, scale=1.0 / math.sqrt(d), causal=True)
+    out = attn.reshape(b, s, -1) @ p["wo"]
+    # the reference pins the residual carry to x's dtype (l.457/465)
+    x = x + out.to(x.dtype)
+    xn = rms_norm(x, p["ln2"], eps)
+    dn = (F.silu(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]
+    return x + dn.to(x.dtype)
+
+
+def _layer(params, l):
+    return {k: params[k][l] for k in LAYER_KEYS}
+
+
+def _hidden(params, ids, config: LlamaConfig, remat: bool = False):
+    """Embedding and the decoder stack: (B, S) ids -> (B, S, h). With
+    ``remat`` each layer is a checkpoint: its activations are recomputed
+    in the backward (the reference's ``jax.checkpoint`` per layer)."""
+    cos, sin = rope_ops.build_rope_cache(ids.shape[-1], config.head_dim,
+                                         config.rope_theta,
+                                         device=ids.device)
+    x = params["embed"][ids.long()]
+    for l in range(config.num_hidden_layers):
+        if remat:
+            out = checkpoint(decoder_layer, _layer(params, l), x, cos, sin,
+                             config, use_reentrant=False)
+        else:
+            out = decoder_layer(_layer(params, l), x, cos, sin, config)
+        x = out.to(x.dtype)
+    return rms_norm(x, params["ln_f"], config.rms_norm_eps)
+
+
+def _token_ce(logits, labels):
+    """Mean token cross-entropy over fp32 logits (``loss_stacked``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -picked.mean()
+
+
+def forward_stacked(params, ids, config: LlamaConfig):
+    """Single-device forward over the stacked layout → logits (B, S, V)."""
+    _check_dense(params)
+    return _hidden(params, ids, config) @ params["lm_head"]
+
+
+def loss_stacked(params, ids, labels, config: LlamaConfig):
+    """Mean token cross-entropy of :func:`forward_stacked`'s logits,
+    taken in fp32."""
+    return _token_ce(forward_stacked(params, ids, config), labels)
+
+
+def init_opt_state(params) -> Dict[str, Any]:
+    """AdamW state for ``params``: step 0 (int32) and fp32 zero moments
+    shaped like each leaf (l.845-849)."""
+    dev = next(iter(params.values())).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "m": {k: torch.zeros_like(v, dtype=torch.float32)
+                  for k, v in params.items()},
+            "v": {k: torch.zeros_like(v, dtype=torch.float32)
+                  for k, v in params.items()}}
+
+
+#: AdamW constants of the reference's fused optimizer (l.836)
+ADAM_B1, ADAM_B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
+
+
+def _adamw_(p, g, m, v, bc1, bc2, lr: float) -> None:
+    """One AdamW update in place, written out as the reference's
+    ``upd`` (l.862-870): fp32 math, the bias corrections ``bc1``/``bc2``
+    (``1 − b**t``) given as fp32 tensors, the result cast to ``p``'s
+    dtype. ``torch.optim.AdamW`` rounds its decoupled update differently,
+    so it is not used."""
+    g32 = g.float()
+    m.mul_(ADAM_B1).add_((1 - ADAM_B1) * g32)
+    v.mul_(ADAM_B2).add_((1 - ADAM_B2) * g32 * g32)
+    p32 = p.float()
+    upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS) + WEIGHT_DECAY * p32
+    p.copy_(p32 - lr * upd)
+
+
+def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
+                     remat: bool = True, remat_policy: str = "full",
+                     k_steps: int = 1, device=None, *, mesh=None,
+                     seq_shard: bool = False, virtual_pp: int = 1,
+                     pipeline_schedule: str = "fill_drain",
+                     zero_gather: str = "per_layer"):
+    """One-device counterpart of ``build_hybrid_train_step`` (l.473).
+    Returns ``(step_fn, init_fn)``.
+
+    ``step_fn(params, opt_state, ids, labels) -> (loss, params,
+    opt_state)``: ``ids``/``labels`` are (M, B, S) microbatches (with a
+    leading k axis when ``k_steps > 1``); each microbatch's loss is
+    backpropagated scaled by 1/M, so the gradients are those of the mean
+    loss over all microbatches, which is the loss returned (a 0-d fp32
+    tensor on the params' device). Then one AdamW step (b1 0.9, b2 0.95,
+    eps 1e-8, wd 0.1, fp32 moments). Where the reference returns new
+    arrays, the port updates ``params`` and ``opt_state`` IN PLACE (no
+    second copy of the weights and moments) and returns them.
+    ``k_steps > 1`` runs k such steps and returns the last loss.
+
+    ``remat=True`` (policy ``"full"``) recomputes each layer in the
+    backward through ``torch.utils.checkpoint``. ``init_fn(seed)`` gives
+    seeded params on ``device`` (``None`` means the card) and a fresh
+    AdamW state. The options of later slices (a mesh with more than one
+    device, pipeline schedules, ZeRO gathers, sequence sharding, other
+    remat policies) raise ``NotImplementedError``.
+    """
+    axes = getattr(mesh, "shape", mesh) or {}
+    if any(int(n) > 1 for n in dict(axes).values()):
+        raise _later(f"mesh {dict(axes)} (multi-device training)",
+                     "distributed")
+    if seq_shard:
+        raise _later("seq_shard=True (sequence parallelism)", "distributed")
+    if virtual_pp != 1:
+        raise _later(f"virtual_pp={virtual_pp} (interleaved pipeline)",
+                     "distributed")
+    if pipeline_schedule != "fill_drain":
+        raise _later(f"pipeline_schedule={pipeline_schedule!r}",
+                     "distributed")
+    if zero_gather != "per_layer":
+        raise _later(f"zero_gather={zero_gather!r} (ZeRO weight gathers)",
+                     "distributed")
+    if remat and remat_policy != "full":
+        raise _later(f"remat_policy={remat_policy!r} (selective remat)",
+                     "selective-remat")
+    if k_steps < 1:
+        raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+    lr = float(learning_rate)
+
+    def one_step(params, opt_state, ids, labels):
+        _check_dense(params)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        n_micro = ids.shape[0]
+        total = torch.zeros((), dtype=torch.float32, device=ids.device)
+        for i in range(n_micro):
+            h = _hidden(leaves, ids[i], config, remat=remat)
+            loss = _token_ce(h @ leaves["lm_head"], labels[i])
+            (loss / n_micro).backward()
+            total = total + loss.detach()
+        with torch.no_grad():
+            t = opt_state["step"] + 1
+            tf = t.float()
+            bc1 = 1 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32,
+                                             device=tf.device), tf)
+            bc2 = 1 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32,
+                                             device=tf.device), tf)
+            for k, p in params.items():
+                g = leaves[k].grad
+                m, v = opt_state["m"][k], opt_state["v"][k]
+                # one layer at a time: the fp32 temporaries stay one
+                # layer's size, not a whole stack's
+                parts = range(p.shape[0]) if k in LAYER_KEYS else (None,)
+                for l in parts:
+                    sl = slice(None) if l is None else l
+                    _adamw_(p[sl], g[sl], m[sl], v[sl], bc1, bc2, lr)
+            opt_state["step"] = t
+        return total / n_micro, params, opt_state
+
+    def step_fn(params, opt_state, ids, labels):
+        if k_steps == 1:
+            return one_step(params, opt_state, ids, labels)
+        if ids.shape[0] != k_steps or labels.shape[0] != k_steps:
+            raise ValueError(f"k_steps={k_steps} needs ids/labels with a "
+                             f"leading axis of {k_steps}")
+        loss = None
+        for i in range(k_steps):
+            loss, params, opt_state = one_step(params, opt_state, ids[i],
+                                               labels[i])
+        return loss, params, opt_state
+
+    def init_fn(seed: int = 0):
+        params = init_params(config, seed, device=device)
+        return params, init_opt_state(params)
+
+    return step_fn, init_fn

@@ -52,6 +52,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def not_ported(what: str, slice_name: str) -> NotImplementedError:
+    """The error an option of a later slice of the port raises."""
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the {slice_name} slice "
+        "of the PyTorch/CUDA port")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each kernel against its
 plain PyTorch version at Llama-2-7B widths, the wrappers' argument
-checks, and the serving engine on the card against the engine on the
-CPU. Marked ``gpu``; they skip where no CUDA device is present. Run on
+checks, the serving engine and the training step on the card against
+the same on the CPU, and the training step's launch counts. Marked ``gpu``; they skip where no CUDA device is present. Run on
 the card (the machine there has no JAX, so skip the conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu_torch.inference import decoding as D
 from paddle_tpu_torch.models import llama as L
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rms_norm as rn
 
@@ -167,3 +168,198 @@ def test_engine_on_card_matches_cpu(cuda):
             outs.append(eng.serve({k: t.to(dev) for k, t in params.items()},
                                   prompts))
         assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# training slice: RMSNorm backward, flash attention, the train step
+# ---------------------------------------------------------------------------
+
+# dx: one rounding of an fp32 value (bf16: 8 mantissa bits); dw: a sum
+# over rows in another order before its one rounding
+_RMS_BWD_TOL = {torch.bfloat16: dict(dx=(1.6e-2, 1e-4), dw=(1.6e-2, 1e-2)),
+                torch.float32: dict(dx=(1e-5, 1e-5), dw=(1e-5, 1e-4))}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1024, 4096), (1, 37, 4096), (5, 4000),
+                                   (600, 256)])
+def test_rms_norm_bwd_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=gen,
+                               device=cuda)).to(dtype)
+    before = rn.rms_norm_bwd.launches
+    dx, dw = rn.rms_norm_bwd(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rms_norm_bwd.launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == dtype and dx.shape == x.shape
+    pdx, pdw = rn.rms_norm_bwd_plain(x, w, g, 1e-5)
+    for name, got, want in (("dx", dx, pdx), ("dw", dw, pdw)):
+        rtol, atol = _RMS_BWD_TOL[dtype][name]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+
+
+def test_rms_norm_autograd_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(3, 5, 512).astype(np.float32))
+    w = torch.from_numpy((1 + 0.1 * rng.randn(512)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(3, 5, 512).astype(np.float32))
+    grads = []
+    for dev in (cuda, "cpu"):
+        xt = x.to(dev).requires_grad_(True)
+        wt = w.to(dev).requires_grad_(True)
+        rn.rms_norm(xt, wt, 1e-5).backward(g.to(dev))
+        grads.append((xt.grad.cpu(), wt.grad.cpu()))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_rms_norm_bwd_kernel_rejects_bad_input(cuda):
+    x = torch.randn(8, 256, device=cuda)
+    w = torch.ones(256, device=cuda)
+    with pytest.raises(TypeError):
+        rn.rms_norm_bwd(x, w, x.bfloat16())
+    with pytest.raises(ValueError):
+        rn.rms_norm_bwd(x, w, x[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rms_norm_bwd(x, w, torch.randn(256, 8, device=cuda).t())
+
+
+# fp32: summation order and the online vs one-pass softmax. bf16: each
+# output is one bf16 rounding, and P and dS are rounded to bf16 at other
+# points of the online softmax than in the plain version
+_FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+
+# (bh, sq, sk, d, causal, kv_rep, kv_valid)
+_FLASH_CASES = [(8, 300, 300, 128, True, 1, None),
+                (8, 256, 256, 128, True, 4, None),
+                (4, 256, 256, 128, True, 1, 200),
+                (4, 130, 130, 128, False, 2, None),
+                (4, 64, 200, 128, True, 1, None),
+                (6, 200, 200, 64, True, 3, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _FLASH_CASES,
+                         ids=lambda c: "bh{}_sq{}_sk{}_d{}_c{}_rep{}_kv{}"
+                         .format(*c))
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    bh, sq, sk, d, causal, rep, kv_valid = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((bh // rep, sk, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((bh // rep, sk, d), generator=gen, device=cuda).to(dtype)
+    do = torch.randn((bh, sq, d), generator=gen, device=cuda).to(dtype)
+    off = sk - sq if causal and sq != sk else 0
+    args = (d ** -0.5, causal, kv_valid, off, rep)
+    counts = [fa.flash_fwd_kernel.launches, fa.flash_bwd_dq_kernel.launches,
+              fa.flash_bwd_dkv_kernel.launches]
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    assert [fa.flash_fwd_kernel.launches, fa.flash_bwd_dq_kernel.launches,
+            fa.flash_bwd_dkv_kernel.launches] == [c + 1 for c in counts]
+    pout, plse = fa.flash_fwd_plain(q, k, v, *args)
+    grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
+    rtol, atol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), pout.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+
+
+def test_flash_row_with_no_key_is_zero(cuda):
+    q = torch.randn(2, 64, 128, device=cuda)
+    out, lse = fa.flash_fwd_kernel(q, q, q, 0.1, True, causal_offset=-10)
+    torch.cuda.synchronize()
+    assert bool((out[:, :10] == 0).all()) and bool((lse[:, :10] == -1e30).all())
+    assert torch.isfinite(out).all()
+
+
+def test_flash_kernels_reject_bad_input(cuda):
+    q = torch.randn(4, 64, 128, device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_kernel(q.half(), q.half(), q.half(), 0.1, True)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_kernel(q, q.bfloat16(), q, 0.1, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = q[..., :96].contiguous()
+        fa.flash_fwd_kernel(x, x, x, 0.1, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_kernel(q.transpose(0, 1), q, q, 0.1, True)
+    with pytest.raises(ValueError, match="kv_rep"):
+        fa.flash_fwd_kernel(q, q[:3].contiguous(), q[:3].contiguous(), 0.1,
+                            True, kv_rep=2)
+    with pytest.raises(ValueError, match="empty"):
+        fa.flash_fwd_kernel(q, q[:, :0].contiguous(), q[:, :0].contiguous(),
+                            0.1, True)
+    lse = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="match"):
+        fa.flash_bwd_dq_kernel(q, q, q, q[:, :32].contiguous(), lse, lse, 0.1,
+                               True)
+
+
+def _tiny_train_cfg():
+    return L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                        num_key_value_heads=1, intermediate_size=512,
+                        num_hidden_layers=2, dtype=torch.float32)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """fp32, 3 AdamW steps with full remat: kernels on the card against
+    the plain versions on the CPU, from the same weights."""
+    cfg = _tiny_train_cfg()
+    params = L.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.RandomState(6)
+    ids = rng.randint(0, cfg.vocab_size, (3, 2, 1, 70))
+    labels = np.roll(ids, -1, axis=-1)
+    runs = []
+    for dev in (cuda, "cpu"):
+        step, _ = L.build_train_step(cfg, learning_rate=1e-3, device=dev)
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        o = L.init_opt_state(p)
+        losses = []
+        for i in range(3):
+            loss, p, o = step(p, o, torch.from_numpy(ids[i]).to(dev),
+                              torch.from_numpy(labels[i]).to(dev))
+            losses.append(float(loss))
+        runs.append((losses, {k: v.cpu() for k, v in p.items()}))
+    # losses: fp32 sums in other orders. Weights: AdamW divides each
+    # gradient element by its own running RMS, so an element within the
+    # two devices' rounding noise takes a noisy direction and its weight
+    # may differ by up to 2·lr a step; all but a 1e-4 share of the
+    # elements agree to (rtol 1e-4, atol 1e-5)
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
+    outside = total = 0
+    for k in params:
+        diff = (runs[0][1][k] - runs[1][1][k]).abs()
+        assert diff.max().item() <= 2 * 1e-3 * 3, k
+        outside += int((diff > 1e-5 + 1e-4 * runs[1][1][k].abs()).sum())
+        total += diff.numel()
+    assert outside <= 1e-4 * total
+
+
+def test_train_step_launch_counts(cuda):
+    cfg = _tiny_train_cfg()
+    n = cfg.num_hidden_layers
+    step, init = L.build_train_step(cfg, device=cuda)
+    params, opt = init(seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1, 64), device=cuda)
+    counters = (rn.rms_norm, rn.rms_norm_bwd, fa.flash_fwd_kernel,
+                fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel)
+    for c in counters:
+        c.launches = 0
+    loss, params, opt = step(params, opt, ids, ids.roll(-1, dims=-1))
+    assert torch.isfinite(loss)
+    # two microbatches, each: forward 2L+1 norms and L attentions, the
+    # remat replay 2L norms and L attentions, the backward 2L+1 norm
+    # backwards and L dQ and dK/dV
+    m = 2
+    assert [c.launches for c in counters] == [
+        m * (4 * n + 1), m * (2 * n + 1), m * 2 * n, m * n, m * n]

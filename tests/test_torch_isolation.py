@@ -62,7 +62,9 @@ def _clean_env():
 def test_importing_the_port_loads_no_jax_and_no_kernel_toolchain():
     code = ("import sys, paddle_tpu_torch.inference.decoding, "
             "paddle_tpu_torch.ops.rms_norm, "
-            "paddle_tpu_torch.ops.paged_attention; "
+            "paddle_tpu_torch.ops.paged_attention, "
+            "paddle_tpu_torch.ops.flash_attention, "
+            "paddle_tpu_torch.models.llama; "
             "bad = [m for m in ('jax', 'paddle_tpu', 'triton') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,9 +1,10 @@
-"""RMSNorm forward: the PyTorch port (``paddle_tpu_torch.ops.rms_norm``)
+"""RMSNorm forward and backward: the PyTorch port (``paddle_tpu_torch.ops.rms_norm``)
 against the JAX package — its XLA reference and its Pallas kernel in
 interpret mode — on the same numpy inputs. On the CPU the port runs its
 plain version; the Triton kernel is held against that version on the
 card (tests/test_torch_gpu.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,3 +91,90 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, w = _inputs((4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         trn.rms_norm_kernel(torch.from_numpy(x), torch.from_numpy(w))
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+# fp32 backward: the reference's RMSNorm tolerance (test_fused_ops.py)
+BWD32 = dict(rtol=1e-5, atol=1e-5)
+
+
+def _vjp_jax(x, w, g, eps):
+    _, vjp = jax.vjp(lambda a, b: jrn.rms_norm_array(a, b, eps),
+                     jnp.asarray(x), jnp.asarray(w))
+    return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("shape", [(16, 128), (2, 8, 128), (3, 7, 64),
+                                   (5, 100)])
+def test_bwd_plain_matches_jax_vjp_fp32(shape):
+    x, w = _inputs(shape, seed=4)
+    g = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    want_dx, want_dw = _vjp_jax(x, w, g, 1e-5)
+    dx, dw = trn.rms_norm_bwd_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                    torch.from_numpy(g), 1e-5)
+    assert dx.shape == x.shape and tuple(dw.shape) == (shape[-1],)
+    np.testing.assert_allclose(dx.numpy(), want_dx, **BWD32)
+    np.testing.assert_allclose(dw.numpy(), want_dw, **BWD32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_plain_matches_pallas_kernel_interpret(dtype):
+    """The Pallas backward the port's Triton kernels replace, in
+    interpret mode at (rows, h) = (32, 256): dx in x's dtype, dw in
+    fp32 there (cast to w's dtype by ``_rms_bwd``)."""
+    x, w = _inputs((32, 256), seed=6)
+    g = np.random.RandomState(7).randn(32, 256).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    want_dx, want_dw = jrn._pallas_bwd(jnp.asarray(x, jdt),
+                                       jnp.asarray(w, jdt),
+                                       jnp.asarray(g, jdt), 1e-6,
+                                       interpret=True)
+    dx, dw = trn.rms_norm_bwd_plain(*(torch.from_numpy(a).to(tdt)
+                                      for a in (x, w, g)), 1e-6)
+    assert dx.dtype == tdt and dw.dtype == tdt
+    tol = BWD32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(want_dx.astype(jnp.float32)), **tol)
+    np.testing.assert_allclose(dw.float().numpy(),
+                               np.asarray(want_dw.astype(jdt).astype(
+                                   jnp.float32)),
+                               **(tol if dtype == "float32" else
+                                  dict(rtol=1.6e-2, atol=1e-2)))
+
+
+def test_autograd_grads_match_jax_vjp():
+    x, w = _inputs((2, 9, 128), seed=8)
+    g = np.random.RandomState(9).randn(2, 9, 128).astype(np.float32)
+    want_dx, want_dw = _vjp_jax(x, w, g, 1e-5)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    y = trn.rms_norm(xt, wt, 1e-5)
+    assert "RMSNormFunction" in type(y.grad_fn).__name__
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx, **BWD32)
+    np.testing.assert_allclose(wt.grad.numpy(), want_dw, **BWD32)
+
+
+def test_no_grad_is_the_forward_alone():
+    """Serving runs under no_grad: no autograd node, the same output."""
+    x, w = _inputs((4, 64), seed=10)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    with torch.no_grad():
+        y = trn.rms_norm(xt, torch.from_numpy(w))
+    assert y.grad_fn is None and not y.requires_grad
+    np.testing.assert_array_equal(
+        y.numpy(), trn.rms_norm_plain(xt.detach(), torch.from_numpy(w)).numpy())
+
+
+def test_bwd_cpu_takes_plain_and_kernel_refuses_cpu():
+    x, w = _inputs((4, 64))
+    g = torch.ones(4, 64)
+    before = trn.rms_norm_bwd.launches
+    trn.rms_norm_bwd(torch.from_numpy(x), torch.from_numpy(w), g)
+    assert trn.rms_norm_bwd.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rms_norm_bwd_kernel(torch.from_numpy(x), torch.from_numpy(w), g)
