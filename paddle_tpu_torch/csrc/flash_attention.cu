@@ -16,9 +16,14 @@
 // delta = sum(dO * O) per row (computed by the caller) and recomputes
 //   p = exp(s - lse), dp = dO·Vᵀ, ds = p·(dp - delta),
 //   dQ = ds·K·scale, dV = pᵀ·dO, dK = dsᵀ·Q·scale,
-// with dK/dV summed over each KV head's kv_rep query heads. P and dS are
-// rounded to the input dtype before their products, as in the Pallas
-// kernels; every sum is fp32.
+// with dK/dV summed over each KV head's kv_rep query heads. As in the Pallas
+// kernels, P is rounded to the input dtype before P·V in the forward, dS
+// before dQ and dK, and dO before dP; every sum is fp32. dV is the one
+// product the Pallas kernel takes with P in fp32 (its dO is cast to fp32):
+// in bf16 the dK/dV kernel splits P into hi = bf16(P) and lo = bf16(P - hi)
+// and sums both products on the tensor cores, which carries P to ~16
+// mantissa bits (relative error ~2^-17 against fp32's 2^-24, where bf16
+// alone gives 2^-9); dO is bf16 there, so each product term is exact.
 //
 // What bounds them on an H100: operations. Per query/key pair the forward
 // does 4·D operations, dQ 6·D and dK/dV 8·D, on O(S·D) bytes, so at S = 2048
@@ -41,9 +46,11 @@
 //
 // What this design leaves on the table: no wgmma, no TMA, no overlap of the
 // next tile's loads with this tile's math, accumulators round-tripping
-// through shared memory on every tile, and one block per SM for the
-// backward's shared-memory footprint. A FlashAttention-3-style redesign is a
-// later PR's work.
+// through shared memory on every tile, one block per SM for the backward's
+// shared-memory footprint, and the second dV pass of the bf16 dK/dV kernel
+// (10·D tensor-core operations per pair where the work needs 8·D; an FMA
+// dV with P in fp32 registers would avoid it). A FlashAttention-3-style
+// redesign is a later PR's work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,8 +111,9 @@ template <typename T, int D> struct Cfg {
   // shared memory of each kernel, in the order the kernels carve it
   static constexpr size_t kFwd = kQ + 2 * kK + kS + kP + kOq + 3 * kRow;
   static constexpr size_t kDq = 2 * kQ + 2 * kK + 2 * kS + kP + kOq + 2 * kRow;
+  // dK/dV in bf16 keeps P's low part as a third P-sized tile
   static constexpr size_t kDkv =
-      2 * kK + 2 * kQ + 2 * kS + 2 * kP + 2 * kOk + 2 * kRow;
+      2 * kK + 2 * kQ + 2 * kS + (kBf16 ? 3 : 2) * kP + 2 * kOk + 2 * kRow;
 };
 
 struct Carve {
@@ -424,6 +432,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
   float* dv_acc = cv.take<float>(C::kOk);
   float* lse_s = cv.take<float>(C::kRow);
   float* delta_s = cv.take<float>(C::kRow);
+  T* pls = C::kBf16 ? cv.take<T>(C::kP) : nullptr;  // bf16(P - bf16(P))
 
   const int kvh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
@@ -452,12 +461,22 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
         const bool kp =
             keep(q0 + r, k0 + c, sq, kv_limit, causal, causal_offset);
         const float p = kp ? expf(ss[r * C::LDS + c] * scale - lse_s[r]) : 0.f;
-        ps[r * C::LDP + c] = from_float<T>(p);
+        const T p_hi = from_float<T>(p);
+        ps[r * C::LDP + c] = p_hi;
+        if constexpr (C::kBf16)
+          pls[r * C::LDP + c] = from_float<T>(p - to_float<T>(p_hi));
         dss[r * C::LDP + c] =
             from_float<T>(p * (dps[r * C::LDS + c] - delta_s[r]));
       }
       __syncthreads();
       mm<BK, D, BQ, true, false>(dv_acc, C::LDO, ps, C::LDP, dos, C::LDT, true);
+      if constexpr (C::kBf16) {
+        // each warp owns the same dV tiles in both passes; its first
+        // pass's stores must be visible to its lanes before the reload
+        __syncwarp();
+        mm<BK, D, BQ, true, false>(dv_acc, C::LDO, pls, C::LDP, dos, C::LDT,
+                                   true);
+      }
       mm<BK, D, BQ, true, false>(dk_acc, C::LDO, dss, C::LDP, qs, C::LDT, true);
     }
   }

@@ -285,16 +285,19 @@ def _token_ce(logits, labels):
     return -picked.mean()
 
 
-def forward_stacked(params, ids, config: LlamaConfig):
-    """Single-device forward over the stacked layout → logits (B, S, V)."""
+def forward_stacked(params, ids, config: LlamaConfig, remat: bool = False):
+    """Single-device forward over the stacked layout → logits (B, S, V).
+    ``remat``: each layer is a checkpoint (see :func:`_hidden`)."""
     _check_dense(params)
-    return _hidden(params, ids, config) @ params["lm_head"]
+    return _hidden(params, ids, config, remat=remat) @ params["lm_head"]
 
 
-def loss_stacked(params, ids, labels, config: LlamaConfig):
+def loss_stacked(params, ids, labels, config: LlamaConfig,
+                 remat: bool = False):
     """Mean token cross-entropy of :func:`forward_stacked`'s logits,
     taken in fp32."""
-    return _token_ce(forward_stacked(params, ids, config), labels)
+    return _token_ce(forward_stacked(params, ids, config, remat=remat),
+                     labels)
 
 
 def init_opt_state(params) -> Dict[str, Any]:
@@ -382,8 +385,8 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
         n_micro = ids.shape[0]
         total = torch.zeros((), dtype=torch.float32, device=ids.device)
         for i in range(n_micro):
-            h = _hidden(leaves, ids[i], config, remat=remat)
-            loss = _token_ce(h @ leaves["lm_head"], labels[i])
+            loss = loss_stacked(leaves, ids[i], labels[i], config,
+                                remat=remat)
             (loss / n_micro).backward()
             total = total + loss.detach()
         with torch.no_grad():

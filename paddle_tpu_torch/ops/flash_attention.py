@@ -101,8 +101,11 @@ def flash_bwd_plain(q, k, v, out, lse, do, scale, causal, kv_valid=None,
     """The backward kernels' math: ``delta = Σ dO·O``, ``p = exp(s −
     lse)`` masked to exactly 0, ``dp = dO·Vᵀ``, ``ds = p·(dp − delta)``;
     dQ = ds·K·scale, dV = pᵀ·dO, dK = dsᵀ·Q·scale, with dK/dV summed over
-    each KV head's ``kv_rep`` query heads in fp32. Returns ``(dq, dk,
-    dv)`` in the dtypes of ``q``, ``k`` and ``v``."""
+    each KV head's ``kv_rep`` query heads in fp32. ``ds`` is cast to the
+    input dtype before dQ and dK and ``dO`` before dP, while dV takes P in
+    fp32, as ``_bwd_dkv_kernel`` does; the bf16 kernel carries that P as
+    a hi/lo pair of bf16 tiles (about 16 mantissa bits). Returns ``(dq,
+    dk, dv)`` in the dtypes of ``q``, ``k`` and ``v``."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     kr, vr = _rep_kv(k, kv_rep), _rep_kv(v, kv_rep)

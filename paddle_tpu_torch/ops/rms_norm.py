@@ -190,7 +190,10 @@ _BWD_MAX_BLOCKS = 512
 def rms_norm_bwd_kernel(x, w, g, eps: float = 1e-6):
     """Launch the Triton backward on CUDA tensors: ``x`` and ``g`` are
     (..., h) in one dtype, contiguous; ``w`` is (h,). Returns
-    ``(dx, dw)``. Counts one launch in ``rms_norm_bwd.launches``."""
+    ``(dx, dw)``. Each call launches two Triton programs (dx with the
+    partial sums, then the ``dw`` sum) and counts ONE in
+    ``rms_norm_bwd.launches``: the counter counts calls of the backward,
+    as the one Pallas kernel it replaces is one call."""
     _check_pair(x, w)
     check_cuda_tensor("g", g, (x.dtype,))
     if g.shape != x.shape:
@@ -225,7 +228,8 @@ def rms_norm_bwd(x, w, g, eps: float = 1e-6):
     return rms_norm_bwd_plain(x, w, g, eps)
 
 
-#: kernel launches since the last reset (the plain version never counts)
+#: backward kernel calls since the last reset, two Triton launches each
+#: (the plain version never counts)
 rms_norm_bwd.launches = 0
 
 

@@ -227,10 +227,23 @@ def test_rms_norm_bwd_kernel_rejects_bad_input(cuda):
         rn.rms_norm_bwd(x, w, torch.randn(256, 8, device=cuda).t())
 
 
-# fp32: summation order and the online vs one-pass softmax. bf16: each
-# output is one bf16 rounding, and P and dS are rounded to bf16 at other
-# points of the online softmax than in the plain version
-_FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+# (rtol, atol as a share of the plain tensor's rms, most relative L2
+# error), per tensor, so that small outputs are held as tightly as large
+# gradients (chip_smoke.py's FLASH_TOL). fp32: summation order and the
+# online vs one-pass softmax. bf16: each output is one bf16 rounding (two
+# steps of rtol), and P or dS, rounded to bf16 on both sides, now and then
+# rounds the other way and moves a small output by several of its steps
+_FLASH_TOL = {torch.bfloat16: (2 ** -6, 2 ** -4, 2 ** -7),
+              torch.float32: (1e-4, 1e-3, 1e-5)}
+
+
+def _flash_close(got, want, dtype, msg):
+    rtol, rel_atol, l2_tol = _FLASH_TOL[dtype]
+    wf = want.float()
+    atol = rel_atol * wf.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got.float(), wf, rtol=rtol, atol=atol,
+                               msg=msg)
+    assert ((got.float() - wf).norm() / wf.norm()).item() <= l2_tol, msg
 
 # (bh, sq, sk, d, causal, kv_rep, kv_valid)
 _FLASH_CASES = [(8, 300, 300, 128, True, 1, None),
@@ -263,15 +276,12 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
             fa.flash_bwd_dkv_kernel.launches] == [c + 1 for c in counts]
     pout, plse = fa.flash_fwd_plain(q, k, v, *args)
     grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
-    rtol, atol = _FLASH_TOL[dtype]
-    torch.testing.assert_close(out.float(), pout.float(), rtol=rtol,
-                               atol=atol)
+    _flash_close(out, pout, dtype, "out")
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         assert got.dtype == dtype and got.shape == want.shape, name
         assert torch.isfinite(got.float()).all(), name
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                   atol=atol, msg=name)
+        _flash_close(got, want, dtype, name)
 
 
 def test_flash_row_with_no_key_is_zero(cuda):

@@ -70,19 +70,34 @@ def test_forward_logits_and_loss_match_jax(setup):
     np.testing.assert_allclose(float(got_loss), want_loss, **LOSS)
 
 
-def test_every_gradient_leaf_matches_jax(setup):
-    jcfg, tcfg, np_params, ids, labels = setup
+@pytest.fixture(scope="module")
+def jax_grads(setup):
+    jcfg, _, np_params, ids, labels = setup
     jp = {k: jnp.asarray(v) for k, v in np_params.items()}
-    want = jax.jit(jax.grad(functools.partial(JL.loss_stacked,
+    return jax.jit(jax.grad(functools.partial(JL.loss_stacked,
                                               config=jcfg)))(
         jp, jnp.asarray(ids), jnp.asarray(labels))
+
+
+def _check_grads(setup, want, remat):
+    _, tcfg, np_params, ids, labels = setup
     tp = _torch_params(np_params, tcfg, requires_grad=True)
     TL.loss_stacked(tp, torch.from_numpy(ids), torch.from_numpy(labels),
-                    tcfg).backward()
+                    tcfg, remat=remat).backward()
     assert set(tp) == set(want)
     for k, t in tp.items():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(want[k]),
                                    err_msg=k, **GRADS)
+
+
+def test_every_gradient_leaf_matches_jax(setup, jax_grads):
+    _check_grads(setup, jax_grads, remat=False)
+
+
+def test_remat_loss_gradients_match_jax(setup, jax_grads):
+    """``loss_stacked(..., remat=True)`` is the composition the train step
+    backpropagates; its gradients are the reference's too."""
+    _check_grads(setup, jax_grads, remat=True)
 
 
 def _batches(n_steps, vocab, m=2, mb=1, seed=1):
