@@ -11,8 +11,8 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    power limit (nvidia-smi);
 2. build: compiles the CUDA kernels (ragged paged attention, flash
    attention; one nvcc per source, started together) and the Triton
-   RMSNorm kernels from the sources in the checkout, printing nvcc's
-   register/spill report;
+   RMSNorm and LayerNorm kernels from the sources in the checkout,
+   printing nvcc's register/spill report;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the Llama-2-7B serving step below (the RMSNorm forward at
    the training step's (8, 2048, 4096) too), in bf16 and fp32, with
@@ -42,7 +42,24 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    (the one cut: 32 layers of bf16 weights, gradients and fp32 AdamW
    moments do not fit one 80 GB card), vocab 32000, one (1, 8, 2048)
    batch, 2 warm-up and 5 timed steps, every step's launch counts
-   checked, the loss falling, and a profiler breakdown of one step.
+   checked, the loss falling, and a profiler breakdown of one step;
+10. the LayerNorm forward and backward kernels against their plain
+    versions at the BERT-large step's (rows, h) = (8192, 1024), eps
+    1e-12, bf16 and fp32, with ``F.layer_norm`` forward and backward as
+    the yardsticks;
+11. the flash forward, dQ and dK/dV kernels with segment ids against
+    their plain versions at the BERT-large step's shape (BH 16·16, S
+    512, d 64, non-causal) and the packed batch's segment ids, bf16 and
+    fp32, with SDPA under the boolean segment mask as the yardstick;
+12. tiny ERNIE training parity: ``build_mlm_train_step`` for 5 packed
+    MLM steps on the card (kernels) and on the CPU (plain versions),
+    fp32, TF32 off, d 64 heads — losses and weights agree;
+13. packed BERT-large MLM pretraining at full width (24 layers, h 1024,
+    16 heads, vocab 30522; nothing cut): ``bench_bert_packed``'s
+    (16, 512) batch packed from seed 0, bf16 weights with fp32 master
+    weights and AdamW moments, 2 warm-up and 5 timed steps, every step's
+    launch counts checked, the loss falling, real tokens/s, MFU by
+    ``bench_bert_packed``'s accounting and a profiler breakdown.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -52,6 +69,7 @@ result line, when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -527,13 +545,13 @@ def _flash_inputs(torch, bh, s, d, dt, rep=1, seed=SEED):
     return q, k, v, do
 
 
-def _flash_check(torch, fa, name, kind, q, k, v, do, rep, kv_valid):
-    """Each of the three kernels against the plain versions. Returns
-    each kernel's largest |kernel - plain| (fwd over out and lse, dq over
-    dq, dkv over dk and dv), each tensor's, and each tensor's relative
-    L2 error ||kernel - plain|| / ||plain||."""
-    sc = 1.0 / math.sqrt(q.shape[-1])
-    args = (sc, True, kv_valid, 0, rep)
+def _flash_check(torch, fa, name, kind, q, k, v, do, args):
+    """Each of the three kernels against the plain versions, ``args``
+    being the kernels' arguments after q, k, v (scale, causal, kv_valid,
+    causal_offset, kv_rep[, seg_q, seg_k]). Returns each kernel's largest
+    |kernel - plain| (fwd over out and lse, dq over dq, dkv over dk and
+    dv), each tensor's, and each tensor's relative L2 error ||kernel -
+    plain|| / ||plain||."""
     out, lse = fa.flash_fwd_kernel(q, k, v, *args)
     delta = fa._delta(out, do)
     dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, *args)
@@ -568,8 +586,8 @@ def flash_phase(torch, fa):
         q, k, v, do = _flash_inputs(torch, bh, s, d, dt, rep)
         checks[name] = dict(
             bh=bh, s=s, kv_rep=rep, kv_valid=kv_valid,
-            **_flash_check(torch, fa, name, kind, q, k, v, do, rep,
-                           kv_valid),
+            **_flash_check(torch, fa, name, kind, q, k, v, do,
+                           (1.0 / math.sqrt(d), True, kv_valid, 0, rep)),
             tol_rtol_atol_over_rms_l2=FLASH_TOL[kind])
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -578,8 +596,8 @@ def flash_phase(torch, fa):
     bh, s = 256, 2048
     q, k, v, do = _flash_inputs(torch, bh, s, d, torch.bfloat16)
     sc = 1.0 / math.sqrt(d)
-    step_check = _flash_check(torch, fa, "step_bf16", "bf16", q, k, v, do, 1,
-                              None)
+    step_check = _flash_check(torch, fa, "step_bf16", "bf16", q, k, v, do,
+                              (sc, True, None, 0, 1))
     torch.cuda.empty_cache()
     out, lse = fa.flash_fwd_kernel(q, k, v, sc, True)
     delta = fa._delta(out, do)
@@ -785,12 +803,418 @@ def train_7b_phase(torch, L, rn, fa):
                        wall_ms=mean_ms, idle_share=1 - busy / mean_ms))
 
 
-def _kernel_entry(name, route, source, replaces, train, r):
-    """One entry of the kernels line: launches from the training run,
+# ---------------------------------------------------------------------------
+# the packed BERT-large batch (phases 11 and 13)
+# ---------------------------------------------------------------------------
+
+def pack_batch(b, s, lo, hi, vocab, seed=SEED):
+    """``bench_bert_packed``'s batch (benchmarks/bench_workloads.py:164-193):
+    sequence lengths uniform in [lo, hi] until B·S tokens are drawn,
+    packed into B rows of S longest first, each into the fitting row that
+    is least full; ids uniform in [1, vocab), segment ids per row (-1 at
+    pads), and 15 % of the real positions scored (labels -100
+    elsewhere). Returns numpy ``(ids, seg, labels, seg_lens)``."""
+    rng = np.random.RandomState(seed)
+    lens = []
+    while True:
+        n = int(rng.randint(lo, hi + 1))
+        if sum(lens) + n > b * s:
+            break
+        lens.append(n)
+    lens.sort(reverse=True)
+    fill = [0] * b
+    seg_lens = [[] for _ in range(b)]
+    for n in lens:
+        r = min((i for i in range(b) if fill[i] + n <= s),
+                key=lambda i: fill[i], default=None)
+        if r is None:
+            continue
+        seg_lens[r].append(n)
+        fill[r] += n
+    ids = np.zeros((b, s), np.int32)
+    seg = np.full((b, s), -1, np.int32)
+    labels = np.full((b, s), -100, np.int64)
+    for r in range(b):
+        at = 0
+        for si, n in enumerate(seg_lens[r]):
+            tok = rng.randint(1, vocab, (n,))
+            ids[r, at:at + n] = tok
+            seg[r, at:at + n] = si
+            labels[r, at:at + n] = np.where(rng.rand(n) < 0.15, tok, -100)
+            at += n
+    return ids, seg, labels, seg_lens
+
+
+BERT_B, BERT_S = 16, 512
+
+
+def _bert_large(E):
+    return E.ErnieConfig(vocab_size=30522, hidden_size=1024,
+                         num_hidden_layers=24, num_attention_heads=16,
+                         intermediate_size=4096, max_position_embeddings=512)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the LayerNorm kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# tolerances as (rtol, atol as a share of the plain tensor's rms): y and dx
+# are one rounding of an fp32 value (bf16: 8 mantissa bits); dw and db sum
+# 8192 rows in another order (blocks of 16, then the blocks) before their
+# one rounding
+LN_TOL = {"bf16": dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
+                       sums=(1.6e-2, 1e-2)),
+          "fp32": dict(y=(1e-5, 1e-5), dx=(1e-4, 1e-5), sums=(1e-5, 1e-4))}
+
+
+def _rms_close(torch, name, got, want, rtol, rel_atol):
+    rms = want.float().pow(2).mean().sqrt().item()
+    return check_close(torch, name, got, want, rtol, rel_atol * rms)
+
+
+def _l2_cold(tensors, min_bytes=200e6):
+    """Copies of ``tensors`` (a tuple), enough that one pass over all of
+    them moves ``min_bytes``. A timed function that takes the next copy
+    at every call reads its inputs from device memory and not from the
+    50 MB L2 cache, as the training step's LayerNorms do."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(2, math.ceil(min_bytes / nbytes))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def layer_norm_phase(torch, ln):
+    """layer_norm and its backward at the BERT-large step's (rows, h) =
+    (16·512, 1024), eps 1e-12, with F.layer_norm's forward and backward
+    as the yardsticks. Every timed call reads fresh copies of x (and g),
+    so the 16.8 MB (bf16) rows do not sit in L2 between calls."""
+    rows, h, eps = BERT_B * BERT_S, 1024, 1e-12
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fwd, bwd = {}, {}
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x = (2 * torch.randn(rows, h, generator=gen, device="cuda")
+             + 0.5).to(dt)
+        g = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+        y = ln.layer_norm_kernel(x, w, b, eps)
+        dx, dw, db = ln.layer_norm_bwd_kernel(x, w, g, eps)
+        torch.cuda.synchronize()
+        tol = LN_TOL[kind]
+        y_err = _rms_close(torch, f"layer_norm {kind}", y,
+                           ln.ln_plain(x, w, b, eps), *tol["y"])
+        pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, eps)
+        bwd_err = max(
+            _rms_close(torch, f"layer_norm_bwd dx {kind}", dx, pdx,
+                       *tol["dx"]),
+            _rms_close(torch, f"layer_norm_bwd dw {kind}", dw, pdw,
+                       *tol["sums"]),
+            _rms_close(torch, f"layer_norm_bwd db {kind}", db, pdb,
+                       *tol["sums"]))
+        isz = x.element_size()
+        copies = _l2_cold((x, g))
+        nxt = itertools.cycle(copies).__next__
+        fb, fby = bound_ms(2 * rows * h * isz + 2 * h * isz, 8 * rows * h,
+                           "fp32")
+        fwd[kind] = dict(
+            shape=[rows, h], eps=eps, max_abs_err=y_err, tol=tol["y"],
+            ms=device_ms(torch, lambda: ln.layer_norm_kernel(
+                nxt()[0], w, b, eps)),
+            plain_ms=device_ms(torch, lambda: ln.ln_plain(x, w, b, eps),
+                               iters=5, replays=2),
+            bound_ms=fb, bound_by=fby,
+            library_ms=device_ms(torch, lambda: torch.nn.functional.
+                                 layer_norm(nxt()[0], (h,), w, b, eps)))
+        bb, bby = bound_ms(3 * rows * h * isz + 3 * h * isz, 20 * rows * h,
+                           "fp32")
+
+        def kernel_bwd():
+            xc, gx = nxt()
+            return ln.layer_norm_bwd_kernel(xc, w, gx, eps)
+
+        # the library's backward, one recorded forward per copy
+        wl, bl = (t.detach().requires_grad_(True) for t in (w, b))
+        graphs = []
+        for xc, gx in copies:
+            xl = xc.detach().requires_grad_(True)
+            graphs.append((torch.nn.functional.layer_norm(
+                xl, (h,), wl, bl, eps), (xl, wl, bl), gx))
+        lib = itertools.cycle(graphs).__next__
+        bwd[kind] = dict(
+            shape=[rows, h], eps=eps, max_abs_err=bwd_err, tol=tol,
+            ms=device_ms(torch, kernel_bwd),
+            plain_ms=device_ms(torch, lambda: ln.ln_bwd_plain(x, w, g, eps),
+                               iters=5, replays=2),
+            bound_ms=bb, bound_by=bby,
+            library_ms=profiled_ms(torch, lambda: torch.autograd.grad(
+                *lib(), retain_graph=True), iters=len(graphs)))
+        del x, g, w, b, y, dx, dw, db, pdx, pdw, pdb, copies, nxt, graphs
+        del lib, wl, bl
+        torch.cuda.empty_cache()
+    return dict(fwd=fwd, bwd=bwd)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the segment-masked flash kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def seg_flash_phase(torch, E, fa):
+    """The three flash kernels with segment ids at the BERT-large step's
+    shape: BH 16·16, S 512, d 64, non-causal, the packed batch's (16,
+    512) segment ids (pads -1 on the query side, -2 on the key side).
+    The yardstick is SDPA with the boolean segment mask, for its time
+    only (it gives the pad rows, which attend nothing, NaN)."""
+    cfg = _bert_large(E)
+    nh, d = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    b, s = BERT_B, BERT_S
+    _, seg_np, _, seg_lens = pack_batch(b, s, 64, 512, cfg.vocab_size)
+    seg = torch.from_numpy(seg_np).cuda()
+    seg_q = torch.where(seg < 0, -1, seg).contiguous()
+    seg_k = torch.where(seg < 0, -2, seg).contiguous()
+    bh, sc = b * nh, 1.0 / math.sqrt(d)
+    args = (sc, False, None, 0, 1, seg_q, seg_k)
+    checks = {}
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q, k, v, do = _flash_inputs(torch, bh, s, d, dt)
+        checks[kind] = _flash_check(torch, fa, f"segmented {kind}", kind, q,
+                                    k, v, do, args)
+        out, lse = fa.flash_fwd_kernel(q, k, v, *args)
+        pads = fa._seg_rows(seg_q, bh) < 0
+        if not (bool((out[pads] == 0).all())
+                and bool((lse[pads] == -1e30).all())):
+            raise AssertionError("segmented: pad rows must give out 0 and "
+                                 "lse -1e30")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    # times at bf16; the work is the pairs inside each segment
+    q, k, v, do = _flash_inputs(torch, bh, s, d, torch.bfloat16)
+    out, lse = fa.flash_fwd_kernel(q, k, v, *args)
+    delta = fa._delta(out, do)
+    pairs = nh * sum(n * n for row in seg_lens for n in row)
+    isz = q.element_size()
+    mat, row = bh * s * d * isz, bh * s * 4
+    segb = 2 * b * s * 4
+    rep = dict(bh=bh, s=s, d=d, dtype="bf16", pairs=pairs,
+               pairs_share_of_square=pairs / (bh * s * s))
+    for key, nmat, nrow, ops, fn in (
+            ("fwd", 4, 1, 4, lambda: fa.flash_fwd_kernel(q, k, v, *args)),
+            ("dq", 5, 2, 6, lambda: fa.flash_bwd_dq_kernel(
+                q, k, v, do, lse, delta, *args)),
+            ("dkv", 6, 2, 8, lambda: fa.flash_bwd_dkv_kernel(
+                q, k, v, do, lse, delta, *args))):
+        r = dict(ms=device_ms(torch, fn, iters=10, replays=3),
+                 max_abs_err=max(checks["bf16"]["max_abs_err"][key],
+                                 checks["fp32"]["max_abs_err"][key]))
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nmat * mat + nrow * row + segb, ops * d * pairs, "bf16")
+        rep[key] = r
+    rep["fwd"]["plain_ms"] = eager_ms(torch, lambda: fa.flash_fwd_plain(
+        q, k, v, *args), iters=2, warmup=1)
+    rep["dq"]["plain_ms"] = rep["dkv"]["plain_ms"] = eager_ms(
+        torch, lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, *args),
+        iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # yardstick: SDPA with the segment mask, (B, H, S, D) = (16, 16, 512,
+    # 64); its backward computes dq, dk and dv together
+    mask = (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    q4, k4, v4, do4 = (t.reshape(b, nh, s, d) for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rep["fwd"]["library_ms"] = device_ms(torch, lambda: sdpa(
+        q4, k4, v4, attn_mask=mask))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    o4 = sdpa(ql, kl, vl, attn_mask=mask)
+    rep["dq"]["library_ms"] = rep["dkv"]["library_ms"] = profiled_ms(
+        torch, lambda: torch.autograd.grad(o4, (ql, kl, vl), do4,
+                                           retain_graph=True))
+    # fp32 kernel times, for the record
+    q, k, v, do = _flash_inputs(torch, bh, s, d, torch.float32)
+    out32, lse32 = fa.flash_fwd_kernel(q, k, v, *args)
+    delta32 = fa._delta(out32, do)
+    rep["fp32_ms"] = dict(
+        fwd=device_ms(torch, lambda: fa.flash_fwd_kernel(q, k, v, *args),
+                      iters=5, replays=2),
+        dq=device_ms(torch, lambda: fa.flash_bwd_dq_kernel(
+            q, k, v, do, lse32, delta32, *args), iters=5, replays=2),
+        dkv=device_ms(torch, lambda: fa.flash_bwd_dkv_kernel(
+            q, k, v, do, lse32, delta32, *args), iters=5, replays=2),
+        fwd_bound_ms=bound_ms(0, 4 * d * pairs, "fp32")[0])
+    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, ql, kl, vl, o4, mask
+    del out32, lse32, delta32
+    torch.cuda.empty_cache()
+    return dict(checks=checks, step_shape=rep,
+                tol_rtol_atol_over_rms_l2=FLASH_TOL)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tiny ERNIE training parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def ernie_parity_phase(torch, E):
+    """5 packed MLM steps of build_mlm_train_step on the card (kernels)
+    and on the CPU (plain versions) from the same fp32 weights; d 64
+    heads (the flash kernels take d 64 and 128), S 100."""
+    cfg = E.ernie_tiny(vocab_size=256, hidden_size=128,
+                       num_attention_heads=2, intermediate_size=256,
+                       num_hidden_layers=2, max_position_embeddings=128)
+    ids, seg, labels, _ = pack_batch(3, 100, 10, 60, cfg.vocab_size)
+    batch = [torch.from_numpy(a) for a in (ids, labels, seg)]
+    steps, lr = 5, 1e-3
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step, init = E.build_mlm_train_step(cfg, learning_rate=lr,
+                                            device="cpu")
+        model, _ = init(seed=SEED)
+        model.to(dev)
+        opt = E.AdamW(model.named_parameters(), learning_rate=lr)
+        losses = [float(step(model, opt, *(t.to(dev) for t in batch)))
+                  for _ in range(steps)]
+        runs[dev] = (losses, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()})
+    # tolerances as phase 8's: fp32 sums in other orders; weights within
+    # 2·lr·steps, all but a 1e-4 share within (rtol 1e-4, atol 1e-5). The
+    # key bias (qkv_bias[h:2h]) is held to the first bound only: its true
+    # gradient is 0 (a softmax does not see a constant added to a row's
+    # scores), so both devices compute rounding noise, which AdamW scales
+    # to steps of up to ±lr
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+    err, outside, total = 0.0, 0, 0
+    h = cfg.hidden_size
+    for name, want in runs["cpu"][1].items():
+        diff = (runs["cuda"][1][name] - want).abs()
+        if name.endswith("self_attn.qkv_bias"):
+            if diff[h:2 * h].max().item() > 2 * lr * steps:
+                raise AssertionError(f"ernie parity {name}: key bias "
+                                     "beyond 2·lr·steps")
+            diff, want = (torch.cat([t[:h], t[2 * h:]])
+                          for t in (diff, want))
+        err = max(err, diff.max().item())
+        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+        total += want.numel()
+        if diff.max().item() > 2 * lr * steps:
+            raise AssertionError(f"ernie parity {name}: max |diff| "
+                                 f"{diff.max().item()} > 2·lr·steps")
+    if outside > 1e-4 * total:
+        raise AssertionError(f"ernie parity: {outside} of {total} weights "
+                             "outside (rtol 1e-4, atol 1e-5)")
+    return dict(steps=steps, losses_card=runs["cuda"][0],
+                losses_cpu=runs["cpu"][0], max_abs_param_err=err,
+                weights_outside_tight_tol=outside, weights=total)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: packed BERT-large MLM pretraining at full width
+# ---------------------------------------------------------------------------
+
+ERNIE_KINDS = (("flash_fwd", ("flash_attention_fwd",)),
+               ("flash_bwd", ("flash_attention_bwd",)),
+               ("layer_norm", ("layer_norm",)), ("matmul", MATMUL_NAMES))
+
+
+def bert_large_phase(torch, E, ln, fa):
+    """bench_bert_packed's configuration (bench_workloads.py:145-150,
+    164-221): BERT-large (24 layers, h 1024, 16 heads, ffn 4096, vocab
+    30522), bf16 weights with fp32 master weights and moments, AdamW lr
+    1e-4 wd 0.01, one packed (16, 512) batch repeated; 2 warm-up and 5
+    timed steps, every step's launch counts checked, the loss falling,
+    and a profiler breakdown of one step. Nothing is cut."""
+    cfg = _bert_large(E)
+    n_layers, h = cfg.num_hidden_layers, cfg.hidden_size
+    step, init = E.build_mlm_train_step(cfg, learning_rate=1e-4,
+                                        weight_decay=0.01,
+                                        dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    model, opt = init(seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids_np, seg_np, labels_np, seg_lens = pack_batch(
+        BERT_B, BERT_S, 64, 512, cfg.vocab_size)
+    ids, seg, labels = (torch.from_numpy(a).cuda()
+                        for a in (ids_np, seg_np, labels_np))
+    counters = {"layer_norm_fwd": ln.layer_norm,
+                "layer_norm_bwd": ln.layer_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    # per step: the embeddings' LN, two post-LNs per layer and the MLM
+    # transform's LN, forward and backward; one flash forward, dQ and
+    # dK/dV per layer (no remat)
+    want = {"layer_norm_fwd": 2 * n_layers + 2,
+            "layer_norm_bwd": 2 * n_layers + 2,
+            "flash_attention_fwd": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers}
+    totals = {k: 0 for k in counters}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(7):                       # 2 warm-up + 5 timed steps
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, opt, ids, labels, seg)
+        losses.append(float(loss))           # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"step {i}: launch counts {got} != {want}")
+        for k in totals:
+            totals[k] += got[k]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over 7 steps: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_ms = float(np.mean(step_ms[2:]))
+    real = int((seg_np >= 0).sum())
+    # bench_bert_packed's accounting: 6 FLOPs per parameter and real
+    # token, plus 12·L·h·Σ s_i² for attention inside each segment
+    n_params = E.param_count(model)
+    flops = 6.0 * n_params * real + 12.0 * n_layers * h * float(
+        sum(n * n for row in seg_lens for n in row))
+    mfu = flops / (mean_ms / 1e3) / PEAK_OPS_PER_S["bf16"]
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss = step(model, opt, ids, labels, seg)
+        torch.cuda.synchronize()
+    kinds, top = _kernel_ms_by_kind(prof, ERNIE_KINDS, n_top=14)
+    busy = sum(kinds.values())
+    from torch.autograd import DeviceType
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+    # wall split of one more step: forward + backward, then AdamW, each
+    # ended by a synchronize
+    split = {}
+    t0 = time.perf_counter()
+    opt.clear_grad()
+    model.compute_loss(ids, labels, segment_ids=seg).backward()
+    torch.cuda.synchronize()
+    split["forward_backward_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    split["adamw_ms"] = (time.perf_counter() - t0) * 1e3
+    del model, opt, step, init, loss
+    return dict(
+        layers=n_layers, reduced="nothing", params=n_params, init_s=init_s,
+        batch=[BERT_B, BERT_S], sequences=sum(len(r) for r in seg_lens),
+        real_tokens=real, fill_rate=real / (BERT_B * BERT_S), lr=1e-4,
+        weight_decay=0.01, remat="none", losses=losses, step_ms=step_ms,
+        mean_step_ms=mean_ms, real_tokens_per_s=real / (mean_ms / 1e3),
+        flops_per_step=flops, mfu_vs_989tflops=mfu, peak_mem_gb=peak_gb,
+        launches_per_step=want, launches=totals,
+        breakdown=dict(kernel_ms=kinds, top_kernels=top, device_busy_ms=busy,
+                       wall_ms=mean_ms, idle_share=1 - busy / mean_ms,
+                       kernels_launched=n_kernels, wall_split=split))
+
+
+def _kernel_entry(name, route, source, replaces, launches, r):
+    """One entry of the kernels line: ``launches`` from the main paths,
     the rest from the kernel's own phase."""
     return dict(name=name, route=route, source=source, replaces=replaces,
-                launches=train["launches"][name],
-                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"])
 
@@ -806,14 +1230,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from paddle_tpu_torch.inference import decoding as D
+    from paddle_tpu_torch.models import ernie as E
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import _common
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm_fused as ln
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
 
     card = card_line()
-    print(f"[1/9] card: {card} (torch {torch.__version__}, CUDA "
+    print(f"[1/13] card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # phase 2: nvcc in the background (one process per source, started
@@ -833,6 +1259,8 @@ def main() -> int:
     x = torch.ones(4, 4096, device="cuda", dtype=torch.bfloat16)
     rn.rms_norm_kernel(x, x[0], 1e-5)
     rn.rms_norm_bwd_kernel(x, x[0], x, 1e-5)
+    ln.layer_norm_kernel(x, x[0], x[1], 1e-12)
+    ln.layer_norm_bwd_kernel(x, x[0], x, 1e-12)
     torch.cuda.synchronize()
     th.join()
     if errors:
@@ -841,37 +1269,51 @@ def main() -> int:
         for line in _common.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
-    print(f"[2/9] built every kernel in {time.perf_counter() - t0:.1f} s",
+    print(f"[2/13] built every kernel in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     rms = rms_norm_phase(torch, rn)
-    print("[3/9] rms_norm kernel vs plain:", json.dumps(rms), flush=True)
+    print("[3/13] rms_norm kernel vs plain:", json.dumps(rms), flush=True)
     attn = attention_phase(torch, pa)
-    print("[3/9] ragged attention kernel vs plain:", json.dumps(attn),
+    print("[3/13] ragged attention kernel vs plain:", json.dumps(attn),
           flush=True)
 
     parity = parity_phase(torch, L, D)
-    print("[4/9] tiny engine, card == cpu tokens:", json.dumps(parity),
+    print("[4/13] tiny engine, card == cpu tokens:", json.dumps(parity),
           flush=True)
 
     serve = serve_7b_phase(torch, L, D, rn, pa)
-    print(f"[5/9] Llama-2-7B bf16 serve on {card}:", json.dumps(serve),
+    print(f"[5/13] Llama-2-7B bf16 serve on {card}:", json.dumps(serve),
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
     rms_bwd = rms_norm_bwd_phase(torch, rn)
-    print("[6/9] rms_norm backward kernel vs plain:", json.dumps(rms_bwd),
+    print("[6/13] rms_norm backward kernel vs plain:", json.dumps(rms_bwd),
           flush=True)
     flash = flash_phase(torch, fa)
-    print("[7/9] flash attention kernels vs plain:", json.dumps(flash),
+    print("[7/13] flash attention kernels vs plain:", json.dumps(flash),
           flush=True)
     tparity = train_parity_phase(torch, L)
-    print("[8/9] tiny training, card == cpu:", json.dumps(tparity),
+    print("[8/13] tiny training, card == cpu:", json.dumps(tparity),
           flush=True)
     train = train_7b_phase(torch, L, rn, fa)
-    print(f"[9/9] Llama-2-7B widths, 8 layers, bf16 training on {card}:",
+    print(f"[9/13] Llama-2-7B widths, 8 layers, bf16 training on {card}:",
           json.dumps(train), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lnr = layer_norm_phase(torch, ln)
+    print("[10/13] layer_norm kernels vs plain:", json.dumps(lnr), flush=True)
+    seg_flash = seg_flash_phase(torch, E, fa)
+    print("[11/13] segment-masked flash kernels vs plain:",
+          json.dumps(seg_flash), flush=True)
+    eparity = ernie_parity_phase(torch, E)
+    print("[12/13] tiny ERNIE training, card == cpu:", json.dumps(eparity),
+          flush=True)
+    bert = bert_large_phase(torch, E, ln, fa)
+    print(f"[13/13] packed BERT-large MLM bf16 training on {card}:",
+          json.dumps(bert), flush=True)
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     kernels = [
@@ -894,15 +1336,28 @@ def main() -> int:
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
         _kernel_entry("rms_norm_bwd", "triton",
                       "paddle_tpu_torch/ops/rms_norm.py",
-                      "paddle_tpu/ops/rms_norm.py:55", train, rms_bwd["bf16"]),
+                      "paddle_tpu/ops/rms_norm.py:55",
+                      train["launches"]["rms_norm_bwd"], rms_bwd["bf16"]),
     ]
-    step = flash["step_shape"]
+    # the flash kernels run on both training paths: the Llama step's
+    # launches plus the BERT step's; their numbers are the Llama step
+    # shape's, the error the largest over it and the segmented checks
+    step, seg_step = flash["step_shape"], seg_flash["step_shape"]
     for name, key, line in (("flash_attention_fwd", "fwd", 41),
                             ("flash_attention_bwd_dq", "dq", 172),
                             ("flash_attention_bwd_dkv", "dkv", 224)):
+        r = dict(step[key], max_abs_err=max(step[key]["max_abs_err"],
+                                            seg_step[key]["max_abs_err"]))
         kernels.append(_kernel_entry(
             name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            f"paddle_tpu/ops/flash_attention.py:{line}", train, step[key]))
+            f"paddle_tpu/ops/flash_attention.py:{line}",
+            train["launches"][name] + bert["launches"][name], r))
+    for name, key, line in (("layer_norm_fwd", "fwd", 45),
+                            ("layer_norm_bwd", "bwd", 54)):
+        kernels.append(_kernel_entry(
+            name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
+            f"paddle_tpu/ops/layer_norm_fused.py:{line}",
+            bert["launches"][name], lnr[key]["bf16"]))
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -11,7 +11,13 @@
 // row b / kv_rep (GQA without repeated KV). Scores are fp32; the mask keeps
 // col < kv_limit and, when causal, row + causal_offset >= col; masked
 // probabilities are exactly 0, so a row with nothing to attend gives out 0
-// and lse -1e30. The forward keeps an online softmax and writes out (q's
+// and lse -1e30. With segment ids (seg_q (R, sq) and seg_k (R, sk) int32,
+// query row bh reading row bh / seg_div; seg_div = BH / R, or BH for one
+// row shared by every bh), the mask also keeps seg_q[row] == seg_k[col] only:
+// packed sequences attend within their own segment, and pads (-1 on the
+// query side, -2 on the key side, set by the caller) attend nothing. Such a
+// row's lse is -1e30, so the backward's exp(s - lse) overflows there; like
+// every masked probability it is selected to 0, never multiplied by a mask. The forward keeps an online softmax and writes out (q's
 // dtype) and the log-sum-exp (fp32). The backward takes the saved lse and
 // delta = sum(dO * O) per row (computed by the caller) and recomputes
 //   p = exp(s - lse), dp = dO·Vᵀ, ds = p·(dp - delta),
@@ -42,7 +48,13 @@
 // products are tile GEMMs in shared memory: bf16 on the tensor cores through
 // WMMA (16x16x16, fp32 accumulate), fp32 with plain FMAs. The running
 // output and gradient accumulators live in shared memory in fp32, so the
-// softmax rescale is a plain elementwise pass.
+// softmax rescale is a plain elementwise pass. Segment ids are staged per
+// tile in shared memory beside the tiles; the mask term costs two
+// shared-memory reads and a compare per score. It is a template switch
+// (SEG): the instantiations without segment ids carry none of it, since a
+// run-time test cost the causal dQ kernel a fifth of its time.
+// Key tiles whose segments meet none of the query tile's are not skipped:
+// every tile inside the causal/kv_limit bounds is computed and masked.
 //
 // What this design leaves on the table: no wgmma, no TMA, no overlap of the
 // next tile's loads with this tile's math, accumulators round-tripping
@@ -108,12 +120,17 @@ template <typename T, int D> struct Cfg {
   static constexpr size_t kOq = align128(sizeof(float) * BQ * LDO);
   static constexpr size_t kOk = align128(sizeof(float) * BK * LDO);
   static constexpr size_t kRow = align128(sizeof(float) * BQ);
+  static constexpr size_t kSegQ = align128(sizeof(int) * BQ);
+  static constexpr size_t kSegK = align128(sizeof(int) * BK);
   // shared memory of each kernel, in the order the kernels carve it
-  static constexpr size_t kFwd = kQ + 2 * kK + kS + kP + kOq + 3 * kRow;
-  static constexpr size_t kDq = 2 * kQ + 2 * kK + 2 * kS + kP + kOq + 2 * kRow;
+  static constexpr size_t kFwd =
+      kQ + 2 * kK + kS + kP + kOq + 3 * kRow + kSegQ + kSegK;
+  static constexpr size_t kDq =
+      2 * kQ + 2 * kK + 2 * kS + kP + kOq + 2 * kRow + kSegQ + kSegK;
   // dK/dV in bf16 keeps P's low part as a third P-sized tile
-  static constexpr size_t kDkv =
-      2 * kK + 2 * kQ + 2 * kS + (kBf16 ? 3 : 2) * kP + 2 * kOk + 2 * kRow;
+  static constexpr size_t kDkv = 2 * kK + 2 * kQ + 2 * kS +
+                                (kBf16 ? 3 : 2) * kP + 2 * kOk + 2 * kRow +
+                                kSegQ + kSegK;
 };
 
 struct Carve {
@@ -219,13 +236,28 @@ __device__ __forceinline__ void load_row_vals(float* dst, const float* src,
     dst[i] = row0 + i < n ? src[row0 + i] : 0.f;
 }
 
+// segment ids of positions pos0 .. pos0+n-1 of bh's segment row (seg_div
+// as in the header); 0 past the end
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int bh,
+                                         int seg_div, int len, int pos0,
+                                         int n) {
+  const int* src = seg + (int64_t)(bh / seg_div) * len;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    dst[i] = pos0 + i < len ? src[pos0 + i] : 0;
+}
+
 __device__ __forceinline__ void zero(float* p, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) p[i] = 0.f;
 }
 
+// SEG: the launch has segment ids, staged per tile in seg_r (the rows) and
+// seg_c (the columns); without them the term compiles away
+template <bool SEG>
 __device__ __forceinline__ bool keep(int row, int col, int sq, int kv_limit,
-                                     int causal, int causal_offset) {
-  return row < sq && col < kv_limit && (!causal || row + causal_offset >= col);
+                                     int causal, int causal_offset,
+                                     const int* seg_r, const int* seg_c) {
+  return row < sq && col < kv_limit &&
+         (!causal || row + causal_offset >= col) && (!SEG || *seg_r == *seg_c);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -244,11 +276,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ---------------------------------------------------------------------------
 // Forward: grid (query tiles, BH); out (BH, sq, D), lse (BH, sq)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int kv_rep,
-    int causal, int causal_offset, int kv_limit, float scale) {
+    T* __restrict__ out, float* __restrict__ lse,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int sq,
+    int sk, int kv_rep, int causal, int causal_offset, int kv_limit,
+    int seg_div, float scale) {
   using C = Cfg<T, D>;
   constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -261,6 +295,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
   float* os = cv.take<float>(C::kOq);
   float* m_s = cv.take<float>(C::kRow);
   float* l_s = cv.take<float>(C::kRow);
+  int* sq_s = cv.take<int>(C::kSegQ);
+  int* sk_s = cv.take<int>(C::kSegK);
 
   // the longest causal rows first: the last query tile walks the most keys
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -272,6 +308,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
   const int lane = threadIdx.x & 31;
 
   load_rows<T, D>(qs, C::LDT, q + (int64_t)bh * sq * D, q0, sq, BQ);
+  if constexpr (SEG) load_seg(sq_s, seg_q, bh, seg_div, sq, q0, BQ);
   zero(os, BQ * C::LDO);
   for (int i = threadIdx.x; i < BQ; i += kThreads) {
     m_s[i] = kNegInf;
@@ -286,6 +323,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
     const int k0 = kt * BK;
     load_rows<T, D>(ks, C::LDT, kg, k0, sk, BK);
     load_rows<T, D>(vs, C::LDT, vg, k0, sk, BK);
+    if constexpr (SEG) load_seg(sk_s, seg_k, bh, seg_div, sk, k0, BK);
     __syncthreads();
     mm<BQ, BK, D, false, true>(ss, C::LDS, qs, C::LDT, ks, C::LDT, false);
     __syncthreads();
@@ -296,7 +334,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 #pragma unroll
       for (int t = 0; t < BK / 32; ++t) {
         const int c = lane + 32 * t;
-        const bool kp = keep(row, k0 + c, sq, kv_limit, causal, causal_offset);
+        const bool kp = keep<SEG>(row, k0 + c, sq, kv_limit, causal,
+                                  causal_offset, sq_s + r, sk_s + c);
         sv[t] = kp ? ss[r * C::LDS + c] * scale : kNegInf;
         mx = fmaxf(mx, sv[t]);
       }
@@ -308,7 +347,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 #pragma unroll
       for (int t = 0; t < BK / 32; ++t) {
         const int c = lane + 32 * t;
-        const bool kp = keep(row, k0 + c, sq, kv_limit, causal, causal_offset);
+        const bool kp = keep<SEG>(row, k0 + c, sq, kv_limit, causal,
+                                  causal_offset, sq_s + r, sk_s + c);
         const float p = kp ? expf(sv[t] - m_new) : 0.f;
         ps[r * C::LDP + c] = from_float<T>(p);
         sum += p;
@@ -341,12 +381,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
 // ---------------------------------------------------------------------------
 // dQ: grid (query tiles, BH); dq (BH, sq, D)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-    int kv_rep, int causal, int causal_offset, int kv_limit, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dq,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int sq,
+    int sk, int kv_rep, int causal, int causal_offset, int kv_limit,
+    int seg_div, float scale) {
   using C = Cfg<T, D>;
   constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -361,6 +403,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
   float* acc = cv.take<float>(C::kOq);
   float* lse_s = cv.take<float>(C::kRow);
   float* delta_s = cv.take<float>(C::kRow);
+  int* sq_s = cv.take<int>(C::kSegQ);
+  int* sk_s = cv.take<int>(C::kSegK);
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -372,6 +416,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
   load_rows<T, D>(dos, C::LDT, dout + (int64_t)bh * sq * D, q0, sq, BQ);
   load_row_vals(lse_s, lse + (int64_t)bh * sq, q0, sq, BQ);
   load_row_vals(delta_s, delta + (int64_t)bh * sq, q0, sq, BQ);
+  if constexpr (SEG) load_seg(sq_s, seg_q, bh, seg_div, sq, q0, BQ);
   zero(acc, BQ * C::LDO);
   int k_end = kv_limit;
   if (causal) k_end = min(k_end, q0 + BQ + causal_offset);
@@ -382,13 +427,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     const int k0 = kt * BK;
     load_rows<T, D>(ks, C::LDT, kg, k0, sk, BK);
     load_rows<T, D>(vs, C::LDT, vg, k0, sk, BK);
+    if constexpr (SEG) load_seg(sk_s, seg_k, bh, seg_div, sk, k0, BK);
     __syncthreads();
     mm<BQ, BK, D, false, true>(ss, C::LDS, qs, C::LDT, ks, C::LDT, false);
     mm<BQ, BK, D, false, true>(dps, C::LDS, dos, C::LDT, vs, C::LDT, false);
     __syncthreads();
     for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
       const int r = i / BK, c = i % BK;
-      const bool kp = keep(q0 + r, k0 + c, sq, kv_limit, causal, causal_offset);
+      const bool kp = keep<SEG>(q0 + r, k0 + c, sq, kv_limit, causal,
+                                causal_offset, sq_s + r, sk_s + c);
       const float p = kp ? expf(ss[r * C::LDS + c] * scale - lse_s[r]) : 0.f;
       dss[r * C::LDP + c] =
           from_float<T>(p * (dps[r * C::LDS + c] - delta_s[r]));
@@ -409,13 +456,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 // dK/dV: grid (key tiles, BH / kv_rep); dk, dv (BH / kv_rep, sk, D)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int kv_rep, int causal, int causal_offset, int kv_limit,
-    float scale) {
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int sq,
+    int sk, int kv_rep, int causal, int causal_offset, int kv_limit,
+    int seg_div, float scale) {
   using C = Cfg<T, D>;
   constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -432,6 +480,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
   float* dv_acc = cv.take<float>(C::kOk);
   float* lse_s = cv.take<float>(C::kRow);
   float* delta_s = cv.take<float>(C::kRow);
+  int* sq_s = cv.take<int>(C::kSegQ);
+  int* sk_s = cv.take<int>(C::kSegK);
   T* pls = C::kBf16 ? cv.take<T>(C::kP) : nullptr;  // bf16(P - bf16(P))
 
   const int kvh = blockIdx.y;
@@ -452,14 +502,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
       load_rows<T, D>(dos, C::LDT, dout + (int64_t)bh * sq * D, q0, sq, BQ);
       load_row_vals(lse_s, lse + (int64_t)bh * sq, q0, sq, BQ);
       load_row_vals(delta_s, delta + (int64_t)bh * sq, q0, sq, BQ);
+      // the key tile's ids follow bh's segment row, so they load per head
+      if constexpr (SEG) load_seg(sq_s, seg_q, bh, seg_div, sq, q0, BQ);
+      if constexpr (SEG) load_seg(sk_s, seg_k, bh, seg_div, sk, k0, BK);
       __syncthreads();
       mm<BQ, BK, D, false, true>(ss, C::LDS, qs, C::LDT, ks, C::LDT, false);
       mm<BQ, BK, D, false, true>(dps, C::LDS, dos, C::LDT, vs, C::LDT, false);
       __syncthreads();
       for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
         const int r = i / BK, c = i % BK;
-        const bool kp =
-            keep(q0 + r, k0 + c, sq, kv_limit, causal, causal_offset);
+        const bool kp = keep<SEG>(q0 + r, k0 + c, sq, kv_limit, causal,
+                                  causal_offset, sq_s + r, sk_s + c);
         const float p = kp ? expf(ss[r * C::LDS + c] * scale - lse_s[r]) : 0.f;
         const T p_hi = from_float<T>(p);
         ps[r * C::LDP + c] = p_hi;
@@ -509,71 +562,82 @@ struct Args {
   void* o0;  // out / dq / dk
   void* o1;  // dv
   float* lse_out;
-  int bh, sq, sk, kv_rep, causal, causal_offset, kv_limit;
+  const int* seg_q;  // nullptr: no segment ids
+  const int* seg_k;
+  int bh, sq, sk, kv_rep, causal, causal_offset, kv_limit, seg_div;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_fwd(const Args& a) {
   using C = Cfg<T, D>;
-  auto kernel = flash_attention_fwd_kernel<T, D>;
+  auto kernel = flash_attention_fwd_kernel<T, D, SEG>;
   cudaError_t e = set_smem(kernel, C::kFwd);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.sq + C::BQ - 1) / C::BQ, a.bh);
   kernel<<<grid, kThreads, C::kFwd, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o0), a.lse_out, a.sq,
-      a.sk, a.kv_rep, a.causal, a.causal_offset, a.kv_limit, a.scale);
+      static_cast<const T*>(a.v), static_cast<T*>(a.o0), a.lse_out, a.seg_q,
+      a.seg_k, a.sq, a.sk, a.kv_rep, a.causal, a.causal_offset, a.kv_limit,
+      a.seg_div, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_dq(const Args& a) {
   using C = Cfg<T, D>;
-  auto kernel = flash_attention_bwd_dq_kernel<T, D>;
+  auto kernel = flash_attention_bwd_dq_kernel<T, D, SEG>;
   cudaError_t e = set_smem(kernel, C::kDq);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.sq + C::BQ - 1) / C::BQ, a.bh);
   kernel<<<grid, kThreads, C::kDq, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-      a.delta, static_cast<T*>(a.o0), a.sq, a.sk, a.kv_rep, a.causal,
-      a.causal_offset, a.kv_limit, a.scale);
+      a.delta, static_cast<T*>(a.o0), a.seg_q, a.seg_k, a.sq, a.sk, a.kv_rep,
+      a.causal, a.causal_offset, a.kv_limit, a.seg_div, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_dkv(const Args& a) {
   using C = Cfg<T, D>;
-  auto kernel = flash_attention_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_attention_bwd_dkv_kernel<T, D, SEG>;
   cudaError_t e = set_smem(kernel, C::kDkv);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.sk + C::BK - 1) / C::BK, a.bh / a.kv_rep);
   kernel<<<grid, kThreads, C::kDkv, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-      a.delta, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.sq, a.sk,
-      a.kv_rep, a.causal, a.causal_offset, a.kv_limit, a.scale);
+      a.delta, static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.seg_q, a.seg_k,
+      a.sq, a.sk, a.kv_rep, a.causal, a.causal_offset, a.kv_limit, a.seg_div,
+      a.scale);
   return cudaGetLastError();
 }
 
 enum class Which { kFwd, kDq, kDkv };
 
+template <typename T, int D, bool SEG>
+cudaError_t dispatch_seg(Which w, const Args& a) {
+  switch (w) {
+    case Which::kFwd: return launch_fwd<T, D, SEG>(a);
+    case Which::kDq: return launch_dq<T, D, SEG>(a);
+    default: return launch_dkv<T, D, SEG>(a);
+  }
+}
+
 template <typename T, int D>
 cudaError_t dispatch_kind(Which w, const Args& a) {
-  switch (w) {
-    case Which::kFwd: return launch_fwd<T, D>(a);
-    case Which::kDq: return launch_dq<T, D>(a);
-    default: return launch_dkv<T, D>(a);
-  }
+  return a.seg_q ? dispatch_seg<T, D, true>(w, a)
+                 : dispatch_seg<T, D, false>(w, a);
 }
 
 // dtype: 0 = float32, 1 = bfloat16
 int dispatch(Which w, int head_dim, int dtype, const Args& a) {
   // every output element is written only when there is a query and a key
   if (a.bh <= 0 || a.sq <= 0 || a.sk <= 0 || a.kv_rep <= 0 ||
-      a.bh % a.kv_rep != 0)
+      a.bh % a.kv_rep != 0 || a.seg_div <= 0 ||
+      (a.seg_q == nullptr) != (a.seg_k == nullptr))
     return (int)cudaErrorInvalidValue;
   if (head_dim == 64) {
     if (dtype == 0) return (int)dispatch_kind<float, 64>(w, a);
@@ -589,37 +653,46 @@ int dispatch(Which w, int head_dim, int dtype, const Args& a) {
 
 // Each entry returns a cudaError_t (0 on success); the Python wrapper raises
 // on anything else. kv_limit is the number of keys that may be attended
-// (kv_valid clamped to sk, or sk).
+// (kv_valid clamped to sk, or sk). seg_q/seg_k are both null (no segment
+// ids) or both int32 (R, sq) / (R, sk) with seg_div = bh / R (bh when R = 1
+// is one row shared by every bh).
 extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, void* out, void* lse, int bh,
-    int sq, int sk, int head_dim, int kv_rep, int dtype, int causal,
-    int causal_offset, int kv_limit, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* seg_q, const void* seg_k, int bh, int sq, int sk, int head_dim,
+    int kv_rep, int dtype, int causal, int causal_offset, int kv_limit,
+    int seg_div, float scale, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr,
-         static_cast<float*>(lse), bh, sq, sk, kv_rep, causal, causal_offset,
-         kv_limit, scale, static_cast<cudaStream_t>(stream)};
+         static_cast<float*>(lse), static_cast<const int*>(seg_q),
+         static_cast<const int*>(seg_k), bh, sq, sk, kv_rep, causal,
+         causal_offset, kv_limit, seg_div, scale,
+         static_cast<cudaStream_t>(stream)};
   return dispatch(Which::kFwd, head_dim, dtype, a);
 }
 
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
-    int head_dim, int kv_rep, int dtype, int causal, int causal_offset,
-    int kv_limit, float scale, void* stream) {
+    const void* lse, const void* delta, void* dq, const void* seg_q,
+    const void* seg_k, int bh, int sq, int sk, int head_dim, int kv_rep,
+    int dtype, int causal, int causal_offset, int kv_limit, int seg_div,
+    float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), dq, nullptr, nullptr, bh, sq, sk,
-         kv_rep, causal, causal_offset, kv_limit, scale,
+         static_cast<const float*>(delta), dq, nullptr, nullptr,
+         static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), bh,
+         sq, sk, kv_rep, causal, causal_offset, kv_limit, seg_div, scale,
          static_cast<cudaStream_t>(stream)};
   return dispatch(Which::kDq, head_dim, dtype, a);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-    int sk, int head_dim, int kv_rep, int dtype, int causal, int causal_offset,
-    int kv_limit, float scale, void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv, const void* seg_q,
+    const void* seg_k, int bh, int sq, int sk, int head_dim, int kv_rep,
+    int dtype, int causal, int causal_offset, int kv_limit, int seg_div,
+    float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), dk, dv, nullptr, bh, sq, sk, kv_rep,
-         causal, causal_offset, kv_limit, scale,
+         static_cast<const float*>(delta), dk, dv, nullptr,
+         static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), bh,
+         sq, sk, kv_rep, causal, causal_offset, kv_limit, seg_div, scale,
          static_cast<cudaStream_t>(stream)};
   return dispatch(Which::kDkv, head_dim, dtype, a);
 }

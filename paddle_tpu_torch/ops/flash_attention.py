@@ -6,7 +6,11 @@ repeated KV: ``k``/``v`` carry ``BH / kv_rep`` rows and query row ``b``
 reads KV row ``b // kv_rep`` (consecutive query heads share a KV head).
 The masks are the JAX package's: causal keeps ``row + causal_offset >=
 col`` (``causal_offset = sk − sq``, end-aligned, 0 for self-attention),
-and keys at or past ``kv_valid`` are masked.
+keys at or past ``kv_valid`` are masked, and with segment ids ``seg_q``/
+``seg_k`` (int32) only ``seg_q[row] == seg_k[col]`` is kept. The ids come
+in ``_seg3``'s two layouts: one row per batch entry, ``(R, S)``, which
+query row ``bh`` reads at ``bh // (BH / R)`` (heads are consecutive per
+batch entry), or one ``(S,)`` row shared by every ``bh``.
 
 Three kernels (CUDA C++, ``csrc/flash_attention.cu``) replace the Pallas
 ones: the forward with its log-sum-exp (``_fwd_kernel``), dQ
@@ -18,7 +22,8 @@ header says what bounds the kernels on the card and what their design
 does about it.
 
 Where the JAX package pads S to a multiple of 128 and masks the padded
-keys with ``kv_valid`` (``flash_attention_bhsd``), the kernels here
+keys with ``kv_valid`` (``flash_attention_bhsd``) or pads the segment
+ids with −1 (``flash_attention_segmented``), the kernels here
 bound-check any S; the results are the same. There is no sequence
 threshold like ``_pallas_ok``: the tensor's device alone picks the path.
 """
@@ -43,14 +48,28 @@ _KERNEL_HEAD_DIMS = (64, 128)
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _keep_mask(sq, sk, causal, kv_valid, causal_offset, device):
-    """(sq, sk) bool: the keys each query row may attend."""
+def _seg_rows(seg, bh):
+    """Segment ids per query row: (S,) -> (1, S) shared by every bh;
+    (R, S) -> (BH, S), row bh reading ``seg[bh // (BH / R)]``."""
+    if seg.dim() == 1:
+        return seg[None]
+    return seg.repeat_interleave(bh // seg.shape[0], dim=0)
+
+
+def _keep_mask(sq, sk, causal, kv_valid, causal_offset, device, seg_q=None,
+               seg_k=None, bh=1):
+    """The keys each query row may attend: (sq, sk) bool, or (BH or 1,
+    sq, sk) with segment ids."""
     col = torch.arange(sk, device=device)[None, :]
     keep = col < (kv_valid if kv_valid is not None else sk)
     if causal:
         row = torch.arange(sq, device=device)[:, None]
         keep = keep & (row + causal_offset >= col)
-    return keep.expand(sq, sk)
+    keep = keep.expand(sq, sk)
+    if seg_q is None:
+        return keep
+    rq, rk = _seg_rows(seg_q, bh), _seg_rows(seg_k, bh)
+    return keep & (rq[:, :, None] == rk[:, None, :])
 
 
 def _rep_kv(t, kv_rep):
@@ -75,7 +94,7 @@ def attn_ref_kv_plain(q, k, v, scale, causal, kv_valid=None,
 
 
 def flash_fwd_plain(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
-                    kv_rep=1):
+                    kv_rep=1, seg_q=None, seg_k=None):
     """The forward kernel's math in one pass: fp32 scores, masked
     probabilities exactly 0, P cast to ``v.dtype`` before P·V (fp32
     sums), and the log-sum-exp. Returns ``(out, lse)``: ``out`` in
@@ -84,7 +103,7 @@ def flash_fwd_plain(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
     kr, vr = _rep_kv(k, kv_rep), _rep_kv(v, kv_rep)
     s = torch.einsum("bqd,bkd->bqk", q.float(), kr.float()) * scale
     keep = _keep_mask(q.shape[1], k.shape[1], causal, kv_valid,
-                      causal_offset, q.device)
+                      causal_offset, q.device, seg_q, seg_k, q.shape[0])
     s = s.masked_fill(~keep, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), 0.0)
@@ -97,21 +116,24 @@ def flash_fwd_plain(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
 
 
 def flash_bwd_plain(q, k, v, out, lse, do, scale, causal, kv_valid=None,
-                    causal_offset=0, kv_rep=1):
+                    causal_offset=0, kv_rep=1, seg_q=None, seg_k=None):
     """The backward kernels' math: ``delta = Σ dO·O``, ``p = exp(s −
-    lse)`` masked to exactly 0, ``dp = dO·Vᵀ``, ``ds = p·(dp − delta)``;
-    dQ = ds·K·scale, dV = pᵀ·dO, dK = dsᵀ·Q·scale, with dK/dV summed over
-    each KV head's ``kv_rep`` query heads in fp32. ``ds`` is cast to the
-    input dtype before dQ and dK and ``dO`` before dP, while dV takes P in
-    fp32, as ``_bwd_dkv_kernel`` does; the bf16 kernel carries that P as
-    a hi/lo pair of bf16 tiles (about 16 mantissa bits). Returns ``(dq,
-    dk, dv)`` in the dtypes of ``q``, ``k`` and ``v``."""
+    lse)`` selected to exactly 0 where masked (a pad row's lse is −1e30,
+    so its ``exp`` overflows before the selection), ``dp = dO·Vᵀ``,
+    ``ds = p·(dp − delta)``; dQ = ds·K·scale, dV = pᵀ·dO, dK =
+    dsᵀ·Q·scale, with dK/dV summed over each KV head's ``kv_rep`` query
+    heads in fp32. ``ds`` is cast to the input dtype before dQ and dK
+    and ``dO`` before dP, while dV takes P in fp32, as
+    ``_bwd_dkv_kernel`` does; the bf16 kernel carries that P as a hi/lo
+    pair of bf16 tiles (about 16 mantissa bits). Returns ``(dq, dk,
+    dv)`` in the dtypes of ``q``, ``k`` and ``v``."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     kr, vr = _rep_kv(k, kv_rep), _rep_kv(v, kv_rep)
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     s = torch.einsum("bqd,bkd->bqk", q.float(), kr.float()) * scale
-    keep = _keep_mask(sq, sk, causal, kv_valid, causal_offset, q.device)
+    keep = _keep_mask(sq, sk, causal, kv_valid, causal_offset, q.device,
+                      seg_q, seg_k, bh)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bqd,bkd->bqk", do.to(v.dtype).float(), vr.float())
     ds = p * (dp - delta)
@@ -126,16 +148,33 @@ def flash_bwd_plain(q, k, v, out, lse, do, scale, causal, kv_valid=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def seg_ref_batched_plain(q, k, v, seg, scale, causal):
+    """``_seg_ref_batched``: (B, nh, S, D) attention with a per-row
+    segment mask (B, S); negative ids are pads and attend nothing (their
+    rows come out 0)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    keep = seg[:, None, :, None] == seg[:, None, None, :]
+    keep = keep & (seg >= 0)[:, None, :, None]
+    if causal:
+        n = q.shape[2]
+        keep = keep & torch.ones(n, n, dtype=torch.bool,
+                                 device=q.device).tril()[None, None]
+    p = torch.softmax(s.masked_fill(~keep, _NEG_INF), dim=-1)
+    p = torch.where(keep.any(dim=-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
 _launch_fns = {}
 
-# pointer arguments of each entry point, then the shared scalars
-_N_PTRS = {"flash_attention_fwd_launch": 5,
-           "flash_attention_bwd_dq_launch": 7,
-           "flash_attention_bwd_dkv_launch": 8}
+# pointer arguments of each entry point (the tensors, then seg_q and
+# seg_k), then the shared scalars
+_N_PTRS = {"flash_attention_fwd_launch": 7,
+           "flash_attention_bwd_dq_launch": 9,
+           "flash_attention_bwd_dkv_launch": 10}
 
 
 def _kernel_fn(name):
@@ -143,8 +182,8 @@ def _kernel_fn(name):
     if fn is None:
         fn = getattr(load_cuda_library("flash_attention"), name)
         fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name]
-                       + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                               ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch_fns[name] = fn
     return fn
@@ -172,21 +211,47 @@ def _check_qkv(q, k, v, kv_rep):
         raise ValueError("q, k and v must be 16-byte aligned")
 
 
+def _check_seg(q, k, seg_q, seg_k):
+    """Segment ids for the kernels: both or neither, int32, contiguous,
+    (R, sq) / (R, sk) with R dividing BH, or shared (sq,) / (sk,).
+    Returns ``(seg_q pointer, seg_k pointer, seg_div)``, the row of query
+    row ``bh`` being ``bh // seg_div``."""
+    bh, sq = q.shape[:2]
+    if seg_q is None and seg_k is None:
+        return None, None, 1
+    if seg_q is None or seg_k is None:
+        raise ValueError("seg_q and seg_k go together")
+    check_cuda_tensor("seg_q", seg_q, (torch.int32,))
+    check_cuda_tensor("seg_k", seg_k, (torch.int32,))
+    if seg_q.device != q.device or seg_k.device != q.device:
+        raise ValueError("segment ids must be on q's device")
+    rows = 1 if seg_q.dim() == 1 else seg_q.shape[0]
+    lead = () if seg_q.dim() == 1 else (rows,)
+    if seg_q.shape != lead + (sq,) or seg_k.shape != lead + (k.shape[1],) \
+            or bh % rows:
+        raise ValueError(f"segment ids {tuple(seg_q.shape)} / "
+                         f"{tuple(seg_k.shape)} do not match q "
+                         f"{tuple(q.shape)} and k {tuple(k.shape)}")
+    return seg_q.data_ptr(), seg_k.data_ptr(), bh // rows
+
+
 def _launch(name, ptrs, q, k, kv_rep, scale, causal, kv_valid,
-            causal_offset):
+            causal_offset, seg_q, seg_k):
     bh, sq, d = q.shape
     sk = k.shape[1]
     kv_limit = sk if kv_valid is None else max(0, min(int(kv_valid), sk))
+    seg_q_ptr, seg_k_ptr, seg_div = _check_seg(q, k, seg_q, seg_k)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn(name)(
-        *ptrs, bh, sq, sk, d, kv_rep, _KERNEL_DTYPES[q.dtype], int(causal),
-        int(causal_offset), kv_limit, float(scale), stream)
+        *ptrs, seg_q_ptr, seg_k_ptr, bh, sq, sk, d, kv_rep,
+        _KERNEL_DTYPES[q.dtype], int(causal), int(causal_offset), kv_limit,
+        seg_div, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
 def flash_fwd_kernel(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
-                     kv_rep=1):
+                     kv_rep=1, seg_q=None, seg_k=None):
     """Launch the forward kernel (same contract as
     :func:`flash_fwd_plain`). Counts one launch in
     ``flash_fwd_kernel.launches``."""
@@ -196,7 +261,7 @@ def flash_fwd_kernel(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
     _launch("flash_attention_fwd_launch",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr()), q, k, kv_rep, scale, causal, kv_valid,
-            causal_offset)
+            causal_offset, seg_q, seg_k)
     flash_fwd_kernel.launches += 1
     return out, lse
 
@@ -208,7 +273,8 @@ def _delta(out, do):
 
 
 def flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal,
-                        kv_valid=None, causal_offset=0, kv_rep=1):
+                        kv_valid=None, causal_offset=0, kv_rep=1, seg_q=None,
+                        seg_k=None):
     """Launch the dQ kernel. Counts one launch in
     ``flash_bwd_dq_kernel.launches``."""
     _check_qkv(q, k, v, kv_rep)
@@ -217,13 +283,15 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal,
     _launch("flash_attention_bwd_dq_launch",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            q, k, kv_rep, scale, causal, kv_valid, causal_offset)
+            q, k, kv_rep, scale, causal, kv_valid, causal_offset, seg_q,
+            seg_k)
     flash_bwd_dq_kernel.launches += 1
     return dq
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal,
-                         kv_valid=None, causal_offset=0, kv_rep=1):
+                         kv_valid=None, causal_offset=0, kv_rep=1, seg_q=None,
+                         seg_k=None):
     """Launch the dK/dV kernel: one block per (KV head, key tile) walks
     its group's query heads, so the GQA sum needs no atomics. Counts one
     launch in ``flash_bwd_dkv_kernel.launches``."""
@@ -234,7 +302,8 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal,
     _launch("flash_attention_bwd_dkv_launch",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, k, kv_rep, scale, causal, kv_valid, causal_offset)
+            q, k, kv_rep, scale, causal, kv_valid, causal_offset, seg_q,
+            seg_k)
     flash_bwd_dkv_kernel.launches += 1
     return dk, dv
 
@@ -261,50 +330,48 @@ def _check_bwd_extras(q, do, lse, delta):
 # ---------------------------------------------------------------------------
 
 def flash_attention_fwd(q, k, v, scale, causal, kv_valid=None,
-                        causal_offset=0, kv_rep=1):
+                        causal_offset=0, kv_rep=1, seg_q=None, seg_k=None):
     """``(out, lse)``. CPU tensors: the plain version. CUDA tensors: the
     forward kernel."""
-    if q.is_cuda:
-        return flash_fwd_kernel(q, k, v, scale, causal, kv_valid,
-                                causal_offset, kv_rep)
-    return flash_fwd_plain(q, k, v, scale, causal, kv_valid, causal_offset,
-                           kv_rep)
+    fn = flash_fwd_kernel if q.is_cuda else flash_fwd_plain
+    return fn(q, k, v, scale, causal, kv_valid, causal_offset, kv_rep,
+              seg_q, seg_k)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, scale, causal, kv_valid=None,
-                        causal_offset=0, kv_rep=1):
+                        causal_offset=0, kv_rep=1, seg_q=None, seg_k=None):
     """``(dq, dk, dv)``. CPU tensors: the plain version. CUDA tensors:
     ``delta`` in PyTorch, then the dQ and the dK/dV kernels."""
+    args = (scale, causal, kv_valid, causal_offset, kv_rep, seg_q, seg_k)
     if not q.is_cuda:
-        return flash_bwd_plain(q, k, v, out, lse, do, scale, causal,
-                               kv_valid, causal_offset, kv_rep)
+        return flash_bwd_plain(q, k, v, out, lse, do, *args)
     delta = _delta(out, do)
-    dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal,
-                             kv_valid, causal_offset, kv_rep)
-    dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal,
-                                  kv_valid, causal_offset, kv_rep)
+    dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, *args)
+    dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *args)
     return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """``_flash_bhsd_inner``'s custom_vjp: the forward saves ``(q, k, v,
-    out, lse)``; the backward computes ``delta``, then dQ and dK/dV."""
+    """``_flash_bhsd_inner``'s custom_vjp (and ``run`` of
+    ``flash_attention_segmented``): the forward saves ``(q, k, v, out,
+    lse)`` and the segment ids; the backward computes ``delta``, then dQ
+    and dK/dV. The segment ids get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, kv_valid, causal_offset,
-                kv_rep):
+                kv_rep, seg_q=None, seg_k=None):
         out, lse = flash_attention_fwd(q, k, v, scale, causal, kv_valid,
-                                       causal_offset, kv_rep)
-        ctx.save_for_backward(q, k, v, out, lse)
+                                       causal_offset, kv_rep, seg_q, seg_k)
+        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_k)
         ctx.args = (scale, causal, kv_valid, causal_offset, kv_rep)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, seg_q, seg_k = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+                                         *ctx.args, seg_q, seg_k)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_bhsd(q, k, v, scale, causal, kv_rep: int = 1):
@@ -315,6 +382,55 @@ def flash_attention_bhsd(q, k, v, scale, causal, kv_rep: int = 1):
     offset = (sk - sq) if causal and sq != sk else 0
     return FlashAttentionFunction.apply(q, k, v, scale, causal, None, offset,
                                         kv_rep)
+
+
+def flash_attention_segmented(q, k, v, seg_ids, scale=None, causal=False):
+    """Sequence-packed batched attention, differentiable: q/k/v (B, nh,
+    S, D) with per-row segment ids (B, S); tokens attend only within
+    their own segment, and negative ids are pads that attend nothing
+    (their rows come out 0). As in the JAX package, pads become −1 on
+    the query side and −2 on the key side, so a pad never matches a pad;
+    the kernels bound-check S, so nothing is padded to 128."""
+    b, nh, s, d = q.shape
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    seg = seg_ids.to(torch.int32)
+    seg_q = torch.where(seg < 0, -1, seg).contiguous()
+    seg_k = torch.where(seg < 0, -2, seg).contiguous()
+    qf, kf, vf = (t.contiguous().reshape(b * nh, s, d) for t in (q, k, v))
+    out = FlashAttentionFunction.apply(qf, kf, vf, sc, causal, None, 0, 1,
+                                       seg_q, seg_k)
+    return out.reshape(b, nh, s, d)
+
+
+def _segments_from_cu(cu, total):
+    """cu_seqlens (B+1,) -> per-token segment ids (total,) int32."""
+    cu = torch.as_tensor(cu, dtype=torch.int64)
+    pos = torch.arange(total, device=cu.device)
+    return torch.searchsorted(cu[1:], pos, right=True).to(torch.int32)
+
+
+def flash_attention_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                           scale: Optional[float] = None,
+                           causal: bool = True):
+    """Unpadded (packed) attention, differentiable: q/k/v (total, H, D)
+    with every sequence's tokens contiguous, ``cu_seqlens_*`` (B+1,)
+    cumulative lengths. One call over the whole stream with one row of
+    segment ids shared by every head; causal within each sequence falls
+    out of the global positions, so it needs both sides packed alike."""
+    tq, h, d = q.shape
+    tk = k.shape[0]
+    cu_q = torch.as_tensor(cu_seqlens_q).to(q.device)
+    cu_k = torch.as_tensor(cu_seqlens_k).to(q.device)
+    if causal and (tq != tk or not torch.equal(cu_q, cu_k)):
+        raise ValueError("flash_attention_varlen: causal=True requires "
+                         "cu_seqlens_q == cu_seqlens_k (self-attention "
+                         "packing)")
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    qt, kt, vt = (t.transpose(0, 1).contiguous() for t in (q, k, v))
+    out = FlashAttentionFunction.apply(
+        qt, kt, vt, sc, causal, None, 0, 1, _segments_from_cu(cu_q, tq),
+        _segments_from_cu(cu_k, tk))
+    return out.transpose(0, 1)
 
 
 def sdpa_array(q, k, v, scale: Optional[float] = None, causal: bool = False):

@@ -211,3 +211,132 @@ def test_sdpa_array_hands_the_kernels_contiguous_rows(b, monkeypatch):
     q, k, v, _ = _sdpa_inputs(b, 12, 4, 2, 16, seed=7)
     tfa.sdpa_array(_t(q), _t(k), _t(v), causal=True)
     assert seen == [True, True, True]
+
+
+# ---------------------------------------------------------------------------
+# segment ids (packed sequences)
+# ---------------------------------------------------------------------------
+
+def _segments(layout, s=256):
+    """Packed rows with trailing pads (-1). ``rows``: one row per batch
+    entry (R = 2), the second mostly pads, so its last query tile and
+    every key tile it meets belong to other segments; ``shared``: one
+    (S,) row for every bh."""
+    if layout == "rows":
+        seg = np.full((2, s), -1, np.int32)
+        seg[0, :200] = np.repeat([0, 1, 2], [100, 60, 40])
+        seg[1, :90] = 0
+    else:
+        seg = np.full((s,), -1, np.int32)
+        seg[:220] = np.repeat([0, 1, 2], [70, 100, 50])
+    # the JAX package's convention: pads never match pads
+    return np.where(seg < 0, -1, seg), np.where(seg < 0, -2, seg)
+
+
+@pytest.mark.parametrize("layout", ["rows", "shared"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_segmented_plain_matches_pallas_kernels_interpret(d, causal, layout):
+    """flash_fwd_plain / flash_bwd_plain with segment ids against
+    _flash_fwd_pallas / _flash_bwd_pallas(seg_q=, seg_k=) in interpret
+    mode at (BH, S) = (4, 256) with 128x128 blocks: pad rows give out 0,
+    lse -1e30 and zero, finite gradients."""
+    q, k, v, g = _qkv(4, 256, 256, d, seed=d + causal)
+    seg_q, seg_k = _segments(layout)
+    sc = 1.0 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    js = dict(seg_q=jnp.asarray(seg_q), seg_k=jnp.asarray(seg_k))
+    out, lse = jfa._flash_fwd_pallas(jq, jk, jv, sc, causal, 128, 128,
+                                     interpret=True, **js)
+    dq, dk, dv = jfa._flash_bwd_pallas(jq, jk, jv, out, lse, jg, sc, causal,
+                                       128, 128, interpret=True, **js)
+    ts = dict(seg_q=torch.from_numpy(seg_q), seg_k=torch.from_numpy(seg_k))
+    tout, tlse = tfa.flash_fwd_plain(_t(q), _t(k), _t(v), sc, causal, **ts)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(out), **FWD)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse), **FWD)
+    pads = tfa._seg_rows(ts["seg_q"], 4).expand(4, -1) < 0
+    assert bool((tout[pads] == 0).all()) and bool((tlse[pads] == -1e30).all())
+    grads = tfa.flash_bwd_plain(_t(q), _t(k), _t(v), tout, tlse, _t(g), sc,
+                                causal, **ts)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+        assert bool(torch.isfinite(got).all()), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=name, **BWD)
+    assert bool((grads[0][pads] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_segmented_and_grads_match_jax(causal):
+    """(B, nh, S, D) at S = 40, which the reference pads to 128 with
+    segment id -1; the port bound-checks. Against the reference's
+    ``flash_attention_segmented`` (its plain path here) and
+    ``_seg_ref_batched``, forward and backward."""
+    rng = np.random.RandomState(8 + causal)
+    b, nh, s, d = 2, 3, 40, 16
+    q, k, v, g = (rng.randn(b, nh, s, d).astype(np.float32)
+                  for _ in range(4))
+    seg = np.full((b, s), -1, np.int32)
+    seg[0, :] = np.repeat([0, 1, 2], [10, 25, 5])
+    seg[1, :31] = np.repeat([0, 1], [17, 14])
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    out, vjp = jax.vjp(lambda a, b_, c: jfa.flash_attention_segmented(
+        a, b_, c, jnp.asarray(seg), causal=causal), *jargs)
+    want = vjp(jnp.asarray(g))
+    ref = jfa._seg_ref_batched(*jargs, jnp.asarray(seg), 1 / math.sqrt(d),
+                               causal)
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = tfa.flash_attention_segmented(tq, tk, tv, torch.from_numpy(seg),
+                                        causal=causal)
+    assert tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **FWD)
+    plain_ref = tfa.seg_ref_batched_plain(_t(q), _t(k), _t(v),
+                                          torch.from_numpy(seg),
+                                          1 / math.sqrt(d), causal)
+    np.testing.assert_allclose(plain_ref.numpy(), np.asarray(ref), **FWD)
+    np.testing.assert_allclose(got.detach().numpy(), plain_ref.numpy(),
+                               **FWD)
+    got.backward(_t(g))
+    for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=name, **BWD)
+
+
+def test_segmented_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v, _ = (_t(a) for a in _qkv(2, 16, 16, 64, seed=9))
+    seg = torch.zeros(2, 16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd_kernel(q, k, v, 0.125, False, seg_q=seg, seg_k=seg)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_varlen_and_grads_match_jax(causal):
+    """(total, H, D) packed tokens with cu_seqlens, one shared row of
+    segment ids, against the reference's ``flash_attention_varlen`` (its
+    plain path here); non-causal with a different packing of the keys."""
+    rng = np.random.RandomState(20 + causal)
+    cu_q = np.array([0, 7, 19, 30], np.int32)
+    cu_k = cu_q if causal else np.array([0, 10, 14, 26], np.int32)
+    h, d = 3, 16
+    q, g = (rng.randn(30, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(int(cu_k[-1]), h, d).astype(np.float32)
+            for _ in range(2))
+    out, vjp = jax.vjp(lambda a, b_, c: jfa.flash_attention_varlen(
+        a, b_, c, jnp.asarray(cu_q), jnp.asarray(cu_k), causal=causal),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    got = tfa.flash_attention_varlen(tq, tk, tv, torch.from_numpy(cu_q),
+                                     torch.from_numpy(cu_k), causal=causal)
+    assert tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **FWD)
+    got.backward(_t(g))
+    for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=name, **BWD)
+
+
+def test_flash_attention_varlen_causal_needs_one_packing():
+    q = torch.zeros(8, 2, 16)
+    with pytest.raises(ValueError, match="cu_seqlens_q == cu_seqlens_k"):
+        tfa.flash_attention_varlen(q, q, q, torch.tensor([0, 3, 8]),
+                                   torch.tensor([0, 4, 8]))

@@ -1,8 +1,10 @@
 """Card-only tests of the PyTorch/CUDA port: each kernel against its
-plain PyTorch version at Llama-2-7B widths, the wrappers' argument
-checks, the serving engine and the training step on the card against
-the same on the CPU, and the training step's launch counts. Marked ``gpu``; they skip where no CUDA device is present. Run on
-the card (the machine there has no JAX, so skip the conftest):
+plain PyTorch version at Llama-2-7B and BERT-large widths, the wrappers'
+argument checks, the serving engine and the Llama and ERNIE training
+steps on the card against the same on the CPU, and the training steps'
+launch counts. Marked ``gpu``; they skip where no CUDA device is
+present. Run on the card (the machine there has no JAX, so skip the
+conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
@@ -14,8 +16,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.inference import decoding as D
+from paddle_tpu_torch.models import ernie as E
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rms_norm as rn
 
@@ -373,3 +377,233 @@ def test_train_step_launch_counts(cuda):
     m = 2
     assert [c.launches for c in counters] == [
         m * (4 * n + 1), m * (2 * n + 1), m * 2 * n, m * n, m * n]
+
+
+# ---------------------------------------------------------------------------
+# ERNIE slice: LayerNorm forward/backward, segment ids, the MLM step
+# ---------------------------------------------------------------------------
+
+def _rms_close(got, want, rtol, rel_atol, msg):
+    """assert_close with an atol of ``rel_atol`` times the plain tensor's
+    rms, so that a sum over thousands of rows (dw, db) is held to its
+    own scale."""
+    wf = want.float()
+    atol = rel_atol * wf.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got.float(), wf, rtol=rtol, atol=atol, msg=msg)
+
+
+# y, dx: one rounding of an fp32 value (bf16: 8 mantissa bits); dw, db: a
+# sum over rows in another order (blocks, then the blocks) before its
+# one rounding, held to (rtol, share of the rms)
+_LN_TOL = {torch.bfloat16: dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
+                                sums=(1.6e-2, 1e-2)),
+           torch.float32: dict(y=(1e-5, 1e-5), dx=(1e-4, 1e-5),
+                               sums=(1e-5, 1e-4))}
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8192, 1024), (1, 37, 1024), (5, 1000),
+                                   (600, 256)])
+def test_layer_norm_kernels_match_plain(cuda, dtype, shape, eps):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    h = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen, device=cuda) + 0.5).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(dtype)
+    b = (0.1 * torch.randn(h, generator=gen, device=cuda)).to(dtype)
+    before = (ln.layer_norm.launches, ln.layer_norm_bwd.launches)
+    y = ln.layer_norm(x, w, b, eps)
+    dx, dw, db = ln.layer_norm_bwd(x, w, g, eps)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    tol = _LN_TOL[dtype]
+    _rms_close(y, ln.ln_plain(x, w, b, eps), *tol["y"], "y")
+    pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, eps)
+    _rms_close(dx, pdx, *tol["dx"], "dx")
+    _rms_close(dw, pdw, *tol["sums"], "dw")
+    _rms_close(db, pdb, *tol["sums"], "db")
+
+
+def test_layer_norm_autograd_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(3, 5, 512).astype(np.float32))
+    w = torch.from_numpy((1 + 0.1 * rng.randn(512)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.randn(512)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(3, 5, 512).astype(np.float32))
+    grads = []
+    for dev in (cuda, "cpu"):
+        ts = [t.to(dev).requires_grad_(True) for t in (x, w, b)]
+        ln.layer_norm(*ts, 1e-12).backward(g.to(dev))
+        grads.append([t.grad.cpu() for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_layer_norm_kernels_reject_bad_input(cuda):
+    x = torch.randn(8, 256, device=cuda)
+    w = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_kernel(x.t(), torch.ones(8, device=cuda),
+                             torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError):
+        ln.layer_norm_kernel(x, w, w.bfloat16())
+    with pytest.raises(ValueError):
+        ln.layer_norm_kernel(x, w, torch.zeros(128, device=cuda))
+    with pytest.raises(TypeError):
+        ln.layer_norm_bwd_kernel(x, w, x.bfloat16())
+
+
+def _packed_segments(rows, s, seed):
+    """(rows, s) int32 segment ids: sequences of random lengths packed
+    back to back, the last row ending in a long run of pads (-1)."""
+    rng = np.random.RandomState(seed)
+    seg = np.full((rows, s), -1, np.int32)
+    for r in range(rows):
+        fill = s // 3 if r == rows - 1 else s - rng.randint(0, s // 8)
+        at, i = 0, 0
+        while at < fill:
+            n = min(int(rng.randint(s // 8, s // 2)), fill - at)
+            seg[r, at:at + n] = i
+            at, i = at + n, i + 1
+    return seg
+
+
+# (bh, s, d, causal, kv_rep, rows of segment ids; 0 = one shared row)
+_SEG_CASES = [(8, 300, 64, False, 1, 2), (6, 256, 128, True, 1, 0),
+              (16, 512, 64, False, 1, 4), (8, 200, 64, True, 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", _SEG_CASES,
+                         ids=lambda c: "bh{}_s{}_d{}_c{}_rep{}_rows{}"
+                         .format(*c))
+def test_segmented_flash_kernels_match_plain(cuda, dtype, case):
+    bh, s, d, causal, rep, rows = case
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((bh, s, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((bh // rep, s, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((bh // rep, s, d), generator=gen, device=cuda).to(dtype)
+    do = torch.randn((bh, s, d), generator=gen, device=cuda).to(dtype)
+    seg = _packed_segments(max(rows, 1), s, seed=bh + s)
+    if rows == 0:
+        seg = seg[0]
+    seg = torch.from_numpy(seg).to(cuda)
+    sq, sk = torch.where(seg < 0, -1, seg), torch.where(seg < 0, -2, seg)
+    args = (d ** -0.5, causal, None, 0, rep, sq, sk)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    pout, plse = fa.flash_fwd_plain(q, k, v, *args)
+    _flash_close(out, pout, dtype, "out")
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    pads = fa._seg_rows(sq, bh).expand(bh, -1) < 0
+    assert bool((out[pads] == 0).all()) and bool((lse[pads] == -1e30).all())
+    grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        assert torch.isfinite(got.float()).all(), name
+        _flash_close(got, want, dtype, name)
+    assert bool((dq[pads] == 0).all())
+
+
+def test_segmented_flash_rejects_bad_segments(cuda):
+    q = torch.randn(4, 64, 64, device=cuda)
+    seg = torch.zeros(2, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="together"):
+        fa.flash_fwd_kernel(q, q, q, 0.1, False, seg_q=seg)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_kernel(q, q, q, 0.1, False, seg_q=seg.long(),
+                            seg_k=seg.long())
+    with pytest.raises(ValueError, match="match"):
+        half = seg[:, :32].contiguous()
+        fa.flash_fwd_kernel(q, q, q, 0.1, False, seg_q=half, seg_k=half)
+    with pytest.raises(ValueError, match="match"):
+        three = torch.zeros(3, 64, dtype=torch.int32, device=cuda)
+        fa.flash_fwd_kernel(q, q, q, 0.1, False, seg_q=three, seg_k=three)
+
+
+def test_flash_attention_varlen_on_card_matches_cpu(cuda):
+    """fp32 packed (total, H, D) attention with one shared row of
+    segment ids: the kernels on the card against the plain versions on
+    the CPU, forward and backward (FLASH_TOL's fp32 bounds)."""
+    rng = np.random.RandomState(11)
+    cu = torch.tensor([0, 100, 230, 300])
+    q, k, v, g = (torch.from_numpy(rng.randn(300, 4, 64).astype(np.float32))
+                  for _ in range(4))
+    runs = []
+    for dev in (cuda, "cpu"):
+        ts = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention_varlen(*ts, cu, cu, causal=True)
+        out.backward(g.to(dev))
+        runs.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *runs):
+        _flash_close(got, want, torch.float32, name)
+
+
+def _tiny_ernie_cfg():
+    # d 64 heads: the flash kernels take d 64 and 128
+    return E.ernie_tiny(vocab_size=256, hidden_size=128,
+                        num_attention_heads=2, intermediate_size=256,
+                        num_hidden_layers=2, max_position_embeddings=128)
+
+
+def _ernie_batch(cfg, b=3, s=100, seed=10):
+    seg = _packed_segments(b, s, seed)
+    rng = np.random.RandomState(seed)
+    ids = np.where(seg >= 0, rng.randint(1, cfg.vocab_size, (b, s)), 0)
+    labels = np.where((rng.rand(b, s) < 0.15) & (seg >= 0), ids, -100)
+    return [torch.from_numpy(a.astype(t)) for a, t in
+            ((ids, np.int64), (labels, np.int64), (seg, np.int32))]
+
+
+def test_ernie_train_step_on_card_matches_cpu(cuda):
+    """fp32, 3 packed MLM steps: the kernels on the card against the
+    plain versions on the CPU, from the same weights (as
+    test_train_step_on_card_matches_cpu)."""
+    cfg = _tiny_ernie_cfg()
+    batch = _ernie_batch(cfg)
+    runs = []
+    for dev in (cuda, "cpu"):
+        step, init = E.build_mlm_train_step(cfg, learning_rate=1e-3,
+                                            device="cpu")
+        model, _ = init(seed=2)
+        model.to(dev)
+        opt = E.AdamW(model.named_parameters(), learning_rate=1e-3)
+        losses = [float(step(model, opt, *(t.to(dev) for t in batch)))
+                  for _ in range(3)]
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()}))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
+    outside = total = 0
+    h = cfg.hidden_size
+    for name, want in runs[1][1].items():
+        diff = (runs[0][1][name] - want).abs()
+        assert diff.max().item() <= 2 * 1e-3 * 3, name
+        if name.endswith("self_attn.qkv_bias"):
+            # the key bias's true gradient is 0 (a softmax does not see a
+            # constant added to a row's scores): both devices compute
+            # rounding noise, which AdamW scales to steps of up to ±lr
+            diff, want = (torch.cat([t[:h], t[2 * h:]])
+                          for t in (diff, want))
+        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
+        total += diff.numel()
+    assert outside <= 1e-4 * total
+
+
+def test_ernie_train_step_launch_counts(cuda):
+    cfg = _tiny_ernie_cfg()
+    n = cfg.num_hidden_layers
+    step, init = E.build_mlm_train_step(cfg, dtype=torch.bfloat16,
+                                        device=cuda)
+    model, opt = init(seed=0)
+    counters = (ln.layer_norm, ln.layer_norm_bwd, fa.flash_fwd_kernel,
+                fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel)
+    for c in counters:
+        c.launches = 0
+    loss = step(model, opt, *(t.to(cuda) for t in _ernie_batch(cfg)))
+    assert torch.isfinite(loss)
+    # the embeddings' LN, two post-LNs per layer and the MLM transform's
+    # LN, forward and backward; one flash forward, dQ and dK/dV per layer
+    assert [c.launches for c in counters] == [2 * n + 2, 2 * n + 2, n, n, n]

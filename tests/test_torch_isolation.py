@@ -64,7 +64,9 @@ def test_importing_the_port_loads_no_jax_and_no_kernel_toolchain():
             "paddle_tpu_torch.ops.rms_norm, "
             "paddle_tpu_torch.ops.paged_attention, "
             "paddle_tpu_torch.ops.flash_attention, "
-            "paddle_tpu_torch.models.llama; "
+            "paddle_tpu_torch.ops.layer_norm_fused, "
+            "paddle_tpu_torch.models.llama, "
+            "paddle_tpu_torch.models.ernie; "
             "bad = [m for m in ('jax', 'paddle_tpu', 'triton') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
