@@ -34,7 +34,8 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    S 2000; then at the train step's shape (BH 256, S 2048, bf16) with
    times, bounds and ``F.scaled_dot_product_attention`` forward and
    backward as the yardsticks. Each of out, dq, dk and dv is held to a
-   tolerance scaled by its own rms (``FLASH_TOL``);
+   tolerance scaled by its own rms (``paddle_tpu_torch.testing``'s
+   ``FLASH_TOL``, which tests/test_torch_gpu.py applies too);
 8. tiny training parity: ``build_train_step`` with full remat for 5
    AdamW steps on the card (kernels) and on the CPU (plain versions),
    fp32, TF32 off, from the same weights — losses and weights agree;
@@ -147,12 +148,10 @@ def bound_ms(nbytes: float, ops: float, kind: str):
 
 
 def check_close(torch, name, got, want, rtol, atol):
-    if not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{name}: non-finite kernel output")
-    err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol, msg=lambda m: f"{name}: {m}")
-    return err
+    """``got`` finite and within (rtol, atol) of ``want``; returns max
+    |got - want| (``paddle_tpu_torch.testing.close``)."""
+    from paddle_tpu_torch import testing
+    return testing.close(got, want, rtol, atol, name)
 
 
 # ---------------------------------------------------------------------------
@@ -504,35 +503,13 @@ def rms_norm_bwd_phase(torch, rn):
 # phase 7: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# tolerances, per tensor (out, dq, dk, dv), as (rtol, atol / rms(plain),
-# most ||kernel - plain|| / ||plain||): each follows the tensor's own
-# scale, so a typical |out| of 0.02 on a long causal row is held as
-# tightly as a |dv| of 5. fp32 differs in summation order and the online
-# (kernel) vs one-pass (plain) softmax. In bf16 each output is one rounding
-# of an fp32 value (rtol: two bf16 steps); P (forward) and dS (backward)
-# are rounded to bf16 on both sides from fp32 values that differ in their
-# last bits, so now and then one of them rounds the other way and moves
-# its outputs by one bf16 step of that P·V or dS·K term, which on a
-# small output can be several of its own steps (atol: 2^-4 of the rms).
-# Those flips and the output rounding leave a relative L2 error of a few
-# 1e-3; a dropped or doubled key tile moves the long rows by ~10 % (L2
-# bound 2^-7). lse is fp32 on both sides.
-FLASH_TOL = {"bf16": (2 ** -6, 2 ** -4, 2 ** -7), "fp32": (1e-4, 1e-3, 1e-5)}
-LSE_TOL = (1e-5, 1e-5)
-
-
-def _flash_close(torch, name, got, want, kind):
-    """check_close with FLASH_TOL's rtol and an atol of FLASH_TOL's
-    share of the plain tensor's rms, then the relative L2 bound. Returns
-    (max |got - want|, relative L2 error)."""
-    rtol, rel_atol, l2_tol = FLASH_TOL[kind]
-    wf = want.float()
-    rms = wf.pow(2).mean().sqrt().item()
-    err = check_close(torch, name, got, want, rtol, rel_atol * rms)
-    l2 = ((got.float() - wf).norm() / wf.norm()).item()
-    if not l2 <= l2_tol:
-        raise AssertionError(f"{name}: relative L2 error {l2} > {l2_tol}")
-    return err, l2
+def _flash_tol(torch):
+    """``paddle_tpu_torch.testing.FLASH_TOL`` keyed "bf16" / "fp32" (the
+    tolerances of each flash tensor, scaled by its own rms: their
+    reasons are written there)."""
+    from paddle_tpu_torch.testing import FLASH_TOL
+    return {"bf16": FLASH_TOL[torch.bfloat16],
+            "fp32": FLASH_TOL[torch.float32]}
 
 
 def _flash_inputs(torch, bh, s, d, dt, rep=1, seed=SEED):
@@ -545,7 +522,7 @@ def _flash_inputs(torch, bh, s, d, dt, rep=1, seed=SEED):
     return q, k, v, do
 
 
-def _flash_check(torch, fa, name, kind, q, k, v, do, args):
+def _flash_check(torch, fa, name, q, k, v, do, args):
     """Each of the three kernels against the plain versions, ``args``
     being the kernels' arguments after q, k, v (scale, causal, kv_valid,
     causal_offset, kv_rep[, seg_q, seg_k]). Returns each kernel's largest
@@ -557,17 +534,17 @@ def _flash_check(torch, fa, name, kind, q, k, v, do, args):
     dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, *args)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
+    from paddle_tpu_torch.testing import LSE_TOL, flash_close
     pout, plse = fa.flash_fwd_plain(q, k, v, *args)
     errs, rel = {}, {}
-    errs["out"], rel["out"] = _flash_close(torch, f"{name} out", out, pout,
-                                           kind)
+    errs["out"], rel["out"] = flash_close(out, pout, q.dtype, f"{name} out")
     errs["lse"] = check_close(torch, f"{name} lse", lse, plse, *LSE_TOL)
     del pout, plse
     # the backward from the kernel's own out and lse, as autograd runs it
     grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
     for g_name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
-        errs[g_name], rel[g_name] = _flash_close(
-            torch, f"{name} {g_name}", got, want, kind)
+        errs[g_name], rel[g_name] = flash_close(got, want, q.dtype,
+                                                f"{name} {g_name}")
     return dict(max_abs_err=dict(fwd=max(errs["out"], errs["lse"]),
                                  dq=errs["dq"],
                                  dkv=max(errs["dk"], errs["dv"])),
@@ -586,9 +563,9 @@ def flash_phase(torch, fa):
         q, k, v, do = _flash_inputs(torch, bh, s, d, dt, rep)
         checks[name] = dict(
             bh=bh, s=s, kv_rep=rep, kv_valid=kv_valid,
-            **_flash_check(torch, fa, name, kind, q, k, v, do,
+            **_flash_check(torch, fa, name, q, k, v, do,
                            (1.0 / math.sqrt(d), True, kv_valid, 0, rep)),
-            tol_rtol_atol_over_rms_l2=FLASH_TOL[kind])
+            tol_rtol_atol_over_rms_l2=_flash_tol(torch)[kind])
         del q, k, v, do
         torch.cuda.empty_cache()
 
@@ -596,7 +573,7 @@ def flash_phase(torch, fa):
     bh, s = 256, 2048
     q, k, v, do = _flash_inputs(torch, bh, s, d, torch.bfloat16)
     sc = 1.0 / math.sqrt(d)
-    step_check = _flash_check(torch, fa, "step_bf16", "bf16", q, k, v, do,
+    step_check = _flash_check(torch, fa, "step_bf16", q, k, v, do,
                               (sc, True, None, 0, 1))
     torch.cuda.empty_cache()
     out, lse = fa.flash_fwd_kernel(q, k, v, sc, True)
@@ -690,29 +667,15 @@ def train_parity_phase(torch, L):
         runs[dev] = (losses, {k: v.cpu() for k, v in params.items()})
     # tolerances: fp32 on both sides, sums in other orders (cuBLAS vs the
     # CPU, online vs one-pass softmax), so the losses agree to fp32
-    # rounding. AdamW divides each gradient element by its own running
-    # RMS: where an element sits within the two devices' rounding noise,
-    # its update direction is noise, and a weight may differ by up to
-    # 2·lr a step. So: every weight within 2·lr·steps, and all but a
-    # 1e-4 share of the elements within (rtol 1e-4, atol 1e-5)
+    # rounding; the weights as paddle_tpu_torch.testing.
+    # trained_weights_close says
+    from paddle_tpu_torch.testing import trained_weights_close
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
                                atol=1e-6)
-    err, outside, total = 0.0, 0, 0
-    for k, want in runs["cpu"][1].items():
-        got = runs["cuda"][1][k]
-        diff = (got - want).abs()
-        err = max(err, diff.max().item())
-        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
-        total += want.numel()
-        if diff.max().item() > 2 * lr * steps:
-            raise AssertionError(f"train parity {k}: max |diff| "
-                                 f"{diff.max().item()} > 2·lr·steps")
-    if outside > 1e-4 * total:
-        raise AssertionError(f"train parity: {outside} of {total} weights "
-                             "outside (rtol 1e-4, atol 1e-5)")
     return dict(steps=steps, losses_card=runs["cuda"][0],
-                losses_cpu=runs["cpu"][0], max_abs_param_err=err,
-                weights_outside_tight_tol=outside, weights=total)
+                losses_cpu=runs["cpu"][0],
+                **trained_weights_close(runs["cuda"][1], runs["cpu"][1], lr,
+                                        steps, msg="train parity"))
 
 
 # ---------------------------------------------------------------------------
@@ -858,20 +821,6 @@ def _bert_large(E):
 # phase 10: the LayerNorm kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# tolerances as (rtol, atol as a share of the plain tensor's rms): y and dx
-# are one rounding of an fp32 value (bf16: 8 mantissa bits); dw and db sum
-# 8192 rows in another order (blocks of 16, then the blocks) before their
-# one rounding
-LN_TOL = {"bf16": dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
-                       sums=(1.6e-2, 1e-2)),
-          "fp32": dict(y=(1e-5, 1e-5), dx=(1e-4, 1e-5), sums=(1e-5, 1e-4))}
-
-
-def _rms_close(torch, name, got, want, rtol, rel_atol):
-    rms = want.float().pow(2).mean().sqrt().item()
-    return check_close(torch, name, got, want, rtol, rel_atol * rms)
-
-
 def _l2_cold(tensors, min_bytes=200e6):
     """Copies of ``tensors`` (a tuple), enough that one pass over all of
     them moves ``min_bytes``. A timed function that takes the next copy
@@ -886,7 +835,9 @@ def layer_norm_phase(torch, ln):
     """layer_norm and its backward at the BERT-large step's (rows, h) =
     (16·512, 1024), eps 1e-12, with F.layer_norm's forward and backward
     as the yardsticks. Every timed call reads fresh copies of x (and g),
-    so the 16.8 MB (bf16) rows do not sit in L2 between calls."""
+    so the 16.8 MB (bf16) rows do not sit in L2 between calls. Each
+    output is held to ``paddle_tpu_torch.testing.LN_TOL``."""
+    from paddle_tpu_torch.testing import LN_TOL, rms_close
     rows, h, eps = BERT_B * BERT_S, 1024, 1e-12
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     fwd, bwd = {}, {}
@@ -899,17 +850,14 @@ def layer_norm_phase(torch, ln):
         y = ln.layer_norm_kernel(x, w, b, eps)
         dx, dw, db = ln.layer_norm_bwd_kernel(x, w, g, eps)
         torch.cuda.synchronize()
-        tol = LN_TOL[kind]
-        y_err = _rms_close(torch, f"layer_norm {kind}", y,
-                           ln.ln_plain(x, w, b, eps), *tol["y"])
+        tol = LN_TOL[dt]
+        y_err = rms_close(y, ln.ln_plain(x, w, b, eps), *tol["y"],
+                          f"layer_norm {kind}")
         pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, eps)
         bwd_err = max(
-            _rms_close(torch, f"layer_norm_bwd dx {kind}", dx, pdx,
-                       *tol["dx"]),
-            _rms_close(torch, f"layer_norm_bwd dw {kind}", dw, pdw,
-                       *tol["sums"]),
-            _rms_close(torch, f"layer_norm_bwd db {kind}", db, pdb,
-                       *tol["sums"]))
+            rms_close(dx, pdx, *tol["dx"], f"layer_norm_bwd dx {kind}"),
+            rms_close(dw, pdw, *tol["sums"], f"layer_norm_bwd dw {kind}"),
+            rms_close(db, pdb, *tol["sums"], f"layer_norm_bwd db {kind}"))
         isz = x.element_size()
         copies = _l2_cold((x, g))
         nxt = itertools.cycle(copies).__next__
@@ -975,8 +923,8 @@ def seg_flash_phase(torch, E, fa):
     checks = {}
     for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         q, k, v, do = _flash_inputs(torch, bh, s, d, dt)
-        checks[kind] = _flash_check(torch, fa, f"segmented {kind}", kind, q,
-                                    k, v, do, args)
+        checks[kind] = _flash_check(torch, fa, f"segmented {kind}", q, k,
+                                    v, do, args)
         out, lse = fa.flash_fwd_kernel(q, k, v, *args)
         pads = fa._seg_rows(seg_q, bh) < 0
         if not (bool((out[pads] == 0).all())
@@ -1041,7 +989,7 @@ def seg_flash_phase(torch, E, fa):
     del out32, lse32, delta32
     torch.cuda.empty_cache()
     return dict(checks=checks, step_shape=rep,
-                tol_rtol_atol_over_rms_l2=FLASH_TOL)
+                tol_rtol_atol_over_rms_l2=_flash_tol(torch))
 
 
 # ---------------------------------------------------------------------------
@@ -1069,36 +1017,16 @@ def ernie_parity_phase(torch, E):
                   for _ in range(steps)]
         runs[dev] = (losses, {n: p.detach().cpu()
                               for n, p in model.named_parameters()})
-    # tolerances as phase 8's: fp32 sums in other orders; weights within
-    # 2·lr·steps, all but a 1e-4 share within (rtol 1e-4, atol 1e-5). The
-    # key bias (qkv_bias[h:2h]) is held to the first bound only: its true
-    # gradient is 0 (a softmax does not see a constant added to a row's
-    # scores), so both devices compute rounding noise, which AdamW scales
-    # to steps of up to ±lr
+    # tolerances as phase 8's, the key bias (qkv_bias[h:2h], rounding
+    # noise on both devices) held to 2·lr·steps only
+    from paddle_tpu_torch.testing import trained_weights_close
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
                                atol=1e-6)
-    err, outside, total = 0.0, 0, 0
-    h = cfg.hidden_size
-    for name, want in runs["cpu"][1].items():
-        diff = (runs["cuda"][1][name] - want).abs()
-        if name.endswith("self_attn.qkv_bias"):
-            if diff[h:2 * h].max().item() > 2 * lr * steps:
-                raise AssertionError(f"ernie parity {name}: key bias "
-                                     "beyond 2·lr·steps")
-            diff, want = (torch.cat([t[:h], t[2 * h:]])
-                          for t in (diff, want))
-        err = max(err, diff.max().item())
-        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
-        total += want.numel()
-        if diff.max().item() > 2 * lr * steps:
-            raise AssertionError(f"ernie parity {name}: max |diff| "
-                                 f"{diff.max().item()} > 2·lr·steps")
-    if outside > 1e-4 * total:
-        raise AssertionError(f"ernie parity: {outside} of {total} weights "
-                             "outside (rtol 1e-4, atol 1e-5)")
     return dict(steps=steps, losses_card=runs["cuda"][0],
-                losses_cpu=runs["cpu"][0], max_abs_param_err=err,
-                weights_outside_tight_tol=outside, weights=total)
+                losses_cpu=runs["cpu"][0],
+                **trained_weights_close(runs["cuda"][1], runs["cpu"][1], lr,
+                                        steps, hidden=cfg.hidden_size,
+                                        msg="ernie parity"))
 
 
 # ---------------------------------------------------------------------------

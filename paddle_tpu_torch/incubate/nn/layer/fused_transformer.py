@@ -12,6 +12,9 @@ all zeros (and in pre-LN mode the attention block's unused
 decoupled weight decay moves a parameter whose gradient is zero, and
 skips one whose gradient is ``None``.
 
+Weights are initialised when a layer is built, on ``device`` (``None``
+means the card), as ``nn/common_layers.py`` says.
+
 ``FusedMultiTransformer`` and its int8 variant belong to a later slice.
 """
 
@@ -22,6 +25,7 @@ from torch import nn
 
 from ....nn import initializer as I
 from ....ops import fused_transformer_block as ftb
+from ....ops._common import resolve_device
 
 
 class _ZeroGradInputs(torch.autograd.Function):
@@ -56,6 +60,7 @@ class FusedMultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.normalize_before = normalize_before
         self.epsilon = epsilon
+        device = resolve_device(device)
         H = embed_dim
         for name, shape in (("pre_ln_scale", (H,)), ("pre_ln_bias", (H,)),
                             ("qkv_weight", (H, 3 * H)),
@@ -64,8 +69,9 @@ class FusedMultiHeadAttention(nn.Module):
                             ("linear_bias", (H,)), ("ln_scale", (H,)),
                             ("ln_bias", (H,))):
             setattr(self, name, _param(shape, dtype, device))
+        self.reset_parameters()
 
-    def reset_parameters(self, gen):
+    def reset_parameters(self, gen=None):
         for name, p in self.named_parameters(recurse=False):
             if name.endswith("scale"):
                 I.constant_(p, 1.0)
@@ -107,14 +113,16 @@ class FusedFeedForward(nn.Module):
         self.activation = activation
         self.normalize_before = normalize_before
         self.epsilon = epsilon
+        device = resolve_device(device)
         for name, shape in (("ln_scale", (d_model,)), ("ln_bias", (d_model,)),
                             ("w1", (d_model, dim_feedforward)),
                             ("b1", (dim_feedforward,)),
                             ("w2", (dim_feedforward, d_model)),
                             ("b2", (d_model,))):
             setattr(self, name, _param(shape, dtype, device))
+        self.reset_parameters()
 
-    def reset_parameters(self, gen):
+    def reset_parameters(self, gen=None):
         I.constant_(self.ln_scale, 1.0)
         for p in (self.ln_bias, self.b1, self.b2):
             I.constant_(p, 0.0)

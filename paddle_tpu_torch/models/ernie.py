@@ -7,7 +7,11 @@ sequence-classification heads.
 Parameter names are the JAX model's ``named_parameters()`` names, and
 weights keep its ``(in, out)`` layout, so weights made by the JAX package
 carry across as a copy by name (:func:`params_from_numpy`). :func:`init`
-makes seeded weights with the reference initialisers' distributions.
+redraws seeded weights with the reference initialisers' distributions.
+As in the reference, every layer also initialises its weights when it
+is built (from torch's default generator), and the models are built on
+``device``: ``None`` means the card and raises without one; pass
+``device="cpu"`` for the plain versions.
 
 Two modes, as in the reference: padded batches with an additive mask
 built from the pad token (a plain einsum + softmax attention), and
@@ -80,8 +84,9 @@ class ErnieEmbeddings(nn.Module):
         self.token_type_embeddings = table(config.type_vocab_size)
         self.layer_norm = LayerNorm(h, epsilon=config.layer_norm_epsilon,
                                     dtype=dtype, device=device)
+        self.reset_parameters()
 
-    def reset_parameters(self, gen):
+    def reset_parameters(self, gen=None):
         for p in (self.word_embeddings, self.position_embeddings,
                   self.token_type_embeddings):
             I.normal_(p, gen, 0.0, 0.02)
@@ -152,6 +157,7 @@ class ErnieModel(nn.Module):
                  device=None):
         super().__init__()
         self.config = config
+        device = resolve_device(device)
         self.embeddings = ErnieEmbeddings(config, dtype, device)
         self.encoder = nn.ModuleList(
             [ErnieEncoderLayer(config, dtype, device)
@@ -185,6 +191,7 @@ class ErnieForSequenceClassification(nn.Module):
     def __init__(self, config: ErnieConfig, num_classes: int = 2,
                  dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.ernie = ErnieModel(config, dtype, device)
         self.classifier = Linear(config.hidden_size, num_classes,
                                  dtype=dtype, device=device)
@@ -202,6 +209,7 @@ class ErnieForMaskedLM(nn.Module):
                  device=None):
         super().__init__()
         self.config = config
+        device = resolve_device(device)
         self.ernie = ErnieModel(config, dtype, device)
         self.transform = Linear(config.hidden_size, config.hidden_size,
                                 dtype=dtype, device=device)
@@ -210,8 +218,9 @@ class ErnieForMaskedLM(nn.Module):
                                       dtype=dtype, device=device)
         self.bias = nn.Parameter(torch.empty(config.vocab_size, dtype=dtype,
                                              device=device))
+        self.reset_parameters()
 
-    def reset_parameters(self, gen):
+    def reset_parameters(self, gen=None):
         I.constant_(self.bias, 0.0)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
@@ -290,8 +299,8 @@ def build_mlm_train_step(config: ErnieConfig, learning_rate: float = 1e-4,
     lr = float(learning_rate)
 
     def init_fn(seed: int = 0):
-        dev = resolve_device(device)
-        model = init(ErnieForMaskedLM(config, dtype=dtype, device=dev), seed)
+        model = init(ErnieForMaskedLM(config, dtype=dtype, device=device),
+                     seed)
         opt = AdamW(model.named_parameters(), learning_rate=lr,
                     weight_decay=weight_decay,
                     multi_precision=dtype in (torch.bfloat16, torch.float16))

@@ -32,6 +32,7 @@ from ..ops import paged_attention as pa
 from ..ops import rope as rope_ops
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.rms_norm import rms_norm
+from ..optimizer.adamw import adamw_update_
 
 #: per-layer tensors in the stacked layout (leading L axis)
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "ln1", "ln2")
@@ -315,20 +316,6 @@ def init_opt_state(params) -> Dict[str, Any]:
 ADAM_B1, ADAM_B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
 
 
-def _adamw_(p, g, m, v, bc1, bc2, lr: float) -> None:
-    """One AdamW update in place, written out as the reference's
-    ``upd`` (l.862-870): fp32 math, the bias corrections ``bc1``/``bc2``
-    (``1 − b**t``) given as fp32 tensors, the result cast to ``p``'s
-    dtype. ``torch.optim.AdamW`` rounds its decoupled update differently,
-    so it is not used."""
-    g32 = g.float()
-    m.mul_(ADAM_B1).add_((1 - ADAM_B1) * g32)
-    v.mul_(ADAM_B2).add_((1 - ADAM_B2) * g32 * g32)
-    p32 = p.float()
-    upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS) + WEIGHT_DECAY * p32
-    p.copy_(p32 - lr * upd)
-
-
 def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
                      remat: bool = True, remat_policy: str = "full",
                      k_steps: int = 1, device=None, *, mesh=None,
@@ -396,15 +383,20 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
                                              device=tf.device), tf)
             bc2 = 1 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32,
                                              device=tf.device), tf)
+            # the reference's ``upd`` (l.862-870); stacked leaves one layer
+            # at a time, so that no pass's fp32 temporaries hold a whole
+            # stack
+            lists = ([], [], [], [])
             for k, p in params.items():
-                g = leaves[k].grad
-                m, v = opt_state["m"][k], opt_state["v"][k]
-                # one layer at a time: the fp32 temporaries stay one
-                # layer's size, not a whole stack's
+                ts = (p, leaves[k].grad, opt_state["m"][k], opt_state["v"][k])
                 parts = range(p.shape[0]) if k in LAYER_KEYS else (None,)
                 for l in parts:
                     sl = slice(None) if l is None else l
-                    _adamw_(p[sl], g[sl], m[sl], v[sl], bc1, bc2, lr)
+                    for dst, x in zip(lists, ts):
+                        dst.append(x[sl])
+            adamw_update_(*lists, lr=lr, beta1=ADAM_B1, beta2=ADAM_B2,
+                          eps=ADAM_EPS, weight_decay=WEIGHT_DECAY, bc1=bc1,
+                          bc2=bc2)
             opt_state["step"] = t
         return total / n_micro, params, opt_state
 

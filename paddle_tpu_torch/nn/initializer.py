@@ -1,7 +1,8 @@
 """The initialisers of ``paddle_tpu/nn/initializer.py`` that the ported
-layers use, filling a tensor in place from a ``torch.Generator``: the
-same distributions as the reference (drawn in fp32, then cast), not the
-same bits. Tests carry the JAX package's weights across instead."""
+layers use, filling a tensor in place from a ``torch.Generator`` (torch's
+default one for the tensor's device when ``gen`` is ``None``): the same
+distributions as the reference (drawn in fp32, then cast), not the same
+bits. Tests carry the JAX package's weights across instead."""
 
 from __future__ import annotations
 
@@ -15,13 +16,13 @@ def constant_(t, value):
         t.fill_(value)
 
 
-def normal_(t, gen, mean=0.0, std=1.0):
+def normal_(t, gen=None, mean=0.0, std=1.0):
     with torch.no_grad():
         t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
                             dtype=torch.float32) * std + mean)
 
 
-def xavier_uniform_(t, gen):
+def xavier_uniform_(t, gen=None):
     """Uniform in ±sqrt(6 / (fan_in + fan_out)), the fans of a 2-D
     ``(in, out)`` weight being its two sizes (``_fans``)."""
     fan_in, fan_out = t.shape

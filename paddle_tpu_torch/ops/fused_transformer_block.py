@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flash_attention as fa
-from .layer_norm_fused import layer_norm
+from .layer_norm_fused import _stats, layer_norm
 
 #: ``jax.nn.gelu`` defaults to the tanh approximation; the reference's FFN
 #: uses that default
@@ -34,9 +34,8 @@ def layer_norm_array(x, scale=None, bias=None, eps=1e-5):
     if scale is not None and bias is not None:
         return layer_norm(x, scale, bias, eps)
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
+    mu, inv = _stats(xf, eps)
+    y = (xf - mu) * inv
     if scale is not None:
         y = y * scale.float()
     if bias is not None:

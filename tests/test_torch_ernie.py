@@ -17,6 +17,7 @@ from paddle_tpu_torch.models import ernie as TE
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import layer_norm_fused as tln
 from paddle_tpu_torch.optimizer.adamw import AdamW
+from paddle_tpu_torch.testing import key_bias_split
 
 # fp32, two layers: products, norms and softmaxes summed in other orders
 # by XLA and PyTorch (test_torch_train's tolerances)
@@ -151,18 +152,14 @@ def test_five_adamw_steps_match_jax_eager():
         np.testing.assert_allclose(float(got), float(want), err_msg=str(i),
                                    **LOSS)
     jparams = dict(jnet.named_parameters())
-    h = CFG_H
     for name, p in net.named_parameters():
-        got, want = p.detach().numpy(), _np_value(jparams[name])
-        if name.endswith("self_attn.qkv_bias"):
-            # the key bias's true gradient is 0 (a softmax does not see a
-            # constant added to a row's scores), so both sides compute
-            # rounding noise, which AdamW scales to steps of up to ±lr
-            np.testing.assert_allclose(got[h:2 * h], want[h:2 * h],
-                                       atol=2 * 1e-3 * 5, err_msg=name)
-            got, want = np.delete(got, np.s_[h:2 * h]), np.delete(
-                want, np.s_[h:2 * h])
-        np.testing.assert_allclose(got, want, err_msg=name, **PARAMS)
+        # the key bias is rounding noise on both sides: 2·lr·steps only
+        gk, got = key_bias_split(name, p.detach(), CFG_H)
+        wk, want = key_bias_split(name, _t(_np_value(jparams[name])), CFG_H)
+        if gk is not None:
+            torch.testing.assert_close(gk, wk, rtol=0, atol=2 * 1e-3 * 5)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), err_msg=name,
+                                   **PARAMS)
     params = dict(net.named_parameters())
     for name in ("ernie.pooler.dense.weight", "ernie.pooler.dense.bias"):
         assert torch.equal(params[name].detach(), start[name]), name
@@ -203,6 +200,42 @@ def test_adamw_master_weights_match_jax_multi_precision():
         np.testing.assert_array_equal(
             t.detach().float().numpy(),
             np.asarray(p._value.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16_master", "bf16"])
+def test_adamw_update_gives_the_same_bits_in_every_grouping(kind,
+                                                           monkeypatch):
+    """``adamw_update_`` runs its one arithmetic as multi-tensor passes
+    over runs of tensors and as one-tensor passes over the largest:
+    every grouping gives the same bits."""
+    from paddle_tpu_torch.optimizer import adamw as A
+
+    shapes = [(7, 5), (30,), (3, 4, 5), (2,)]
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+
+    def run(chunk, big):
+        monkeypatch.setattr(A, "_CHUNK_ELEMS", chunk)
+        monkeypatch.setattr(A, "_BIG", big)
+        rng = np.random.RandomState(9)
+
+        def draw():
+            return [_t(rng.randn(*s).astype(np.float32)).to(dt)
+                    for s in shapes]
+
+        ps = draw()
+        ms, vs = ([torch.zeros(s) for s in shapes] for _ in range(2))
+        masters = [p.float() for p in ps] if kind == "bf16_master" else None
+        for t in (1, 2, 3):
+            A.adamw_update_(ps, draw(), ms, vs, lr=1e-2, beta1=0.9,
+                            beta2=0.999, eps=1e-8, weight_decay=0.01,
+                            bc1=1 - 0.9 ** t, bc2=1 - 0.999 ** t,
+                            masters=masters)
+        return ps + ms + vs + (masters or [])
+
+    want = run(1 << 26, 1 << 24)                 # one multi-tensor run
+    for chunk, big in ((40, 1 << 24), (1 << 26, 30), (1 << 26, 1)):
+        for got, w in zip(run(chunk, big), want):
+            assert torch.equal(got, w), (chunk, big)
 
 
 def test_packed_matches_per_sequence():
@@ -274,6 +307,54 @@ def test_init_is_seeded_with_the_reference_distributions():
     assert w1.abs().max().item() <= limit and w1.abs().max() > 0.9 * limit
 
 
+_PUBLIC_LAYERS = {
+    "mlm": lambda d: TE.ErnieForMaskedLM(TE.ernie_tiny(), device=d),
+    "model": lambda d: TE.ErnieModel(TE.ernie_tiny(), device=d),
+    "classification": lambda d: TE.ErnieForSequenceClassification(
+        TE.ernie_tiny(), device=d),
+    "attention": lambda d: _fused().FusedMultiHeadAttention(32, 4, device=d),
+    "ffn": lambda d: _fused().FusedFeedForward(32, 64, device=d),
+    "linear": lambda d: _nn().Linear(32, 16, device=d),
+    "layer_norm": lambda d: _nn().LayerNorm(32, device=d),
+}
+
+
+def _fused():
+    from paddle_tpu_torch.incubate.nn.layer import fused_transformer
+    return fused_transformer
+
+
+def _nn():
+    from paddle_tpu_torch.nn import common_layers
+    return common_layers
+
+
+@pytest.mark.parametrize("layer", sorted(_PUBLIC_LAYERS))
+def test_layers_default_to_the_card_and_initialise_when_built(layer,
+                                                             monkeypatch):
+    """``device=None`` means the card (and raises without one); built on
+    the CPU, every weight is drawn at construction, from torch's default
+    generator, as the reference draws from its global seed."""
+    make = _PUBLIC_LAYERS[layer]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(None)
+    torch.manual_seed(21)
+    a = dict(make("cpu").named_parameters())
+    torch.manual_seed(21)
+    b = dict(make("cpu").named_parameters())
+    for name, p in a.items():
+        assert p.device.type == "cpu" and torch.isfinite(p).all(), name
+        assert torch.equal(p, b[name]), name
+        if p.dim() == 2:                 # embeddings, Xavier weights
+            assert p.std() > 0, name
+        elif name.endswith(("scale", "weight")):     # LayerNorm scales
+            assert torch.equal(p, torch.ones_like(p)), name
+        else:                            # biases
+            assert not p.any(), name
+
+
 def test_cpu_training_step_launches_no_kernel():
     cfg = TE.ernie_tiny(**CFG)
     step, init = TE.build_mlm_train_step(cfg, device="cpu")
@@ -300,8 +381,10 @@ def test_fused_layers_and_grads_match_jax(pre):
     h, nh, f = 32, 4, 64
     jattn = JF.FusedMultiHeadAttention(h, nh, normalize_before=pre)
     jffn = JF.FusedFeedForward(h, f, activation="gelu", normalize_before=pre)
-    tattn = TF_.FusedMultiHeadAttention(h, nh, normalize_before=pre)
-    tffn = TF_.FusedFeedForward(h, f, activation="gelu", normalize_before=pre)
+    tattn = TF_.FusedMultiHeadAttention(h, nh, normalize_before=pre,
+                                        device="cpu")
+    tffn = TF_.FusedFeedForward(h, f, activation="gelu", normalize_before=pre,
+                                device="cpu")
     for jm, tm in ((jattn, tattn), (jffn, tffn)):
         TE.params_from_numpy(tm, {n: _np_value(p)
                                   for n, p in jm.named_parameters()})

@@ -22,6 +22,8 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rms_norm as rn
+from paddle_tpu_torch.testing import (LN_TOL, LSE_TOL, flash_close, rms_close,
+                                      trained_weights_close)
 
 pytestmark = pytest.mark.gpu
 
@@ -231,24 +233,7 @@ def test_rms_norm_bwd_kernel_rejects_bad_input(cuda):
         rn.rms_norm_bwd(x, w, torch.randn(256, 8, device=cuda).t())
 
 
-# (rtol, atol as a share of the plain tensor's rms, most relative L2
-# error), per tensor, so that small outputs are held as tightly as large
-# gradients (chip_smoke.py's FLASH_TOL). fp32: summation order and the
-# online vs one-pass softmax. bf16: each output is one bf16 rounding (two
-# steps of rtol), and P or dS, rounded to bf16 on both sides, now and then
-# rounds the other way and moves a small output by several of its steps
-_FLASH_TOL = {torch.bfloat16: (2 ** -6, 2 ** -4, 2 ** -7),
-              torch.float32: (1e-4, 1e-3, 1e-5)}
-
-
-def _flash_close(got, want, dtype, msg):
-    rtol, rel_atol, l2_tol = _FLASH_TOL[dtype]
-    wf = want.float()
-    atol = rel_atol * wf.pow(2).mean().sqrt().item()
-    torch.testing.assert_close(got.float(), wf, rtol=rtol, atol=atol,
-                               msg=msg)
-    assert ((got.float() - wf).norm() / wf.norm()).item() <= l2_tol, msg
-
+# flash tensors are held per tensor to paddle_tpu_torch.testing.FLASH_TOL
 # (bh, sq, sk, d, causal, kv_rep, kv_valid)
 _FLASH_CASES = [(8, 300, 300, 128, True, 1, None),
                 (8, 256, 256, 128, True, 4, None),
@@ -280,12 +265,12 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
             fa.flash_bwd_dkv_kernel.launches] == [c + 1 for c in counts]
     pout, plse = fa.flash_fwd_plain(q, k, v, *args)
     grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
-    _flash_close(out, pout, dtype, "out")
-    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    flash_close(out, pout, dtype, "out")
+    torch.testing.assert_close(lse, plse, rtol=LSE_TOL[0], atol=LSE_TOL[1])
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         assert got.dtype == dtype and got.shape == want.shape, name
         assert torch.isfinite(got.float()).all(), name
-        _flash_close(got, want, dtype, name)
+        flash_close(got, want, dtype, name)
 
 
 def test_flash_row_with_no_key_is_zero(cuda):
@@ -344,19 +329,9 @@ def test_train_step_on_card_matches_cpu(cuda):
                               torch.from_numpy(labels[i]).to(dev))
             losses.append(float(loss))
         runs.append((losses, {k: v.cpu() for k, v in p.items()}))
-    # losses: fp32 sums in other orders. Weights: AdamW divides each
-    # gradient element by its own running RMS, so an element within the
-    # two devices' rounding noise takes a noisy direction and its weight
-    # may differ by up to 2·lr a step; all but a 1e-4 share of the
-    # elements agree to (rtol 1e-4, atol 1e-5)
+    # losses: fp32 sums in other orders
     np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
-    outside = total = 0
-    for k in params:
-        diff = (runs[0][1][k] - runs[1][1][k]).abs()
-        assert diff.max().item() <= 2 * 1e-3 * 3, k
-        outside += int((diff > 1e-5 + 1e-4 * runs[1][1][k].abs()).sum())
-        total += diff.numel()
-    assert outside <= 1e-4 * total
+    trained_weights_close(runs[0][1], runs[1][1], lr=1e-3, steps=3)
 
 
 def test_train_step_launch_counts(cuda):
@@ -383,24 +358,7 @@ def test_train_step_launch_counts(cuda):
 # ERNIE slice: LayerNorm forward/backward, segment ids, the MLM step
 # ---------------------------------------------------------------------------
 
-def _rms_close(got, want, rtol, rel_atol, msg):
-    """assert_close with an atol of ``rel_atol`` times the plain tensor's
-    rms, so that a sum over thousands of rows (dw, db) is held to its
-    own scale."""
-    wf = want.float()
-    atol = rel_atol * wf.pow(2).mean().sqrt().item()
-    torch.testing.assert_close(got.float(), wf, rtol=rtol, atol=atol, msg=msg)
-
-
-# y, dx: one rounding of an fp32 value (bf16: 8 mantissa bits); dw, db: a
-# sum over rows in another order (blocks, then the blocks) before its
-# one rounding, held to (rtol, share of the rms)
-_LN_TOL = {torch.bfloat16: dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
-                                sums=(1.6e-2, 1e-2)),
-           torch.float32: dict(y=(1e-5, 1e-5), dx=(1e-4, 1e-5),
-                               sums=(1e-5, 1e-4))}
-
-
+# LayerNorm outputs are held to paddle_tpu_torch.testing.LN_TOL
 @pytest.mark.parametrize("eps", [1e-12, 1e-5])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(8192, 1024), (1, 37, 1024), (5, 1000),
@@ -419,12 +377,12 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, shape, eps):
     assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
-    tol = _LN_TOL[dtype]
-    _rms_close(y, ln.ln_plain(x, w, b, eps), *tol["y"], "y")
+    tol = LN_TOL[dtype]
+    rms_close(y, ln.ln_plain(x, w, b, eps), *tol["y"], "y")
     pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, eps)
-    _rms_close(dx, pdx, *tol["dx"], "dx")
-    _rms_close(dw, pdw, *tol["sums"], "dw")
-    _rms_close(db, pdb, *tol["sums"], "db")
+    rms_close(dx, pdx, *tol["dx"], "dx")
+    rms_close(dw, pdw, *tol["sums"], "dw")
+    rms_close(db, pdb, *tol["sums"], "db")
 
 
 def test_layer_norm_autograd_on_card_matches_cpu(cuda):
@@ -497,14 +455,14 @@ def test_segmented_flash_kernels_match_plain(cuda, dtype, case):
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
     torch.cuda.synchronize()
     pout, plse = fa.flash_fwd_plain(q, k, v, *args)
-    _flash_close(out, pout, dtype, "out")
-    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    flash_close(out, pout, dtype, "out")
+    torch.testing.assert_close(lse, plse, rtol=LSE_TOL[0], atol=LSE_TOL[1])
     pads = fa._seg_rows(sq, bh).expand(bh, -1) < 0
     assert bool((out[pads] == 0).all()) and bool((lse[pads] == -1e30).all())
     grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         assert torch.isfinite(got.float()).all(), name
-        _flash_close(got, want, dtype, name)
+        flash_close(got, want, dtype, name)
     assert bool((dq[pads] == 0).all())
 
 
@@ -539,7 +497,7 @@ def test_flash_attention_varlen_on_card_matches_cpu(cuda):
         out.backward(g.to(dev))
         runs.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
     for name, got, want in zip(("out", "dq", "dk", "dv"), *runs):
-        _flash_close(got, want, torch.float32, name)
+        flash_close(got, want, torch.float32, name)
 
 
 def _tiny_ernie_cfg():
@@ -576,20 +534,8 @@ def test_ernie_train_step_on_card_matches_cpu(cuda):
         runs.append((losses, {n: p.detach().cpu()
                               for n, p in model.named_parameters()}))
     np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
-    outside = total = 0
-    h = cfg.hidden_size
-    for name, want in runs[1][1].items():
-        diff = (runs[0][1][name] - want).abs()
-        assert diff.max().item() <= 2 * 1e-3 * 3, name
-        if name.endswith("self_attn.qkv_bias"):
-            # the key bias's true gradient is 0 (a softmax does not see a
-            # constant added to a row's scores): both devices compute
-            # rounding noise, which AdamW scales to steps of up to ±lr
-            diff, want = (torch.cat([t[:h], t[2 * h:]])
-                          for t in (diff, want))
-        outside += int((diff > 1e-5 + 1e-4 * want.abs()).sum())
-        total += diff.numel()
-    assert outside <= 1e-4 * total
+    trained_weights_close(runs[0][1], runs[1][1], lr=1e-3, steps=3,
+                          hidden=cfg.hidden_size)
 
 
 def test_ernie_train_step_launch_counts(cuda):
