@@ -9,53 +9,70 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 
 1. card check: CUDA must be available; prints the card's name and
    power limit (nvidia-smi);
-2. build: compiles the CUDA kernels (ragged paged attention, flash
-   attention; one nvcc per source, started together) and the Triton
-   RMSNorm and LayerNorm kernels from the sources in the checkout,
-   printing nvcc's register/spill report;
+2. build: compiles the CUDA kernels (ragged paged attention, paged
+   decode attention, flash attention; one nvcc per source, started
+   together) and the Triton RMSNorm and LayerNorm kernels from the
+   sources in the checkout, printing nvcc's register/spill report;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the Llama-2-7B serving step below (the RMSNorm forward at
    the training step's (8, 2048, 4096) too), in bf16 and fp32, with
    the kernel's time, the plain version's time, the least time the card
    could take (bound) and a one-call library yardstick where one exists;
-4. tiny end-to-end parity: the serving engine on the card (kernels)
+4. the paged decode kernel against its plain version at the 7B legacy
+   decode step's shapes (8 rows, 32 heads, d 128, page 16, 64-page
+   tables; lengths 0 to 1000), KV heads 32 and 8, bf16 and fp32, and a
+   d 64 case, with its times, bound and the ragged kernel's time on the
+   same batch;
+5. tiny end-to-end parity: the serving engine on the card (kernels)
    against the same engine on the CPU (plain versions), fp32, TF32 off —
    greedy tokens must be identical;
-5. the slice at full width: Llama-2-7B (32 layers, bf16, seeded random
+6. the same for the legacy pipeline (``unified=False``) with the prefix
+   cache off and on (a shared-prefix request and an exact repeat, which
+   copies a page on write) and for ``PagedGenerationEngine``, the page
+   books audited after every step;
+7. the slice at full width: Llama-2-7B (32 layers, bf16, seeded random
    weights) served by ``ContinuousBatchingEngine`` — 12 requests of
    32-512 prompt tokens through 8 slots, 32 new tokens each — with
    the kernels' launch counters checked against the micro-rounds run;
-6. the RMSNorm backward kernel against its plain version at the train
+8. the same weights and load through the legacy pipeline (prefill waves
+   over the flash forward, decode steps over the paged decode kernel),
+   its launch counts checked against the waves and decode steps run and
+   a profiled breakdown of its steps; then a wave of 8 requests sharing
+   a 256-token prefix through the unified engine with the prefix cache,
+   warm (after one primer request) and cold, with the prefill tokens
+   the cache skipped and no page leaked;
+9. the RMSNorm backward kernel against its plain version at the train
    step's (rows, h) = (16384, 4096), bf16 and fp32, with its time, bound
    and the backward of ``F.rms_norm`` as the yardstick;
-7. the flash-attention forward, dQ and dK/dV kernels against their plain
-   versions: causal at BH 32, S 2048, d 128 in bf16 and fp32, a GQA case
-   (8 KV heads), a padded-key case (``kv_valid`` 2000) and an unpadded
-   S 2000; then at the train step's shape (BH 256, S 2048, bf16) with
-   times, bounds and ``F.scaled_dot_product_attention`` forward and
-   backward as the yardsticks. Each of out, dq, dk and dv is held to a
-   tolerance scaled by its own rms (``paddle_tpu_torch.testing``'s
-   ``FLASH_TOL``, which tests/test_torch_gpu.py applies too);
-8. tiny training parity: ``build_train_step`` with full remat for 5
-   AdamW steps on the card (kernels) and on the CPU (plain versions),
-   fp32, TF32 off, from the same weights — losses and weights agree;
-9. the training slice at full width: Llama-2-7B widths with 8 layers
-   (the one cut: 32 layers of bf16 weights, gradients and fp32 AdamW
-   moments do not fit one 80 GB card), vocab 32000, one (1, 8, 2048)
-   batch, 2 warm-up and 5 timed steps, every step's launch counts
-   checked, the loss falling, and a profiler breakdown of one step;
-10. the LayerNorm forward and backward kernels against their plain
+10. the flash-attention forward, dQ and dK/dV kernels against their
+    plain versions: causal at BH 32, S 2048, d 128 in bf16 and fp32, a
+    GQA case (8 KV heads), a padded-key case (``kv_valid`` 2000) and an
+    unpadded S 2000; then at the train step's shape (BH 256, S 2048,
+    bf16) with times, bounds and ``F.scaled_dot_product_attention``
+    forward and backward as the yardsticks. Each of out, dq, dk and dv
+    is held to a tolerance scaled by its own rms
+    (``paddle_tpu_torch.testing``'s ``FLASH_TOL``, which
+    tests/test_torch_gpu.py applies too);
+11. tiny training parity: ``build_train_step`` with full remat for 5
+    AdamW steps on the card (kernels) and on the CPU (plain versions),
+    fp32, TF32 off, from the same weights — losses and weights agree;
+12. the training slice at full width: Llama-2-7B widths with 8 layers
+    (the one cut: 32 layers of bf16 weights, gradients and fp32 AdamW
+    moments do not fit one 80 GB card), vocab 32000, one (1, 8, 2048)
+    batch, 2 warm-up and 5 timed steps, every step's launch counts
+    checked, the loss falling, and a profiler breakdown of one step;
+13. the LayerNorm forward and backward kernels against their plain
     versions at the BERT-large step's (rows, h) = (8192, 1024), eps
     1e-12, bf16 and fp32, with ``F.layer_norm`` forward and backward as
     the yardsticks;
-11. the flash forward, dQ and dK/dV kernels with segment ids against
+14. the flash forward, dQ and dK/dV kernels with segment ids against
     their plain versions at the BERT-large step's shape (BH 16·16, S
     512, d 64, non-causal) and the packed batch's segment ids, bf16 and
     fp32, with SDPA under the boolean segment mask as the yardstick;
-12. tiny ERNIE training parity: ``build_mlm_train_step`` for 5 packed
+15. tiny ERNIE training parity: ``build_mlm_train_step`` for 5 packed
     MLM steps on the card (kernels) and on the CPU (plain versions),
     fp32, TF32 off, d 64 heads — losses and weights agree;
-13. packed BERT-large MLM pretraining at full width (24 layers, h 1024,
+16. packed BERT-large MLM pretraining at full width (24 layers, h 1024,
     16 heads, vocab 30522; nothing cut): ``bench_bert_packed``'s
     (16, 512) batch packed from seed 0, bf16 weights with fp32 master
     weights and AdamW moments, 2 warm-up and 5 timed steps, every step's
@@ -80,6 +97,7 @@ import time
 
 import numpy as np
 
+N_PHASES = 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -279,7 +297,98 @@ def attention_phase(torch, pa):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: tiny end-to-end parity, card vs CPU
+# phase 4: the paged decode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def decode_batch(torch, nkv, dtype, nh=32, d=128, page=16, width=64):
+    """A decode batch at the 7B legacy decode step's shapes: 8 rows of
+    lengths 1, a page edge (16, 17), ~1000 and a spread, and one empty
+    row (seq_len 0, which must come out exactly 0). Returns the kernel's
+    arguments, the same batch in the ragged kernel's form (one token per
+    row at position seq_len - 1; the empty row a pad slot), the bytes the
+    batch needs and the operations it does."""
+    seq_lens = np.array([1, 16, 17, 1000, 0, 517, 301, 95], np.int32)
+    b = len(seq_lens)
+    rng = np.random.RandomState(SEED)
+    n_pages = b * width + 1
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, width), np.int32)
+    used = 0
+    for r, n in enumerate(seq_lens):
+        npg = -(-int(n) // page)
+        bt[r, :npg] = perm[used:used + npg]
+        used += npg
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pool = (n_pages, page, nkv, d)
+    k = torch.randn(pool, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(pool, generator=gen, device="cuda").to(dtype)
+    q = torch.randn((b, nh, d), generator=gen, device="cuda").to(dtype)
+    bt_d, sl_d = (torch.from_numpy(a).cuda() for a in (bt, seq_lens))
+    real = seq_lens > 0
+    ragged_meta = [torch.from_numpy(a).cuda() for a in (
+        np.where(real, np.arange(b), -1).astype(np.int32),
+        np.maximum(seq_lens - 1, 0).astype(np.int32), seq_lens)]
+    isz = k.element_size()
+    keys = int(seq_lens.sum())
+    nbytes = (2 * q.numel() * isz + 2 * keys * nkv * d * isz
+              + bt.nbytes + seq_lens.nbytes)
+    ops = 4 * keys * nh * d
+    return (q, k, v, bt_d, sl_d), ragged_meta, nbytes, ops
+
+
+def paged_decode_phase(torch, pa):
+    """The paged decode kernel against its plain version at the legacy
+    decode step's shapes (B 8, nh 32, d 128, page 16, W 64), nkv 32 and
+    8, bf16 and fp32, and a d 64 case; the empty row must be exactly 0.
+    Times: device ms (CUDA-graph replays over rotating copies of the
+    pools, so the ~45 MB of K/V a call reads come from device memory and
+    not the 50 MB L2), eager ms, the plain version's, the bound, and the
+    ragged kernel on the same batch (one token per row) as the in-repo
+    yardstick. No single PyTorch call gathers pages (library: none)."""
+    report = {}
+    # tolerances: those of the ragged phase, for the same reasons (fp32:
+    # summation order, online vs two-pass softmax; bf16: the plain version
+    # rounds P to bf16 before P·V as the JAX array path does, the kernel
+    # keeps it in fp32 as the Pallas kernel does)
+    for nkv, d, dt, kind, rtol, atol in (
+            (32, 128, torch.bfloat16, "bf16", 2e-2, 2e-2),
+            (32, 128, torch.float32, "fp32", 1e-4, 1e-5),
+            (8, 128, torch.bfloat16, "bf16", 2e-2, 2e-2),
+            (8, 128, torch.float32, "fp32", 1e-4, 1e-5),
+            (8, 64, torch.bfloat16, "bf16", 2e-2, 2e-2)):
+        args, rmeta, nbytes, ops = decode_batch(torch, nkv, dt, d=d)
+        name = f"nkv{nkv}_d{d}_{kind}"
+        got = pa.paged_attention_kernel(*args)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_plain(*args)
+        err = check_close(torch, f"paged decode {name}", got, want, rtol,
+                          atol)
+        if not bool((got[4] == 0).all()):
+            raise AssertionError("paged decode: the empty row must be 0")
+        q, k, v, bt, sl = args
+        copies = _l2_cold((k, v))
+        nxt = itertools.cycle(copies).__next__
+        bms, by = bound_ms(nbytes, ops, kind)
+        report[name] = dict(
+            b=8, nh=32, nkv=nkv, d=d, page=16, width=64,
+            keys=int(sl.sum()), max_abs_err=err, rtol=rtol, atol=atol,
+            ms=device_ms(torch, lambda: pa.paged_attention_kernel(
+                q, *nxt(), bt, sl)),
+            eager_ms=eager_ms(torch, lambda: pa.paged_attention_kernel(
+                q, *nxt(), bt, sl)),
+            plain_ms=device_ms(torch, lambda: pa.paged_attention_plain(
+                *args), iters=2, replays=2),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            ragged_kernel_ms=device_ms(
+                torch, lambda: pa.ragged_paged_attention_kernel(
+                    q, *nxt(), bt, *rmeta)))
+        del args, rmeta, got, want, copies, nxt, q, k, v
+        torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 5: tiny end-to-end parity, card vs CPU
 # ---------------------------------------------------------------------------
 
 def parity_phase(torch, L, D):
@@ -304,40 +413,129 @@ def parity_phase(torch, L, D):
     return {"requests": len(prompts), "tokens": outs[0]}
 
 
+def _serve_checked(eng, params, prompts, max_steps=200):
+    """Serve ``prompts`` step by step, auditing the page books after
+    every step. Returns the tokens in submission order and each step's
+    wall time (ms; a step ends in its one device->host copy)."""
+    rids = [eng.submit(p) for p in prompts]
+    results, step_ms = {}, []
+    while len(results) < len(rids):
+        t0 = time.perf_counter()
+        eng.step(params)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.mgr.check_conservation()
+        results.update(eng.collect())
+        if len(step_ms) > max_steps:
+            raise AssertionError(f"serve did not finish in {max_steps} steps")
+    return [results[r] for r in rids], step_ms
+
+
 # ---------------------------------------------------------------------------
-# phase 5: Llama-2-7B at full width through the serving engine
+# phase 6: tiny legacy-pipeline parity, card vs CPU
 # ---------------------------------------------------------------------------
 
-def serve_7b_phase(torch, L, D, rn, pa):
+def legacy_parity_phase(torch, L, D):
+    """Phase 5's config and weights through the legacy pipeline
+    (``unified=False``), with the prefix cache off and on (a request
+    sharing two pages of an earlier prompt, and an exact repeat of a
+    whole-page prompt, which copies its last page), and through
+    ``PagedGenerationEngine``: greedy tokens on the card (kernels) equal
+    the CPU's (plain versions), fp32, TF32 off; the page books are
+    audited after every step."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3, 32)]
+    prompts += [np.concatenate([prompts[1][:32], prompts[0]]),
+                prompts[4].copy()]
+    report = {}
+    for cache in (False, True):
+        outs, snaps = [], []
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = D.ContinuousBatchingEngine(
+                cfg, D.GenerationConfig(max_new_tokens=8), num_slots=2,
+                page_size=16, max_seq_len=128, chunk=4, device=dev,
+                unified=False, prefix_cache=cache)
+            outs.append(_serve_checked(eng, params, prompts)[0])
+            snaps.append(eng.cache.snapshot() if cache else None)
+        if outs[0] != outs[1]:
+            raise AssertionError(f"legacy (cache {cache}): card tokens "
+                                 f"{outs[0]} != cpu tokens {outs[1]}")
+        if cache and not (snaps[0]["hits"] >= 2
+                          and snaps[0]["cow_copies"] >= 1
+                          and snaps[0] == snaps[1]):
+            raise AssertionError(f"cache stats card {snaps[0]} cpu "
+                                 f"{snaps[1]}")
+        report["legacy_cache" if cache else "legacy"] = dict(
+            tokens=outs[0], cache=snaps[0])
+    gen = [D.PagedGenerationEngine(cfg, D.GenerationConfig(
+        max_new_tokens=8), page_size=16, device=dev).generate(
+            params, prompts[:5])
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu))]
+    if not np.array_equal(gen[0], gen[1]):
+        raise AssertionError(f"PagedGenerationEngine: card {gen[0]} != "
+                             f"cpu {gen[1]}")
+    report["paged_generation"] = gen[0].tolist()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Llama-2-7B at full width through the serving engine
+# ---------------------------------------------------------------------------
+
+NEW_TOKENS = 32
+
+
+def init_7b(torch, L):
+    """Llama-2-7B (32 layers, bf16) with seeded random weights, made once
+    for phases 7 and 8. Returns (config, params, seconds)."""
     cfg = L.llama2_7b(dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = L.init_params(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    new_tokens = 32
-    eng = D.ContinuousBatchingEngine(
-        cfg, D.GenerationConfig(max_new_tokens=new_tokens), num_slots=8,
-        page_size=16, max_seq_len=1024, chunk=8, step_tokens=256,
-        device="cuda")
+    return cfg, params, time.perf_counter() - t0
+
+
+def serve_load(cfg):
+    """The smoke's serve load: 12 prompts of 32-512 tokens (seed 0)."""
     rng = np.random.RandomState(SEED)
     lens = rng.randint(32, 513, size=12)
-    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
-               for n in lens]
-    rids = [eng.submit(p) for p in prompts]
+    return [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in lens]
+
+
+def _serve_engine(D, cfg, **kw):
+    """The smoke's engine geometry: 8 slots, page 16, max_seq_len 1024,
+    chunk 8, 32 new tokens."""
+    return D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=NEW_TOKENS), num_slots=8,
+        page_size=16, max_seq_len=1024, chunk=8, device="cuda", **kw)
+
+
+def _check_outputs(cfg, outs, eng):
+    for i, toks in enumerate(outs):
+        if len(toks) != NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {i}: bad output {toks}")
+    cached = eng.cache.evictable_pages if eng.cache is not None else 0
+    if (eng.mgr.num_free_pages + cached != eng.mgr.usable_pages
+            or getattr(eng.mgr, "num_live_pages", 0)):
+        raise AssertionError("pages leaked after the serve")
+
+
+def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
+    eng = _serve_engine(D, cfg, step_tokens=256)
+    prompts = serve_load(cfg)
     rn.rms_norm.launches = 0
     pa.ragged_paged_attention.launches = 0
     eng.micro_rounds = 0
     torch.cuda.reset_peak_memory_stats()
-    results, step_ms = {}, []
     t_serve = time.perf_counter()
-    while len(results) < len(rids):
-        t0 = time.perf_counter()
-        eng.step(params)          # ends in the step's one device->host copy
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        eng.mgr.check_conservation()
-        results.update(eng.collect())
-        if len(step_ms) > 200:
-            raise AssertionError("serve did not finish in 200 steps")
+    outs, step_ms = _serve_checked(eng, params, prompts)
     serve_s = time.perf_counter() - t_serve
     launches = {"rms_norm_fwd": rn.rms_norm.launches,
                 "ragged_paged_attention":
@@ -347,33 +545,128 @@ def serve_7b_phase(torch, L, D, rn, pa):
             "ragged_paged_attention": n_layers * rounds}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    for rid in rids:
-        toks = results[rid]
-        if len(toks) != new_tokens or not all(
-                0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {rid}: bad output {toks}")
-    if eng.mgr.num_free_pages != eng.mgr.usable_pages:
-        raise AssertionError("pages leaked after the serve")
+    _check_outputs(cfg, outs, eng)
     breakdown = step_breakdown(torch, eng, params, cfg.vocab_size)
-    del eng, params          # the training phases need the memory
-    generated = new_tokens * len(rids)
+    del eng
+    generated = NEW_TOKENS * len(prompts)
+    prompt_tokens = sum(map(len, prompts))
     return dict(
         breakdown=breakdown,
-        layers=n_layers, params=L.param_count(cfg), init_s=init_s,
-        requests=len(rids), prompt_tokens=int(lens.sum()),
+        layers=n_layers, params=L.param_count(cfg),
+        requests=len(prompts), prompt_tokens=prompt_tokens,
         generated_tokens=generated, steps=len(step_ms),
         micro_rounds=rounds, serve_s=serve_s,
         generated_tokens_per_s=generated / serve_s,
-        processed_tokens_per_s=(generated + int(lens.sum())) / serve_s,
+        processed_tokens_per_s=(generated + prompt_tokens) / serve_s,
         mean_step_ms=float(np.mean(step_ms)),
         first_step_ms=step_ms[0],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Llama-2-7B through the legacy pipeline, and a prefix-cache wave
+# ---------------------------------------------------------------------------
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
+    """Phase 7's load through ``ContinuousBatchingEngine(unified=False)``
+    (same weights, geometry and prompts), with its launch counts held to
+    the code's (paged decode L per decode step, flash forward L per
+    prefill wave, RMSNorm 2L+1 per wave or decode step) and a profiled
+    breakdown of its steps; then, on the unified engine with
+    ``prefix_cache=True``, a wave of 8 requests sharing a 256-token
+    prefix (distinct 32-128-token suffixes) after one primer request
+    with that prefix, and the same wave again from a cold cache."""
+    n_layers = cfg.num_hidden_layers
+    counters = {"rms_norm_fwd": rn.rms_norm,
+                "paged_decode_attention": pa.paged_attention,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "ragged_paged_attention": pa.ragged_paged_attention}
+    eng = _serve_engine(D, cfg, unified=False)
+    prompts = serve_load(cfg)
+    _reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t_serve = time.perf_counter()
+    outs, step_ms = _serve_checked(eng, params, prompts)
+    serve_s = time.perf_counter() - t_serve
+    launches = {k: c.launches for k, c in counters.items()}
+    steps, waves = eng.decode_steps, eng.prefill_calls
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * (waves + steps),
+            "paged_decode_attention": n_layers * steps,
+            "flash_attention_fwd": n_layers * waves,
+            "ragged_paged_attention": 0}
+    if launches != want:
+        raise AssertionError(f"legacy launch counts {launches} != {want}")
+    _check_outputs(cfg, outs, eng)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = step_breakdown(torch, eng, params, cfg.vocab_size,
+                               LEGACY_KINDS)
+    del eng
+    generated = NEW_TOKENS * len(prompts)
+    legacy = dict(
+        requests=len(prompts), generated_tokens=generated,
+        steps=len(step_ms), prefill_waves=waves, decode_steps=steps,
+        serve_s=serve_s, generated_tokens_per_s=generated / serve_s,
+        mean_step_ms=float(np.mean(step_ms)), first_step_ms=step_ms[0],
+        peak_mem_gb=peak_gb, launches=launches, breakdown=breakdown,
+        unified_generated_tokens_per_s=unified["generated_tokens_per_s"],
+        unified_mean_step_ms=unified["mean_step_ms"])
+
+    ceng = _serve_engine(D, cfg, step_tokens=256, prefix_cache=True)
+    rng = np.random.RandomState(SEED + 2)
+    prefix = rng.randint(1, cfg.vocab_size, (256,))
+    primer = np.concatenate([prefix, rng.randint(1, cfg.vocab_size, (40,))])
+    wave = [np.concatenate([prefix, rng.randint(1, cfg.vocab_size, (int(n),))]
+                           ).astype(np.int32)
+            for n in rng.randint(32, 129, size=8)]
+    _serve_checked(ceng, params, [primer.astype(np.int32)])
+    runs = {}
+    for name in ("warm", "cold"):
+        if name == "cold":
+            ceng.cache.evict(ceng.mgr.num_pages)   # back to a cold cache
+        _reset(counters)
+        ceng.micro_rounds = 0
+        ran0, hits0 = ceng._prefill_tokens, ceng.cache.stats["hits"]
+        t0 = time.perf_counter()
+        wave_out, wave_ms = _serve_checked(ceng, params, wave)
+        wall = time.perf_counter() - t0
+        rounds = ceng.micro_rounds
+        got = {k: c.launches for k, c in counters.items()}
+        want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+                "paged_decode_attention": 0, "flash_attention_fwd": 0,
+                "ragged_paged_attention": n_layers * rounds}
+        if got != want:
+            raise AssertionError(f"cache wave ({name}) launch counts {got} "
+                                 f"!= {want}")
+        _check_outputs(cfg, wave_out, ceng)
+        ran = ceng._prefill_tokens - ran0
+        runs[name] = dict(
+            prompt_tokens=sum(map(len, wave)), prefill_tokens_run=ran,
+            prefill_tokens_skipped=sum(map(len, wave)) - ran,
+            hits=ceng.cache.stats["hits"] - hits0, steps=len(wave_ms),
+            first_step_ms=wave_ms[0], wall_s=wall, micro_rounds=rounds,
+            launches=got)
+    if runs["warm"]["prefill_tokens_skipped"] != 8 * 256:
+        raise AssertionError(f"warm wave skipped "
+                             f"{runs['warm']['prefill_tokens_skipped']} "
+                             "prefill tokens, not 8 x 256")
+    cache = dict(runs, snapshot=ceng.cache.snapshot(),
+                 leaked_pages=ceng.mgr.num_live_pages)
+    del ceng
+    return dict(legacy=legacy, prefix_cache=cache)
+
+
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
 SERVE_KINDS = (("ragged_paged_attention", ("ragged_paged_attention",)),
                ("rms_norm_fwd", ("rms_norm",)), ("matmul", MATMUL_NAMES))
+LEGACY_KINDS = (("paged_decode_attention", ("paged_decode_attention",)),
+                ("flash_fwd", ("flash_attention_fwd",)),
+                ("rms_norm_fwd", ("rms_norm",)), ("matmul", MATMUL_NAMES))
 
 
 def _kernel_ms_by_kind(prof, kinds=SERVE_KINDS, n_top=6):
@@ -415,12 +708,14 @@ def profiled_ms(torch, fn, iters: int = 5) -> float:
     return sum(kinds.values()) / iters
 
 
-def step_breakdown(torch, eng, params, vocab):
+def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS):
     """Where a prefill step and a decode step of the engine spend their
     time. Eight requests of 256 prompt tokens fill the first step with
-    prefill (8 micro-rounds of 256 tokens); the second step decodes the
-    8 rows. Wall times come from an unprofiled pass, kernel device
-    times from a torch.profiler pass over the same two steps."""
+    prefill (unified: 8 micro-rounds of 256 tokens; legacy: one prefill
+    wave of 8 rows, then a decode chunk); the second step decodes the 8
+    rows (``chunk`` micro-rounds or decode steps). Wall times come from
+    an unprofiled pass, kernel device times (by ``kinds``) from a
+    torch.profiler pass over the same two steps."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
@@ -435,11 +730,11 @@ def step_breakdown(torch, eng, params, vocab):
                                          ProfilerActivity.CUDA]) as prof:
                     eng.step(params)
                     torch.cuda.synchronize()
-                kinds, top = _kernel_ms_by_kind(prof)
-                busy = sum(kinds.values())
+                by_kind, top = _kernel_ms_by_kind(prof, kinds)
+                busy = sum(by_kind.values())
                 wall = out[phase]["wall_ms"]
                 out[phase].update(
-                    kernel_ms=kinds, top_kernels=top,
+                    kernel_ms=by_kind, top_kernels=top,
                     device_busy_ms=busy,
                     idle_share=(1 - busy / wall) if busy else None)
             else:
@@ -453,7 +748,7 @@ def step_breakdown(torch, eng, params, vocab):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the RMSNorm backward kernel against its plain version
+# phase 9: the RMSNorm backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def rms_norm_bwd_phase(torch, rn):
@@ -500,7 +795,7 @@ def rms_norm_bwd_phase(torch, rn):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the flash-attention kernels against their plain versions
+# phase 10: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _flash_tol(torch):
@@ -637,7 +932,7 @@ def flash_phase(torch, fa):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: tiny training parity, card vs CPU
+# phase 11: tiny training parity, card vs CPU
 # ---------------------------------------------------------------------------
 
 def train_parity_phase(torch, L):
@@ -679,7 +974,7 @@ def train_parity_phase(torch, L):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the training slice at full width
+# phase 12: the training slice at full width
 # ---------------------------------------------------------------------------
 
 TRAIN_KINDS = (("flash_fwd", ("flash_attention_fwd",)),
@@ -767,7 +1062,7 @@ def train_7b_phase(torch, L, rn, fa):
 
 
 # ---------------------------------------------------------------------------
-# the packed BERT-large batch (phases 11 and 13)
+# the packed BERT-large batch (phases 14 and 16)
 # ---------------------------------------------------------------------------
 
 def pack_batch(b, s, lo, hi, vocab, seed=SEED):
@@ -818,7 +1113,7 @@ def _bert_large(E):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the LayerNorm kernels against their plain versions
+# phase 13: the LayerNorm kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _l2_cold(tensors, min_bytes=200e6):
@@ -902,7 +1197,7 @@ def layer_norm_phase(torch, ln):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the segment-masked flash kernels against their plain versions
+# phase 14: the segment-masked flash kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def seg_flash_phase(torch, E, fa):
@@ -993,7 +1288,7 @@ def seg_flash_phase(torch, E, fa):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: tiny ERNIE training parity, card vs CPU
+# phase 15: tiny ERNIE training parity, card vs CPU
 # ---------------------------------------------------------------------------
 
 def ernie_parity_phase(torch, E):
@@ -1017,7 +1312,7 @@ def ernie_parity_phase(torch, E):
                   for _ in range(steps)]
         runs[dev] = (losses, {n: p.detach().cpu()
                               for n, p in model.named_parameters()})
-    # tolerances as phase 8's, the key bias (qkv_bias[h:2h], rounding
+    # tolerances as phase 11's, the key bias (qkv_bias[h:2h], rounding
     # noise on both devices) held to 2·lr·steps only
     from paddle_tpu_torch.testing import trained_weights_close
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
@@ -1030,7 +1325,7 @@ def ernie_parity_phase(torch, E):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: packed BERT-large MLM pretraining at full width
+# phase 16: packed BERT-large MLM pretraining at full width
 # ---------------------------------------------------------------------------
 
 ERNIE_KINDS = (("flash_fwd", ("flash_attention_fwd",)),
@@ -1167,14 +1462,15 @@ def main() -> int:
     from paddle_tpu_torch.ops import rms_norm as rn
 
     card = card_line()
-    print(f"[1/13] card: {card} (torch {torch.__version__}, CUDA "
+    print(f"[1/{N_PHASES}] card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # phase 2: nvcc in the background (one process per source, started
     # together) while Triton compiles its kernels
     t0 = time.perf_counter()
     errors = []
-    sources = ["ragged_paged_attention", "flash_attention"]
+    sources = ["ragged_paged_attention", "paged_decode_attention",
+               "flash_attention"]
 
     def build():
         try:
@@ -1197,60 +1493,65 @@ def main() -> int:
         for line in _common.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
-    print(f"[2/13] built every kernel in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[2/{N_PHASES}] built every kernel in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def done(n, what, report):
+        print(f"[{n}/{N_PHASES}] {what}:", json.dumps(report), flush=True)
 
     rms = rms_norm_phase(torch, rn)
-    print("[3/13] rms_norm kernel vs plain:", json.dumps(rms), flush=True)
+    done(3, "rms_norm kernel vs plain", rms)
     attn = attention_phase(torch, pa)
-    print("[3/13] ragged attention kernel vs plain:", json.dumps(attn),
-          flush=True)
+    done(3, "ragged attention kernel vs plain", attn)
+    decode = paged_decode_phase(torch, pa)
+    done(4, "paged decode kernel vs plain", decode)
 
-    parity = parity_phase(torch, L, D)
-    print("[4/13] tiny engine, card == cpu tokens:", json.dumps(parity),
-          flush=True)
+    done(5, "tiny engine, card == cpu tokens", parity_phase(torch, L, D))
+    done(6, "tiny legacy engine, cache off/on, and PagedGenerationEngine, "
+         "card == cpu tokens", legacy_parity_phase(torch, L, D))
 
-    serve = serve_7b_phase(torch, L, D, rn, pa)
-    print(f"[5/13] Llama-2-7B bf16 serve on {card}:", json.dumps(serve),
-          flush=True)
+    cfg7b, params7b, init_s = init_7b(torch, L)
+    serve = dict(serve_7b_phase(torch, L, D, rn, pa, cfg7b, params7b),
+                 init_s=init_s)
+    done(7, f"Llama-2-7B bf16 serve on {card}", serve)
+    legacy = legacy_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b, serve)
+    done(8, f"Llama-2-7B bf16 legacy serve and prefix-cache wave on {card}",
+         legacy)
+    del params7b             # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
 
     rms_bwd = rms_norm_bwd_phase(torch, rn)
-    print("[6/13] rms_norm backward kernel vs plain:", json.dumps(rms_bwd),
-          flush=True)
+    done(9, "rms_norm backward kernel vs plain", rms_bwd)
     flash = flash_phase(torch, fa)
-    print("[7/13] flash attention kernels vs plain:", json.dumps(flash),
-          flush=True)
-    tparity = train_parity_phase(torch, L)
-    print("[8/13] tiny training, card == cpu:", json.dumps(tparity),
-          flush=True)
+    done(10, "flash attention kernels vs plain", flash)
+    done(11, "tiny training, card == cpu", train_parity_phase(torch, L))
     train = train_7b_phase(torch, L, rn, fa)
-    print(f"[9/13] Llama-2-7B widths, 8 layers, bf16 training on {card}:",
-          json.dumps(train), flush=True)
+    done(12, f"Llama-2-7B widths, 8 layers, bf16 training on {card}", train)
     gc.collect()
     torch.cuda.empty_cache()
 
     lnr = layer_norm_phase(torch, ln)
-    print("[10/13] layer_norm kernels vs plain:", json.dumps(lnr), flush=True)
+    done(13, "layer_norm kernels vs plain", lnr)
     seg_flash = seg_flash_phase(torch, E, fa)
-    print("[11/13] segment-masked flash kernels vs plain:",
-          json.dumps(seg_flash), flush=True)
-    eparity = ernie_parity_phase(torch, E)
-    print("[12/13] tiny ERNIE training, card == cpu:", json.dumps(eparity),
-          flush=True)
+    done(14, "segment-masked flash kernels vs plain", seg_flash)
+    done(15, "tiny ERNIE training, card == cpu", ernie_parity_phase(torch, E))
     bert = bert_large_phase(torch, E, ln, fa)
-    print(f"[13/13] packed BERT-large MLM bf16 training on {card}:",
-          json.dumps(bert), flush=True)
+    done(16, f"packed BERT-large MLM bf16 training on {card}", bert)
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
+    leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
+    cold = legacy["prefix_cache"]["cold"]
     kernels = [
-        # the forward runs on both main paths: the serve's launches plus
-        # the training run's
+        # the forward runs on every main path: the unified serve's
+        # launches, the legacy serve's, the cache waves' and the training
+        # run's
         dict(name="rms_norm_fwd", route="triton",
              source="paddle_tpu_torch/ops/rms_norm.py",
              replaces="paddle_tpu/ops/rms_norm.py:48",
              launches=serve["launches"]["rms_norm_fwd"]
+             + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
+             + cold["launches"]["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
@@ -1258,18 +1559,29 @@ def main() -> int:
         dict(name="ragged_paged_attention", route="cuda",
              source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
              replaces="paddle_tpu/ops/paged_attention.py:215",
-             launches=serve["launches"]["ragged_paged_attention"],
+             launches=serve["launches"]["ragged_paged_attention"]
+             + warm["launches"]["ragged_paged_attention"]
+             + cold["launches"]["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
+        # numbers at the 7B MHA decode batch; the error the largest over
+        # every case of phase 4
+        _kernel_entry("paged_decode_attention", "cuda",
+                      "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                      "paddle_tpu/ops/paged_attention.py:650",
+                      leg["paged_decode_attention"],
+                      dict(decode["nkv32_d128_bf16"], max_abs_err=max(
+                          r["max_abs_err"] for r in decode.values()))),
         _kernel_entry("rms_norm_bwd", "triton",
                       "paddle_tpu_torch/ops/rms_norm.py",
                       "paddle_tpu/ops/rms_norm.py:55",
                       train["launches"]["rms_norm_bwd"], rms_bwd["bf16"]),
     ]
-    # the flash kernels run on both training paths: the Llama step's
-    # launches plus the BERT step's; their numbers are the Llama step
-    # shape's, the error the largest over it and the segmented checks
+    # the flash kernels run on both training paths (the Llama step's
+    # launches plus the BERT step's) and the forward on the legacy serve's
+    # prefill waves too; their numbers are the Llama step shape's, the
+    # error the largest over it and the segmented checks
     step, seg_step = flash["step_shape"], seg_flash["step_shape"]
     for name, key, line in (("flash_attention_fwd", "fwd", 41),
                             ("flash_attention_bwd_dq", "dq", 172),
@@ -1279,7 +1591,8 @@ def main() -> int:
         kernels.append(_kernel_entry(
             name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             f"paddle_tpu/ops/flash_attention.py:{line}",
-            train["launches"][name] + bert["launches"][name], r))
+            train["launches"][name] + bert["launches"][name]
+            + leg.get(name, 0), r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(

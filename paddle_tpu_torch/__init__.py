@@ -19,6 +19,11 @@ Ported so far:
   ``inference.decoding.ContinuousBatchingEngine`` over
   ``models.llama.ragged_step``, with the RMSNorm forward and ragged
   paged attention kernels;
+- the legacy paged serving pipeline — ``ContinuousBatchingEngine(
+  unified=False)`` and ``PagedGenerationEngine`` over
+  ``models.llama.prefill_paged`` / ``prefill_paged_suffix`` /
+  ``decode_step_paged``, with the paged decode attention kernel — and
+  the prefix cache (``kvcache``) on both pipelines;
 - the one-device Llama training step — ``models.llama.build_train_step``
   (forward, backward with full remat, AdamW) over
   ``models.llama.forward_stacked``, with the RMSNorm forward and

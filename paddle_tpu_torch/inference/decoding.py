@@ -1,21 +1,33 @@
-"""Continuous-batching serving engine — counterpart of
-``paddle_tpu/inference/decoding.py`` (the unified greedy path).
+"""Serving engines over the paged KV cache — counterpart of
+``paddle_tpu/inference/decoding.py`` (the greedy paths).
 
 ``ContinuousBatchingEngine`` keeps ``num_slots`` sequences decoding
-together over the paged KV cache. Each ``step()`` is one round of
-``chunk`` micro-rounds of ``models.llama.ragged_step``: prefill chunks
-of newly admitted prompts and every decoding row ride the same packed
-token axis, so a prompt submitted mid-decode joins the current step.
-The greedy token carry stays on the device between micro-rounds, and
-the step's emitted ``(chunk, slots)`` tokens are its ONE device→host
-copy.
+together over the paged KV cache. Two pipelines, which emit identical
+greedy tokens (in fp32; the two sum attention in different orders):
 
-Not in this slice (each raises ``NotImplementedError``): the prefix
-cache, speculative decoding, the legacy bucketed pipeline
-(``unified=False``), the fused decode tail, multi-chip meshes,
-per-request sampling and grammar-constrained decoding. The
-observability taps (spans, memory ledger, recompile counter) come with
-the observability slice.
+* unified (default): each ``step()`` is one round of ``chunk``
+  micro-rounds of ``models.llama.ragged_step`` — prefill chunks of newly
+  admitted prompts and every decoding row ride the same packed token
+  axis, so a prompt submitted mid-decode joins the current step;
+* legacy (``unified=False``), kept for A/B runs as the JAX package keeps
+  it: admissions run as bucketed prefill waves (``models.llama.
+  prefill_paged``, or ``prefill_paged_suffix`` for prefix-cache hits),
+  then every slot decodes ``chunk`` steps of ``models.llama.
+  decode_step_paged`` over the paged decode kernel.
+
+The greedy token carry stays on the device between rounds, and a
+step's emitted tokens are its ONE device→host copy.
+``prefix_cache=True`` (both pipelines) shares the resident pages of
+earlier prompts through ``paddle_tpu_torch.kvcache`` and prefills only
+each request's uncached suffix; the page books are audited after every
+step. ``PagedGenerationEngine`` generates a ragged batch in one call
+(prefill, then decode steps) over the same model functions.
+
+Not in this slice (each raises ``NotImplementedError``): speculative
+decoding, the fused decode tail, multi-chip meshes, per-request
+sampling and grammar-constrained decoding. The observability taps
+(spans, memory ledger, recompile counter) come with the observability
+slice.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kvcache import PrefixCache, RefcountedKVCacheManager
 from ..models import llama as L
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
@@ -47,6 +60,79 @@ class GenerationConfig:
     max_new_tokens: int = 32
     do_sample: bool = False   # False = greedy
     eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    """Prompt-length bucket of the legacy prefill: the next power of two
+    from ``minimum`` up."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _last_logits(logits, seq_len):
+    """(B, T, V) prefill logits -> (B, V) at each row's last real token."""
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, seq_len.long() - 1]
+
+
+class PagedGenerationEngine:
+    """Ragged-batch generation over the paged KV cache (greedy): prompts
+    of different lengths each own pages through a block table, decode
+    positions advance per row, and generation starts from each row's own
+    last prompt token. ``generate`` runs one prefill, then
+    ``max_new_tokens - 1`` decode steps."""
+
+    def __init__(self, model_config: L.LlamaConfig,
+                 generation_config: Optional[GenerationConfig] = None,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 device=None):
+        self.model_config = model_config
+        self.config = generation_config or GenerationConfig()
+        if self.config.do_sample:
+            raise _later("do_sample=True", "sampling")
+        self.page_size = page_size
+        self._num_pages = num_pages
+        self.device = resolve_device(device)
+
+    @torch.no_grad()
+    def generate(self, params, prompts) -> np.ndarray:
+        """prompts: list of 1-D int arrays (ragged) -> (B, max_new_tokens)
+        int32 tokens."""
+        cfg, mcfg = self.config, self.model_config
+        lens = [len(p) for p in prompts]
+        b = len(prompts)
+        ids = np.full((b, _bucket(max(lens))), cfg.pad_token_id, np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)] = np.asarray(p, np.int32)
+        total = [n + cfg.max_new_tokens for n in lens]
+        num_pages = self._num_pages or (sum(
+            PagedKVCacheManager.pages_needed(n, self.page_size)
+            for n in total) + 1)
+        mgr = PagedKVCacheManager(
+            mcfg.num_hidden_layers, num_pages, self.page_size,
+            mcfg.num_key_value_heads, mcfg.head_dim, dtype=mcfg.dtype,
+            device=self.device)
+        for i in range(b):
+            mgr.allocate(i, total[i])
+            mgr._lens[i] = lens[i]   # the prompt is the live length
+        bt, seq_lens = (torch.from_numpy(a).to(self.device)
+                        for a in mgr.block_tables(list(range(b))))
+        logits, _, _ = L.prefill_paged(
+            params, torch.from_numpy(ids).to(self.device), seq_lens,
+            mgr.k_pages, mgr.v_pages, bt, mcfg)
+        tok = greedy_rows(_last_logits(logits, seq_lens))
+        toks = []
+        for i in range(cfg.max_new_tokens - 1):
+            lg, _, _ = L.decode_step_paged(params, tok, seq_lens + i,
+                                           mgr.k_pages, mgr.v_pages, bt,
+                                           mcfg)
+            toks.append(tok)
+            tok = greedy_rows(lg)
+        toks.append(tok)
+        return torch.stack(toks, dim=1).cpu().numpy()
 
 
 @dataclass
@@ -58,12 +144,12 @@ class _Request:
 
 
 class ContinuousBatchingEngine:
-    """Fixed-slot continuous batching over the paged KV cache, one
-    ragged dispatch per micro-round.
+    """Fixed-slot continuous batching over the paged KV cache (module
+    docstring for the two pipelines).
 
     Service API: ``submit(prompt) -> rid``; ``step(params)`` runs one
-    admit + ``chunk`` micro-rounds; ``collect()`` drains finished
-    requests; ``serve(params, prompts)`` streams a whole list through.
+    admit + ``chunk`` rounds; ``collect()`` drains finished requests;
+    ``serve(params, prompts)`` streams a whole list through.
     ``device=None`` means the card (raises without one); the CPU runs
     only when asked for with ``device="cpu"``.
     """
@@ -76,13 +162,8 @@ class ContinuousBatchingEngine:
                  device=None, *, prefix_cache: bool = False,
                  unified: bool = True, speculative: bool = False,
                  fused_tail: bool = False, mesh=None):
-        if prefix_cache:
-            raise _later("prefix_cache=True", "prefix-cache")
         if speculative:
             raise _later("speculative=True", "speculative-decoding")
-        if not unified:
-            raise _later("unified=False (the legacy bucketed pipeline)",
-                         "legacy-engine")
         if fused_tail:
             raise _later("fused_tail=True", "fusion")
         if mesh is not None:
@@ -96,16 +177,25 @@ class ContinuousBatchingEngine:
         self.page_size = page_size
         self.chunk = chunk
         self.max_seq_len = max_seq_len
+        self._unified = unified
         self._table_width = PagedKVCacheManager.pages_needed(max_seq_len,
                                                              page_size)
         # pool sized for every slot at max length unless told otherwise
         pool = num_pages or (num_slots * self._table_width + 1)
         mcfg = model_config
-        self.mgr = PagedKVCacheManager(
-            mcfg.num_hidden_layers, pool, page_size,
-            mcfg.num_key_value_heads, mcfg.head_dim, dtype=mcfg.dtype,
-            device=self.device)
-        # packed token budget per micro-round
+        geo = (mcfg.num_hidden_layers, pool, page_size,
+               mcfg.num_key_value_heads, mcfg.head_dim)
+        self.cache = None
+        if prefix_cache:
+            # shared-ownership pool + radix prefix index: retired prompts
+            # stay resident and later requests prefill only their suffix
+            self.mgr = RefcountedKVCacheManager(*geo, dtype=mcfg.dtype,
+                                                device=self.device)
+            self.cache = PrefixCache(self.mgr)
+        else:
+            self.mgr = PagedKVCacheManager(*geo, dtype=mcfg.dtype,
+                                           device=self.device)
+        # packed token budget per micro-round (unified pipeline)
         self._step_tokens = max(step_tokens or
                                 max(num_slots, chunk, page_size), num_slots)
         # host slot state
@@ -122,8 +212,15 @@ class ContinuousBatchingEngine:
         self._pos = np.zeros((num_slots,), np.int32)
         self._bt = np.zeros((num_slots, self._table_width), np.int32)
         self._pend: List[Optional[np.ndarray]] = [None] * num_slots
-        #: micro-rounds dispatched (each runs every kernel of the step)
+        #: prompt tokens actually run through prefill (cache hits skip
+        #: their cached prefix)
+        self._prefill_tokens = 0
+        #: unified micro-rounds dispatched (each runs every kernel of the
+        #: ragged step)
         self.micro_rounds = 0
+        #: legacy prefill waves and decode steps run
+        self.prefill_calls = 0
+        self.decode_steps = 0
 
     # -- service API --------------------------------------------------------
 
@@ -169,40 +266,77 @@ class ContinuousBatchingEngine:
         return False
 
     def _admit_pick(self):
-        """Pop queued requests into free slots and allocate their pages.
+        """Pop queued requests into free slots, resolve the prefix cache
+        (shared pages, COW copy) and allocate their pages. Returns the
+        picked ``(slot, req, pages_row, prompt_len, n_cached)`` list.
         Admission is atomic over the window: if anything raises, every
         picked allocation is freed and the requests go back to the head
-        of the queue in order."""
-        picked = []                # (slot, req, pages_row, prompt_len)
+        of the queue in order. Cache hits are counted only once the
+        whole window lands."""
+        picked: list = []
+        recorded: list = []
         try:
-            self._admit_window(picked)
+            self._admit_window(picked, recorded)
         except BaseException:
-            for _, req, _, _ in reversed(picked):
+            for _, req, _, _, _ in reversed(picked):
                 self.mgr.free(req.rid)
                 self._queue.insert(0, req)
             raise
+        for n_cached, cow_src in recorded:
+            self.cache.record(n_cached, cow=cow_src is not None)
         return picked
 
-    def _admit_window(self, picked):
+    def _admit_window(self, picked, recorded):
         for s in range(self.num_slots):
             if self._slot_rid[s] is not None or not self._queue:
                 continue
             req = self._queue[0]
             lp = len(req.prompt)
             total = lp + self._budget(req)       # submit() bounds this
-            need = self.mgr.pages_for(total)
-            if self.mgr.num_free_pages < need:
+            shared: list = []
+            n_cached = 0
+            cow_src = None
+            if self.cache is not None:
+                shared, n_cached, cow_src = self.cache.lookup(req.prompt)
+            need_fresh = self.mgr.pages_for(total) - len(shared)
+            if self.mgr.num_free_pages < need_fresh and self.cache is not None:
+                # reclaim cold cached pages before deferring admission;
+                # protect the pages THIS lookup is about to share
+                self.cache.evict(need_fresh - self.mgr.num_free_pages,
+                                 protect=shared + [cow_src])
+                if (self.mgr.num_free_pages < need_fresh
+                        and cow_src is not None):
+                    # still short: give up the COW page (one more
+                    # evictable) and recompute its block instead
+                    cow_src, n_cached = None, len(shared) * self.page_size
+                    self.cache.evict(
+                        need_fresh - self.mgr.num_free_pages,
+                        protect=shared)
+            if self.mgr.num_free_pages < need_fresh:
+                # infeasibility is judged against WHOLE-pool capacity
                 if not self._live and not picked \
-                        and need > self.mgr.usable_pages:
+                        and self.mgr.pages_for(total) > self.mgr.usable_pages:
                     raise MemoryError(
-                        f"request {req.rid} needs {need} pages but the "
-                        f"pool only holds {self.mgr.usable_pages}; "
-                        "enlarge num_pages")
+                        f"request {req.rid} needs "
+                        f"{self.mgr.pages_for(total)} pages but the pool "
+                        f"only holds {self.mgr.usable_pages}; enlarge "
+                        "num_pages")
                 break                    # pool full: wait for a completion
-            pages = self.mgr.allocate(req.rid, total)
-            picked.append((s, req, pages, lp))
+            if self.cache is not None:
+                pages = self.mgr.allocate(req.rid, total, shared=shared)
+            else:
+                pages = self.mgr.allocate(req.rid, total)
+            # ownership moves into ``picked`` at once (the rollback in
+            # _admit_pick owns the pages from here)
+            picked.append((s, req, pages, lp, n_cached))
             self._queue.pop(0)
+            if cow_src is not None:
+                # the suffix's first write lands mid-page: append into a
+                # private device-side copy, never the shared page
+                self.mgr.copy_page(cow_src, pages[len(shared)])
             self.mgr._lens[req.rid] = lp
+            if self.cache is not None:
+                recorded.append((n_cached, cow_src))
 
     def _complete(self, req: _Request) -> bool:
         if len(req.tokens) >= self._budget(req):
@@ -212,29 +346,55 @@ class ContinuousBatchingEngine:
             and req.tokens[-1] == eos
 
     def _retire(self, s: int, cancelled: bool = False) -> None:
-        """Free a finished (or cancelled) slot: pages back to the pool,
-        output to the finished map, the slot's table back to page 0."""
+        """Free a finished (or cancelled) slot: with the cache, index the
+        finished prefix first (pages backing its full token blocks stay
+        resident); then pages back to the pool, output to the finished
+        map, the slot's table back to page 0."""
         rid = self._slot_rid[s]
         req = self._live.pop(rid)
         if not cancelled:
             out = req.tokens[:self._budget(req)]
             self._finished[rid] = out
             self._finished_crc[rid] = token_checksum(out)
+            if self.cache is not None:
+                # positions past the kept output may hold over-decoded
+                # garbage, but those never complete a block (full blocks
+                # end <= kept length)
+                toks = ([int(t) for t in req.prompt]
+                        + [int(t) for t in out])
+                self.cache.insert(toks, self.mgr.sequence_pages(rid))
         self.mgr.free(rid)
         self._slot_rid[s] = None
         self._bt[s] = 0
         self._pos[s] = 0
         self._pend[s] = None
 
-    def _deliver_tokens(self, s: int, tokens) -> None:
+    def _deliver_tokens(self, s: int, tokens) -> bool:
         """Append one slot's emitted tokens to its request (up to its
-        budget or EOS) and retire the slot when the request completes."""
+        budget or EOS) and retire the slot when the request completes.
+        Returns True while the slot keeps decoding."""
         req = self._live[self._slot_rid[s]]
         for t in tokens:
             req.tokens.append(int(t))
             if self._complete(req):
                 self._retire(s)
-                return
+                return False
+        return True
+
+    def step(self, params) -> int:
+        """One admit + decode round (ONE device->host copy: the step's
+        emitted tokens). Returns the live count after the round. With
+        the prefix cache, the page books are audited after every round
+        (every page is free, live or cached: the anchor of the
+        shared-ownership model)."""
+        if self._unified:
+            n = self._step_unified(params)
+        else:
+            n = self._step_legacy(params)
+        if self.cache is not None:
+            self.mgr.check_conservation()
+            self.cache.update_gauges()
+        return n
 
     # -- the unified ragged step ---------------------------------------------
 
@@ -244,7 +404,9 @@ class ContinuousBatchingEngine:
         ``step_tokens`` axis. Decode rows claim one slot each; prefill
         rows share the rest of the budget in slot order and turn into
         decode rows the round after their prompt completes. Advances
-        the slot mirrors (positions, pending prompt suffixes)."""
+        the slot mirrors (positions, pending prompt suffixes). Returns
+        the plan arrays, the emit mask and the prefill tokens fed per
+        slot."""
         K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
         ids = np.zeros((K, tb), np.int32)
         use_carry = np.zeros((K, tb), bool)
@@ -296,7 +458,7 @@ class ContinuousBatchingEngine:
             self._pend[s] = (None if rem[s] == 0
                              else self._pend[s][fed[s]:])
         return (ids, use_carry, token_row, positions, kv_lens, last_idx,
-                sample_mask), emit
+                sample_mask), emit, fed
 
     @torch.no_grad()
     def _run_micro_rounds(self, params, ids, use_carry, token_row,
@@ -323,21 +485,23 @@ class ContinuousBatchingEngine:
         self._tok_dev = tok
         return torch.stack(emitted)
 
-    def step(self, params) -> int:
-        """One admit + ragged round. Admission is host bookkeeping; the
-        round uploads its plan once, runs ``chunk`` micro-rounds on the
-        device, and copies the emitted tokens back once. Returns the
-        live count after the round."""
-        for s, req, pages, lp in self._admit_pick():
+    def _step_unified(self, params) -> int:
+        """One admit + ragged round. Admission is host bookkeeping (a
+        warm/COW row is just a row whose first position is its cached
+        length); the round uploads its plan once, runs ``chunk``
+        micro-rounds on the device, and copies the emitted tokens back
+        once."""
+        for s, req, pages, lp, n_cached in self._admit_pick():
             self._slot_rid[s] = req.rid
             self._live[req.rid] = req
-            self._pos[s] = 0                  # next position to write
+            self._pos[s] = n_cached           # next position to write
             self._bt[s] = 0
             self._bt[s, :len(pages)] = pages
-            self._pend[s] = np.asarray(req.prompt, np.int32)
+            self._pend[s] = np.asarray(req.prompt[n_cached:], np.int32)
         if not self._live:
             return 0
-        plan, emit = self._plan_step()
+        plan, emit, fed = self._plan_step()
+        self._prefill_tokens += sum(fed)
         dev = [torch.from_numpy(a).to(self.device)
                for a in (*plan, self._bt)]
         toks = self._run_micro_rounds(params, *dev).cpu().numpy()  # the fence
@@ -347,6 +511,108 @@ class ContinuousBatchingEngine:
             self._deliver_tokens(
                 s, (toks[k, s] for k in range(self.chunk) if emit[k, s]))
         return len(self._live)
+
+    # -- the legacy pipeline (unified=False) ---------------------------------
+
+    @torch.no_grad()
+    def _prefill_wave(self, params, ids, lens, starts, rows):
+        """One bucketed prefill call: the full prefill (``starts`` None)
+        or the suffix prefill of prefix-cache hits. Returns each row's
+        greedy first token, on the device."""
+        ids_d, lens_d, rows_d = (torch.from_numpy(a).to(self.device)
+                                 for a in (ids, lens, rows))
+        mgr, mcfg = self.mgr, self.model_config
+        if starts is None:
+            logits, _, _ = L.prefill_paged(params, ids_d, lens_d,
+                                           mgr.k_pages, mgr.v_pages, rows_d,
+                                           mcfg)
+        else:
+            logits, _, _ = L.prefill_paged_suffix(
+                params, ids_d, lens_d, torch.from_numpy(starts).to(
+                    self.device), mgr.k_pages, mgr.v_pages, rows_d, mcfg)
+        self.prefill_calls += 1
+        return greedy_rows(_last_logits(logits, lens_d))
+
+    def _admit(self, params) -> None:
+        """Legacy admission: allocate pages, prefill into the slots, keep
+        the first generated tokens in the device carry.
+
+        Admissions are batched: every request admitted this round goes
+        through ONE prefill call per (suffix bucket, warm) group, B padded
+        to the next power of two (clamped to ``num_slots``); pad rows
+        prefill one pad token into the reserved page 0 and their tokens
+        are dropped. Cold rows never share a call with warm rows, so
+        cold traffic runs the full prefill whether the cache is on or
+        off."""
+        cfg = self.config
+        groups: Dict[tuple, list] = {}
+        for item in self._admit_pick():
+            lp, n_cached = item[3], item[4]
+            groups.setdefault((_bucket(lp - n_cached), n_cached > 0),
+                              []).append(item)
+        for (bucket, warm), items in groups.items():
+            real = len(items)
+            b_pad = 1
+            while b_pad < real:
+                b_pad *= 2
+            b_pad = min(b_pad, self.num_slots)
+            ids = np.full((b_pad, bucket), cfg.pad_token_id, np.int32)
+            rows = np.zeros((b_pad, self._table_width), np.int32)
+            lens = np.ones((b_pad,), np.int32)   # pad rows: 1 garbage tok
+            starts = np.zeros((b_pad,), np.int32)
+            for i, (s, req, pages, lp, nc) in enumerate(items):
+                ids[i, :lp - nc] = req.prompt[nc:]
+                rows[i, :len(pages)] = pages
+                lens[i] = lp - nc
+                starts[i] = nc
+            tok = self._prefill_wave(params, ids, lens,
+                                     starts if warm else None, rows)
+            self._prefill_tokens += int(sum(it[3] - it[4] for it in items))
+            slots = torch.as_tensor([it[0] for it in items],
+                                    device=self.device)
+            self._tok_dev[slots] = tok[:real]
+            for i, (s, req, pages, lp, nc) in enumerate(items):
+                self._slot_rid[s] = req.rid
+                self._live[req.rid] = req
+                self._pos[s] = lp
+                self._bt[s] = rows[i]
+
+    @torch.no_grad()
+    def _decode_chunk(self, params):
+        """``chunk`` decode steps over every slot (idle slots decode at
+        position 0 into page 0; finished rows run to the chunk's end and
+        their extra tokens are dropped). Each step emits its INPUT token,
+        so a chunk's output chains to the next and delivers each
+        admission's prefill token first. Returns (slots, chunk) tokens on
+        the device."""
+        tok = self._tok_dev
+        pos = torch.from_numpy(self._pos).to(self.device)
+        bt = torch.from_numpy(self._bt).to(self.device)
+        emitted = []
+        for _ in range(self.chunk):
+            logits, _, _ = L.decode_step_paged(
+                params, tok, pos, self.mgr.k_pages, self.mgr.v_pages, bt,
+                self.model_config)
+            emitted.append(tok)
+            tok = greedy_rows(logits)
+            pos = pos + 1
+            self.decode_steps += 1
+        self._tok_dev = tok
+        return torch.stack(emitted, dim=1)
+
+    def _step_legacy(self, params) -> int:
+        self._admit(params)
+        if not self._live:
+            return 0
+        toks = self._decode_chunk(params).cpu().numpy()    # the one fence
+        for s in range(self.num_slots):
+            if self._slot_rid[s] is None:
+                continue
+            if self._deliver_tokens(s, toks[s]):
+                self._pos[s] += self.chunk
+        return len(self._live)
+
+    # -- results -------------------------------------------------------------
 
     def collect(self) -> Dict[int, list]:
         out = self._finished

@@ -1,5 +1,7 @@
 """Llama family — counterpart of ``paddle_tpu/models/llama.py``: the
-serving step and the one-device training step.
+unified serving step, the legacy paged pipeline (bucketed prefill,
+prefix-cache suffix prefill, ragged decode step) and the one-device
+training step.
 
 Weights use the JAX package's stacked layout (per-layer tensors stacked
 on a leading L axis) and its ``x @ W`` orientation (``wq`` is
@@ -10,9 +12,11 @@ Decoder math follows Llama-2: RMSNorm → QKV (GQA) → RoPE → attention →
 out-proj → residual; RMSNorm → SwiGLU MLP → residual. The projections
 and ``lm_head`` are plain large products (``torch.matmul``), as the JAX
 package leaves them to XLA. The kernels: RMSNorm forward and backward
-(``ops/rms_norm.py``), the ragged paged attention of the serving step
-(``ops/paged_attention.py``) and the causal flash attention forward and
-backward of the training step (``ops/flash_attention.py``).
+(``ops/rms_norm.py``), the ragged paged attention of the unified step
+and the paged decode attention of the legacy decode step
+(``ops/paged_attention.py``), and the causal flash attention forward
+(training and the legacy full prefill) and backward
+(``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
@@ -229,6 +233,185 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     h_last = x[0][last_idx.long()]
     logits = h_last @ params["lm_head"]
     return logits, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# The legacy paged pipeline: bucketed prefill waves and the decode step
+# ---------------------------------------------------------------------------
+
+def _paged_prefill_layer(params, l, x, cos, sin, phys, page_off, k_pages,
+                         v_pages, attn_fn, scatter_first: bool,
+                         config: LlamaConfig):
+    """One decoder layer of a paged prefill — the body shared by the full
+    path (:func:`prefill_paged`) and the prefix-cache suffix path
+    (:func:`prefill_paged_suffix`). They differ only in attention
+    (``attn_fn(q, k, v, kp, vp)``: in-prompt causal vs a page gather at
+    offset positions) and in whether the K/V scatter into layer ``l``'s
+    pool (in place) must precede it: the suffix attends THROUGH the
+    pool, so its keys must land there first."""
+    b, t, _ = x.shape
+    d = config.head_dim
+    eps = config.rms_norm_eps
+    kp, vp = k_pages[l], v_pages[l]                        # views, in place
+    xn = rms_norm(x, params["ln1"][l], eps)
+    q = (xn @ params["wq"][l]).reshape(b, t, -1, d)
+    k = (xn @ params["wk"][l]).reshape(b, t, -1, d)
+    v = (xn @ params["wv"][l]).reshape(b, t, -1, d)
+    q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+    if scatter_first:
+        kp[phys, page_off] = k.to(kp.dtype)
+        vp[phys, page_off] = v.to(vp.dtype)
+    attn = attn_fn(q, k, v, kp, vp)
+    xo = x + (attn.reshape(b, t, -1) @ params["wo"][l]).to(x.dtype)
+    xn2 = rms_norm(xo, params["ln2"][l], eps)
+    g = xn2 @ params["w_gate"][l]
+    u = xn2 @ params["w_up"][l]
+    xo = xo + (F.silu(g) * u) @ params["w_down"][l]
+    if not scatter_first:
+        kp[phys, page_off] = k.to(kp.dtype)
+        vp[phys, page_off] = v.to(vp.dtype)
+    return xo.to(x.dtype)
+
+
+def _prefill_scatter_index(block_tables, abs_pos, seq_lens, page):
+    """Physical page and in-page offset of every (row, token) slot of a
+    right-padded prefill: pad tokens (``t >= seq_lens[b]``) land in the
+    reserved page 0. ``abs_pos`` (B, T) may run past the table for pad
+    tokens (a bucket wider than the table); their lookup is clamped, as
+    they are sent to page 0 anyway (the JAX lookup gives INT_MIN there,
+    replaced by 0 the same way)."""
+    width = block_tables.shape[1]
+    t = abs_pos.shape[1]
+    page_idx = (abs_pos // page).clamp(max=width - 1)
+    phys = block_tables.long().gather(1, page_idx)
+    valid = torch.arange(t, device=abs_pos.device)[None, :] \
+        < seq_lens.long()[:, None]
+    return torch.where(valid, phys, torch.zeros_like(phys)), abs_pos % page
+
+
+@torch.no_grad()
+def prefill_paged(params, ids, seq_lens, k_pages, v_pages, block_tables,
+                  config: LlamaConfig):
+    """Prefill a ragged batch into paged KV (``llama.prefill_paged``).
+
+    ids: (B, T) right-padded prompts; seq_lens: (B,) true lengths;
+    k_pages/v_pages: (L, P, page, nkv, d); block_tables: (B, W), padded
+    slots pointing at reserved page 0.
+    Returns (logits (B, T, V), k_pages, v_pages); the pools are updated
+    IN PLACE (the returned pools are the arguments). Causal attention
+    within the padded prompt goes through the flash kernels
+    (``ops.flash_attention.sdpa_array``)."""
+    _check_dense(params)
+    b, t = ids.shape
+    d = config.head_dim
+    page = k_pages.shape[2]
+    cos, sin = _rope_cache(t, d, float(config.rope_theta), str(ids.device))
+    x = params["embed"][ids.long()]
+    abs_pos = torch.arange(t, device=ids.device)[None, :].expand(b, t)
+    phys, page_off = _prefill_scatter_index(block_tables, abs_pos, seq_lens,
+                                            page)
+    scale = 1.0 / math.sqrt(d)
+
+    def attn(q, k, v, kp, vp):
+        return fa.sdpa_array(q, k, v, scale=scale, causal=True)
+
+    for l in range(config.num_hidden_layers):
+        x = _paged_prefill_layer(params, l, x, cos, sin, phys, page_off,
+                                 k_pages, v_pages, attn, False, config)
+    x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
+    return x @ params["lm_head"], k_pages, v_pages
+
+
+@torch.no_grad()
+def prefill_paged_suffix(params, ids, seq_lens, start_pos, k_pages, v_pages,
+                         block_tables, config: LlamaConfig):
+    """Prefill only the UNCACHED SUFFIX of a ragged batch into paged KV
+    (``llama.prefill_paged_suffix``): each row's leading ``start_pos[b]``
+    tokens are already resident in pages reachable through
+    ``block_tables``. Suffix queries sit at absolute positions
+    ``start_pos + t``: rope is taken there, the suffix K/V are scattered
+    first, and attention runs over the gathered page span under
+    ``key_pos <= query_pos`` (:func:`ops.paged_attention.
+    paged_prefill_attention_plain`).
+
+    ids: (B, T) right-padded suffix tokens; seq_lens: (B,) true suffix
+    lengths; start_pos: (B,) cached-prefix lengths (0 = cold row).
+    Returns (logits (B, T, V), k_pages, v_pages), pools updated in
+    place."""
+    _check_dense(params)
+    b, t = ids.shape
+    d = config.head_dim
+    page = k_pages.shape[2]
+    s_max = block_tables.shape[1] * page
+    cos_full, sin_full = _rope_cache(s_max, d, float(config.rope_theta),
+                                     str(ids.device))
+    x = params["embed"][ids.long()]
+    # clamp: a padded suffix bucket may poke past the table span; those
+    # slots are pads (sent to page 0), but the lookups must stay in range
+    abs_pos = (start_pos.long()[:, None]
+               + torch.arange(t, device=ids.device)[None, :]
+               ).clamp(max=s_max - 1)
+    cos, sin = cos_full[abs_pos], sin_full[abs_pos]        # (B, T, d)
+    phys, page_off = _prefill_scatter_index(block_tables, abs_pos, seq_lens,
+                                            page)
+    scale = 1.0 / math.sqrt(d)
+
+    def attn(q, k, v, kp, vp):
+        return pa.paged_prefill_attention_plain(q, kp, vp, block_tables,
+                                                start_pos, scale=scale)
+
+    for l in range(config.num_hidden_layers):
+        x = _paged_prefill_layer(params, l, x, cos, sin, phys, page_off,
+                                 k_pages, v_pages, attn, True, config)
+    x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
+    return x @ params["lm_head"], k_pages, v_pages
+
+
+@torch.no_grad()
+def decode_step_paged(params, tok, positions, k_pages, v_pages, block_tables,
+                      config: LlamaConfig):
+    """One ragged decode step (``llama.decode_step_paged``). tok: (B,);
+    positions: (B,) int32 absolute position of each row's new token (may
+    differ per row). Each layer writes the token's K/V into its page slot
+    (:func:`ops.paged_attention.paged_write`, in place), then attends
+    over ``pos < position + 1`` through the paged decode kernel.
+    Returns (logits (B, V), k_pages, v_pages).
+
+    A position at or past the table span (a finished row over-decoding
+    to the end of a legacy decode chunk): its write goes to page 0, its
+    rope is taken at the last position, and attention reads the whole
+    table. Its logits are garbage the engine drops. The JAX function
+    drops that write and gives the row NaN logits."""
+    _check_dense(params)
+    b = tok.shape[0]
+    d = config.head_dim
+    eps = config.rms_norm_eps
+    s_max = block_tables.shape[1] * k_pages.shape[2]
+    cos_full, sin_full = _rope_cache(s_max, d, float(config.rope_theta),
+                                     str(tok.device))
+    pos_c = positions.long().clamp(0, s_max - 1)
+    cos, sin = cos_full[pos_c][:, None], sin_full[pos_c][:, None]  # (B,1,d)
+    x = params["embed"][tok.long()][:, None, :]            # (B, 1, h)
+    kv_lens = (positions + 1).to(torch.int32)
+    scale = 1.0 / math.sqrt(d)
+    for l in range(config.num_hidden_layers):
+        kp, vp = k_pages[l], v_pages[l]                    # views, in place
+        xn = rms_norm(x, params["ln1"][l], eps)
+        q = (xn @ params["wq"][l]).reshape(b, 1, -1, d)
+        k = (xn @ params["wk"][l]).reshape(b, 1, -1, d)
+        v = (xn @ params["wv"][l]).reshape(b, 1, -1, d)
+        q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+        pa.paged_write(kp, vp, k[:, 0], v[:, 0], block_tables, positions)
+        attn = pa.paged_attention(q[:, 0].contiguous(), kp, vp, block_tables,
+                                  kv_lens, scale=scale)    # (B, nh, d)
+        xo = x + (attn.reshape(b, 1, -1) @ params["wo"][l]).to(x.dtype)
+        xn2 = rms_norm(xo, params["ln2"][l], eps)
+        g = xn2 @ params["w_gate"][l]
+        u = xn2 @ params["w_up"][l]
+        xo = xo + (F.silu(g) * u) @ params["w_down"][l]
+        x = xo.to(x.dtype)
+    x = rms_norm(x, params["ln_f"], eps)
+    return x[:, 0] @ params["lm_head"], k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,27 @@
-"""Ragged paged attention + the block-table KV-cache manager —
-counterpart of ``paddle_tpu/ops/paged_attention.py``.
+"""Paged attention + the block-table KV-cache manager — counterpart of
+``paddle_tpu/ops/paged_attention.py``.
 
 KV lives in fixed-size pages of one pre-allocated pool per layer; each
 sequence owns a list of pages through its block table, and page 0 is
 the reserved pad page that padded block-table slots and pad tokens
 point at.
 
-:func:`ragged_paged_attention` serves the engine's unified step: one
-call covers a flat axis of packed tokens from mixed prefill and decode
-rows. Each token attends to ITS row's pages under the one mask rule
-``key_pos <= positions[t]``. CPU tensors take the plain version
-(:func:`ragged_paged_attention_plain`); CUDA tensors launch the
-hand-written kernel in ``csrc/ragged_paged_attention.cu`` (see its
-header for what bounds it on the card and what its design does about
-it).
+Two attention ops, each a hand-written CUDA kernel with a plain PyTorch
+version beside it (CPU tensors take the plain version, CUDA tensors
+launch the kernel; see each source's header for what bounds it on the
+card and what its design does about it):
+
+* :func:`ragged_paged_attention` serves the engine's unified step: one
+  call covers a flat axis of packed tokens from mixed prefill and decode
+  rows, each attending to ITS row's pages under the one mask rule
+  ``key_pos <= positions[t]`` (``csrc/ragged_paged_attention.cu``);
+* :func:`paged_attention` serves the legacy pipeline's decode step: one
+  query per row over ``pos < seq_len`` (``csrc/paged_decode_attention.cu``).
+
+:func:`paged_write` and :func:`paged_prefill_attention_plain` (the
+legacy pipeline's K/V scatter and its prefix-cache suffix prefill) are
+plain PyTorch on every device, as their JAX counterparts are XLA code
+with no Pallas kernel behind them.
 """
 
 from __future__ import annotations
@@ -101,39 +109,53 @@ def _kernel_fn():
     return _launch_fn
 
 
+def _check_paged_inputs(q, k_pages, v_pages, block_tables, meta):
+    """The checks both paged kernels' wrappers share: q (rows, nh, d) and
+    the pools (P, page, nkv, d) in one kernel dtype, d 64 or 128, whole
+    GQA groups, int32 tables and 1-D int32 metadata (``meta``: name ->
+    tensor), one device, contiguous, q and the pools 16-byte aligned."""
+    check_cuda_tensor("k_pages", k_pages, tuple(_KERNEL_DTYPES), ndim=4)
+    check_cuda_tensor("v_pages", v_pages, (k_pages.dtype,), ndim=4)
+    check_cuda_tensor("q", q, (k_pages.dtype,), ndim=3)
+    check_cuda_tensor("block_tables", block_tables, (torch.int32,), ndim=2)
+    for name, a in meta.items():
+        check_cuda_tensor(name, a, (torch.int32,), ndim=1)
+    nh, d = q.shape[1:]
+    nkv, d_kv = k_pages.shape[2:]
+    if v_pages.shape != k_pages.shape:
+        raise ValueError("k_pages and v_pages differ in shape")
+    if d_kv != d or d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} (pool {d_kv}); the kernel takes "
+                         f"{_KERNEL_HEAD_DIMS}")
+    if nh % nkv:
+        raise ValueError(f"nh={nh} must be a multiple of nkv={nkv}")
+    if any(a.device != q.device
+           for a in (k_pages, v_pages, block_tables, *meta.values())):
+        raise ValueError("all inputs must be on one device")
+    if any(a.data_ptr() % 16 for a in (q, k_pages, v_pages)):
+        raise ValueError("q and the pools must be 16-byte aligned")
+
+
 def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                   token_row, positions, kv_lens,
                                   scale: Optional[float] = None):
     """Launch the CUDA kernel (same contract as the plain version; the
     output is allocated here in the pool dtype). Counts one launch in
     ``ragged_paged_attention.launches``."""
-    check_cuda_tensor("k_pages", k_pages, tuple(_KERNEL_DTYPES), ndim=4)
-    check_cuda_tensor("v_pages", v_pages, (k_pages.dtype,), ndim=4)
-    check_cuda_tensor("q", q, (k_pages.dtype,), ndim=3)
-    check_cuda_tensor("block_tables", block_tables, (torch.int32,), ndim=2)
-    for name, a in (("token_row", token_row), ("positions", positions),
-                    ("kv_lens", kv_lens)):
-        check_cuda_tensor(name, a, (torch.int32,), ndim=1)
+    _check_paged_inputs(q, k_pages, v_pages, block_tables,
+                        dict(token_row=token_row, positions=positions,
+                             kv_lens=kv_lens))
     t, nh, d = q.shape
-    _, page, nkv, d_kv = k_pages.shape
+    _, page, nkv, _ = k_pages.shape
     n_rows, width = block_tables.shape
-    if v_pages.shape != k_pages.shape:
-        raise ValueError("k_pages and v_pages differ in shape")
-    if d_kv != d or d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} (pool {d_kv}); the kernel takes "
-                         f"{_KERNEL_HEAD_DIMS}")
-    if nh % nkv or nh // nkv > 32:
-        raise ValueError(f"nh={nh} must be a multiple of nkv={nkv}, at most "
-                         "32 query heads per kv head")
+    if nh // nkv > 32:
+        raise ValueError(f"at most 32 query heads per kv head, got "
+                         f"{nh // nkv}")
     if token_row.shape[0] != t or positions.shape[0] != t \
             or kv_lens.shape[0] != n_rows:
         raise ValueError("token metadata does not match q / block_tables")
     tensors = (q, k_pages, v_pages, block_tables, token_row, positions,
                kv_lens)
-    if any(a.device != q.device for a in tensors):
-        raise ValueError("all inputs must be on one device")
-    if any(a.data_ptr() % 16 for a in (q, k_pages, v_pages)):
-        raise ValueError("q and the pools must be 16-byte aligned")
     out = torch.empty((t, nh, d), dtype=k_pages.dtype, device=q.device)
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -165,6 +187,163 @@ ragged_paged_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The legacy pipeline: one-query paged decode, the K/V scatter, and the
+# prefix-cache suffix prefill
+# ---------------------------------------------------------------------------
+
+def _grouped_attention(q, k, v, mask, scale):
+    """The shared body of the two legacy plain versions: fp32 scores,
+    GQA without repeated KV, masked lanes at ``_NEG_INF``, probabilities
+    cast to ``v``'s dtype before P·V (the JAX array paths' rounding).
+
+    q (B, T, nkv, rep, d); k, v (B, S, nkv, d); mask (B, T, S).
+    Returns (B, T, nkv, rep, d) in v's dtype."""
+    scores = torch.einsum("btgrd,bsgd->bgrts", q.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgrts,bsgd->btgrd", probs.to(v.dtype), v)
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                          scale: Optional[float] = None):
+    """Decode-time attention over paged KV, ``paged_attention_array``'s
+    gather/mask composition.
+
+    q:            (B, nh, d)        — one query token per sequence
+    k_pages:      (P, page, nkv, d) — one layer's page pool
+    v_pages:      (P, page, nkv, d)
+    block_tables: (B, W) int32 — page ids per sequence (pad: 0)
+    seq_lens:     (B,) int32 — valid KV length per sequence; keys at
+                  positions ``< seq_len`` (so at most ``W·page``) count
+    Returns (B, nh, d) in the pool dtype.
+
+    A row with ``seq_len <= 0`` comes out exactly 0, as from the Pallas
+    kernel (``safe_l``) and the CUDA kernel; the JAX array path gives
+    such a row the mean of its gathered V."""
+    b, nh, d = q.shape
+    page, nkv = k_pages.shape[1], k_pages.shape[2]
+    width = block_tables.shape[1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, width * page, nkv, d)
+    v = v_pages[bt].reshape(b, width * page, nkv, d)
+    key_pos = torch.arange(width * page, device=q.device)
+    mask = key_pos[None, None, :] < seq_lens.long()[:, None, None]
+    out = _grouped_attention(q.reshape(b, 1, nkv, nh // nkv, d), k, v, mask,
+                             s).reshape(b, nh, d)
+    empty = (seq_lens <= 0)[:, None, None]
+    return torch.where(empty, torch.zeros_like(out), out)
+
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, q_start,
+                                  scale: Optional[float] = None):
+    """Chunked/suffix prefill attention over paged KV —
+    ``paged_prefill_attention_array``. The prefix-cache path: suffix
+    queries at absolute positions ``q_start + t`` attend to the cached
+    prefix pages AND the suffix's own (already scattered) K/V under
+    ``key_pos <= q_start + t`` over the gathered page span.
+
+    q: (B, T, nh, d); pools (P, page, nkv, d); block_tables (B, W) int32
+    (pad: page 0); q_start (B,) int32. Returns (B, T, nh, d)."""
+    b, t, nh, d = q.shape
+    page, nkv = k_pages.shape[1], k_pages.shape[2]
+    width = block_tables.shape[1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, width * page, nkv, d)
+    v = v_pages[bt].reshape(b, width * page, nkv, d)
+    q_pos = q_start.long()[:, None] + torch.arange(t, device=q.device)
+    key_pos = torch.arange(width * page, device=q.device)
+    mask = key_pos[None, None, :] <= q_pos[:, :, None]
+    out = _grouped_attention(q.reshape(b, t, nkv, nh // nkv, d), k, v, mask,
+                             s)
+    return out.reshape(b, t, nh, d)
+
+
+def paged_write(k_pages, v_pages, k_new, v_new, block_tables, positions):
+    """Write one token's K/V per row into its page slot, IN PLACE (the
+    JAX ``paged_write_array`` returns new pools; the port returns the
+    arguments).
+
+    k_pages/v_pages: (P, page, nkv, d); k_new/v_new: (B, nkv, d);
+    block_tables (B, W); positions (B,) absolute position of each row's
+    new token.
+
+    A position at or past the table span (``W·page``) — a legacy decode
+    chunk over-decoding a finished row — writes into the reserved pad
+    page 0. The JAX write there is dropped (its page lookup falls out
+    of range); page 0 is the place whose contents no real row reads, and
+    the write never lands on a row's own slot, which a clamp to the last
+    slot would overwrite."""
+    page = k_pages.shape[1]
+    width = block_tables.shape[1]
+    pos = positions.long()
+    inside = pos < width * page
+    idx = torch.where(inside, pos // page, torch.zeros_like(pos))
+    phys = block_tables.long().gather(1, idx[:, None])[:, 0]
+    phys = torch.where(inside, phys, torch.zeros_like(phys))
+    off = pos % page
+    k_pages[phys, off] = k_new.to(k_pages.dtype)
+    v_pages[phys, off] = v_new.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+_decode_fn = None
+
+
+def _decode_kernel_fn():
+    global _decode_fn
+    if _decode_fn is None:
+        fn = load_cuda_library("paged_decode_attention") \
+            .paged_decode_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _decode_fn = fn
+    return _decode_fn
+
+
+def paged_attention_kernel(q, k_pages, v_pages, block_tables, seq_lens,
+                           scale: Optional[float] = None):
+    """Launch the CUDA decode kernel (same contract as
+    :func:`paged_attention_plain`; the output is allocated here in the
+    pool dtype). Counts one launch in ``paged_attention.launches``."""
+    _check_paged_inputs(q, k_pages, v_pages, block_tables,
+                        dict(seq_lens=seq_lens))
+    b, nh, d = q.shape
+    _, page, nkv, _ = k_pages.shape
+    width = block_tables.shape[1]
+    if block_tables.shape[0] != b or seq_lens.shape[0] != b:
+        raise ValueError("block_tables / seq_lens do not match q's rows")
+    tensors = (q, k_pages, v_pages, block_tables, seq_lens)
+    out = torch.empty((b, nh, d), dtype=k_pages.dtype, device=q.device)
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _decode_kernel_fn()(
+        *(a.data_ptr() for a in tensors), out.data_ptr(),
+        b, width, page, nh, nkv, d, _KERNEL_DTYPES[k_pages.dtype], s, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                    scale: Optional[float] = None):
+    """CPU tensors: the plain version. CUDA tensors: the CUDA kernel."""
+    if q.is_cuda:
+        return paged_attention_kernel(q, k_pages, v_pages, block_tables,
+                                      seq_lens, scale)
+    return paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                 seq_lens, scale)
+
+
+#: kernel launches since the last reset (the plain version never counts)
+paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Host-side page pool (the allocator metadata; device tensors hold the data)
 # ---------------------------------------------------------------------------
 
@@ -191,6 +370,13 @@ class PagedKVCacheManager:
         self._lens: dict = {}     # seq_id -> int
 
     # -- allocation ---------------------------------------------------------
+
+    def can_allocate(self, n_tokens: int) -> bool:
+        """Whether ``n_tokens`` fit in the free pages now. An allocation
+        that does not fit raises ``MemoryError``; the JAX manager's
+        ``_oom`` hook, which first files it in the HBM ledger of
+        ``observability.memory``, comes with the observability slice."""
+        return len(self._free) >= self.pages_for(n_tokens)
 
     @staticmethod
     def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -230,6 +416,10 @@ class PagedKVCacheManager:
     def free(self, seq_id) -> None:
         self._free.extend(reversed(self._tables.pop(seq_id)))
         self._lens.pop(seq_id)
+
+    def sequence_pages(self, seq_id) -> List[int]:
+        """The sequence's block table in token order (a copy)."""
+        return list(self._tables.get(seq_id, ()))
 
     def check_conservation(self) -> None:
         """Exclusive-ownership audit: every usable page is either free or

@@ -147,11 +147,9 @@ def test_submit_and_admission_limits():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefix_cache=True), dict(speculative=True), dict(unified=False),
-    dict(fused_tail=True), dict(mesh=object()),
+    dict(speculative=True), dict(fused_tail=True), dict(mesh=object()),
     dict(generation_config=TD.GenerationConfig(do_sample=True))],
-    ids=["prefix_cache", "speculative", "legacy", "fused_tail", "mesh",
-         "do_sample"])
+    ids=["speculative", "fused_tail", "mesh", "do_sample"])
 def test_unported_engine_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu", **kwargs)

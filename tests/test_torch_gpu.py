@@ -177,6 +177,132 @@ def test_engine_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# legacy serving slice: the paged decode kernel, the legacy engine, the cache
+# ---------------------------------------------------------------------------
+
+def _decode_batch(cuda, dtype, nh, nkv, d=128, page=16, width=8):
+    """Rows of 1, a page edge (16, 17), long, 0 (exactly 0 out) and one
+    whose length runs past its table (the kernel reads the whole span)."""
+    rng = np.random.RandomState(3)
+    seq_lens = np.array([1, 16, 17, 100, 0, 128 + 9], np.int32)
+    b = len(seq_lens)
+    n_pages = b * width + 1
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, width), np.int32)
+    for r, n in enumerate(np.minimum(seq_lens, width * page)):
+        npg = -(-int(n) // page)
+        bt[r, :npg] = perm[r * width:r * width + npg]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pool = (n_pages, page, nkv, d)
+    k = torch.randn(pool, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(pool, generator=gen, device=cuda).to(dtype)
+    q = torch.randn((b, nh, d), generator=gen, device=cuda).to(dtype)
+    return (q, k, v, torch.as_tensor(bt, device=cuda),
+            torch.as_tensor(seq_lens, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("nh,nkv,d", [(32, 32, 128), (32, 8, 128),
+                                      (8, 2, 64), (12, 4, 64), (16, 2, 128)])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, nh, nkv, d):
+    """Groups of 1, 4, 3 (one query head a block) and 8 (two blocks per
+    kv head) query heads, at the paged attention tolerances above."""
+    args = _decode_batch(cuda, dtype, nh, nkv, d)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = pa.paged_attention_plain(*args)
+    rtol, atol = _ATTN_TOL.get(dtype, (2e-2, 2e-2))
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert bool((got[4] == 0).all())
+
+
+def test_paged_decode_kernel_rejects_bad_input(cuda):
+    q, k, v, bt, sl = _decode_batch(cuda, torch.float32, 4, 4, d=128)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), k, v, bt, sl)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, k, v, bt, sl.long())
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                           v[..., :96].contiguous(), bt, sl)
+    with pytest.raises(ValueError, match="rows"):
+        pa.paged_attention(q, k, v, bt[:2], sl)
+
+
+def test_decode_step_paged_launch_counts(cuda):
+    """A legacy serve: the paged decode kernel L times per decode step,
+    the flash forward L times per cold prefill wave, RMSNorm 2L+1 times
+    per prefill wave or decode step."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=3)
+    eng = D.ContinuousBatchingEngine(cfg, D.GenerationConfig(
+        max_new_tokens=3), num_slots=2, page_size=16, max_seq_len=64,
+        chunk=2, device=cuda, unified=False)
+    params = L.init_params(cfg, seed=0, device=cuda)
+    counters = (rn.rms_norm, pa.paged_attention, fa.flash_fwd_kernel,
+                pa.ragged_paged_attention)
+    for c in counters:
+        c.launches = 0
+    eng.serve(params, [np.arange(1, 9, dtype=np.int32),
+                       np.arange(3, 30, dtype=np.int32)])
+    steps, waves = eng.decode_steps, eng.prefill_calls
+    assert steps > 0 and waves > 0
+    assert rn.rms_norm.launches == 7 * (steps + waves)
+    assert pa.paged_attention.launches == 3 * steps
+    assert fa.flash_fwd_kernel.launches == 3 * waves
+    assert pa.ragged_paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_legacy_engine_on_card_matches_cpu(cuda, prefix_cache):
+    """fp32 greedy tokens of the legacy pipeline (and, with the cache, a
+    shared-prefix wave and an exact repeat for COW): kernels on the card
+    == plain versions on the CPU, MHA and GQA at head_dim 128."""
+    for nkv in (4, 2):
+        cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=nkv, intermediate_size=512,
+                           num_hidden_layers=2)
+        params = L.init_params(cfg, seed=1, device="cpu")
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+                   for n in (4, 33, 18, 2, 32)]
+        prompts += [np.concatenate([prompts[1][:20], prompts[0]]),
+                    prompts[4].copy()]
+        outs = []
+        for dev in (cuda, "cpu"):
+            eng = D.ContinuousBatchingEngine(
+                cfg, D.GenerationConfig(max_new_tokens=6), num_slots=2,
+                page_size=16, max_seq_len=96, chunk=4, device=dev,
+                unified=False, prefix_cache=prefix_cache)
+            outs.append(eng.serve({k: t.to(dev) for k, t in params.items()},
+                                  prompts))
+            if prefix_cache:
+                assert eng.cache.snapshot()["cow_copies"] >= 1
+        assert outs[0] == outs[1]
+
+
+def test_paged_generation_engine_on_card_matches_cpu(cuda):
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=1, intermediate_size=512,
+                       num_hidden_layers=2)
+    params = L.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (3, 17, 40)]
+    outs = [D.PagedGenerationEngine(cfg, D.GenerationConfig(
+        max_new_tokens=7), page_size=16, device=dev).generate(
+            {k: t.to(dev) for k, t in params.items()}, prompts)
+        for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
 # training slice: RMSNorm backward, flash attention, the train step
 # ---------------------------------------------------------------------------
 
