@@ -10,8 +10,8 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 1. card check: CUDA must be available; prints the card's name and
    power limit (nvidia-smi);
 2. build: compiles the CUDA kernels (ragged paged attention, paged
-   decode attention, flash attention; one nvcc per source, started
-   together) and the Triton RMSNorm and LayerNorm kernels from the
+   decode attention, flash attention, the weight-gradient accumulation;
+   one nvcc per source, started together) and the Triton RMSNorm and LayerNorm kernels from the
    sources in the checkout, printing nvcc's register/spill report;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the Llama-2-7B serving step below (the RMSNorm forward at
@@ -77,7 +77,25 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     (16, 512) batch packed from seed 0, bf16 weights with fp32 master
     weights and AdamW moments, 2 warm-up and 5 timed steps, every step's
     launch counts checked, the loss falling, real tokens/s, MFU by
-    ``bench_bert_packed``'s accounting and a profiler breakdown.
+    ``bench_bert_packed``'s accounting and a profiler breakdown;
+17. the weight-gradient accumulation kernel (``acc += xᵀ·dout`` into an
+    fp32 ``main_grad``) against its plain version at the Llama-2-7B
+    projections' shapes for a (2, 2048) micro-batch — (din, dout) =
+    (4096, 4096), (4096, 11008), (11008, 4096), 4096 rows — in bf16 and
+    fp32, into a bf16 accumulator, and at an unaligned shape, with its
+    time over rotating inputs, bound, plain time and a library yardstick;
+18. tiny main-grad training parity: the imperative ``LlamaForCausalLM``
+    under ``MixPrecisionLayer`` and ``GradientMergeOptimizer(
+    MixPrecisionOptimizer(AdamW), k_steps=2)`` for 3 updates on the card
+    and on the CPU, fp32, TF32 off — losses, main grads and weights
+    agree — and ``linear_with_main_grad``'s gradients;
+19. main-grad training at full width: the imperative Llama at Llama-2-7B
+    widths with 8 layers (phase 12's cut), bf16 weights, fp32 main
+    grads, master weights and moments, 4 micro-batches of (2, 2048) a
+    step; 2 warm-up and 3 timed steps, every step's launch counts
+    checked, the loss falling, a profiler breakdown; then one more step
+    whose projections' own operands go through the accumulation kernel
+    (7·L·k = 224 launches), each accumulator matching its ``main_grad``.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -97,7 +115,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 16
+N_PHASES = 19
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -1433,6 +1451,406 @@ def bert_large_phase(torch, E, ln, fa):
                        kernels_launched=n_kernels, wall_split=split))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the weight-gradient accumulation kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, rows, din, dout, input dtype, accumulator dtype): the Llama-2-7B
+# projections at a (2, 2048) micro-batch (q/k/v/o, gate/up, down), bf16
+# into fp32 main_grad; the same in fp32; a bf16 accumulator
+# (multi_precision=False); and a shape that tiles nowhere
+GRAD_ADD_CASES = (
+    ("qkvo_bf16", 4096, 4096, 4096, "bfloat16", "float32"),
+    ("gate_up_bf16", 4096, 4096, 11008, "bfloat16", "float32"),
+    ("down_bf16", 4096, 11008, 4096, "bfloat16", "float32"),
+    ("qkvo_fp32", 4096, 4096, 4096, "float32", "float32"),
+    ("gate_up_fp32", 4096, 4096, 11008, "float32", "float32"),
+    ("down_fp32", 4096, 11008, 4096, "float32", "float32"),
+    ("qkvo_bf16_acc", 4096, 4096, 4096, "bfloat16", "bfloat16"),
+    ("unaligned_bf16", 1000, 4096, 1000, "bfloat16", "float32"),
+)
+
+
+def _has_out_dtype(torch):
+    """Whether this torch's ``torch.mm`` takes ``out_dtype`` (bf16 in,
+    fp32 out in one call)."""
+    a = torch.ones(16, 16, device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return False
+    return True
+
+
+def grad_add_phase(torch, fl):
+    """The row-7 kernel against its plain version at the shapes of
+    ``GRAD_ADD_CASES``, from a given accumulator (in place) and from
+    none, under ``paddle_tpu_torch.testing.GRAD_ADD_TOL``; its device
+    time over rotating copies of ≥ 200 MB of inputs (they would sit in
+    L2 otherwise), its bound, the plain version's time, and the library
+    yardstick: ``acc.addmm_(xᵀ, g)`` where the accumulator has the
+    inputs' dtype; for bf16 into fp32 ``torch.mm(xᵀ, g,
+    out_dtype=float32)`` where this torch has it (the product alone),
+    else ``acc.add_((xᵀ @ g).float())``. ``autograd_dw_ms`` is the bf16
+    ``xᵀ @ g`` that autograd runs for a bf16 weight's gradient."""
+    from paddle_tpu_torch.testing import GRAD_ADD_TOL, grad_add_close
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out_dtype = _has_out_dtype(torch)
+    report = {}
+    for name, rows, din, dout, dt_name, acc_name in GRAD_ADD_CASES:
+        dt, acc_dt = getattr(torch, dt_name), getattr(torch, acc_name)
+        x = torch.randn(rows, din, generator=gen, device="cuda").to(dt)
+        g = torch.randn(rows, dout, generator=gen, device="cuda").to(dt)
+        acc = (64 * torch.randn(din, dout, generator=gen,
+                                device="cuda")).to(acc_dt)
+        got = fl.fused_linear_grad_add_kernel(x, g, acc.clone(), acc_dt)
+        fresh = fl.fused_linear_grad_add_kernel(x, g, None, acc_dt)
+        torch.cuda.synchronize()
+        err = grad_add_close(got, fl.fused_linear_param_grad_add_plain(
+            x, g, acc.clone(), acc_dt), f"grad_add {name}")
+        err_fresh = grad_add_close(fresh, fl.fused_linear_param_grad_add_plain(
+            x, g, None, acc_dt), f"grad_add {name} (no accumulator)")
+        del got, fresh
+        isz, asz = x.element_size(), acc.element_size()
+        bound, by = bound_ms((rows * din + rows * dout) * isz
+                             + 2 * din * dout * asz, 2.0 * rows * din * dout,
+                             "fp32" if dt == torch.float32 else "bf16")
+        copies = _l2_cold((x, g, acc))
+        nxt = itertools.cycle(copies).__next__
+
+        def kernel():
+            xc, gc, ac = nxt()
+            fl.fused_linear_grad_add_kernel(xc, gc, ac, acc_dt)
+
+        if acc_dt == dt:
+            call = "acc.addmm_(x.t(), g)"
+
+            def library():
+                xc, gc, ac = nxt()
+                ac.addmm_(xc.t(), gc)
+        elif out_dtype:
+            call = "torch.mm(x.t(), g, out_dtype=torch.float32)"
+
+            def library():
+                xc, gc, _ = nxt()
+                torch.mm(xc.t(), gc, out_dtype=torch.float32)
+        else:
+            call = "acc.add_((x.t() @ g).float())"
+
+            def library():
+                xc, gc, ac = nxt()
+                ac.add_((xc.t() @ gc).float())
+
+        ms = device_ms(torch, kernel)
+        r = dict(shape=[rows, din, dout], dtype=dt_name, acc_dtype=acc_name,
+                 max_abs_err=err, max_abs_err_no_acc=err_fresh,
+                 tol=list(GRAD_ADD_TOL[acc_dt]), ms=ms,
+                 plain_ms=device_ms(torch, lambda: fl.
+                                    fused_linear_param_grad_add_plain(
+                                        x, g, acc, acc_dt), iters=3,
+                                    replays=2),
+                 bound_ms=bound, bound_by=by, tflops=2e-9 * rows * din * dout
+                 / ms, library_ms=device_ms(torch, library),
+                 library_call=call)
+        if dt == torch.bfloat16 and acc_dt == torch.float32:
+            r["autograd_dw_ms"] = device_ms(torch, lambda: (
+                lambda xc, gc, _: xc.t() @ gc)(*nxt()))
+        report[name] = r
+        del x, g, acc, copies, nxt
+        torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tiny main-grad training parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def _main_grad_trainer(torch, L, model, k, lr):
+    """``model`` under ``MixPrecisionLayer`` and
+    ``GradientMergeOptimizer(MixPrecisionOptimizer(AdamW(
+    multi_precision=True)), k_steps=k)``."""
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as MO
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        mix_precision_utils as MPU)
+    from paddle_tpu_torch.optimizer.adamw import AdamW
+    opt = MO.GradientMergeOptimizer(MPU.MixPrecisionOptimizer(AdamW(
+        parameters=model.parameters(), learning_rate=lr,
+        multi_precision=True)), k_steps=k)
+    return MPU.MixPrecisionLayer(model), opt
+
+
+def _micro(mw, opt, ids, labels, before_update=None):
+    """One micro-batch: forward, backward, fold into main_grad, then the
+    gradient-merge step (an update every k-th call) and clear.
+    ``before_update()`` runs after the fold, before ``step``."""
+    loss = mw.compute_loss(ids, labels)
+    loss.backward()
+    mw.accumulate_main_grads()
+    if before_update is not None:
+        before_update()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def main_grad_parity_phase(torch, L, fl):
+    """The imperative ``llama_tiny`` (fp32, 2 query heads sharing 1 KV
+    head, S 100: no tile multiple) with the same weights on the card
+    (kernels) and the CPU (plain versions), 3 updates of k = 2
+    micro-batches through the main-grad wrappers: losses, every
+    ``main_grad`` before each update and the weights after agree; and
+    ``linear_with_main_grad``'s dx, dw, db (dW through the row-7 kernel
+    on the card)."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=1, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    ref = L.init_layers(L.LlamaForCausalLM(cfg, device="cpu"), seed=SEED)
+    rng = np.random.RandomState(SEED)
+    steps, k, lr = 3, 2, 1e-3
+    ids = rng.randint(0, cfg.vocab_size, (steps, k, 2, 100)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=-1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = L.LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(ref.state_dict())
+        mw, opt = _main_grad_trainer(torch, L, model, k, lr)
+        losses, grads = [], []
+        for s in range(steps):
+            for m in range(k):
+                last = m == k - 1
+                losses.append(float(_micro(
+                    mw, opt, torch.from_numpy(ids[s, m]).to(dev),
+                    torch.from_numpy(labels[s, m]).to(dev),
+                    (lambda: grads.append({
+                        # a copy: on the CPU .cpu() is the tensor itself,
+                        # which the update then divides by k in place
+                        n: p.main_grad.to("cpu", copy=True)
+                        for n, p in model.named_parameters()}))
+                    if last else None)))
+        runs[dev] = (losses, grads, {n: p.detach().cpu()
+                                     for n, p in model.named_parameters()})
+    # tolerances: fp32 on both devices, sums in other orders (phase 11's
+    # for losses and weights; main_grad under MAIN_GRAD_PARITY_TOL)
+    from paddle_tpu_torch.testing import (MAIN_GRAD_PARITY_TOL, l2_close,
+                                          trained_weights_close)
+    (lc, gc, wc), (lp, gp, wp) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=1e-6)
+    grad_err = 0.0
+    for step, (a, b) in enumerate(zip(gc, gp)):
+        for n in b:
+            grad_err = max(grad_err, l2_close(
+                a[n], b[n], MAIN_GRAD_PARITY_TOL,
+                f"step {step} main_grad {n}")[0])
+    lin = {}
+    rng = np.random.RandomState(SEED + 1)
+    x, w, b, cot = (rng.randn(*s) for s in ((3, 100, 256), (256, 384),
+                                            (384,), (3, 100, 384)))
+    before = fl.fused_linear_grad_add_kernel.launches
+    for dev in ("cuda", "cpu"):
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev)
+              .requires_grad_() for a in (x, w, b)]
+        y = fl.linear_with_main_grad(*ts)
+        (y * torch.tensor(cot, dtype=torch.float32, device=dev)).sum() \
+            .backward()
+        lin[dev] = [t.grad.cpu() for t in ts]
+    if fl.fused_linear_grad_add_kernel.launches != before + 1:
+        raise AssertionError("linear_with_main_grad did not launch the "
+                             "row-7 kernel once on the card")
+    lin_err = max(check_close(torch, f"linear_with_main_grad d{n}", a, b,
+                              1e-5, 1e-4)
+                  for n, a, b in zip("xwb", lin["cuda"], lin["cpu"]))
+    return dict(steps=steps, k_steps=k, losses_card=lc, losses_cpu=lp,
+                max_abs_main_grad_err=grad_err,
+                max_abs_linear_with_main_grad_err=lin_err,
+                **trained_weights_close(wc, wp, lr, steps,
+                                        msg="main-grad parity"))
+
+
+# ---------------------------------------------------------------------------
+# phase 19: main-grad training of the imperative Llama at full width
+# ---------------------------------------------------------------------------
+
+MAIN_GRAD_KINDS = (("grad_add", ("grad_add_",)),) + TRAIN_KINDS
+PROJECTIONS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+               "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+               "mlp.down_proj")
+
+
+def main_grad_7b_phase(torch, L, rn, fa, fl, dw_ms):
+    """The imperative ``LlamaForCausalLM`` at Llama-2-7B widths with 8
+    layers (the one cut, phase 12's reason: bf16 weights with fp32
+    main grads, master weights and moments), trained with fp32 main
+    grads: k = 4 micro-batches of (2, 2048) a step through
+    ``MixPrecisionLayer`` and ``GradientMergeOptimizer(
+    MixPrecisionOptimizer(AdamW), k_steps=4)``; 2 warm-up and 3 timed
+    steps, each step's launch counts checked, the loss falling, and a
+    profiler breakdown of one step. Then one more step in which forward
+    pre-hooks and full backward hooks on every projection hand the
+    model's own operands to ``fused_linear_param_grad_add`` into fp32
+    accumulators (7·L·k launches): after the k micro-batches each must
+    match that projection's ``main_grad``, and a sampled projection the
+    plain version; that step is profiled too, for the kernel's device
+    time on these operands. ``dw_ms`` is phase 17's report (the per-call times of
+    the kernel and of autograd's bf16 dW product at these shapes)."""
+    from paddle_tpu_torch.testing import grad_add_close, main_grad_close
+    cfg = L.llama2_7b(num_hidden_layers=8, dtype=torch.bfloat16)
+    n_layers, k, b, s, lr = cfg.num_hidden_layers, 4, 2, 2048, 1e-4
+    t0 = time.perf_counter()
+    model = L.init_layers(L.LlamaForCausalLM(cfg, device="cuda"), seed=SEED)
+    mw, opt = _main_grad_trainer(torch, L, model, k, lr)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, cfg.vocab_size, (k, b, s)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+    counters = {"rms_norm_fwd": rn.rms_norm,
+                "rms_norm_bwd": rn.rms_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel,
+                "fused_linear_grad_add": fl.fused_linear_grad_add_kernel}
+    # per step, k micro-batches each: RMSNorm forward 2L+1 and backward
+    # 2L+1 (no remat), flash forward, dQ and dK/dV once a layer; the
+    # model's own dW goes through autograd, never the row-7 kernel
+    want = {"rms_norm_fwd": k * (2 * n_layers + 1),
+            "rms_norm_bwd": k * (2 * n_layers + 1),
+            "flash_attention_fwd": k * n_layers,
+            "flash_attention_bwd_dq": k * n_layers,
+            "flash_attention_bwd_dkv": k * n_layers,
+            "fused_linear_grad_add": 0}
+    totals = {n: 0 for n in counters}
+
+    def step():
+        loss = torch.zeros((), device="cuda")
+        for m in range(k):
+            loss += _micro(mw, opt, ids[m], labels[m])
+        return loss / k
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(5):                       # 2 warm-up + 3 timed steps
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))         # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {n: c.launches for n, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"step {i}: launch counts {got} != {want}")
+        for n in totals:
+            totals[n] += got[n]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over 5 steps: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_ms = float(np.mean(step_ms[2:]))
+    tokens = k * b * s
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kinds, top = _kernel_ms_by_kind(prof, MAIN_GRAD_KINDS, n_top=14)
+    busy = sum(kinds.values())
+
+    # the step with the row-7 kernel on the model's own operands
+    layers = {f"llama.layers.{l}.{p}": model.llama.layers[l]
+              .get_submodule(p) for l in range(n_layers) for p in PROJECTIONS}
+    n_proj = len(layers)
+    accs = {n: torch.zeros_like(mod.weight, dtype=torch.float32)
+            for n, mod in layers.items()}
+    inputs, sample, handles = {}, {}, []
+    sample_name = "llama.layers.0.self_attn.o_proj"   # a strided input
+
+    def pre_hook(name):
+        def hook(module, args):
+            inputs[name] = args[0].detach()
+        return hook
+
+    def bwd_hook(name):
+        def hook(module, grad_input, grad_output):
+            x, dout = inputs.pop(name), grad_output[0]
+            with torch.no_grad():
+                fl.fused_linear_param_grad_add(x, dout, accs[name],
+                                               has_bias=False)
+            if name == sample_name:
+                sample["x"], sample["dout"] = x, dout.detach()
+        return hook
+
+    for name, mod in layers.items():
+        handles.append(mod.register_forward_pre_hook(pre_hook(name)))
+        handles.append(mod.register_full_backward_hook(bwd_hook(name)))
+    checked = {}
+
+    def check_accumulators():
+        # after the k-th fold, before the update divides main_grad by k
+        err, l2 = 0.0, 0.0
+        for n, mod in layers.items():
+            e, r = main_grad_close(accs[n], mod.weight.main_grad,
+                                   f"accumulator {n} vs main_grad")
+            err, l2 = max(err, e), max(l2, r)
+        checked.update(max_abs_err=err, max_rel_l2=l2)
+
+    fl.fused_linear_grad_add_kernel.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for m in range(k):
+            _micro(mw, opt, ids[m], labels[m],
+                   check_accumulators if m == k - 1 else None)
+        torch.cuda.synchronize()
+    launches = fl.fused_linear_grad_add_kernel.launches
+    hooked_kinds, _ = _kernel_ms_by_kind(prof, MAIN_GRAD_KINDS)
+    for h in handles:
+        h.remove()
+    if launches != n_proj * k or not checked:
+        raise AssertionError(f"row-7 launches {launches} != 7·L·k = "
+                             f"{n_proj * k}, or accumulators unchecked")
+    x2 = sample["x"].reshape(-1, sample["x"].shape[-1]).contiguous()
+    g2 = sample["dout"].reshape(-1, sample["dout"].shape[-1]).contiguous()
+    sample_err = grad_add_close(
+        fl.fused_linear_grad_add_kernel(x2, g2, None, torch.float32),
+        fl.fused_linear_param_grad_add_plain(x2, g2, None, torch.float32),
+        f"grad_add on {sample_name}'s operands")
+    # per step at these shapes: 4 (h, h) projections, gate and up (h, ffn),
+    # down (ffn, h), in each of L layers and k micro-batches
+    n_params = sum(p.numel() for p in model.parameters())
+    # bench.py's accounting: 6 FLOPs per matmul parameter and token (the
+    # embedding gather excluded) + causal attention 6·L·S·h
+    flops_per_token = 6.0 * (n_params - cfg.vocab_size * cfg.hidden_size) \
+        + 6.0 * n_layers * s * cfg.hidden_size
+    tok_s = tokens / (mean_ms / 1e3)
+    per_step = {key: k * n_layers * (4 * dw_ms["qkvo_bf16"][key]
+                                     + 2 * dw_ms["gate_up_bf16"][key]
+                                     + dw_ms["down_bf16"][key])
+                for key in ("ms", "autograd_dw_ms", "bound_ms")}
+    del model, mw, opt, accs, inputs, sample, layers
+    return dict(
+        layers=n_layers, reduced="num_hidden_layers 32 -> 8 (memory)",
+        params=n_params, init_s=init_s, k_steps=k, micro_batch=[b, s],
+        lr=lr, remat="none", losses=losses, step_ms=step_ms,
+        mean_step_ms=mean_ms, tokens_per_step=tokens, tokens_per_s=tok_s,
+        flops_per_token=flops_per_token,
+        mfu_vs_989tflops=flops_per_token * tok_s / PEAK_OPS_PER_S["bf16"],
+        peak_mem_gb=peak_gb, launches_per_step=want, launches=totals,
+        breakdown=dict(kernel_ms=kinds, top_kernels=top, device_busy_ms=busy,
+                       wall_ms=mean_ms, idle_share=1 - busy / mean_ms),
+        grad_add=dict(launches=launches, want=n_proj * k,
+                      kernel_ms_in_step=hooked_kinds["grad_add"],
+                      step_kernel_ms=hooked_kinds,
+                      accumulators_vs_main_grad=checked,
+                      sample=sample_name, sample_max_abs_err=sample_err,
+                      kernel_ms_per_step_from_phase17=per_step["ms"],
+                      autograd_dw_ms_per_step_from_phase17=per_step[
+                          "autograd_dw_ms"],
+                      bound_ms_per_step=per_step["bound_ms"]))
+
+
 def _kernel_entry(name, route, source, replaces, launches, r):
     """One entry of the kernels line: ``launches`` from the main paths,
     the rest from the kernel's own phase."""
@@ -1457,6 +1875,7 @@ def main() -> int:
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import _common
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_linear as fl
     from paddle_tpu_torch.ops import layer_norm_fused as ln
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
@@ -1470,7 +1889,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errors = []
     sources = ["ragged_paged_attention", "paged_decode_attention",
-               "flash_attention"]
+               "flash_attention", "fused_linear_grad_add"]
 
     def build():
         try:
@@ -1538,6 +1957,17 @@ def main() -> int:
     done(15, "tiny ERNIE training, card == cpu", ernie_parity_phase(torch, E))
     bert = bert_large_phase(torch, E, ln, fa)
     done(16, f"packed BERT-large MLM bf16 training on {card}", bert)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grad_add = grad_add_phase(torch, fl)
+    done(17, "weight-gradient accumulation kernel vs plain", grad_add)
+    done(18, "tiny main-grad training, card == cpu",
+         main_grad_parity_phase(torch, L, fl))
+    main_grad = main_grad_7b_phase(torch, L, rn, fa, fl, grad_add)
+    done(19, f"Llama-2-7B widths, 8 layers, main-grad training on {card}",
+         main_grad)
+    mg = main_grad["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
@@ -1552,7 +1982,7 @@ def main() -> int:
              launches=serve["launches"]["rms_norm_fwd"]
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
              + cold["launches"]["rms_norm_fwd"]
-             + train["launches"]["rms_norm_fwd"],
+             + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -1576,11 +2006,12 @@ def main() -> int:
         _kernel_entry("rms_norm_bwd", "triton",
                       "paddle_tpu_torch/ops/rms_norm.py",
                       "paddle_tpu/ops/rms_norm.py:55",
-                      train["launches"]["rms_norm_bwd"], rms_bwd["bf16"]),
+                      train["launches"]["rms_norm_bwd"] + mg["rms_norm_bwd"],
+                      rms_bwd["bf16"]),
     ]
-    # the flash kernels run on both training paths (the Llama step's
-    # launches plus the BERT step's) and the forward on the legacy serve's
-    # prefill waves too; their numbers are the Llama step shape's, the
+    # the flash kernels run on every training path (the Llama step's
+    # launches, the BERT step's and main-grad training's) and the forward
+    # on the legacy serve's prefill waves too; their numbers are the Llama step shape's, the
     # error the largest over it and the segmented checks
     step, seg_step = flash["step_shape"], seg_flash["step_shape"]
     for name, key, line in (("flash_attention_fwd", "fwd", 41),
@@ -1592,13 +2023,20 @@ def main() -> int:
             name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
-            + leg.get(name, 0), r))
+            + mg[name] + leg.get(name, 0), r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
             bert["launches"][name], lnr[key]["bf16"]))
+    # row 7: launched on main-grad training's own operands (phase 19);
+    # its numbers at the q/k/v/o shape, bf16 into fp32
+    kernels.append(_kernel_entry(
+        "fused_linear_grad_add", "cuda",
+        "paddle_tpu_torch/csrc/fused_linear_grad_add.cu",
+        "paddle_tpu/ops/fused_linear.py:37",
+        main_grad["grad_add"]["launches"], grad_add["qkvo_bf16"]))
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")):

@@ -1,0 +1,77 @@
+"""Tensor-parallel layers of
+``paddle_tpu/distributed/meta_parallel/mp_layers.py`` (l.44-150) at mp
+degree 1, the one-device case: ``ColumnParallelLinear``,
+``RowParallelLinear`` and ``VocabParallelEmbedding`` with the
+reference's ``(in, out)`` / ``(vocab, emb)`` weights, parameter names
+and initialisers (Xavier-uniform weights, zero biases, normal(0, 0.02)
+embeddings). At degree 1 the reference's ``gather_output`` and
+``input_is_parallel`` change nothing (its GSPMD mode), so the port has
+neither. An mp group (degree > 1) comes with the distributed slice of
+the port and raises.
+
+Weights are drawn when a layer is built (torch's default generator;
+``nn.common_layers.init_layers`` redraws a model seeded), on ``device``:
+``None`` means the card and raises without one.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...nn import functional as F
+from ...nn import initializer as I
+from ...ops._common import not_ported, resolve_device
+
+
+def _one_device(mp_group):
+    if mp_group is not None:
+        raise not_ported("an mp group (tensor parallelism over devices)",
+                         "distributed")
+
+
+class ColumnParallelLinear(nn.Module):
+    """Weight (in, out); at mp degree > 1 it would be split on out."""
+
+    def __init__(self, in_features, out_features, has_bias=True,
+                 mp_group=None, dtype=torch.float32, device=None):
+        super().__init__()
+        _one_device(mp_group)
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.weight = nn.Parameter(torch.empty(in_features, out_features,
+                                               **kw))
+        self.bias = (nn.Parameter(torch.empty(out_features, **kw))
+                     if has_bias else None)
+        self.reset_parameters()
+
+    def reset_parameters(self, gen=None):
+        I.xavier_uniform_(self.weight, gen)
+        if self.bias is not None:
+            I.constant_(self.bias, 0.0)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class RowParallelLinear(ColumnParallelLinear):
+    """Weight (in, out); at mp degree > 1 it would be split on in."""
+
+
+class VocabParallelEmbedding(nn.Module):
+    """Weight (vocab, emb); at mp degree > 1 it would be split on
+    vocab."""
+
+    def __init__(self, num_embeddings, embedding_dim, mp_group=None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        _one_device(mp_group)
+        self.weight = nn.Parameter(torch.empty(
+            num_embeddings, embedding_dim, dtype=dtype,
+            device=resolve_device(device)))
+        self.reset_parameters()
+
+    def reset_parameters(self, gen=None):
+        I.normal_(self.weight, gen, 0.0, 0.02)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight)

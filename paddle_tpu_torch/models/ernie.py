@@ -32,9 +32,7 @@ flash forward, dQ and dK/dV (``ops/flash_attention.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as TF
 from torch import nn
@@ -44,9 +42,10 @@ from ..incubate.nn.layer.fused_transformer import (FusedFeedForward,
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.common_layers import LayerNorm, Linear
+from ..nn.common_layers import init_layers as init
+from ..nn.common_layers import load_layer_state as params_from_numpy
 from ..ops._common import resolve_device
 from ..optimizer.adamw import AdamW
-from .llama import _to_tensor
 
 
 @dataclasses.dataclass
@@ -239,42 +238,8 @@ class ErnieForMaskedLM(nn.Module):
                                labels.reshape(-1), ignore_index=-100)
 
 
-def init(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Fill every parameter of ``model`` in place, seeded: each layer's
-    ``reset_parameters`` draws from the reference initialisers'
-    distributions (embeddings normal(0, 0.02), weights Xavier-uniform,
-    LayerNorm scales 1, biases 0) with one ``torch.Generator`` on the
-    parameters' device. Returns ``model``."""
-    dev = next(model.parameters()).device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    for m in model.modules():
-        if hasattr(m, "reset_parameters"):
-            m.reset_parameters(gen)
-    return model
-
-
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
-
-
-def params_from_numpy(model: nn.Module, np_params: Dict[str, Any]) -> None:
-    """Copy weights into ``model`` by name: ``np_params`` maps the JAX
-    model's ``named_parameters()`` names to arrays (e.g. ``np.asarray``
-    of each ``p._value``). Every parameter must be given, with its
-    shape; values are cast to the parameter's dtype."""
-    own = dict(model.named_parameters())
-    if set(own) != set(np_params):
-        raise ValueError(
-            f"names differ: missing {sorted(set(own) - set(np_params))}, "
-            f"unknown {sorted(set(np_params) - set(own))}")
-    with torch.no_grad():
-        for name, p in own.items():
-            t = _to_tensor(np.asarray(np_params[name]))
-            if tuple(t.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{tuple(p.shape)}")
-            p.copy_(t.to(p.dtype))
 
 
 def build_mlm_train_step(config: ErnieConfig, learning_rate: float = 1e-4,

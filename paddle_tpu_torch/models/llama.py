@@ -1,12 +1,19 @@
 """Llama family — counterpart of ``paddle_tpu/models/llama.py``: the
 unified serving step, the legacy paged pipeline (bucketed prefill,
-prefix-cache suffix prefill, ragged decode step) and the one-device
-training step.
+prefix-cache suffix prefill, ragged decode step), the one-device
+training step, and the imperative ``LlamaForCausalLM`` (l.93-191) that
+main-grad training drives.
 
 Weights use the JAX package's stacked layout (per-layer tensors stacked
 on a leading L axis) and its ``x @ W`` orientation (``wq`` is
 ``(L, h, h)``, ``lm_head`` is ``(h, V)``), so weights made by the JAX
 package carry across as a plain copy (:func:`params_from_numpy`).
+
+The imperative model is an ``nn.Module`` over the one-device
+``meta_parallel`` layers whose parameter names are the JAX model's
+``named_parameters()`` names (``llama.layers.0.self_attn.q_proj.weight``,
+…), with the same ``(in, out)`` weights, so the JAX model's weights carry
+across by name (:func:`load_layer_state`).
 
 Decoder math follows Llama-2: RMSNorm → QKV (GQA) → RoPE → attention →
 out-proj → residual; RMSNorm → SwiGLU MLP → residual. The projections
@@ -29,8 +36,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from ..nn import functional as NF
+from ..nn.common_layers import (  # noqa: F401
+    RMSNorm, init_layers, load_layer_state, to_tensor)
 from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
 from ..ops import rope as rope_ops
@@ -52,6 +65,7 @@ class LlamaConfig:
     num_key_value_heads: int = 32
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
     dtype: Any = torch.float32
 
     @property
@@ -120,13 +134,6 @@ def init_params(config: LlamaConfig, seed: int = 0,
     return params
 
 
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.array(a, order="C")           # a writable copy
-    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16 from JAX
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
 def params_from_numpy(np_params: Dict[str, Any], config: LlamaConfig,
                       device=None) -> Dict[str, torch.Tensor]:
     """Carry stacked weights across from numpy (e.g. ``np.asarray`` of
@@ -137,7 +144,7 @@ def params_from_numpy(np_params: Dict[str, Any], config: LlamaConfig,
     out = {}
     for k, v in np_params.items():
         _check_dense({k: v})
-        t = _to_tensor(np.asarray(v))
+        t = to_tensor(np.asarray(v))
         if k in shapes and tuple(t.shape) != shapes[k]:
             raise ValueError(f"{k}: shape {tuple(t.shape)}, expected "
                              f"{shapes[k]}")
@@ -600,3 +607,111 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
         return params, init_opt_state(params)
 
     return step_fn, init_fn
+
+
+# ---------------------------------------------------------------------------
+# Imperative model (l.93-191)
+# ---------------------------------------------------------------------------
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        h, d = config.hidden_size, config.head_dim
+        kv = config.num_key_value_heads * d
+        kw = dict(has_bias=False, dtype=config.dtype, device=device)
+        self.q_proj = ColumnParallelLinear(h, h, **kw)
+        self.k_proj = ColumnParallelLinear(h, kv, **kw)
+        self.v_proj = ColumnParallelLinear(h, kv, **kw)
+        self.o_proj = RowParallelLinear(h, h, **kw)
+
+    def forward(self, x, cos, sin):
+        b, s, _ = x.shape
+        d = self.config.head_dim
+        q = self.q_proj(x).reshape([b, s, -1, d])
+        k = self.k_proj(x).reshape([b, s, -1, d])
+        v = self.v_proj(x).reshape([b, s, -1, d])
+        q, k = rope_ops.fused_rotary_position_embedding(q, k, cos, sin)
+        out = NF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape([b, s, -1]))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        h, m = config.hidden_size, config.intermediate_size
+        kw = dict(has_bias=False, dtype=config.dtype, device=device)
+        self.gate_proj = ColumnParallelLinear(h, m, **kw)
+        self.up_proj = ColumnParallelLinear(h, m, **kw)
+        self.down_proj = RowParallelLinear(m, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(NF.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        kw = dict(epsilon=config.rms_norm_eps, dtype=config.dtype,
+                  device=device)
+        self.input_layernorm = RMSNorm(config.hidden_size, **kw)
+        self.self_attn = LlamaAttention(config, device)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, **kw)
+        self.mlp = LlamaMLP(config, device)
+
+    def forward(self, x, cos, sin):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, dtype=config.dtype,
+            device=device)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, device)
+                                     for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
+                            dtype=config.dtype, device=device)
+
+    def forward(self, input_ids):
+        cfg = self.config
+        cos, sin = rope_ops.build_rope_cache(input_ids.shape[1], cfg.head_dim,
+                                             cfg.rope_theta,
+                                             device=input_ids.device)
+        x = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """The eager Llama: (B, S) ids → (B, S, V) logits, parameters in
+    ``config.dtype`` on ``device`` (``None`` means the card and raises
+    without one; pass ``device="cpu"`` for the plain kernel versions).
+    With ``tie_word_embeddings`` the logits are ``h @ embedᵀ`` (l.181)
+    and there is no ``lm_head``."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.llama = LlamaModel(config, device)
+        self.lm_head = None if config.tie_word_embeddings else \
+            ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                 has_bias=False, dtype=config.dtype,
+                                 device=device)
+
+    def forward(self, input_ids):
+        h = self.llama(input_ids)
+        if self.lm_head is None:
+            return h @ self.llama.embed_tokens.weight.t()
+        return self.lm_head(h)
+
+    def compute_loss(self, input_ids, labels):
+        """Mean cross-entropy in fp32 over the positions whose label is
+        not −100."""
+        logits = self(input_ids)
+        return NF.cross_entropy(logits.reshape([-1, self.config.vocab_size]),
+                                labels.reshape([-1]), ignore_index=-100)

@@ -1,4 +1,5 @@
-"""``Linear`` and ``LayerNorm`` of ``paddle_tpu/nn/common_layers.py``,
+"""``Linear``, ``LayerNorm`` and ``RMSNorm`` of
+``paddle_tpu/nn/common_layers.py``,
 with the reference's parameter names, its ``(in, out)`` weight layout
 (``y = x @ W + b``) and its initialisers (:mod:`.initializer`).
 
@@ -9,6 +10,9 @@ raises without one (``ops._common.resolve_device``)."""
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -54,3 +58,64 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self._shape, self.weight, self.bias,
                             self._epsilon)
+
+
+class RMSNorm(nn.Module):
+    """Llama's RMSNorm (l.236): a scale initialised to ones."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.empty(
+            hidden_size, dtype=dtype, device=resolve_device(device)))
+        self.reset_parameters()
+
+    def reset_parameters(self, gen=None):
+        I.constant_(self.weight, 1.0)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self._epsilon)
+
+
+def init_layers(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fill every parameter of ``model`` in place, seeded: each layer's
+    ``reset_parameters`` draws from the reference initialisers'
+    distributions with one ``torch.Generator`` on the parameters'
+    device. Returns ``model``."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for m in model.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    return model
+
+
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 from JAX included) as a CPU
+    tensor of its own memory."""
+    a = np.array(a, order="C")           # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def load_layer_state(model: nn.Module, np_state: Dict[str, Any]) -> None:
+    """Copy weights into ``model`` by name: ``np_state`` maps the JAX
+    model's ``named_parameters()`` names to arrays (e.g. ``np.asarray``
+    of each ``p._value``). Every parameter must be given, with its
+    shape, and no other name; values are cast to the parameter's
+    dtype."""
+    own = dict(model.named_parameters())
+    if set(own) != set(np_state):
+        raise ValueError(
+            f"names differ: missing {sorted(set(own) - set(np_state))}, "
+            f"unknown {sorted(set(np_state) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            t = to_tensor(np.asarray(np_state[name]))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))

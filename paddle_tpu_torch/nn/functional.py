@@ -1,12 +1,32 @@
 """Functions of ``paddle_tpu/nn/functional.py`` that the ported models
-use: ``layer_norm``, ``gelu`` and ``cross_entropy``."""
+use: ``linear``, ``embedding``, ``silu``, ``gelu``, ``layer_norm``,
+``rms_norm``, ``scaled_dot_product_attention`` and ``cross_entropy``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..ops import flash_attention as fa
+from ..ops import rms_norm as rn
+from ..ops._common import not_ported
 from ..ops.fused_transformer_block import layer_norm_array
+
+
+def linear(x, weight, bias=None):
+    """``x @ W (+ b)`` with the reference's ``(in, out)`` weight
+    (l.170)."""
+    y = x @ weight
+    return y if bias is None else y + bias
+
+
+def embedding(x, weight):
+    """Rows of ``weight`` by id (l.178)."""
+    return weight[x.long()]
+
+
+def silu(x):
+    return F.silu(x)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -23,6 +43,25 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     y = layer_norm_array(x.reshape(*lead, -1), flat(weight), flat(bias),
                          epsilon)
     return y.reshape(x.shape)
+
+
+def rms_norm(x, weight, epsilon=1e-6):
+    """RMSNorm over the last axis (l.521): the Triton kernels for CUDA
+    tensors, the plain version for CPU ones."""
+    return rn.rms_norm(x, weight, epsilon)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None):
+    """(B, S, H, D) attention (l.1009, ``ops/flash_attention.py:739``)
+    over the flash kernels; fewer KV heads (GQA) are shared by their
+    query heads without repeating K/V. A mask or dropout takes the
+    reference's XLA path, which is not ported."""
+    if attn_mask is not None or (dropout_p > 0.0 and training):
+        raise not_ported("scaled_dot_product_attention with attn_mask or "
+                         "dropout", "masked-attention")
+    return fa.sdpa_array(query, key, value, scale=scale, causal=is_causal)
 
 
 def gelu(x, approximate=False):

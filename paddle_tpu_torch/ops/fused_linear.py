@@ -1,0 +1,179 @@
+"""Weight-gradient GEMM with in-place accumulation — counterpart of
+``paddle_tpu/ops/fused_linear.py`` (``fused_linear_param_grad_add`` and
+``linear_with_main_grad``).
+
+``acc += xᵀ·dout``, summed in fp32 into the accumulator: fp32
+``main_grad`` when ``multi_precision``, else one of x's dtype (the
+product is then rounded to that dtype before the add, as the JAX
+package's XLA path does). CPU tensors take
+:func:`fused_linear_param_grad_add_plain`; CUDA tensors launch the
+hand-written kernel ``csrc/fused_linear_grad_add.cu`` for every shape
+(the Pallas kernel's ``_pallas_ok`` sends shapes that do not tile to
+XLA; the card has no such fallback), or raise.
+
+In place: the reference's op and the Pallas kernel's alias update
+``main_grad`` in place, where the JAX function returns new arrays. The
+port updates ``dweight`` (and ``dbias``) in place when it already has
+the accumulator's dtype, device, shape and layout, and returns it;
+otherwise it converts first (``jnp.asarray``, l.97) and the argument is
+left as it was. The CPU plain version keeps the same contract, so a
+caller sees the same on both devices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._common import check_cuda_tensor, load_cuda_library
+
+#: x/dout dtypes of the kernel (its dtype code)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TILE = 128                     # out rows and columns per block (the .cu)
+_MAX_GRID_Y = 65535
+
+
+def _as_acc(t, dtype, shape, device, name):
+    """``t`` as the accumulator: itself when it already has ``dtype``,
+    ``device``, ``shape`` and a contiguous layout (updated in place),
+    else a converted copy."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def fused_linear_param_grad_add_plain(x2, g2, acc, acc_dtype):
+    """The kernel's arithmetic in plain PyTorch: ``x2`` (rows, din),
+    ``g2`` (rows, dout), ``acc`` (din, dout) in ``acc_dtype`` or
+    ``None``. The product is taken in fp32 from the inputs' exact values,
+    rounded to ``acc_dtype`` and added (in place into ``acc``).
+    Returns the accumulator."""
+    prod = (x2.float().t() @ g2.float()).to(acc_dtype)
+    if acc is None:
+        return prod
+    return acc.add_(prod)
+
+
+def fused_linear_grad_add_kernel(x2, g2, acc, acc_dtype):
+    """Launch the CUDA kernel: the contract of
+    :func:`fused_linear_param_grad_add_plain` on CUDA tensors. ``acc``
+    (contiguous, ``acc_dtype``) is updated in place and returned; with
+    ``acc=None`` the output is a fresh ``torch.empty`` the kernel fills.
+    Counts one launch in ``fused_linear_grad_add_kernel.launches``."""
+    check_cuda_tensor("x", x2, tuple(_KERNEL_DTYPES), ndim=2)
+    check_cuda_tensor("dout", g2, (x2.dtype,), ndim=2)
+    rows, din = x2.shape
+    dout = g2.shape[1]
+    if g2.shape[0] != rows:
+        raise ValueError(f"x has {rows} rows, dout {g2.shape[0]}")
+    if acc_dtype not in (torch.float32, x2.dtype):
+        raise TypeError(f"accumulator dtype {acc_dtype}: the kernel takes "
+                        f"float32 or x's {x2.dtype}")
+    if not din or not dout:
+        raise ValueError(f"empty weight gradient ({din}, {dout})")
+    if (din + _TILE - 1) // _TILE > _MAX_GRID_Y:
+        raise ValueError(f"din {din} exceeds the kernel's grid")
+    if x2.device != g2.device:
+        raise ValueError("x and dout must be on one device")
+    if acc is None:
+        out = torch.empty(din, dout, dtype=acc_dtype, device=x2.device)
+    else:
+        check_cuda_tensor("dweight", acc, (acc_dtype,), ndim=2)
+        if tuple(acc.shape) != (din, dout) or acc.device != x2.device:
+            raise ValueError(f"dweight {tuple(acc.shape)} on {acc.device} "
+                             f"for ({din}, {dout}) on {x2.device}")
+        out = acc
+    vec = 16 // x2.element_size()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    err = _launch_fn()(
+        x2.data_ptr(), g2.data_ptr(), None if acc is None else acc.data_ptr(),
+        out.data_ptr(), rows, din, dout, _KERNEL_DTYPES[x2.dtype],
+        int(acc_dtype == torch.float32),
+        int(din % vec == 0 and x2.data_ptr() % 16 == 0),
+        int(dout % vec == 0 and g2.data_ptr() % 16 == 0), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_linear_grad_add failed: CUDA error {err}")
+    fused_linear_grad_add_kernel.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (the plain version never counts)
+fused_linear_grad_add_kernel.launches = 0
+
+_fn = []
+
+
+def _launch_fn():
+    if not _fn:
+        fn = load_cuda_library("fused_linear_grad_add"
+                               ).fused_linear_grad_add_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn.append(fn)
+    return _fn[0]
+
+
+def fused_linear_param_grad_add(x, dout, dweight=None, dbias=None,
+                                multi_precision: bool = True,
+                                has_bias: bool = True):
+    """Accumulate ``dweight += xᵀ·dout`` (and ``dbias += Σ dout``).
+
+    ``x``: (..., din) activations, ``dout``: (..., dout) output
+    gradient. ``dweight``/``dbias`` are the running accumulators (fp32
+    when ``multi_precision``, the reference's main_grad); ``None`` means
+    start at zero. Returns ``(dweight, dbias)`` (``dbias`` ``None`` when
+    ``has_bias=False``); each is the argument itself, updated in place,
+    when that already was the accumulator (see the module docstring).
+    The bias sum is a plain reduction in both packages."""
+    din, d_out = x.shape[-1], dout.shape[-1]
+    # o_proj's input is a reshaped attention output: reshape may give a
+    # strided view, and the kernel reads contiguous rows
+    x2 = x.reshape(-1, din).contiguous()
+    g2 = dout.reshape(-1, d_out).contiguous()
+    acc_dtype = torch.float32 if multi_precision else x2.dtype
+    if dweight is not None:
+        dweight = _as_acc(dweight, acc_dtype, (din, d_out), x2.device,
+                          "dweight")
+    if x2.is_cuda:
+        dw = fused_linear_grad_add_kernel(x2, g2, dweight, acc_dtype)
+    else:
+        dw = fused_linear_param_grad_add_plain(x2, g2, dweight, acc_dtype)
+    db = None
+    if has_bias:
+        db = g2.to(acc_dtype).sum(0)
+        if dbias is not None:
+            db = _as_acc(dbias, acc_dtype, (d_out,), x2.device,
+                         "dbias").add_(db)
+    return dw, db
+
+
+class LinearWithMainGrad(torch.autograd.Function):
+    """``_linear_mg``'s custom_vjp: the forward is ``x @ w (+ b)`` (a
+    plain product, as the JAX package leaves it to XLA); the backward is
+    ``dx = (g @ wᵀ)`` in x's dtype and ``dw, db`` from
+    :func:`fused_linear_param_grad_add` (fp32), ``dw`` cast to w's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        y = x @ w
+        return y if b is None else y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = (g @ w.t().to(g.dtype)).to(x.dtype)
+        dw, db = fused_linear_param_grad_add(x, g, has_bias=ctx.has_bias)
+        return dx, dw.to(w.dtype), db
+
+
+def linear_with_main_grad(x, w, b=None):
+    """Linear whose backward routes dW (and db) through
+    :func:`fused_linear_param_grad_add`: one fp32-accumulating product,
+    the reference's main_grad discipline."""
+    return LinearWithMainGrad.apply(x, w, b)

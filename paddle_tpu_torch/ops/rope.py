@@ -45,3 +45,9 @@ def apply_rope_array(q, k, cos, sin):
     q_out = qf * cos + _rotate_half(qf) * sin
     k_out = kf * cos + _rotate_half(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def fused_rotary_position_embedding(q, k, cos, sin):
+    """``fused_rotary_position_embedding`` (l.48): :func:`apply_rope_array`
+    on (B, S, H, D) q and k."""
+    return apply_rope_array(q, k, cos, sin)

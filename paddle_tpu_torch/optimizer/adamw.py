@@ -25,11 +25,11 @@ weights).
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-_LOW = (torch.bfloat16, torch.float16)
+from .optimizer import Optimizer
 
 #: elements per multi-tensor pass: each pass's fp32 temporaries stay
 #: within a few times 256 MB however large the model
@@ -125,45 +125,38 @@ def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
             F.copy_([p for p, _ in out], [q for _, q in out])
 
 
-class AdamW:
-    def __init__(self, named_parameters: Iterable[Tuple[str, torch.Tensor]],
+class AdamW(Optimizer):
+    """``AdamW`` (l.298-337) over :func:`adamw_update_`: fp32 moments,
+    and fp32 master weights for bf16/fp16 parameters under
+    ``multi_precision``. Takes ``named_parameters`` (first, as the
+    ported training steps pass them) or ``parameters``."""
+
+    def __init__(self, named_parameters: Optional[
+                     Iterable[Tuple[str, torch.Tensor]]] = None,
                  learning_rate: float = 1e-3, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
-                 weight_decay: float = 0.01, multi_precision: bool = False):
-        self._params = dict(named_parameters)
-        self._lr = float(learning_rate)
+                 weight_decay: float = 0.01, multi_precision: bool = False,
+                 parameters: Optional[Iterable[torch.Tensor]] = None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         multi_precision, named_parameters)
         self._b1, self._b2, self._eps = float(beta1), float(beta2), epsilon
-        self._wd = float(weight_decay)
-        self._multi_precision = multi_precision
-        #: name -> {"moment1", "moment2"[, "master"]}, fp32
-        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
-        self.step_count = 0
 
-    def _state_of(self, name, p):
-        s = self.state.get(name)
-        if s is None:
-            s = {"moment1": torch.zeros_like(p, dtype=torch.float32),
-                 "moment2": torch.zeros_like(p, dtype=torch.float32)}
-            if self._multi_precision and p.dtype in _LOW:
-                s["master"] = p.detach().float()
-            self.state[name] = s
+    def _new_state(self, p):
+        s = super()._new_state(p)
+        s["moment1"] = torch.zeros_like(p, dtype=torch.float32)
+        s["moment2"] = torch.zeros_like(p, dtype=torch.float32)
         return s
 
     @torch.no_grad()
     def step(self):
         self.step_count += 1
         t = self.step_count
-        live = [(n, p) for n, p in self._params.items() if p.grad is not None]
-        states = [self._state_of(n, p) for n, p in live]
-        adamw_update_([p for _, p in live], [p.grad for _, p in live],
+        live = self._live()
+        states = [self._state_of(n, p) for n, p, _ in live]
+        adamw_update_([p for _, p, _ in live], [g for _, _, g in live],
                       [s["moment1"] for s in states],
                       [s["moment2"] for s in states],
                       masters=[s.get("master") for s in states],
                       lr=self._lr, beta1=self._b1, beta2=self._b2,
                       eps=self._eps, weight_decay=self._wd,
                       bc1=1 - self._b1 ** t, bc2=1 - self._b2 ** t)
-
-    def clear_grad(self):
-        """Drop every gradient (``None``), as ``Optimizer.clear_grad``."""
-        for p in self._params.values():
-            p.grad = None

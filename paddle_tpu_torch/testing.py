@@ -39,6 +39,41 @@ LN_TOL = {torch.bfloat16: dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
                               sums=(1e-5, 1e-4))}
 
 
+# The weight-gradient accumulation kernel against its plain version, by
+# the accumulator's dtype, as (rtol, atol as a share of the plain output's
+# rms). fp32: both sum the same products (exact in fp32 for bf16/fp16
+# inputs, one rounding each for fp32 ones) in fp32, in another order; a
+# running sum over n rows gathers ~sqrt(n)·2^-24 of its own size in
+# rounding, so two orders over 4096 rows differ by up to ~2e-5 of the
+# output's rms in the tails (a lost 32-row step moves it by ~9 %). A
+# bf16/fp16 accumulator: both round the fp32 product to it, add and round
+# again; the product's last fp32 bits decide now and then which way a
+# rounding goes, one step of the product (2^-8 relative in bf16, 2^-11 in
+# fp16) on an output that may be smaller than the product.
+GRAD_ADD_TOL = {torch.float32: (1e-5, 1e-4),
+                torch.bfloat16: (2 ** -7, 2 ** -5),
+                torch.float16: (2 ** -10, 2 ** -8)}
+
+# An fp32 accumulator of k micro-batches' weight gradients summed by the
+# kernel in fp32 against the main_grad that MixPrecisionLayer folds from
+# autograd's bf16 gradients, as (rtol, atol as a share of main_grad's rms,
+# most relative L2 error): each fold adds one bf16 rounding (2^-9
+# relative) of that micro-batch's gradient, which may be larger than the
+# sum (k = 4: up to ~2 % of the rms in the tails, ~0.1 % in L2); a
+# micro-batch or a tile lost moves the sum by a quarter or more.
+MAIN_GRAD_TOL = (2 ** -6, 2 ** -4, 2 ** -7)
+
+# main_grad after the same fp32 main-grad training on two devices, as
+# (rtol, atol as a share of the CPU main_grad's rms, most relative L2
+# error): sums in other orders, and after an update the weights differ
+# by AdamW's noisy steps (up to 2·lr on a 1e-4 share of the elements,
+# see trained_weights_close), which moves the gradients those weights
+# touch by up to ~1e-3 of the tensor's rms (1.5e-3 on 3 of 65536 o_proj
+# elements on an H100) while the relative L2 error stays ~1e-5; a
+# micro-batch lost or not averaged moves it to 0.5.
+MAIN_GRAD_PARITY_TOL = (1e-3, 1e-2, 1e-4)
+
+
 def close(got, want, rtol, atol, msg) -> float:
     """``got`` finite and within (rtol, atol) of ``want``, both taken in
     fp32. Returns max |got − want|."""
@@ -58,10 +93,28 @@ def rms_close(got, want, rtol, rel_atol, msg) -> float:
     return close(got, want, rtol, rel_atol * rms, msg)
 
 
+def grad_add_close(got, want, msg) -> float:
+    """The accumulation kernel's output against its plain version under
+    ``GRAD_ADD_TOL`` of the output's dtype. Returns max |got − want|."""
+    return rms_close(got, want, *GRAD_ADD_TOL[want.dtype], msg)
+
+
 def flash_close(got, want, dtype, msg):
     """One flash tensor against its plain version under ``FLASH_TOL``.
     Returns (max |got − want|, relative L2 error)."""
-    rtol, rel_atol, l2_tol = FLASH_TOL[dtype]
+    return l2_close(got, want, FLASH_TOL[dtype], msg)
+
+
+def main_grad_close(got, want, msg):
+    """An fp32 accumulator against ``main_grad`` under
+    ``MAIN_GRAD_TOL``. Returns (max |got − want|, relative L2 error)."""
+    return l2_close(got, want, MAIN_GRAD_TOL, msg)
+
+
+def l2_close(got, want, tol, msg):
+    """:func:`rms_close` under ``tol = (rtol, rel_atol, l2_tol)``, and a
+    relative L2 error of at most ``l2_tol``."""
+    rtol, rel_atol, l2_tol = tol
     err = rms_close(got, want, rtol, rel_atol, msg)
     wf = want.float()
     l2 = ((got.float() - wf).norm() / wf.norm()).item()

@@ -1,8 +1,8 @@
 """Card-only tests of the PyTorch/CUDA port: each kernel against its
 plain PyTorch version at Llama-2-7B and BERT-large widths, the wrappers'
-argument checks, the serving engine and the Llama and ERNIE training
-steps on the card against the same on the CPU, and the training steps'
-launch counts. Marked ``gpu``; they skip where no CUDA device is
+argument checks, the serving engine, the Llama and ERNIE training steps
+and main-grad training of the imperative Llama on the card against the
+same on the CPU, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
 present. Run on the card (the machine there has no JAX, so skip the
 conftest):
 
@@ -15,15 +15,21 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.distributed.fleet import meta_optimizers as MO
+from paddle_tpu_torch.distributed.fleet.utils import (
+    mix_precision_utils as MPU)
 from paddle_tpu_torch.inference import decoding as D
 from paddle_tpu_torch.models import ernie as E
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_linear as fl
 from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rms_norm as rn
-from paddle_tpu_torch.testing import (LN_TOL, LSE_TOL, flash_close, rms_close,
-                                      trained_weights_close)
+from paddle_tpu_torch.optimizer.adamw import AdamW
+from paddle_tpu_torch.testing import (LN_TOL, LSE_TOL, MAIN_GRAD_PARITY_TOL,
+                                      flash_close, grad_add_close, l2_close,
+                                      rms_close, trained_weights_close)
 
 pytestmark = pytest.mark.gpu
 
@@ -679,3 +685,167 @@ def test_ernie_train_step_launch_counts(cuda):
     # the embeddings' LN, two post-LNs per layer and the MLM transform's
     # LN, forward and backward; one flash forward, dQ and dK/dV per layer
     assert [c.launches for c in counters] == [2 * n + 2, 2 * n + 2, n, n, n]
+
+
+# ---------------------------------------------------------------------------
+# Main-grad slice: the weight-gradient accumulation kernel, the imperative
+# Llama under the main-grad wrappers
+# ---------------------------------------------------------------------------
+
+# (rows, din, dout): the Llama-2-7B projections at a (2, 2048) micro-batch,
+# an unaligned shape, and rows that are not 16-byte aligned (read element
+# by element)
+_GRAD_ADD_SHAPES = [(4096, 4096, 4096), (4096, 4096, 11008),
+                    (4096, 11008, 4096), (1000, 4096, 1000), (37, 13, 29),
+                    (0, 64, 48)]
+
+
+def _grad_add_inputs(cuda, rows, din, dout, dtype, acc_dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(rows, din, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(rows, dout, generator=gen, device=cuda).to(dtype)
+    acc = (8 * torch.randn(din, dout, generator=gen, device=cuda)).to(
+        acc_dtype)
+    return x, g, acc
+
+
+@pytest.mark.parametrize("shape", _GRAD_ADD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype,acc_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32)],
+    ids=["bf16", "fp32", "bf16-acc", "fp16"])
+@pytest.mark.parametrize("given", [True, False], ids=["acc", "fresh"])
+def test_grad_add_kernel_matches_plain(cuda, shape, dtype, acc_dtype, given):
+    rows, din, dout = shape
+    x, g, acc = _grad_add_inputs(cuda, rows, din, dout, dtype, acc_dtype)
+    want = fl.fused_linear_param_grad_add_plain(
+        x, g, acc.clone() if given else None, acc_dtype)
+    before = fl.fused_linear_grad_add_kernel.launches
+    got = fl.fused_linear_grad_add_kernel(x, g, acc if given else None,
+                                          acc_dtype)
+    torch.cuda.synchronize()
+    assert fl.fused_linear_grad_add_kernel.launches == before + 1
+    assert got.dtype == acc_dtype and got.shape == (din, dout)
+    assert (got is acc) == given
+    grad_add_close(got, want, f"grad_add {shape} {dtype} -> {acc_dtype}")
+
+
+def test_grad_add_op_in_place_on_card(cuda):
+    """The op updates a given fp32 accumulator in place and returns it,
+    with the bias sum; a bf16 one under ``multi_precision`` is converted
+    and left as it was; the CUDA path launches once per call."""
+    x, g, acc = _grad_add_inputs(cuda, 3 * 70, 96, 80, torch.bfloat16,
+                                 torch.float32)
+    x3, g3 = x.reshape(3, 70, 96), g.reshape(3, 70, 80)
+    db0 = torch.randn(80, device=cuda)
+    want_w = fl.fused_linear_param_grad_add_plain(x, g, acc.clone(),
+                                                  torch.float32)
+    want_b = db0 + g.float().sum(0)
+    before = fl.fused_linear_grad_add_kernel.launches
+    dw, db = fl.fused_linear_param_grad_add(x3, g3, acc, db0)
+    assert dw is acc and db is db0
+    assert fl.fused_linear_grad_add_kernel.launches == before + 1
+    grad_add_close(dw, want_w, "op dweight")
+    torch.testing.assert_close(db, want_b, rtol=1e-5, atol=1e-4)
+    low = acc.bfloat16()
+    kept = low.clone()
+    dw, _ = fl.fused_linear_param_grad_add(x3, g3, low, has_bias=False)
+    assert dw is not low and dw.dtype == torch.float32
+    assert torch.equal(low, kept)
+
+
+def test_grad_add_kernel_refuses_bad_input(cuda):
+    """Every refusal raises before a launch; nothing falls through to
+    the plain version."""
+    x = torch.randn(64, 32, device=cuda, dtype=torch.bfloat16)
+    g = torch.randn(64, 48, device=cuda, dtype=torch.bfloat16)
+    acc = torch.zeros(32, 48, device=cuda)
+    before = fl.fused_linear_grad_add_kernel.launches
+    with pytest.raises(TypeError):
+        fl.fused_linear_grad_add_kernel(x.double(), g.double(), None,
+                                        torch.float32)
+    with pytest.raises(TypeError):
+        fl.fused_linear_grad_add_kernel(x, g.float(), None, torch.float32)
+    with pytest.raises(TypeError):
+        fl.fused_linear_grad_add_kernel(x, g, acc.half(), torch.float16)
+    with pytest.raises(ValueError, match="rows"):
+        fl.fused_linear_grad_add_kernel(x, g[:10], None, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_linear_grad_add_kernel(x.t().contiguous().t(), g, None,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="dweight"):
+        fl.fused_linear_grad_add_kernel(x, g, acc[:16].contiguous(),
+                                        torch.float32)
+    with pytest.raises(ValueError, match="empty"):
+        fl.fused_linear_grad_add_kernel(x[:, :0].contiguous(), g, None,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fl.fused_linear_grad_add_kernel(x, g, acc.cpu(), torch.float32)
+    assert fl.fused_linear_grad_add_kernel.launches == before
+
+
+def test_linear_with_main_grad_on_card_matches_cpu(cuda):
+    """dx, dw, db of ``linear_with_main_grad`` on the card (dW through
+    the kernel) against the CPU, fp32."""
+    rng = np.random.RandomState(7)
+    x, w = rng.randn(2, 33, 40), rng.randn(40, 24)
+    b, cot = rng.randn(24), rng.randn(2, 33, 24)
+    grads = []
+    for dev in (cuda, "cpu"):
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev)
+              .requires_grad_() for a in (x, w, b)]
+        before = fl.fused_linear_grad_add_kernel.launches
+        y = fl.linear_with_main_grad(*ts)
+        (y * torch.tensor(cot, dtype=torch.float32, device=dev)).sum() \
+            .backward()
+        assert fl.fused_linear_grad_add_kernel.launches == before + (
+            dev == cuda)
+        grads.append([t.grad.cpu() for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_eager_llama_main_grad_on_card_matches_cpu(cuda):
+    """The imperative Llama (fp32, GQA, S not a tile multiple) under
+    ``GradientMergeOptimizer(MixPrecisionOptimizer(AdamW), k_steps=2)``
+    for 2 updates on the card and on the CPU from the same weights:
+    losses, main_grads before each update, and the weights after."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=1, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    ref = L.init_layers(L.LlamaForCausalLM(cfg, device="cpu"), seed=3)
+    rng = np.random.RandomState(8)
+    ids = rng.randint(0, cfg.vocab_size, (2, 2, 2, 70))
+    labels = np.roll(ids, -1, axis=-1)
+    runs = []
+    for dev in (cuda, "cpu"):
+        model = L.LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(ref.state_dict())
+        mw = MPU.MixPrecisionLayer(model)
+        opt = MO.GradientMergeOptimizer(MPU.MixPrecisionOptimizer(AdamW(
+            parameters=model.parameters(), learning_rate=1e-3,
+            multi_precision=True)), k_steps=2)
+        losses, grads = [], []
+        for s in range(2):
+            for m in range(2):
+                loss = mw.compute_loss(torch.from_numpy(ids[s, m]).to(dev),
+                                       torch.from_numpy(labels[s, m]).to(dev))
+                loss.backward()
+                mw.accumulate_main_grads()
+                losses.append(float(loss.detach()))
+                if m == 1:
+                    # a copy: the update divides main_grad by k in place
+                    grads.append({n: p.main_grad.to("cpu", copy=True)
+                                  for n, p in model.named_parameters()})
+                opt.step()
+                opt.clear_grad()
+        runs.append((losses, grads, {n: p.detach().cpu()
+                                     for n, p in model.named_parameters()}))
+    (lc, gc, wc), (lp, gp, wp) = runs
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=1e-6)
+    for step, (a, b) in enumerate(zip(gc, gp)):
+        for n in b:
+            l2_close(a[n], b[n], MAIN_GRAD_PARITY_TOL,
+                     f"step {step} main_grad {n}")
+    trained_weights_close(wc, wp, lr=1e-3, steps=2)
