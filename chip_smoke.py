@@ -52,7 +52,11 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     forward and backward as the yardsticks. Each of out, dq, dk and dv
     is held to a tolerance scaled by its own rms
     (``paddle_tpu_torch.testing``'s ``FLASH_TOL``, which
-    tests/test_torch_gpu.py applies too);
+    tests/test_torch_gpu.py applies too). It lists each d-128
+    instantiation's registers, spill bytes (from nvcc's ``-Xptxas -v``),
+    shared memory and wgmma (HGMMA) and atomic instructions (from
+    ``cuobjdump -sass``), and fails if a bf16 one spills or issues no
+    wgmma, or any uses atomics;
 11. tiny training parity: ``build_train_step`` with full remat for 5
     AdamW steps on the card (kernels) and on the CPU (plain versions),
     fp32, TF32 off, from the same weights — losses and weights agree;
@@ -68,7 +72,10 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 14. the flash forward, dQ and dK/dV kernels with segment ids against
     their plain versions at the BERT-large step's shape (BH 16·16, S
     512, d 64, non-causal) and the packed batch's segment ids, bf16 and
-    fp32, with SDPA under the boolean segment mask as the yardstick;
+    fp32, with SDPA under the boolean segment mask as the yardstick, the
+    share of 64 x 64 tile pairs the bf16 kernels skip for their segment
+    ids, and the d-64 instantiations' registers, spills and shared
+    memory;
 15. tiny ERNIE training parity: ``build_mlm_train_step`` for 5 packed
     MLM steps on the card (kernels) and on the CPU (plain versions),
     fp32, TF32 off, d 64 heads — losses and weights agree;
@@ -946,7 +953,37 @@ def flash_phase(torch, fa):
     return dict(checks=checks, step_shape=dict(
         bh=bh, s=s, d=d, dtype="bf16", fwd=fwd, dq=dq, dkv=dkv,
         tensor_err=step_check["tensor_err"],
-        rel_l2=step_check["rel_l2"]), fp32_bh32=fp32)
+        rel_l2=step_check["rel_l2"]), fp32_bh32=fp32,
+        resources=_flash_resources(fa, "d128"))
+
+
+def _flash_resources(fa, head):
+    """ptxas's registers and spill bytes, the dynamic shared memory and
+    the SASS's wgmma (HGMMA) and atomic instructions of each flash
+    instantiation at this head dim; fails if a bf16 one spills, issues
+    no wgmma, or any uses atomics."""
+    from paddle_tpu_torch.ops import _common
+    res = {k: v for k, v in fa.kernel_resources().items() if head in k}
+    sass = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "-sass",
+         str(_common._so_path("flash_attention"))], check=True,
+        capture_output=True, text=True, timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        for key, v in res.items():
+            dt, kind, d = key.split()[:3]
+            if (("sm90" in name) == (dt == "bf16")
+                    and f"flash_attention_{kind}_kernelILi{d[1:]}ELb"
+                    f"{int(key.endswith('seg'))}" in name):
+                v["hgmma"] = part.count("HGMMA")
+                v["atomics"] = part.count("ATOM") + part.count("RED.")
+    bad = [k for k, v in res.items() if v.get("atomics") or (
+        k.startswith("bf16") and (v.get("spill_stores") or
+                                  v.get("spill_loads") or not v.get("hgmma")))]
+    if bad or not res:
+        raise AssertionError(f"flash kernels spill, lack wgmma or use "
+                             f"atomics: {bad}" if bad else "no ptxas report")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1255,7 +1292,8 @@ def seg_flash_phase(torch, E, fa):
     mat, row = bh * s * d * isz, bh * s * 4
     segb = 2 * b * s * 4
     rep = dict(bh=bh, s=s, d=d, dtype="bf16", pairs=pairs,
-               pairs_share_of_square=pairs / (bh * s * s))
+               pairs_share_of_square=pairs / (bh * s * s),
+               skipped_tile_pairs_share=fa.seg_skip_share(seg_q, seg_k))
     for key, nmat, nrow, ops, fn in (
             ("fwd", 4, 1, 4, lambda: fa.flash_fwd_kernel(q, k, v, *args)),
             ("dq", 5, 2, 6, lambda: fa.flash_bwd_dq_kernel(
@@ -1302,7 +1340,8 @@ def seg_flash_phase(torch, E, fa):
     del out32, lse32, delta32
     torch.cuda.empty_cache()
     return dict(checks=checks, step_shape=rep,
-                tol_rtol_atol_over_rms_l2=_flash_tol(torch))
+                tol_rtol_atol_over_rms_l2=_flash_tol(torch),
+                resources=_flash_resources(fa, "d64"))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@ plain version, a CUDA tensor launches the kernel or raises. The source's
 header says what bounds the kernels on the card and what their design
 does about it.
 
+With segment ids the bf16 kernels skip tile pairs whose ids cannot meet.
+They read a table of each row's [min, max] id per :data:`SEG_TILE`
+positions (:func:`seg_tile_ranges`, computed here so that its exactness
+is testable on the CPU); :func:`seg_tiles_disjoint` is their skip rule.
+
 Where the JAX package pads S to a multiple of 128 and masks the padded
 keys with ``kv_valid`` (``flash_attention_bhsd``) or pads the segment
 ids with −1 (``flash_attention_segmented``), the kernels here
@@ -32,16 +37,23 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import Optional
 
 import torch
 
+from . import _common
 from ._common import check_cuda_tensor, load_cuda_library
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+
+#: positions per entry of the segment tile-range table; every tile edge of
+#: the bf16 kernels is a multiple of it (``kSegTile`` in the source, checked
+#: when the library loads)
+SEG_TILE = 64
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +160,37 @@ def flash_bwd_plain(q, k, v, out, lse, do, scale, causal, kv_valid=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def seg_tile_ranges(seg):
+    """The bf16 kernels' segment tile-range table: ``(R, S)`` or ``(S,)``
+    int32 ids -> ``(R, ceil(S / SEG_TILE), 2)`` int32, the [min, max] of
+    each row's ids over positions ``[t·SEG_TILE, (t+1)·SEG_TILE)`` (only
+    those below S)."""
+    s = seg.shape[-1]
+    rows = seg.reshape(-1, s)
+    n_t = -(-s // SEG_TILE)
+    pad = n_t * SEG_TILE - s
+    tiles = torch.cat((rows, rows[:, -1:].expand(-1, pad)), dim=1)
+    tiles = tiles.reshape(rows.shape[0], n_t, SEG_TILE)
+    return torch.stack((tiles.amin(dim=-1), tiles.amax(dim=-1)),
+                       dim=-1).to(torch.int32).contiguous()
+
+
+def seg_tiles_disjoint(q_range, k_range):
+    """The kernels' segment skip rule over ``[..., 2]`` ranges: a query
+    tile and a key tile whose id ranges do not meet hold no pair with
+    ``seg_q == seg_k``."""
+    return (q_range[..., 1] < k_range[..., 0]) | \
+        (k_range[..., 1] < q_range[..., 0])
+
+
+def seg_skip_share(seg_q, seg_k):
+    """The share of each segment row's (SEG_TILE × SEG_TILE) tile pairs
+    that the bf16 kernels skip for their segment ids alone."""
+    skip = seg_tiles_disjoint(seg_tile_ranges(seg_q)[:, :, None],
+                              seg_tile_ranges(seg_k)[:, None, :])
+    return float(skip.float().mean())
+
+
 def seg_ref_batched_plain(q, k, v, seg, scale, causal):
     """``_seg_ref_batched``: (B, nh, S, D) attention with a per-row
     segment mask (B, S); negative ids are pads and attend nothing (their
@@ -170,17 +213,22 @@ def seg_ref_batched_plain(q, k, v, seg, scale, causal):
 
 _launch_fns = {}
 
-# pointer arguments of each entry point (the tensors, then seg_q and
-# seg_k), then the shared scalars
-_N_PTRS = {"flash_attention_fwd_launch": 7,
-           "flash_attention_bwd_dq_launch": 9,
-           "flash_attention_bwd_dkv_launch": 10}
+# pointer arguments of each entry point (the tensors, then seg_q, seg_k
+# and their tile-range tables), then the shared scalars
+_N_PTRS = {"flash_attention_fwd_launch": 9,
+           "flash_attention_bwd_dq_launch": 11,
+           "flash_attention_bwd_dkv_launch": 12}
 
 
 def _kernel_fn(name):
     fn = _launch_fns.get(name)
     if fn is None:
-        fn = getattr(load_cuda_library("flash_attention"), name)
+        lib = load_cuda_library("flash_attention")
+        tile = lib.flash_attention_seg_tile()
+        if tile != SEG_TILE:
+            raise RuntimeError(f"flash_attention.cu tiles segment ranges by "
+                               f"{tile}, the wrapper by {SEG_TILE}")
+        fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name]
                        + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                 ctypes.c_void_p])
@@ -211,14 +259,26 @@ def _check_qkv(q, k, v, kv_rep):
         raise ValueError("q, k and v must be 16-byte aligned")
 
 
+def _tile_ranges(seg):
+    """:func:`seg_tile_ranges` of ``seg``, kept on the tensor until it is
+    changed in place: the forward, dQ and dK/dV of one attention call
+    read the same ids."""
+    cached = getattr(seg, "_flash_tile_ranges", None)
+    if cached is None or cached[0] != seg._version:
+        cached = (seg._version, seg_tile_ranges(seg))
+        seg._flash_tile_ranges = cached
+    return cached[1]
+
+
 def _check_seg(q, k, seg_q, seg_k):
     """Segment ids for the kernels: both or neither, int32, contiguous,
     (R, sq) / (R, sk) with R dividing BH, or shared (sq,) / (sk,).
-    Returns ``(seg_q pointer, seg_k pointer, seg_div)``, the row of query
+    Returns the pointer arguments ``(seg_q, seg_k, q_range, k_range)``
+    (the range tables for bf16 only) and ``seg_div``, the row of query
     row ``bh`` being ``bh // seg_div``."""
     bh, sq = q.shape[:2]
     if seg_q is None and seg_k is None:
-        return None, None, 1
+        return (None,) * 4, 1
     if seg_q is None or seg_k is None:
         raise ValueError("seg_q and seg_k go together")
     check_cuda_tensor("seg_q", seg_q, (torch.int32,))
@@ -232,7 +292,11 @@ def _check_seg(q, k, seg_q, seg_k):
         raise ValueError(f"segment ids {tuple(seg_q.shape)} / "
                          f"{tuple(seg_k.shape)} do not match q "
                          f"{tuple(q.shape)} and k {tuple(k.shape)}")
-    return seg_q.data_ptr(), seg_k.data_ptr(), bh // rows
+    ranges = (None, None)
+    if q.dtype == torch.bfloat16:
+        ranges = (_tile_ranges(seg_q).data_ptr(),
+                  _tile_ranges(seg_k).data_ptr())
+    return (seg_q.data_ptr(), seg_k.data_ptr()) + ranges, bh // rows
 
 
 def _launch(name, ptrs, q, k, kv_rep, scale, causal, kv_valid,
@@ -240,10 +304,10 @@ def _launch(name, ptrs, q, k, kv_rep, scale, causal, kv_valid,
     bh, sq, d = q.shape
     sk = k.shape[1]
     kv_limit = sk if kv_valid is None else max(0, min(int(kv_valid), sk))
-    seg_q_ptr, seg_k_ptr, seg_div = _check_seg(q, k, seg_q, seg_k)
+    seg_ptrs, seg_div = _check_seg(q, k, seg_q, seg_k)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn(name)(
-        *ptrs, seg_q_ptr, seg_k_ptr, bh, sq, sk, d, kv_rep,
+        *ptrs, *seg_ptrs, bh, sq, sk, d, kv_rep,
         _KERNEL_DTYPES[q.dtype], int(causal), int(causal_offset), kv_limit,
         seg_div, float(scale), stream)
     if err != 0:
@@ -306,6 +370,45 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal,
             seg_k)
     flash_bwd_dkv_kernel.launches += 1
     return dk, dv
+
+
+# a kernel's line in nvcc's -Xptxas -v report: namespace, kernel, D, SEG
+_ENTRY = re.compile(r"Compiling entry function '\S*?(sm90|fp32)\d+"
+                    r"flash_attention_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)"
+                    r"ELb([01])")
+_KINDS = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}
+
+
+def kernel_resources():
+    """Each instantiation of the three kernels (``"bf16 fwd d128 seg"``)
+    with its registers and spill bytes from nvcc's ``-Xptxas -v`` report
+    of the library's build, and its dynamic shared memory a block. The
+    bf16 kernels' entry count is the launch bound; their consumer
+    warpgroups raise theirs with setmaxnreg (the source's header)."""
+    lib = load_cuda_library("flash_attention")
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    out, cur = {}, None
+    for line in _common.build_logs.get("flash_attention", "").splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            ns, kind, d, seg = m.groups()
+            cur = (f"{'bf16' if ns == 'sm90' else 'fp32'} {kind} d{d}"
+                   + (" seg" if seg == "1" else ""))
+            out[cur] = dict(smem_bytes=lib.flash_attention_smem_bytes(
+                _KINDS[kind], int(d), int(ns == "sm90")))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 #: kernel launches since the last reset (the plain versions never count)

@@ -340,3 +340,109 @@ def test_flash_attention_varlen_causal_needs_one_packing():
     with pytest.raises(ValueError, match="cu_seqlens_q == cu_seqlens_k"):
         tfa.flash_attention_varlen(q, q, q, torch.tensor([0, 3, 8]),
                                    torch.tensor([0, 4, 8]))
+
+
+# ---------------------------------------------------------------------------
+# segment tile ranges: the bf16 kernels skip a tile pair whose id ranges
+# are disjoint (csrc/flash_attention.cu, "Tile skipping, exact")
+# ---------------------------------------------------------------------------
+
+def _random_packing(rng, rows, s, shuffle):
+    """Segments of 1–600 tokens from id 0 up, a row ending in pads (-1)
+    now and then; ``shuffle`` relabels the segments in random order, so
+    that a row's ids are no longer sorted."""
+    seg = np.full((rows, s), -1, np.int32)
+    for r in range(rows):
+        fill = s if rng.rand() < 0.5 else int(rng.randint(0, s + 1))
+        at, i = 0, 0
+        while at < fill:
+            n = min(int(rng.randint(1, 601)), fill - at)
+            seg[r, at:at + n] = i
+            at, i = at + n, i + 1
+        if shuffle and i:
+            perm = rng.permutation(i)
+            seg[r] = np.where(seg[r] < 0, -1, perm[np.maximum(seg[r], 0)])
+    return seg
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("layout", ["rows", "shared"])
+def test_seg_tile_ranges_skip_only_pairs_that_cannot_meet(layout, seed):
+    rng = np.random.RandomState(seed)
+    s = int(rng.randint(1, 1300))
+    rows = 3 if layout == "rows" else 1
+    seg = _random_packing(rng, rows, s, shuffle=seed % 2 == 1)
+    seg_q, seg_k = np.where(seg < 0, -1, seg), np.where(seg < 0, -2, seg)
+    tq, tk = (torch.from_numpy(a if layout == "rows" else a[0])
+              for a in (seg_q, seg_k))
+    qr, kr = tfa.seg_tile_ranges(tq), tfa.seg_tile_ranges(tk)
+    tile = tfa.SEG_TILE
+    n_t = -(-s // tile)
+    assert qr.shape == kr.shape == (rows, n_t, 2)
+    assert qr.dtype == torch.int32 and qr.is_contiguous()
+    skip = tfa.seg_tiles_disjoint(qr[:, :, None], kr[:, None, :]).numpy()
+    for r in range(rows):
+        for i in range(n_t):
+            ids_q = seg_q[r, i * tile:(i + 1) * tile]
+            assert qr[r, i].tolist() == [ids_q.min(), ids_q.max()]
+            for j in range(n_t):
+                ids_k = seg_k[r, j * tile:(j + 1) * tile]
+                if i == 0:
+                    assert kr[r, j].tolist() == [ids_k.min(), ids_k.max()]
+                if skip[r, i, j]:
+                    assert not np.isin(ids_q, ids_k).any(), (r, i, j)
+
+
+def _bert_packing(rng, b=16, s=512, lo=64, hi=512):
+    """Phase 14's packing (chip_smoke.pack_batch): lengths uniform in
+    [lo, hi] until b·s tokens, longest first into the least full row that
+    fits; -1 at the pads."""
+    lens = []
+    while True:
+        n = int(rng.randint(lo, hi + 1))
+        if sum(lens) + n > b * s:
+            break
+        lens.append(n)
+    fill, seg = [0] * b, np.full((b, s), -1, np.int32)
+    for n in sorted(lens, reverse=True):
+        fits = [i for i in range(b) if fill[i] + n <= s]
+        if fits:
+            r = min(fits, key=lambda i: fill[i])
+            seg[r, fill[r]:fill[r] + n] = seg[r].max() + 1
+            fill[r] += n
+    return seg
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_seg_skip_share_counts_disjoint_tile_pairs(seed):
+    """The kernels' skipped share of 64 × 64 tile pairs on a packed
+    BERT batch, against the share counted from the ids themselves; it is
+    at most the share of pairs that hold no matching ids at all."""
+    seg = _bert_packing(np.random.RandomState(seed))
+    seg_q, seg_k = np.where(seg < 0, -1, seg), np.where(seg < 0, -2, seg)
+    share = tfa.seg_skip_share(torch.from_numpy(seg_q),
+                               torch.from_numpy(seg_k))
+    tile = tfa.SEG_TILE
+    tiles_q = [[seg_q[r, i:i + tile] for i in range(0, 512, tile)]
+               for r in range(16)]
+    tiles_k = [[seg_k[r, i:i + tile] for i in range(0, 512, tile)]
+               for r in range(16)]
+    disjoint = no_match = 0
+    for r in range(16):
+        for a in tiles_q[r]:
+            for b in tiles_k[r]:
+                disjoint += a.max() < b.min() or b.max() < a.min()
+                no_match += not np.isin(a, b).any()
+    pairs = 16 * 8 * 8
+    assert share == disjoint / pairs
+    assert 0 < share <= no_match / pairs
+
+
+def test_tile_ranges_follow_in_place_changes():
+    seg = torch.zeros(2, 100, dtype=torch.int32)
+    first = tfa._tile_ranges(seg)
+    assert tfa._tile_ranges(seg) is first
+    seg[1, 70:] = 5
+    again = tfa._tile_ranges(seg)
+    assert again is not first
+    assert again[1].tolist() == [[0, 0], [0, 5]]

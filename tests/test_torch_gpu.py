@@ -366,13 +366,24 @@ def test_rms_norm_bwd_kernel_rejects_bad_input(cuda):
 
 
 # flash tensors are held per tensor to paddle_tpu_torch.testing.FLASH_TOL
-# (bh, sq, sk, d, causal, kv_rep, kv_valid)
+# (bh, sq, sk, d, causal, kv_rep, kv_valid); the bf16 kernels' tiles are
+# 64 rows a warpgroup, 128 a block, 64 or 128 keys, so S runs over one
+# row, tile - 1 and tile + 1 at both sizes, and a long 2000
 _FLASH_CASES = [(8, 300, 300, 128, True, 1, None),
                 (8, 256, 256, 128, True, 4, None),
                 (4, 256, 256, 128, True, 1, 200),
                 (4, 130, 130, 128, False, 2, None),
                 (4, 64, 200, 128, True, 1, None),
-                (6, 200, 200, 64, True, 3, None)]
+                (6, 200, 200, 64, True, 3, None),
+                (4, 1, 130, 128, True, 1, None),
+                (4, 1, 130, 64, False, 2, None),
+                (4, 63, 63, 64, True, 1, None),
+                (4, 65, 65, 128, True, 1, None),
+                (4, 127, 127, 128, False, 1, 100),
+                (4, 129, 129, 64, True, 1, None),
+                (2, 2000, 2000, 128, True, 1, None),
+                (8, 300, 300, 64, True, 4, None),
+                (8, 300, 300, 128, False, 4, 250)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -403,6 +414,54 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
         assert got.dtype == dtype and got.shape == want.shape, name
         assert torch.isfinite(got.float()).all(), name
         flash_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("offset", [-10, -70])
+def test_flash_kernels_with_negative_causal_offset(cuda, dtype, d, offset):
+    """causal_offset < 0: the first -offset rows attend no key (out 0,
+    lse -1e30, zero gradients), and 70 covers a whole 64-row tile."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn((4, 200, d), generator=gen,
+                               device=cuda).to(dtype) for _ in range(4))
+    args = (d ** -0.5, True, None, offset, 1)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    assert bool((out[:, :-offset] == 0).all())
+    assert bool((lse[:, :-offset] == -1e30).all())
+    assert bool((dq[:, :-offset] == 0).all())
+    pout, plse = fa.flash_fwd_plain(q, k, v, *args)
+    flash_close(out, pout, dtype, "out")
+    torch.testing.assert_close(lse, plse, rtol=LSE_TOL[0], atol=LSE_TOL[1])
+    grads = fa.flash_bwd_plain(q, k, v, out, lse, do, *args)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        flash_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_kernels_repeat_bitwise(cuda, segments):
+    """No atomics: every sum has one order, so two runs of the bf16
+    kernels give the same bits in out, lse, dq, dk and dv."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    d, s = (64, 512) if segments else (128, 1000)
+    q, k, v, do = (torch.randn((8, s, d), generator=gen,
+                               device=cuda).bfloat16() for _ in range(4))
+    k, v = k[:4].contiguous(), v[:4].contiguous()
+    seg = None, None
+    if segments:
+        ids = torch.from_numpy(_packed_segments(2, s, seed=3)).to(cuda)
+        seg = torch.where(ids < 0, -1, ids), torch.where(ids < 0, -2, ids)
+    args = (d ** -0.5, not segments, None, 0, 2) + seg
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_attention_fwd(q, k, v, *args)
+        runs.append((out, lse) + fa.flash_attention_bwd(q, k, v, out, lse,
+                                                        do, *args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 def test_flash_row_with_no_key_is_zero(cuda):
@@ -561,9 +620,13 @@ def _packed_segments(rows, s, seed):
     return seg
 
 
-# (bh, s, d, causal, kv_rep, rows of segment ids; 0 = one shared row)
+# (bh, s, d, causal, kv_rep, rows of segment ids; 0 = one shared row):
+# segments of s/8 to s/2 cross the 64-position tile edges, and the last
+# row's two thirds of pads skip whole tiles
 _SEG_CASES = [(8, 300, 64, False, 1, 2), (6, 256, 128, True, 1, 0),
-              (16, 512, 64, False, 1, 4), (8, 200, 64, True, 2, 2)]
+              (16, 512, 64, False, 1, 4), (8, 200, 64, True, 2, 2),
+              (16, 1024, 64, False, 1, 4), (16, 512, 128, True, 4, 2),
+              (8, 129, 128, False, 1, 8), (4, 700, 64, True, 1, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
