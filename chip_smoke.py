@@ -18,6 +18,12 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    the training step's (8, 2048, 4096) too), in bf16 and fp32, with
    the kernel's time, the plain version's time, the least time the card
    could take (bound) and a one-call library yardstick where one exists;
+   the ragged kernels on a mixed, a prefill-only and a decode-only batch
+   (nkv 32 and 8), each on the routes the call takes (wgmma tiles and the
+   key split) and with every token forced through the key split, and
+   their registers, spills, shared memory and wgmma/atomic instructions
+   (fails if a 16-bit instantiation spills, the wgmma kernel issues no
+   HGMMA, or any uses atomics);
 4. the paged decode kernel against its plain version at the 7B legacy
    decode step's shapes (8 rows, 32 heads, d 128, page 16, 64-page
    tables; lengths 0 to 1000), KV heads 32 and 8, bf16 and fp32, and a
@@ -89,8 +95,13 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     fp32 ``main_grad``) against its plain version at the Llama-2-7B
     projections' shapes for a (2, 2048) micro-batch — (din, dout) =
     (4096, 4096), (4096, 11008), (11008, 4096), 4096 rows — in bf16 and
-    fp32, into a bf16 accumulator, and at an unaligned shape, with its
-    time over rotating inputs, bound, plain time and a library yardstick;
+    fp32, into a bf16 accumulator, in fp16, at an unaligned shape and at
+    a shape whose rows the wgmma route splits, with the route each case
+    takes, its time over rotating inputs, the WMMA kernel's time on the
+    same inputs where the wgmma route takes them (two runs bitwise
+    equal), bound, plain time and a library yardstick; and the kernels'
+    registers, spills, shared memory and wgmma/atomic instructions (fails
+    as phase 3);
 18. tiny main-grad training parity: the imperative ``LlamaForCausalLM``
     under ``MixPrecisionLayer`` and ``GradientMergeOptimizer(
     MixPrecisionOptimizer(AdamW), k_steps=2)`` for 3 updates on the card
@@ -102,7 +113,8 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     step; 2 warm-up and 3 timed steps, every step's launch counts
     checked, the loss falling, a profiler breakdown; then one more step
     whose projections' own operands go through the accumulation kernel
-    (7·L·k = 224 launches), each accumulator matching its ``main_grad``.
+    (7·L·k = 224 launches, all on the wgmma route), each accumulator
+    matching its ``main_grad``.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -243,15 +255,25 @@ def rms_norm_phase(torch, rn):
     return report
 
 
-def mixed_batch(torch, nkv, dtype, nh=32, d=128, page=16, width=64,
-                n_tokens=256):
-    """A ragged batch at the 7B step's shapes: five decode rows at
-    different lengths, a cold prefill chunk, a warm prefill chunk
-    (first position > 0), an idle row and pad slots."""
+#: the ragged batches of phase 3, as (first position, tokens) per row: the
+#: mixed step (five decode rows at different lengths, a cold and a warm
+#: prefill chunk, an idle row and pads), a prefill-only micro-round (a
+#: cold and a warm 128-token chunk) and a decode-only one (the 7B decode
+#: step's 8 rows, one token each, and 248 pads)
+RAGGED_BATCHES = {
+    "mixed": [(999, 1), (732, 1), (516, 1), (300, 1), (94, 1), (0, 180),
+              (400, 60)],
+    "prefill": [(0, 128), (384, 128)],
+    "decode": [(0, 1), (15, 1), (16, 1), (999, 1), (516, 1), (300, 1),
+               (94, 1), (732, 1)],
+}
+
+
+def ragged_batch(torch, nkv, dtype, rows=RAGGED_BATCHES["mixed"], nh=32,
+                 d=128, page=16, width=64, n_tokens=256):
+    """A ragged batch at the 7B step's shapes: the rows' tokens packed in
+    order, one idle row, pads up to ``n_tokens``."""
     rng = np.random.RandomState(SEED)
-    decode_lens = [1000, 733, 517, 301, 95]
-    rows = [(kv - 1, 1) for kv in decode_lens]    # (first position, n)
-    rows += [(0, 180), (400, 60)]                 # cold, warm prefill
     n_rows = len(rows) + 1                        # + one idle row
     n_pages = n_rows * width + 1
     perm = rng.permutation(np.arange(1, n_pages))
@@ -287,38 +309,97 @@ def mixed_batch(torch, nkv, dtype, nh=32, d=128, page=16, width=64,
 
 
 def attention_phase(torch, pa):
+    """The ragged kernels against their plain version on the three
+    batches of ``RAGGED_BATCHES`` (nkv 32 and 8; bf16, and fp32 for the
+    mixed batch), pads exactly 0, with the routes the call takes and the
+    time of each: ``ms`` the call's own kernels (wgmma tiles + key split,
+    or the key split alone), ``key_split_ms`` every token through the
+    key split. No library yardstick (no PyTorch call gathers pages). Then
+    the kernels' registers, spills, shared memory and wgmma/atomic
+    instructions."""
     report = {}
     # tolerances: fp32 differs in summation order and the online (kernel)
     # vs two-pass (plain) softmax; in bf16 the plain version rounds the
-    # probabilities to bf16 before P·V (as the JAX array path does) while
-    # the kernel keeps them in fp32 (as the Pallas kernel does)
-    for nkv in (32, 8):
-        for dt, kind, rtol, atol in ((torch.bfloat16, "bf16", 2e-2, 2e-2),
-                                     (torch.float32, "fp32", 1e-4, 1e-5)):
-            args, real, nbytes, ops = mixed_batch(torch, nkv, dt)
-            got = pa.ragged_paged_attention_kernel(*args)
+    # probabilities to bf16 before P·V (as the JAX array path and the
+    # wgmma route do) while the key split keeps them in fp32 (as the
+    # Pallas kernel does)
+    cases = [(b, nkv, dt) for b in RAGGED_BATCHES for nkv in (32, 8)
+             for dt in ("bf16", "fp32") if b == "mixed" or dt == "bf16"]
+    for batch, nkv, kind in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        rtol, atol = (2e-2, 2e-2) if kind == "bf16" else (1e-4, 1e-5)
+        args, real, nbytes, ops = ragged_batch(torch, nkv, dt,
+                                               RAGGED_BATCHES[batch])
+        want = pa.ragged_paged_attention_plain(*args)
+        errs = {}
+        for route in (None, "key_split"):
+            got = pa.ragged_paged_attention_kernel(*args, route=route)
             torch.cuda.synchronize()
-            want = pa.ragged_paged_attention_plain(*args)
-            err = check_close(torch, f"attention nkv={nkv} {kind}", got,
-                              want, rtol, atol)
+            errs[route] = check_close(
+                torch, f"attention {batch} nkv={nkv} {kind} "
+                f"{route or 'auto'}", got, want, rtol, atol)
             pads = torch.from_numpy(~real).cuda()
             if not bool((got[pads] == 0).all()):
                 raise AssertionError("pad slots must come out exactly 0")
-            bms, by = bound_ms(nbytes, ops, kind)
-            report[f"nkv{nkv}_{kind}"] = dict(
-                nh=32, nkv=nkv, d=128, page=16, tokens=int(real.sum()),
-                max_abs_err=err, rtol=rtol, atol=atol,
-                ms=device_ms(torch, lambda: pa.ragged_paged_attention_kernel(
-                    *args)),
-                eager_ms=eager_ms(torch, lambda: pa.
-                                  ragged_paged_attention_kernel(*args)),
-                plain_ms=device_ms(torch, lambda: pa.
-                                   ragged_paged_attention_plain(*args),
-                                   iters=2, replays=2),
-                bound_ms=bms, bound_by=by, library_ms=None)
-            del args, got, want
-            torch.cuda.empty_cache()
+            del got
+        bms, by = bound_ms(nbytes, ops, kind)
+        key = f"nkv{nkv}_{kind}" if batch == "mixed" else \
+            f"{batch}_nkv{nkv}_{kind}"
+        report[key] = dict(
+            batch=batch, nh=32, nkv=nkv, d=128, page=16,
+            tokens=int(real.sum()),
+            routes=list(pa.ragged_route(dt, 16, 32, nkv)),
+            max_abs_err=max(errs.values()), rtol=rtol, atol=atol,
+            ms=device_ms(torch, lambda: pa.ragged_paged_attention_kernel(
+                *args)),
+            key_split_ms=device_ms(
+                torch, lambda: pa.ragged_paged_attention_kernel(
+                    *args, route="key_split")),
+            eager_ms=eager_ms(torch, lambda: pa.
+                              ragged_paged_attention_kernel(*args)),
+            plain_ms=device_ms(torch, lambda: pa.
+                               ragged_paged_attention_plain(*args),
+                               iters=2, replays=2),
+            bound_ms=bms, bound_by=by, library_ms=None)
+        del args, want
+        torch.cuda.empty_cache()
+    report["resources"] = _cuda_resources(
+        "ragged_paged_attention", wgmma=("ragged_tiles_kernel",),
+        others=("ragged_key_split_kernel",), smem=lambda fn: pa.
+        ragged_smem_bytes(128 if "Li128E" in fn else 64)
+        if "ragged_tiles_kernel" in fn else None, report=report)
     return report
+
+
+def _cuda_resources(source, wgmma, others, smem=lambda fn: None,
+                    report=None):
+    """Registers and spill bytes (ptxas), dynamic shared memory and the
+    SASS's wgmma (HGMMA) and atomic instructions of each instantiation of
+    the kernels of ``csrc/<source>.cu`` whose names hold a fragment of
+    ``wgmma`` (each must issue wgmma) or ``others``; fails if a 16-bit
+    instantiation spills, a wgmma one issues no HGMMA, or any uses
+    atomics."""
+    from paddle_tpu_torch.ops import _common
+    ptxas = _common.ptxas_report(source)
+    sass = _common.sass_counts(source)
+    out, bad = {}, []
+    for fn, r in ptxas.items():
+        tc = any(f in fn for f in wgmma)
+        if not tc and not any(f in fn for f in others):
+            continue
+        r = dict(r, **sass.get(fn, {}), smem_bytes=smem(fn))
+        sixteen = "__nv_bfloat16" in fn or "6__half" in fn
+        if (r.get("atomics") or (sixteen and (r.get("spill_stores")
+                                              or r.get("spill_loads")))
+                or (tc and not r.get("hgmma"))):
+            bad.append(fn)
+        out[fn] = r
+    if bad or not out:
+        raise AssertionError((f"{source}: kernels spill, lack wgmma or use "
+                              f"atomics: {bad}" if bad else
+                              f"{source}: no ptxas report")
+                             + f"; the phase measured {json.dumps(report)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -556,18 +637,19 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
     eng = _serve_engine(D, cfg, step_tokens=256)
     prompts = serve_load(cfg)
     rn.rms_norm.launches = 0
-    pa.ragged_paged_attention.launches = 0
+    _reset_ragged(pa)
     eng.micro_rounds = 0
     torch.cuda.reset_peak_memory_stats()
     t_serve = time.perf_counter()
     outs, step_ms = _serve_checked(eng, params, prompts)
     serve_s = time.perf_counter() - t_serve
     launches = {"rms_norm_fwd": rn.rms_norm.launches,
-                "ragged_paged_attention":
-                    pa.ragged_paged_attention.launches}
+                **_ragged_launches(pa)}
     n_layers, rounds = cfg.num_hidden_layers, eng.micro_rounds
+    # one ragged call a layer and micro-round; bf16 pools at page 16 take
+    # both kernels each call (wgmma tiles, then the key split)
     want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
-            "ragged_paged_attention": n_layers * rounds}
+            **_ragged_want(n_layers * rounds)}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     _check_outputs(cfg, outs, eng)
@@ -596,6 +678,24 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
 def _reset(counters):
     for c in counters.values():
         c.launches = 0
+        for r in getattr(c, "route_launches", {}):
+            c.route_launches[r] = 0
+
+
+def _reset_ragged(pa):
+    _reset({"ragged": pa.ragged_paged_attention})
+
+
+def _ragged_launches(pa):
+    """The ragged op's calls and its kernels' launches by route."""
+    op = pa.ragged_paged_attention
+    return {"ragged_paged_attention": op.launches,
+            **{f"ragged_{r}": n for r, n in op.route_launches.items()}}
+
+
+def _ragged_want(calls):
+    return {"ragged_paged_attention": calls, "ragged_wgmma": calls,
+            "ragged_key_split": calls}
 
 
 def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
@@ -619,12 +719,13 @@ def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
     t_serve = time.perf_counter()
     outs, step_ms = _serve_checked(eng, params, prompts)
     serve_s = time.perf_counter() - t_serve
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: c.launches for k, c in counters.items()
+                if k != "ragged_paged_attention"}
+    launches.update(_ragged_launches(pa))
     steps, waves = eng.decode_steps, eng.prefill_calls
     want = {"rms_norm_fwd": (2 * n_layers + 1) * (waves + steps),
             "paged_decode_attention": n_layers * steps,
-            "flash_attention_fwd": n_layers * waves,
-            "ragged_paged_attention": 0}
+            "flash_attention_fwd": n_layers * waves, **_ragged_want(0)}
     if launches != want:
         raise AssertionError(f"legacy launch counts {launches} != {want}")
     _check_outputs(cfg, outs, eng)
@@ -661,10 +762,12 @@ def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
         wave_out, wave_ms = _serve_checked(ceng, params, wave)
         wall = time.perf_counter() - t0
         rounds = ceng.micro_rounds
-        got = {k: c.launches for k, c in counters.items()}
+        got = {k: c.launches for k, c in counters.items()
+               if k != "ragged_paged_attention"}
+        got.update(_ragged_launches(pa))
         want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
                 "paged_decode_attention": 0, "flash_attention_fwd": 0,
-                "ragged_paged_attention": n_layers * rounds}
+                **_ragged_want(n_layers * rounds)}
         if got != want:
             raise AssertionError(f"cache wave ({name}) launch counts {got} "
                                  f"!= {want}")
@@ -687,7 +790,8 @@ def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
 
 
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
-SERVE_KINDS = (("ragged_paged_attention", ("ragged_paged_attention",)),
+SERVE_KINDS = (("ragged_paged_attention", ("ragged_tiles_kernel",
+                                           "ragged_key_split_kernel")),
                ("rms_norm_fwd", ("rms_norm",)), ("matmul", MATMUL_NAMES))
 LEGACY_KINDS = (("paged_decode_attention", ("paged_decode_attention",)),
                 ("flash_fwd", ("flash_attention_fwd",)),
@@ -964,19 +1068,13 @@ def _flash_resources(fa, head):
     no wgmma, or any uses atomics."""
     from paddle_tpu_torch.ops import _common
     res = {k: v for k, v in fa.kernel_resources().items() if head in k}
-    sass = subprocess.run(
-        ["/usr/local/cuda/bin/cuobjdump", "-sass",
-         str(_common._so_path("flash_attention"))], check=True,
-        capture_output=True, text=True, timeout=120).stdout
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0]
+    for name, counts in _common.sass_counts("flash_attention").items():
         for key, v in res.items():
             dt, kind, d = key.split()[:3]
             if (("sm90" in name) == (dt == "bf16")
                     and f"flash_attention_{kind}_kernelILi{d[1:]}ELb"
                     f"{int(key.endswith('seg'))}" in name):
-                v["hgmma"] = part.count("HGMMA")
-                v["atomics"] = part.count("ATOM") + part.count("RED.")
+                v.update(counts)
     bad = [k for k, v in res.items() if v.get("atomics") or (
         k.startswith("bf16") and (v.get("spill_stores") or
                                   v.get("spill_loads") or not v.get("hgmma")))]
@@ -1507,6 +1605,9 @@ GRAD_ADD_CASES = (
     ("down_fp32", 4096, 11008, 4096, "float32", "float32"),
     ("qkvo_bf16_acc", 4096, 4096, 4096, "bfloat16", "bfloat16"),
     ("unaligned_bf16", 1000, 4096, 1000, "bfloat16", "float32"),
+    ("qkvo_fp16", 4096, 4096, 4096, "float16", "float32"),
+    # few output tiles: the wgmma route splits its rows (16 parts)
+    ("split_bf16", 8192, 512, 512, "bfloat16", "float32"),
 )
 
 
@@ -1581,7 +1682,11 @@ def grad_add_phase(torch, fl):
                 ac.add_((xc.t() @ gc).float())
 
         ms = device_ms(torch, kernel)
+        route = fl.grad_add_route(rows, din, dout, dt)
         r = dict(shape=[rows, din, dout], dtype=dt_name, acc_dtype=acc_name,
+                 route=route, split=fl.grad_add_split(
+                     rows, din, dout, torch.cuda.get_device_properties(0)
+                     .multi_processor_count) if route == "wgmma" else None,
                  max_abs_err=err, max_abs_err_no_acc=err_fresh,
                  tol=list(GRAD_ADD_TOL[acc_dt]), ms=ms,
                  plain_ms=device_ms(torch, lambda: fl.
@@ -1591,12 +1696,36 @@ def grad_add_phase(torch, fl):
                  bound_ms=bound, bound_by=by, tflops=2e-9 * rows * din * dout
                  / ms, library_ms=device_ms(torch, library),
                  library_call=call)
+        if route == "wgmma":
+            # the WMMA kernel (the route of shapes TMA cannot map) on the
+            # same inputs, checked and timed
+            grad_add_close(fl.fused_linear_grad_add_kernel(
+                x, g, None, acc_dt, "wmma"), fl.
+                fused_linear_param_grad_add_plain(x, g, None, acc_dt),
+                f"grad_add {name} (wmma)")
+
+            def wmma():
+                xc, gc, ac = nxt()
+                fl.fused_linear_grad_add_kernel(xc, gc, ac, acc_dt, "wmma")
+
+            r["wmma_ms"] = device_ms(torch, wmma)
+            a = fl.fused_linear_grad_add_kernel(x, g, acc.clone(), acc_dt)
+            b = fl.fused_linear_grad_add_kernel(x, g, acc.clone(), acc_dt)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"grad_add {name}: two runs differ")
+            del a, b
         if dt == torch.bfloat16 and acc_dt == torch.float32:
             r["autograd_dw_ms"] = device_ms(torch, lambda: (
                 lambda xc, gc, _: xc.t() @ gc)(*nxt()))
         report[name] = r
         del x, g, acc, copies, nxt
         torch.cuda.empty_cache()
+    report["resources"] = _cuda_resources(
+        "fused_linear_grad_add", wgmma=("grad_add_wgmma",),
+        others=("grad_add_fold", "grad_add_wmma", "grad_add_fma"),
+        smem=lambda fn: fl.grad_add_smem_bytes()
+        if "grad_add_wgmma" in fn else None, report=report)
     return report
 
 
@@ -1835,7 +1964,7 @@ def main_grad_7b_phase(torch, L, rn, fa, fl, dw_ms):
             err, l2 = max(err, e), max(l2, r)
         checked.update(max_abs_err=err, max_rel_l2=l2)
 
-    fl.fused_linear_grad_add_kernel.launches = 0
+    _reset({"grad_add": fl.fused_linear_grad_add_kernel})
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1844,12 +1973,16 @@ def main_grad_7b_phase(torch, L, rn, fa, fl, dw_ms):
                    check_accumulators if m == k - 1 else None)
         torch.cuda.synchronize()
     launches = fl.fused_linear_grad_add_kernel.launches
+    by_route = dict(fl.fused_linear_grad_add_kernel.route_launches)
     hooked_kinds, _ = _kernel_ms_by_kind(prof, MAIN_GRAD_KINDS)
     for h in handles:
         h.remove()
-    if launches != n_proj * k or not checked:
-        raise AssertionError(f"row-7 launches {launches} != 7·L·k = "
-                             f"{n_proj * k}, or accumulators unchecked")
+    # every projection's shape takes the wgmma route
+    if (launches != n_proj * k or by_route["wgmma"] != launches
+            or not checked):
+        raise AssertionError(f"row-7 launches {launches} ({by_route}) != "
+                             f"7·L·k = {n_proj * k} on the wgmma route, "
+                             "or accumulators unchecked")
     x2 = sample["x"].reshape(-1, sample["x"].shape[-1]).contiguous()
     g2 = sample["dout"].reshape(-1, sample["dout"].shape[-1]).contiguous()
     sample_err = grad_add_close(
@@ -1880,6 +2013,7 @@ def main_grad_7b_phase(torch, L, rn, fa, fl, dw_ms):
         breakdown=dict(kernel_ms=kinds, top_kernels=top, device_busy_ms=busy,
                        wall_ms=mean_ms, idle_share=1 - busy / mean_ms),
         grad_add=dict(launches=launches, want=n_proj * k,
+                      route_launches=by_route,
                       kernel_ms_in_step=hooked_kinds["grad_add"],
                       step_kernel_ms=hooked_kinds,
                       accumulators_vs_main_grad=checked,

@@ -106,6 +106,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // same fill as the Pallas kernels
@@ -533,12 +535,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
 }
 
 }  // namespace fp32
+
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // bf16 on Hopper: TMA-fed rings of tiles, wgmma, accumulators in registers
+// (the building blocks are csrc/sm90.cuh's)
 // ---------------------------------------------------------------------------
 namespace sm90 {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kSegTile = 64;   // SEG_TILE of ops/flash_attention.py
 constexpr int kRows = 64;      // rows of one consumer warpgroup (wgmma's M)
@@ -547,7 +551,6 @@ constexpr int kConsumers = 2;  // consumer warpgroups per block
 constexpr int kBlockRows = kRows * kConsumers;    // query rows of a block
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr int kStages = 2;     // walked tiles in flight
-constexpr int kBoxCols = 64;   // bf16 columns of one 128-byte swizzled box
 // dK/dV at d 128 splits the work of 64 keys over the two warpgroups (dV in
 // one, dK in the other, each recomputing S): dK and dV of 64 x 128 beside
 // Sᵀ and dPᵀ in one warpgroup leave wgmma too few registers
@@ -559,10 +562,6 @@ template <int D> constexpr int kDkvKeys = kDkvSplit<D> ? kRows : kBlockRows;
 constexpr int kFullArrivals = 1 + 32;
 constexpr int kProducerRegs = 40;   // 128·40 + 256·232 <= 65536
 constexpr int kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-// a wait on a barrier that outlasts this is a fault: trap instead of hang
-constexpr unsigned long long kWatchdogNs = 4000000000ull;
 
 static_assert(kRows == kSegTile && kTile == kSegTile,
               "a segment range covers exactly one tile");
@@ -576,12 +575,6 @@ enum : int { kNone = 0, kSome = 1, kAll = 2 };
 struct TileInfo {
   int pos, bh;
   int state[kConsumers];
-};
-
-// ROWS rows of 64 bf16 columns, 128 bytes each, as TMA's 128-byte swizzle
-// writes them; a 1024-byte aligned base keeps wgmma's base offset at 0
-template <int ROWS> struct alignas(1024) Box {
-  bf16 v[ROWS * kBoxCols];
 };
 
 struct Params {
@@ -599,153 +592,6 @@ struct Params {
   int sq, sk, kv_rep, causal, causal_offset, kv_limit, seg_div;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
-// --- mbarriers ---------------------------------------------------------------
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  unsigned long long start = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 4095u) == 0) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (start == 0) start = now;
-      else if (now - start > kWatchdogNs) __trap();
-    }
-  }
-}
-
-// --- TMA ---------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// --- warpgroup register budgets and wgmma ordering ---------------------------
-
-template <int N> __device__ __forceinline__ void regs_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void regs_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Ties registers to this point of the program: an asynchronous wgmma reads
-// its A registers and writes its accumulators until wg_wait0, which the
-// compiler cannot see, so both are pinned after the wait (and the
-// accumulators before the issue).
-template <int N> __device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma descriptor of a 128-byte swizzled tile at p: 8-row groups 1024
-// bytes apart (the stride byte offset; the leading one is set the same,
-// which a 64-column MN-major or a swizzled K-major operand never reads)
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFFu) >> 4) | ((uint64_t)64 << 16) |
-         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
-}
-// a K-major operand's k-th 16-column step of a D-column tile stored as
-// boxes[D / 64]: box k / 4, 32 bytes a step inside it
-template <typename B>
-__device__ __forceinline__ uint64_t desc_k(const B* boxes, int kk) {
-  return desc(&boxes[kk >> 2]) + 2 * (kk & 3);
-}
-// an MN-major operand's k-th 16-row step inside one box: 16 rows of 128 B
-template <typename B>
-__device__ __forceinline__ uint64_t desc_mn(const B& box, int kk) {
-  return desc(&box) + 128 * kk;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The accumulator of a 64 x N wgmma: thread t of the warpgroup holds rows
-// r = 16·(t / 32) + (t % 32) / 4 and r + 8, element i at row r + 8·((i >> 1)
-// & 1), column 8·(i >> 2) + 2·(t % 4) + (i & 1). The A operand of a
-// following wgmma takes the same layout, 16 columns (8 elements) a step.
-template <int N>
-__device__ __forceinline__ void to_a(const float (&c)[N],
-                                     uint32_t (&a)[N / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[kk][j] = pack_bf16(c[8 * kk + 2 * j], c[8 * kk + 2 * j + 1]);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // --- the mask and the tile skips ---------------------------------------------
 
@@ -785,67 +631,6 @@ __device__ __forceinline__ bool keep(const Params& p, int qi, int kj, int id_q,
                                      int id_k) {
   return qi < p.sq && kj < p.kv_limit &&
          (!p.causal || qi + p.causal_offset >= kj) && (!SEG || id_q == id_k);
-}
-
-// 2^x on the SFU, denormal results flushed to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// --- wgmma (bf16 in, fp32 accumulate) ----------------------------------------
-
-// D (64 x 64, fp32 registers) += A·B, A (64 x 16) and B (64 x 16)
-// both K-major in 128-byte swizzled shared memory; acc = 0 overwrites D
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
-                                           uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// D (64 x 64, fp32 registers) += A·B, A (64 x 16 bf16) in registers (the
-// accumulator layout, packed in pairs), B (16 x N) MN-major in 128-byte
-// swizzled shared memory
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // --- forward -----------------------------------------------------------------
@@ -1048,7 +833,7 @@ __device__ __forceinline__ void init_barriers(Smem& sm) {
       bar_init(&sm.empty[s], kConsumers * 128);
     }
     bar_init(&sm.ready, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 }
@@ -1483,42 +1268,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // --- launchers ---------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched from the driver
-// through the runtime, so the library links no -lcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
 // (rows, s, d) bf16 in boxes of box_rows x 64 columns, 128-byte swizzled;
 // rows past s read as zeros
 bool map_rows(CUtensorMap* m, const void* base, int rows, int s, int d,
               int box_rows) {
-  const EncodeTiled enc = encoder();
-  const cuuint64_t dim[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)rows};
-  const cuuint64_t stride[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc && enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                    const_cast<void*>(base), dim, stride, box, step,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map<bf16, 3>(
+      m, base, {(uint64_t)d, (uint64_t)s, (uint64_t)rows},
+      {(uint64_t)d * 2, (uint64_t)s * d * 2},
+      {(uint32_t)kBoxCols, (uint32_t)box_rows, 1u});
 }
 
 Params base_params(const Args& a) {
@@ -1597,6 +1354,8 @@ cudaError_t launch_dkv(const Args& a) {
 }
 
 }  // namespace sm90
+
+namespace {
 
 // fp32 launchers
 namespace fp32 {

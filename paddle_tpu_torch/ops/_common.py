@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -68,9 +69,14 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source
+    and of every header under ``csrc/`` (any of them may be included),
+    so an edited header rebuilds every library."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_cuda_sources(names: Iterable[str]) -> None:
@@ -90,7 +96,8 @@ def build_cuda_sources(names: Iterable[str]) -> None:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_ARCH, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+               "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -116,6 +123,51 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
             build_cuda_sources([name])
             lib = _libs[name] = ctypes.CDLL(str(_so_path(name)))
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """Each entry function of ``csrc/<name>.cu`` (its mangled name) with
+    its registers and spill bytes, from nvcc's ``-Xptxas -v`` report of
+    the library's build (built first if needed)."""
+    build_cuda_sources([name])
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in build_logs.get(name, "").splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def sass_counts(name: str) -> Dict[str, dict]:
+    """Each function of the library of ``csrc/<name>.cu`` (its mangled
+    name) with its wgmma (``HGMMA``) and atomic instructions in the SASS
+    (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_so_path(name))], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        out[fn] = dict(hgmma=part.count("HGMMA"),
+                       atomics=part.count("ATOM") + part.count("RED."))
+    return out
 
 
 def triton_cache_dir() -> str:

@@ -372,8 +372,8 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal,
     return dk, dv
 
 
-# a kernel's line in nvcc's -Xptxas -v report: namespace, kernel, D, SEG
-_ENTRY = re.compile(r"Compiling entry function '\S*?(sm90|fp32)\d+"
+# a kernel's mangled name: namespace, kernel, D, SEG
+_ENTRY = re.compile(r"(sm90|fp32)\d+"
                     r"flash_attention_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)"
                     r"ELb([01])")
 _KINDS = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}
@@ -387,27 +387,16 @@ def kernel_resources():
     warpgroups raise theirs with setmaxnreg (the source's header)."""
     lib = load_cuda_library("flash_attention")
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
-    out, cur = {}, None
-    for line in _common.build_logs.get("flash_attention", "").splitlines():
-        m = _ENTRY.search(line)
-        if m:
-            ns, kind, d, seg = m.groups()
-            cur = (f"{'bf16' if ns == 'sm90' else 'fp32'} {kind} d{d}"
-                   + (" seg" if seg == "1" else ""))
-            out[cur] = dict(smem_bytes=lib.flash_attention_smem_bytes(
-                _KINDS[kind], int(d), int(ns == "sm90")))
+    out = {}
+    for fn, res in _common.ptxas_report("flash_attention").items():
+        m = _ENTRY.search(fn)
+        if m is None:
             continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[cur].update(spill_stores=int(m.group(1)),
-                            spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[cur]["registers"] = int(m.group(1))
-            cur = None
+        ns, kind, d, seg = m.groups()
+        out[f"{'bf16' if ns == 'sm90' else 'fp32'} {kind} d{d}"
+            + (" seg" if seg == "1" else "")] = dict(
+                res, smem_bytes=lib.flash_attention_smem_bytes(
+                    _KINDS[kind], int(d), int(ns == "sm90")))
     return out
 
 

@@ -6,10 +6,12 @@
 ``main_grad`` when ``multi_precision``, else one of x's dtype (the
 product is then rounded to that dtype before the add, as the JAX
 package's XLA path does). CPU tensors take
-:func:`fused_linear_param_grad_add_plain`; CUDA tensors launch the
-hand-written kernel ``csrc/fused_linear_grad_add.cu`` for every shape
+:func:`fused_linear_param_grad_add_plain`; CUDA tensors launch a
+hand-written kernel of ``csrc/fused_linear_grad_add.cu`` for every shape
 (the Pallas kernel's ``_pallas_ok`` sends shapes that do not tile to
-XLA; the card has no such fallback), or raise.
+XLA; the card has no such fallback), or raise: the wgmma kernel fed by
+TMA where :func:`grad_add_route` says TMA can map the operands, the WMMA
+kernel for other bf16/fp16 shapes, the FMA kernel for fp32.
 
 In place: the reference's op and the Pallas kernel's alias update
 ``main_grad`` in place, where the JAX function returns new arrays. The
@@ -23,15 +25,54 @@ caller sees the same on both devices.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ._common import check_cuda_tensor, load_cuda_library
 
-#: x/dout dtypes of the kernel (its dtype code)
+#: x/dout dtypes of the kernels (their dtype code)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_TILE = 128                     # out rows and columns per block (the .cu)
+_TILE = 128                     # out rows and columns per block (WMMA, FMA)
 _MAX_GRID_Y = 65535
+#: the wgmma route's out tile (rows of dW, columns) and its row slice
+_WGMMA_TILE = (128, 256)
+_WGMMA_SLICE = 64
+#: a split of the rows walks at least this many slices (512 rows)
+_MIN_SPLIT_SLICES = 8
+#: the kernels' routes, each counted in ``route_launches``
+GRAD_ADD_ROUTES = ("wgmma", "wmma", "fma")
+
+
+def grad_add_route(rows: int, din: int, dout: int, dtype,
+                   aligned: bool = True) -> str:
+    """The route of one call, from shapes and alignment alone (never a
+    fallback on a failed launch): ``"fma"`` for fp32 inputs (no TF32);
+    ``"wgmma"`` for bf16/fp16 when TMA can map x and dout (``rows > 0``,
+    din and dout multiples of 8, so their rows are 16-byte strides, and
+    ``aligned``: x, dout and the accumulator start on 16 bytes); else
+    ``"wmma"``."""
+    if dtype == torch.float32:
+        return "fma"
+    if rows > 0 and din % 8 == 0 and dout % 8 == 0 and aligned:
+        return "wgmma"
+    return "wmma"
+
+
+def grad_add_split(rows: int, din: int, dout: int, sms: int) -> int:
+    """How many parts the wgmma route splits the rows into: 1 unless its
+    output tiles fill less than one wave of ``sms`` SMs; then as many as
+    fill the wave, each walking at least ``_MIN_SPLIT_SLICES`` slices of
+    64 rows, and never an empty part."""
+    tm, tn = _WGMMA_TILE
+    tiles = -(-din // tm) * -(-dout // tn)
+    slices = -(-rows // _WGMMA_SLICE)
+    split = min(sms // tiles, slices // _MIN_SPLIT_SLICES) if tiles < sms \
+        else 1
+    if split <= 1:
+        return 1
+    per = -(-slices // split)
+    return -(-slices // per)
 
 
 def _as_acc(t, dtype, shape, device, name):
@@ -56,12 +97,16 @@ def fused_linear_param_grad_add_plain(x2, g2, acc, acc_dtype):
     return acc.add_(prod)
 
 
-def fused_linear_grad_add_kernel(x2, g2, acc, acc_dtype):
-    """Launch the CUDA kernel: the contract of
+def fused_linear_grad_add_kernel(x2, g2, acc, acc_dtype,
+                                 route: Optional[str] = None):
+    """Launch a CUDA kernel: the contract of
     :func:`fused_linear_param_grad_add_plain` on CUDA tensors. ``acc``
     (contiguous, ``acc_dtype``) is updated in place and returned; with
     ``acc=None`` the output is a fresh ``torch.empty`` the kernel fills.
-    Counts one launch in ``fused_linear_grad_add_kernel.launches``."""
+    The route is :func:`grad_add_route`'s; ``route="wmma"`` takes the
+    WMMA kernel for a call the wgmma route would take (for tests).
+    Counts one launch in ``fused_linear_grad_add_kernel.launches`` and in
+    its route's ``route_launches``."""
     check_cuda_tensor("x", x2, tuple(_KERNEL_DTYPES), ndim=2)
     check_cuda_tensor("dout", g2, (x2.dtype,), ndim=2)
     rows, din = x2.shape
@@ -85,35 +130,73 @@ def fused_linear_grad_add_kernel(x2, g2, acc, acc_dtype):
             raise ValueError(f"dweight {tuple(acc.shape)} on {acc.device} "
                              f"for ({din}, {dout}) on {x2.device}")
         out = acc
-    vec = 16 // x2.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, g2, out))
+    chosen = grad_add_route(rows, din, dout, x2.dtype, aligned)
+    if route is not None and route != chosen and not (
+            route == "wmma" and chosen == "wgmma"):
+        raise ValueError(f"route {route!r} cannot take this call "
+                         f"({chosen!r} does)")
+    route = route or chosen
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    err = _launch_fn()(
-        x2.data_ptr(), g2.data_ptr(), None if acc is None else acc.data_ptr(),
-        out.data_ptr(), rows, din, dout, _KERNEL_DTYPES[x2.dtype],
-        int(acc_dtype == torch.float32),
-        int(din % vec == 0 and x2.data_ptr() % 16 == 0),
-        int(dout % vec == 0 and g2.data_ptr() % 16 == 0), stream)
+    acc_ptr = None if acc is None else acc.data_ptr()
+    acc_fp32 = int(acc_dtype == torch.float32)
+    if route == "wgmma":
+        sms = torch.cuda.get_device_properties(x2.device) \
+            .multi_processor_count
+        split = grad_add_split(rows, din, dout, sms)
+        ws = (torch.empty(split, din, dout, dtype=torch.float32,
+                          device=x2.device) if split > 1 else None)
+        err = _launch_fns()[1](
+            x2.data_ptr(), g2.data_ptr(), acc_ptr, out.data_ptr(),
+            None if ws is None else ws.data_ptr(), rows, din, dout,
+            _KERNEL_DTYPES[x2.dtype], acc_fp32, split, stream)
+    else:
+        vec = 16 // x2.element_size()
+        err = _launch_fns()[0](
+            x2.data_ptr(), g2.data_ptr(), acc_ptr, out.data_ptr(), rows, din,
+            dout, _KERNEL_DTYPES[x2.dtype], acc_fp32,
+            int(din % vec == 0 and x2.data_ptr() % 16 == 0),
+            int(dout % vec == 0 and g2.data_ptr() % 16 == 0), stream)
     if err != 0:
-        raise RuntimeError(f"fused_linear_grad_add failed: CUDA error {err}")
+        raise RuntimeError(f"fused_linear_grad_add ({route}) failed: CUDA "
+                           f"error {err}")
     fused_linear_grad_add_kernel.launches += 1
+    fused_linear_grad_add_kernel.route_launches[route] += 1
     return out
 
 
-#: kernel launches since the last reset (the plain version never counts)
+#: op calls on the card since the last reset (the plain version never
+#: counts), and the same by route
 fused_linear_grad_add_kernel.launches = 0
+fused_linear_grad_add_kernel.route_launches = dict.fromkeys(GRAD_ADD_ROUTES,
+                                                            0)
 
-_fn = []
+def grad_add_smem_bytes() -> int:
+    """Dynamic shared memory a block of the wgmma route takes (for the
+    smoke run's report)."""
+    fn = load_cuda_library("fused_linear_grad_add") \
+        .fused_linear_grad_add_wgmma_smem_bytes
+    fn.restype = ctypes.c_int
+    return fn()
 
 
-def _launch_fn():
-    if not _fn:
-        fn = load_cuda_library("fused_linear_grad_add"
-                               ).fused_linear_grad_add_launch
+_fns = []
+
+
+def _launch_fns():
+    """(WMMA/FMA entry, wgmma entry) of the library."""
+    if not _fns:
+        lib = load_cuda_library("fused_linear_grad_add")
+        fn = lib.fused_linear_grad_add_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        wg = lib.fused_linear_grad_add_wgmma_launch
+        wg.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        wg.restype = ctypes.c_int
+        _fns.extend([fn, wg])
+    return _fns
 
 
 def fused_linear_param_grad_add(x, dout, dweight=None, dbias=None,

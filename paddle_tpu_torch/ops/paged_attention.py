@@ -14,7 +14,9 @@ card and what its design does about it):
 * :func:`ragged_paged_attention` serves the engine's unified step: one
   call covers a flat axis of packed tokens from mixed prefill and decode
   rows, each attending to ITS row's pages under the one mask rule
-  ``key_pos <= positions[t]`` (``csrc/ragged_paged_attention.cu``);
+  ``key_pos <= positions[t]`` (``csrc/ragged_paged_attention.cu``:
+  wgmma tiles for runs of a row's tokens, the key split of
+  ``csrc/paged_decode.cuh`` for single tokens);
 * :func:`paged_attention` serves the legacy pipeline's decode step: one
   query per row over ``pos < seq_len`` (``csrc/paged_decode_attention.cu``).
 
@@ -94,6 +96,57 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+#: wgmma rows of the tensor-core route: a tile's tokens times the GQA
+#: group's heads (``csrc/ragged_paged_attention.cu``)
+_TILE_ROWS = 64
+#: the kernels' routes, each counted in ``route_launches``
+RAGGED_ROUTES = ("wgmma", "key_split")
+
+
+def ragged_tile_size(dtype, page: int, nh: int, nkv: int) -> int:
+    """Tokens a tile of the ragged kernel, chosen from dtype and shapes
+    before the launch: ``64 / (nh / nkv)`` where the tensor-core route
+    takes the call (bf16/fp16 pools, a page of at least 8 slots that
+    divides 64, a GQA group that divides 64), so that a tile's tokens
+    times the group's heads fill wgmma's 64 rows; else 1, every token its
+    own tile on the key-split route. (A page under 8 slots would start a
+    TMA box inside a 1024-byte swizzle atom.)"""
+    rep = nh // nkv
+    if (dtype in (torch.bfloat16, torch.float16) and page % 8 == 0
+            and _TILE_ROWS % page == 0 and _TILE_ROWS % rep == 0):
+        return _TILE_ROWS // rep
+    return 1
+
+
+def ragged_route(dtype, page: int, nh: int, nkv: int) -> Tuple[str, ...]:
+    """The kernels one call launches: the wgmma kernel for tiles of two
+    or more tokens where :func:`ragged_tile_size` allows them, and always
+    the key split (single-token tiles and pad slots)."""
+    if ragged_tile_size(dtype, page, nh, nkv) > 1:
+        return RAGGED_ROUTES
+    return ("key_split",)
+
+
+def ragged_tiles(token_row, n_rows: int, ts: int):
+    """The tiles of the flat token axis, in plain torch ops (no host
+    sync): each token's tile start, -1 for a pad slot (a row outside
+    ``[0, n_rows)``). A run is a stretch of consecutive tokens of one
+    row; a tile starts at every ``ts``-th token of a run. This is what
+    the kernels' warp scan finds; ``tile_map`` of
+    :func:`ragged_paged_attention_kernel` reports the kernels' own."""
+    row = token_row.long()
+    idx = torch.arange(row.shape[0], device=row.device)
+    valid = (row >= 0) & (row < n_rows)
+    prev = torch.cat([row.new_full((1,), -2), row[:-1]])
+    run_start = valid & (prev != row)
+    first = torch.cummax(torch.where(run_start, idx, torch.zeros_like(idx)),
+                         0).values
+    tile_start = valid & ((idx - first) % ts == 0)
+    start = torch.cummax(torch.where(tile_start, idx, torch.zeros_like(idx)),
+                         0).values
+    return torch.where(valid, start, torch.full_like(start, -1)).int()
+
+
 _launch_fn = None
 
 
@@ -102,11 +155,21 @@ def _kernel_fn():
     if _launch_fn is None:
         fn = load_cuda_library("ragged_paged_attention") \
             .ragged_paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
+
+
+def ragged_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory a block of the wgmma kernel takes at this
+    head dim (for the smoke run's report)."""
+    fn = load_cuda_library("ragged_paged_attention") \
+        .ragged_paged_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(head_dim)
 
 
 def _check_paged_inputs(q, k_pages, v_pages, block_tables, meta):
@@ -138,22 +201,40 @@ def _check_paged_inputs(q, k_pages, v_pages, block_tables, meta):
 
 def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                   token_row, positions, kv_lens,
-                                  scale: Optional[float] = None):
-    """Launch the CUDA kernel (same contract as the plain version; the
-    output is allocated here in the pool dtype). Counts one launch in
-    ``ragged_paged_attention.launches``."""
+                                  scale: Optional[float] = None,
+                                  route: Optional[str] = None,
+                                  tile_map=None):
+    """Launch the CUDA kernels (same contract as the plain version; the
+    output is allocated here in the pool dtype). ``route=None`` takes
+    :func:`ragged_route`'s kernels; ``"key_split"`` sends every token
+    through the key split (any dtype and page size). ``tile_map``, an
+    int32 (T,) tensor, receives each token's tile start as the kernels
+    found it (-1 for pads). Counts one call in
+    ``ragged_paged_attention.launches`` and one launch per kernel in
+    ``ragged_paged_attention.route_launches``."""
     _check_paged_inputs(q, k_pages, v_pages, block_tables,
                         dict(token_row=token_row, positions=positions,
                              kv_lens=kv_lens))
     t, nh, d = q.shape
-    _, page, nkv, _ = k_pages.shape
+    n_pages, page, nkv, _ = k_pages.shape
     n_rows, width = block_tables.shape
-    if nh // nkv > 32:
-        raise ValueError(f"at most 32 query heads per kv head, got "
-                         f"{nh // nkv}")
     if token_row.shape[0] != t or positions.shape[0] != t \
             or kv_lens.shape[0] != n_rows:
         raise ValueError("token metadata does not match q / block_tables")
+    if n_rows == 0 or width == 0:
+        raise ValueError("block_tables must have a row and a page")
+    routes = ragged_route(k_pages.dtype, page, nh, nkv)
+    if route is not None:
+        if route != "key_split" and route not in routes:
+            raise ValueError(f"route {route!r} does not take this call "
+                             f"(it takes {routes})")
+        routes = (route,) if route == "key_split" else routes
+    ts = (ragged_tile_size(k_pages.dtype, page, nh, nkv)
+          if "wgmma" in routes else 1)
+    if tile_map is not None:
+        check_cuda_tensor("tile_map", tile_map, (torch.int32,), ndim=1)
+        if tile_map.shape[0] != t or tile_map.device != q.device:
+            raise ValueError("tile_map must be (T,) on q's device")
     tensors = (q, k_pages, v_pages, block_tables, token_row, positions,
                kv_lens)
     out = torch.empty((t, nh, d), dtype=k_pages.dtype, device=q.device)
@@ -161,18 +242,21 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn()(
         *(a.data_ptr() for a in tensors), out.data_ptr(),
-        t, n_rows, width, page, nh, nkv, d, _KERNEL_DTYPES[k_pages.dtype],
-        s, stream)
+        None if tile_map is None else tile_map.data_ptr(),
+        t, n_rows, width, n_pages, page, nh, nkv, d,
+        _KERNEL_DTYPES[k_pages.dtype], ts, s, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     ragged_paged_attention.launches += 1
+    for r in routes:
+        ragged_paged_attention.route_launches[r] += 1
     return out
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
                            positions, kv_lens, scale: Optional[float] = None):
-    """CPU tensors: the plain version. CUDA tensors: the CUDA kernel."""
+    """CPU tensors: the plain version. CUDA tensors: the CUDA kernels."""
     if q.is_cuda:
         return ragged_paged_attention_kernel(
             q, k_pages, v_pages, block_tables, token_row, positions,
@@ -182,8 +266,10 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
         scale)
 
 
-#: kernel launches since the last reset (the plain version never counts)
+#: op calls on the card since the last reset (the plain version never
+#: counts), and kernel launches by route
 ragged_paged_attention.launches = 0
+ragged_paged_attention.route_launches = dict.fromkeys(RAGGED_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

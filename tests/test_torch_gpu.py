@@ -76,10 +76,11 @@ def test_rms_norm_kernel_rejects_bad_input(cuda):
         rn.rms_norm(x, torch.ones(128, device=cuda))
 
 
-def _mixed_batch(cuda, dtype, nh, nkv, d=128, page=16, width=8):
-    """Decode rows, a cold and a warm prefill row, an idle row, pads."""
+def _mixed_batch(cuda, dtype, nh, nkv, d=128, page=16, width=8,
+                 rows=((99, 1), (40, 1), (0, 30), (64, 17)), scatter=False):
+    """Decode rows, a cold and a warm prefill row, an idle row, pads;
+    ``scatter`` shuffles the token axis (runs break into short ones)."""
     rng = np.random.RandomState(1)
-    rows = [(99, 1), (40, 1), (0, 30), (64, 17)]      # (first position, n)
     n_rows = len(rows) + 1
     n_pages = n_rows * width + 1
     perm = rng.permutation(np.arange(1, n_pages))
@@ -96,6 +97,10 @@ def _mixed_batch(cuda, dtype, nh, nkv, d=128, page=16, width=8):
         pos += list(range(p0, p0 + n))
     tr += [-1] * 3
     pos += [0] * 3
+    tr, pos = np.asarray(tr, np.int32), np.asarray(pos, np.int32)
+    if scatter:
+        order = rng.permutation(len(tr))
+        tr, pos = tr[order], pos[order]
     gen = torch.Generator(device=cuda).manual_seed(2)
     pool = (n_pages, page, nkv, d)
     k = torch.randn(pool, generator=gen, device=cuda).to(dtype)
@@ -106,29 +111,94 @@ def _mixed_batch(cuda, dtype, nh, nkv, d=128, page=16, width=8):
     return (q, k, v, *meta)
 
 
-# fp32: summation order and online vs two-pass softmax. bf16: the plain
-# version rounds the probabilities to bf16 before P·V (the JAX array
-# path's rounding); the kernel keeps them in fp32 (the Pallas kernel's)
+# fp32: summation order and online vs two-pass softmax. bf16/fp16: the
+# plain version rounds the probabilities to the pool dtype before P·V (the
+# JAX array path's rounding), as the wgmma route does; the key split
+# keeps them in fp32 (the Pallas kernel's)
 _ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-5)}
+# long rows: prefill runs of 150 and 70 tokens (several tiles, several
+# 64-key tiles each, a last page cut by kv_len) beside decode rows
+_LONG_ROWS = ((300, 1), (40, 1), (0, 150), (200, 70), (5, 2))
+
+
+def _check_ragged(args, got, route):
+    want = pa.ragged_paged_attention_plain(*args)
+    rtol, atol = _ATTN_TOL.get(args[0].dtype, (2e-2, 2e-2))
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{route}: {m}")
+    pads = args[4] < 0
+    assert bool((got[pads] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 @pytest.mark.parametrize("nh,nkv,d", [(32, 32, 128), (32, 8, 128),
                                       (8, 2, 64)])
-def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d):
-    args = _mixed_batch(cuda, dtype, nh, nkv, d)
-    before = pa.ragged_paged_attention.launches
+@pytest.mark.parametrize("page,width,rows,scatter", [
+    (16, 8, None, False), (16, 24, _LONG_ROWS, False),
+    (16, 24, _LONG_ROWS, True), (8, 48, _LONG_ROWS, False),
+    (12, 32, _LONG_ROWS, False)],
+    ids=["page16", "page16-long", "page16-scattered", "page8-long",
+         "page12-long"])
+def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d,
+                                               page, width, rows, scatter):
+    """Every route against the plain version: the call's own routes
+    (wgmma tiles and the key split where ragged_route says so; page 12
+    and fp32 take the key split alone) and the key split forced for
+    every token; the kernels' tile map equals ``ragged_tiles``."""
+    kw = {} if rows is None else dict(rows=rows)
+    args = _mixed_batch(cuda, dtype, nh, nkv, d, page=page, width=width,
+                        scatter=scatter, **kw)
+    routes = pa.ragged_route(dtype, page, nh, nkv)
+    before = dict(pa.ragged_paged_attention.route_launches)
+    calls = pa.ragged_paged_attention.launches
     got = pa.ragged_paged_attention(*args)
     torch.cuda.synchronize()
-    assert pa.ragged_paged_attention.launches == before + 1
-    want = pa.ragged_paged_attention_plain(*args)
-    rtol, atol = _ATTN_TOL.get(dtype, (2e-2, 2e-2))
-    assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
-    pads = args[4] < 0
-    assert bool((got[pads] == 0).all())
+    assert pa.ragged_paged_attention.launches == calls + 1
+    for r in pa.RAGGED_ROUTES:
+        assert pa.ragged_paged_attention.route_launches[r] == before[r] + (
+            r in routes)
+    _check_ragged(args, got, "+".join(routes))
+    ts = pa.ragged_tile_size(dtype, page, nh, nkv)
+    tile_map = torch.full((args[0].shape[0],), -7, dtype=torch.int32,
+                          device=cuda)
+    pa.ragged_paged_attention_kernel(*args, tile_map=tile_map)
+    n_rows = args[3].shape[0]
+    torch.testing.assert_close(tile_map, pa.ragged_tiles(args[4], n_rows,
+                                                         ts))
+    split = pa.ragged_paged_attention_kernel(*args, route="key_split")
+    torch.cuda.synchronize()
+    _check_ragged(args, split, "key_split")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_attention_kernels_repeat_bitwise(cuda, dtype):
+    args = _mixed_batch(cuda, dtype, 32, 8, 128, width=24, rows=_LONG_ROWS)
+    for route in (None, "key_split"):
+        a = pa.ragged_paged_attention_kernel(*args, route=route)
+        b = pa.ragged_paged_attention_kernel(*args, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), route
+
+
+def test_ragged_attention_row_with_nothing_to_attend_is_zero(cuda):
+    """The tokens of a row whose kv_len is 0 attend nothing (the page
+    skip leaves no key) and come out exactly 0 on both routes; the other
+    rows still match the plain version, which takes no page skip."""
+    q, k, v, bt, tr, pos, kvl = _mixed_batch(cuda, torch.bfloat16, 32, 32,
+                                             128, width=24, rows=_LONG_ROWS)
+    kvl = kvl.clone()
+    kvl[2] = 0                       # the 150-token prefill row
+    want = pa.ragged_paged_attention_plain(q, k, v, bt, tr, pos, kvl)
+    for route in (None, "key_split"):
+        got = pa.ragged_paged_attention_kernel(q, k, v, bt, tr, pos, kvl,
+                                               route=route)
+        torch.cuda.synchronize()
+        assert bool((got[tr == 2] == 0).all()), route
+        torch.testing.assert_close(got[tr != 2].float(),
+                                   want[tr != 2].float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def test_ragged_attention_kernel_rejects_bad_input(cuda):
@@ -142,6 +212,9 @@ def test_ragged_attention_kernel_rejects_bad_input(cuda):
         pa.ragged_paged_attention(q[..., :96].contiguous(),
                                   k[..., :96].contiguous(),
                                   v[..., :96].contiguous(), bt, tr, pos, kvl)
+    with pytest.raises(ValueError, match="route"):
+        pa.ragged_paged_attention_kernel(q, k, v, bt, tr, pos, kvl,
+                                         route="wgmma")   # fp32 pools
 
 
 def test_ragged_step_launch_counts(cuda):
@@ -756,11 +829,12 @@ def test_ernie_train_step_launch_counts(cuda):
 # ---------------------------------------------------------------------------
 
 # (rows, din, dout): the Llama-2-7B projections at a (2, 2048) micro-batch,
-# an unaligned shape, and rows that are not 16-byte aligned (read element
-# by element)
+# an unaligned shape, rows that are not 16-byte aligned (read element by
+# element), no rows, and shapes whose tiles fill less than a wave (the
+# wgmma route splits their rows, 16 and 4 parts)
 _GRAD_ADD_SHAPES = [(4096, 4096, 4096), (4096, 4096, 11008),
                     (4096, 11008, 4096), (1000, 4096, 1000), (37, 13, 29),
-                    (0, 64, 48)]
+                    (0, 64, 48), (8192, 512, 512), (4096, 1024, 1024)]
 
 
 def _grad_add_inputs(cuda, rows, din, dout, dtype, acc_dtype, seed=0):
@@ -779,19 +853,47 @@ def _grad_add_inputs(cuda, rows, din, dout, dtype, acc_dtype, seed=0):
     (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32)],
     ids=["bf16", "fp32", "bf16-acc", "fp16"])
 @pytest.mark.parametrize("given", [True, False], ids=["acc", "fresh"])
-def test_grad_add_kernel_matches_plain(cuda, shape, dtype, acc_dtype, given):
+@pytest.mark.parametrize("route", [None, "wmma"], ids=["auto", "wmma"])
+def test_grad_add_kernel_matches_plain(cuda, shape, dtype, acc_dtype, given,
+                                       route):
+    """Both bf16/fp16 routes at every shape (the wgmma route where
+    grad_add_route gives it, the WMMA kernel forced), fp32 on the FMA
+    kernel, in place and fresh, against the plain version."""
     rows, din, dout = shape
     x, g, acc = _grad_add_inputs(cuda, rows, din, dout, dtype, acc_dtype)
+    chosen = fl.grad_add_route(rows, din, dout, dtype)
+    if route == "wmma" and chosen == "fma":
+        with pytest.raises(ValueError, match="route"):
+            fl.fused_linear_grad_add_kernel(x, g, acc, acc_dtype, route)
+        return
     want = fl.fused_linear_param_grad_add_plain(
         x, g, acc.clone() if given else None, acc_dtype)
     before = fl.fused_linear_grad_add_kernel.launches
+    by_route = dict(fl.fused_linear_grad_add_kernel.route_launches)
     got = fl.fused_linear_grad_add_kernel(x, g, acc if given else None,
-                                          acc_dtype)
+                                          acc_dtype, route)
     torch.cuda.synchronize()
     assert fl.fused_linear_grad_add_kernel.launches == before + 1
+    ran = route or chosen
+    for r in fl.GRAD_ADD_ROUTES:
+        assert fl.fused_linear_grad_add_kernel.route_launches[r] == \
+            by_route[r] + (r == ran)
     assert got.dtype == acc_dtype and got.shape == (din, dout)
     assert (got is acc) == given
-    grad_add_close(got, want, f"grad_add {shape} {dtype} -> {acc_dtype}")
+    grad_add_close(got, want, f"grad_add {ran} {shape} {dtype} -> "
+                              f"{acc_dtype}")
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096, 4096), (8192, 512, 512),
+                                   (37, 13, 29)],
+                         ids=["wgmma", "wgmma-split", "wmma"])
+def test_grad_add_kernel_repeats_bitwise(cuda, shape):
+    x, g, acc = _grad_add_inputs(cuda, *shape, torch.bfloat16,
+                                 torch.float32)
+    a = fl.fused_linear_grad_add_kernel(x, g, acc.clone(), torch.float32)
+    b = fl.fused_linear_grad_add_kernel(x, g, acc.clone(), torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_grad_add_op_in_place_on_card(cuda):
@@ -845,6 +947,9 @@ def test_grad_add_kernel_refuses_bad_input(cuda):
                                         torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         fl.fused_linear_grad_add_kernel(x, g, acc.cpu(), torch.float32)
+    with pytest.raises(ValueError, match="route"):
+        fl.fused_linear_grad_add_kernel(x[:, :13].contiguous(), g, None,
+                                        torch.float32, "wgmma")
     assert fl.fused_linear_grad_add_kernel.launches == before
 
 
