@@ -12,13 +12,14 @@ directory). PHASE names a kernel phase of the smoke run:
 
     ragged   phase 3's ragged attention cases      (attention_phase)
     decode   phase 4's paged decode cases          (paged_decode_phase)
+    ln       phase 13's LayerNorm forward and backward (layer_norm_phase)
     flash    phase 10's flash kernels              (flash_phase)
     seg      phase 14's segment-masked flash       (seg_flash_phase)
     grad_add phase 17's weight-gradient kernel     (grad_add_phase)
     serve    phase 7's Llama-2-7B unified serve    (serve_7b_phase, twice:
              the first warms up, the second is reported)
 
-(default: all six). Each turn runs in its own process from its own
+(default: all seven). Each turn runs in its own process from its own
 checkout, which builds its own kernels. The script prints one JSON line
 per turn, ``{"turn": i, "dir": ..., "phase": {case: ms, ...}}``, with
 each case's kernel time (``ms``; for ``serve`` the generated tokens/s,
@@ -37,6 +38,7 @@ import sys
 PHASES = {
     "ragged": "cs.attention_phase(torch, pa)",
     "decode": "cs.paged_decode_phase(torch, pa)",
+    "ln": "cs.layer_norm_phase(torch, ln)",
     "flash": "cs.flash_phase(torch, fa)",
     "seg": "cs.seg_flash_phase(torch, E, fa)",
     "grad_add": "cs.grad_add_phase(torch, fl)",
@@ -56,6 +58,7 @@ from paddle_tpu_torch.models import ernie as E
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_linear as fl
+from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import rms_norm as rn
 out = {}
@@ -72,6 +75,9 @@ for name, call in json.loads(sys.argv[1]).items():
         continue
     if "step_shape" in report:
         report = report["step_shape"]
+    if name == "ln":
+        report = {f"{way}_{kind}": r for way, cases in report.items()
+                  for kind, r in cases.items()}
     out[name] = {case: r["ms"] for case, r in report.items()
                  if isinstance(r, dict) and "ms" in r}
 print("AB " + json.dumps(out), flush=True)

@@ -31,8 +31,8 @@
 // tiles are found on the device, by a warp-wide scan of token_row inside
 // each kernel (no host sync, no extra launch): a run starts where the row
 // changes, a tile at every TS-th token of a run. Two kernels share the work
-// of one call, each with a grid sized from T alone whose blocks walk the
-// tiles round-robin:
+// of one call, each with a grid sized from T and the card alone whose
+// blocks walk their items round-robin (a third merges split tokens):
 //   - tiles of two or more tokens (ragged90, bf16/fp16 pools whose page
 //     size divides 64 and is at least 8): the flash forward with a paged
 //     producer. One consumer warpgroup runs S = Q·Kᵀ and P·V as wgmma
@@ -47,17 +47,24 @@
 //     read as TMA's zero fill past the pool. Each K/V page is read once per
 //     GQA group.
 //   - single-token tiles (every token, for fp32 pools or other page sizes):
-//     the key split of csrc/paged_decode.cuh, shared with the paged decode
-//     kernel: keys over 8 warps, 16-byte loads, states merged across warps.
-//     Its blocks also write the pad slots' zeros.
-// The wrapper picks TS (1: key split only) from dtype and shapes before the
-// launch (ops/paged_attention.py::ragged_tile_size).
+//     the flash-decoding split of csrc/paged_decode.cuh, shared with the
+//     paged decode kernel. An item is a part of a token's keys; the
+//     blocks walk the items round-robin (keys over 8 warps, 16-byte loads,
+//     states merged across warps), so a long decode row is walked by many
+//     blocks at once. A token of several parts leaves fp32 states in a
+//     scratch sized from T and the span (the tokens that decode are found
+//     on the device, never told to the host), and a merge kernel folds
+//     them in chunk order. These blocks also write the pad slots' zeros.
+// The wrapper picks TS (1: key split only) from dtype and shapes, and the
+// chunk from host integers (ops/paged_attention.py::ragged_tile_size,
+// decode_split), before the launch.
 //
 // What this design leaves on the table: one consumer warpgroup a block (a
-// tile's softmax and its products do not overlap another tile's), the two
-// kernels run one after the other on the stream, and a long decode row is
-// walked by one block per kv head (no split of its keys across blocks).
+// tile's softmax and its products do not overlap another tile's), and the
+// kernels (tiles, key split, merge) run one after the other on the stream;
+// every key-split block scans the whole token axis.
 
+#include <algorithm>
 #include <climits>
 #include <cstring>
 
@@ -74,28 +81,44 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// One step of a warp's scan of the flat token axis: token t = base + lane.
-// valid: it belongs to a row (0 <= row < n_rows); tile_start: a tile starts
-// at it (every ts-th token of its run); cont: the next token continues its
-// run. carry holds the latest run start before this step (-1 before any);
+// The loads of one step of a warp's scan of the flat token axis: token t =
+// base + lane's row, its neighbours' rows and its position (0 without
+// positions).
+struct StepLoads {
+  int r, rp, rn, pos;
+};
+
+__device__ __forceinline__ StepLoads load_step(
+    const int32_t* __restrict__ token_row,
+    const int32_t* __restrict__ positions, int n_tokens, int base) {
+  const int t = base + (threadIdx.x & 31);
+  StepLoads s;
+  s.r = t < n_tokens ? __ldg(token_row + t) : -1;
+  s.rp = t > 0 && t <= n_tokens ? __ldg(token_row + t - 1) : INT_MIN;
+  s.rn = t + 1 < n_tokens ? __ldg(token_row + t + 1) : INT_MIN;
+  s.pos = positions != nullptr && t < n_tokens ? __ldg(positions + t) : 0;
+  return s;
+}
+
+// One step of the scan over the loads of step `base`. valid: the token
+// belongs to a row (0 <= row < n_rows); tile_start: a tile starts at it
+// (every ts-th token of its run); cont: the next token continues its run.
+// carry holds the latest run start before this step (-1 before any);
 // every lane of the warp must call it with the same base.
-__device__ __forceinline__ void scan_step(const int32_t* __restrict__ token_row,
-                                          int n_tokens, int n_rows, int ts,
-                                          int base, int& carry, bool& valid,
+__device__ __forceinline__ void scan_step(const StepLoads& s, int n_tokens,
+                                          int n_rows, int ts, int base,
+                                          int& carry, bool& valid,
                                           bool& tile_start, bool& cont) {
   const int lane = threadIdx.x & 31;
   const int t = base + lane;
-  const int r = t < n_tokens ? __ldg(token_row + t) : -1;
-  const int rp = t > 0 && t <= n_tokens ? __ldg(token_row + t - 1) : INT_MIN;
-  const int rn = t + 1 < n_tokens ? __ldg(token_row + t + 1) : INT_MIN;
-  valid = t < n_tokens && r >= 0 && r < n_rows;
-  const unsigned starts = __ballot_sync(kFull, valid && rp != r);
+  valid = t < n_tokens && s.r >= 0 && s.r < n_rows;
+  const unsigned starts = __ballot_sync(kFull, valid && s.rp != s.r);
   const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1u;
   const unsigned below = starts & upto;
   const int first = below ? base + 31 - __clz(below) : carry;
   if (starts) carry = base + 31 - __clz(starts);
   tile_start = valid && (t - first) % ts == 0;
-  cont = valid && rn == r;
+  cont = valid && s.rn == s.r;
 }
 
 // The items of a scan step that fall to this block: every gridDim.x-th
@@ -178,8 +201,8 @@ __device__ __forceinline__ void produce(const Params& p, Smem<D>& sm) {
   uint32_t phase = 0, qphase = 0;
   for (int base = 0; base < p.n_tokens; base += 32) {
     bool valid, tile_start, cont;
-    scan_step(p.token_row, p.n_tokens, p.n_rows, p.ts, base, carry, valid,
-              tile_start, cont);
+    scan_step(load_step(p.token_row, nullptr, p.n_tokens, base), p.n_tokens,
+              p.n_rows, p.ts, base, carry, valid, tile_start, cont);
     unsigned multi = take_mine(tile_start && cont, count);
     while (multi) {
       const int b = __ffs(multi) - 1;
@@ -479,11 +502,20 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 // ---------------------------------------------------------------------------
 namespace {
 
-// grid (blocks walking the single-token tiles and pads round-robin,
-// nh / REP head groups); every warp scans the tokens itself, so the whole
-// block agrees on its items without a barrier
+// grid (nh / REP head groups, blocks walking the items round-robin); an
+// item is a part of a single-token tile's keys, or a pad slot. The head
+// groups vary fastest, so the blocks that take one item for every group
+// land on as many SMs (with the item blocks fastest, a long decode row's
+// 32 walks shared 11 SMs and ran 9 µs slower). Every warp scans the tokens
+// itself, so the whole block agrees on its items without a barrier. The
+// second bound is the blocks per SM ptxas must fit: given
+// the thread count alone it holds a one-head block (REP 1) at 64 registers
+// and spills; three blocks give it 80, two REP 2 its ~110, and REP 4 (~160
+// with the scan) fits one.
 template <typename T, int D, int REP>
-__global__ void __launch_bounds__(decode::kWarps * 32) ragged_key_split_kernel(
+__global__ void __launch_bounds__(decode::kWarps * 32,
+                                  REP == 1 ? 3 : REP == 2 ? 2 : 1)
+    ragged_key_split_kernel(
     const T* __restrict__ q,                   // (T, nh, D)
     const T* __restrict__ k_pages,             // (P, page, nkv, D)
     const T* __restrict__ v_pages,             // (P, page, nkv, D)
@@ -493,43 +525,87 @@ __global__ void __launch_bounds__(decode::kWarps * 32) ragged_key_split_kernel(
     const int32_t* __restrict__ kv_lens,       // (R,)
     T* __restrict__ out,                       // (T, nh, D)
     int32_t* tile_map,                         // null, or (T,)
+    const decode::Partials part,               // (T, n_chunks, nh) states
+    int32_t* __restrict__ n_split,             // (T,): chunks of each token
     int n_tokens, int n_rows, int width, int page, int nh, int nkv, int ts,
-    float scale) {
+    int chunk, float scale) {
   __shared__ decode::States<D, REP> st;
-  const int h0 = blockIdx.y * REP;  // first query head of this block
+  const int h0 = blockIdx.x * REP;  // first query head of this block
   const int g = h0 / (nh / nkv);    // their kv head
+  const int lane = threadIdx.x & 31;
+  const int bx = blockIdx.y, blocks = gridDim.y;
   int count = 0, carry = -1;
   for (int base = 0; base < n_tokens; base += 32) {
+    const StepLoads cur = load_step(token_row, positions, n_tokens, base);
     bool valid, tile_start, cont;
-    scan_step(token_row, n_tokens, n_rows, ts, base, carry, valid,
-              tile_start, cont);
-    const int t_lane = base + (threadIdx.x & 31);
-    unsigned mine = take_mine(
-        t_lane < n_tokens && (!valid || (tile_start && (ts == 1 || !cont))),
-        count);
+    scan_step(cur, n_tokens, n_rows, ts, base, carry, valid, tile_start,
+              cont);
+    const int t = base + lane;
+    const bool pad = t < n_tokens && !valid;
+    const bool single = tile_start && (ts == 1 || !cont);
+    // this lane's items: a pad slot one, a single-token tile one per part
+    // of its keys below its position + 1 and the table's span (a row's
+    // kv_len, read only by the block that takes an item, may end them
+    // sooner: those parts leave empty states), anything else none
+    const int len = min(cur.pos + 1, width * page);
+    const int nc = pad ? 1
+                   : !single            ? 0
+                   : part.n_chunks == 1 ? 1
+                                        : decode::parts_of(len, chunk);
+    // each token's marks are written by one block, picked round-robin
+    if ((tile_map != nullptr || part.n_chunks > 1) && blockIdx.x == 0 &&
+        t < n_tokens && t % blocks == bx) {
+      if (tile_map != nullptr && nc > 0) tile_map[t] = pad ? -1 : t;
+      if (part.n_chunks > 1) n_split[t] = single ? nc : 0;
+    }
+    // items are numbered along the axis; this block takes every blocks-th
+    // from its own index (blockIdx.y). A lane's token holds items j0 ..
+    // j0 + nc - 1, and `first` is the block's first among them.
+    int j0, first;
+    if (part.n_chunks == 1) {  // an item a token at most: two ballots
+      const unsigned items = __ballot_sync(kFull, nc > 0);
+      j0 = count + __popc(items & ((1u << lane) - 1u));
+      count += __popc(items);
+      first = j0 % blocks == bx ? j0 : j0 + 1;
+    } else {  // a prefix sum of the items over the warp
+      int incl = nc;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      j0 = count + incl - nc;
+      count += __shfl_sync(kFull, incl, 31);
+      first = j0 + (bx - j0 % blocks + blocks) % blocks;
+    }
+    unsigned mine = __ballot_sync(kFull, first < j0 + nc);
     while (mine) {
       const int b = __ffs(mine) - 1;
       mine &= mine - 1;
-      const int t = base + b;
-      const int r = __ldg(token_row + t);
-      const int64_t off = ((int64_t)t * nh + h0) * D;
-      if (r < 0 || r >= n_rows) {  // a pad slot: exactly 0
+      const int tb = base + b;
+      const int jb = __shfl_sync(kFull, j0, b);
+      const int ncb = __shfl_sync(kFull, nc, b);
+      const int len_b = __shfl_sync(kFull, len, b);
+      const int fb = __shfl_sync(kFull, first, b);
+      const int64_t off = ((int64_t)tb * nh + h0) * D;
+      if (__shfl_sync(kFull, (int)pad, b)) {  // a pad slot: exactly 0
         for (int e = threadIdx.x; e < REP * D; e += blockDim.x)
           out[off + e] = decode::from_float<T>(0.f);
-        if (tile_map != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
-          tile_map[t] = -1;
         continue;
       }
-      if (tile_map != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
-        tile_map[t] = t;
+      // the token's keys: below its position + 1, never past its row's
+      // kv_len in whole pages or the table
+      const int r = __shfl_sync(kFull, cur.r, b);
       const int kv_len = __ldg(kv_lens + r);
       const int span =
           kv_len > 0 ? min((kv_len + page - 1) / page * page, width * page)
                      : 0;
-      const int n_keys = max(0, min(__ldg(positions + t) + 1, span));
-      decode::attend<T, D, REP>(q + off, k_pages, v_pages,
-                                block_tables + (int64_t)r * width, n_keys,
-                                page, nkv, g, scale, out + off, st);
+      const int n_keys = max(0, min(len_b, span));
+      for (int j = fb; j < jb + ncb; j += blocks)
+        decode::attend_part<T, D, REP>(
+            q + off, k_pages, v_pages, block_tables + (int64_t)r * width,
+            n_keys, j - jb, ncb, decode::ceil_div(len_b, ncb), page, nkv, g,
+            h0, scale, out + off, part, tb, st);
     }
   }
 }
@@ -539,32 +615,40 @@ cudaError_t launch_key_split(const void* q, const void* k_pages,
                              const void* v_pages, const int32_t* block_tables,
                              const int32_t* token_row,
                              const int32_t* positions, const int32_t* kv_lens,
-                             void* out, int32_t* tile_map, int n_tokens,
-                             int n_rows, int width, int page, int nh, int nkv,
-                             int ts, float scale, cudaStream_t stream) {
-  // as many blocks as are resident at once, at most one per token: a
-  // second wave would hold back the long rows' blocks it holds
+                             void* out, int32_t* tile_map,
+                             const decode::Partials& part, int32_t* n_split,
+                             int n_tokens, int n_rows, int width, int page,
+                             int nh, int nkv, int ts, int chunk, float scale,
+                             cudaStream_t stream) {
+  // as many blocks as are resident at once, at most one per item: a second
+  // wave would hold back the long rows' blocks it holds
   const int groups = nh / REP;
   auto kernel = ragged_key_split_kernel<T, D, REP>;
   static const int resident =
       sm90::resident_blocks(kernel, decode::kWarps * 32, 0);
   const int per_group = max(1, resident / groups);
-  const dim3 grid(max(1, min(per_group, n_tokens)), groups);
+  const int64_t items = (int64_t)n_tokens * part.n_chunks;
+  const dim3 grid(groups, (int)std::max<int64_t>(
+                              1, std::min<int64_t>(per_group, items)));
   kernel<<<grid, decode::kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), block_tables, token_row, positions,
-      kv_lens, static_cast<T*>(out), tile_map, n_tokens, n_rows, width, page,
-      nh, nkv, ts, scale);
-  return cudaGetLastError();
+      kv_lens, static_cast<T*>(out), tile_map, part, n_split, n_tokens,
+      n_rows, width, page, nh, nkv, ts, chunk, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || part.n_chunks == 1) return e;
+  return decode::launch_merge<T, D>(part, n_split, out, n_tokens, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
                        const int32_t* block_tables, const int32_t* token_row,
                        const int32_t* positions, const int32_t* kv_lens,
-                       void* out, int32_t* tile_map, int n_tokens, int n_rows,
-                       int width, int n_pages, int page, int nh, int nkv,
-                       int ts, float scale, cudaStream_t stream) {
+                       void* out, int32_t* tile_map,
+                       const decode::Partials& part, int32_t* n_split,
+                       int n_tokens, int n_rows, int width, int n_pages,
+                       int page, int nh, int nkv, int ts, int chunk,
+                       float scale, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     if (ts > 1) {
       const cudaError_t e = ragged90::launch<T, D>(
@@ -574,15 +658,16 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
       if (e != cudaSuccess) return e;
     }
   }
-  // REP query heads a block: the largest of 4, 2, 1 that divides the group
-  const int rep = nh / nkv;
+  // REP query heads a block (decode::block_rep)
+  const int rep = decode::block_rep(nh, nkv);
 #define PTT_KEY_SPLIT(REP)                                                  \
   return launch_key_split<T, D, REP>(q, k_pages, v_pages, block_tables,     \
                                      token_row, positions, kv_lens, out,    \
-                                     tile_map, n_tokens, n_rows, width,     \
-                                     page, nh, nkv, ts, scale, stream)
-  if (rep % 4 == 0) PTT_KEY_SPLIT(4);
-  if (rep % 2 == 0) PTT_KEY_SPLIT(2);
+                                     tile_map, part, n_split, n_tokens,     \
+                                     n_rows, width, page, nh, nkv, ts,      \
+                                     chunk, scale, stream)
+  if (rep == 4) PTT_KEY_SPLIT(4);
+  if (rep == 2) PTT_KEY_SPLIT(2);
   PTT_KEY_SPLIT(1);
 #undef PTT_KEY_SPLIT
 }
@@ -593,22 +678,34 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
 // every token through the key split, > 1 (bf16/fp16, page a multiple of 8
 // dividing 64, ts·(nh / nkv) = 64) sends tiles of two or more tokens to the
 // wgmma kernel. tile_map: null, or (T,) int32 that receives each token's
-// tile start (-1 for a pad slot). Returns a cudaError_t (0 on success); the
-// Python wrapper raises on anything else.
+// tile start (-1 for a pad slot). chunk: the most keys a key-split item
+// takes;
+// n_chunks = ceil(width·page / chunk). With n_chunks > 1, part is a float32
+// scratch of T·n_chunks·nh·(head_dim + 2) and n_split an int32 scratch of
+// T; with one chunk both may be null. Returns a cudaError_t (0 on success);
+// the Python wrapper raises on anything else.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* token_row, const void* positions,
-    const void* kv_lens, void* out, void* tile_map, int n_tokens, int n_rows,
-    int width, int n_pages, int page, int nh, int nkv, int head_dim,
-    int dtype, int ts, float scale, void* stream) {
+    const void* kv_lens, void* out, void* tile_map, void* part,
+    void* n_split, int n_tokens, int n_rows, int width, int n_pages,
+    int page, int nh, int nkv, int head_dim, int dtype, int ts, int chunk,
+    int n_chunks, float scale, void* stream) {
   if (n_tokens == 0) return 0;
   if (nkv <= 0 || nh % nkv != 0 || page <= 0 || width <= 0 || n_rows <= 0 ||
-      ts < 1)
+      ts < 1 || chunk <= 0 ||
+      n_chunks != decode::ceil_div(width * page, chunk) ||
+      (n_chunks > 1 && (part == nullptr || n_split == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (ts > 1 &&
       (dtype == 0 || page % 8 != 0 || 64 % page != 0 ||
        ts * (nh / nkv) != 64 || (long long)n_pages * page > INT_MAX))
     return (int)cudaErrorInvalidValue;
+  float* acc = static_cast<float*>(part);
+  const decode::Partials parts{
+      acc, acc == nullptr ? nullptr
+                          : acc + (int64_t)n_tokens * n_chunks * nh * head_dim,
+      n_chunks, nh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_LAUNCH(T, D)                                                      \
   return (int)launch_all<T, D>(                                               \
@@ -616,8 +713,8 @@ extern "C" int ragged_paged_attention_launch(
       static_cast<const int32_t*>(token_row),                                 \
       static_cast<const int32_t*>(positions),                                 \
       static_cast<const int32_t*>(kv_lens), out,                              \
-      static_cast<int32_t*>(tile_map), n_tokens, n_rows, width, n_pages,      \
-      page, nh, nkv, ts, scale, s)
+      static_cast<int32_t*>(tile_map), parts, static_cast<int32_t*>(n_split), \
+      n_tokens, n_rows, width, n_pages, page, nh, nkv, ts, chunk, scale, s)
   if (head_dim == 64) {
     if (dtype == 0) PTT_LAUNCH(float, 64);
     if (dtype == 1) PTT_LAUNCH(__nv_bfloat16, 64);
@@ -629,6 +726,41 @@ extern "C" int ragged_paged_attention_launch(
   }
 #undef PTT_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the key-split kernel one SM holds at once for this head layout,
+// head dim and dtype (the persistent grid's blocks per SM); -1 for a shape
+// the kernels do not take.
+extern "C" int ragged_key_split_blocks_per_sm(int nh, int nkv, int head_dim,
+                                              int dtype) {
+  if (nkv <= 0 || nh % nkv != 0) return -1;
+  const int r = decode::block_rep(nh, nkv);
+  int n = -1;
+#define PTT_OCC(T, D)                                                        \
+  {                                                                          \
+    cudaError_t e =                                                          \
+        r == 4 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
+                     &n, ragged_key_split_kernel<T, D, 4>,                   \
+                     decode::kWarps * 32, 0)                                 \
+        : r == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(            \
+                       &n, ragged_key_split_kernel<T, D, 2>,                 \
+                       decode::kWarps * 32, 0)                               \
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(            \
+                       &n, ragged_key_split_kernel<T, D, 1>,                 \
+                       decode::kWarps * 32, 0);                              \
+    return e == cudaSuccess ? n : -1;                                        \
+  }
+  if (head_dim == 64) {
+    if (dtype == 0) PTT_OCC(float, 64);
+    if (dtype == 1) PTT_OCC(__nv_bfloat16, 64);
+    if (dtype == 2) PTT_OCC(__half, 64);
+  } else if (head_dim == 128) {
+    if (dtype == 0) PTT_OCC(float, 128);
+    if (dtype == 1) PTT_OCC(__nv_bfloat16, 128);
+    if (dtype == 2) PTT_OCC(__half, 128);
+  }
+#undef PTT_OCC
+  return -1;
 }
 
 // Dynamic shared memory of a block of the wgmma kernel at head dim d (64 or

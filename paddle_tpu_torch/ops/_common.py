@@ -10,6 +10,7 @@ version, a CUDA tensor launches the op's kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -51,6 +52,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` names, for the
+    wrappers that size a grid by the card."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:

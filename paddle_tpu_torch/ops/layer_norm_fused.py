@@ -22,15 +22,23 @@ one pass over the rows:
 - forward: one program owns one row, holds it in registers (``BLOCK_H``
   = next power of two >= h), takes the mean and the centred variance
   there and writes the row once;
-- backward: one program owns a block of rows, recomputes mean and
-  ``inv`` from ``x`` (nothing but ``(x, w, b)`` is saved, as in the
-  Pallas kernel), writes each row's ``dx`` and keeps the block's
-  partial ``Σ g·xhat`` and ``Σ g`` in fp32 registers, stored once into
-  an ``(n_blocks, 2, h)`` buffer. A second small pass sums the blocks
-  into ``dw`` and ``db``. The Pallas kernel carries ``dw``/``db``
-  across its sequential grid; blocks on the card run in no order, and
-  the two-pass sum needs no atomics, so ``dw`` and ``db`` are the same
-  bits from run to run (``ops/rms_norm.py``'s backward does the same).
+- backward: a grid of ``programs`` programs (two per SM), each walking
+  tiles of ``rows_per_tile`` rows, every ``programs``-th tile from its
+  own, with the next tile's loads issued before the work on this one.
+  A tile is laid out ``[K, rows_per_tile, W0]`` (column ``k·W0 + c``,
+  ``W0`` = 32 lanes x one 16-byte load), so Triton puts one warp on
+  each row (two or more for rows over 1024) and a row's four sums stay
+  inside its warp, with no shared memory or barrier. The program
+  recomputes mean and ``inv`` from ``x`` (nothing but ``(x, w, b)`` is
+  saved, as in the Pallas kernel), writes the tile's ``dx``, keeps
+  ``Σ g·xhat`` and ``Σ g`` per row slot in fp32 registers and sums them
+  across its warps once, into a ``(programs, 2, h)`` buffer. A second
+  small pass sums the programs into ``dw`` and ``db``, column blocks in
+  parallel. The Pallas kernel carries ``dw``/``db`` across its
+  sequential grid; blocks on the card run in no order, and the two-pass
+  sum in a fixed order needs no atomics, so ``dw`` and ``db`` are the
+  same bits from run to run. :func:`ln_bwd_config` picks the tile, grid
+  and warps from host integers.
 
 A row reduction followed by an elementwise pass is Triton's block model,
 which is why these are Triton rather than CUDA C++.
@@ -43,10 +51,12 @@ versions, CUDA tensors launch the kernels or raise.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from ._common import check_cuda_tensor, triton_cache_dir
-from .rms_norm import _BWD_MAX_BLOCKS, _num_warps
+from ._common import check_cuda_tensor, sm_count, triton_cache_dir
+from .rms_norm import _num_warps
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -114,38 +124,55 @@ def _get_kernels():
 
         @triton.jit
         def _layer_norm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, rows, h,
-                            rows_per_block, eps, BLOCK_H: tl.constexpr):
-            blk = tl.program_id(0)
-            offs = tl.arange(0, BLOCK_H)
-            mask = offs < h
-            w = tl.load(w_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            acc_w = tl.zeros([BLOCK_H], dtype=tl.float32)
-            acc_b = tl.zeros([BLOCK_H], dtype=tl.float32)
-            row0 = blk.to(tl.int64) * rows_per_block
-            for r in range(0, rows_per_block):
-                row = row0 + r
-                # rows past the end load zeros: their dx is not stored and
-                # they add 0 to both partial sums
-                m = mask & (row < rows)
-                x = tl.load(x_ptr + row * h + offs, mask=m,
-                            other=0.0).to(tl.float32)
-                g = tl.load(g_ptr + row * h + offs, mask=m,
-                            other=0.0).to(tl.float32)
-                mu = tl.sum(x, axis=0) / h
-                xc = tl.where(mask, x - mu, 0.0)
-                inv = tl.rsqrt(tl.sum(xc * xc, axis=0) / h + eps)
+                            n_tiles, eps, ROWS: tl.constexpr,
+                            K: tl.constexpr, W0: tl.constexpr):
+            # a tile is [K, ROWS, W0]: column k·W0 + c of row r. With W0 =
+            # 32 lanes x one 16-byte load, Triton lays the warps along the
+            # rows, so a row's sums (over axes 0 and 2) stay in its warp
+            pid = tl.program_id(0)
+            col = (tl.arange(0, K)[:, None, None] * W0
+                   + tl.arange(0, W0)[None, None, :])
+            cmask = col < h
+            w = tl.load(w_ptr + col, mask=cmask, other=0.0).to(tl.float32)
+            acc_w = tl.zeros([K, ROWS, W0], dtype=tl.float32)
+            acc_b = tl.zeros([K, ROWS, W0], dtype=tl.float32)
+            rsub = tl.arange(0, ROWS)[None, :, None]
+            step = tl.num_programs(0)
+            # each tile's loads are issued a tile ahead, before the work on
+            # the one before; rows past the end load zeros (no traffic):
+            # their dx is not stored and they add 0 to both partial sums
+            row_n = pid.to(tl.int64) * ROWS + rsub
+            m_n = (row_n < rows) & cmask
+            x_n = tl.load(x_ptr + row_n * h + col, mask=m_n, other=0.0)
+            g_n = tl.load(g_ptr + row_n * h + col, mask=m_n, other=0.0)
+            for tile in range(pid, n_tiles, step):
+                m = m_n
+                offs = row_n * h + col
+                x = x_n.to(tl.float32)
+                g = g_n.to(tl.float32)
+                row_n = (tile + step).to(tl.int64) * ROWS + rsub
+                m_n = (row_n < rows) & cmask
+                x_n = tl.load(x_ptr + row_n * h + col, mask=m_n, other=0.0)
+                g_n = tl.load(g_ptr + row_n * h + col, mask=m_n, other=0.0)
+                mu = tl.sum(tl.sum(x, axis=2), axis=0) / h
+                xc = tl.where(cmask, x - mu[None, :, None], 0.0)
+                var = tl.sum(tl.sum(xc * xc, axis=2), axis=0) / h
+                inv = tl.rsqrt(var + eps)[None, :, None]
                 xhat = xc * inv
                 wg = w * g
-                m1 = tl.sum(wg, axis=0) / h
-                m2 = tl.sum(wg * xhat, axis=0) / h
-                dx = inv * (wg - m1 - xhat * m2)
-                tl.store(dx_ptr + row * h + offs,
-                         dx.to(dx_ptr.dtype.element_ty), mask=m)
+                m1 = tl.sum(tl.sum(wg, axis=2), axis=0) / h
+                m2 = tl.sum(tl.sum(wg * xhat, axis=2), axis=0) / h
+                dx = inv * (wg - m1[None, :, None] - xhat * m2[None, :, None])
+                tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
+                         mask=m)
                 acc_w += g * xhat
                 acc_b += g
-            base = part_ptr + blk.to(tl.int64) * 2 * h
-            tl.store(base + offs, acc_w, mask=mask)
-            tl.store(base + h + offs, acc_b, mask=mask)
+            # the program's column sums: across its row slots, once
+            col2 = (tl.arange(0, K)[:, None] * W0
+                    + tl.arange(0, W0)[None, :])
+            base = part_ptr + pid.to(tl.int64) * 2 * h
+            tl.store(base + col2, tl.sum(acc_w, axis=1), mask=col2 < h)
+            tl.store(base + h + col2, tl.sum(acc_b, axis=1), mask=col2 < h)
 
         @triton.jit
         def _layer_norm_dwdb(part_ptr, out_ptr, n_blocks, width,
@@ -198,10 +225,49 @@ def layer_norm_kernel(x, w, b, eps: float = 1e-5):
     return y
 
 
-def layer_norm_bwd_kernel(x, w, g, eps: float = 1e-5):
+class LnBwdConfig(NamedTuple):
+    """The backward's first pass: rows a tile (a power of two), programs
+    and their warps."""
+    rows_per_tile: int
+    programs: int
+    num_warps: int
+
+
+#: a backward tile row's elements a thread holds at most (x and g each):
+#: wider rows take several warps
+_LN_BWD_PER_THREAD = 32
+#: warps (and rows) a backward tile, where a row fits one warp
+_LN_BWD_WARPS = 4
+#: first-pass programs per SM
+_LN_BWD_PROGRAMS_PER_SM = 2
+#: the second pass: a program sums 32 columns of dw/db, 128 partial rows
+#: a load
+_LN_BWD_SUM_ROWS = 128
+_LN_BWD_SUM_COLS = 32
+
+
+def ln_bwd_config(rows: int, h: int, sm_count: int) -> LnBwdConfig:
+    """The backward's launch for ``rows`` rows of ``h`` on a card of
+    ``sm_count`` SMs, from host integers only. A row takes one warp
+    while it fits ``_LN_BWD_PER_THREAD`` elements a lane (h <= 1024),
+    more beyond; a tile holds ``_LN_BWD_WARPS`` warps' rows (never more
+    rows than there are); ``_LN_BWD_PROGRAMS_PER_SM`` programs per SM,
+    never more than there are tiles."""
+    block_h = 1 << max(0, h - 1).bit_length()
+    row_warps = max(1, block_h // (32 * _LN_BWD_PER_THREAD))
+    per_tile = max(1, min(_LN_BWD_WARPS // row_warps,
+                          1 << max(0, rows - 1).bit_length()))
+    tiles = -(-rows // per_tile)
+    programs = max(1, min(tiles, _LN_BWD_PROGRAMS_PER_SM * sm_count))
+    return LnBwdConfig(per_tile, programs, per_tile * row_warps)
+
+
+def layer_norm_bwd_kernel(x, w, g, eps: float = 1e-5,
+                          config: Optional[LnBwdConfig] = None):
     """Launch the Triton backward on CUDA tensors: ``x`` and ``g``
     (..., h) of one dtype, contiguous; ``w`` (h,). Returns ``(dx, dw,
-    db)``, ``dw``/``db`` in ``w.dtype``. Each call is two Triton launches
+    db)``, ``dw``/``db`` in ``w.dtype``. ``config`` forces the launch
+    (default :func:`ln_bwd_config`'s). Each call is two Triton launches
     (dx with the partial sums, then the sums) and counts ONE in
     ``layer_norm_bwd.launches``, as the one Pallas kernel it replaces is
     one call."""
@@ -218,19 +284,19 @@ def layer_norm_bwd_kernel(x, w, g, eps: float = 1e-5):
     if rows == 0:
         dwdb.zero_()
         return dx, dwdb[0], dwdb[1]
+    cfg = config or ln_bwd_config(rows, h, sm_count(x.device))
     triton, _, bwd, dwdb_sum = _get_kernels()
-    block_h = triton.next_power_of_2(h)
-    rows_per_block = -(-rows // _BWD_MAX_BLOCKS)
-    n_blocks = -(-rows // rows_per_block)
-    part = torch.empty((n_blocks, 2, h), dtype=torch.float32,
+    part = torch.empty((cfg.programs, 2, h), dtype=torch.float32,
                        device=x.device)
-    bwd[(n_blocks,)](x, w, g, dx, part, rows, h, rows_per_block,
-                     float(eps), BLOCK_H=block_h,
-                     num_warps=_num_warps(block_h))
-    block_c = 128
-    dwdb_sum[(triton.cdiv(2 * h, block_c),)](part, dwdb, n_blocks, 2 * h,
-                                             BLOCK_P=32, BLOCK_C=block_c,
-                                             num_warps=4)
+    block_h = triton.next_power_of_2(h)
+    w0 = min(block_h, 32 * 16 // x.element_size())
+    bwd[(cfg.programs,)](x, w, g, dx, part, rows, h,
+                         -(-rows // cfg.rows_per_tile), float(eps),
+                         ROWS=cfg.rows_per_tile, K=block_h // w0, W0=w0,
+                         num_warps=cfg.num_warps)
+    dwdb_sum[(triton.cdiv(2 * h, _LN_BWD_SUM_COLS),)](
+        part, dwdb, cfg.programs, 2 * h, BLOCK_P=_LN_BWD_SUM_ROWS,
+        BLOCK_C=_LN_BWD_SUM_COLS, num_warps=4)
     layer_norm_bwd.launches += 1
     return dx, dwdb[0], dwdb[1]
 

@@ -15,10 +15,14 @@ card and what its design does about it):
   call covers a flat axis of packed tokens from mixed prefill and decode
   rows, each attending to ITS row's pages under the one mask rule
   ``key_pos <= positions[t]`` (``csrc/ragged_paged_attention.cu``:
-  wgmma tiles for runs of a row's tokens, the key split of
+  wgmma tiles for runs of a row's tokens, the flash-decoding key split of
   ``csrc/paged_decode.cuh`` for single tokens);
 * :func:`paged_attention` serves the legacy pipeline's decode step: one
-  query per row over ``pos < seq_len`` (``csrc/paged_decode_attention.cu``).
+  query per row over ``pos < seq_len`` (``csrc/paged_decode_attention.cu``:
+  the same key split, a row's keys cut into chunks walked by blocks of
+  their own, then merged in chunk order). :func:`decode_split` picks the
+  chunk from host integers; :func:`paged_attention_split_plain` is the
+  split-then-merge arithmetic in plain PyTorch.
 
 :func:`paged_write` and :func:`paged_prefill_attention_plain` (the
 legacy pipeline's K/V scatter and its prefix-cache suffix prefill) are
@@ -29,13 +33,15 @@ with no Pallas kernel behind them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ._common import check_cuda_tensor, load_cuda_library, resolve_device
+from ._common import (check_cuda_tensor, load_cuda_library, resolve_device,
+                      sm_count)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
@@ -127,6 +133,71 @@ def ragged_route(dtype, page: int, nh: int, nkv: int) -> Tuple[str, ...]:
     return ("key_split",)
 
 
+#: a split's chunk is a whole number of these keys (two load steps of a
+#: block at bf16 d 128, 8 warps x 2 keys x 4 unrolled loads each; on the
+#: H100 64-key chunks ran slower than 128 at every shape of the smoke's
+#: decode batch)
+DECODE_CHUNK_KEYS = 128
+#: most fp32 chunk states (a token, a chunk, a head) one call's scratch
+#: holds: 68 MB at d 128
+DECODE_MAX_STATES = 1 << 17
+
+
+def decode_rep(nh: int, nkv: int) -> int:
+    """Query heads a key-split block holds: the largest of 4, 2, 1 that
+    divides the GQA group, so that they share one kv head (the kernels'
+    ``decode::block_rep``)."""
+    rep = nh // nkv
+    return 4 if rep % 4 == 0 else 2 if rep % 2 == 0 else 1
+
+
+def decode_split(span: int, batch: int, nh: int, nkv: int, sm_count: int,
+                 per_sm: int, slots: Optional[int] = None) -> Tuple[int, int]:
+    """``(chunk, n_chunks)`` of the key split: a token of L keys is cut
+    into ``ceil(L / chunk)`` parts of equal length, each walked by a
+    block of its own; ``n_chunks = ceil(span / chunk)`` is the most parts
+    a token can have.
+
+    Chosen from host integers only (the table's span ``width·page``, the
+    rows, the heads, the card's SM count and the ``per_sm`` blocks of the
+    kernel one SM holds; never the lengths, which live on the card): as
+    many parts as keep ``batch`` rows of the whole span within one wave
+    of resident blocks (a part that waits for a later wave, or for its
+    block's earlier items, costs more than it saves), each chunk a
+    multiple of ``DECODE_CHUNK_KEYS`` keys, and no more than the scratch
+    of ``slots`` tokens (default ``batch``) holds in ``DECODE_MAX_STATES``
+    states. One chunk (``chunk >= span``) writes every row from its split
+    block, with no merge."""
+    slots = batch if slots is None else slots
+    groups = nh // decode_rep(nh, nkv)
+    most = -(-span // DECODE_CHUNK_KEYS)
+    fill = per_sm * sm_count // max(1, batch * groups)
+    room = DECODE_MAX_STATES // max(1, slots * nh)
+    n = max(1, min(most, fill, room))
+    chunk = -(-(-(-span // n)) // DECODE_CHUNK_KEYS) * DECODE_CHUNK_KEYS
+    return chunk, -(-span // chunk)
+
+
+def _split_scratch(slots, n_chunks, nh, d, device):
+    """The split's fp32 chunk states and each token's chunk count, or
+    ``(None, None)`` for one chunk."""
+    if n_chunks == 1:
+        return None, None
+    part = torch.empty(slots * n_chunks * nh * (d + 2), dtype=torch.float32,
+                       device=device)
+    return part, torch.empty(slots, dtype=torch.int32, device=device)
+
+
+def _chunking(span, chunk, default):
+    """``(chunk, n_chunks)``: ``default()`` (decode_split's) unless the
+    caller forces a chunk size."""
+    if chunk is None:
+        return default()
+    if chunk < 1:
+        raise ValueError(f"chunk must be a positive key count, got {chunk}")
+    return chunk, -(-span // chunk)
+
+
 def ragged_tiles(token_row, n_rows: int, ts: int):
     """The tiles of the flat token axis, in plain torch ops (no host
     sync): each token's tile start, -1 for a pad slot (a row outside
@@ -155,11 +226,50 @@ def _kernel_fn():
     if _launch_fn is None:
         fn = load_cuda_library("ragged_paged_attention") \
             .ragged_paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(library: str, symbol: str, nh: int, nkv: int,
+                   head_dim: int, dtype) -> int:
+    """Blocks of a key-split kernel one SM holds (the card's occupancy),
+    from ``symbol`` of ``csrc/<library>.cu``."""
+    fn = getattr(load_cuda_library(library), symbol)
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = fn(nh, nkv, head_dim, _KERNEL_DTYPES[dtype])
+    if n < 1:
+        raise RuntimeError(f"{symbol}: no kernel for nh={nh} nkv={nkv} "
+                           f"d={head_dim} {dtype}")
+    return n
+
+
+def ragged_split(n_tokens: int, n_rows: int, span: int, nh: int, nkv: int,
+                 head_dim: int, dtype, device) -> Tuple[int, int]:
+    """The ragged kernel's key split, ``(chunk, n_chunks)``:
+    :func:`decode_split` with the rows as the batch (the tokens that
+    decode are found on the card, at most one a row on the engine's
+    packing), a scratch for every token, and the blocks per SM that the
+    key-split kernel's persistent grid holds."""
+    return decode_split(span, min(n_tokens, n_rows), nh, nkv,
+                        sm_count(device),
+                        _blocks_per_sm("ragged_paged_attention",
+                                       "ragged_key_split_blocks_per_sm", nh,
+                                       nkv, head_dim, dtype), slots=n_tokens)
+
+
+def paged_split(batch: int, span: int, nh: int, nkv: int, head_dim: int,
+                dtype, device) -> Tuple[int, int]:
+    """The paged decode kernel's key split, ``(chunk, n_chunks)``:
+    :func:`decode_split` with the blocks per SM its split kernel holds."""
+    return decode_split(span, batch, nh, nkv, sm_count(device),
+                        _blocks_per_sm("paged_decode_attention",
+                                       "paged_decode_blocks_per_sm", nh, nkv,
+                                       head_dim, dtype))
 
 
 def ragged_smem_bytes(head_dim: int) -> int:
@@ -203,15 +313,18 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                   token_row, positions, kv_lens,
                                   scale: Optional[float] = None,
                                   route: Optional[str] = None,
-                                  tile_map=None):
+                                  tile_map=None, chunk: Optional[int] = None):
     """Launch the CUDA kernels (same contract as the plain version; the
     output is allocated here in the pool dtype). ``route=None`` takes
     :func:`ragged_route`'s kernels; ``"key_split"`` sends every token
     through the key split (any dtype and page size). ``tile_map``, an
     int32 (T,) tensor, receives each token's tile start as the kernels
-    found it (-1 for pads). Counts one call in
+    found it (-1 for pads). ``chunk`` forces the key split's chunk size
+    (default :func:`ragged_split`'s). Counts one call in
     ``ragged_paged_attention.launches`` and one launch per kernel in
-    ``ragged_paged_attention.route_launches``."""
+    ``ragged_paged_attention.route_launches`` (``"merge"``: the merge of
+    split tokens, launched whenever the span takes more than one
+    chunk)."""
     _check_paged_inputs(q, k_pages, v_pages, block_tables,
                         dict(token_row=token_row, positions=positions,
                              kv_lens=kv_lens))
@@ -235,6 +348,10 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
         check_cuda_tensor("tile_map", tile_map, (torch.int32,), ndim=1)
         if tile_map.shape[0] != t or tile_map.device != q.device:
             raise ValueError("tile_map must be (T,) on q's device")
+    span = width * page
+    chunk, n_chunks = _chunking(span, chunk, lambda: ragged_split(
+        t, n_rows, span, nh, nkv, d, k_pages.dtype, q.device))
+    part, n_split = _split_scratch(t, n_chunks, nh, d, q.device)
     tensors = (q, k_pages, v_pages, block_tables, token_row, positions,
                kv_lens)
     out = torch.empty((t, nh, d), dtype=k_pages.dtype, device=q.device)
@@ -242,15 +359,17 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn()(
         *(a.data_ptr() for a in tensors), out.data_ptr(),
-        None if tile_map is None else tile_map.data_ptr(),
+        *(None if a is None else a.data_ptr()
+          for a in (tile_map, part, n_split)),
         t, n_rows, width, n_pages, page, nh, nkv, d,
-        _KERNEL_DTYPES[k_pages.dtype], ts, s, stream)
+        _KERNEL_DTYPES[k_pages.dtype], ts, chunk, n_chunks, s, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     ragged_paged_attention.launches += 1
-    for r in routes:
-        ragged_paged_attention.route_launches[r] += 1
+    if t:
+        for r in routes + (("merge",) if n_chunks > 1 else ()):
+            ragged_paged_attention.route_launches[r] += 1
     return out
 
 
@@ -267,9 +386,10 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
 
 
 #: op calls on the card since the last reset (the plain version never
-#: counts), and kernel launches by route
+#: counts), and kernel launches by route and of the key split's merge
 ragged_paged_attention.launches = 0
-ragged_paged_attention.route_launches = dict.fromkeys(RAGGED_ROUTES, 0)
+ragged_paged_attention.route_launches = dict.fromkeys(
+    RAGGED_ROUTES + ("merge",), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +439,52 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
                              s).reshape(b, nh, d)
     empty = (seq_lens <= 0)[:, None, None]
     return torch.where(empty, torch.zeros_like(out), out)
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                                chunk: int, scale: Optional[float] = None):
+    """The key split's arithmetic (``csrc/paged_decode.cuh``) in plain
+    PyTorch, same contract as :func:`paged_attention_plain`: each row's
+    ``L = min(seq_len, W·page)`` keys cut into ``ceil(L / chunk)`` parts
+    of ``ceil(L / parts)`` keys; per part the fp32 state ``(m, l, acc)``
+    (its largest score, ``Σ exp(s − m)`` and ``Σ exp(s − m)·v``); then
+    the parts folded online in order, ``M' = max(M, m)``, ``l' = l·e^(M −
+    M') + l_part·e^(m − M')`` and the same for ``acc``; the output
+    ``acc / l`` in the pool dtype. The probabilities stay fp32, as in the
+    kernel (the array path rounds them to the pool dtype). A row with no
+    key comes out exactly 0."""
+    b, nh, d = q.shape
+    page, nkv = k_pages.shape[1], k_pages.shape[2]
+    width = block_tables.shape[1]
+    span = width * page
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, span, nkv, d).float()
+    v = v_pages[bt].reshape(b, span, nkv, d).float()
+    n_keys = seq_lens.long().clamp(0, span)
+    parts = torch.clamp(-(-n_keys // chunk), min=1)
+    size = -(-n_keys // parts)                               # keys a part
+    key_pos = torch.arange(span, device=q.device)
+    qg = q.reshape(b, nkv, nh // nkv, d).float()
+    scores = torch.einsum("bgrd,bsgd->bgrs", qg, k) * s
+    mx = torch.full(scores.shape[:3], _NEG_INF, device=q.device)
+    total_l = torch.zeros_like(mx)
+    total = torch.zeros(*scores.shape[:3], d, device=q.device)
+    for c in range(-(-span // chunk)):
+        lo = (c * size)[:, None]
+        sel = ((key_pos >= lo) & (key_pos < torch.minimum(
+            lo + size[:, None], n_keys[:, None])))[:, None, None, :]
+        m = scores.masked_fill(~sel, _NEG_INF).amax(dim=-1)
+        p = torch.where(sel, torch.exp(scores - m[..., None]),
+                        torch.zeros_like(scores))
+        m_new = torch.maximum(mx, m)
+        a_old, a = torch.exp(mx - m_new), torch.exp(m - m_new)
+        total_l = total_l * a_old + p.sum(dim=-1) * a
+        total = (total * a_old[..., None]
+                 + torch.einsum("bgrs,bsgd->bgrd", p, v) * a[..., None])
+        mx = m_new
+    safe_l = torch.where(total_l == 0, torch.ones_like(total_l), total_l)
+    return (total / safe_l[..., None]).reshape(b, nh, d).to(k_pages.dtype)
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, block_tables, q_start,
@@ -382,7 +548,7 @@ def _decode_kernel_fn():
     if _decode_fn is None:
         fn = load_cuda_library("paged_decode_attention") \
             .paged_decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _decode_fn = fn
@@ -390,10 +556,16 @@ def _decode_kernel_fn():
 
 
 def paged_attention_kernel(q, k_pages, v_pages, block_tables, seq_lens,
-                           scale: Optional[float] = None):
-    """Launch the CUDA decode kernel (same contract as
+                           scale: Optional[float] = None,
+                           chunk: Optional[int] = None):
+    """Launch the CUDA decode kernels (same contract as
     :func:`paged_attention_plain`; the output is allocated here in the
-    pool dtype). Counts one launch in ``paged_attention.launches``."""
+    pool dtype): the key split over ``(chunk, head group, row)`` blocks,
+    then, where the span takes more than one chunk, the merge. ``chunk``
+    forces the chunk size (default :func:`paged_split`'s; a chunk of the
+    whole span is one block per row and head group, as the kernel was
+    before the split). Counts one call in ``paged_attention.launches``
+    and each kernel's launches in ``paged_attention.route_launches``."""
     _check_paged_inputs(q, k_pages, v_pages, block_tables,
                         dict(seq_lens=seq_lens))
     b, nh, d = q.shape
@@ -401,17 +573,26 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, seq_lens,
     width = block_tables.shape[1]
     if block_tables.shape[0] != b or seq_lens.shape[0] != b:
         raise ValueError("block_tables / seq_lens do not match q's rows")
+    span = width * page
+    chunk, n_chunks = _chunking(span, chunk, lambda: paged_split(
+        b, span, nh, nkv, d, k_pages.dtype, q.device))
+    part, n_split = _split_scratch(b, n_chunks, nh, d, q.device)
     tensors = (q, k_pages, v_pages, block_tables, seq_lens)
     out = torch.empty((b, nh, d), dtype=k_pages.dtype, device=q.device)
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _decode_kernel_fn()(
         *(a.data_ptr() for a in tensors), out.data_ptr(),
-        b, width, page, nh, nkv, d, _KERNEL_DTYPES[k_pages.dtype], s, stream)
+        *(None if a is None else a.data_ptr() for a in (part, n_split)),
+        b, width, page, nh, nkv, d, _KERNEL_DTYPES[k_pages.dtype], chunk,
+        n_chunks, s, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
     paged_attention.launches += 1
+    if b:
+        for r in ("key_split", "merge")[:1 + (n_chunks > 1)]:
+            paged_attention.route_launches[r] += 1
     return out
 
 
@@ -425,8 +606,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                  seq_lens, scale)
 
 
-#: kernel launches since the last reset (the plain version never counts)
+#: op calls on the card since the last reset (the plain version never
+#: counts), and the launches of its two kernels
 paged_attention.launches = 0
+paged_attention.route_launches = {"key_split": 0, "merge": 0}
 
 
 # ---------------------------------------------------------------------------

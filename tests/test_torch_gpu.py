@@ -159,6 +159,11 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d,
     for r in pa.RAGGED_ROUTES:
         assert pa.ragged_paged_attention.route_launches[r] == before[r] + (
             r in routes)
+    _, n_chunks = pa.ragged_split(args[0].shape[0], args[3].shape[0],
+                                  args[3].shape[1] * page, nh, nkv, d, dtype,
+                                  cuda)
+    assert pa.ragged_paged_attention.route_launches["merge"] == (
+        before["merge"] + (n_chunks > 1))
     _check_ragged(args, got, "+".join(routes))
     ts = pa.ragged_tile_size(dtype, page, nh, nkv)
     tile_map = torch.full((args[0].shape[0],), -7, dtype=torch.int32,
@@ -170,6 +175,32 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d,
     split = pa.ragged_paged_attention_kernel(*args, route="key_split")
     torch.cuda.synchronize()
     _check_ragged(args, split, "key_split")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [5, 16, 64, 384])
+def test_ragged_key_split_chunks_match_plain(cuda, dtype, chunk):
+    """The single-token tiles (decode rows of 301, 41, 6 keys) and pad
+    slots at forced chunk sizes: a chunk that cuts a page, a page, the
+    default's size and the whole span (no merge); the kernels' tile map
+    still equals ``ragged_tiles``."""
+    args = _mixed_batch(cuda, dtype, 32, 8, 128, width=24, rows=_LONG_ROWS)
+    page, nh, nkv = 16, 32, 8
+    before = pa.ragged_paged_attention.route_launches["merge"]
+    tile_map = torch.full((args[0].shape[0],), -7, dtype=torch.int32,
+                          device=cuda)
+    for route in (None, "key_split"):
+        got = pa.ragged_paged_attention_kernel(*args, route=route,
+                                               tile_map=tile_map,
+                                               chunk=chunk)
+        torch.cuda.synchronize()
+        _check_ragged(args, got, f"{route} chunk {chunk}")
+        ts = (pa.ragged_tile_size(dtype, page, nh, nkv) if route is None
+              else 1)
+        torch.testing.assert_close(
+            tile_map, pa.ragged_tiles(args[4], args[3].shape[0], ts))
+    merges = pa.ragged_paged_attention.route_launches["merge"] - before
+    assert merges == (2 if chunk < 24 * page else 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -298,6 +329,75 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, nh, nkv, d):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
     assert bool((got[4] == 0).all())
+
+
+def _split_batch(cuda, dtype, nh, nkv, d, chunk, page=16, width=32):
+    """Rows of 0, 1, a page edge (16, 17), one chunk exactly, one chunk
+    + 1, the span, and one over-decoded past the span."""
+    span = width * page
+    lens = sorted({0, 1, 16, 17, min(chunk, span), min(chunk + 1, span),
+                   span})
+    seq_lens = np.asarray(lens + [span + 9], np.int32)
+    b = len(seq_lens)
+    rng = np.random.RandomState(5)
+    n_pages = b * width + 1
+    bt = rng.permutation(np.arange(1, n_pages))[:b * width].reshape(
+        b, width).astype(np.int32)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    pool = (n_pages, page, nkv, d)
+    k = torch.randn(pool, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(pool, generator=gen, device=cuda).to(dtype)
+    q = torch.randn((b, nh, d), generator=gen, device=cuda).to(dtype)
+    return (q, k, v, torch.as_tensor(bt, device=cuda),
+            torch.as_tensor(seq_lens, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("nh,nkv,d", [(8, 8, 128), (16, 8, 64), (32, 8, 128),
+                                      (16, 2, 64)],
+                         ids=["group1", "group2", "group4", "group8"])
+@pytest.mark.parametrize("chunk", [None, 16, 64, 200, 512])
+def test_paged_decode_split_matches_plain(cuda, dtype, nh, nkv, d, chunk):
+    """The key split at decode_split's chunk and forced ones (a page, a
+    step of 64 keys, 200 keys cutting pages, the whole span: one chunk,
+    no merge) against the plain version, over lengths 0 (exactly 0), 1, a
+    page edge, one chunk, one chunk + 1, the span and past it; one call,
+    one key-split launch and a merge where the span takes more than one
+    chunk."""
+    args = _split_batch(cuda, dtype, nh, nkv, d, chunk or pa.paged_split(
+        8, 512, nh, nkv, d, dtype, cuda)[0])
+    c, n_chunks = (pa.paged_split(args[0].shape[0], 512, nh, nkv, d, dtype,
+                                  cuda)
+                   if chunk is None else (chunk, -(-512 // chunk)))
+    before = (pa.paged_attention.launches,
+              dict(pa.paged_attention.route_launches))
+    got = pa.paged_attention_kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before[0] + 1
+    assert pa.paged_attention.route_launches == {
+        "key_split": before[1]["key_split"] + 1,
+        "merge": before[1]["merge"] + (n_chunks > 1)}
+    want = pa.paged_attention_plain(*args)
+    rtol, atol = _ATTN_TOL.get(dtype, (2e-2, 2e-2))
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert bool((got[0] == 0).all())
+    # the split's own arithmetic, P in fp32 on both sides
+    split = pa.paged_attention_split_plain(*args, chunk=c)
+    torch.testing.assert_close(got.float(), split.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_repeats_bitwise(cuda, dtype):
+    args = _split_batch(cuda, dtype, 32, 8, 128, 64)
+    for chunk in (None, 16):
+        a = pa.paged_attention_kernel(*args, chunk=chunk)
+        b = pa.paged_attention_kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), chunk
 
 
 def test_paged_decode_kernel_rejects_bad_input(cuda):
@@ -626,7 +726,7 @@ def test_train_step_launch_counts(cuda):
 @pytest.mark.parametrize("eps", [1e-12, 1e-5])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(8192, 1024), (1, 37, 1024), (5, 1000),
-                                   (600, 256)])
+                                   (600, 256), (8192, 768)])
 def test_layer_norm_kernels_match_plain(cuda, dtype, shape, eps):
     gen = torch.Generator(device=cuda).manual_seed(7)
     h = shape[-1]
@@ -647,6 +747,31 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, shape, eps):
     rms_close(dx, pdx, *tol["dx"], "dx")
     rms_close(dw, pdw, *tol["sums"], "dw")
     rms_close(db, pdb, *tol["sums"], "db")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8192, 1024), (8192, 768), (5, 1000),
+                                   (1, 37, 1024), (600, 256)])
+def test_layer_norm_bwd_repeats_bitwise_at_every_launch(cuda, dtype, shape):
+    """The backward at ln_bwd_config's launch and at the launch it
+    replaced (a row a tile, 512 programs of 2 warps): each within LN_TOL
+    of ln_bwd_plain, and dw and db the same bits on a second run."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    h = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    x = (2 * torch.randn(shape, generator=gen, device=cuda) + 0.5).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(dtype)
+    tol = LN_TOL[dtype]
+    pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, 1e-12)
+    for cfg in (None, ln.LnBwdConfig(1, min(512, rows), 2)):
+        dx, dw, db = ln.layer_norm_bwd_kernel(x, w, g, 1e-12, config=cfg)
+        _, dw2, db2 = ln.layer_norm_bwd_kernel(x, w, g, 1e-12, config=cfg)
+        torch.cuda.synchronize()
+        rms_close(dx, pdx, *tol["dx"], f"dx {cfg}")
+        rms_close(dw, pdw, *tol["sums"], f"dw {cfg}")
+        rms_close(db, pdb, *tol["sums"], f"db {cfg}")
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), cfg
 
 
 def test_layer_norm_autograd_on_card_matches_cpu(cuda):

@@ -1,16 +1,20 @@
 """The pure functions that pick a kernel's work before a launch, on the
 CPU: the ragged kernel's tile list (``ragged_tiles``, the plain form of
 the scan each CUDA kernel runs over the token axis) against a numpy
-reference on random layouts, its tile size and routes, and the
-weight-gradient kernel's route and row split. On the card,
-tests/test_torch_gpu.py holds the kernels' own tile map to
+reference on random layouts, its tile size and routes, the decode key
+split's chunking (``decode_split``), the weight-gradient kernel's route
+and row split, and the LayerNorm backward's launch (``ln_bwd_config``).
+On the card, tests/test_torch_gpu.py holds the kernels' own tile map to
 ``ragged_tiles`` and each route to its plain version."""
+
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import fused_linear as fl
+from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 
 
@@ -118,6 +122,112 @@ def test_ragged_tile_size_and_route(dtype, page, nh, nkv, want):
     assert routes == (("wgmma", "key_split") if want > 1
                       else ("key_split",))
     assert set(routes) <= set(pa.RAGGED_ROUTES)
+
+
+# (span, batch, nh, nkv, SMs, blocks an SM, slots): the legacy 7B decode
+# step (MHA and GQA), the unified step's 256 tokens over 8 rows, a span of
+# one page, spans that are not a multiple of 128, a large batch, a group of
+# 3 heads
+_SPLITS = [
+    (1024, 8, 32, 32, 132, 3, None), (1024, 8, 32, 8, 132, 2, None),
+    (1024, 8, 32, 32, 132, 3, 256), (1024, 8, 32, 8, 132, 1, 256),
+    (16, 1, 4, 4, 132, 4, None), (37, 3, 12, 4, 132, 3, None),
+    (4100, 2, 64, 8, 132, 2, 2048), (512, 512, 32, 32, 132, 3, None),
+    (1, 1, 1, 1, 1, 1, None), (96, 6, 8, 2, 114, 8, 40),
+]
+
+
+@pytest.mark.parametrize("case", _SPLITS, ids=str)
+def test_decode_split_covers_the_span(case):
+    """Every key of the span falls in exactly one chunk (chunks of a
+    whole number of 128-key steps, the last one holding the span's end),
+    the grid is never empty and stays within one wave of resident blocks
+    unless one chunk already fills it, and the scratch stays within
+    DECODE_MAX_STATES states unless there is one chunk (no scratch)."""
+    span, batch, nh, nkv, sms, per_sm, slots = case
+    chunk, n_chunks = pa.decode_split(span, batch, nh, nkv, sms, per_sm,
+                                      slots)
+    assert chunk % pa.DECODE_CHUNK_KEYS == 0 and n_chunks >= 1
+    assert (n_chunks - 1) * chunk < span <= n_chunks * chunk
+    owner = np.arange(span) // chunk
+    assert np.array_equal(np.bincount(owner, minlength=n_chunks) > 0,
+                          np.ones(n_chunks, bool))
+    assert n_chunks == 1 or (slots or batch) * n_chunks * nh \
+        <= pa.DECODE_MAX_STATES
+    groups = nh // pa.decode_rep(nh, nkv)
+    assert n_chunks == 1 or batch * groups * n_chunks <= per_sm * sms
+
+
+@pytest.mark.parametrize("case,want", [
+    # the 7B legacy decode step, 8 rows: MHA's 256 blocks already fill
+    # most of a wave of 3 an SM; GQA 4's 64 blocks take 4 parts
+    ((1024, 8, 32, 32, 132, 3), (1024, 1)),
+    ((1024, 8, 32, 8, 132, 2), (256, 4)),
+    ((1024, 8, 32, 8, 132, 8), (128, 8)),      # at most a part a 128 keys
+    ((1024, 1, 32, 32, 132, 3), (128, 8)),     # one long row
+    ((1024, 8, 32, 8, 132, 2, 2048), (512, 2)),  # the scratch's limit
+    ((1024, 256, 32, 32, 132, 3), (1024, 1)),  # the card already full
+    ((16, 1, 4, 4, 132, 4), (128, 1)),         # a span under one step
+])
+def test_decode_split_choices(case, want):
+    assert pa.decode_split(*case) == want
+
+
+def test_decode_split_reads_host_integers_only():
+    """The split is a function of integers (no tensor, no lengths), so
+    the wrappers choose a grid without reading anything from the card;
+    more SMs or more blocks an SM never give fewer chunks, a longer span
+    never fewer keys a chunk."""
+    params = inspect.signature(pa.decode_split).parameters
+    assert list(params) == ["span", "batch", "nh", "nkv", "sm_count",
+                            "per_sm", "slots"]
+    rng = np.random.RandomState(0)
+    for _ in range(200):
+        span = int(rng.randint(1, 9000))
+        batch = int(rng.randint(1, 300))
+        nkv = int(rng.choice([1, 2, 4, 8, 32]))
+        nh = nkv * int(rng.choice([1, 2, 3, 4, 8]))
+        sms = int(rng.randint(1, 200))
+        per_sm = int(rng.randint(1, 9))
+        a = pa.decode_split(span, batch, nh, nkv, sms, per_sm)
+        assert a == pa.decode_split(span, batch, nh, nkv, sms, per_sm)
+        assert all(isinstance(x, int) for x in a)
+        assert pa.decode_split(span, batch, nh, nkv, 2 * sms, per_sm)[1] \
+            >= a[1]
+        assert pa.decode_split(span, batch, nh, nkv, sms, 2 * per_sm)[1] \
+            >= a[1]
+        assert pa.decode_split(2 * span, batch, nh, nkv, sms, per_sm)[0] \
+            >= a[0]
+
+
+@pytest.mark.parametrize("nh,nkv,want", [(32, 32, 1), (32, 16, 2),
+                                         (32, 8, 4), (16, 2, 4), (12, 4, 1),
+                                         (24, 4, 2)])
+def test_decode_rep(nh, nkv, want):
+    assert pa.decode_rep(nh, nkv) == want
+
+
+@pytest.mark.parametrize("rows,h,want", [
+    (8192, 1024, (4, 264, 4)),      # BERT-large: a warp a row, 4 rows
+    (8192, 768, (4, 264, 4)),       # ERNIE-base: BLOCK_H 1024
+    (5, 1000, (4, 2, 4)),           # rows not a multiple of the tile
+    (37, 1024, (4, 10, 4)),
+    (600, 256, (4, 150, 4)),
+    (3, 2048, (2, 2, 4)),           # two warps a row
+    (16384, 4096, (1, 264, 4)),     # four warps a row
+    (1, 64, (1, 1, 1)),
+])
+def test_ln_bwd_config(rows, h, want):
+    """Tiles of whole rows (a power of two, never more rows than there
+    are), one warp a row up to 32 elements a lane, four warps a tile, two
+    programs per SM and never more programs than tiles."""
+    cfg = ln.ln_bwd_config(rows, h, 132)
+    assert (cfg.rows_per_tile, cfg.programs, cfg.num_warps) == want
+    block_h = 1 << (h - 1).bit_length()
+    tiles = -(-rows // cfg.rows_per_tile)
+    assert cfg.rows_per_tile & (cfg.rows_per_tile - 1) == 0
+    assert 1 <= cfg.programs <= tiles
+    assert cfg.num_warps == cfg.rows_per_tile * max(1, block_h // 1024)
 
 
 @pytest.mark.parametrize("rows,din,dout,dtype,aligned,want", [

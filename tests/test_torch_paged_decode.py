@@ -84,6 +84,52 @@ def test_decode_plain_matches_pallas_kernel_interpret(shape):
     assert np.all(np.isfinite(got))
 
 
+# chunk sizes of the split's plain form over a span of 16 keys (pages of
+# 4): one key, a chunk cutting pages, a page, a chunk longer than most
+# rows, the span, and more than the span
+_CHUNKS = [1, 3, 4, 5, 16, 40]
+
+
+@pytest.mark.parametrize("chunk", _CHUNKS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_split_then_merge_matches_jax(shape, chunk):
+    """The key split's arithmetic (a state per chunk, then the merge)
+    against the port's plain version, the JAX array path and the Pallas
+    kernel in interpret mode: rows of 0 keys (exactly 0; the array path
+    averages there), 1, 7, 13, a page edge and one over-decoded past its
+    table's span."""
+    args = _decode_batch(seed=12, lens=(7, 0, 13, 1, 16, 9),
+                         seq_lens=(7, 0, 13, 1, 16, 60), **shape)
+    assert args[3].shape[1] * 4 == 16                  # span 16 keys
+    got = tpa.paged_attention_split_plain(*_torch(args), chunk=chunk)
+    got = got.numpy()
+    np.testing.assert_allclose(got, tpa.paged_attention(*_torch(args)),
+                               **FP32)
+    pallas = np.asarray(jpa.paged_attention_pallas(*_jax(args),
+                                                   interpret=True))
+    np.testing.assert_allclose(got, pallas, **FP32)
+    array = np.asarray(jpa.paged_attention_array(*_jax(args)))
+    keep = [0, 2, 3, 4, 5]          # row 1: the array path averages V
+    np.testing.assert_allclose(got[keep], array[keep], **FP32)
+    assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 7, 64])
+def test_split_then_merge_bf16_and_scale(chunk):
+    """bf16 pools and a scale argument: the split keeps the probabilities
+    in fp32 and rounds only its output, so it sits within one bf16 step of
+    the Pallas kernel (interpret mode, fp32 P)."""
+    args = _decode_batch(seed=13, lens=(9, 30, 2, 17), **SHAPES[1])
+    want = np.asarray(jpa.paged_attention_pallas(
+        *_jax(args, jnp.bfloat16), scale=0.3, interpret=True).astype(
+            jnp.float32))
+    got = tpa.paged_attention_split_plain(*_torch(args, torch.bfloat16),
+                                          chunk=chunk, scale=0.3)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1.6e-2,
+                               atol=1e-2)
+
+
 def test_decode_empty_row_is_zero_where_the_array_path_averages():
     """seq_len 0: the port (like the Pallas and CUDA kernels) gives 0;
     the JAX array path gives the mean of the row's gathered V (a softmax
