@@ -34,9 +34,9 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    grid before the split), bound, the ragged kernels' time on the same
    batch, and the kernels' registers, spills and shared memory (fails as
    phase 3);
-5. tiny end-to-end parity: the serving engine on the card (kernels)
-   against the same engine on the CPU (plain versions), fp32, TF32 off —
-   greedy tokens must be identical;
+5. tiny end-to-end parity: the serving engine on the card (kernels,
+   its steps CUDA graphs) against the same engine on the CPU (plain
+   versions), fp32, TF32 off — greedy tokens must be identical;
 6. the same for the legacy pipeline (``unified=False``) with the prefix
    cache off and on (a shared-prefix request and an exact repeat, which
    copies a page on write) and for ``PagedGenerationEngine``, the page
@@ -44,14 +44,22 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
 7. the slice at full width: Llama-2-7B (32 layers, bf16, seeded random
    weights) served by ``ContinuousBatchingEngine`` — 12 requests of
    32-512 prompt tokens through 8 slots, 32 new tokens each — with
-   the kernels' launch counters checked against the micro-rounds run;
+   the kernels' launch counters checked against the micro-rounds run
+   (graph replays counted), its compiled programs (one unified-step
+   CUDA graph) and a profiled breakdown of a prefill and a decode step;
+   served once through the graphs and once through the engine's eager
+   card path, with identical greedy tokens, each run's step wall,
+   kernel device time, idle share, tokens/s, peak memory, program
+   builds and capture seconds;
 8. the same weights and load through the legacy pipeline (prefill waves
-   over the flash forward, decode steps over the paged decode kernel),
-   its launch counts checked against the waves and decode steps run and
-   a profiled breakdown of its steps; then a wave of 8 requests sharing
-   a 256-token prefix through the unified engine with the prefix cache,
-   warm (after one primer request) and cold, with the prefill tokens
-   the cache skipped and no page leaked;
+   over the flash forward, decode steps over the paged decode kernel;
+   one graph per prefill key and one for the decode chunk), its launch
+   counts checked against the waves and decode steps run and a profiled
+   breakdown of its steps; then a wave of 8 requests sharing a 256-token
+   prefix through the unified engine with the prefix cache, warm (after
+   one primer request) and cold, with the prefill tokens the cache
+   skipped and no page leaked; each through the graphs and eagerly, as
+   phase 7;
 9. the RMSNorm backward kernel against its plain version at the train
    step's (rows, h) = (16384, 4096), bf16 and fp32, with its time, bound
    and the backward of ``F.rms_norm`` as the yardstick;
@@ -694,42 +702,102 @@ def _check_outputs(cfg, outs, eng):
         raise AssertionError("pages leaked after the serve")
 
 
-def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
-    eng = _serve_engine(D, cfg, step_tokens=256)
-    prompts = serve_load(cfg)
-    rn.rms_norm.launches = 0
-    _reset_ragged(pa)
-    eng.micro_rounds = 0
+def _free_card(torch):
+    """Drop what a finished engine left (its graphs and pools)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _programs(eng, single):
+    """The engine's compiled programs: exactly one ``single`` program
+    (``cbe.unified_step`` or ``cbe.decode_chunk``), any others prefill
+    programs, none built twice (no miss repeats a key)."""
+    names = [n for n, _ in eng.compile_misses]
+    allowed = {single} | ({"cbe.prefill"} if single == "cbe.decode_chunk"
+                          else set())
+    if (names.count(single) != 1 or not set(names) <= allowed
+            or len(set(eng.compile_misses)) != len(eng.compile_misses)):
+        raise AssertionError(f"program builds {eng.compile_misses}")
+    return dict(misses=len(names),
+                prefill_keys=[list(k) for n, k in eng.compile_misses
+                              if n == "cbe.prefill"],
+                first_call_s=dict(eng.compile_seconds),
+                capture_s=dict(eng.capture_seconds))
+
+
+def _serve_run(torch, eng, params, prompts, reset):
+    """Serve ``prompts`` on ``eng`` with the counters ``reset`` (a
+    callable) zeroed just before; returns the tokens and the run's
+    numbers (serve wall, step walls, tokens/s with and without the
+    graphs' capture seconds, peak memory)."""
+    reset()
     torch.cuda.reset_peak_memory_stats()
-    t_serve = time.perf_counter()
+    t0 = time.perf_counter()
     outs, step_ms = _serve_checked(eng, params, prompts)
-    serve_s = time.perf_counter() - t_serve
-    launches = {"rms_norm_fwd": rn.rms_norm.launches,
-                **_ragged_launches(pa)}
-    n_layers, rounds = cfg.num_hidden_layers, eng.micro_rounds
-    # one ragged call a layer and micro-round; bf16 pools at page 16 take
-    # both kernels each call (wgmma tiles, then the key split)
-    want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
-            **_ragged_want(torch, pa, n_layers * rounds)}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    _check_outputs(cfg, outs, eng)
-    breakdown = step_breakdown(torch, eng, params, cfg.vocab_size)
-    del eng
+    serve_s = time.perf_counter() - t0
     generated = NEW_TOKENS * len(prompts)
-    prompt_tokens = sum(map(len, prompts))
-    return dict(
-        breakdown=breakdown,
-        layers=n_layers, params=L.param_count(cfg),
-        requests=len(prompts), prompt_tokens=prompt_tokens,
-        generated_tokens=generated, steps=len(step_ms),
-        micro_rounds=rounds, serve_s=serve_s,
+    capture_s = sum(eng.capture_seconds.values())
+    return outs, dict(
+        requests=len(prompts), generated_tokens=generated,
+        steps=len(step_ms), serve_s=serve_s,
         generated_tokens_per_s=generated / serve_s,
-        processed_tokens_per_s=(generated + prompt_tokens) / serve_s,
-        mean_step_ms=float(np.mean(step_ms)),
-        first_step_ms=step_ms[0],
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=launches)
+        generated_tokens_per_s_without_capture=generated / (serve_s
+                                                            - capture_s),
+        mean_step_ms=float(np.mean(step_ms)), first_step_ms=step_ms[0],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _graphs_and_eager(torch, run):
+    """``run(graphs)`` once through the CUDA graphs and once through the
+    engine's eager card path (``_graphs = False``); the greedy tokens must
+    be identical. Returns the graph run's report with the eager run's
+    under ``"eager"``."""
+    out = {}
+    for graphs in (True, False):
+        toks, out[graphs] = run(graphs)
+        out[graphs]["tokens"] = toks
+        _free_card(torch)
+    if out[True].pop("tokens") != out[False].pop("tokens"):
+        raise AssertionError("greedy tokens through the CUDA graphs differ "
+                             "from the eager card run's")
+    return dict(out[True], eager=out[False])
+
+
+def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
+    prompts = serve_load(cfg)
+    n_layers = cfg.num_hidden_layers
+
+    def run(graphs):
+        eng = _serve_engine(D, cfg, step_tokens=256)
+        eng._graphs = graphs
+
+        def reset():
+            rn.rms_norm.launches = 0
+            _reset_ragged(pa)
+        outs, report = _serve_run(torch, eng, params, prompts, reset)
+        launches = {"rms_norm_fwd": rn.rms_norm.launches,
+                    **_ragged_launches(pa)}
+        rounds = eng.micro_rounds
+        # one ragged call a layer and micro-round; bf16 pools at page 16
+        # take both kernels each call (wgmma tiles, then the key split)
+        want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+                **_ragged_want(torch, pa, n_layers * rounds)}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        _check_outputs(cfg, outs, eng)
+        programs = _programs(eng, "cbe.unified_step")
+        report.update(micro_rounds=rounds, launches=launches,
+                      programs=programs,
+                      breakdown=step_breakdown(torch, eng, params,
+                                               cfg.vocab_size))
+        return outs, report
+
+    report = _graphs_and_eager(torch, run)
+    prompt_tokens = sum(map(len, prompts))
+    return dict(report, layers=n_layers, params=L.param_count(cfg),
+                prompt_tokens=prompt_tokens,
+                processed_tokens_per_s=(report["generated_tokens"]
+                                        + prompt_tokens) / report["serve_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -790,88 +858,96 @@ def legacy_7b_phase(torch, L, D, rn, pa, fa, cfg, params, unified):
     breakdown of its steps; then, on the unified engine with
     ``prefix_cache=True``, a wave of 8 requests sharing a 256-token
     prefix (distinct 32-128-token suffixes) after one primer request
-    with that prefix, and the same wave again from a cold cache."""
+    with that prefix, and the same wave again from a cold cache. Each
+    through the CUDA graphs and through the eager card path, with
+    identical tokens."""
     n_layers = cfg.num_hidden_layers
     counters = {"rms_norm_fwd": rn.rms_norm,
                 "paged_decode_attention": pa.paged_attention,
                 "flash_attention_fwd": fa.flash_fwd_kernel,
                 "ragged_paged_attention": pa.ragged_paged_attention}
-    eng = _serve_engine(D, cfg, unified=False)
     prompts = serve_load(cfg)
-    _reset(counters)
-    torch.cuda.reset_peak_memory_stats()
-    t_serve = time.perf_counter()
-    outs, step_ms = _serve_checked(eng, params, prompts)
-    serve_s = time.perf_counter() - t_serve
-    launches = {k: c.launches for k, c in counters.items()
-                if "paged" not in k}
-    launches.update(_ragged_launches(pa), **_decode_launches(pa))
-    steps, waves = eng.decode_steps, eng.prefill_calls
-    want = {"rms_norm_fwd": (2 * n_layers + 1) * (waves + steps),
-            "flash_attention_fwd": n_layers * waves,
-            **_ragged_want(torch, pa, 0),
-            **_decode_want(torch, pa, n_layers * steps)}
-    if launches != want:
-        raise AssertionError(f"legacy launch counts {launches} != {want}")
-    _check_outputs(cfg, outs, eng)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    breakdown = step_breakdown(torch, eng, params, cfg.vocab_size,
-                               LEGACY_KINDS)
-    del eng
-    generated = NEW_TOKENS * len(prompts)
-    legacy = dict(
-        requests=len(prompts), generated_tokens=generated,
-        steps=len(step_ms), prefill_waves=waves, decode_steps=steps,
-        serve_s=serve_s, generated_tokens_per_s=generated / serve_s,
-        mean_step_ms=float(np.mean(step_ms)), first_step_ms=step_ms[0],
-        peak_mem_gb=peak_gb, launches=launches, breakdown=breakdown,
-        unified_generated_tokens_per_s=unified["generated_tokens_per_s"],
-        unified_mean_step_ms=unified["mean_step_ms"])
 
-    ceng = _serve_engine(D, cfg, step_tokens=256, prefix_cache=True)
+    def counts():
+        got = {k: c.launches for k, c in counters.items()
+               if "paged" not in k}
+        got.update(_ragged_launches(pa), **_decode_launches(pa))
+        return got
+
+    def run_legacy(graphs):
+        eng = _serve_engine(D, cfg, unified=False)
+        eng._graphs = graphs
+        outs, report = _serve_run(torch, eng, params, prompts,
+                                  lambda: _reset(counters))
+        launches = counts()
+        steps, waves = eng.decode_steps, eng.prefill_calls
+        want = {"rms_norm_fwd": (2 * n_layers + 1) * (waves + steps),
+                "flash_attention_fwd": n_layers * waves,
+                **_ragged_want(torch, pa, 0),
+                **_decode_want(torch, pa, n_layers * steps)}
+        if launches != want:
+            raise AssertionError(f"legacy launch counts {launches} != "
+                                 f"{want}")
+        _check_outputs(cfg, outs, eng)
+        programs = _programs(eng, "cbe.decode_chunk")
+        report.update(prefill_waves=waves, decode_steps=steps,
+                      launches=launches, programs=programs,
+                      breakdown=step_breakdown(torch, eng, params,
+                                               cfg.vocab_size, LEGACY_KINDS))
+        return outs, report
+
+    legacy = dict(_graphs_and_eager(torch, run_legacy),
+                  unified_generated_tokens_per_s=unified[
+                      "generated_tokens_per_s"],
+                  unified_mean_step_ms=unified["mean_step_ms"])
+
     rng = np.random.RandomState(SEED + 2)
     prefix = rng.randint(1, cfg.vocab_size, (256,))
     primer = np.concatenate([prefix, rng.randint(1, cfg.vocab_size, (40,))])
     wave = [np.concatenate([prefix, rng.randint(1, cfg.vocab_size, (int(n),))]
                            ).astype(np.int32)
             for n in rng.randint(32, 129, size=8)]
-    _serve_checked(ceng, params, [primer.astype(np.int32)])
-    runs = {}
-    for name in ("warm", "cold"):
-        if name == "cold":
-            ceng.cache.evict(ceng.mgr.num_pages)   # back to a cold cache
-        _reset(counters)
-        ceng.micro_rounds = 0
-        ran0, hits0 = ceng._prefill_tokens, ceng.cache.stats["hits"]
-        t0 = time.perf_counter()
-        wave_out, wave_ms = _serve_checked(ceng, params, wave)
-        wall = time.perf_counter() - t0
-        rounds = ceng.micro_rounds
-        got = {k: c.launches for k, c in counters.items()
-               if "paged" not in k}
-        got.update(_ragged_launches(pa), **_decode_launches(pa))
-        want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
-                "flash_attention_fwd": 0, **_decode_want(torch, pa, 0),
-                **_ragged_want(torch, pa, n_layers * rounds)}
-        if got != want:
-            raise AssertionError(f"cache wave ({name}) launch counts {got} "
-                                 f"!= {want}")
-        _check_outputs(cfg, wave_out, ceng)
-        ran = ceng._prefill_tokens - ran0
-        runs[name] = dict(
-            prompt_tokens=sum(map(len, wave)), prefill_tokens_run=ran,
-            prefill_tokens_skipped=sum(map(len, wave)) - ran,
-            hits=ceng.cache.stats["hits"] - hits0, steps=len(wave_ms),
-            first_step_ms=wave_ms[0], wall_s=wall, micro_rounds=rounds,
-            launches=got)
-    if runs["warm"]["prefill_tokens_skipped"] != 8 * 256:
-        raise AssertionError(f"warm wave skipped "
-                             f"{runs['warm']['prefill_tokens_skipped']} "
-                             "prefill tokens, not 8 x 256")
-    cache = dict(runs, snapshot=ceng.cache.snapshot(),
-                 leaked_pages=ceng.mgr.num_live_pages)
-    del ceng
-    return dict(legacy=legacy, prefix_cache=cache)
+
+    def run_cache(graphs):
+        ceng = _serve_engine(D, cfg, step_tokens=256, prefix_cache=True)
+        ceng._graphs = graphs
+        _serve_checked(ceng, params, [primer.astype(np.int32)])
+        runs, toks = {}, {}
+        for name in ("warm", "cold"):
+            if name == "cold":
+                ceng.cache.evict(ceng.mgr.num_pages)   # back to a cold cache
+            _reset(counters)
+            ceng.micro_rounds = 0
+            ran0, hits0 = ceng._prefill_tokens, ceng.cache.stats["hits"]
+            t0 = time.perf_counter()
+            toks[name], wave_ms = _serve_checked(ceng, params, wave)
+            wall = time.perf_counter() - t0
+            rounds = ceng.micro_rounds
+            got = counts()
+            want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+                    "flash_attention_fwd": 0, **_decode_want(torch, pa, 0),
+                    **_ragged_want(torch, pa, n_layers * rounds)}
+            if got != want:
+                raise AssertionError(f"cache wave ({name}) launch counts "
+                                     f"{got} != {want}")
+            _check_outputs(cfg, toks[name], ceng)
+            ran = ceng._prefill_tokens - ran0
+            runs[name] = dict(
+                prompt_tokens=sum(map(len, wave)), prefill_tokens_run=ran,
+                prefill_tokens_skipped=sum(map(len, wave)) - ran,
+                hits=ceng.cache.stats["hits"] - hits0, steps=len(wave_ms),
+                first_step_ms=wave_ms[0], wall_s=wall, micro_rounds=rounds,
+                launches=got)
+        if runs["warm"]["prefill_tokens_skipped"] != 8 * 256:
+            raise AssertionError(f"warm wave skipped "
+                                 f"{runs['warm']['prefill_tokens_skipped']}"
+                                 " prefill tokens, not 8 x 256")
+        return toks, dict(runs, snapshot=ceng.cache.snapshot(),
+                          leaked_pages=ceng.mgr.num_live_pages,
+                          programs=_programs(ceng, "cbe.unified_step"))
+
+    return dict(legacy=legacy,
+                prefix_cache=_graphs_and_eager(torch, run_cache))
 
 
 MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
@@ -944,30 +1020,37 @@ def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS):
     time. Eight requests of 256 prompt tokens fill the first step with
     prefill (unified: 8 micro-rounds of 256 tokens; legacy: one prefill
     wave of 8 rows, then a decode chunk); the second step decodes the 8
-    rows (``chunk`` micro-rounds or decode steps). Wall times come from
-    an unprofiled pass, kernel device times (by ``kinds``) from a
-    torch.profiler pass over the same two steps."""
+    rows (``chunk`` micro-rounds or decode steps). A first pass builds
+    any program the two steps need; wall times come from an unprofiled
+    pass, kernel device times (by ``kinds``) from a torch.profiler pass
+    over the same two steps. Fails if the profiler sees no device time
+    (the kernels of a graph replay must be attributed)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
                for _ in range(eng.num_slots)]
     out = {}
-    for profiled in (False, True):
+    for profiled in (None, False, True):
         rids = [eng.submit(p) for p in prompts]
         for phase in ("prefill_step", "decode_step"):
             torch.cuda.synchronize()
-            if profiled:
+            if profiled is None:
+                eng.step(params)
+                torch.cuda.synchronize()
+            elif profiled:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     eng.step(params)
                     torch.cuda.synchronize()
                 by_kind, top = _kernel_ms_by_kind(prof, kinds)
                 busy = sum(by_kind.values())
+                if busy <= 0:
+                    raise AssertionError(f"{phase}: the profiler saw no "
+                                         "device time")
                 wall = out[phase]["wall_ms"]
                 out[phase].update(
                     kernel_ms=by_kind, top_kernels=top,
-                    device_busy_ms=busy,
-                    idle_share=(1 - busy / wall) if busy else None)
+                    device_busy_ms=busy, idle_share=1 - busy / wall)
             else:
                 t0 = time.perf_counter()
                 eng.step(params)      # ends in its device->host copy

@@ -17,6 +17,18 @@ greedy tokens (in fp32; the two sum attention in different orders):
 
 The greedy token carry stays on the device between rounds, and a
 step's emitted tokens are its ONE device→host copy.
+
+Each pipeline runs its steps as the JAX engine's compiled programs, one
+per fixed shape (``inference.graphs.Program``): the unified step
+(``cbe.unified_step``, keyed by slots, chunk, step tokens and table
+width), the legacy decode chunk (``cbe.decode_chunk``, slots and chunk)
+and the legacy prefill waves (``cbe.prefill``, one per ``(bucket,
+b_pad)`` or ``("sfx", bucket, b_pad)``). On the card each is a CUDA
+graph captured at its first use and replayed after; on the CPU its body
+runs eagerly over the same buffers. Every build is a counted miss
+(``compile_misses``), as ``recompiles.record_miss`` counts the JAX
+engine's.
+
 ``prefix_cache=True`` (both pipelines) shares the resident pages of
 earlier prompts through ``paddle_tpu_torch.kvcache`` and prefills only
 each request's uncached suffix; the page books are audited after every
@@ -32,9 +44,10 @@ slice.
 
 from __future__ import annotations
 
+import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +56,7 @@ from ..kvcache import PrefixCache, RefcountedKVCacheManager
 from ..models import llama as L
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
+from .graphs import GraphPool, Program, params_key
 from .sampling import greedy_rows
 
 
@@ -152,6 +166,12 @@ class ContinuousBatchingEngine:
     ``serve(params, prompts)`` streams a whole list through.
     ``device=None`` means the card (raises without one); the CPU runs
     only when asked for with ``device="cpu"``.
+
+    Compiled programs (module docstring): the JAX engine's jit takes the
+    params as an argument and never rebuilds for new weights; a CUDA
+    graph reads its weights at the addresses it captured, so here a
+    program is rebuilt (a counted miss) when ``step()`` is given params
+    that are not the tensors it was built over.
     """
 
     def __init__(self, model_config: L.LlamaConfig,
@@ -221,6 +241,151 @@ class ContinuousBatchingEngine:
         #: legacy prefill waves and decode steps run
         self.prefill_calls = 0
         self.decode_steps = 0
+        # compiled programs, cached as the JAX engine caches its jits
+        self._unified_step: Optional[Program] = None
+        self._decode_chunk: Optional[Program] = None
+        self._compiled_prefill: Dict[tuple, Program] = {}
+        #: program builds, in order: (name, key), as the JAX engine
+        #: passes them to ``recompiles.record_miss``
+        self.compile_misses: List[Tuple[str, tuple]] = []
+        #: seconds of each program's first call (eager run and capture,
+        #: to completion), summed by name (``recompiles.observe_compile``)
+        self.compile_seconds: Dict[str, float] = {}
+        #: of those, the CUDA graph captures alone
+        self.capture_seconds: Dict[str, float] = {}
+        # card runs capture CUDA graphs; False runs every program's body
+        # eagerly (the eager card run the tests compare against)
+        self._graphs = True
+        self._graph_pool: Optional[GraphPool] = None
+
+    # -- compiled programs --------------------------------------------------
+
+    def _program(self, body: Callable[..., torch.Tensor], inputs: dict,
+                 params) -> Program:
+        graphs = None
+        if self.device.type == "cuda" and self._graphs:
+            if self._graph_pool is None:
+                self._graph_pool = GraphPool(self.device)
+            graphs = self._graph_pool
+        return Program(body, inputs, self.device, graphs, params_key(params))
+
+    def _fetch(self, prog: Optional[Program], name: str, key: tuple,
+               build: Callable[..., Program], params) -> Program:
+        """``prog`` if it was built over ``params``, else a new build:
+        one counted miss ``(name, key)``."""
+        if prog is not None and prog.params_id == params_key(params):
+            return prog
+        self.compile_misses.append((name, key))
+        return build(params)
+
+    def _run(self, name: str, prog: Program) -> torch.Tensor:
+        """Call ``prog``; its first call is timed to completion into
+        ``compile_seconds`` and ``capture_seconds``."""
+        if prog.calls:
+            return prog()
+        t0 = time.perf_counter()
+        out = prog()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for book, sec in ((self.compile_seconds, time.perf_counter() - t0),
+                          (self.capture_seconds, prog.capture_seconds)):
+            book[name] = book.get(name, 0.0) + sec
+        return out
+
+    def _build_unified_step(self, params) -> Program:
+        """ONE program for every unified step: ``chunk`` micro-rounds of
+        ``models.llama.ragged_step`` (the JAX engine's one ``lax.scan``).
+        Decode slots take their row's carry token, prefill slots the
+        host-fed prompt tokens; each round emits its INPUT carry, then
+        updates the carry of the rows that sampled. Shapes depend only on
+        (slots, chunk, step_tokens, table width). Returns the (K, R)
+        emitted tokens; the carry ``_tok_dev`` is updated in place."""
+        K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
+        mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
+        i32, b8 = torch.int32, torch.bool
+        inputs = dict(ids=((K, tb), i32), use_carry=((K, tb), b8),
+                      token_row=((K, tb), i32), positions=((K, tb), i32),
+                      kv_lens=((K, n_rows), i32), last_idx=((K, n_rows), i32),
+                      sample_mask=((K, n_rows), b8),
+                      bt=((n_rows, self._table_width), i32))
+
+        def run(ids, use_carry, token_row, positions, kv_lens, last_idx,
+                sample_mask, bt):
+            tok = carry
+            emitted = []
+            for k in range(K):
+                row_c = token_row[k].long().clamp(0, n_rows - 1)
+                ids_eff = torch.where(use_carry[k], tok[row_c], ids[k])
+                logits, _, _ = L.ragged_step(
+                    params, ids_eff, token_row[k], positions[k], kv_lens[k],
+                    last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg)
+                emitted.append(tok)
+                tok = torch.where(sample_mask[k], greedy_rows(logits), tok)
+            out = torch.stack(emitted)
+            carry.copy_(tok)
+            return out
+
+        return self._program(run, inputs, params)
+
+    def _build_prefill(self, bucket: int, b_pad: int, params) -> Program:
+        """A legacy prefill wave of ``b_pad`` rows padded to ``bucket``
+        tokens (``models.llama.prefill_paged``). Returns each row's greedy
+        first token."""
+        mgr, mcfg, i32 = self.mgr, self.model_config, torch.int32
+        inputs = dict(ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
+                      rows=((b_pad, self._table_width), i32))
+
+        def run(ids, lens, rows):
+            logits, _, _ = L.prefill_paged(params, ids, lens, mgr.k_pages,
+                                           mgr.v_pages, rows, mcfg)
+            return greedy_rows(_last_logits(logits, lens))
+
+        return self._program(run, inputs, params)
+
+    def _build_prefill_suffix(self, bucket: int, b_pad: int,
+                              params) -> Program:
+        """The prefill of prefix-cache hits' UNCACHED SUFFIX only
+        (``models.llama.prefill_paged_suffix``): each row's leading
+        ``starts`` tokens are already resident in shared pages."""
+        mgr, mcfg, i32 = self.mgr, self.model_config, torch.int32
+        inputs = dict(ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
+                      starts=((b_pad,), i32),
+                      rows=((b_pad, self._table_width), i32))
+
+        def run(ids, lens, starts, rows):
+            logits, _, _ = L.prefill_paged_suffix(
+                params, ids, lens, starts, mgr.k_pages, mgr.v_pages, rows,
+                mcfg)
+            return greedy_rows(_last_logits(logits, lens))
+
+        return self._program(run, inputs, params)
+
+    def _build_decode_chunk(self, params) -> Program:
+        """``chunk`` decode steps over every slot (idle slots decode at
+        position 0 into page 0; finished rows run to the chunk's end and
+        their extra tokens are dropped). Each step emits its INPUT token,
+        so a chunk's output chains to the next and delivers each
+        admission's prefill token first. Returns (slots, chunk) tokens;
+        the carry ``_tok_dev`` is updated in place."""
+        K, n_rows = self.chunk, self.num_slots
+        mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
+        inputs = dict(pos=((n_rows,), torch.int32),
+                      bt=((n_rows, self._table_width), torch.int32))
+
+        def run(pos, bt):
+            tok = carry
+            emitted = []
+            for _ in range(K):
+                logits, _, _ = L.decode_step_paged(
+                    params, tok, pos, mgr.k_pages, mgr.v_pages, bt, mcfg)
+                emitted.append(tok)
+                tok = greedy_rows(logits)
+                pos = pos + 1
+            out = torch.stack(emitted, dim=1)
+            carry.copy_(tok)
+            return out
+
+        return self._program(run, inputs, params)
 
     # -- service API --------------------------------------------------------
 
@@ -398,23 +563,26 @@ class ContinuousBatchingEngine:
 
     # -- the unified ragged step ---------------------------------------------
 
-    def _plan_step(self):
+    def _plan_step(self, plan: Dict[str, np.ndarray]):
         """Host-side layout of one step: simulate ``chunk`` micro-rounds
         over the live slots, packing each round's tokens into the fixed
         ``step_tokens`` axis. Decode rows claim one slot each; prefill
         rows share the rest of the budget in slot order and turn into
         decode rows the round after their prompt completes. Advances
-        the slot mirrors (positions, pending prompt suffixes). Returns
-        the plan arrays, the emit mask and the prefill tokens fed per
+        the slot mirrors (positions, pending prompt suffixes). Writes
+        the plan arrays into ``plan`` (the unified program's host
+        inputs); returns the emit mask and the prefill tokens fed per
         slot."""
         K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
-        ids = np.zeros((K, tb), np.int32)
-        use_carry = np.zeros((K, tb), bool)
-        token_row = np.full((K, tb), -1, np.int32)
-        positions = np.zeros((K, tb), np.int32)
-        kv_lens = np.zeros((K, n_rows), np.int32)
-        last_idx = np.zeros((K, n_rows), np.int32)
-        sample_mask = np.zeros((K, n_rows), bool)
+        for name, fill in (("ids", 0), ("use_carry", False),
+                           ("token_row", -1), ("positions", 0),
+                           ("kv_lens", 0), ("last_idx", 0),
+                           ("sample_mask", False)):
+            plan[name].fill(fill)
+        ids, use_carry, token_row, positions = (
+            plan[n] for n in ("ids", "use_carry", "token_row", "positions"))
+        kv_lens, last_idx, sample_mask = (
+            plan[n] for n in ("kv_lens", "last_idx", "sample_mask"))
         emit = np.zeros((K, n_rows), bool)
         fed = [0] * n_rows                    # prefill tokens consumed
         pos = self._pos.astype(np.int64).copy()
@@ -457,40 +625,14 @@ class ContinuousBatchingEngine:
         for s in list(rem):
             self._pend[s] = (None if rem[s] == 0
                              else self._pend[s][fed[s]:])
-        return (ids, use_carry, token_row, positions, kv_lens, last_idx,
-                sample_mask), emit, fed
-
-    @torch.no_grad()
-    def _run_micro_rounds(self, params, ids, use_carry, token_row,
-                          positions, kv_lens, last_idx, sample_mask, bt):
-        """The step's ``chunk`` micro-rounds (the JAX package's one
-        compiled ``lax.scan``). Decode slots take their row's carry
-        token, prefill slots the host-fed prompt tokens; each round
-        emits its INPUT carry, then updates the carry of the rows that
-        sampled. Returns the (K, R) emitted tokens, still on device."""
-        n_rows = self.num_slots
-        tok = self._tok_dev
-        emitted = []
-        for k in range(self.chunk):
-            row_c = token_row[k].long().clamp(0, n_rows - 1)
-            ids_eff = torch.where(use_carry[k], tok[row_c], ids[k])
-            logits, _, _ = L.ragged_step(
-                params, ids_eff, token_row[k], positions[k], kv_lens[k],
-                last_idx[k], self.mgr.k_pages, self.mgr.v_pages, bt,
-                self.model_config)
-            nxt = greedy_rows(logits)
-            emitted.append(tok)
-            tok = torch.where(sample_mask[k], nxt, tok)
-            self.micro_rounds += 1
-        self._tok_dev = tok
-        return torch.stack(emitted)
+        return emit, fed
 
     def _step_unified(self, params) -> int:
         """One admit + ragged round. Admission is host bookkeeping (a
         warm/COW row is just a row whose first position is its cached
-        length); the round uploads its plan once, runs ``chunk``
-        micro-rounds on the device, and copies the emitted tokens back
-        once."""
+        length); the round uploads its plan once, runs the unified
+        program's ``chunk`` micro-rounds on the device, and copies the
+        emitted tokens back once."""
         for s, req, pages, lp, n_cached in self._admit_pick():
             self._slot_rid[s] = req.rid
             self._live[req.rid] = req
@@ -500,11 +642,15 @@ class ContinuousBatchingEngine:
             self._pend[s] = np.asarray(req.prompt[n_cached:], np.int32)
         if not self._live:
             return 0
-        plan, emit, fed = self._plan_step()
+        self._unified_step = prog = self._fetch(
+            self._unified_step, "cbe.unified_step",
+            (self.num_slots, self.chunk, self._step_tokens,
+             self._table_width), self._build_unified_step, params)
+        emit, fed = self._plan_step(prog.host)
+        prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
-        dev = [torch.from_numpy(a).to(self.device)
-               for a in (*plan, self._bt)]
-        toks = self._run_micro_rounds(params, *dev).cpu().numpy()  # the fence
+        toks = self._run("cbe.unified_step", prog).cpu().numpy()  # the fence
+        self.micro_rounds += self.chunk
         for s in range(self.num_slots):
             if self._slot_rid[s] is None:
                 continue
@@ -513,25 +659,6 @@ class ContinuousBatchingEngine:
         return len(self._live)
 
     # -- the legacy pipeline (unified=False) ---------------------------------
-
-    @torch.no_grad()
-    def _prefill_wave(self, params, ids, lens, starts, rows):
-        """One bucketed prefill call: the full prefill (``starts`` None)
-        or the suffix prefill of prefix-cache hits. Returns each row's
-        greedy first token, on the device."""
-        ids_d, lens_d, rows_d = (torch.from_numpy(a).to(self.device)
-                                 for a in (ids, lens, rows))
-        mgr, mcfg = self.mgr, self.model_config
-        if starts is None:
-            logits, _, _ = L.prefill_paged(params, ids_d, lens_d,
-                                           mgr.k_pages, mgr.v_pages, rows_d,
-                                           mcfg)
-        else:
-            logits, _, _ = L.prefill_paged_suffix(
-                params, ids_d, lens_d, torch.from_numpy(starts).to(
-                    self.device), mgr.k_pages, mgr.v_pages, rows_d, mcfg)
-        self.prefill_calls += 1
-        return greedy_rows(_last_logits(logits, lens_d))
 
     def _admit(self, params) -> None:
         """Legacy admission: allocate pages, prefill into the slots, keep
@@ -543,7 +670,8 @@ class ContinuousBatchingEngine:
         prefill one pad token into the reserved page 0 and their tokens
         are dropped. Cold rows never share a call with warm rows, so
         cold traffic runs the full prefill whether the cache is on or
-        off."""
+        off. Each group's call is the prefill program of its key; its
+        first tokens go into the carry in place."""
         cfg = self.config
         groups: Dict[tuple, list] = {}
         for item in self._admit_pick():
@@ -556,17 +684,26 @@ class ContinuousBatchingEngine:
             while b_pad < real:
                 b_pad *= 2
             b_pad = min(b_pad, self.num_slots)
-            ids = np.full((b_pad, bucket), cfg.pad_token_id, np.int32)
-            rows = np.zeros((b_pad, self._table_width), np.int32)
-            lens = np.ones((b_pad,), np.int32)   # pad rows: 1 garbage tok
-            starts = np.zeros((b_pad,), np.int32)
+            key = ("sfx", bucket, b_pad) if warm else (bucket, b_pad)
+            build = (self._build_prefill_suffix if warm
+                     else self._build_prefill)
+            self._compiled_prefill[key] = prog = self._fetch(
+                self._compiled_prefill.get(key), "cbe.prefill", key,
+                lambda p: build(bucket, b_pad, p), params)
+            host = prog.host
+            host["ids"].fill(cfg.pad_token_id)
+            host["rows"].fill(0)
+            host["lens"].fill(1)                 # pad rows: 1 garbage tok
+            if warm:
+                host["starts"].fill(0)
             for i, (s, req, pages, lp, nc) in enumerate(items):
-                ids[i, :lp - nc] = req.prompt[nc:]
-                rows[i, :len(pages)] = pages
-                lens[i] = lp - nc
-                starts[i] = nc
-            tok = self._prefill_wave(params, ids, lens,
-                                     starts if warm else None, rows)
+                host["ids"][i, :lp - nc] = req.prompt[nc:]
+                host["rows"][i, :len(pages)] = pages
+                host["lens"][i] = lp - nc
+                if warm:
+                    host["starts"][i] = nc
+            tok = self._run("cbe.prefill", prog)
+            self.prefill_calls += 1
             self._prefill_tokens += int(sum(it[3] - it[4] for it in items))
             slots = torch.as_tensor([it[0] for it in items],
                                     device=self.device)
@@ -575,36 +712,19 @@ class ContinuousBatchingEngine:
                 self._slot_rid[s] = req.rid
                 self._live[req.rid] = req
                 self._pos[s] = lp
-                self._bt[s] = rows[i]
-
-    @torch.no_grad()
-    def _decode_chunk(self, params):
-        """``chunk`` decode steps over every slot (idle slots decode at
-        position 0 into page 0; finished rows run to the chunk's end and
-        their extra tokens are dropped). Each step emits its INPUT token,
-        so a chunk's output chains to the next and delivers each
-        admission's prefill token first. Returns (slots, chunk) tokens on
-        the device."""
-        tok = self._tok_dev
-        pos = torch.from_numpy(self._pos).to(self.device)
-        bt = torch.from_numpy(self._bt).to(self.device)
-        emitted = []
-        for _ in range(self.chunk):
-            logits, _, _ = L.decode_step_paged(
-                params, tok, pos, self.mgr.k_pages, self.mgr.v_pages, bt,
-                self.model_config)
-            emitted.append(tok)
-            tok = greedy_rows(logits)
-            pos = pos + 1
-            self.decode_steps += 1
-        self._tok_dev = tok
-        return torch.stack(emitted, dim=1)
+                self._bt[s] = host["rows"][i]
 
     def _step_legacy(self, params) -> int:
         self._admit(params)
         if not self._live:
             return 0
-        toks = self._decode_chunk(params).cpu().numpy()    # the one fence
+        self._decode_chunk = prog = self._fetch(
+            self._decode_chunk, "cbe.decode_chunk",
+            (self.num_slots, self.chunk), self._build_decode_chunk, params)
+        prog.host["pos"][:] = self._pos
+        prog.host["bt"][:] = self._bt
+        toks = self._run("cbe.decode_chunk", prog).cpu().numpy()  # the fence
+        self.decode_steps += self.chunk
         for s in range(self.num_slots):
             if self._slot_rid[s] is None:
                 continue

@@ -152,7 +152,10 @@ def params_from_numpy(np_params: Dict[str, Any], config: LlamaConfig,
     return out
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a serving engine's CUDA graphs read these tables at the
+# addresses they captured, so no entry may be evicted and freed under a
+# live graph (the keys are few: table spans and power-of-two buckets)
+@functools.lru_cache(maxsize=None)
 def _rope_cache(s_max: int, head_dim: int, theta: float, device: str):
     return rope_ops.build_rope_cache(s_max, head_dim, theta, device=device)
 

@@ -1,5 +1,6 @@
-"""Shared helpers for the kernel library: device resolution and the
-build-at-first-use loader for the hand-written CUDA kernels.
+"""Shared helpers for the kernel library: device resolution, the
+build-at-first-use loader for the hand-written CUDA kernels, and the
+registry of the kernel wrappers' launch counters.
 
 Counterpart of ``paddle_tpu/ops/_common.py``. Where the JAX package
 picks a backend from the platform and a flag (``use_pallas``), the port
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -64,6 +65,44 @@ def sm_count(device) -> int:
     wrappers that size a grid by the card."""
     index = torch.device(device).index
     return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+#: every kernel wrapper that counts its launches (:func:`count_launches`)
+_counted: List[Callable] = []
+
+
+def count_launches(fn: Callable, routes: Iterable[str] = ()) -> Callable:
+    """Give the kernel wrapper ``fn`` its launch counters, all 0:
+    ``fn.launches`` and, with ``routes``, ``fn.route_launches[route]``;
+    and register it, so that a CUDA graph can count on each replay what
+    its capture counted (``inference.graphs``). A counter counts where
+    the wrapper launches, never in its plain version."""
+    fn.launches = 0
+    routes = tuple(routes)
+    if routes:
+        fn.route_launches = dict.fromkeys(routes, 0)
+    _counted.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[tuple, int]:
+    """Every registered counter: ``(fn, None)`` for ``fn.launches``,
+    ``(fn, route)`` for ``fn.route_launches[route]``."""
+    out = {}
+    for fn in _counted:
+        out[(fn, None)] = fn.launches
+        for r, n in getattr(fn, "route_launches", {}).items():
+            out[(fn, r)] = n
+    return out
+
+
+def add_launch_counts(counts: Dict[tuple, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (keyed as :func:`launch_counts`)."""
+    for (fn, r), n in counts.items():
+        if r is None:
+            fn.launches += n * times
+        else:
+            fn.route_launches[r] += n * times
 
 
 def not_ported(what: str, slice_name: str) -> NotImplementedError:

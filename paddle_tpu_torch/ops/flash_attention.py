@@ -43,7 +43,8 @@ from typing import Optional
 import torch
 
 from . import _common
-from ._common import check_cuda_tensor, load_cuda_library
+from ._common import (check_cuda_tensor, count_launches,
+                      load_cuda_library)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
@@ -401,9 +402,9 @@ def kernel_resources():
 
 
 #: kernel launches since the last reset (the plain versions never count)
-flash_fwd_kernel.launches = 0
-flash_bwd_dq_kernel.launches = 0
-flash_bwd_dkv_kernel.launches = 0
+count_launches(flash_fwd_kernel)
+count_launches(flash_bwd_dq_kernel)
+count_launches(flash_bwd_dkv_kernel)
 
 
 def _check_bwd_extras(q, do, lse, delta):

@@ -29,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from ._common import check_cuda_tensor, load_cuda_library
+from ._common import (check_cuda_tensor, count_launches,
+                      load_cuda_library)
 
 #: x/dout dtypes of the kernels (their dtype code)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -167,9 +168,7 @@ def fused_linear_grad_add_kernel(x2, g2, acc, acc_dtype,
 
 #: op calls on the card since the last reset (the plain version never
 #: counts), and the same by route
-fused_linear_grad_add_kernel.launches = 0
-fused_linear_grad_add_kernel.route_launches = dict.fromkeys(GRAD_ADD_ROUTES,
-                                                            0)
+count_launches(fused_linear_grad_add_kernel, GRAD_ADD_ROUTES)
 
 def grad_add_smem_bytes() -> int:
     """Dynamic shared memory a block of the wgmma route takes (for the

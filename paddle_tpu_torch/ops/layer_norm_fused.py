@@ -55,7 +55,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._common import check_cuda_tensor, sm_count, triton_cache_dir
+from ._common import (check_cuda_tensor, count_launches, sm_count,
+                      triton_cache_dir)
 from .rms_norm import _num_warps
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -311,7 +312,7 @@ def layer_norm_bwd(x, w, g, eps: float = 1e-5):
 
 #: backward kernel calls since the last reset, two Triton launches each
 #: (the plain version never counts)
-layer_norm_bwd.launches = 0
+count_launches(layer_norm_bwd)
 
 
 def _layer_norm_fwd(x, w, b, eps):
@@ -350,4 +351,4 @@ def layer_norm(x, w, b, eps: float = 1e-5):
 
 #: forward kernel launches since the last reset (the plain version never
 #: counts)
-layer_norm.launches = 0
+count_launches(layer_norm)

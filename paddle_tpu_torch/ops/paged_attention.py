@@ -40,8 +40,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ._common import (check_cuda_tensor, load_cuda_library, resolve_device,
-                      sm_count)
+from ._common import (check_cuda_tensor, count_launches, load_cuda_library,
+                      resolve_device, sm_count)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
@@ -387,9 +387,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
 
 #: op calls on the card since the last reset (the plain version never
 #: counts), and kernel launches by route and of the key split's merge
-ragged_paged_attention.launches = 0
-ragged_paged_attention.route_launches = dict.fromkeys(
-    RAGGED_ROUTES + ("merge",), 0)
+count_launches(ragged_paged_attention, RAGGED_ROUTES + ("merge",))
 
 
 # ---------------------------------------------------------------------------
@@ -608,8 +606,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
 
 #: op calls on the card since the last reset (the plain version never
 #: counts), and the launches of its two kernels
-paged_attention.launches = 0
-paged_attention.route_launches = {"key_split": 0, "merge": 0}
+count_launches(paged_attention, ("key_split", "merge"))
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from ._common import check_cuda_tensor, triton_cache_dir
+from ._common import check_cuda_tensor, count_launches, triton_cache_dir
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -230,7 +230,7 @@ def rms_norm_bwd(x, w, g, eps: float = 1e-6):
 
 #: backward kernel calls since the last reset, two Triton launches each
 #: (the plain version never counts)
-rms_norm_bwd.launches = 0
+count_launches(rms_norm_bwd)
 
 
 class RMSNormFunction(torch.autograd.Function):
@@ -266,4 +266,4 @@ def rms_norm(x, w, eps: float = 1e-6):
 
 
 #: kernel launches since the last reset (the plain version never counts)
-rms_norm.launches = 0
+count_launches(rms_norm)

@@ -21,6 +21,7 @@ from paddle_tpu_torch.distributed.fleet.utils import (
 from paddle_tpu_torch.inference import decoding as D
 from paddle_tpu_torch.models import ernie as E
 from paddle_tpu_torch.models import llama as L
+from paddle_tpu_torch.ops import _common
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_linear as fl
 from paddle_tpu_torch.ops import layer_norm_fused as ln
@@ -265,25 +266,78 @@ def test_ragged_step_launch_counts(cuda):
     assert pa.ragged_paged_attention.launches == 3 * n
 
 
-def test_engine_on_card_matches_cpu(cuda):
-    """fp32 greedy tokens: kernels on the card == plain versions on the
-    CPU, for MHA and GQA at head_dim 128."""
+def _card_serve(cuda, cfg, params, prompts, graphs, **geo):
+    """A fresh card engine (CUDA graphs on, or the eager card run) serves
+    ``prompts``. Returns the engine, the card's params, its tokens and the
+    advance of every registered launch counter."""
+    eng = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=6), device=cuda, **geo)
+    eng._graphs = graphs
+    gpu = {k: t.to(cuda) for k, t in params.items()}
+    before = _common.launch_counts()
+    out = eng.serve(gpu, prompts)
+    torch.cuda.synchronize()
+    after = _common.launch_counts()
+    return eng, gpu, out, {k: n - before[k] for k, n in after.items()}
+
+
+def _check_programs_on_card(cuda, cfg, prompts, **geo):
+    """fp32 greedy tokens through the CUDA graphs == the eager card run's
+    == the CPU's (plain versions); every launch counter advances as in
+    the eager run (replays counted); a repeat serve replays without a
+    new miss (with the prefix cache: the second repeat, whose waves are
+    warm like the first's); and new weights on the same engine give the
+    CPU's tokens for them."""
+    cache = geo.get("prefix_cache", False)
+    params = L.init_params(cfg, seed=1, device="cpu")
+    want = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=6), device="cpu",
+        **geo).serve(params, prompts)
+    eng, gpu, got, counts = _card_serve(cuda, cfg, params, prompts, True,
+                                        **geo)
+    _, _, eager, eager_counts = _card_serve(cuda, cfg, params, prompts,
+                                            False, **geo)
+    assert got == eager == want
+    assert counts == eager_counts and any(counts.values())
+    if cache:
+        assert eng.cache.snapshot()["cow_copies"] >= 1
+    names = {n for n, _ in eng.compile_misses}
+    assert set(eng.capture_seconds) == names
+    assert all(sec > 0 for sec in eng.capture_seconds.values())
+    for _ in range(1 + cache):
+        n0 = len(eng.compile_misses)
+        again = eng.serve(gpu, prompts)
+    assert len(eng.compile_misses) == n0
+    if not cache:
+        assert again == got
+    other = L.init_params(cfg, seed=2, device="cpu")
+    if cache:
+        eng.cache.evict(eng.mgr.num_pages)      # no KV of the old weights
+    swapped = eng.serve({k: t.to(cuda) for k, t in other.items()}, prompts)
+    assert len(eng.compile_misses) > n0
+    assert swapped == D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=6), device="cpu",
+        **geo).serve(other, prompts)
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_engine_on_card_matches_cpu(cuda, prefix_cache):
+    """The unified pipeline (and, with the cache, a shared-prefix request
+    and an exact repeat for COW), MHA and GQA at head_dim 128:
+    :func:`_check_programs_on_card`."""
     for nkv in (4, 2):
         cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
                            num_key_value_heads=nkv, intermediate_size=512,
                            num_hidden_layers=2)
-        params = L.init_params(cfg, seed=1, device="cpu")
         rng = np.random.RandomState(3)
         prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
-                   for n in (4, 33, 18, 2)]
-        outs = []
-        for dev in (cuda, "cpu"):
-            eng = D.ContinuousBatchingEngine(
-                cfg, D.GenerationConfig(max_new_tokens=6), num_slots=2,
-                page_size=16, max_seq_len=96, chunk=3, device=dev)
-            outs.append(eng.serve({k: t.to(dev) for k, t in params.items()},
-                                  prompts))
-        assert outs[0] == outs[1]
+                   for n in (4, 33, 18, 2, 32)]
+        if prefix_cache:
+            prompts += [np.concatenate([prompts[1][:20], prompts[0]]),
+                        prompts[4].copy()]
+        _check_programs_on_card(cuda, cfg, prompts, num_slots=2,
+                                page_size=16, max_seq_len=96, chunk=3,
+                                prefix_cache=prefix_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -440,30 +494,21 @@ def test_decode_step_paged_launch_counts(cuda):
 
 @pytest.mark.parametrize("prefix_cache", [False, True])
 def test_legacy_engine_on_card_matches_cpu(cuda, prefix_cache):
-    """fp32 greedy tokens of the legacy pipeline (and, with the cache, a
-    shared-prefix wave and an exact repeat for COW): kernels on the card
-    == plain versions on the CPU, MHA and GQA at head_dim 128."""
+    """The legacy pipeline (prefill programs per key, the decode chunk;
+    with the cache, a shared-prefix wave and an exact repeat for COW),
+    MHA and GQA at head_dim 128: :func:`_check_programs_on_card`."""
     for nkv in (4, 2):
         cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
                            num_key_value_heads=nkv, intermediate_size=512,
                            num_hidden_layers=2)
-        params = L.init_params(cfg, seed=1, device="cpu")
         rng = np.random.RandomState(3)
         prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
                    for n in (4, 33, 18, 2, 32)]
         prompts += [np.concatenate([prompts[1][:20], prompts[0]]),
                     prompts[4].copy()]
-        outs = []
-        for dev in (cuda, "cpu"):
-            eng = D.ContinuousBatchingEngine(
-                cfg, D.GenerationConfig(max_new_tokens=6), num_slots=2,
-                page_size=16, max_seq_len=96, chunk=4, device=dev,
-                unified=False, prefix_cache=prefix_cache)
-            outs.append(eng.serve({k: t.to(dev) for k, t in params.items()},
-                                  prompts))
-            if prefix_cache:
-                assert eng.cache.snapshot()["cow_copies"] >= 1
-        assert outs[0] == outs[1]
+        _check_programs_on_card(cuda, cfg, prompts, num_slots=2,
+                                page_size=16, max_seq_len=96, chunk=4,
+                                unified=False, prefix_cache=prefix_cache)
 
 
 def test_paged_generation_engine_on_card_matches_cpu(cuda):
