@@ -128,7 +128,26 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     checked, the loss falling, a profiler breakdown; then one more step
     whose projections' own operands go through the accumulation kernel
     (7·L·k = 224 launches, all on the wgmma route), each accumulator
-    matching its ``main_grad``.
+    matching its ``main_grad``;
+20. tiny decoding-options parity (run after phase 8): a mixed greedy /
+    sampled / grammar-constrained serve, unified and speculative, the
+    engine-wide ``do_sample`` on the unified and legacy pipelines and
+    ``PagedGenerationEngine`` — tokens through the CUDA graphs equal the
+    eager card run's and the CPU's (fp32, TF32 off), constrained streams
+    legal, one program build each with the sampling epilogue on;
+21. decoding options at full width, on phase 7's weights and geometry
+    (run after phase 20): phase 7's load served as a mix of greedy,
+    sampled (temperature 0.8, top-k 50, top-p 0.95) and JSON-constrained
+    requests, then greedy with ``speculative=True, spec_k=4`` three
+    times: with the default n-gram drafter, with drafts taken from phase
+    7's greedy streams (which the spans' bf16 wgmma tiles part from at
+    near-ties), and with drafts taken from the second serve's streams
+    (the best case); each through the graphs and eagerly with identical
+    tokens,
+    launch counts checked; the sampled decode step's wall, device time
+    and idle share beside phase 7's greedy step, and a speculative decode
+    round's wall, idle share and tile sizes (the n-gram drafter's, and
+    full spans of k+1 tokens on the ragged kernels' wgmma tiles).
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -148,7 +167,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 19
+N_PHASES = 21
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -792,9 +811,17 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
                                                cfg.vocab_size))
         return outs, report
 
-    report = _graphs_and_eager(torch, run)
+    toks = {}
+
+    def run_kept(graphs):
+        toks[graphs], report = run(graphs)
+        return toks[graphs], report
+
+    report = _graphs_and_eager(torch, run_kept)
     prompt_tokens = sum(map(len, prompts))
-    return dict(report, layers=n_layers, params=L.param_count(cfg),
+    # the greedy tokens (popped before printing) for phase 21
+    return dict(report, _tokens=toks[True], layers=n_layers,
+                params=L.param_count(cfg),
                 prompt_tokens=prompt_tokens,
                 processed_tokens_per_s=(report["generated_tokens"]
                                         + prompt_tokens) / report["serve_s"])
@@ -1015,7 +1042,8 @@ def profiled_ms(torch, fn, iters: int = 5) -> float:
     return sum(kinds.values()) / iters
 
 
-def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS):
+def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS,
+                   submit_kw=None):
     """Where a prefill step and a decode step of the engine spend their
     time. Eight requests of 256 prompt tokens fill the first step with
     prefill (unified: 8 micro-rounds of 256 tokens; legacy: one prefill
@@ -1024,14 +1052,15 @@ def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS):
     any program the two steps need; wall times come from an unprofiled
     pass, kernel device times (by ``kinds``) from a torch.profiler pass
     over the same two steps. Fails if the profiler sees no device time
-    (the kernels of a graph replay must be attributed)."""
+    (the kernels of a graph replay must be attributed). ``submit_kw``
+    gives each request's submit arguments (a sampler)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
                for _ in range(eng.num_slots)]
     out = {}
     for profiled in (None, False, True):
-        rids = [eng.submit(p) for p in prompts]
+        rids = [eng.submit(p, **(submit_kw or {})) for p in prompts]
         for phase in ("prefill_step", "decode_step"):
             torch.cuda.synchronize()
             if profiled is None:
@@ -1059,6 +1088,348 @@ def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS):
             eng.cancel(rid)
         eng.mgr.check_conservation()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: tiny decoding-options parity, card vs CPU
+# ---------------------------------------------------------------------------
+
+def _abc_grammar(C, vocab_size):
+    vocab = (["<eos>"] + list("abcde")
+             + [f"tok{i}" for i in range(6, vocab_size)])
+    return C.compile_regex("(ab|cd)*e", vocab, eos_token_id=0)
+
+
+def _check_legal(gram, toks):
+    st = gram.start
+    for t in toks:
+        if not gram.legal(st, t):
+            raise AssertionError(f"grammar-illegal token {t} in {toks}")
+        st = gram.advance(st, t)
+
+
+def _serve_subs(eng, params, prompts, subs, max_steps=500):
+    """Serve ``prompts`` with per-request submit arguments ``subs``,
+    auditing the page books after every step. Returns the tokens in
+    submission order and each step's wall time (ms)."""
+    rids = [eng.submit(p, **s) for p, s in zip(prompts, subs)]
+    results, step_ms = {}, []
+    while len(results) < len(rids):
+        t0 = time.perf_counter()
+        eng.step(params)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.mgr.check_conservation()
+        results.update(eng.collect())
+        if len(step_ms) > max_steps:
+            raise AssertionError(f"serve did not finish in {max_steps} steps")
+    return [results[r] for r in rids], step_ms
+
+
+def sampling_parity_phase(torch, L, D):
+    """Phase 5's config and weights: a greedy / sampled / constrained /
+    near-greedy mix through the unified and the speculative engine, and
+    the engine-wide ``do_sample`` through the unified and legacy
+    pipelines and ``PagedGenerationEngine``, each on the card through the
+    CUDA graphs, on the card eagerly and on the CPU: identical tokens."""
+    from paddle_tpu_torch.inference import constrain as C
+    from paddle_tpu_torch.inference.sampling import SamplerConfig
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3, 29, 11, 23)]
+    gram = _abc_grammar(C, cfg.vocab_size)
+    kinds = [dict(), dict(sampler=SamplerConfig(0.9, 20, 0.9, seed=3)),
+             dict(grammar=gram, sampler=SamplerConfig(1.0, seed=4)),
+             dict(sampler=SamplerConfig(0.05, seed=5))]
+    subs = [kinds[i % len(kinds)] for i in range(len(prompts))]
+    runs = (("cuda", params_gpu, True), ("cuda", params_gpu, False),
+            ("cpu", params_cpu, False))
+    report = {}
+    for spec in (False, True):
+        outs = []
+        for dev, params, graphs in runs:
+            eng = D.ContinuousBatchingEngine(
+                cfg, D.GenerationConfig(max_new_tokens=8), num_slots=3,
+                page_size=16, max_seq_len=128, chunk=4, device=dev,
+                grammar_states=gram.n_states, speculative=spec, spec_k=3)
+            eng._graphs = graphs
+            outs.append(_serve_subs(eng, params, prompts, subs)[0])
+            name = "cbe.spec_step" if spec else "cbe.unified_step"
+            if [(n, k[-1]) for n, k in eng.compile_misses] != [(name, True)]:
+                raise AssertionError(f"program builds {eng.compile_misses}")
+        if not outs[0] == outs[1] == outs[2]:
+            raise AssertionError(f"mixed serve (speculative {spec}): "
+                                 f"graphs {outs[0]}, eager {outs[1]}, cpu "
+                                 f"{outs[2]}")
+        for toks, sub in zip(outs[0], subs):
+            if "grammar" in sub:
+                _check_legal(gram, toks)
+        report["speculative" if spec else "unified"] = dict(
+            tokens=outs[0], spec=eng.spec.snapshot() if spec else None)
+    gen = D.GenerationConfig(max_new_tokens=7, do_sample=True,
+                             temperature=0.8, top_k=30, top_p=0.9, seed=6)
+    for unified in (True, False):
+        outs = []
+        for dev, params, graphs in runs:
+            eng = D.ContinuousBatchingEngine(
+                cfg, gen, num_slots=2, page_size=16, max_seq_len=128,
+                chunk=4, device=dev, unified=unified)
+            eng._graphs = graphs
+            outs.append(_serve_subs(eng, params, prompts[:5],
+                                    [{}] * 5)[0])
+        if not outs[0] == outs[1] == outs[2]:
+            raise AssertionError(f"do_sample (unified {unified}): graphs "
+                                 f"{outs[0]}, eager {outs[1]}, cpu "
+                                 f"{outs[2]}")
+        report["do_sample_" + ("unified" if unified else "legacy")] = outs[0]
+    gen_out = [D.PagedGenerationEngine(cfg, gen, page_size=16,
+                                       device=dev).generate(params,
+                                                            prompts[:5])
+               for dev, params, _ in runs[1:]]
+    if not np.array_equal(gen_out[0], gen_out[1]):
+        raise AssertionError(f"PagedGenerationEngine do_sample: card "
+                             f"{gen_out[0]} != cpu {gen_out[1]}")
+    report["paged_generation_do_sample"] = gen_out[0].tolist()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the decoding options at full width
+# ---------------------------------------------------------------------------
+
+SAMPLED_KINDS = SERVE_KINDS + (("sort", ("sort",)), ("scan", ("scan",)))
+
+
+def _json_vocab(vocab_size):
+    """A synthetic tokenizer vocabulary for the JSON grammar: EOS, JSON
+    punctuation and characters, the rest tokens no JSON text starts."""
+    toks = ["<eos>"] + list('{}[]:, ') + ['"', '\\']
+    toks += list("abcdefghijklmnopqrstuvwxyz0123456789+-.eE")
+    return toks + [f"<junk{i}>" for i in range(len(toks), vocab_size)]
+
+
+class _StreamDrafter:
+    """Drafts the next tokens of known greedy streams, found by the prompt
+    the history starts with: all accepted while the engine's own greedy
+    tokens follow those streams."""
+
+    def __init__(self, prompts, streams):
+        self.refs = [(len(p), [int(t) for t in p], list(map(int, o)))
+                     for p, o in zip(prompts, streams)]
+
+    def draft(self, history, k):
+        for n, prompt, out in self.refs:
+            if list(history[:n]) == prompt:
+                done = len(history) - n
+                return out[done:done + k]
+        return []
+
+
+class _FullSpanDrafter:
+    """Drafts k copies of the row's last token: every decoding row's span
+    is k+1 tokens (a round's full verification cost, whatever is
+    accepted)."""
+
+    def draft(self, history, k):
+        return [int(history[-1])] * k
+
+
+def spec_round_breakdown(torch, pa, eng, params, vocab, drafter=None):
+    """A speculative decode round of 8 rows: phase 7's eight 256-token
+    breakdown prompts are prefilled (rounds of 256 tokens), then three
+    decode rounds are timed (wall to the round's one device->host copy)
+    and one more profiled (device time by kind, idle share), with the
+    engine's drafter or ``drafter``. Reports the tokens those rounds
+    committed, the drafts and acceptance, and the tile sizes the ragged
+    kernels found on the profiled round's packed axis (``ragged_tiles``:
+    a drafted span of n tokens is one n-token wgmma tile)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
+               for _ in range(eng.num_slots)]
+    own, eng.drafter = eng.drafter, drafter or eng.drafter
+    rids = [eng.submit(p) for p in prompts]
+    n = eng.num_slots
+    for _ in range(4 * n):
+        if all(eng._pend[s] is None and eng._slot_rid[s] is not None
+               for s in range(n)):
+            break
+        eng.step(params)
+    else:
+        raise AssertionError("rows still prefilling")
+    stats0 = dict(eng.spec.stats)
+    toks0 = sum(len(eng._live[r].tokens) for r in rids if r in eng._live)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    toks1 = sum(len(eng._live[r].tokens) for r in rids if r in eng._live)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step(params)
+        torch.cuda.synchronize()
+    by_kind, top = _kernel_ms_by_kind(prof, SAMPLED_KINDS)
+    busy = sum(by_kind.values())
+    if busy <= 0:
+        raise AssertionError("spec round: the profiler saw no device time")
+    ts = pa.ragged_tile_size(torch.bfloat16, eng.page_size,
+                             eng.model_config.num_attention_heads,
+                             eng.model_config.num_key_value_heads)
+    tiles = pa.ragged_tiles(eng._spec_step.static["token_row"], n,
+                            ts).cpu().numpy()
+    _, sizes = np.unique(tiles[tiles >= 0], return_counts=True)
+    drafted = eng.spec.stats["drafted"] - stats0["drafted"]
+    accepted = eng.spec.stats["accepted"] - stats0["accepted"]
+    for rid in rids:
+        eng.cancel(rid)
+    eng.mgr.check_conservation()
+    eng.drafter = own
+    mean = float(np.mean(walls))
+    return dict(round_wall_ms=mean, round_walls_ms=walls,
+                committed_tokens_per_round=(toks1 - toks0) / 3 / n,
+                drafted=drafted, accepted=accepted,
+                kernel_ms=by_kind, top_kernels=top, device_busy_ms=busy,
+                idle_share=1 - busy / mean,
+                tile_sizes=sorted(int(x) for x in sizes))
+
+
+def sampling_7b_phase(torch, L, D, C, rn, pa, cfg, params, greedy,
+                      greedy_tokens):
+    """Phase 7's weights, geometry and load: a mixed serve (request i
+    greedy, sampled or JSON-constrained by i % 3) and speculative greedy
+    serves (the n-gram drafter, drafts from ``greedy_tokens``, drafts
+    from the second serve's tokens), each through the graphs and eagerly
+    (tokens equal,
+    launch counts held to the rounds run), with the sampled and the
+    speculative step breakdowns beside phase 7's greedy step
+    (``greedy``) and each speculative serve's share of tokens equal to
+    the streams it drafted from (the n-gram serve: phase 7's; bf16 sums
+    taken in other orders on the tile and key-split routes can flip a
+    near-tie)."""
+    from paddle_tpu_torch.inference.sampling import SamplerConfig
+    n_layers = cfg.num_hidden_layers
+    prompts = serve_load(cfg)
+    t0 = time.perf_counter()
+    gram = C.json_grammar(_json_vocab(cfg.vocab_size), 0, max_depth=1)
+    grammar_s = time.perf_counter() - t0
+    sampler = SamplerConfig(temperature=0.8, top_k=50, top_p=0.95)
+    kinds = [dict(), dict(sampler=sampler), dict(grammar=gram)]
+    subs = [kinds[i % 3] for i in range(len(prompts))]
+
+    def reset():
+        rn.rms_norm.launches = 0
+        _reset_ragged(pa)
+
+    def counts(rounds):
+        got = {"rms_norm_fwd": rn.rms_norm.launches, **_ragged_launches(pa)}
+        want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+                **_ragged_want(torch, pa, n_layers * rounds)}
+        if got != want:
+            raise AssertionError(f"launch counts {got} != {want}")
+        return got
+
+    def run_mixed(graphs):
+        eng = _serve_engine(D, cfg, step_tokens=256,
+                            grammar_states=gram.n_states)
+        eng._graphs = graphs
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs, step_ms = _serve_subs(eng, params, prompts, subs)
+        serve_s = time.perf_counter() - t0
+        launches = counts(eng.micro_rounds)
+        _check_outputs(cfg, outs, eng)
+        for toks, sub in zip(outs, subs):
+            if "grammar" in sub:
+                _check_legal(gram, toks)
+        if [(n, k[-1]) for n, k in eng.compile_misses] != [
+                ("cbe.unified_step", True)]:
+            raise AssertionError(f"program builds {eng.compile_misses}")
+        generated = NEW_TOKENS * len(prompts)
+        report = dict(
+            steps=len(step_ms), serve_s=serve_s,
+            generated_tokens_per_s=generated / serve_s,
+            mean_step_ms=float(np.mean(step_ms)),
+            micro_rounds=eng.micro_rounds, launches=launches,
+            sampling_counts=eng.sampling_counts,
+            capture_s=dict(eng.capture_seconds),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            breakdown=step_breakdown(
+                torch, eng, params, cfg.vocab_size, SAMPLED_KINDS,
+                submit_kw=dict(sampler=SamplerConfig(0.8, 50, 0.95,
+                                                     seed=SEED))))
+        return outs, report
+
+    def run_spec(graphs, drafter):
+        eng = _serve_engine(D, cfg, step_tokens=256, speculative=True,
+                            spec_k=4, drafter=drafter)
+        eng._graphs = graphs
+        reset()
+        t0 = time.perf_counter()
+        outs, step_ms = _serve_subs(eng, params, prompts,
+                                    [{}] * len(prompts))
+        serve_s = time.perf_counter() - t0
+        launches = counts(eng.spec_rounds)
+        _check_outputs(cfg, outs, eng)
+        if [n for n, _ in eng.compile_misses] != ["cbe.spec_step"]:
+            raise AssertionError(f"program builds {eng.compile_misses}")
+        generated = NEW_TOKENS * len(prompts)
+        report = dict(
+            rounds=eng.spec_rounds, serve_s=serve_s,
+            generated_tokens_per_s=generated / serve_s,
+            mean_step_ms=float(np.mean(step_ms)), launches=launches,
+            spec=eng.spec.snapshot(), capture_s=dict(eng.capture_seconds),
+            round=spec_round_breakdown(
+                torch, pa, eng, params, cfg.vocab_size,
+                None if drafter is None else _FullSpanDrafter()))
+        if drafter is not None and report["round"]["tile_sizes"] != [
+                eng.spec_k + 1] * eng.num_slots:
+            raise AssertionError(f"full spans did not make k+1-token tiles: "
+                                 f"{report['round']['tile_sizes']}")
+        return outs, report
+
+    mixed = _graphs_and_eager(torch, run_mixed)
+    spec, spec_toks = {}, {}
+    # drafts: the n-gram drafter; phase 7's greedy streams (their tokens
+    # came from the key-split decode route, the spans' from the wgmma
+    # tiles); and the streams the second serve produced, which the same
+    # spans must reproduce
+    runs = (("ngram", lambda: None, greedy_tokens),
+            ("phase7_stream", lambda: _StreamDrafter(prompts, greedy_tokens),
+             greedy_tokens),
+            ("own_stream", lambda: _StreamDrafter(
+                prompts, spec_toks["phase7_stream"]), None))
+    for name, make, ref in runs:
+        def run_spec_kept(graphs, make=make, name=name):
+            toks, report = run_spec(graphs, make())
+            spec_toks[name] = toks
+            return toks, report
+        spec[name] = _graphs_and_eager(torch, run_spec_kept)
+        ref = spec_toks["phase7_stream"] if ref is None else ref
+        spec[name]["tokens_equal_to_drafted_streams"] = float(np.mean(
+            [a == b for x, y in zip(spec_toks[name], ref)
+             for a, b in zip(x, y)]))
+    g_dec = greedy["breakdown"]["decode_step"]
+    s_dec = mixed["breakdown"]["decode_step"]
+    return dict(
+        grammar_states=gram.n_states, grammar_compile_s=grammar_s,
+        mixed=mixed, speculative=spec,
+        sampled_vs_greedy=dict(
+            decode_wall_ms=[s_dec["wall_ms"], g_dec["wall_ms"]],
+            decode_wall_ratio=s_dec["wall_ms"] / g_dec["wall_ms"],
+            decode_idle=[s_dec["idle_share"], g_dec["idle_share"]],
+            decode_device_ms=[s_dec["device_busy_ms"],
+                              g_dec["device_busy_ms"]]),
+        spec_round_vs_micro_round={
+            name: r["round"]["round_wall_ms"] / (g_dec["wall_ms"] / 8)
+            for name, r in spec.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -2265,6 +2636,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from paddle_tpu_torch.inference import constrain as C
     from paddle_tpu_torch.inference import decoding as D
     from paddle_tpu_torch.models import ernie as E
     from paddle_tpu_torch.models import llama as L
@@ -2327,10 +2699,17 @@ def main() -> int:
     cfg7b, params7b, init_s = init_7b(torch, L)
     serve = dict(serve_7b_phase(torch, L, D, rn, pa, cfg7b, params7b),
                  init_s=init_s)
+    greedy_tokens = serve.pop("_tokens")
     done(7, f"Llama-2-7B bf16 serve on {card}", serve)
     legacy = legacy_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b, serve)
     done(8, f"Llama-2-7B bf16 legacy serve and prefix-cache wave on {card}",
          legacy)
+    done(20, "tiny sampled / constrained / speculative / do_sample engines, "
+         "card == cpu tokens", sampling_parity_phase(torch, L, D))
+    options = sampling_7b_phase(torch, L, D, C, rn, pa, cfg7b, params7b,
+                                serve, greedy_tokens)
+    done(21, f"Llama-2-7B bf16 sampled, constrained and speculative serves "
+         f"on {card}", options)
     del params7b             # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
@@ -2367,16 +2746,20 @@ def main() -> int:
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
     cold = legacy["prefix_cache"]["cold"]
+    mixed = options["mixed"]["launches"]
+    specl = {k: sum(r["launches"][k] for r in options["speculative"].values())
+             for k in ("rms_norm_fwd", "ragged_paged_attention")}
     kernels = [
         # the forward runs on every main path: the unified serve's
-        # launches, the legacy serve's, the cache waves' and the training
-        # run's
+        # launches, the legacy serve's, the cache waves', the mixed
+        # sampled serve's, the speculative serve's and the training runs'
         dict(name="rms_norm_fwd", route="triton",
              source="paddle_tpu_torch/ops/rms_norm.py",
              replaces="paddle_tpu/ops/rms_norm.py:48",
              launches=serve["launches"]["rms_norm_fwd"]
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
-             + cold["launches"]["rms_norm_fwd"]
+             + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
+             + specl["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
@@ -2386,7 +2769,9 @@ def main() -> int:
              replaces="paddle_tpu/ops/paged_attention.py:215",
              launches=serve["launches"]["ragged_paged_attention"]
              + warm["launches"]["ragged_paged_attention"]
-             + cold["launches"]["ragged_paged_attention"],
+             + cold["launches"]["ragged_paged_attention"]
+             + mixed["ragged_paged_attention"]
+             + specl["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),

@@ -24,6 +24,10 @@ Ported so far:
   ``models.llama.prefill_paged`` / ``prefill_paged_suffix`` /
   ``decode_step_paged``, with the paged decode attention kernel — and
   the prefix cache (``kvcache``) on both pipelines;
+- the decoding options on those engines — per-request sampling
+  (``inference.sampling`` over ``inference.prng``, the JAX package's
+  threefry bits), grammar-constrained decoding (``inference.constrain``)
+  and speculative decoding (``inference.speculative``);
 - the one-device Llama training step — ``models.llama.build_train_step``
   (forward, backward with full remat, AdamW) over
   ``models.llama.forward_stacked``, with the RMSNorm forward and

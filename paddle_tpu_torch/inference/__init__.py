@@ -1,1 +1,2 @@
-"""Serving engine and token selection (counterpart of ``paddle_tpu/inference``)."""
+"""Serving engines, their compiled programs and the decoding options
+(counterpart of ``paddle_tpu/inference``)."""

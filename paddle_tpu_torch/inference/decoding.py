@@ -1,5 +1,5 @@
 """Serving engines over the paged KV cache — counterpart of
-``paddle_tpu/inference/decoding.py`` (the greedy paths).
+``paddle_tpu/inference/decoding.py``.
 
 ``ContinuousBatchingEngine`` keeps ``num_slots`` sequences decoding
 together over the paged KV cache. Two pipelines, which emit identical
@@ -15,15 +15,38 @@ greedy tokens (in fp32; the two sum attention in different orders):
   then every slot decodes ``chunk`` steps of ``models.llama.
   decode_step_paged`` over the paged decode kernel.
 
-The greedy token carry stays on the device between rounds, and a
-step's emitted tokens are its ONE device→host copy.
+The token carry stays on the device between rounds, and a step's
+emitted tokens are its ONE device→host copy.
+
+Decoding options (the JAX engine's, with its token streams):
+
+* ``GenerationConfig(do_sample=True)``: the legacy programs and
+  ``PagedGenerationEngine`` draw with the engine-wide temperature /
+  top-k / top-p from the JAX engines' key chain (``jax.random.split``
+  of ``key(seed)``, reproduced by ``inference.prng``); the unified
+  engine turns it into a per-request sampler;
+* ``submit(sampler=SamplerConfig(...))``: per-request sampling on the
+  unified step, keyed by (seed, position) (``inference.sampling``);
+* ``submit(grammar=TokenDFA, grammar_prefix=...)``: grammar-constrained
+  decoding over one device arena of transition tables
+  (``inference.constrain``, ``grammar_states=`` at construction);
+* ``speculative=True``: each decoding row's round is ``[carry] + up to
+  spec_k`` drafted tokens (``inference.speculative``), verified by one
+  ragged step with logits at every candidate, with lossless rejection
+  sampling for sampled rows and the paged pool rolled back per row on
+  rejection (``mgr.truncate_pages``).
+
+The sampling epilogue is built lazily: until the first sampled or
+constrained request the programs end in the argmax; that request
+rebuilds them once with the full epilogue (a counted miss), and it stays
+on.
 
 Each pipeline runs its steps as the JAX engine's compiled programs, one
 per fixed shape (``inference.graphs.Program``): the unified step
-(``cbe.unified_step``, keyed by slots, chunk, step tokens and table
-width), the legacy decode chunk (``cbe.decode_chunk``, slots and chunk)
-and the legacy prefill waves (``cbe.prefill``, one per ``(bucket,
-b_pad)`` or ``("sfx", bucket, b_pad)``). On the card each is a CUDA
+(``cbe.unified_step``), the speculative step (``cbe.spec_step``), the
+legacy decode chunk (``cbe.decode_chunk``) and the legacy prefill waves
+(``cbe.prefill``, one per ``(bucket, b_pad)`` or ``("sfx", bucket,
+b_pad)``), keyed as the JAX engine keys them. On the card each is a CUDA
 graph captured at its first use and replayed after; on the CPU its body
 runs eagerly over the same buffers. Every build is a counted miss
 (``compile_misses``), as ``recompiles.record_miss`` counts the JAX
@@ -35,11 +58,11 @@ each request's uncached suffix; the page books are audited after every
 step. ``PagedGenerationEngine`` generates a ragged batch in one call
 (prefill, then decode steps) over the same model functions.
 
-Not in this slice (each raises ``NotImplementedError``): speculative
-decoding, the fused decode tail, multi-chip meshes, per-request
-sampling and grammar-constrained decoding. The observability taps
-(spans, memory ledger, recompile counter) come with the observability
-slice.
+Not in this slice (each raises ``NotImplementedError``): the fused
+decode tail and multi-chip meshes. The observability taps (spans,
+events, memory ledger, registry) come with the observability slice; the
+sampling and speculation counts are plain numbers on the engine
+(``sampling_counts``, ``spec``).
 """
 
 from __future__ import annotations
@@ -56,8 +79,12 @@ from ..kvcache import PrefixCache, RefcountedKVCacheManager
 from ..models import llama as L
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
+from . import constrain as _constrain
+from . import prng
+from . import sampling as _sampling
 from .graphs import GraphPool, Program, params_key
-from .sampling import greedy_rows
+from .sampling import SamplerConfig
+from .speculative import NgramDrafter, SpeculationTelemetry
 
 
 def token_checksum(tokens) -> int:
@@ -69,12 +96,14 @@ def token_checksum(tokens) -> int:
 
 @dataclass
 class GenerationConfig:
-    """Greedy generation settings; ``do_sample=True`` (and the sampling
-    knobs that go with it) comes with the sampling slice."""
     max_new_tokens: int = 32
+    temperature: float = 1.0
+    top_k: int = 0            # 0 = off
+    top_p: float = 1.0        # 1.0 = off
     do_sample: bool = False   # False = greedy
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
+    seed: int = 0
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -86,6 +115,38 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return b
 
 
+def _sample(logits, key, cfg: GenerationConfig):
+    """The engine-wide epilogue of the legacy programs and
+    ``PagedGenerationEngine`` (the JAX package's ``_sample``): greedy
+    argmax, or temperature -> top-k -> top-p and one categorical draw
+    over the whole (B, V) batch with the single key ``key``."""
+    logits = logits.float()
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    # a tensor divisor: a true division, never the reciprocal product
+    # CUDA takes for a host scalar
+    logits = logits / torch.full_like(logits[..., :1],
+                                      max(cfg.temperature, 1e-6))
+    if cfg.top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[..., -cfg.top_k][..., None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if cfg.top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(_sampling._softmax(sorted_l), dim=-1)
+        # keep the smallest set with cumulative prob >= top_p
+        cutoff_idx = (cum < cfg.top_p).sum(dim=-1, keepdim=True)
+        cutoff = sorted_l.gather(-1, cutoff_idx.clamp(
+            max=logits.shape[-1] - 1))
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return prng.categorical(key, logits).to(torch.int32)
+
+
+def _split(key):
+    """``key, sub = jax.random.split(key)``."""
+    ks = prng.split(key)
+    return ks[0], ks[1]
+
+
 def _last_logits(logits, seq_len):
     """(B, T, V) prefill logits -> (B, V) at each row's last real token."""
     rows = torch.arange(logits.shape[0], device=logits.device)
@@ -93,11 +154,12 @@ def _last_logits(logits, seq_len):
 
 
 class PagedGenerationEngine:
-    """Ragged-batch generation over the paged KV cache (greedy): prompts
-    of different lengths each own pages through a block table, decode
+    """Ragged-batch generation over the paged KV cache: prompts of
+    different lengths each own pages through a block table, decode
     positions advance per row, and generation starts from each row's own
     last prompt token. ``generate`` runs one prefill, then
-    ``max_new_tokens - 1`` decode steps."""
+    ``max_new_tokens - 1`` decode steps; with ``do_sample`` each draws
+    with the next key of the JAX engine's chain from ``key(seed)``."""
 
     def __init__(self, model_config: L.LlamaConfig,
                  generation_config: Optional[GenerationConfig] = None,
@@ -105,8 +167,6 @@ class PagedGenerationEngine:
                  device=None):
         self.model_config = model_config
         self.config = generation_config or GenerationConfig()
-        if self.config.do_sample:
-            raise _later("do_sample=True", "sampling")
         self.page_size = page_size
         self._num_pages = num_pages
         self.device = resolve_device(device)
@@ -137,14 +197,17 @@ class PagedGenerationEngine:
         logits, _, _ = L.prefill_paged(
             params, torch.from_numpy(ids).to(self.device), seq_lens,
             mgr.k_pages, mgr.v_pages, bt, mcfg)
-        tok = greedy_rows(_last_logits(logits, seq_lens))
+        key = prng.prng_key(cfg.seed, self.device)
+        key, sub = _split(key)
+        tok = _sample(_last_logits(logits, seq_lens), sub, cfg)
         toks = []
         for i in range(cfg.max_new_tokens - 1):
             lg, _, _ = L.decode_step_paged(params, tok, seq_lens + i,
                                            mgr.k_pages, mgr.v_pages, bt,
                                            mcfg)
             toks.append(tok)
-            tok = greedy_rows(lg)
+            key, sub = _split(key)
+            tok = _sample(lg, sub, cfg)
         toks.append(tok)
         return torch.stack(toks, dim=1).cpu().numpy()
 
@@ -155,14 +218,19 @@ class _Request:
     prompt: np.ndarray
     tokens: list = field(default_factory=list)
     max_new_tokens: Optional[int] = None  # None -> engine config default
+    sampler: Optional[SamplerConfig] = None   # None -> greedy row
+    grammar: Optional[_constrain.TokenDFA] = None  # None -> unconstrained
+    gstart: int = -1                      # arena GLOBAL start state
+    gstate_host: int = -1                 # host DFA mirror (LOCAL ids)
 
 
 class ContinuousBatchingEngine:
     """Fixed-slot continuous batching over the paged KV cache (module
-    docstring for the two pipelines).
+    docstring for the pipelines and the decoding options).
 
-    Service API: ``submit(prompt) -> rid``; ``step(params)`` runs one
-    admit + ``chunk`` rounds; ``collect()`` drains finished requests;
+    Service API: ``submit(prompt, sampler=, grammar=, grammar_prefix=)
+    -> rid``; ``step(params)`` runs one admit + ``chunk`` rounds (or one
+    speculative round); ``collect()`` drains finished requests;
     ``serve(params, prompts)`` streams a whole list through.
     ``device=None`` means the card (raises without one); the CPU runs
     only when asked for with ``device="cpu"``.
@@ -171,7 +239,10 @@ class ContinuousBatchingEngine:
     params as an argument and never rebuilds for new weights; a CUDA
     graph reads its weights at the addresses it captured, so here a
     program is rebuilt (a counted miss) when ``step()`` is given params
-    that are not the tensors it was built over.
+    that are not the tensors it was built over. The sampler rows, the
+    grammar states and the grammar arena are engine tensors the programs
+    read in place: admission writes them on the current stream before
+    the next replay.
     """
 
     def __init__(self, model_config: L.LlamaConfig,
@@ -181,16 +252,17 @@ class ContinuousBatchingEngine:
                  chunk: int = 16, step_tokens: Optional[int] = None,
                  device=None, *, prefix_cache: bool = False,
                  unified: bool = True, speculative: bool = False,
+                 spec_k: int = 4, drafter=None, grammar_states: int = 0,
                  fused_tail: bool = False, mesh=None):
-        if speculative:
-            raise _later("speculative=True", "speculative-decoding")
         if fused_tail:
             raise _later("fused_tail=True", "fusion")
         if mesh is not None:
             raise _later("mesh= (multi-chip serving)", "multi-chip")
+        if speculative and not unified:
+            raise ValueError(
+                "speculative decoding rides the unified ragged step; "
+                "construct with unified=True")
         self.config = generation_config or GenerationConfig()
-        if self.config.do_sample:
-            raise _later("do_sample=True", "sampling")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.num_slots = num_slots
@@ -215,6 +287,9 @@ class ContinuousBatchingEngine:
         else:
             self.mgr = PagedKVCacheManager(*geo, dtype=mcfg.dtype,
                                            device=self.device)
+        # the page books are audited after every step that can move them:
+        # with the cache, and with speculation (growth and rollback)
+        self._check_invariants = prefix_cache or speculative
         # packed token budget per micro-round (unified pipeline)
         self._step_tokens = max(step_tokens or
                                 max(num_slots, chunk, page_size), num_slots)
@@ -232,12 +307,56 @@ class ContinuousBatchingEngine:
         self._pos = np.zeros((num_slots,), np.int32)
         self._bt = np.zeros((num_slots, self._table_width), np.int32)
         self._pend: List[Optional[np.ndarray]] = [None] * num_slots
+        # the legacy programs' engine-wide key chain (``jax.random.key(
+        # seed)``, split on the host per prefill wave and decode chunk)
+        self._rng = prng.prng_key(self.config.seed)
+        # per-row sampling state (inference/sampling.py): (seeds, temps,
+        # top_k, top_p), written in place at admission; greedy defaults
+        self._samp_dev = _sampling.init_row_state(num_slots, self.device)
+        # per-row grammar DFA state; -1 = unconstrained (mask is a no-op)
+        self._gstate_dev = torch.full((num_slots,), -1, dtype=torch.int32,
+                                      device=self.device)
+        # the grammar arena has its one fixed shape from construction:
+        # the programs read it by address. grammar_states=0 keeps a
+        # 1-row placeholder (a constrained submit raises with the hint)
+        self._arena = _constrain.GrammarArena(
+            mcfg.vocab_size, capacity_states=max(1, int(grammar_states)),
+            device=self.device)
+        # lazy epilogue: argmax-only programs until the first sampled or
+        # constrained submit, which rebuilds them once (sticky)
+        self._epilogue_on = False
+        #: the JAX package's sampling registry families, as plain counts
+        self.sampling_counts = {
+            "paddle_sampling_requests_total": {"sampled": 0,
+                                               "constrained": 0},
+            "paddle_sampling_tokens_total": {"sampled": 0,
+                                             "constrained": 0},
+            "paddle_sampling_violations_total": 0,
+            "paddle_sampling_grammar_states": 0}
+        # speculative decoding (inference/speculative.py)
+        self._speculative = bool(speculative)
+        self.spec_k = int(spec_k)
+        self.spec: Optional[SpeculationTelemetry] = None
+        self.drafter = drafter
+        self._spec_step: Optional[Program] = None
+        if speculative:
+            self.drafter = drafter or NgramDrafter()
+            self.spec = SpeculationTelemetry()
+            # packed axis: every slot may speculate (1 carry + spec_k
+            # drafts) in the same round; prefill shares what is left
+            self._spec_tokens = max(self._step_tokens,
+                                    num_slots * (self.spec_k + 1))
+            # admission's page reservation per slot: rollback never
+            # truncates below it
+            self._reserved = np.zeros((num_slots,), np.int64)
         #: prompt tokens actually run through prefill (cache hits skip
         #: their cached prefix)
         self._prefill_tokens = 0
         #: unified micro-rounds dispatched (each runs every kernel of the
         #: ragged step)
         self.micro_rounds = 0
+        #: speculative rounds dispatched (one ragged step each)
+        self.spec_rounds = 0
         #: legacy prefill waves and decode steps run
         self.prefill_calls = 0
         self.decode_steps = 0
@@ -292,16 +411,31 @@ class ContinuousBatchingEngine:
             book[name] = book.get(name, 0.0) + sec
         return out
 
+    def _next_key(self) -> np.ndarray:
+        """``self._rng, sub = jax.random.split(self._rng)``: the key of
+        the next legacy program call."""
+        self._rng, sub = _split(self._rng)
+        return sub.numpy()
+
     def _build_unified_step(self, params) -> Program:
         """ONE program for every unified step: ``chunk`` micro-rounds of
         ``models.llama.ragged_step`` (the JAX engine's one ``lax.scan``).
         Decode slots take their row's carry token, prefill slots the
         host-fed prompt tokens; each round emits its INPUT carry, then
-        updates the carry of the rows that sampled. Shapes depend only on
-        (slots, chunk, step_tokens, table width). Returns the (K, R)
-        emitted tokens; the carry ``_tok_dev`` is updated in place."""
+        updates the carry (and grammar state) of the rows that sampled.
+        With the epilogue on, the grammar mask rides the model's logits
+        hook and ``sampling.sample_rows`` draws each row's token keyed
+        by the position it will occupy (this round's ``kv_lens``);
+        before, the tail is the argmax. Shapes depend only on (slots,
+        chunk, step_tokens, table width). Returns the (K, R) emitted
+        tokens; the carry ``_tok_dev`` and ``_gstate_dev`` are updated
+        in place."""
         K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
         mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
+        gcarry, samp, gtable = (self._gstate_dev, self._samp_dev,
+                                self._arena.table)
+        epilogue = self._epilogue_on
+        tail = _sampling.sample_rows if epilogue else _sampling.greedy_rows
         i32, b8 = torch.int32, torch.bool
         inputs = dict(ids=((K, tb), i32), use_carry=((K, tb), b8),
                       token_row=((K, tb), i32), positions=((K, tb), i32),
@@ -311,34 +445,50 @@ class ContinuousBatchingEngine:
 
         def run(ids, use_carry, token_row, positions, kv_lens, last_idx,
                 sample_mask, bt):
-            tok = carry
+            tok, gst = carry, gcarry
             emitted = []
             for k in range(K):
                 row_c = token_row[k].long().clamp(0, n_rows - 1)
                 ids_eff = torch.where(use_carry[k], tok[row_c], ids[k])
+                hook = ((lambda lg, g=gst: _constrain.mask_logits(
+                    lg.float(), g, gtable)) if epilogue else None)
                 logits, _, _ = L.ragged_step(
                     params, ids_eff, token_row[k], positions[k], kv_lens[k],
-                    last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg)
+                    last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg,
+                    logits_epilogue=hook)
+                nxt, ngst = tail(logits, kv_lens[k], samp, gst, gtable)
                 emitted.append(tok)
-                tok = torch.where(sample_mask[k], greedy_rows(logits), tok)
+                tok = torch.where(sample_mask[k], nxt, tok)
+                if epilogue:
+                    gst = torch.where(sample_mask[k], ngst, gst)
             out = torch.stack(emitted)
             carry.copy_(tok)
+            if epilogue:
+                gcarry.copy_(gst)
             return out
 
         return self._program(run, inputs, params)
 
+    def _key_input(self, inputs: dict) -> dict:
+        """The legacy programs' draw key, a (2,) input, with do_sample."""
+        if self.config.do_sample:
+            inputs["key"] = ((2,), torch.int64)
+        return inputs
+
     def _build_prefill(self, bucket: int, b_pad: int, params) -> Program:
         """A legacy prefill wave of ``b_pad`` rows padded to ``bucket``
-        tokens (``models.llama.prefill_paged``). Returns each row's greedy
-        first token."""
-        mgr, mcfg, i32 = self.mgr, self.model_config, torch.int32
-        inputs = dict(ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
-                      rows=((b_pad, self._table_width), i32))
+        tokens (``models.llama.prefill_paged``). Returns each row's first
+        token (``_sample`` of its last logits)."""
+        mgr, mcfg, i32, cfg = self.mgr, self.model_config, torch.int32, \
+            self.config
+        inputs = self._key_input(dict(
+            ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
+            rows=((b_pad, self._table_width), i32)))
 
-        def run(ids, lens, rows):
+        def run(ids, lens, rows, key=None):
             logits, _, _ = L.prefill_paged(params, ids, lens, mgr.k_pages,
                                            mgr.v_pages, rows, mcfg)
-            return greedy_rows(_last_logits(logits, lens))
+            return _sample(_last_logits(logits, lens), key, cfg)
 
         return self._program(run, inputs, params)
 
@@ -347,16 +497,18 @@ class ContinuousBatchingEngine:
         """The prefill of prefix-cache hits' UNCACHED SUFFIX only
         (``models.llama.prefill_paged_suffix``): each row's leading
         ``starts`` tokens are already resident in shared pages."""
-        mgr, mcfg, i32 = self.mgr, self.model_config, torch.int32
-        inputs = dict(ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
-                      starts=((b_pad,), i32),
-                      rows=((b_pad, self._table_width), i32))
+        mgr, mcfg, i32, cfg = self.mgr, self.model_config, torch.int32, \
+            self.config
+        inputs = self._key_input(dict(
+            ids=((b_pad, bucket), i32), lens=((b_pad,), i32),
+            starts=((b_pad,), i32),
+            rows=((b_pad, self._table_width), i32)))
 
-        def run(ids, lens, starts, rows):
+        def run(ids, lens, starts, rows, key=None):
             logits, _, _ = L.prefill_paged_suffix(
                 params, ids, lens, starts, mgr.k_pages, mgr.v_pages, rows,
                 mcfg)
-            return greedy_rows(_last_logits(logits, lens))
+            return _sample(_last_logits(logits, lens), key, cfg)
 
         return self._program(run, inputs, params)
 
@@ -365,25 +517,72 @@ class ContinuousBatchingEngine:
         position 0 into page 0; finished rows run to the chunk's end and
         their extra tokens are dropped). Each step emits its INPUT token,
         so a chunk's output chains to the next and delivers each
-        admission's prefill token first. Returns (slots, chunk) tokens;
-        the carry ``_tok_dev`` is updated in place."""
-        K, n_rows = self.chunk, self.num_slots
+        admission's prefill token first; with do_sample each step splits
+        the chunk's key for its draw, on the device. Returns (slots,
+        chunk) tokens; the carry ``_tok_dev`` is updated in place."""
+        K, n_rows, cfg = self.chunk, self.num_slots, self.config
         mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
-        inputs = dict(pos=((n_rows,), torch.int32),
-                      bt=((n_rows, self._table_width), torch.int32))
+        inputs = self._key_input(dict(
+            pos=((n_rows,), torch.int32),
+            bt=((n_rows, self._table_width), torch.int32)))
 
-        def run(pos, bt):
+        def run(pos, bt, key=None):
             tok = carry
             emitted = []
             for _ in range(K):
                 logits, _, _ = L.decode_step_paged(
                     params, tok, pos, mgr.k_pages, mgr.v_pages, bt, mcfg)
                 emitted.append(tok)
-                tok = greedy_rows(logits)
+                sub = None
+                if key is not None:
+                    key, sub = _split(key)
+                tok = _sample(logits, sub, cfg)
                 pos = pos + 1
             out = torch.stack(emitted, dim=1)
             carry.copy_(tok)
             return out
+
+        return self._program(run, inputs, params)
+
+    def _build_spec_step(self, params) -> Program:
+        """ONE program for every speculative round: a single ragged step
+        whose logits are taken at EVERY packed candidate index
+        (``cand_idx``, the generalized ``last_idx``), then the verify
+        epilogue (``sampling.spec_sample_rows``, or its argmax-only twin
+        until the epilogue is on). A row's span ``[carry, d1..dk]`` is a
+        short prefill at consecutive positions under the kernel's
+        ``key_pos <= position`` rule, so candidate ``j``'s logits follow
+        the row's history plus ``span[0..j]``. Shapes depend only on
+        (spec tokens, slots·(k+1), table width). Returns (slots, k+2)
+        int32: each row's k+1 candidate tokens, then its accepted
+        count; only rows that commit a token (``sampled``) advance their
+        grammar state in place."""
+        T, n_rows, k1 = self._spec_tokens, self.num_slots, self.spec_k + 1
+        mgr, mcfg = self.mgr, self.model_config
+        gcarry, samp, gtable = (self._gstate_dev, self._samp_dev,
+                                self._arena.table)
+        tail = (_sampling.spec_sample_rows if self._epilogue_on
+                else _sampling.spec_greedy_rows)
+        i32 = torch.int32
+        inputs = dict(ids=((T,), i32), token_row=((T,), i32),
+                      positions=((T,), i32), kv_lens=((n_rows,), i32),
+                      cand_idx=((n_rows * k1,), i32),
+                      drafts=((n_rows, max(self.spec_k, 1)), i32),
+                      draft_len=((n_rows,), i32),
+                      sampled=((n_rows,), torch.bool),
+                      bt=((n_rows, self._table_width), i32))
+
+        def run(ids, token_row, positions, kv_lens, cand_idx, drafts,
+                draft_len, sampled, bt):
+            logits, _, _ = L.ragged_step(
+                params, ids, token_row, positions, kv_lens, cand_idx,
+                mgr.k_pages, mgr.v_pages, bt, mcfg)
+            lg = logits.reshape(n_rows, k1, -1)
+            pos_base = positions[cand_idx.reshape(n_rows, k1)[:, 0].long()]
+            toks, accepted, ngst = tail(lg, drafts, draft_len, pos_base,
+                                        samp, gcarry, gtable)
+            gcarry.copy_(torch.where(sampled, ngst, gcarry))
+            return torch.cat([toks, accepted[:, None]], dim=1)
 
         return self._program(run, inputs, params)
 
@@ -395,12 +594,15 @@ class ContinuousBatchingEngine:
                 else self.config.max_new_tokens)
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               sampler=None, grammar=None, grammar_prefix=None) -> int:
-        """Queue a greedy request; returns its id."""
-        if sampler is not None:
-            raise _later("sampler= (per-request sampling)", "sampling")
-        if grammar is not None or grammar_prefix is not None:
-            raise _later("grammar= (constrained decoding)", "sampling")
+               sampler: Optional[SamplerConfig] = None, grammar=None,
+               grammar_prefix=None) -> int:
+        """Queue a request; returns its id. ``sampler`` carries the
+        per-request temperature/top-k/top-p/seed (None: a sampler from the
+        engine's ``GenerationConfig`` when ``do_sample``, else greedy);
+        ``grammar`` is a ``constrain.TokenDFA`` constraining every
+        generated token; ``grammar_prefix`` advances its automaton through
+        tokens the request already generated elsewhere. Both ride the
+        unified step's epilogue."""
         budget = (max_new_tokens if max_new_tokens is not None
                   else self.config.max_new_tokens)
         prompt = np.asarray(prompt, np.int32)
@@ -411,10 +613,53 @@ class ContinuousBatchingEngine:
                 f"max_seq_len={self.max_seq_len}; raise max_seq_len or "
                 "truncate the prompt (silent page clamping would corrupt "
                 "the sequence's KV)")
+        if (sampler is not None or grammar is not None) \
+                and not self._unified:
+            raise ValueError(
+                "per-request sampling / constrained decoding ride the "
+                "unified ragged step's in-program epilogue; construct "
+                "the engine with unified=True (legacy unified=False "
+                "supports only the engine-wide GenerationConfig sampler)")
+        if sampler is None and self.config.do_sample and self._unified:
+            # engine-wide do_sample maps onto the per-request epilogue
+            sampler = SamplerConfig(temperature=self.config.temperature,
+                                    top_k=self.config.top_k,
+                                    top_p=self.config.top_p)
         rid = self._next_rid
         self._next_rid += 1
+        if sampler is not None:
+            sampler = sampler.resolved(
+                self.config.seed * 1000003 + 7919 * rid)
+        if (sampler is not None or grammar is not None) \
+                and not self._epilogue_on:
+            # the first sampled/constrained request: the programs are
+            # rebuilt once with the full epilogue (a counted miss)
+            self._epilogue_on = True
+            self._unified_step = None
+            self._spec_step = None
+        gstart, ghost = -1, -1
+        if grammar is not None:
+            # ValueError on vocab mismatch / arena overflow, at submit
+            gstart = self._arena.register(grammar)
+            ghost = grammar.start
+            for t in (grammar_prefix if grammar_prefix is not None
+                      else ()):
+                ghost = grammar.advance(ghost, int(t))
+                if ghost == _constrain.ILLEGAL:
+                    raise ValueError(
+                        f"grammar_prefix token {int(t)} is illegal in "
+                        f"grammar {grammar.pattern!r} — the resumed "
+                        "stream cannot have produced it")
+        counts = self.sampling_counts
+        counts["paddle_sampling_grammar_states"] = self._arena.used
+        if grammar is not None:
+            counts["paddle_sampling_requests_total"]["constrained"] += 1
+        elif sampler is not None and sampler.temperature > 0:
+            counts["paddle_sampling_requests_total"]["sampled"] += 1
         self._queue.append(_Request(rid, prompt,
-                                    max_new_tokens=max_new_tokens))
+                                    max_new_tokens=max_new_tokens,
+                                    sampler=sampler, grammar=grammar,
+                                    gstart=gstart, gstate_host=ghost))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -527,6 +772,11 @@ class ContinuousBatchingEngine:
                 # end <= kept length)
                 toks = ([int(t) for t in req.prompt]
                         + [int(t) for t in out])
+                if self._speculative and out:
+                    # the last delivered token may be the verify bonus,
+                    # committed but never fed back (its K/V slot never
+                    # written): index one token short
+                    toks = toks[:-1]
                 self.cache.insert(toks, self.mgr.sequence_pages(rid))
         self.mgr.free(rid)
         self._slot_rid[s] = None
@@ -537,10 +787,26 @@ class ContinuousBatchingEngine:
     def _deliver_tokens(self, s: int, tokens) -> bool:
         """Append one slot's emitted tokens to its request (up to its
         budget or EOS) and retire the slot when the request completes.
-        Returns True while the slot keeps decoding."""
+        A constrained request's host mirror walks its automaton per
+        token (an illegal token is counted in
+        ``paddle_sampling_violations_total``; the device mask makes it
+        never expected). Returns True while the slot keeps decoding."""
         req = self._live[self._slot_rid[s]]
+        counts = self.sampling_counts
+        mode = ("constrained" if req.grammar is not None else
+                "sampled" if (req.sampler is not None
+                              and req.sampler.temperature > 0) else None)
         for t in tokens:
-            req.tokens.append(int(t))
+            t = int(t)
+            if req.grammar is not None:
+                if req.grammar.legal(req.gstate_host, t):
+                    req.gstate_host = req.grammar.advance(
+                        req.gstate_host, t)
+                else:
+                    counts["paddle_sampling_violations_total"] += 1
+            if mode is not None:
+                counts["paddle_sampling_tokens_total"][mode] += 1
+            req.tokens.append(t)
             if self._complete(req):
                 self._retire(s)
                 return False
@@ -549,17 +815,46 @@ class ContinuousBatchingEngine:
     def step(self, params) -> int:
         """One admit + decode round (ONE device->host copy: the step's
         emitted tokens). Returns the live count after the round. With
-        the prefix cache, the page books are audited after every round
-        (every page is free, live or cached: the anchor of the
-        shared-ownership model)."""
-        if self._unified:
+        the prefix cache or speculation, the page books are audited
+        after every round (every page is free, live or cached: the
+        anchor of the shared-ownership model)."""
+        if self._speculative:
+            n = self._step_spec(params)
+        elif self._unified:
             n = self._step_unified(params)
         else:
             n = self._step_legacy(params)
-        if self.cache is not None:
+        if self._check_invariants:
             self.mgr.check_conservation()
+        if self.cache is not None:
             self.cache.update_gauges()
         return n
+
+    def _set_row_sampler(self, s: int, req: _Request) -> None:
+        """Write an admitted request's sampler and grammar state into the
+        slot's device rows, in place. Always runs: a greedy request
+        resets the slot, so reuse never inherits a retired row's
+        temperature or grammar state."""
+        _sampling.set_row(self._samp_dev, s, req.sampler)
+        g = -1
+        if req.grammar is not None:
+            # arena rows are the grammar's block rebased by its offset
+            g = req.gstart - req.grammar.start + req.gstate_host
+        self._gstate_dev[s] = g
+
+    def _admit_rows(self):
+        """Unified/speculative admission: host bookkeeping only (a warm or
+        COW row is a row whose first position is its cached length)."""
+        for s, req, pages, lp, n_cached in self._admit_pick():
+            self._slot_rid[s] = req.rid
+            self._live[req.rid] = req
+            self._pos[s] = n_cached           # next position to write
+            self._bt[s] = 0
+            self._bt[s, :len(pages)] = pages
+            self._pend[s] = np.asarray(req.prompt[n_cached:], np.int32)
+            if self._speculative:
+                self._reserved[s] = len(pages)
+            self._set_row_sampler(s, req)
 
     # -- the unified ragged step ---------------------------------------------
 
@@ -633,19 +928,14 @@ class ContinuousBatchingEngine:
         length); the round uploads its plan once, runs the unified
         program's ``chunk`` micro-rounds on the device, and copies the
         emitted tokens back once."""
-        for s, req, pages, lp, n_cached in self._admit_pick():
-            self._slot_rid[s] = req.rid
-            self._live[req.rid] = req
-            self._pos[s] = n_cached           # next position to write
-            self._bt[s] = 0
-            self._bt[s, :len(pages)] = pages
-            self._pend[s] = np.asarray(req.prompt[n_cached:], np.int32)
+        self._admit_rows()
         if not self._live:
             return 0
         self._unified_step = prog = self._fetch(
             self._unified_step, "cbe.unified_step",
             (self.num_slots, self.chunk, self._step_tokens,
-             self._table_width), self._build_unified_step, params)
+             self._table_width, False, 1, self._epilogue_on),
+            self._build_unified_step, params)
         emit, fed = self._plan_step(prog.host)
         prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
@@ -696,6 +986,8 @@ class ContinuousBatchingEngine:
             host["lens"].fill(1)                 # pad rows: 1 garbage tok
             if warm:
                 host["starts"].fill(0)
+            if cfg.do_sample:
+                host["key"][:] = self._next_key()
             for i, (s, req, pages, lp, nc) in enumerate(items):
                 host["ids"][i, :lp - nc] = req.prompt[nc:]
                 host["rows"][i, :len(pages)] = pages
@@ -723,6 +1015,8 @@ class ContinuousBatchingEngine:
             (self.num_slots, self.chunk), self._build_decode_chunk, params)
         prog.host["pos"][:] = self._pos
         prog.host["bt"][:] = self._bt
+        if self.config.do_sample:
+            prog.host["key"][:] = self._next_key()
         toks = self._run("cbe.decode_chunk", prog).cpu().numpy()  # the fence
         self.decode_steps += self.chunk
         for s in range(self.num_slots):
@@ -730,6 +1024,160 @@ class ContinuousBatchingEngine:
                 continue
             if self._deliver_tokens(s, toks[s]):
                 self._pos[s] += self.chunk
+        return len(self._live)
+
+
+    # -- speculative decoding (draft + verify in ONE ragged dispatch) --------
+
+    def _plan_spec(self, plan: Dict[str, np.ndarray]):
+        """Host layout of one speculative round, written into ``plan``
+        (the spec program's host inputs). Every decoding row claims a
+        span ``[carry] + up to spec_k drafted tokens``; its page table
+        grows to cover the span (``mgr.grow_to``), and pool pressure or
+        the block-table span shrink the draft, never fail the round.
+        Constrained rows never draft. Prefill rows share the rest of the
+        packed budget as in one micro-round of ``_plan_step``. Returns
+        the per-slot verify plan and the prefill tokens fed per slot."""
+        n_rows, k1 = self.num_slots, self.spec_k + 1
+        cap_tokens = self._table_width * self.page_size
+        for name, fill in (("ids", 0), ("token_row", -1), ("positions", 0),
+                           ("kv_lens", 0), ("cand_idx", 0), ("drafts", 0),
+                           ("draft_len", 0), ("sampled", False)):
+            plan[name].fill(fill)
+        ids, token_row, positions, kv_lens, cand_idx = (
+            plan[n] for n in ("ids", "token_row", "positions", "kv_lens",
+                              "cand_idx"))
+        drafts, draft_len, sampled = (plan[n] for n in ("drafts",
+                                                        "draft_len",
+                                                        "sampled"))
+        info: Dict[int, tuple] = {}
+        fed = [0] * n_rows
+        live = [s for s in range(n_rows) if self._slot_rid[s] is not None]
+        spans: Dict[int, tuple] = {}
+        for s in live:
+            if self._pend[s] is not None:
+                continue                      # prefilling: planned below
+            rid = self._slot_rid[s]
+            req = self._live[rid]
+            # committed history (prompt + delivered tokens; the last
+            # delivered token IS the carry whose K/V this round writes)
+            history = [int(t) for t in req.prompt] + req.tokens
+            if req.grammar is not None:
+                # candidates past the carry would be checked against
+                # un-advanced grammar states: one candidate a round
+                draft = []
+            else:
+                draft = [int(t) for t in
+                         self.drafter.draft(history, self.spec_k)]
+            pos0 = int(self._pos[s])
+            # clamp to the remaining budget (a round commits at most
+            # len(draft) + 1 tokens) and to the row's block-table span
+            rem = self._budget(req) - len(req.tokens)
+            draft = draft[:max(0, min(self.spec_k, rem - 1,
+                                      cap_tokens - 1 - pos0))]
+            while True:
+                try:
+                    self.mgr.grow_to(rid, pos0 + len(draft) + 1)
+                    break
+                except MemoryError:
+                    draft.pop()
+            tbl = self.mgr.sequence_pages(rid)
+            self._bt[s] = 0
+            self._bt[s, :len(tbl)] = tbl
+            spans[s] = (pos0, [history[-1]] + draft, draft)
+            drafts[s, :len(draft)] = draft
+            draft_len[s] = len(draft)
+        budget = len(ids) - sum(1 + len(d) for _, _, d in spans.values())
+        cursor = 0
+        for s in live:
+            if s in spans:                    # decode: speculative span
+                pos0, span, draft = spans[s]
+                n = len(span)
+                ids[cursor:cursor + n] = span
+                token_row[cursor:cursor + n] = s
+                positions[cursor:cursor + n] = pos0 + np.arange(n)
+                kv_lens[s] = pos0 + n
+                cand_idx[s * k1:s * k1 + n] = cursor + np.arange(n)
+                info[s] = ("spec", pos0, draft)
+                sampled[s] = True
+                cursor += n
+            else:                             # prefilling
+                rem = len(self._pend[s])
+                n = min(rem, budget)
+                if n == 0:
+                    continue                  # starved this round
+                pos0 = int(self._pos[s])
+                ids[cursor:cursor + n] = self._pend[s][:n]
+                token_row[cursor:cursor + n] = s
+                positions[cursor:cursor + n] = pos0 + np.arange(n)
+                kv_lens[s] = pos0 + n
+                budget -= n
+                fed[s] = n
+                self._pos[s] = pos0 + n
+                if n == rem:
+                    # prompt complete: this round's last logits are the
+                    # row's first sample
+                    cand_idx[s * k1] = cursor + n - 1
+                    info[s] = ("first_sample",)
+                    sampled[s] = True
+                    self._pend[s] = None
+                else:
+                    self._pend[s] = self._pend[s][n:]
+                cursor += n
+        return info, fed
+
+    def _verify_spec(self, toks, info, accepted) -> None:
+        """Host commit of one round: deliver each row's accepted drafted
+        prefix plus the epilogue's token at the first rejected lane (the
+        argmax, or the residual / bonus draw), roll the paged KV back on
+        a rejection (never below the admission reservation), and deliver
+        through ``_deliver_tokens`` (budget, EOS, retire)."""
+        for s in sorted(info):
+            rid = self._slot_rid[s]
+            if rid is None:
+                continue
+            entry = info[s]
+            if entry[0] == "first_sample":
+                self._deliver_tokens(s, [int(toks[s, 0])])
+                continue
+            _, pos0, draft = entry
+            a = min(int(accepted[s]), len(draft))
+            committed = pos0 + a + 1        # carry + accepted drafts
+            self.spec.note_verify(len(draft), a)
+            if a < len(draft):
+                # a page that exists only for rejected positions is
+                # stranded: free it now
+                keep = max(self.mgr.pages_for(committed),
+                           int(self._reserved[s]))
+                freed = self.mgr.truncate_pages(rid, keep)
+                tbl = self.mgr.sequence_pages(rid)
+                self._bt[s] = 0
+                self._bt[s, :len(tbl)] = tbl
+                self.spec.note_rollback(len(freed))
+            self._pos[s] = committed
+            self.mgr._lens[rid] = committed
+            self._deliver_tokens(
+                s, [int(t) for t in draft[:a]] + [int(toks[s, a])])
+
+    def _step_spec(self, params) -> int:
+        """One speculative round: host admission, drafting and page
+        growth, ONE dispatch whose epilogue verifies every row's draft,
+        host commit and rollback. The one device->host copy is the
+        (slots, k+2) candidate tokens and accepted counts."""
+        self._admit_rows()
+        if not self._live:
+            return 0
+        self._spec_step = prog = self._fetch(
+            self._spec_step, "cbe.spec_step",
+            (self.num_slots, self._spec_tokens, self.spec_k,
+             self._table_width, False, 1, self._epilogue_on),
+            self._build_spec_step, params)
+        info, fed = self._plan_spec(prog.host)
+        prog.host["bt"][:] = self._bt
+        self._prefill_tokens += sum(fed)
+        out = self._run("cbe.spec_step", prog).cpu().numpy()   # the fence
+        self.spec_rounds += 1
+        self._verify_spec(out[:, :-1], info, out[:, -1])
         return len(self._live)
 
     # -- results -------------------------------------------------------------

@@ -29,10 +29,10 @@ mid-page), the cache layer copies the page on the device and the
 sequence appends into its private copy; the original stays immutable
 for other sharers.
 
-Not in this slice: the speculative tail (``grow_to``,
-``truncate_pages``) comes with speculative decoding, and the migration
+The speculative tail (``grow_to``, ``truncate_pages``) takes and
+returns pages under shared ownership. Not in this slice: the migration
 surface (``take_free_pages``, ``give_back_pages``, ``export_page``,
-``write_page``) with multi-host serving.
+``write_page``), which comes with multi-host serving.
 """
 
 from __future__ import annotations
@@ -105,6 +105,39 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
             else:
                 self._refs[p] = r
         self._lens.pop(seq_id)
+
+    def grow_to(self, seq_id, n_tokens: int) -> List[int]:
+        """Speculative tail growth: appended pages come fresh from the
+        free list at refcount 1 (a drafted span is written exclusively;
+        sharing happens only at admission and through the radix tree).
+        Committed length untouched; see the base class."""
+        added = super().grow_to(seq_id, n_tokens)
+        for p in added:
+            self._refs[p] = self._refs.get(p, 0) + 1
+        return added
+
+    def truncate_pages(self, seq_id, keep_pages: int) -> List[int]:
+        """Speculative rollback: each stranded page is dereferenced and
+        returns to the free list only at refcount 0 and only if the radix
+        tree does not cache it (the release rule of :meth:`free`).
+        Returns the pages actually freed."""
+        table = self._tables[seq_id]
+        freed: List[int] = []
+        while len(table) > keep_pages:
+            p = table.pop()
+            r = self._refs.get(p, 0) - 1
+            if r < 0:
+                raise RuntimeError(f"page {p} refcount went negative")
+            if r == 0:
+                self._refs.pop(p)
+                if p not in self._cached:
+                    self._free.append(p)
+                    freed.append(p)
+            else:
+                self._refs[p] = r
+        if self._lens.get(seq_id, 0) > keep_pages * self.page_size:
+            self._lens[seq_id] = keep_pages * self.page_size
+        return freed
 
     # -- cache-side hooks (PrefixCache / eviction policy only) ---------------
 

@@ -170,7 +170,8 @@ def _check_dense(params) -> None:
 
 @torch.no_grad()
 def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
-                k_pages, v_pages, block_tables, config: LlamaConfig):
+                k_pages, v_pages, block_tables, config: LlamaConfig,
+                logits_epilogue=None):
     """One forward over a RAGGED packed token batch — the unified model
     step behind the engine's serving loop (``llama.ragged_step``).
 
@@ -184,8 +185,12 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     token_row: (T,) int32 owning row per token; -1 = pad slot
     positions: (T,) int32 absolute KV position per token
     kv_lens:   (R,) int32 per-row attendable span this call (0 = idle)
-    last_idx:  (C,) int flat token indices to take logits at
+    last_idx:  (C,) int flat token indices to take logits at: one per
+               row (each row's last token) for the unified engine, one
+               per candidate (C == R * (k+1)) for the speculative one
     k_pages/v_pages: (L, P, page, nkv, d); block_tables: (R, max_pages)
+    logits_epilogue: optional hook over the (C, V) logits, applied last
+               (the engine's grammar mask, before any sampling)
     Returns (logits (C, V), k_pages, v_pages).
 
     The port updates the pools IN PLACE (the returned pools are the
@@ -242,6 +247,8 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     # lm_head over ONLY the requested rows: (C, h) @ (h, V)
     h_last = x[0][last_idx.long()]
     logits = h_last @ params["lm_head"]
+    if logits_epilogue is not None:
+        logits = logits_epilogue(logits)
     return logits, k_pages, v_pages
 
 

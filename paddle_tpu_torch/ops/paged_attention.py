@@ -687,6 +687,42 @@ class PagedKVCacheManager:
         """The sequence's block table in token order (a copy)."""
         return list(self._tables.get(seq_id, ()))
 
+    # -- speculative tail growth / rollback ----------------------------------
+
+    def grow_to(self, seq_id, n_tokens: int) -> List[int]:
+        """Make the sequence's block table cover ``n_tokens`` without
+        committing them: drafted tokens write past the committed length,
+        so their pages must exist before the step while the committed
+        length stays put until the draft is verified. Raises
+        ``MemoryError`` (table untouched) when the pool cannot cover the
+        span; callers shrink the draft. Returns the pages added."""
+        need = self.pages_for(n_tokens) - len(self._tables[seq_id])
+        if need <= 0:
+            return []
+        if len(self._free) < need:
+            raise MemoryError(
+                f"KV pool exhausted on speculative grow: need {need} "
+                f"pages, {len(self._free)} free")
+        added = [self._free.pop() for _ in range(need)]
+        self._tables[seq_id].extend(added)
+        return added
+
+    def truncate_pages(self, seq_id, keep_pages: int) -> List[int]:
+        """Roll the sequence's pages back to its first ``keep_pages``: a
+        page that holds only rejected draft tokens returns to the pool
+        (stale K/V inside kept pages is overwritten before anything
+        attends to it). The committed length is clamped into the kept
+        span. Returns the pages freed."""
+        table = self._tables[seq_id]
+        freed: List[int] = []
+        while len(table) > keep_pages:
+            p = table.pop()
+            self._free.append(p)
+            freed.append(p)
+        if self._lens.get(seq_id, 0) > keep_pages * self.page_size:
+            self._lens[seq_id] = keep_pages * self.page_size
+        return freed
+
     def check_conservation(self) -> None:
         """Exclusive-ownership audit: every usable page is either free or
         owned by exactly one sequence exactly once, the two sets are

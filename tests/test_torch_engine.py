@@ -146,23 +146,52 @@ def test_submit_and_admission_limits():
 # options of the JAX engine that later slices port: refused, not emulated
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs", [
-    dict(speculative=True), dict(fused_tail=True), dict(mesh=object()),
-    dict(generation_config=TD.GenerationConfig(do_sample=True))],
+@pytest.mark.parametrize("kwargs,ported", [
+    (dict(speculative=True), True), (dict(fused_tail=True), False),
+    (dict(mesh=object()), False),
+    (dict(generation_config=TD.GenerationConfig(do_sample=True)), True)],
     ids=["speculative", "fused_tail", "mesh", "do_sample"])
-def test_unported_engine_options_raise(kwargs):
+def test_unported_engine_options_raise(kwargs, ported):
+    """``fused_tail`` and ``mesh`` come with later slices and raise;
+    speculative decoding and ``do_sample`` are ported (the sampling
+    slice) and construct (tests/test_torch_sampling.py and
+    tests/test_torch_speculative.py hold them to the JAX engine)."""
+    if ported:
+        eng = TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu",
+                                          **kwargs)
+        assert (eng.spec is not None) == bool(kwargs.get("speculative"))
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(sampler=object()),
-                                    dict(grammar=object()),
-                                    dict(grammar_prefix=[1])],
+def _abc_grammar():
+    from paddle_tpu_torch.inference.constrain import compile_regex
+    vocab = ["<eos>"] + list("abcde") + [f"tok{i}" for i in range(6, 256)]
+    return compile_regex("(ab|cd)*e", vocab, eos_token_id=0)
+
+
+@pytest.mark.parametrize("kwargs", [dict(sampler="seeded"),
+                                    dict(grammar="abc"),
+                                    dict(grammar="abc", grammar_prefix=[2])],
                          ids=["sampler", "grammar", "grammar_prefix"])
 def test_unported_submit_options_raise(kwargs):
-    eng = TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        eng.submit(np.ones(4, np.int32), **kwargs)
+    """Per-request samplers and grammars are ported and ride the unified
+    step: the legacy pipeline refuses them with the JAX engine's
+    ValueError, and a ``grammar_prefix`` the grammar cannot have produced
+    is refused at submit. Nothing is queued."""
+    from paddle_tpu_torch.inference.sampling import SamplerConfig
+    kw = dict(kwargs)
+    if "sampler" in kw:
+        kw["sampler"] = SamplerConfig(seed=1)
+    if "grammar" in kw:
+        kw["grammar"] = _abc_grammar()
+    unified = "grammar_prefix" in kw
+    eng = TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu",
+                                      unified=unified, grammar_states=8)
+    with pytest.raises(ValueError,
+                       match="illegal" if unified else "unified"):
+        eng.submit(np.ones(4, np.int32), **kw)
     assert not eng._queue
 
 

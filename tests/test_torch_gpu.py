@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each kernel against its
 plain PyTorch version at Llama-2-7B and BERT-large widths, the wrappers'
-argument checks, the serving engine, the Llama and ERNIE training steps
+argument checks, the serving engine (greedy, sampled, constrained and
+speculative), the Llama and ERNIE training steps
 and main-grad training of the imperative Llama on the card against the
 same on the CPU, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
 present. Run on the card (the machine there has no JAX, so skip the
@@ -18,7 +19,10 @@ import torch
 from paddle_tpu_torch.distributed.fleet import meta_optimizers as MO
 from paddle_tpu_torch.distributed.fleet.utils import (
     mix_precision_utils as MPU)
+from paddle_tpu_torch.inference import constrain as C
 from paddle_tpu_torch.inference import decoding as D
+from paddle_tpu_torch.inference.sampling import SamplerConfig
+from paddle_tpu_torch.inference.speculative import Drafter
 from paddle_tpu_torch.models import ernie as E
 from paddle_tpu_torch.models import llama as L
 from paddle_tpu_torch.ops import _common
@@ -524,6 +528,158 @@ def test_paged_generation_engine_on_card_matches_cpu(cuda):
             {k: t.to(dev) for k, t in params.items()}, prompts)
         for dev in (cuda, "cpu")]
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# sampling slice: sampled, constrained and speculative serves
+# ---------------------------------------------------------------------------
+
+def _sampling_kinds(vocab_size):
+    """Greedy, sampled (temperature / top-k / top-p), constrained
+    (sampled under ``(ab|cd)*e``) and near-greedy sampled requests."""
+    vocab = (["<eos>"] + list("abcde")
+             + [f"tok{i}" for i in range(6, vocab_size)])
+    gram = C.compile_regex("(ab|cd)*e", vocab, eos_token_id=0)
+    kinds = [dict(),
+             dict(sampler=SamplerConfig(temperature=0.9, top_k=20,
+                                        top_p=0.9, seed=3)),
+             dict(grammar=gram,
+                  sampler=SamplerConfig(temperature=1.0, seed=4)),
+             dict(sampler=SamplerConfig(temperature=0.05, seed=5))]
+    return gram, kinds
+
+
+def _serve_kinds(eng, params, prompts, subs):
+    rids = [eng.submit(p, **s) for p, s in zip(prompts, subs)]
+    out, steps = {}, 0
+    while len(out) < len(rids):
+        eng.step(params)
+        eng.mgr.check_conservation()
+        out.update(eng.collect())
+        steps += 1
+        assert steps < 500
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("speculative", [False, True])
+def test_sampled_constrained_serve_on_card_matches_cpu(cuda, speculative):
+    """A mixed greedy / sampled / constrained serve (speculative or not,
+    fp32, GQA): tokens through the CUDA graphs == the eager card run's ==
+    the CPU's; constrained streams legal; the programs built once, with
+    the sampling epilogue on from the first submit."""
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2)
+    params = L.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (4, 33, 18, 2, 32, 9, 21)]
+    gram, kinds = _sampling_kinds(cfg.vocab_size)
+    subs = [kinds[i % len(kinds)] for i in range(len(prompts))]
+    geo = dict(num_slots=3, page_size=16, max_seq_len=96, chunk=3,
+               grammar_states=gram.n_states, speculative=speculative,
+               spec_k=3)
+    outs = []
+    for dev, graphs in (("cpu", False), (cuda, True), (cuda, False)):
+        eng = D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=8), device=dev, **geo)
+        eng._graphs = graphs
+        outs.append(_serve_kinds(eng, {k: t.to(dev) for k, t in
+                                       params.items()}, prompts, subs))
+        name = "cbe.spec_step" if speculative else "cbe.unified_step"
+        assert [(n, k[-1]) for n, k in eng.compile_misses] == [(name, True)]
+        assert eng.sampling_counts["paddle_sampling_violations_total"] == 0
+    assert outs[1] == outs[2] == outs[0]
+    for i, toks in enumerate(outs[0]):
+        if "grammar" in subs[i]:
+            st = gram.start
+            for t in toks:
+                assert gram.legal(st, t)
+                st = gram.advance(st, t)
+
+
+@pytest.mark.parametrize("unified", [True, False])
+def test_do_sample_on_card_matches_cpu(cuda, unified):
+    """``GenerationConfig(do_sample=True)`` on the unified step (per-
+    request samplers), the legacy programs (the key chain split per
+    wave, chunk and step, on the card inside the graphs) and
+    ``PagedGenerationEngine``: card tokens == the CPU's."""
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=1, intermediate_size=512,
+                       num_hidden_layers=2)
+    params = L.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (3, 17, 40, 8)]
+    gen = D.GenerationConfig(max_new_tokens=7, do_sample=True,
+                             temperature=0.8, top_k=30, top_p=0.9, seed=6)
+    outs = []
+    for dev, graphs in (("cpu", False), (cuda, True), (cuda, False)):
+        eng = D.ContinuousBatchingEngine(cfg, gen, num_slots=2,
+                                         page_size=16, max_seq_len=64,
+                                         chunk=3, device=dev,
+                                         unified=unified)
+        eng._graphs = graphs
+        outs.append(eng.serve({k: t.to(dev) for k, t in params.items()},
+                              prompts))
+    assert outs[1] == outs[2] == outs[0]
+    gen_out = [D.PagedGenerationEngine(cfg, gen, page_size=16,
+                                       device=dev).generate(
+        {k: t.to(dev) for k, t in params.items()}, prompts)
+        for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(gen_out[0], gen_out[1])
+
+
+class _AlwaysDraft(Drafter):
+    """Drafts k tokens every round (the row's last token repeated)."""
+
+    def draft(self, history, k):
+        return [int(history[-1])] * k
+
+
+def test_spec_step_spans_take_the_tile_route(cuda):
+    """bf16 pools at page 16: a speculative round's ``[carry, d1..dk]``
+    spans are runs of k+1 tokens, which the ragged kernels walk as
+    multi-token wgmma tiles (``ragged_tiles`` over the round's plan,
+    ``route_launches["wgmma"]`` once per layer and round); the greedy
+    tokens through the graphs equal the eager card run's."""
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                       num_key_value_heads=4, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=3, device=cuda)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (12, 30, 7)]
+    outs = []
+    for graphs in (True, False):
+        eng = D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=40), num_slots=3,
+            page_size=16, max_seq_len=96, chunk=2, device=cuda,
+            speculative=True, spec_k=4, drafter=_AlwaysDraft())
+        eng._graphs = graphs
+        rids = [eng.submit(p) for p in prompts]
+        for _ in range(10):               # until every row decodes
+            if all(eng._pend[s] is None and eng._slot_rid[s] is not None
+                   for s in range(3)):
+                break
+            eng.step(params)
+        _common.add_launch_counts({k: -n for k, n in
+                                   _common.launch_counts().items()})
+        eng.step(params)                   # a decode round: 3 spans of 5
+        torch.cuda.synchronize()
+        op = pa.ragged_paged_attention
+        assert op.launches == 2 and op.route_launches["wgmma"] == 2
+        static = eng._spec_step.static
+        ts = pa.ragged_tile_size(torch.bfloat16, 16, 4, 4)
+        tiles = pa.ragged_tiles(static["token_row"], 3, ts).cpu().numpy()
+        starts, sizes = np.unique(tiles[tiles >= 0], return_counts=True)
+        assert len(starts) == 3 and (sizes == 5).all()
+        out = {}
+        while len(out) < len(rids):
+            eng.step(params)
+            out.update(eng.collect())
+        outs.append([out[r] for r in rids])
+    assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -201,6 +201,24 @@ def test_paged_generation_engine_matches_jax(max_new, page):
 
 
 def test_paged_generation_engine_refuses_sampling():
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        TD.PagedGenerationEngine(TL.llama_tiny(), TD.GenerationConfig(
-            do_sample=True), device="cpu")
+    """``do_sample`` is ported (the sampling slice): each draw takes the
+    next key of the JAX engine's ``jax.random.split`` chain from
+    ``key(seed)``, so the sampled tokens equal the JAX engine's."""
+    jcfg = JL.llama_tiny(num_hidden_layers=2)
+    cfg = TL.llama_tiny(num_hidden_layers=2)
+    jp = JL.init_stacked_params(jcfg, seed=9)
+    tp = TL.params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                              cfg, "cpu")
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 6, 5, 20)]
+    gen = dict(max_new_tokens=6, do_sample=True, temperature=0.8,
+               top_k=20, top_p=0.9, seed=11)
+    want = JPaged(jcfg, JGen(**gen), page_size=4).generate(jp, prompts)
+    got = TD.PagedGenerationEngine(cfg, TD.GenerationConfig(**gen),
+                                   page_size=4, device="cpu").generate(
+                                       tp, prompts)
+    np.testing.assert_array_equal(got, want)
+    greedy = TD.PagedGenerationEngine(cfg, TD.GenerationConfig(
+        max_new_tokens=6), page_size=4, device="cpu").generate(tp, prompts)
+    assert not np.array_equal(got, greedy)

@@ -85,8 +85,11 @@ def test_miss_record_matches_jax_engine(monkeypatch, kw):
                for (_, gk), (_, wk) in zip(got, want))
     names = {n for n, _ in got}
     if kw["unified"]:
+        # (slots, chunk, step tokens, table width, fused tail, chips,
+        # epilogue): the JAX key without its flags
         assert got == [("cbe.unified_step", (2, 3, teng._step_tokens,
-                                             teng._table_width))]
+                                             teng._table_width, False, 1,
+                                             False))]
     else:
         assert names == {"cbe.prefill", "cbe.decode_chunk"}
         assert got.count(("cbe.decode_chunk", (2, 3))) == 1
