@@ -18,12 +18,17 @@ directory). PHASE names a kernel phase of the smoke run:
     grad_add phase 17's weight-gradient kernel     (grad_add_phase)
     serve    phase 7's Llama-2-7B unified serve    (serve_7b_phase, twice:
              the first warms up, the second is reported)
+    spec     phase 21's speculative decode round at Llama-2-7B
+             (spec_round_breakdown on a speculative engine, k 4: the
+             n-gram drafter's round and full spans of k+1 tokens, after a
+             first full-span round that warms up)
 
-(default: all seven). Each turn runs in its own process from its own
+(default: all eight). Each turn runs in its own process from its own
 checkout, which builds its own kernels. The script prints one JSON line
 per turn, ``{"turn": i, "dir": ..., "phase": {case: ms, ...}}``, with
 each case's kernel time (``ms``; for ``serve`` the generated tokens/s,
 the mean step's wall ms, and each breakdown step's wall, device-busy and
+attention-kernel ms; for ``spec`` each round's wall, device-busy and
 attention-kernel ms), and the card's name and power limit.
 It needs a CUDA device and exits non-zero without one.
 """
@@ -45,6 +50,12 @@ PHASES = {
     # a first serve warms up the kernels and the engine; the second counts
     "serve": "(lambda c, w: [cs.serve_7b_phase(torch, L, D, rn, pa, c, w) "
              "for _ in range(2)][1])(*cs.init_7b(torch, L)[:2])",
+    "spec": "(lambda c, w: {name: cs.spec_round_breakdown("
+            "torch, pa, cs._serve_engine(D, c, step_tokens=256, "
+            "speculative=True, spec_k=4), w, c.vocab_size, dr) "
+            "for name, dr in (('warm', cs._FullSpanDrafter()), "
+            "('ngram', None), ('full_span', cs._FullSpanDrafter()))})"
+            "(*cs.init_7b(torch, L)[:2])",
 }
 
 # run inside the checkout: import its chip_smoke and its package
@@ -72,6 +83,13 @@ for name, call in json.loads(sys.argv[1]).items():
                else v["kernel_ms"]["ragged_paged_attention"]
                for step, v in report["breakdown"].items()
                for key in ("wall_ms", "device_busy_ms", "attention_ms")})
+        continue
+    if name == "spec":
+        out[name] = {
+            f"{case}_{key}": r[key] if key != "attention_ms"
+            else r["kernel_ms"]["ragged_paged_attention"]
+            for case, r in report.items() if case != "warm"
+            for key in ("round_wall_ms", "device_busy_ms", "attention_ms")}
         continue
     if "step_shape" in report:
         report = report["step_shape"]

@@ -18,9 +18,10 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    the training step's (8, 2048, 4096) too), in bf16 and fp32, with
    the kernel's time, the plain version's time, the least time the card
    could take (bound) and a one-call library yardstick where one exists;
-   the ragged kernels on a mixed, a prefill-only and a decode-only batch
-   (nkv 32 and 8), each on the routes the call takes (wgmma tiles and the
-   key split with its merge), with each single token walked by one block
+   the ragged kernels on a mixed, a prefill-only, a decode-only and a
+   lone-prompt-token batch (nkv 32 and 8) with the unified step's
+   ``decoding`` flags, each on the routes the call takes (wgmma tiles and
+   the key split with its merge), with each decoding token walked by one block
    (one chunk) and with every token forced through the key split, and
    their registers, spills, shared memory and wgmma/atomic instructions
    (fails if a 16-bit instantiation spills, the wgmma kernel issues no
@@ -39,8 +40,9 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
    versions), fp32, TF32 off — greedy tokens must be identical;
 6. the same for the legacy pipeline (``unified=False``) with the prefix
    cache off and on (a shared-prefix request and an exact repeat, which
-   copies a page on write) and for ``PagedGenerationEngine``, the page
-   books audited after every step;
+   copies a page on write) and for the generate engines
+   (``PagedGenerationEngine`` and ``llama_engine``, each one CUDA graph
+   a key), the page books audited after every step;
 7. the slice at full width: Llama-2-7B (32 layers, bf16, seeded random
    weights) served by ``ContinuousBatchingEngine`` — 12 requests of
    32-512 prompt tokens through 8 slots, 32 new tokens each — with
@@ -140,14 +142,25 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     sampled (temperature 0.8, top-k 50, top-p 0.95) and JSON-constrained
     requests, then greedy with ``speculative=True, spec_k=4`` three
     times: with the default n-gram drafter, with drafts taken from phase
-    7's greedy streams (which the spans' bf16 wgmma tiles part from at
-    near-ties), and with drafts taken from the second serve's streams
-    (the best case); each through the graphs and eagerly with identical
-    tokens,
-    launch counts checked; the sampled decode step's wall, device time
-    and idle share beside phase 7's greedy step, and a speculative decode
-    round's wall, idle share and tile sizes (the n-gram drafter's, and
-    full spans of k+1 tokens on the ragged kernels' wgmma tiles).
+    7's greedy streams, and with drafts taken from the second serve's
+    streams; each through the graphs and eagerly with identical tokens,
+    every serve's tokens equal to phase 7's greedy streams and every
+    stream draft accepted (fails otherwise), launch counts checked; the
+    sampled decode step's wall, device time and idle share beside phase
+    7's greedy step, and a speculative decode round's wall, idle share
+    and tile sizes (the n-gram drafter's, and full spans of k+1 tokens,
+    each span token a one-token tile on the key split);
+22. the generate engines on phase 7's weights (run after phase 21):
+    ``llama_engine`` at the reference's ``decode`` workload shape (8
+    prompts of 512 tokens, 128 new tokens; all 32 layers) through one
+    CUDA graph a key, with the prefill's and the whole generate's wall,
+    decode tokens/s, the decode step's device time by kind (matmul,
+    cached attention, RMSNorm, other), idle share and its HBM bound,
+    RMSNorm launches (2L+1 a step), builds, capture seconds, graph-pool,
+    peak and reserved memory, and tokens equal to the eager card run's;
+    then ``PagedGenerationEngine`` over phase 7's 12 prompts, 32 new
+    tokens, two calls of one key (one build), graphs against eager,
+    launch counts checked.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -167,7 +180,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 21
+N_PHASES = 22
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -288,24 +301,34 @@ def rms_norm_phase(torch, rn):
     return report
 
 
-#: the ragged batches of phase 3, as (first position, tokens) per row: the
-#: mixed step (five decode rows at different lengths, a cold and a warm
-#: prefill chunk, an idle row and pads), a prefill-only micro-round (a
-#: cold and a warm 128-token chunk) and a decode-only one (the 7B decode
-#: step's 8 rows, one token each, and 248 pads)
+#: the ragged batches of phase 3, as (first position, tokens, decoding)
+#: per row, flagged as the unified step flags them (a decode row's carry
+#: decodes, a prompt chunk's tokens do not): the mixed step (five decode
+#: rows at different lengths, a cold and a warm prefill chunk, an idle row
+#: and pads), a prefill-only micro-round (a cold and a warm 128-token
+#: chunk), a decode-only one (the 7B decode step's 8 rows, one token each,
+#: and 248 pads) and lone prompt tokens (one-token prompts and a chunk's
+#: last token cut off alone, each a one-token wgmma tile) beside decode
+#: tokens and a short chunk
 RAGGED_BATCHES = {
-    "mixed": [(999, 1), (732, 1), (516, 1), (300, 1), (94, 1), (0, 180),
-              (400, 60)],
-    "prefill": [(0, 128), (384, 128)],
-    "decode": [(0, 1), (15, 1), (16, 1), (999, 1), (516, 1), (300, 1),
-               (94, 1), (732, 1)],
+    "mixed": [(999, 1, True), (732, 1, True), (516, 1, True),
+              (300, 1, True), (94, 1, True), (0, 180, False),
+              (400, 60, False)],
+    "prefill": [(0, 128, False), (384, 128, False)],
+    "decode": [(0, 1, True), (15, 1, True), (16, 1, True), (999, 1, True),
+               (516, 1, True), (300, 1, True), (94, 1, True),
+               (732, 1, True)],
+    "lone_prompt": [(0, 1, False), (127, 1, False), (999, 1, True),
+                    (300, 1, True), (64, 1, False), (500, 40, False)],
 }
 
 
 def ragged_batch(torch, nkv, dtype, rows=RAGGED_BATCHES["mixed"], nh=32,
                  d=128, page=16, width=64, n_tokens=256):
     """A ragged batch at the 7B step's shapes: the rows' tokens packed in
-    order, one idle row, pads up to ``n_tokens``."""
+    order, one idle row, pads up to ``n_tokens``. Returns the kernel's
+    arguments, the ``decoding`` flags, the real tokens, and the bytes and
+    operations the batch needs."""
     rng = np.random.RandomState(SEED)
     n_rows = len(rows) + 1                        # + one idle row
     n_pages = n_rows * width + 1
@@ -314,14 +337,16 @@ def ragged_batch(torch, nkv, dtype, rows=RAGGED_BATCHES["mixed"], nh=32,
     kv_lens = np.zeros((n_rows,), np.int32)
     token_row = np.full((n_tokens,), -1, np.int32)
     positions = np.zeros((n_tokens,), np.int32)
+    decoding = np.zeros((n_tokens,), bool)
     cursor, used = 0, 0
-    for r, (p0, n) in enumerate(rows):
+    for r, (p0, n, dec) in enumerate(rows):
         kv_lens[r] = p0 + n
         npg = -(-int(kv_lens[r]) // page)
         bt[r, :npg] = perm[used:used + npg]
         used += npg
         token_row[cursor:cursor + n] = r
         positions[cursor:cursor + n] = p0 + np.arange(n)
+        decoding[cursor:cursor + n] = dec
         cursor += n
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     pool = (n_pages, page, nkv, d)
@@ -333,18 +358,20 @@ def ragged_batch(torch, nkv, dtype, rows=RAGGED_BATCHES["mixed"], nh=32,
             for a in (bt, token_row, positions, kv_lens)]
     # work this batch needs: each row's keys 0..max position, read once
     real = token_row >= 0
-    keys = sum(p0 + n for p0, n in rows)
+    keys = sum(p0 + n for p0, n, _ in rows)
     isz = k.element_size()
     nbytes = (2 * q.numel() * isz + 2 * keys * nkv * d * isz
               + sum(a.numel() * 4 for a in meta))
     ops = 4 * int((positions[real] + 1).sum()) * nh * d
-    return (q, k, v, *meta), real, nbytes, ops
+    return ((q, k, v, *meta), torch.from_numpy(decoding).cuda(), real,
+            nbytes, ops)
 
 
 def attention_phase(torch, pa):
-    """The ragged kernels against their plain version on the three
-    batches of ``RAGGED_BATCHES`` (nkv 32 and 8; bf16, and fp32 for the
-    mixed batch), pads exactly 0, with the routes the call takes, the key
+    """The ragged kernels against their plain version on the four
+    batches of ``RAGGED_BATCHES`` with the unified step's ``decoding``
+    flags (nkv 32 and 8; bf16, and fp32 for the mixed batch), pads
+    exactly 0, with the routes the call takes, the key
     split's chunk (decode_split) and the time of each: ``ms`` the call's
     own kernels (wgmma tiles + key split + merge, or the key split and
     merge alone) and each kernel's profiled device ms, ``one_chunk_ms``
@@ -364,9 +391,10 @@ def attention_phase(torch, pa):
     for batch, nkv, kind in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         rtol, atol = (2e-2, 2e-2) if kind == "bf16" else (1e-4, 1e-5)
-        args, real, nbytes, ops = ragged_batch(torch, nkv, dt,
-                                               RAGGED_BATCHES[batch])
-        want = pa.ragged_paged_attention_plain(*args)
+        args, dec, real, nbytes, ops = ragged_batch(torch, nkv, dt,
+                                                    RAGGED_BATCHES[batch])
+        args = (*args, dec)
+        want = pa.ragged_paged_attention_plain(*args[:-1])
         errs = {}
         for route in (None, "key_split"):
             got = pa.ragged_paged_attention_kernel(*args, route=route)
@@ -405,10 +433,10 @@ def attention_phase(torch, pa):
             eager_ms=eager_ms(torch, lambda: pa.
                               ragged_paged_attention_kernel(*args)),
             plain_ms=device_ms(torch, lambda: pa.
-                               ragged_paged_attention_plain(*args),
+                               ragged_paged_attention_plain(*args[:-1]),
                                iters=2, replays=2),
             bound_ms=bms, bound_by=by, library_ms=None)
-        del args, want
+        del args, dec, want
         torch.cuda.empty_cache()
     report["resources"] = _cuda_resources(
         "ragged_paged_attention", wgmma=("ragged_tiles_kernel",),
@@ -459,7 +487,8 @@ def decode_batch(torch, nkv, dtype, nh=32, d=128, page=16, width=64):
     lengths 1, a page edge (16, 17), ~1000 and a spread, and one empty
     row (seq_len 0, which must come out exactly 0). Returns the kernel's
     arguments, the same batch in the ragged kernel's form (one token per
-    row at position seq_len - 1; the empty row a pad slot), the bytes the
+    row at position seq_len - 1, flagged decoding; the empty row a pad
+    slot), the bytes the
     batch needs and the operations it does."""
     seq_lens = np.array([1, 16, 17, 1000, 0, 517, 301, 95], np.int32)
     b = len(seq_lens)
@@ -481,7 +510,7 @@ def decode_batch(torch, nkv, dtype, nh=32, d=128, page=16, width=64):
     real = seq_lens > 0
     ragged_meta = [torch.from_numpy(a).cuda() for a in (
         np.where(real, np.arange(b), -1).astype(np.int32),
-        np.maximum(seq_lens - 1, 0).astype(np.int32), seq_lens)]
+        np.maximum(seq_lens - 1, 0).astype(np.int32), seq_lens, real)]
     isz = k.element_size()
     keys = int(seq_lens.sum())
     nbytes = (2 * q.numel() * isz + 2 * keys * nkv * d * isz
@@ -633,9 +662,10 @@ def legacy_parity_phase(torch, L, D):
     (``unified=False``), with the prefix cache off and on (a request
     sharing two pages of an earlier prompt, and an exact repeat of a
     whole-page prompt, which copies its last page), and through
-    ``PagedGenerationEngine``: greedy tokens on the card (kernels) equal
-    the CPU's (plain versions), fp32, TF32 off; the page books are
-    audited after every step."""
+    ``PagedGenerationEngine`` and ``llama_engine`` (each one CUDA graph a
+    key): greedy tokens on the card (kernels) equal the CPU's (plain
+    versions), fp32, TF32 off; the page books are audited after every
+    step."""
     cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
                        num_key_value_heads=2, intermediate_size=512,
                        num_hidden_layers=2, dtype=torch.float32)
@@ -674,6 +704,14 @@ def legacy_parity_phase(torch, L, D):
         raise AssertionError(f"PagedGenerationEngine: card {gen[0]} != "
                              f"cpu {gen[1]}")
     report["paged_generation"] = gen[0].tolist()
+    ids = np.stack([prompts[i][:5] for i in (0, 1, 2, 4)])
+    gen = [D.llama_engine(cfg, D.GenerationConfig(max_new_tokens=8),
+                          device=dev).generate(params, ids)
+           for dev, params in (("cuda", params_gpu), ("cpu", params_cpu))]
+    if not np.array_equal(gen[0], gen[1]):
+        raise AssertionError(f"GenerationEngine: card {gen[0]} != "
+                             f"cpu {gen[1]}")
+    report["generation"] = gen[0].tolist()
     return report
 
 
@@ -1245,8 +1283,9 @@ def spec_round_breakdown(torch, pa, eng, params, vocab, drafter=None):
     and one more profiled (device time by kind, idle share), with the
     engine's drafter or ``drafter``. Reports the tokens those rounds
     committed, the drafts and acceptance, and the tile sizes the ragged
-    kernels found on the profiled round's packed axis (``ragged_tiles``:
-    a drafted span of n tokens is one n-token wgmma tile)."""
+    kernels found on the profiled round's packed axis (``ragged_tiles``
+    with the round's ``decoding`` flags: every span token is a one-token
+    tile on the key split, as the unified step decodes it)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
@@ -1282,8 +1321,9 @@ def spec_round_breakdown(torch, pa, eng, params, vocab, drafter=None):
     ts = pa.ragged_tile_size(torch.bfloat16, eng.page_size,
                              eng.model_config.num_attention_heads,
                              eng.model_config.num_key_value_heads)
-    tiles = pa.ragged_tiles(eng._spec_step.static["token_row"], n,
-                            ts).cpu().numpy()
+    static = eng._spec_step.static
+    tiles = pa.ragged_tiles(static["token_row"], n, ts,
+                            static["decoding"]).cpu().numpy()
     _, sizes = np.unique(tiles[tiles >= 0], return_counts=True)
     drafted = eng.spec.stats["drafted"] - stats0["drafted"]
     accepted = eng.spec.stats["accepted"] - stats0["accepted"]
@@ -1309,10 +1349,10 @@ def sampling_7b_phase(torch, L, D, C, rn, pa, cfg, params, greedy,
     (tokens equal,
     launch counts held to the rounds run), with the sampled and the
     speculative step breakdowns beside phase 7's greedy step
-    (``greedy``) and each speculative serve's share of tokens equal to
-    the streams it drafted from (the n-gram serve: phase 7's; bf16 sums
-    taken in other orders on the tile and key-split routes can flip a
-    near-tie)."""
+    (``greedy``). Every speculative serve's tokens must equal phase 7's
+    greedy streams (the reference's promise: the spans' tokens take the
+    attention kernels' route of a token decoded alone), and the drafts
+    taken from those streams must all be accepted."""
     from paddle_tpu_torch.inference.sampling import SamplerConfig
     n_layers = cfg.num_hidden_layers
     prompts = serve_load(cfg)
@@ -1389,33 +1429,41 @@ def sampling_7b_phase(torch, L, D, C, rn, pa, cfg, params, greedy,
             round=spec_round_breakdown(
                 torch, pa, eng, params, cfg.vocab_size,
                 None if drafter is None else _FullSpanDrafter()))
-        if drafter is not None and report["round"]["tile_sizes"] != [
-                eng.spec_k + 1] * eng.num_slots:
-            raise AssertionError(f"full spans did not make k+1-token tiles: "
+        if drafter is not None and report["round"]["tile_sizes"] != [1] * (
+                (eng.spec_k + 1) * eng.num_slots):
+            raise AssertionError(f"full spans did not make one-token tiles: "
                                  f"{report['round']['tile_sizes']}")
         return outs, report
 
     mixed = _graphs_and_eager(torch, run_mixed)
     spec, spec_toks = {}, {}
-    # drafts: the n-gram drafter; phase 7's greedy streams (their tokens
-    # came from the key-split decode route, the spans' from the wgmma
-    # tiles); and the streams the second serve produced, which the same
-    # spans must reproduce
-    runs = (("ngram", lambda: None, greedy_tokens),
-            ("phase7_stream", lambda: _StreamDrafter(prompts, greedy_tokens),
-             greedy_tokens),
+    # drafts: the n-gram drafter; phase 7's greedy streams; and the
+    # streams the second serve produced. Each serve must give phase 7's
+    # greedy tokens, and the stream drafts must all be accepted
+    runs = (("ngram", lambda: None),
+            ("phase7_stream", lambda: _StreamDrafter(prompts, greedy_tokens)),
             ("own_stream", lambda: _StreamDrafter(
-                prompts, spec_toks["phase7_stream"]), None))
-    for name, make, ref in runs:
+                prompts, spec_toks["phase7_stream"])))
+    for name, make in runs:
         def run_spec_kept(graphs, make=make, name=name):
             toks, report = run_spec(graphs, make())
             spec_toks[name] = toks
             return toks, report
         spec[name] = _graphs_and_eager(torch, run_spec_kept)
-        ref = spec_toks["phase7_stream"] if ref is None else ref
-        spec[name]["tokens_equal_to_drafted_streams"] = float(np.mean(
-            [a == b for x, y in zip(spec_toks[name], ref)
-             for a, b in zip(x, y)]))
+        same = float(np.mean([a == b for x, y in zip(spec_toks[name],
+                                                      greedy_tokens)
+                              for a, b in zip(x, y)]))
+        stats = spec[name]["spec"]
+        drafted, accepted = stats["drafted"], stats["accepted"]
+        spec[name].update(tokens_equal_to_drafted_streams=same,
+                          acceptance=accepted / drafted if drafted else None)
+        if same != 1.0:
+            raise AssertionError(
+                f"speculative serve ({name}): {same:.4f} of its tokens "
+                "equal phase 7's greedy streams, not all")
+        if name != "ngram" and accepted != drafted:
+            raise AssertionError(f"speculative serve ({name}): accepted "
+                                 f"{accepted} of {drafted} drafts")
     g_dec = greedy["breakdown"]["decode_step"]
     s_dec = mixed["breakdown"]["decode_step"]
     return dict(
@@ -1430,6 +1478,186 @@ def sampling_7b_phase(torch, L, D, C, rn, pa, cfg, params, greedy,
         spec_round_vs_micro_round={
             name: r["round"]["round_wall_ms"] / (g_dec["wall_ms"] / 8)
             for name, r in spec.items()})
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the generate engines at full width
+# ---------------------------------------------------------------------------
+
+#: the reference's ``decode`` workload shape (benchmarks/bench_workloads.py,
+#: bench_decode): 8 prompts of 512 tokens, 128 new tokens
+GEN_B, GEN_T, GEN_NEW = 8, 512, 128
+GEN_KINDS = (("rms_norm_fwd", ("rms_norm",)), ("matmul", MATMUL_NAMES))
+
+
+def _profiled(torch, fn):
+    """``fn()``'s device time by kind (GEN_KINDS) from torch.profiler;
+    fails if the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kind, top = _kernel_ms_by_kind(prof, GEN_KINDS)
+    if sum(by_kind.values()) <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return by_kind, top
+
+
+def _generate_run(torch, D, rn, cfg, params, ids, max_new, graphs,
+                  profiled=False):
+    """A fresh ``llama_engine`` generates ``ids`` twice (the first call
+    builds its program: one counted miss, and on the card captures it),
+    the second timed to its device->host copy, with RMSNorm launches
+    counted over it; optionally a third under torch.profiler."""
+    eng = D.llama_engine(cfg, D.GenerationConfig(max_new_tokens=max_new),
+                         device="cuda")
+    eng._graphs = graphs
+    torch.cuda.reset_peak_memory_stats()
+    first = eng.generate(params, ids)
+    rn.rms_norm.launches = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(params, ids)
+    wall = time.perf_counter() - t0
+    rms = rn.rms_norm.launches
+    if not np.array_equal(first, toks):
+        raise AssertionError("a replay's tokens differ from the first run's")
+    key = (D._bucket(ids.shape[1]), max_new, ids.shape[0])
+    if eng.compile_misses != [("generation_engine.run", key)]:
+        raise AssertionError(f"program builds {eng.compile_misses}")
+    want = (2 * cfg.num_hidden_layers + 1) * max_new
+    if rms != want:
+        raise AssertionError(f"RMSNorm launches {rms} != {want}")
+    report = dict(wall_ms=wall * 1e3, rms_norm_launches=rms,
+                  builds=len(eng.compile_misses),
+                  first_call_s=eng.compile_seconds["generation_engine.run"],
+                  capture_s=eng.capture_seconds.get(
+                      "generation_engine.run", 0.0),
+                  graph_pool_gb=eng.graph_pool_bytes.get(
+                      "generation_engine.run", 0) / 1e9,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    if profiled:
+        report["kernel_ms"], report["top_kernels"] = _profiled(
+            torch, lambda: eng.generate(params, ids))
+    return toks, report
+
+
+def generate_7b_phase(torch, L, D, rn, pa, fa, cfg, params):
+    """The generate engines over phase 7's Llama-2-7B weights (bf16, 32
+    layers, MHA). ``llama_engine`` at the reference's ``decode`` workload
+    shape (B 8, T 512, 128 new tokens; ``bench_decode``'s timing: a
+    1-token run is the prefill, and decode tokens/s is B·127 / (t_128 -
+    t_1)), one CUDA graph a key, tokens equal to the eager card run's;
+    per-step device time by kind (the cached attention from a profile of
+    one layer's ``_cached_attention`` at the step's shapes, times L),
+    idle share, and the step against its HBM bound (the weights plus the
+    K/V slab the attention reads, over 3.35 TB/s). Then
+    ``PagedGenerationEngine`` over phase 7's 12 ragged prompts, 32 new
+    tokens: two calls of one key (one build, the same tokens), graphs
+    against eager, launch counts held to the code's."""
+    n_layers, nkv, d = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                        cfg.head_dim)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (GEN_B, GEN_T)).astype(np.int32)
+    toks, full = _generate_run(torch, D, rn, cfg, params, ids, GEN_NEW,
+                               True, profiled=True)
+    _free_card(torch)
+    _, prefill = _generate_run(torch, D, rn, cfg, params, ids, 1, True,
+                               profiled=True)
+    _free_card(torch)
+    eager_toks, eager = _generate_run(torch, D, rn, cfg, params, ids,
+                                      GEN_NEW, False)
+    _free_card(torch)
+    if not np.array_equal(toks, eager_toks):
+        raise AssertionError("generate: tokens through the CUDA graph "
+                             "differ from the eager card run's")
+    if toks.shape != (GEN_B, GEN_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"generate: bad output {toks.shape}")
+    steps = GEN_NEW - 1
+    decode_ms = (full["wall_ms"] - prefill["wall_ms"]) / steps
+    step_kinds = {k: (full["kernel_ms"][k] - prefill["kernel_ms"][k]) / steps
+                  for k in full["kernel_ms"]}
+    # one layer's cached attention at the decode step's shapes
+    s_max = GEN_T + GEN_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((GEN_B, 1, cfg.num_attention_heads, d), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    kc, vc = (torch.randn((GEN_B, s_max, nkv, d), generator=gen,
+                          device="cuda").to(cfg.dtype) for _ in range(2))
+    kv_len = torch.full((), GEN_T + 64, dtype=torch.long, device="cuda")
+    attn = kernel_breakdown_ms(
+        torch, lambda: L._cached_attention(q, kc, vc, kv_len, cfg),
+        GEN_KINDS)
+    del q, kc, vc
+    attn_ms = n_layers * sum(attn.values())
+    busy = sum(step_kinds.values())
+    by_kind = dict(
+        matmul=step_kinds["matmul"] - n_layers * attn["matmul"],
+        cached_attention=attn_ms, rms_norm_fwd=step_kinds["rms_norm_fwd"],
+        other=step_kinds["other"] - n_layers * attn["other"])
+    nbytes = L.param_count(cfg) * 2 + 2 * n_layers * GEN_B * s_max * nkv \
+        * d * 2
+    bound, by = bound_ms(nbytes, 2 * L.param_count(cfg) * GEN_B, "bf16")
+    generate = dict(
+        batch=GEN_B, prompt=GEN_T, new_tokens=GEN_NEW, layers=n_layers,
+        prefill_ms=prefill["wall_ms"], full_ms=full["wall_ms"],
+        decode_step_ms=decode_ms,
+        decode_tokens_per_s=GEN_B * steps / (full["wall_ms"]
+                                            - prefill["wall_ms"]) * 1e3,
+        eager_full_ms=eager["wall_ms"],
+        step_kernel_ms=by_kind, step_device_busy_ms=busy,
+        step_idle_share=1 - busy / decode_ms,
+        cached_attention_share=attn_ms / busy,
+        step_bound_ms=bound, step_bound_by=by, step_bytes=nbytes,
+        step_vs_bound=decode_ms / bound,
+        rms_norm_launches_per_step=full["rms_norm_launches"] // GEN_NEW,
+        launches={"rms_norm_fwd": full["rms_norm_launches"]},
+        graph=full, prefill_run=prefill, eager=eager,
+        tokens_equal_eager=True)
+
+    prompts = serve_load(cfg)
+    counters = {"rms_norm_fwd": rn.rms_norm,
+                "paged_decode_attention": pa.paged_attention,
+                "flash_attention_fwd": fa.flash_fwd_kernel}
+
+    def run_paged(graphs):
+        eng = D.PagedGenerationEngine(cfg, D.GenerationConfig(
+            max_new_tokens=NEW_TOKENS), page_size=16, device="cuda")
+        eng._graphs = graphs
+        _reset(counters)
+        outs, walls = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(eng.generate(params, prompts))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        got = {k: c.launches for k, c in counters.items()}
+        want = {"rms_norm_fwd": 2 * (2 * n_layers + 1) * NEW_TOKENS,
+                "paged_decode_attention": 2 * n_layers * (NEW_TOKENS - 1),
+                "flash_attention_fwd": 2 * n_layers}
+        if got != want:
+            raise AssertionError(f"paged generate launches {got} != {want}")
+        if not np.array_equal(outs[0], outs[1]):
+            raise AssertionError("paged generate: a replay's tokens differ")
+        if [n for n, _ in eng.compile_misses] != ["paged_engine.run"]:
+            raise AssertionError(f"program builds {eng.compile_misses}")
+        if outs[0].shape != (len(prompts), NEW_TOKENS):
+            raise AssertionError(f"paged generate: bad output "
+                                 f"{outs[0].shape}")
+        report = dict(key=list(eng.compile_misses[0][1]),
+                      first_call_ms=walls[0], second_call_ms=walls[1],
+                      builds=len(eng.compile_misses),
+                      capture_s=eng.capture_seconds.get("paged_engine.run",
+                                                        0.0),
+                      graph_pool_gb=eng.graph_pool_bytes.get(
+                          "paged_engine.run", 0) / 1e9,
+                      launches=got)
+        return outs[0].tolist(), report
+
+    paged = _graphs_and_eager(torch, run_paged)
+    return dict(generate=generate, paged=paged)
 
 
 # ---------------------------------------------------------------------------
@@ -2710,6 +2938,8 @@ def main() -> int:
                                 serve, greedy_tokens)
     done(21, f"Llama-2-7B bf16 sampled, constrained and speculative serves "
          f"on {card}", options)
+    gens = generate_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b)
+    done(22, f"Llama-2-7B bf16 generate engines on {card}", gens)
     del params7b             # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
@@ -2747,6 +2977,11 @@ def main() -> int:
     leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
     cold = legacy["prefix_cache"]["cold"]
     mixed = options["mixed"]["launches"]
+    glaunch = (gens["generate"]["launches"]["rms_norm_fwd"]
+               + gens["generate"]["eager"]["rms_norm_launches"])
+    plaunch = {k: gens["paged"]["launches"][k]
+               + gens["paged"]["eager"]["launches"][k]
+               for k in gens["paged"]["launches"]}
     specl = {k: sum(r["launches"][k] for r in options["speculative"].values())
              for k in ("rms_norm_fwd", "ragged_paged_attention")}
     kernels = [
@@ -2759,7 +2994,7 @@ def main() -> int:
              launches=serve["launches"]["rms_norm_fwd"]
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
              + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
-             + specl["rms_norm_fwd"]
+             + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
@@ -2780,7 +3015,8 @@ def main() -> int:
         _kernel_entry("paged_decode_attention", "cuda",
                       "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                       "paddle_tpu/ops/paged_attention.py:650",
-                      leg["paged_decode_attention"],
+                      leg["paged_decode_attention"]
+                      + plaunch["paged_decode_attention"],
                       dict(decode["nkv32_d128_bf16"], max_abs_err=max(
                           r["max_abs_err"] for k, r in decode.items()
                           if k != "resources"))),
@@ -2804,7 +3040,7 @@ def main() -> int:
             name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
-            + mg[name] + leg.get(name, 0), r))
+            + mg[name] + leg.get(name, 0) + plaunch.get(name, 0), r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(

@@ -28,12 +28,22 @@
 // tokens times the GQA group's heads fill wgmma's 64 rows). On the engine's
 // packing a row's prefill chunk is one run and a decode token a run of one;
 // any layout stays correct, a scattered one only makes runs shorter. The
-// tiles are found on the device, by a warp-wide scan of token_row inside
-// each kernel (no host sync, no extra launch): a run starts where the row
-// changes, a tile at every TS-th token of a run. Two kernels share the work
-// of one call, each with a grid sized from T and the card alone whose
-// blocks walk their items round-robin (a third merges split tokens):
-//   - tiles of two or more tokens (ragged90, bf16/fp16 pools whose page
+// tiles are found on the device, by a warp-wide scan of token_row and the
+// per-token flags `decoding` inside each kernel (no host sync, no extra
+// launch): a run starts where the row changes and at every decoding token,
+// a tile at every TS-th token of a run.
+//
+// The route follows the token, not the packing: a decoding token (a decode
+// step's token, or a speculative span's carry and drafts) is a run and a
+// tile of its own on the key split, whatever its neighbours; every other
+// token is tiled with its run on the wgmma kernel, a lone one too. A token
+// then gets the same bits wherever the host packs it (the wgmma tile's
+// other rows, and its walked key tiles past the token's position, add
+// exact zeros), so a speculative span's tokens equal the same tokens
+// decoded one at a time. Two kernels share the work of one call, each with
+// a grid sized from T and the card alone whose blocks walk their items
+// round-robin (a third merges split tokens):
+//   - tiles of tokens that do not decode (ragged90, bf16/fp16 pools whose page
 //     size divides 64 and is at least 8): the flash forward with a paged
 //     producer. One consumer warpgroup runs S = Q·Kᵀ and P·V as wgmma
 //     m64n64k16 (Q and K K-major, V MN-major), the online softmax in
@@ -46,7 +56,7 @@
 //     are never loaded; a page past the row's kv_len in the last tile is
 //     read as TMA's zero fill past the pool. Each K/V page is read once per
 //     GQA group.
-//   - single-token tiles (every token, for fp32 pools or other page sizes):
+//   - the decoding tokens (every token, for fp32 pools or other page sizes):
 //     the flash-decoding split of csrc/paged_decode.cuh, shared with the
 //     paged decode kernel. An item is a part of a token's keys; the
 //     blocks walk the items round-robin (keys over 8 warps, 16-byte loads,
@@ -82,43 +92,46 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // The loads of one step of a warp's scan of the flat token axis: token t =
-// base + lane's row, its neighbours' rows and its position (0 without
-// positions).
+// base + lane's row and its predecessor's, its position (0 without
+// positions) and the decoding flags of it and its predecessor.
 struct StepLoads {
-  int r, rp, rn, pos;
+  int r, rp, pos;
+  bool d, dp;
 };
 
 __device__ __forceinline__ StepLoads load_step(
     const int32_t* __restrict__ token_row,
-    const int32_t* __restrict__ positions, int n_tokens, int base) {
+    const int32_t* __restrict__ positions,
+    const uint8_t* __restrict__ decoding, int n_tokens, int base) {
   const int t = base + (threadIdx.x & 31);
   StepLoads s;
   s.r = t < n_tokens ? __ldg(token_row + t) : -1;
   s.rp = t > 0 && t <= n_tokens ? __ldg(token_row + t - 1) : INT_MIN;
-  s.rn = t + 1 < n_tokens ? __ldg(token_row + t + 1) : INT_MIN;
   s.pos = positions != nullptr && t < n_tokens ? __ldg(positions + t) : 0;
+  s.d = t < n_tokens && __ldg(decoding + t);
+  s.dp = t > 0 && t <= n_tokens && __ldg(decoding + t - 1);
   return s;
 }
 
 // One step of the scan over the loads of step `base`. valid: the token
 // belongs to a row (0 <= row < n_rows); tile_start: a tile starts at it
-// (every ts-th token of its run); cont: the next token continues its run.
-// carry holds the latest run start before this step (-1 before any);
-// every lane of the warp must call it with the same base.
+// (every ts-th token of its run). A decoding token is a run of its own.
+// carry holds the latest run start before this step (-1 before any); every
+// lane of the warp must call it with the same base.
 __device__ __forceinline__ void scan_step(const StepLoads& s, int n_tokens,
                                           int n_rows, int ts, int base,
                                           int& carry, bool& valid,
-                                          bool& tile_start, bool& cont) {
+                                          bool& tile_start) {
   const int lane = threadIdx.x & 31;
   const int t = base + lane;
   valid = t < n_tokens && s.r >= 0 && s.r < n_rows;
-  const unsigned starts = __ballot_sync(kFull, valid && s.rp != s.r);
+  const unsigned starts =
+      __ballot_sync(kFull, valid && (s.rp != s.r || s.d || s.dp));
   const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1u;
   const unsigned below = starts & upto;
   const int first = below ? base + 31 - __clz(below) : carry;
   if (starts) carry = base + 31 - __clz(starts);
   tile_start = valid && (t - first) % ts == 0;
-  cont = valid && s.rn == s.r;
 }
 
 // The items of a scan step that fall to this block: every gridDim.x-th
@@ -174,6 +187,7 @@ struct Params {
   const int32_t* token_row;     // (T,)
   const int32_t* positions;     // (T,)
   const int32_t* kv_lens;       // (R,)
+  const uint8_t* decoding;      // (T,): tokens on the key split
   void* out;                    // (T, nh, D)
   int32_t* tile_map;            // null, or (T,): each token's tile start
   int n_tokens, n_rows, width, page, nh, nkv, rep, lrep, ts, pool_rows;
@@ -189,8 +203,9 @@ __device__ __forceinline__ int row_span(const Params& p, int r) {
                     : 0;
 }
 
-// The producer warp: scans the tokens for tiles of two or more, takes every
-// gridDim.x-th from blockIdx.x, loads its Q and walks its keys.
+// The producer warp: scans the tokens for the tiles of tokens that do not
+// decode (a lone one too), takes every gridDim.x-th from blockIdx.x, loads
+// its Q and walks its keys.
 template <int D>
 __device__ __forceinline__ void produce(const Params& p, Smem<D>& sm) {
   constexpr int NB = D / kBoxCols;
@@ -200,10 +215,12 @@ __device__ __forceinline__ void produce(const Params& p, Smem<D>& sm) {
   int stage = 0, count = 0, carry = -1;
   uint32_t phase = 0, qphase = 0;
   for (int base = 0; base < p.n_tokens; base += 32) {
-    bool valid, tile_start, cont;
-    scan_step(load_step(p.token_row, nullptr, p.n_tokens, base), p.n_tokens,
-              p.n_rows, p.ts, base, carry, valid, tile_start, cont);
-    unsigned multi = take_mine(tile_start && cont, count);
+    bool valid, tile_start;
+    const StepLoads cur =
+        load_step(p.token_row, nullptr, p.decoding, p.n_tokens, base);
+    scan_step(cur, p.n_tokens, p.n_rows, p.ts, base, carry, valid,
+              tile_start);
+    unsigned multi = take_mine(tile_start && !cur.d, count);
     while (multi) {
       const int b = __ffs(multi) - 1;
       multi &= multi - 1;
@@ -214,7 +231,8 @@ __device__ __forceinline__ void produce(const Params& p, Smem<D>& sm) {
       for (int off = 1; off < p.ts; off += 32) {
         const int i = off + lane;
         const bool same = i < p.ts && t0 + i < p.n_tokens &&
-                          __ldg(p.token_row + t0 + i) == r;
+                          __ldg(p.token_row + t0 + i) == r &&
+                          !__ldg(p.decoding + t0 + i);
         const unsigned m = __ballot_sync(kFull, same);
         if (m != kFull) {
           n += __ffs(~m) - 1;
@@ -443,9 +461,10 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const int32_t* block_tables, const int32_t* token_row,
                    const int32_t* positions, const int32_t* kv_lens,
-                   void* out, int32_t* tile_map, int n_tokens, int n_rows,
-                   int width, int n_pages, int page, int nh, int nkv, int ts,
-                   float scale, cudaStream_t stream) {
+                   const uint8_t* decoding, void* out, int32_t* tile_map,
+                   int n_tokens, int n_rows, int width, int n_pages, int page,
+                   int nh, int nkv, int ts, float scale,
+                   cudaStream_t stream) {
   Params p;
   memset(&p, 0, sizeof(p));
   const int rep = nh / nkv;
@@ -467,6 +486,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   p.token_row = token_row;
   p.positions = positions;
   p.kv_lens = kv_lens;
+  p.decoding = decoding;
   p.out = out;
   p.tile_map = tile_map;
   p.n_tokens = n_tokens;
@@ -487,10 +507,10 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   if (e != cudaSuccess) return e;
   // as many blocks as are resident at once (one wave: the tiles a block
   // walks never wait behind another wave), but no more per kv head than
-  // there can be tiles of two tokens
+  // there can be tiles
   static const int resident = resident_blocks(kernel, kThreads, smem);
   const int per_head = max(1, resident / nkv);
-  const dim3 grid(max(1, min(per_head, n_tokens / 2)), nkv);
+  const dim3 grid(max(1, min(per_head, n_tokens)), nkv);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -523,6 +543,7 @@ __global__ void __launch_bounds__(decode::kWarps * 32,
     const int32_t* __restrict__ token_row,     // (T,)
     const int32_t* __restrict__ positions,     // (T,)
     const int32_t* __restrict__ kv_lens,       // (R,)
+    const uint8_t* __restrict__ decoding,      // (T,)
     T* __restrict__ out,                       // (T, nh, D)
     int32_t* tile_map,                         // null, or (T,)
     const decode::Partials part,               // (T, n_chunks, nh) states
@@ -536,13 +557,15 @@ __global__ void __launch_bounds__(decode::kWarps * 32,
   const int bx = blockIdx.y, blocks = gridDim.y;
   int count = 0, carry = -1;
   for (int base = 0; base < n_tokens; base += 32) {
-    const StepLoads cur = load_step(token_row, positions, n_tokens, base);
-    bool valid, tile_start, cont;
-    scan_step(cur, n_tokens, n_rows, ts, base, carry, valid, tile_start,
-              cont);
+    const StepLoads cur =
+        load_step(token_row, positions, decoding, n_tokens, base);
+    bool valid, tile_start;
+    scan_step(cur, n_tokens, n_rows, ts, base, carry, valid, tile_start);
     const int t = base + lane;
     const bool pad = t < n_tokens && !valid;
-    const bool single = tile_start && (ts == 1 || !cont);
+    // the decoding tokens (the wgmma kernel takes every other token, a
+    // lone one too), or every token where the call has no wgmma kernel
+    const bool single = tile_start && (ts == 1 || cur.d);
     // this lane's items: a pad slot one, a single-token tile one per part
     // of its keys below its position + 1 and the table's span (a row's
     // kv_len, read only by the block that takes an item, may end them
@@ -615,8 +638,9 @@ cudaError_t launch_key_split(const void* q, const void* k_pages,
                              const void* v_pages, const int32_t* block_tables,
                              const int32_t* token_row,
                              const int32_t* positions, const int32_t* kv_lens,
-                             void* out, int32_t* tile_map,
-                             const decode::Partials& part, int32_t* n_split,
+                             const uint8_t* decoding, void* out,
+                             int32_t* tile_map, const decode::Partials& part,
+                             int32_t* n_split,
                              int n_tokens, int n_rows, int width, int page,
                              int nh, int nkv, int ts, int chunk, float scale,
                              cudaStream_t stream) {
@@ -633,7 +657,8 @@ cudaError_t launch_key_split(const void* q, const void* k_pages,
   kernel<<<grid, decode::kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), block_tables, token_row, positions,
-      kv_lens, static_cast<T*>(out), tile_map, part, n_split, n_tokens,
+      kv_lens, decoding, static_cast<T*>(out), tile_map, part, n_split,
+      n_tokens,
       n_rows, width, page, nh, nkv, ts, chunk, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || part.n_chunks == 1) return e;
@@ -644,7 +669,7 @@ template <typename T, int D>
 cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
                        const int32_t* block_tables, const int32_t* token_row,
                        const int32_t* positions, const int32_t* kv_lens,
-                       void* out, int32_t* tile_map,
+                       const uint8_t* decoding, void* out, int32_t* tile_map,
                        const decode::Partials& part, int32_t* n_split,
                        int n_tokens, int n_rows, int width, int n_pages,
                        int page, int nh, int nkv, int ts, int chunk,
@@ -653,8 +678,8 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
     if (ts > 1) {
       const cudaError_t e = ragged90::launch<T, D>(
           q, k_pages, v_pages, block_tables, token_row, positions, kv_lens,
-          out, tile_map, n_tokens, n_rows, width, n_pages, page, nh, nkv, ts,
-          scale, stream);
+          decoding, out, tile_map, n_tokens, n_rows, width, n_pages, page,
+          nh, nkv, ts, scale, stream);
       if (e != cudaSuccess) return e;
     }
   }
@@ -662,8 +687,9 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
   const int rep = decode::block_rep(nh, nkv);
 #define PTT_KEY_SPLIT(REP)                                                  \
   return launch_key_split<T, D, REP>(q, k_pages, v_pages, block_tables,     \
-                                     token_row, positions, kv_lens, out,    \
-                                     tile_map, part, n_split, n_tokens,     \
+                                     token_row, positions, kv_lens,         \
+                                     decoding, out, tile_map, part,         \
+                                     n_split, n_tokens,                     \
                                      n_rows, width, page, nh, nkv, ts,      \
                                      chunk, scale, stream)
   if (rep == 4) PTT_KEY_SPLIT(4);
@@ -676,10 +702,13 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. ts: tokens a tile; 1 runs
 // every token through the key split, > 1 (bf16/fp16, page a multiple of 8
-// dividing 64, ts·(nh / nkv) = 64) sends tiles of two or more tokens to the
-// wgmma kernel. tile_map: null, or (T,) int32 that receives each token's
-// tile start (-1 for a pad slot). chunk: the most keys a key-split item
-// takes;
+// dividing 64, ts·(nh / nkv) = 64) sends the tiles of tokens that do not
+// decode to the wgmma kernel. decoding: (T,) bytes, nonzero for a token
+// that takes the key split alone, whatever its neighbours (with ts > 1
+// every other token takes the wgmma tiles, a lone one too; all zero: every
+// valid token on the tiles). tile_map: null, or (T,) int32 that receives
+// each token's tile start (-1 for a pad slot). chunk: the most keys a
+// key-split item takes;
 // n_chunks = ceil(width·page / chunk). With n_chunks > 1, part is a float32
 // scratch of T·n_chunks·nh·(head_dim + 2) and n_split an int32 scratch of
 // T; with one chunk both may be null. Returns a cudaError_t (0 on success);
@@ -687,13 +716,14 @@ cudaError_t launch_all(const void* q, const void* k_pages, const void* v_pages,
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* token_row, const void* positions,
-    const void* kv_lens, void* out, void* tile_map, void* part,
+    const void* kv_lens, const void* decoding, void* out, void* tile_map,
+    void* part,
     void* n_split, int n_tokens, int n_rows, int width, int n_pages,
     int page, int nh, int nkv, int head_dim, int dtype, int ts, int chunk,
     int n_chunks, float scale, void* stream) {
   if (n_tokens == 0) return 0;
   if (nkv <= 0 || nh % nkv != 0 || page <= 0 || width <= 0 || n_rows <= 0 ||
-      ts < 1 || chunk <= 0 ||
+      ts < 1 || chunk <= 0 || decoding == nullptr ||
       n_chunks != decode::ceil_div(width * page, chunk) ||
       (n_chunks > 1 && (part == nullptr || n_split == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -712,7 +742,8 @@ extern "C" int ragged_paged_attention_launch(
       q, k_pages, v_pages, static_cast<const int32_t*>(block_tables),         \
       static_cast<const int32_t*>(token_row),                                 \
       static_cast<const int32_t*>(positions),                                 \
-      static_cast<const int32_t*>(kv_lens), out,                              \
+      static_cast<const int32_t*>(kv_lens),                                   \
+      static_cast<const uint8_t*>(decoding), out,                             \
       static_cast<int32_t*>(tile_map), parts, static_cast<int32_t*>(n_split), \
       n_tokens, n_rows, width, n_pages, page, nh, nkv, ts, chunk, scale, s)
   if (head_dim == 64) {

@@ -1,5 +1,12 @@
-"""Serving engines over the paged KV cache — counterpart of
+"""Generation and serving engines — counterpart of
 ``paddle_tpu/inference/decoding.py``.
+
+``GenerationEngine`` (``llama_engine`` wires it to the Llama family)
+generates a batch of prompts of one length over a contiguous KV cache:
+one program per ``(bucket, max_new, batch)`` holding the prefill and the
+whole decode loop. ``PagedGenerationEngine`` generates a ragged batch
+over the paged cache, one program per ``(t_bucket, max_new, batch,
+table width)``.
 
 ``ContinuousBatchingEngine`` keeps ``num_slots`` sequences decoding
 together over the paged KV cache. Two pipelines, which emit identical
@@ -34,7 +41,11 @@ Decoding options (the JAX engine's, with its token streams):
   spec_k`` drafted tokens (``inference.speculative``), verified by one
   ragged step with logits at every candidate, with lossless rejection
   sampling for sampled rows and the paged pool rolled back per row on
-  rejection (``mgr.truncate_pages``).
+  rejection (``mgr.truncate_pages``). Its greedy streams equal a plain
+  engine's bit for bit when both pack one token axis (``step_tokens >=
+  num_slots·(spec_k+1)``): the attention kernels route each token alike
+  in both steps, but the projections' GEMMs may round a row differently
+  at another row count, so the engine warns when the axes differ.
 
 The sampling epilogue is built lazily: until the first sampled or
 constrained request the programs end in the argmax; that request
@@ -55,8 +66,7 @@ engine's.
 ``prefix_cache=True`` (both pipelines) shares the resident pages of
 earlier prompts through ``paddle_tpu_torch.kvcache`` and prefills only
 each request's uncached suffix; the page books are audited after every
-step. ``PagedGenerationEngine`` generates a ragged batch in one call
-(prefill, then decode steps) over the same model functions.
+step.
 
 Not in this slice (each raises ``NotImplementedError``): the fused
 decode tail and multi-chip meshes. The observability taps (spans,
@@ -67,7 +77,9 @@ sampling and speculation counts are plain numbers on the engine
 
 from __future__ import annotations
 
+import functools
 import time
+import warnings
 import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
@@ -153,13 +165,224 @@ def _last_logits(logits, seq_len):
     return logits[rows, seq_len.long() - 1]
 
 
-class PagedGenerationEngine:
+class _Programs:
+    """The compiled programs of one engine (``inference.graphs``) and
+    their books: each build is a counted miss ``(name, key)``, as the JAX
+    engines pass them to ``recompiles.record_miss``; a program is rebuilt
+    for params that are not the tensors it was built over (a CUDA graph
+    reads its weights at the addresses it captured). Card runs capture
+    CUDA graphs; ``_graphs = False`` (private) runs every program's body
+    eagerly, the eager card run the tests compare against."""
+
+    def _init_programs(self, device: torch.device) -> None:
+        self.device = device
+        #: program builds, in order: (name, key)
+        self.compile_misses: List[Tuple[str, tuple]] = []
+        #: seconds of each program's first call (eager run and capture,
+        #: to completion), summed by name (``recompiles.observe_compile``)
+        self.compile_seconds: Dict[str, float] = {}
+        #: of those, the CUDA graph captures alone
+        self.capture_seconds: Dict[str, float] = {}
+        #: bytes the captures reserved in the engine's graph pool, by name
+        self.graph_pool_bytes: Dict[str, int] = {}
+        self._graphs = True
+        self._graph_pool: Optional[GraphPool] = None
+
+    def _program(self, body: Callable[..., torch.Tensor], inputs: dict,
+                 params) -> Program:
+        graphs = None
+        if self.device.type == "cuda" and self._graphs:
+            if self._graph_pool is None:
+                self._graph_pool = GraphPool(self.device)
+            graphs = self._graph_pool
+        return Program(body, inputs, self.device, graphs, params_key(params))
+
+    def _fetch(self, prog: Optional[Program], name: str, key: tuple,
+               build: Callable[..., Program], params) -> Program:
+        """``prog`` if it was built over ``params``, else a new build:
+        one counted miss ``(name, key)``."""
+        if prog is not None and prog.params_id == params_key(params):
+            return prog
+        self.compile_misses.append((name, key))
+        return build(params)
+
+    def _run(self, name: str, prog: Program) -> torch.Tensor:
+        """Call ``prog``; its first call is timed to completion into
+        ``compile_seconds`` and ``capture_seconds``, and its capture's
+        memory booked in ``graph_pool_bytes``."""
+        if prog.calls:
+            return prog()
+        t0 = time.perf_counter()
+        out = prog()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for book, n in ((self.compile_seconds, time.perf_counter() - t0),
+                        (self.capture_seconds, prog.capture_seconds),
+                        (self.graph_pool_bytes, prog.pool_bytes)):
+            book[name] = book.get(name, 0) + n
+        return out
+
+
+def _leaves(tree) -> list:
+    """The tensors of a cache pytree (dicts by sorted key, as
+    ``jax.tree_util.tree_leaves`` orders them)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [] if tree is None else [tree]
+
+
+class KVCache:
+    """Thin named wrapper over a model's cache pytree (the reference's
+    CacheKV tensors)."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    @property
+    def seq_capacity(self) -> int:
+        leaves = _leaves(self.tree)
+        return leaves[0].shape[2] if leaves else 0
+
+
+class GenerationEngine(_Programs):
+    """Compiled generation over a model's (prefill, decode_step,
+    init_cache) triple, for a batch of prompts of ONE length over a
+    contiguous cache:
+
+    ``prefill(params, ids, cache) -> (logits (B, T, V), cache)``
+    ``decode_step(params, tok, pos, cache) -> (logits (B, V), cache)``
+    ``init_cache(batch, max_len) -> cache pytree (or a KVCache)``
+
+    ``generate`` pads the prompts to their length's bucket and runs ONE
+    program per ``(bucket, max_new, batch)`` (the JAX engine's jitted
+    ``lax.scan``; miss name ``generation_engine.run``): the prefill,
+    then ``max_new - 1`` decode steps, unrolled. ``pos`` is a 0-d device
+    tensor, so on the card the whole program is one CUDA graph that
+    replays at any prompt length of the bucket (written into the
+    program's ``prompt_len`` input before each call). On the card the
+    cache is the program's own buffer, zeroed inside the graph as
+    ``init_cache`` gives zeros, and the engine holds one key's graph and
+    cache at a time: a new key drops the last (so a return to an earlier
+    key is a new build, a miss the JAX engine's jit cache would not
+    count). On the CPU every call gets a new cache and every key's
+    program stays, as the JAX engine keeps its jits. Greedy argmax, or
+    with ``do_sample`` the JAX engine's draws: ``key(seed)``, one split
+    for the prefill's token, then one a step. ``device=None`` means the
+    card."""
+
+    def __init__(self, prefill: Callable, decode_step: Callable,
+                 init_cache: Callable,
+                 config: Optional[GenerationConfig] = None, device=None):
+        self._prefill = prefill
+        self._decode = decode_step
+        self._init_cache = init_cache
+        self.config = config or GenerationConfig()
+        self._compiled: Dict[tuple, Program] = {}
+        self._init_programs(resolve_device(device))
+
+    def _new_cache(self, b: int, max_len: int):
+        cache = self._init_cache(b, max_len)
+        return cache.tree if isinstance(cache, KVCache) else cache
+
+    def _build(self, bucket: int, max_new: int, b: int, params) -> Program:
+        cfg, prefill, decode = self.config, self._prefill, self._decode
+        # the card: one buffer the graph reads and zeroes; the CPU: none
+        static = (self._new_cache(b, bucket + max_new)
+                  if self.device.type == "cuda" else None)
+        inputs = dict(ids=((b, bucket), torch.int32),
+                      prompt_len=((1,), torch.int32))
+        if cfg.do_sample:
+            inputs["key"] = ((2,), torch.int64)
+
+        def run(ids, prompt_len, key=None):
+            if static is None:
+                cache = self._new_cache(b, bucket + max_new)
+            else:
+                cache = static
+                for leaf in _leaves(cache):
+                    leaf.zero_()
+            logits, _ = prefill(params, ids, cache)          # (B, T, V)
+            last = logits.index_select(1, prompt_len.long() - 1)[:, 0]
+            sub = None
+            if key is not None:
+                key, sub = _split(key)
+            tok = _sample(last, sub, cfg)
+            toks = []
+            for i in range(max_new - 1):
+                lg, _ = decode(params, tok, prompt_len[0] + i, cache)
+                toks.append(tok)
+                if key is not None:
+                    key, sub = _split(key)
+                tok = _sample(lg, sub, cfg)
+            toks.append(tok)
+            return torch.stack(toks, dim=1)                 # (B, max_new)
+
+        return self._program(run, inputs, params)
+
+    @torch.no_grad()
+    def generate(self, params, input_ids,
+                 generation_config: Optional[GenerationConfig] = None
+                 ) -> np.ndarray:
+        """input_ids: (B, T) int array -> (B, max_new_tokens) int32.
+        ``generation_config`` replaces the engine's and drops its
+        programs."""
+        if generation_config is not None:
+            self.config = generation_config
+            self._compiled.clear()
+        cfg = self.config
+        ids = np.asarray(input_ids)
+        b, t = ids.shape
+        bucket = _bucket(t)
+        key = (bucket, cfg.max_new_tokens, b)
+        prog = self._compiled.get(key)
+        if prog is None and self.device.type == "cuda":
+            self._compiled.clear()     # one key's graph and cache a time
+        self._compiled[key] = prog = self._fetch(
+            prog, "generation_engine.run", key,
+            lambda p: self._build(bucket, cfg.max_new_tokens, b, p), params)
+        # right-padding is safe: the pads' cache slots lie past kv_len
+        # until decode overwrites each before first attending to it
+        prog.host["ids"].fill(cfg.pad_token_id)
+        prog.host["ids"][:, :t] = ids
+        prog.host["prompt_len"][0] = t
+        if cfg.do_sample:
+            prog.host["key"][:] = prng.prng_key(cfg.seed).numpy()
+        return self._run("generation_engine.run", prog).cpu().numpy()
+
+
+def llama_engine(config: L.LlamaConfig,
+                 generation_config: Optional[GenerationConfig] = None,
+                 device=None) -> GenerationEngine:
+    """``GenerationEngine`` over the stacked-param Llama family
+    (``models.llama.prefill_stacked``, ``decode_step_stacked``,
+    ``init_kv_cache``)."""
+    dev = resolve_device(device)
+    return GenerationEngine(
+        prefill=functools.partial(L.prefill_stacked, config=config),
+        decode_step=functools.partial(L.decode_step_stacked, config=config),
+        init_cache=functools.partial(L.init_kv_cache, config, device=dev),
+        config=generation_config, device=dev)
+
+
+class PagedGenerationEngine(_Programs):
     """Ragged-batch generation over the paged KV cache: prompts of
     different lengths each own pages through a block table, decode
     positions advance per row, and generation starts from each row's own
     last prompt token. ``generate`` runs one prefill, then
     ``max_new_tokens - 1`` decode steps; with ``do_sample`` each draws
-    with the next key of the JAX engine's chain from ``key(seed)``."""
+    with the next key of the JAX engine's chain from ``key(seed)``.
+
+    One program per ``(t_bucket, max_new, batch, table width)`` (miss
+    name ``paged_engine.run``): on the card one CUDA graph of the
+    prefill and the whole decode loop, with the prompts, ``seq_lens``
+    and the block tables as its inputs, over a pool (sized for the key's
+    widest tables, or ``num_pages``) kept across the key's calls, with
+    the page books new each call; the engine holds one key's graph and
+    pool at a time (a new key drops the last, as
+    :class:`GenerationEngine` does). The CPU runs the program eagerly
+    over a new pool each call, and keeps every key's program."""
 
     def __init__(self, model_config: L.LlamaConfig,
                  generation_config: Optional[GenerationConfig] = None,
@@ -169,47 +392,88 @@ class PagedGenerationEngine:
         self.config = generation_config or GenerationConfig()
         self.page_size = page_size
         self._num_pages = num_pages
-        self.device = resolve_device(device)
+        self._compiled: Dict[tuple, Program] = {}
+        #: the pool the programs run over: the current key's on the card,
+        #: the call's on the CPU
+        self._mgr: Optional[PagedKVCacheManager] = None
+        self._init_programs(resolve_device(device))
+
+    def _build(self, b: int, t_bucket: int, width: int,
+               params) -> Program:
+        cfg, mcfg, max_new = (self.config, self.model_config,
+                              self.config.max_new_tokens)
+        i32 = torch.int32
+        inputs = dict(ids=((b, t_bucket), i32), seq_lens=((b,), i32),
+                      bt=((b, width), i32))
+        if cfg.do_sample:
+            inputs["key"] = ((2,), torch.int64)
+
+        def run(ids, seq_lens, bt, key=None):
+            mgr = self._mgr
+            logits, _, _ = L.prefill_paged(params, ids, seq_lens,
+                                           mgr.k_pages, mgr.v_pages, bt,
+                                           mcfg)
+            sub = None
+            if key is not None:
+                key, sub = _split(key)
+            tok = _sample(_last_logits(logits, seq_lens), sub, cfg)
+            toks = []
+            for i in range(max_new - 1):
+                lg, _, _ = L.decode_step_paged(params, tok, seq_lens + i,
+                                               mgr.k_pages, mgr.v_pages, bt,
+                                               mcfg)
+                toks.append(tok)
+                if key is not None:
+                    key, sub = _split(key)
+                tok = _sample(lg, sub, cfg)
+            toks.append(tok)
+            return torch.stack(toks, dim=1)
+
+        return self._program(run, inputs, params)
 
     @torch.no_grad()
     def generate(self, params, prompts) -> np.ndarray:
         """prompts: list of 1-D int arrays (ragged) -> (B, max_new_tokens)
         int32 tokens."""
-        cfg, mcfg = self.config, self.model_config
+        cfg, mcfg, page = self.config, self.model_config, self.page_size
         lens = [len(p) for p in prompts]
         b = len(prompts)
-        ids = np.full((b, _bucket(max(lens))), cfg.pad_token_id, np.int32)
-        for i, p in enumerate(prompts):
-            ids[i, :len(p)] = np.asarray(p, np.int32)
+        t_bucket = _bucket(max(lens))
         total = [n + cfg.max_new_tokens for n in lens]
-        num_pages = self._num_pages or (sum(
-            PagedKVCacheManager.pages_needed(n, self.page_size)
-            for n in total) + 1)
-        mgr = PagedKVCacheManager(
-            mcfg.num_hidden_layers, num_pages, self.page_size,
-            mcfg.num_key_value_heads, mcfg.head_dim, dtype=mcfg.dtype,
-            device=self.device)
-        for i in range(b):
-            mgr.allocate(i, total[i])
-            mgr._lens[i] = lens[i]   # the prompt is the live length
-        bt, seq_lens = (torch.from_numpy(a).to(self.device)
-                        for a in mgr.block_tables(list(range(b))))
-        logits, _, _ = L.prefill_paged(
-            params, torch.from_numpy(ids).to(self.device), seq_lens,
-            mgr.k_pages, mgr.v_pages, bt, mcfg)
-        key = prng.prng_key(cfg.seed, self.device)
-        key, sub = _split(key)
-        tok = _sample(_last_logits(logits, seq_lens), sub, cfg)
-        toks = []
-        for i in range(cfg.max_new_tokens - 1):
-            lg, _, _ = L.decode_step_paged(params, tok, seq_lens + i,
-                                           mgr.k_pages, mgr.v_pages, bt,
-                                           mcfg)
-            toks.append(tok)
-            key, sub = _split(key)
-            tok = _sample(lg, sub, cfg)
-        toks.append(tok)
-        return torch.stack(toks, dim=1).cpu().numpy()
+        width = max(PagedKVCacheManager.pages_needed(n, page)
+                    for n in total)
+        key = (t_bucket, cfg.max_new_tokens, b, width)
+        prog = self._compiled.get(key)
+        if prog is None or self.device.type != "cuda":
+            if self.device.type == "cuda":
+                self._compiled.clear()     # their graphs read the old pool
+            self._mgr = PagedKVCacheManager(
+                mcfg.num_hidden_layers, self._num_pages or b * width + 1,
+                page, mcfg.num_key_value_heads, mcfg.head_dim,
+                dtype=mcfg.dtype, device=self.device)
+        mgr = self._mgr
+        self._compiled[key] = prog = self._fetch(
+            prog, "paged_engine.run", key,
+            lambda p: self._build(b, t_bucket, width, p), params)
+        held = []
+        try:
+            for i in range(b):
+                mgr.allocate(i, total[i])
+                held.append(i)
+                mgr._lens[i] = lens[i]   # the prompt is the live length
+            bt, seq_lens = mgr.block_tables(held)
+            host = prog.host
+            host["ids"].fill(cfg.pad_token_id)
+            for i, p in enumerate(prompts):
+                host["ids"][i, :len(p)] = np.asarray(p, np.int32)
+            host["seq_lens"][:] = seq_lens
+            host["bt"][:] = bt
+            if cfg.do_sample:
+                host["key"][:] = prng.prng_key(cfg.seed).numpy()
+            return self._run("paged_engine.run", prog).cpu().numpy()
+        finally:
+            for i in held:
+                mgr.free(i)
 
 
 @dataclass
@@ -224,7 +488,7 @@ class _Request:
     gstate_host: int = -1                 # host DFA mirror (LOCAL ids)
 
 
-class ContinuousBatchingEngine:
+class ContinuousBatchingEngine(_Programs):
     """Fixed-slot continuous batching over the paged KV cache (module
     docstring for the pipelines and the decoding options).
 
@@ -263,7 +527,7 @@ class ContinuousBatchingEngine:
                 "speculative decoding rides the unified ragged step; "
                 "construct with unified=True")
         self.config = generation_config or GenerationConfig()
-        self.device = resolve_device(device)
+        self._init_programs(resolve_device(device))
         self.model_config = model_config
         self.num_slots = num_slots
         self.page_size = page_size
@@ -346,6 +610,15 @@ class ContinuousBatchingEngine:
             # drafts) in the same round; prefill shares what is left
             self._spec_tokens = max(self._step_tokens,
                                     num_slots * (self.spec_k + 1))
+            if self._spec_tokens != self._step_tokens:
+                warnings.warn(
+                    f"the speculative step packs {self._spec_tokens} "
+                    f"tokens (num_slots·(spec_k+1)) and the plain step "
+                    f"{self._step_tokens}: greedy streams are not bound "
+                    f"to equal a plain engine's bit for bit (a GEMM may "
+                    f"round a row differently at another row count); pass "
+                    f"step_tokens >= {self._spec_tokens} to both engines "
+                    f"for that", stacklevel=2)
             # admission's page reservation per slot: rollback never
             # truncates below it
             self._reserved = np.zeros((num_slots,), np.int64)
@@ -364,52 +637,8 @@ class ContinuousBatchingEngine:
         self._unified_step: Optional[Program] = None
         self._decode_chunk: Optional[Program] = None
         self._compiled_prefill: Dict[tuple, Program] = {}
-        #: program builds, in order: (name, key), as the JAX engine
-        #: passes them to ``recompiles.record_miss``
-        self.compile_misses: List[Tuple[str, tuple]] = []
-        #: seconds of each program's first call (eager run and capture,
-        #: to completion), summed by name (``recompiles.observe_compile``)
-        self.compile_seconds: Dict[str, float] = {}
-        #: of those, the CUDA graph captures alone
-        self.capture_seconds: Dict[str, float] = {}
-        # card runs capture CUDA graphs; False runs every program's body
-        # eagerly (the eager card run the tests compare against)
-        self._graphs = True
-        self._graph_pool: Optional[GraphPool] = None
 
     # -- compiled programs --------------------------------------------------
-
-    def _program(self, body: Callable[..., torch.Tensor], inputs: dict,
-                 params) -> Program:
-        graphs = None
-        if self.device.type == "cuda" and self._graphs:
-            if self._graph_pool is None:
-                self._graph_pool = GraphPool(self.device)
-            graphs = self._graph_pool
-        return Program(body, inputs, self.device, graphs, params_key(params))
-
-    def _fetch(self, prog: Optional[Program], name: str, key: tuple,
-               build: Callable[..., Program], params) -> Program:
-        """``prog`` if it was built over ``params``, else a new build:
-        one counted miss ``(name, key)``."""
-        if prog is not None and prog.params_id == params_key(params):
-            return prog
-        self.compile_misses.append((name, key))
-        return build(params)
-
-    def _run(self, name: str, prog: Program) -> torch.Tensor:
-        """Call ``prog``; its first call is timed to completion into
-        ``compile_seconds`` and ``capture_seconds``."""
-        if prog.calls:
-            return prog()
-        t0 = time.perf_counter()
-        out = prog()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        for book, sec in ((self.compile_seconds, time.perf_counter() - t0),
-                          (self.capture_seconds, prog.capture_seconds)):
-            book[name] = book.get(name, 0.0) + sec
-        return out
 
     def _next_key(self) -> np.ndarray:
         """``self._rng, sub = jax.random.split(self._rng)``: the key of
@@ -452,10 +681,12 @@ class ContinuousBatchingEngine:
                 ids_eff = torch.where(use_carry[k], tok[row_c], ids[k])
                 hook = ((lambda lg, g=gst: _constrain.mask_logits(
                     lg.float(), g, gtable)) if epilogue else None)
+                # the decode tokens are the carry's: the attention route
+                # follows the token (the spec step's spans match them)
                 logits, _, _ = L.ragged_step(
                     params, ids_eff, token_row[k], positions[k], kv_lens[k],
                     last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg,
-                    logits_epilogue=hook)
+                    logits_epilogue=hook, decoding=use_carry[k])
                 nxt, ngst = tail(logits, kv_lens[k], samp, gst, gtable)
                 emitted.append(tok)
                 tok = torch.where(sample_mask[k], nxt, tok)
@@ -552,7 +783,13 @@ class ContinuousBatchingEngine:
         until the epilogue is on). A row's span ``[carry, d1..dk]`` is a
         short prefill at consecutive positions under the kernel's
         ``key_pos <= position`` rule, so candidate ``j``'s logits follow
-        the row's history plus ``span[0..j]``. Shapes depend only on
+        the row's history plus ``span[0..j]``. The span's tokens are
+        flagged ``decoding``: each takes the attention kernels' route of
+        a token the unified step decodes alone, so (on the unified
+        step's packed axis, ``step_tokens`` >= slots·(k+1), where the
+        projections' GEMMs have one row count in both steps) a greedy
+        speculative stream is the plain greedy stream bit for bit, as
+        the reference promises. Shapes depend only on
         (spec tokens, slots·(k+1), table width). Returns (slots, k+2)
         int32: each row's k+1 candidate tokens, then its accepted
         count; only rows that commit a token (``sampled``) advance their
@@ -565,18 +802,19 @@ class ContinuousBatchingEngine:
                 else _sampling.spec_greedy_rows)
         i32 = torch.int32
         inputs = dict(ids=((T,), i32), token_row=((T,), i32),
-                      positions=((T,), i32), kv_lens=((n_rows,), i32),
+                      positions=((T,), i32), decoding=((T,), torch.bool),
+                      kv_lens=((n_rows,), i32),
                       cand_idx=((n_rows * k1,), i32),
                       drafts=((n_rows, max(self.spec_k, 1)), i32),
                       draft_len=((n_rows,), i32),
                       sampled=((n_rows,), torch.bool),
                       bt=((n_rows, self._table_width), i32))
 
-        def run(ids, token_row, positions, kv_lens, cand_idx, drafts,
-                draft_len, sampled, bt):
+        def run(ids, token_row, positions, decoding, kv_lens, cand_idx,
+                drafts, draft_len, sampled, bt):
             logits, _, _ = L.ragged_step(
                 params, ids, token_row, positions, kv_lens, cand_idx,
-                mgr.k_pages, mgr.v_pages, bt, mcfg)
+                mgr.k_pages, mgr.v_pages, bt, mcfg, decoding=decoding)
             lg = logits.reshape(n_rows, k1, -1)
             pos_base = positions[cand_idx.reshape(n_rows, k1)[:, 0].long()]
             toks, accepted, ngst = tail(lg, drafts, draft_len, pos_base,
@@ -1041,12 +1279,13 @@ class ContinuousBatchingEngine:
         n_rows, k1 = self.num_slots, self.spec_k + 1
         cap_tokens = self._table_width * self.page_size
         for name, fill in (("ids", 0), ("token_row", -1), ("positions", 0),
-                           ("kv_lens", 0), ("cand_idx", 0), ("drafts", 0),
-                           ("draft_len", 0), ("sampled", False)):
+                           ("decoding", False), ("kv_lens", 0),
+                           ("cand_idx", 0), ("drafts", 0), ("draft_len", 0),
+                           ("sampled", False)):
             plan[name].fill(fill)
-        ids, token_row, positions, kv_lens, cand_idx = (
-            plan[n] for n in ("ids", "token_row", "positions", "kv_lens",
-                              "cand_idx"))
+        ids, token_row, positions, decoding, kv_lens, cand_idx = (
+            plan[n] for n in ("ids", "token_row", "positions", "decoding",
+                              "kv_lens", "cand_idx"))
         drafts, draft_len, sampled = (plan[n] for n in ("drafts",
                                                         "draft_len",
                                                         "sampled"))
@@ -1096,6 +1335,7 @@ class ContinuousBatchingEngine:
                 ids[cursor:cursor + n] = span
                 token_row[cursor:cursor + n] = s
                 positions[cursor:cursor + n] = pos0 + np.arange(n)
+                decoding[cursor:cursor + n] = True
                 kv_lens[s] = pos0 + n
                 cand_idx[s * k1:s * k1 + n] = cursor + np.arange(n)
                 info[s] = ("spec", pos0, draft)

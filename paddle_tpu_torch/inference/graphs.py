@@ -83,6 +83,9 @@ class Program:
         self.calls = 0
         #: seconds the capture took (0 until captured, and without graphs)
         self.capture_seconds = 0.0
+        #: device memory the capture reserved for the graph's
+        #: intermediates in the shared pool (bytes; 0 without graphs)
+        self.pool_bytes = 0
 
     @torch.no_grad()
     def __call__(self) -> torch.Tensor:
@@ -115,6 +118,8 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graphs.pool,
                               stream=self._graphs.stream):
+            # read after the capture's own empty_cache
+            reserved = torch.cuda.memory_reserved(self._graphs.device)
             out = self.body(**self.static)
         after = launch_counts()
         self._counts = {k: n - before[k] for k, n in after.items()
@@ -122,3 +127,5 @@ class Program:
         add_launch_counts(self._counts, -1)     # capture ran nothing
         self._graph, self._out = graph, out
         self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = (torch.cuda.memory_reserved(self._graphs.device)
+                           - reserved)

@@ -1,6 +1,7 @@
 """Llama family — counterpart of ``paddle_tpu/models/llama.py``: the
 unified serving step, the legacy paged pipeline (bucketed prefill,
-prefix-cache suffix prefill, ragged decode step), the one-device
+prefix-cache suffix prefill, ragged decode step), the contiguous-cache
+prefill and decode step of ``GenerationEngine``, the one-device
 training step, and the imperative ``LlamaForCausalLM`` (l.93-191) that
 main-grad training drives.
 
@@ -171,7 +172,7 @@ def _check_dense(params) -> None:
 @torch.no_grad()
 def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
                 k_pages, v_pages, block_tables, config: LlamaConfig,
-                logits_epilogue=None):
+                logits_epilogue=None, decoding=None):
     """One forward over a RAGGED packed token batch — the unified model
     step behind the engine's serving loop (``llama.ragged_step``).
 
@@ -191,6 +192,12 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     k_pages/v_pages: (L, P, page, nkv, d); block_tables: (R, max_pages)
     logits_epilogue: optional hook over the (C, V) logits, applied last
                (the engine's grammar mask, before any sampling)
+    decoding:  optional (T,) bool, True at the tokens that decode (a
+               carry, a drafted token): the attention kernels' route
+               follows the token (``ops.paged_attention.
+               ragged_paged_attention_kernel``), so each token's bits do
+               not depend on the packing and a speculative span's tokens
+               equal the same tokens decoded one a round
     Returns (logits (C, V), k_pages, v_pages).
 
     The port updates the pools IN PLACE (the returned pools are the
@@ -234,7 +241,7 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
         vp[phys, page_off] = v[0].to(vp.dtype)
         attn = pa.ragged_paged_attention(
             q[0].contiguous(), kp, vp, block_tables, token_row, pos_c,
-            kv_lens, scale=scale)                          # (T, nh, d)
+            kv_lens, scale=scale, decoding=decoding)       # (T, nh, d)
         xo = x + (attn.reshape(1, t, -1) @ params["wo"][l]
                   ).to(x.dtype)
         xn2 = rms_norm(xo, params["ln2"][l], eps)
@@ -429,6 +436,124 @@ def decode_step_paged(params, tok, positions, k_pages, v_pages, block_tables,
         x = xo.to(x.dtype)
     x = rms_norm(x, params["ln_f"], eps)
     return x[:, 0] @ params["lm_head"], k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# The contiguous-cache path: a uniform-length batch's prefill and decode
+# step over a (L, B, S_max, nkv, d) cache (``GenerationEngine``)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Contiguous per-layer KV cache ``{"k", "v"}``, each zeros of shape
+    (L, B, S_max, nkv, d) in ``dtype`` (default the config's) on
+    ``device``. The paged cache of the serving engines is
+    ``ops.paged_attention.PagedKVCacheManager``."""
+    shape = (config.num_hidden_layers, batch, max_len,
+             config.num_key_value_heads, config.head_dim)
+    dev = resolve_device(device)
+    dt = dtype or config.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _cached_attention(q, k_cache, v_cache, kv_len, config: LlamaConfig):
+    """q (B, T, nh, d); caches (B, S_max, nkv, d); attend over
+    ``[0, kv_len)`` with causality inside the current T block (query i
+    sits at absolute position ``kv_len - T + i``). ``kv_len`` is an int
+    or a 0-d device tensor (read on the device, never on the host).
+
+    The reference's XLA einsums, in plain PyTorch on every device (no
+    Pallas kernel replaces them): fp32 scores over the whole slab, the
+    mask ``key <= kv_len - T + i``, an fp32 softmax, the probabilities
+    rounded to V's dtype before P·V. GQA groups the query heads,
+    (B, T, nkv, rep, d) against (B, S, nkv, d); K/V are never
+    repeated."""
+    b, t, nh, d = q.shape
+    s_max, nkv = k_cache.shape[1], k_cache.shape[2]
+    q_pos = kv_len - t + torch.arange(t, device=q.device)     # (T,)
+    mask = torch.arange(s_max, device=q.device)[None, :] <= q_pos[:, None]
+    qg = q.reshape(b, t, nkv, nh // nkv, d)
+    scores = torch.einsum("btgrd,bsgd->bgrts", qg.float(),
+                          k_cache.float()) / math.sqrt(d)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(b, t, nh, d)
+
+
+def _decoder_layer_cached_full(params, l, x, cos, sin, kf, vf, kv_len,
+                               config: LlamaConfig):
+    """One cached decoder layer on the FULL stacked cache (L, B, S_max,
+    nkv, d): the T new tokens' K/V go into layer ``l``'s slab at
+    positions ``kv_len - T ..`` (``index_copy_`` at a device index, in
+    place), then attention reads the layer's whole slab. RMSNorm through
+    ``ops.rms_norm`` (the Triton kernel on the card)."""
+    b, t, _ = x.shape
+    d = config.head_dim
+    eps = config.rms_norm_eps
+    xn = rms_norm(x, params["ln1"][l], eps)
+    q = (xn @ params["wq"][l]).reshape(b, t, -1, d)
+    k = (xn @ params["wk"][l]).reshape(b, t, -1, d)
+    v = (xn @ params["wv"][l]).reshape(b, t, -1, d)
+    q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+    slots = kv_len - t + torch.arange(t, device=x.device)
+    kf[l].index_copy_(1, slots, k.to(kf.dtype))
+    vf[l].index_copy_(1, slots, v.to(vf.dtype))
+    attn = _cached_attention(q, kf[l], vf[l], kv_len, config)
+    x = x + (attn.reshape(b, t, -1) @ params["wo"][l]).to(x.dtype)
+    xn = rms_norm(x, params["ln2"][l], eps)
+    g = xn @ params["w_gate"][l]
+    u = xn @ params["w_up"][l]
+    return x + ((F.silu(g) * u) @ params["w_down"][l]).to(x.dtype)
+
+
+@torch.no_grad()
+def prefill_stacked(params, ids, cache, config: LlamaConfig):
+    """Process the whole (right-padded) prompt bucket, filling the cache
+    (``llama.prefill_stacked``). ids: (B, T) int; cache: ``{"k", "v"}``
+    of (L, B, S_max, nkv, d), updated IN PLACE and returned. Returns
+    (per-position logits (B, T, V), cache); the caller picks each row's
+    last real position."""
+    _check_dense(params)
+    b, t = ids.shape
+    s_max = cache["k"].shape[2]
+    cos_full, sin_full = _rope_cache(s_max, config.head_dim,
+                                     float(config.rope_theta),
+                                     str(ids.device))
+    # the bucket is the attendable span: a device scalar, as decode's
+    kv_len = torch.full((), t, dtype=torch.long, device=ids.device)
+    x = params["embed"][ids.long()]
+    for l in range(config.num_hidden_layers):
+        x = _decoder_layer_cached_full(params, l, x, cos_full[:t],
+                                       sin_full[:t], cache["k"], cache["v"],
+                                       kv_len, config)
+    x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
+    return x @ params["lm_head"], cache
+
+
+@torch.no_grad()
+def decode_step_stacked(params, tok, pos, cache, config: LlamaConfig):
+    """One generated token (``llama.decode_step_stacked``). tok: (B,)
+    int; pos: 0-d int device tensor, the absolute position of ``tok``
+    (kv_len becomes pos + 1). The rope rows are gathered and the slab
+    written at ``pos`` on the device, so a CUDA graph replays the step
+    at any position. Returns (logits (B, V), cache), the cache updated
+    IN PLACE."""
+    _check_dense(params)
+    s_max = cache["k"].shape[2]
+    cos_full, sin_full = _rope_cache(s_max, config.head_dim,
+                                     float(config.rope_theta),
+                                     str(tok.device))
+    p = pos.reshape(1).long()
+    cos, sin = cos_full.index_select(0, p), sin_full.index_select(0, p)
+    x = params["embed"][tok.long()][:, None, :]
+    kv_len = pos.long() + 1
+    for l in range(config.num_hidden_layers):
+        x = _decoder_layer_cached_full(params, l, x, cos, sin, cache["k"],
+                                       cache["v"], kv_len, config)
+    x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
+    return x[:, 0] @ params["lm_head"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ card and what its design does about it):
   call covers a flat axis of packed tokens from mixed prefill and decode
   rows, each attending to ITS row's pages under the one mask rule
   ``key_pos <= positions[t]`` (``csrc/ragged_paged_attention.cu``:
-  wgmma tiles for runs of a row's tokens, the flash-decoding key split of
-  ``csrc/paged_decode.cuh`` for single tokens);
+  wgmma tiles for runs of a row's prompt tokens, the flash-decoding key
+  split of ``csrc/paged_decode.cuh`` for the tokens flagged ``decoding``:
+  the route follows the token, so a token's bits do not depend on how
+  the engine packed it);
 * :func:`paged_attention` serves the legacy pipeline's decode step: one
   query per row over ``pos < seq_len`` (``csrc/paged_decode_attention.cu``:
   the same key split, a row's keys cut into chunks walked by blocks of
@@ -198,18 +200,21 @@ def _chunking(span, chunk, default):
     return chunk, -(-span // chunk)
 
 
-def ragged_tiles(token_row, n_rows: int, ts: int):
+def ragged_tiles(token_row, n_rows: int, ts: int, decoding):
     """The tiles of the flat token axis, in plain torch ops (no host
     sync): each token's tile start, -1 for a pad slot (a row outside
     ``[0, n_rows)``). A run is a stretch of consecutive tokens of one
-    row; a tile starts at every ``ts``-th token of a run. This is what
+    row; a token that ``decoding`` (bool (T,)) flags is a run of its
+    own; a tile starts at every ``ts``-th token of a run. This is what
     the kernels' warp scan finds; ``tile_map`` of
     :func:`ragged_paged_attention_kernel` reports the kernels' own."""
     row = token_row.long()
     idx = torch.arange(row.shape[0], device=row.device)
     valid = (row >= 0) & (row < n_rows)
     prev = torch.cat([row.new_full((1,), -2), row[:-1]])
-    run_start = valid & (prev != row)
+    dec = decoding.bool()
+    run_start = valid & ((prev != row) | dec
+                         | torch.cat([dec.new_zeros(1), dec[:-1]]))
     first = torch.cummax(torch.where(run_start, idx, torch.zeros_like(idx)),
                          0).values
     tile_start = valid & ((idx - first) % ts == 0)
@@ -226,7 +231,7 @@ def _kernel_fn():
     if _launch_fn is None:
         fn = load_cuda_library("ragged_paged_attention") \
             .ragged_paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch_fn = fn
@@ -310,14 +315,21 @@ def _check_paged_inputs(q, k_pages, v_pages, block_tables, meta):
 
 
 def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
-                                  token_row, positions, kv_lens,
+                                  token_row, positions, kv_lens, decoding,
                                   scale: Optional[float] = None,
                                   route: Optional[str] = None,
                                   tile_map=None, chunk: Optional[int] = None):
     """Launch the CUDA kernels (same contract as the plain version; the
-    output is allocated here in the pool dtype). ``route=None`` takes
-    :func:`ragged_route`'s kernels; ``"key_split"`` sends every token
-    through the key split (any dtype and page size). ``tile_map``, an
+    output is allocated here in the pool dtype). ``decoding``, a bool
+    (T,) tensor, routes each token: a flagged token (a decode step's, a
+    speculative span's) takes the key split alone, whatever its
+    neighbours; every other token takes the wgmma tiles of its run where
+    the call takes them, a lone one too (all false: every token on the
+    tiles). So a token's output is the same bits wherever the engine
+    packs it: a speculative span's tokens equal the same tokens decoded
+    one at a time. ``route=None`` takes :func:`ragged_route`'s kernels;
+    ``"key_split"`` sends every token through the key split (any dtype
+    and page size). ``tile_map``, an
     int32 (T,) tensor, receives each token's tile start as the kernels
     found it (-1 for pads). ``chunk`` forces the key split's chunk size
     (default :func:`ragged_split`'s). Counts one call in
@@ -328,6 +340,12 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
     _check_paged_inputs(q, k_pages, v_pages, block_tables,
                         dict(token_row=token_row, positions=positions,
                              kv_lens=kv_lens))
+    if decoding is None:
+        raise ValueError("the kernels route each token by its decoding "
+                         "flag: pass a (T,) bool tensor")
+    check_cuda_tensor("decoding", decoding, (torch.bool,), ndim=1)
+    if decoding.shape[0] != q.shape[0] or decoding.device != q.device:
+        raise ValueError("decoding must be (T,) on q's device")
     t, nh, d = q.shape
     n_pages, page, nkv, _ = k_pages.shape
     n_rows, width = block_tables.shape
@@ -358,7 +376,8 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel_fn()(
-        *(a.data_ptr() for a in tensors), out.data_ptr(),
+        *(a.data_ptr() for a in tensors), decoding.data_ptr(),
+        out.data_ptr(),
         *(None if a is None else a.data_ptr()
           for a in (tile_map, part, n_split)),
         t, n_rows, width, n_pages, page, nh, nkv, d,
@@ -374,12 +393,16 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
-                           positions, kv_lens, scale: Optional[float] = None):
-    """CPU tensors: the plain version. CUDA tensors: the CUDA kernels."""
+                           positions, kv_lens, scale: Optional[float] = None,
+                           decoding=None):
+    """CPU tensors: the plain version (a token's result does not depend
+    on its route there; ``decoding`` is unused). CUDA tensors: the CUDA
+    kernels, which need ``decoding``
+    (:func:`ragged_paged_attention_kernel`)."""
     if q.is_cuda:
         return ragged_paged_attention_kernel(
             q, k_pages, v_pages, block_tables, token_row, positions,
-            kv_lens, scale)
+            kv_lens, decoding, scale)
     return ragged_paged_attention_plain(
         q, k_pages, v_pages, block_tables, token_row, positions, kv_lens,
         scale)

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch/CUDA port: each kernel against its
 plain PyTorch version at Llama-2-7B and BERT-large widths, the wrappers'
 argument checks, the serving engine (greedy, sampled, constrained and
-speculative), the Llama and ERNIE training steps
+speculative; bf16 speculative streams equal to the plain ones), the
+generate engines, the Llama and ERNIE training steps
 and main-grad training of the imperative Llama on the card against the
 same on the CPU, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
 present. Run on the card (the machine there has no JAX, so skip the
@@ -126,6 +127,15 @@ _ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-5)}
 _LONG_ROWS = ((300, 1), (40, 1), (0, 150), (200, 70), (5, 2))
 
 
+def _unified_flags(args):
+    """The ``decoding`` flags the unified step passes with a batch of
+    :func:`_mixed_batch`: a row's lone token is its decode carry; a
+    prompt chunk's tokens do not decode."""
+    tr, n_rows = args[4], args[3].shape[0]
+    counts = torch.bincount(tr[tr >= 0].long(), minlength=n_rows)
+    return (tr >= 0) & (counts[tr.long().clamp(min=0)] == 1)
+
+
 def _check_ragged(args, got, route):
     want = pa.ragged_paged_attention_plain(*args)
     rtol, atol = _ATTN_TOL.get(args[0].dtype, (2e-2, 2e-2))
@@ -146,19 +156,26 @@ def _check_ragged(args, got, route):
     (12, 32, _LONG_ROWS, False)],
     ids=["page16", "page16-long", "page16-scattered", "page8-long",
          "page12-long"])
+@pytest.mark.parametrize("flags", ["unified", "unflagged"])
 def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d,
-                                               page, width, rows, scatter):
+                                               page, width, rows, scatter,
+                                               flags):
     """Every route against the plain version: the call's own routes
     (wgmma tiles and the key split where ragged_route says so; page 12
     and fp32 take the key split alone) and the key split forced for
-    every token; the kernels' tile map equals ``ragged_tiles``."""
+    every token; the kernels' tile map equals ``ragged_tiles``. The
+    ``decoding`` flags are the unified step's (the decode rows' lone
+    tokens on the key split), or none (every lone token, a decode row's
+    too, a one-token wgmma tile, as a lone prompt token is)."""
     kw = {} if rows is None else dict(rows=rows)
     args = _mixed_batch(cuda, dtype, nh, nkv, d, page=page, width=width,
                         scatter=scatter, **kw)
+    dec = (_unified_flags(args) if flags == "unified"
+           else torch.zeros_like(args[4], dtype=torch.bool))
     routes = pa.ragged_route(dtype, page, nh, nkv)
     before = dict(pa.ragged_paged_attention.route_launches)
     calls = pa.ragged_paged_attention.launches
-    got = pa.ragged_paged_attention(*args)
+    got = pa.ragged_paged_attention(*args, decoding=dec)
     torch.cuda.synchronize()
     assert pa.ragged_paged_attention.launches == calls + 1
     for r in pa.RAGGED_ROUTES:
@@ -173,11 +190,11 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype, nh, nkv, d,
     ts = pa.ragged_tile_size(dtype, page, nh, nkv)
     tile_map = torch.full((args[0].shape[0],), -7, dtype=torch.int32,
                           device=cuda)
-    pa.ragged_paged_attention_kernel(*args, tile_map=tile_map)
+    pa.ragged_paged_attention_kernel(*args, dec, tile_map=tile_map)
     n_rows = args[3].shape[0]
     torch.testing.assert_close(tile_map, pa.ragged_tiles(args[4], n_rows,
-                                                         ts))
-    split = pa.ragged_paged_attention_kernel(*args, route="key_split")
+                                                         ts, dec))
+    split = pa.ragged_paged_attention_kernel(*args, dec, route="key_split")
     torch.cuda.synchronize()
     _check_ragged(args, split, "key_split")
 
@@ -190,12 +207,13 @@ def test_ragged_key_split_chunks_match_plain(cuda, dtype, chunk):
     default's size and the whole span (no merge); the kernels' tile map
     still equals ``ragged_tiles``."""
     args = _mixed_batch(cuda, dtype, 32, 8, 128, width=24, rows=_LONG_ROWS)
+    dec = _unified_flags(args)
     page, nh, nkv = 16, 32, 8
     before = pa.ragged_paged_attention.route_launches["merge"]
     tile_map = torch.full((args[0].shape[0],), -7, dtype=torch.int32,
                           device=cuda)
     for route in (None, "key_split"):
-        got = pa.ragged_paged_attention_kernel(*args, route=route,
+        got = pa.ragged_paged_attention_kernel(*args, dec, route=route,
                                                tile_map=tile_map,
                                                chunk=chunk)
         torch.cuda.synchronize()
@@ -203,7 +221,7 @@ def test_ragged_key_split_chunks_match_plain(cuda, dtype, chunk):
         ts = (pa.ragged_tile_size(dtype, page, nh, nkv) if route is None
               else 1)
         torch.testing.assert_close(
-            tile_map, pa.ragged_tiles(args[4], args[3].shape[0], ts))
+            tile_map, pa.ragged_tiles(args[4], args[3].shape[0], ts, dec))
     merges = pa.ragged_paged_attention.route_launches["merge"] - before
     assert merges == (2 if chunk < 24 * page else 0)
 
@@ -211,9 +229,10 @@ def test_ragged_key_split_chunks_match_plain(cuda, dtype, chunk):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_ragged_attention_kernels_repeat_bitwise(cuda, dtype):
     args = _mixed_batch(cuda, dtype, 32, 8, 128, width=24, rows=_LONG_ROWS)
+    dec = _unified_flags(args)
     for route in (None, "key_split"):
-        a = pa.ragged_paged_attention_kernel(*args, route=route)
-        b = pa.ragged_paged_attention_kernel(*args, route=route)
+        a = pa.ragged_paged_attention_kernel(*args, dec, route=route)
+        b = pa.ragged_paged_attention_kernel(*args, dec, route=route)
         torch.cuda.synchronize()
         assert torch.equal(a, b), route
 
@@ -226,10 +245,11 @@ def test_ragged_attention_row_with_nothing_to_attend_is_zero(cuda):
                                              128, width=24, rows=_LONG_ROWS)
     kvl = kvl.clone()
     kvl[2] = 0                       # the 150-token prefill row
+    dec = _unified_flags((q, k, v, bt, tr, pos, kvl))
     want = pa.ragged_paged_attention_plain(q, k, v, bt, tr, pos, kvl)
     for route in (None, "key_split"):
         got = pa.ragged_paged_attention_kernel(q, k, v, bt, tr, pos, kvl,
-                                               route=route)
+                                               dec, route=route)
         torch.cuda.synchronize()
         assert bool((got[tr == 2] == 0).all()), route
         torch.testing.assert_close(got[tr != 2].float(),
@@ -240,17 +260,26 @@ def test_ragged_attention_row_with_nothing_to_attend_is_zero(cuda):
 def test_ragged_attention_kernel_rejects_bad_input(cuda):
     q, k, v, bt, tr, pos, kvl = _mixed_batch(cuda, torch.float32, 4, 4,
                                              d=128)
+    dec = _unified_flags((q, k, v, bt, tr, pos, kvl))
     with pytest.raises(TypeError):
-        pa.ragged_paged_attention(q.half(), k, v, bt, tr, pos, kvl)
+        pa.ragged_paged_attention(q.half(), k, v, bt, tr, pos, kvl,
+                                  decoding=dec)
     with pytest.raises(TypeError):
-        pa.ragged_paged_attention(q, k, v, bt, tr, pos.long(), kvl)
+        pa.ragged_paged_attention(q, k, v, bt, tr, pos.long(), kvl,
+                                  decoding=dec)
     with pytest.raises(ValueError, match="head_dim"):
         pa.ragged_paged_attention(q[..., :96].contiguous(),
                                   k[..., :96].contiguous(),
-                                  v[..., :96].contiguous(), bt, tr, pos, kvl)
+                                  v[..., :96].contiguous(), bt, tr, pos, kvl,
+                                  decoding=dec)
     with pytest.raises(ValueError, match="route"):
-        pa.ragged_paged_attention_kernel(q, k, v, bt, tr, pos, kvl,
+        pa.ragged_paged_attention_kernel(q, k, v, bt, tr, pos, kvl, dec,
                                          route="wgmma")   # fp32 pools
+    with pytest.raises(ValueError, match="decoding"):
+        pa.ragged_paged_attention(q, k, v, bt, tr, pos, kvl)
+    with pytest.raises(TypeError):
+        pa.ragged_paged_attention(q, k, v, bt, tr, pos, kvl,
+                                  decoding=dec.int())
 
 
 def test_ragged_step_launch_counts(cuda):
@@ -531,6 +560,107 @@ def test_paged_generation_engine_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the generate engines: GenerationEngine (contiguous cache) and
+# PagedGenerationEngine, each one CUDA graph a key
+# ---------------------------------------------------------------------------
+
+_GEN_CFG = dict(hidden_size=256, num_attention_heads=2, intermediate_size=512,
+                num_hidden_layers=2)
+
+
+@pytest.mark.parametrize("gen", [dict(), dict(do_sample=True,
+                                              temperature=0.8, top_k=30,
+                                              top_p=0.9, seed=6)],
+                         ids=["greedy", "sampled"])
+def test_generation_engine_on_card_matches_cpu(cuda, gen):
+    """``llama_engine`` (fp32, GQA, d 128): two prompt lengths of one
+    bucket (5 and 9 of 16) replay ONE CUDA graph, each with its own
+    tokens, equal to the eager card run's and the CPU's; greedy and
+    sampled."""
+    cfg = L.llama_tiny(num_key_value_heads=1, **_GEN_CFG)
+    params = L.init_params(cfg, seed=2, device="cpu")
+    rng = np.random.RandomState(5)
+    calls = [rng.randint(1, cfg.vocab_size, (3, n)).astype(np.int32)
+             for n in (5, 9, 5)]
+    conf = D.GenerationConfig(max_new_tokens=7, **gen)
+    outs = []
+    for dev, graphs in (("cpu", False), (cuda, True), (cuda, False)):
+        eng = D.llama_engine(cfg, conf, device=dev)
+        eng._graphs = graphs
+        p = {k: t.to(dev) for k, t in params.items()}
+        outs.append([eng.generate(p, ids) for ids in calls])
+        assert eng.compile_misses == [("generation_engine.run", (16, 7, 3))]
+    for card in outs[1:]:
+        for a, b in zip(card, outs[0]):
+            np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(outs[0][0], outs[0][1])
+
+
+def test_generation_engine_bf16_graph_equals_eager(cuda):
+    """bf16 ``llama_engine``: the graph's tokens equal the eager card
+    run's; a generate launches RMSNorm 2L+1 times a step (the prefill and
+    max_new - 1 decode steps), graph replays counted; the capture's
+    seconds and pool bytes are booked; a new key drops the last key's
+    graph and cache."""
+    cfg = L.llama_tiny(num_key_value_heads=2, dtype=torch.bfloat16,
+                       **_GEN_CFG)
+    params = L.init_params(cfg, seed=4, device=cuda)
+    ids = np.random.RandomState(6).randint(
+        1, cfg.vocab_size, (4, 20)).astype(np.int32)
+    outs = []
+    for graphs in (True, False):
+        eng = D.llama_engine(cfg, D.GenerationConfig(max_new_tokens=9),
+                             device=cuda)
+        eng._graphs = graphs
+        eng.generate(params, ids)
+        rn.rms_norm.launches = 0
+        outs.append(eng.generate(params, ids))
+        torch.cuda.synchronize()
+        assert rn.rms_norm.launches == (2 * 2 + 1) * 9
+        assert len(eng.compile_misses) == 1
+    np.testing.assert_array_equal(outs[0], outs[1])
+    eng = D.llama_engine(cfg, D.GenerationConfig(max_new_tokens=9),
+                         device=cuda)
+    eng.generate(params, ids)
+    assert eng.capture_seconds["generation_engine.run"] > 0
+    assert eng.graph_pool_bytes["generation_engine.run"] > 0
+    eng.generate(params, ids[:2])      # another key: the last one dropped
+    assert len(eng._compiled) == 1 and len(eng.compile_misses) == 2
+
+
+def test_paged_generation_engine_graph_one_build(cuda):
+    """bf16 ``PagedGenerationEngine``: two calls of one key (other
+    prompts, same bucket and widest table) replay one CUDA graph over the
+    key's kept pool; a call of another key drops that graph and pool (one
+    key held at a time), and the first key again is a new build; tokens
+    equal the eager card run's."""
+    cfg = L.llama_tiny(num_key_value_heads=1, dtype=torch.bfloat16,
+                       **_GEN_CFG)
+    params = L.init_params(cfg, seed=2, device=cuda)
+    rng = np.random.RandomState(8)
+    batches = [[rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+                for n in lens]
+               for lens in ((3, 17, 40), (33, 40, 9), (5, 6), (3, 17, 40))]
+    outs = []
+    for graphs in (True, False):
+        eng = D.PagedGenerationEngine(cfg, D.GenerationConfig(
+            max_new_tokens=7), page_size=16, device=cuda)
+        eng._graphs = graphs
+        out, pools = [], []
+        for p in batches:
+            out.append(eng.generate(params, p))
+            pools.append(eng._mgr)
+            assert len(eng._compiled) == 1
+        outs.append(out)
+        assert pools[0] is pools[1] and pools[2] is not pools[1]
+        assert eng.compile_misses == [("paged_engine.run", (64, 7, 3, 3)),
+                                      ("paged_engine.run", (16, 7, 2, 1)),
+                                      ("paged_engine.run", (64, 7, 3, 3))]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
 # sampling slice: sampled, constrained and speculative serves
 # ---------------------------------------------------------------------------
 
@@ -637,11 +767,12 @@ class _AlwaysDraft(Drafter):
         return [int(history[-1])] * k
 
 
-def test_spec_step_spans_take_the_tile_route(cuda):
+def test_spec_step_spans_take_the_key_split(cuda):
     """bf16 pools at page 16: a speculative round's ``[carry, d1..dk]``
-    spans are runs of k+1 tokens, which the ragged kernels walk as
-    multi-token wgmma tiles (``ragged_tiles`` over the round's plan,
-    ``route_launches["wgmma"]`` once per layer and round); the greedy
+    spans are flagged ``decoding``, so every span token is a tile of its
+    own on the key split (``ragged_tiles`` over the round's plan with its
+    flags: 15 one-token tiles; ``route_launches["key_split"]`` once per
+    layer and round), as the unified step decodes a token; the greedy
     tokens through the graphs equal the eager card run's."""
     cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
                        num_key_value_heads=4, intermediate_size=512,
@@ -668,18 +799,234 @@ def test_spec_step_spans_take_the_tile_route(cuda):
         eng.step(params)                   # a decode round: 3 spans of 5
         torch.cuda.synchronize()
         op = pa.ragged_paged_attention
-        assert op.launches == 2 and op.route_launches["wgmma"] == 2
+        assert op.launches == 2 and op.route_launches["key_split"] == 2
         static = eng._spec_step.static
         ts = pa.ragged_tile_size(torch.bfloat16, 16, 4, 4)
-        tiles = pa.ragged_tiles(static["token_row"], 3, ts).cpu().numpy()
+        tiles = pa.ragged_tiles(static["token_row"], 3, ts,
+                                static["decoding"]).cpu().numpy()
         starts, sizes = np.unique(tiles[tiles >= 0], return_counts=True)
-        assert len(starts) == 3 and (sizes == 5).all()
+        assert len(starts) == 15 and (sizes == 1).all()
+        assert bool(static["decoding"][static["token_row"] >= 0].all())
         out = {}
         while len(out) < len(rids):
             eng.step(params)
             out.update(eng.collect())
         outs.append([out[r] for r in rids])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# a token's bits do not depend on its packing: speculative greedy streams
+# equal the plain greedy streams at bf16
+# ---------------------------------------------------------------------------
+
+def _packed_call(cuda, pool, entries, n_tokens):
+    """One ragged call over ``pool`` (bf16 K/V, tables, per-(row,
+    position) queries, each row's length) with the tokens ``entries``
+    ((row, position, decoding) each) packed from slot 0 and pads after.
+    A row's kv_len is its last entry's position + 1 (a row without
+    entries keeps its length). Returns the (T, nh, d) output."""
+    k, v, bt, qtab, lens = pool
+    tr = np.full(n_tokens, -1, np.int32)
+    pos = np.zeros(n_tokens, np.int32)
+    dec = np.zeros(n_tokens, bool)
+    kv_lens = np.asarray(lens, np.int32)
+    for i, (r, p, d) in enumerate(entries):
+        tr[i], pos[i], dec[i] = r, p, d
+        kv_lens[r] = p + 1
+    rows = torch.as_tensor(np.maximum(tr, 0), device=cuda).long()
+    q = qtab[rows, torch.as_tensor(pos, device=cuda).long()].contiguous()
+    meta = [torch.as_tensor(a, device=cuda) for a in (bt, tr, pos, kv_lens)]
+    out = pa.ragged_paged_attention(
+        q, k, v, *meta, decoding=torch.as_tensor(dec, device=cuda))
+    torch.cuda.synchronize()
+    return out
+
+
+def _span_pool(cuda, nh, nkv, d=128, page=16, width=32):
+    rng = np.random.RandomState(7)
+    lens = [240, 200, 77, 301]          # row 0 is the row under test
+    n_pages = len(lens) * width + 1
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((len(lens), width), np.int32)
+    for r in range(len(lens)):
+        bt[r] = perm[r * width:(r + 1) * width]
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    pool = (n_pages, page, nkv, d)
+    k = torch.randn(pool, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(pool, generator=gen, device=cuda).to(torch.bfloat16)
+    qtab = torch.randn((len(lens), width * page, nh, d), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    return k, v, bt, qtab, lens
+
+
+@pytest.mark.parametrize("nkv", [32, 8], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("kind,n", [("decode", 5), ("prompt", 70)])
+def test_ragged_token_bits_do_not_depend_on_its_packing(cuda, nkv, kind, n):
+    """bf16, page 16, nh 32: a row's ``n`` tokens at positions
+    150-n+1..150, packed as one span of the row (beside other rows'
+    decode tokens), against each token packed alone at its position
+    (same pool, same T, same rows): bitwise equal. ``decode``: a
+    speculative span ``[carry, d1..d4]``, flagged ``decoding`` as the
+    spec step flags it, against the unified step's lone decode token (the
+    key split either way). ``prompt``: a prefill run of 70 tokens (two
+    tiles at nkv 32, five at nkv 8) against each token alone, unflagged
+    (the wgmma tiles either way, a lone token a tile of one)."""
+    pool = _span_pool(cuda, 32, nkv)
+    flag = kind == "decode"
+    others = [(1, 199, True), (2, 76, True), (3, 300, True)]
+    first = 150 - n + 1
+    span = [(0, first + j, flag) for j in range(n)]
+    n_tokens = 96
+    got = _packed_call(cuda, pool, others[:1] + span + others[1:],
+                       n_tokens)
+    for j in range(n):
+        alone = _packed_call(cuda, pool, others[:1] + [span[j]]
+                             + others[1:], n_tokens)
+        a, b = alone[1], got[1 + j]
+        assert torch.equal(a, b), (
+            f"token {j} of the span (position {first + j}): "
+            f"{int((a != b).sum())} of {a.numel()} elements differ, "
+            f"max {float((a.float() - b.float()).abs().max())}")
+
+
+def test_lm_head_rows_do_not_depend_on_row_count(cuda):
+    """The logits of a hidden row taken among 8 gathered rows (the
+    unified step's one a slot) and among 40 (the spec step's k+1 a slot)
+    at Llama-2-7B's (h 4096, V 32000) in bf16, as ``ragged_step`` takes
+    them (``x[last_idx] @ lm_head``): bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((256, 4096), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = (0.02 * torch.randn((4096, 32000), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    idx40 = torch.arange(40, device=cuda) * 6
+    idx8 = idx40[::5]
+    a = x[idx8] @ w
+    b = (x[idx40] @ w)[::5]
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), (f"{int((a != b).sum())} of {a.numel()} "
+                               "logits differ")
+
+
+@pytest.mark.parametrize("drafter", ["always", "ngram", "plain_stream"])
+def test_bf16_spec_greedy_streams_equal_plain_streams(cuda, drafter):
+    """The reference's promise: speculative greedy output equals the
+    non-speculative greedy output. A tiny bf16 engine (3 slots, page 16,
+    max_seq_len 96, chunk 2, both programs on a 16-token axis), five
+    prompts through the three slots, 40 new tokens, through the CUDA
+    graphs: ``speculative=True, spec_k=4`` with drafts of k copies of
+    the last token, the n-gram drafter, or the plain engine's own
+    streams (all accepted) gives the plain engine's tokens."""
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                       num_key_value_heads=4, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=3, device=cuda)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (12, 30, 7, 17, 1)]
+    geo = dict(num_slots=3, page_size=16, max_seq_len=96, chunk=2,
+               device=cuda)
+    gen = D.GenerationConfig(max_new_tokens=40)
+    plain = D.ContinuousBatchingEngine(cfg, gen, **geo).serve(params,
+                                                              prompts)
+    make = {"always": _AlwaysDraft, "ngram": lambda: None,
+            "plain_stream": lambda: _StreamDrafter(prompts, plain)}
+    eng = D.ContinuousBatchingEngine(cfg, gen, speculative=True, spec_k=4,
+                                     drafter=make[drafter](), **geo)
+    assert eng._spec_tokens == 16
+    spec = eng.serve(params, prompts)
+    assert eng.spec.stats["drafted"] > 0 or drafter == "ngram"
+    if drafter == "plain_stream":
+        assert eng.spec.stats["accepted"] == eng.spec.stats["drafted"]
+    same = [a == b for x, y in zip(spec, plain) for a, b in zip(x, y)]
+    assert spec == plain, f"{sum(same)} of {len(same)} tokens equal"
+
+
+@pytest.mark.parametrize("k_dim,n_dim", [(4096, 4096), (4096, 11008),
+                                         (11008, 4096), (4096, 32000),
+                                         (512, 512)])
+@pytest.mark.parametrize("m_dim", [16, 40, 256])
+def test_projection_rows_do_not_depend_on_their_neighbours(cuda, k_dim,
+                                                           n_dim, m_dim):
+    """bf16 ``(1, M, K) @ (K, N)`` as ``ragged_step`` runs its q/k/v/o,
+    MLP and lm_head projections (Llama-2-7B's and the tiny tests' widths):
+    at one row count M, a hidden row's product is bitwise the same at any
+    index among any other rows, as a token packed at another slot of the
+    same token axis. (At another M it need not be: cuBLAS picks its
+    kernel by shape, and at (4096, 4096) a row among 16 and among 40
+    differ; so the speculative and plain steps agree only on one axis.)"""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((2 * m_dim, k_dim), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = (0.02 * torch.randn((k_dim, n_dim), generator=gen,
+                            device=cuda)).to(torch.bfloat16)
+    base = (x[None, :m_dim] @ w)[0]
+    perm = torch.randperm(m_dim, device=cuda)
+    others = torch.arange(m_dim, 2 * m_dim, device=cuda)
+    idx = torch.where(torch.arange(m_dim, device=cuda) % 2 == 0, perm,
+                      others)             # half the rows, moved
+    got = (x[idx][None] @ w)[0]
+    kept = idx < m_dim
+    want = base[idx[kept]]
+    torch.cuda.synchronize()
+    assert torch.equal(got[kept], want), (
+        f"{int((got[kept] != want).sum())} of {want.numel()} products "
+        "differ")
+
+
+@pytest.mark.parametrize("widths", ["tiny", "tiny-gqa", "7b"])
+@pytest.mark.parametrize("drafter", ["ngram", "plain_stream"])
+def test_bf16_spec_streams_equal_plain_streams_on_one_token_axis(
+        cuda, widths, drafter):
+    """The reference's promise at 8 slots, page 16, the default chunk,
+    bf16, through the CUDA graphs, with both engines on one packed axis
+    (``step_tokens`` 40 = slots·(k+1), as the speculative step needs):
+    12 prompts through the slots, 24 new tokens each; the speculative
+    greedy streams (n-gram drafts, or the plain streams themselves, all
+    accepted) equal the plain greedy streams, also at Llama-2-7B's
+    widths (2 layers)."""
+    cfg = (L.llama2_7b(num_hidden_layers=2, dtype=torch.bfloat16)
+           if widths == "7b" else
+           L.llama_tiny(hidden_size=512, num_attention_heads=8,
+                        num_key_value_heads=2 if widths == "tiny-gqa"
+                        else 8, intermediate_size=512,
+                        num_hidden_layers=2, dtype=torch.bfloat16))
+    params = L.init_params(cfg, seed=4, device=cuda)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.randint(1, 60, size=12)]
+    geo = dict(num_slots=8, page_size=16, max_seq_len=128, step_tokens=40,
+               device=cuda)
+    gen = D.GenerationConfig(max_new_tokens=24)
+    plain = D.ContinuousBatchingEngine(cfg, gen, **geo).serve(params,
+                                                              prompts)
+    eng = D.ContinuousBatchingEngine(
+        cfg, gen, speculative=True, spec_k=4,
+        drafter=(_StreamDrafter(prompts, plain) if drafter == "plain_stream"
+                 else None), **geo)
+    assert eng._spec_tokens == 40
+    spec = eng.serve(params, prompts)
+    if drafter == "plain_stream":
+        assert eng.spec.stats["accepted"] == eng.spec.stats["drafted"] > 0
+    same = [a == b for x, y in zip(spec, plain) for a, b in zip(x, y)]
+    assert spec == plain, f"{sum(same)} of {len(same)} tokens equal"
+
+
+class _StreamDrafter(Drafter):
+    """Drafts the next tokens of known streams, found by the prompt the
+    history starts with."""
+
+    def __init__(self, prompts, streams):
+        self.refs = [([int(t) for t in p], list(map(int, o)))
+                     for p, o in zip(prompts, streams)]
+
+    def draft(self, history, k):
+        for prompt, out in self.refs:
+            if list(history[:len(prompt)]) == prompt:
+                done = len(history) - len(prompt)
+                return out[done:done + k]
+        return []
 
 
 # ---------------------------------------------------------------------------

@@ -18,17 +18,19 @@ from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
 
 
-def _tiles_numpy(token_row, n_rows, ts):
+def _tiles_numpy(token_row, n_rows, ts, decoding=None):
     """Each token's tile start (-1 for a pad), by walking the axis: a run
     is a stretch of consecutive tokens of one row, a tile every ts-th
-    token of a run."""
+    token of a run; a token ``decoding`` flags is a run of its own."""
+    dec = (np.zeros(len(token_row), bool) if decoding is None
+           else np.asarray(decoding, bool))
     out = np.full(len(token_row), -1, np.int64)
     run_first, tile = -1, -1
     for t, r in enumerate(token_row):
         if not 0 <= r < n_rows:
             run_first = -1
             continue
-        if t == 0 or token_row[t - 1] != r:
+        if t == 0 or token_row[t - 1] != r or dec[t] or dec[t - 1]:
             run_first = t
         if (t - run_first) % ts == 0:
             tile = t
@@ -53,6 +55,11 @@ def _layout(rng, n_rows, runs, pad_between, tail_pads):
 _RUNS = [1, 63, 64, 65, 200, 1, 1, 7, 130]
 
 
+def _unflagged(token_row):
+    """No token decodes: every run is tiled as it lies."""
+    return torch.zeros(len(token_row), dtype=torch.bool)
+
+
 @pytest.mark.parametrize("ts", [64, 16, 8, 2, 1])
 @pytest.mark.parametrize("seed", range(6))
 def test_ragged_tiles_match_numpy(ts, seed):
@@ -60,10 +67,36 @@ def test_ragged_tiles_match_numpy(ts, seed):
     runs = list(rng.permutation(_RUNS))
     token_row = _layout(rng, n_rows=5, runs=runs, pad_between=0.4,
                         tail_pads=int(rng.randint(0, 70)))
-    got = pa.ragged_tiles(torch.from_numpy(token_row), 5, ts)
+    got = pa.ragged_tiles(torch.from_numpy(token_row), 5, ts,
+                          _unflagged(token_row))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(),
                                   _tiles_numpy(token_row, 5, ts))
+
+
+@pytest.mark.parametrize("ts", [64, 16, 1])
+@pytest.mark.parametrize("seed", range(3))
+def test_ragged_tiles_with_decoding_flags_match_numpy(ts, seed):
+    """The tiles with the per-token route flags the engines pass: a
+    flagged (decoding) token is a tile of its own and cuts its row's run,
+    whatever its neighbours; the speculative step's spans (runs of k+1
+    flagged tokens of one row) become one-token tiles."""
+    rng = np.random.RandomState(seed)
+    runs = list(rng.permutation(_RUNS + [5, 5, 5]))
+    token_row = _layout(rng, n_rows=5, runs=runs, pad_between=0.4,
+                        tail_pads=int(rng.randint(0, 70)))
+    decoding = rng.rand(len(token_row)) < 0.3
+    got = pa.ragged_tiles(torch.from_numpy(token_row), 5, ts,
+                          torch.from_numpy(decoding))
+    want = _tiles_numpy(token_row, 5, ts, decoding)
+    np.testing.assert_array_equal(got.numpy(), want)
+    valid = (token_row >= 0) & (token_row < 5)
+    assert (want[decoding & valid] == np.nonzero(decoding & valid)[0]).all()
+    span = np.asarray([3] * 5 + [-1] + [1] * 5, np.int32)
+    flags = torch.ones(len(span), dtype=torch.bool)
+    np.testing.assert_array_equal(
+        pa.ragged_tiles(torch.from_numpy(span), 5, ts, flags).numpy(),
+        [0, 1, 2, 3, 4, -1, 6, 7, 8, 9, 10])
 
 
 @pytest.mark.parametrize("layout", ["interleaved", "runs", "pads_only",
@@ -85,7 +118,8 @@ def test_ragged_tiles_layouts(layout):
         token_row = np.asarray([0, 0, 9, 9, 1, -5, 1, 1], np.int32)
     n_rows = 8
     for ts in (64, 32, 4, 1):
-        got = pa.ragged_tiles(torch.from_numpy(token_row), n_rows, ts)
+        got = pa.ragged_tiles(torch.from_numpy(token_row), n_rows, ts,
+                              _unflagged(token_row))
         want = _tiles_numpy(token_row, n_rows, ts)
         np.testing.assert_array_equal(got.numpy(), want)
         # every tile: consecutive tokens of one row, at most ts of them

@@ -110,7 +110,8 @@ def test_cpu_tensors_count_no_launch_and_kernel_refuses_cpu():
     tpa.ragged_paged_attention(*args)
     assert tpa.ragged_paged_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        tpa.ragged_paged_attention_kernel(*args)
+        tpa.ragged_paged_attention_kernel(
+            *args, torch.zeros(args[0].shape[0], dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------

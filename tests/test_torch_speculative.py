@@ -368,3 +368,20 @@ def test_spec_do_sample_equals_jax_engine():
     want = JEngine(JCFG, JGen(**gen), **geo).serve(JPARAMS, prompts)
     assert got == [list(o) for o in want]
     assert all(len(o) == 6 for o in got)
+
+
+@pytest.mark.parametrize("step_tokens,warns", [(None, True), (16, True),
+                                               (40, False), (64, False)])
+def test_engine_warns_when_the_spec_axis_differs(step_tokens, warns):
+    """8 slots, k 4: the speculative step packs 40 tokens. With a
+    shorter plain axis (the default 16) the engine warns that its greedy
+    streams are not bound to equal a plain engine's; with ``step_tokens``
+    >= 40 both steps share the axis and it does not."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = _engine(num_slots=8, speculative=True, spec_k=4,
+                      step_tokens=step_tokens)
+    hits = [w for w in caught if "bit for bit" in str(w.message)]
+    assert len(hits) == int(warns)
+    assert eng._spec_tokens == max(40, step_tokens or 0)
