@@ -160,7 +160,24 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     peak and reserved memory, and tokens equal to the eager card run's;
     then ``PagedGenerationEngine`` over phase 7's 12 prompts, 32 new
     tokens, two calls of one key (one build), graphs against eager,
-    launch counts checked.
+    launch counts checked;
+23. the serving scheduler on phase 7's warm engine (run right after
+    phase 7): phase 7's 12 prompts through ``ServingScheduler`` with
+    priority i % 3, a deadline on even requests and a queue cap of 10
+    (two shed at submit), one request cancelling itself from its
+    ``on_token`` after 4 tokens and one read by a consumer thread;
+    fails unless the shed and cancelled requests are the reference
+    policy's, the finished streams equal the engine-only oracle (the
+    same engine's serve in admission order), the page books hold after
+    the cancel and at the end, no program is built, a second scheduler
+    with ``step_timeout_s`` (its steps on the watchdog thread) gives the
+    same tokens, and the armed memory ledger's weight and pool bytes
+    equal the tensors' with ``plan_capacity`` predicting the pool's
+    pages; reports scheduled against engine-only tokens/s, TTFT / ITL /
+    e2e / queue-wait p50 and p99, the host gap between engine steps, a
+    profiled prefill and decode step's idle share, the step wall with
+    every tap armed against disarmed (A B B A by step), and the share
+    of tokens equal to phase 7's greedy streams.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -180,7 +197,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 22
+N_PHASES = 23
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -827,6 +844,8 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
     def run(graphs):
         eng = _serve_engine(D, cfg, step_tokens=256)
         eng._graphs = graphs
+        if graphs:
+            engines[graphs] = eng
 
         def reset():
             rn.rms_norm.launches = 0
@@ -849,7 +868,7 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
                                                cfg.vocab_size))
         return outs, report
 
-    toks = {}
+    toks, engines = {}, {}
 
     def run_kept(graphs):
         toks[graphs], report = run(graphs)
@@ -857,8 +876,10 @@ def serve_7b_phase(torch, L, D, rn, pa, cfg, params):
 
     report = _graphs_and_eager(torch, run_kept)
     prompt_tokens = sum(map(len, prompts))
-    # the greedy tokens (popped before printing) for phase 21
-    return dict(report, _tokens=toks[True], layers=n_layers,
+    # the greedy tokens for phase 21 and the warm graph engine for phase
+    # 23 (both popped before printing)
+    return dict(report, _tokens=toks[True], _engine=engines[True],
+                layers=n_layers,
                 params=L.param_count(cfg),
                 prompt_tokens=prompt_tokens,
                 processed_tokens_per_s=(report["generated_tokens"]
@@ -1658,6 +1679,323 @@ def generate_7b_phase(torch, L, D, rn, pa, fa, cfg, params):
 
     paged = _graphs_and_eager(torch, run_paged)
     return dict(generate=generate, paged=paged)
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the serving scheduler over phase 7's engine
+# ---------------------------------------------------------------------------
+
+SCHED_QUEUE_CAP = 10        # 12 submissions: two shed at submit
+SCHED_CANCEL = 3            # this request's on_token cancels it ...
+SCHED_CANCEL_AFTER = 4      # ... after its 4th token
+SCHED_DEADLINE_MS = 120000  # even requests carry a deadline (never lapses)
+
+
+def _policy_victims(priorities, deadlines, cap):
+    """The reference scheduler's queue-cap shedding, written out plainly:
+    requests arrive in order; while more than ``cap`` are queued, the one
+    with the largest (priority, deadline (none = +inf), arrival) goes."""
+    queued, shed = [], []
+    for i, (pr, dl) in enumerate(zip(priorities, deadlines)):
+        queued.append((pr, math.inf if dl is None else dl, i))
+        while len(queued) > cap:
+            worst = max(queued)
+            queued.remove(worst)
+            shed.append(worst[2])
+    return sorted(shed)
+
+
+def _percentiles(h):
+    return {"p50": h.percentile(0.5), "p99": h.percentile(0.99),
+            "count": h.count}
+
+
+def _scheduled_serve(S, eng, params, prompts, cfg_kw, on_cancel=None,
+                     step_log=None):
+    """Phase 7's load through a ``ServingScheduler``: priority i % 3, a
+    deadline on even requests, request ``SCHED_CANCEL`` cancelled by its
+    own ``on_token`` after ``SCHED_CANCEL_AFTER`` tokens (``on_cancel``
+    runs right after), request 0 read by a consumer thread through the
+    stream's blocking iterator. Returns the scheduler, the handles, the
+    consumer's tokens, each ``sched.step`` wall (ms) and the serve wall."""
+    sched = S.ServingScheduler(eng, S.SchedulerConfig(**cfg_kw))
+    box = {}
+
+    def stop(tok):
+        h = box["h"]
+        if len(h.stream.tokens) == SCHED_CANCEL_AFTER:
+            sched.cancel(h.rid)
+            if on_cancel is not None:
+                on_cancel()
+
+    hs = [sched.submit(p, priority=i % 3,
+                       deadline_ms=SCHED_DEADLINE_MS if i % 2 == 0 else None,
+                       on_token=stop if i == SCHED_CANCEL else None)
+          for i, p in enumerate(prompts)]
+    box["h"] = hs[SCHED_CANCEL]
+    consumed = []
+    reader = threading.Thread(target=lambda: consumed.extend(hs[0].stream))
+    reader.start()
+    step_ms = []
+    t0 = time.perf_counter()
+    while sched.pending:
+        s0 = time.perf_counter()
+        sched.step(params)
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        if step_log is not None:
+            step_log(sched)
+        if len(step_ms) > 300:
+            raise AssertionError("the scheduled serve did not finish")
+    wall = time.perf_counter() - t0
+    reader.join(timeout=60)
+    if reader.is_alive():
+        raise AssertionError("the stream's consumer thread is still blocked")
+    return sched, hs, consumed, step_ms, wall
+
+
+def _sched_step_breakdown(torch, S, eng, params, vocab):
+    """Where two scheduled steps spend their time (as ``step_breakdown``
+    does for the engine's): eight 256-token requests through a scheduler,
+    its first step (all prefill) and its second (decode); wall from an
+    unprofiled pass, device time from a torch.profiler pass."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
+               for _ in range(eng.num_slots)]
+    out = {}
+    for profiled in (False, True):
+        sched = S.ServingScheduler(eng)
+        hs = [sched.submit(p) for p in prompts]
+        for phase in ("prefill_step", "decode_step"):
+            torch.cuda.synchronize()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    sched.step(params)
+                    torch.cuda.synchronize()
+                by_kind, top = _kernel_ms_by_kind(prof)
+                busy = sum(by_kind.values())
+                if busy <= 0:
+                    raise AssertionError(f"{phase}: the profiler saw no "
+                                         "device time")
+                wall = out[phase]["wall_ms"]
+                out[phase].update(kernel_ms=by_kind, top_kernels=top,
+                                  device_busy_ms=busy,
+                                  idle_share=1 - busy / wall)
+            else:
+                t0 = time.perf_counter()
+                sched.step(params)
+                out[phase] = dict(wall_ms=(time.perf_counter() - t0) * 1e3)
+        for h in hs:
+            sched.cancel(h.rid)
+        eng.mgr.check_conservation()
+    return out
+
+
+def _taps(O, on, sched, monitor):
+    """Arm (or disarm) every ported tap: the flight recorder, the span
+    collector, the journal, the memory ledger and the SLO monitor."""
+    for tap in (O.flight_recorder, O.span_collector, O.journal,
+                O.memory_ledger):
+        tap.arm() if on else tap.disarm()
+    sched.slo_monitor = monitor if on else None
+
+
+def scheduled_7b_phase(torch, L, D, rn, pa, cfg, params, eng, serve,
+                       greedy):
+    """Phase 7's load through ``ServingScheduler`` over phase 7's warm
+    engine (CUDA graphs): tokens against the engine-only oracle, the
+    reference policy's shed and cancel victims, page books, no new
+    program build, the watchdog thread's replays, the memory ledger's
+    bytes, latency percentiles, the host gap, the idle share and the
+    armed taps' cost."""
+    import paddle_tpu_torch.observability as O
+    import paddle_tpu_torch.serving as S
+    prompts = serve_load(cfg)
+    n_layers = cfg.num_hidden_layers
+    misses0 = list(eng.compile_misses)
+    recompiles0 = O.recompiles.count()
+    priorities = [i % 3 for i in range(len(prompts))]
+    deadlines = [SCHED_DEADLINE_MS if i % 2 == 0 else None
+                 for i in range(len(prompts))]
+    want_shed = _policy_victims(priorities, deadlines, SCHED_QUEUE_CAP)
+
+    # the scheduled serve, counters zeroed just before: the engine's steps
+    # timed from inside for the host gap between two of them
+    spans = []
+    real_step = eng.step
+
+    def timed_step(p):
+        t0 = time.perf_counter()
+        try:
+            return real_step(p)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    eng.step = timed_step
+    rn.rms_norm.launches = 0
+    _reset_ragged(pa)
+    rounds0 = eng.micro_rounds
+    try:
+        sched, hs, consumed, step_ms, wall = _scheduled_serve(
+            S, eng, params, prompts,
+            dict(max_queue_depth=SCHED_QUEUE_CAP),
+            on_cancel=eng.mgr.check_conservation)
+    finally:
+        del eng.step
+    torch.cuda.synchronize()
+    launches = {"rms_norm_fwd": rn.rms_norm.launches, **_ragged_launches(pa)}
+    rounds = eng.micro_rounds - rounds0
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+            **_ragged_want(torch, pa, n_layers * rounds)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    shed = [h.rid for h in hs if h.state == "shed"]
+    cancelled = [h.rid for h in hs if h.state == "cancelled"]
+    if shed != want_shed or cancelled != [SCHED_CANCEL]:
+        raise AssertionError(f"shed {shed} (policy: {want_shed}), "
+                             f"cancelled {cancelled}")
+    if len(hs[SCHED_CANCEL].stream.tokens) != SCHED_CANCEL_AFTER:
+        raise AssertionError("the cancelled request kept "
+                             f"{len(hs[SCHED_CANCEL].stream.tokens)} tokens")
+    done = [h for h in hs if h.state == "done"]
+    if len(done) != len(prompts) - len(want_shed) - 1 or any(
+            len(h.stream.tokens) != NEW_TOKENS for h in done):
+        raise AssertionError(f"states {[h.state for h in hs]}")
+    if consumed != hs[0].stream.result():
+        raise AssertionError("the consumer thread's tokens differ")
+    if eng.mgr.num_free_pages != eng.mgr.usable_pages:
+        raise AssertionError("pages leaked after the scheduled serve")
+    generated = sum(len(h.stream.tokens) for h in hs)
+
+    # the engine-only oracle: the same engine's serve of the admitted
+    # prompts in the scheduler's admission order (phase 7's step loop)
+    order = sorted((h for h in hs if h.engine_rid is not None),
+                   key=lambda h: h.engine_rid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oracle, oracle_ms = _serve_checked(eng, params, [h.prompt for h in order])
+    oracle_s = time.perf_counter() - t0
+    by_prompt = {}
+    for h, toks in zip(order, oracle):
+        got = h.stream.tokens
+        if (h.state == "done" and got != toks) or got != toks[:len(got)]:
+            raise AssertionError(f"request {h.rid}: scheduled tokens differ "
+                                 "from the engine-only oracle")
+        by_prompt[h.rid] = toks
+    equal = sum(int(a == b) for h in hs if h.state == "done"
+                for a, b in zip(h.stream.tokens, greedy[h.rid]))
+    n_done = sum(len(h.stream.tokens) for h in done)
+
+    # the watchdog: every engine step on the scheduler's step thread
+    # (replays there), step_timeout_s at 10x the slowest step's wall
+    timeout_s = 10 * max(step_ms) / 1e3
+    wsched, whs, _, wstep_ms, wwall = _scheduled_serve(
+        S, eng, params, prompts,
+        dict(max_queue_depth=SCHED_QUEUE_CAP, step_timeout_s=timeout_s))
+    if [h.stream.tokens for h in whs] != [h.stream.tokens for h in hs] or \
+            wsched.metrics.counters["step_failures_total"]:
+        raise AssertionError("the watchdog thread's serve differs")
+
+    # every tap armed against all disarmed, alternated A B B A by step
+    # over six copies of the load, each submitted once the queue has
+    # drained (enough armed steps for the memory ledger's decimated feed,
+    # one in 16 steps)
+    O.memory_ledger.reset()
+    asched = S.ServingScheduler(eng, S.SchedulerConfig(max_queue_depth=100))
+    # objectives on the histograms' last bound (a latency past it
+    # counts as bad)
+    monitor = asched.make_slo_monitor(ttft_p95_ms=10000.0,
+                                      itl_p99_ms=10000.0)
+    ahs = []
+    walls = {False: [], True: []}
+    n = 0
+    try:
+        while asched.pending or len(ahs) < 6 * len(prompts):
+            if len(ahs) < 6 * len(prompts) and not asched.queue_depth:
+                # the next copy of the load once the queue has drained
+                ahs += [asched.submit(p) for p in prompts]
+            armed = n % 4 in (1, 2)
+            _taps(O, armed, asched, monitor)
+            t0 = time.perf_counter()
+            asched.step(params)
+            walls[armed].append((time.perf_counter() - t0) * 1e3)
+            n += 1
+        mem = O.memory_ledger.snapshot()
+    finally:
+        _taps(O, False, asched, monitor)
+        O.flight_recorder.clear()
+        O.span_collector.clear()
+        O.journal.clear()
+        O.memory_ledger.reset()
+    for j, h in enumerate(ahs):
+        first = ahs[j % len(prompts)].stream.tokens
+        want_toks = by_prompt.get(j % len(prompts), first)
+        if h.state != "done" or h.stream.tokens != first \
+                or first != want_toks:
+            raise AssertionError(
+                f"armed serve request {j} ({h.state}): {h.stream.tokens}, "
+                f"first copy {first}, oracle {want_toks}")
+    weight_bytes = sum(t.nbytes for t in params.values())
+    pool = mem["pools"][0] if mem["pools"] else {}
+    pool_bytes = eng.mgr.k_pages.nbytes + eng.mgr.v_pages.nbytes
+    if mem["classes"].get("weights") != weight_bytes:
+        raise AssertionError(f"ledger weights {mem['classes']} != "
+                             f"{weight_bytes}")
+    if pool.get("pool_bytes") != pool_bytes:
+        raise AssertionError(f"ledger pool bytes {pool.get('pool_bytes')} "
+                             f"!= {pool_bytes}")
+    plan = O.plan_capacity(num_layers=n_layers,
+                           num_kv_heads=cfg.num_key_value_heads,
+                           head_dim=cfg.head_dim, page_size=eng.page_size,
+                           dtype_bytes=eng.mgr.k_pages.dtype.itemsize,
+                           hbm_bytes=pool_bytes)
+    if plan.max_pages != eng.mgr.usable_pages or not pool["planner"][
+            "exact"]:
+        raise AssertionError(f"capacity plan {plan.as_dict()} against "
+                             f"{eng.mgr.usable_pages} usable pages")
+    card_plan = O.plan_capacity(
+        num_layers=n_layers, num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim, page_size=eng.page_size,
+        dtype_bytes=eng.mgr.k_pages.dtype.itemsize,
+        hbm_bytes=torch.cuda.get_device_properties(0).total_memory,
+        weight_bytes=weight_bytes, max_seq_len=eng.max_seq_len)
+
+    if eng.compile_misses != misses0 or O.recompiles.count() != recompiles0:
+        raise AssertionError(f"the scheduled serves built programs: "
+                             f"{eng.compile_misses[len(misses0):]}")
+    breakdown = _sched_step_breakdown(torch, S, eng, params, cfg.vocab_size)
+    gaps = [(b[0] - a[1]) * 1e3 for a, b in zip(spans, spans[1:])]
+    m = sched.metrics.histograms
+    a_ms, b_ms = (float(np.mean(walls[k])) for k in (False, True))
+    return dict(
+        requests=len(prompts), shed=shed, cancelled=cancelled,
+        launches=launches, micro_rounds=rounds, steps=len(step_ms),
+        generated_tokens=generated, serve_s=wall,
+        scheduled_tokens_per_s=generated / wall,
+        engine_only_tokens_per_s=NEW_TOKENS * len(order) / oracle_s,
+        engine_only_mean_step_ms=float(np.mean(oracle_ms)),
+        engine_only_steps=len(oracle_ms),
+        phase7_tokens_per_s=serve["generated_tokens_per_s_without_capture"],
+        mean_step_ms=float(np.mean(step_ms)),
+        latency_ms={k: _percentiles(m[k]) for k in
+                    ("ttft_ms", "itl_ms", "e2e_ms", "queue_wait_ms")},
+        host_gap_ms={"mean": float(np.mean(gaps)),
+                     "median": float(np.median(gaps)), "max": max(gaps)},
+        breakdown=breakdown,
+        equal_to_phase7_greedy=equal / n_done,
+        watchdog=dict(step_timeout_s=timeout_s, steps=len(wstep_ms),
+                      serve_s=wwall, mean_step_ms=float(np.mean(wstep_ms))),
+        armed_overhead=dict(steps_disarmed=len(walls[False]),
+                            steps_armed=len(walls[True]),
+                            disarmed_ms=a_ms, armed_ms=b_ms,
+                            ms=b_ms - a_ms, pct=100 * (b_ms - a_ms) / a_ms),
+        memory=dict(weight_bytes=weight_bytes, pool_bytes=pool_bytes,
+                    page_bytes=pool["page_bytes"],
+                    usable_pages=eng.mgr.usable_pages,
+                    card_plan=card_plan.as_dict()),
+        prometheus_lines=len(sched.metrics.to_prometheus_text()
+                             .splitlines()))
 
 
 # ---------------------------------------------------------------------------
@@ -2928,7 +3266,14 @@ def main() -> int:
     serve = dict(serve_7b_phase(torch, L, D, rn, pa, cfg7b, params7b),
                  init_s=init_s)
     greedy_tokens = serve.pop("_tokens")
+    engine7 = serve.pop("_engine")
     done(7, f"Llama-2-7B bf16 serve on {card}", serve)
+    sched = scheduled_7b_phase(torch, L, D, rn, pa, cfg7b, params7b,
+                               engine7, serve, greedy_tokens)
+    del engine7
+    _free_card(torch)
+    done(23, f"Llama-2-7B bf16 scheduled serve (ServingScheduler) on "
+         f"{card}", sched)
     legacy = legacy_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b, serve)
     done(8, f"Llama-2-7B bf16 legacy serve and prefix-cache wave on {card}",
          legacy)
@@ -2992,6 +3337,7 @@ def main() -> int:
              source="paddle_tpu_torch/ops/rms_norm.py",
              replaces="paddle_tpu/ops/rms_norm.py:48",
              launches=serve["launches"]["rms_norm_fwd"]
+             + sched["launches"]["rms_norm_fwd"]
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
              + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
@@ -3003,6 +3349,7 @@ def main() -> int:
              source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
              replaces="paddle_tpu/ops/paged_attention.py:215",
              launches=serve["launches"]["ragged_paged_attention"]
+             + sched["launches"]["ragged_paged_attention"]
              + warm["launches"]["ragged_paged_attention"]
              + cold["launches"]["ragged_paged_attention"]
              + mixed["ragged_paged_attention"]

@@ -68,11 +68,26 @@ earlier prompts through ``paddle_tpu_torch.kvcache`` and prefills only
 each request's uncached suffix; the page books are audited after every
 step.
 
+Serving hooks and telemetry (the JAX engine's): ``token_callback(rid,
+token)`` fires for every kept token as a step unpacks, and
+``finish_callback(rid, tokens)`` at retirement (the serving scheduler,
+``paddle_tpu_torch.serving``, routes both into its token streams);
+``submit(trace_id=)`` tags a request's spans and events. When
+``profiler.record.spans_armed()``, each step emits ``engine.prefill`` /
+``engine.decode_chunk`` spans (coalesced per slot window) and the
+speculative step ``engine.spec_draft`` / ``engine.spec_round``; every
+span closes after the step's device->host copy, so it covers the
+device work, and none is inside a captured program. Program builds are
+counted in ``observability.runtime.recompiles`` under the names and
+keys of ``compile_misses``; the sampling, speculation and cache counts
+feed the process registry's ``paddle_sampling_*``, ``paddle_spec_*``
+and ``paddle_kvcache_*`` families beside their plain mirrors
+(``sampling_counts``, ``spec.stats``, ``cache.stats``); with the memory
+ledger armed (``observability.memory``) each step feeds it the pool's
+byte split, read off host metadata only.
+
 Not in this slice (each raises ``NotImplementedError``): the fused
-decode tail and multi-chip meshes. The observability taps (spans,
-events, memory ledger, registry) come with the observability slice; the
-sampling and speculation counts are plain numbers on the engine
-(``sampling_counts``, ``spec``).
+decode tail and multi-chip meshes.
 """
 
 from __future__ import annotations
@@ -80,7 +95,6 @@ from __future__ import annotations
 import functools
 import time
 import warnings
-import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -89,21 +103,19 @@ import torch
 
 from ..kvcache import PrefixCache, RefcountedKVCacheManager
 from ..models import llama as L
+from ..observability.events import emit_event
+from ..observability.journal import token_checksum
+from ..observability.memory import memory_armed, memory_ledger
+from ..observability.runtime import recompiles
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
+from ..profiler.record import emit_span, emit_spans, make_span, spans_armed
 from . import constrain as _constrain
 from . import prng
 from . import sampling as _sampling
 from .graphs import GraphPool, Program, params_key
 from .sampling import SamplerConfig
 from .speculative import NgramDrafter, SpeculationTelemetry
-
-
-def token_checksum(tokens) -> int:
-    """crc32 over the int32 little-endian bytes of a token sequence (the
-    JAX package's ``observability.journal.token_checksum``)."""
-    a = np.asarray(list(tokens), np.int32)
-    return zlib.crc32(a.astype("<i4").tobytes()) & 0xFFFFFFFF
 
 
 @dataclass
@@ -167,8 +179,9 @@ def _last_logits(logits, seq_len):
 
 class _Programs:
     """The compiled programs of one engine (``inference.graphs``) and
-    their books: each build is a counted miss ``(name, key)``, as the JAX
-    engines pass them to ``recompiles.record_miss``; a program is rebuilt
+    their books: each build is a counted miss ``(name, key)``, kept in
+    ``compile_misses`` and passed to ``recompiles.record_miss`` as the
+    JAX engines pass theirs; a program is rebuilt
     for params that are not the tensors it was built over (a CUDA graph
     reads its weights at the addresses it captured). Card runs capture
     CUDA graphs; ``_graphs = False`` (private) runs every program's body
@@ -204,19 +217,23 @@ class _Programs:
         if prog is not None and prog.params_id == params_key(params):
             return prog
         self.compile_misses.append((name, key))
+        recompiles.record_miss(name, key)
         return build(params)
 
     def _run(self, name: str, prog: Program) -> torch.Tensor:
         """Call ``prog``; its first call is timed to completion into
-        ``compile_seconds`` and ``capture_seconds``, and its capture's
-        memory booked in ``graph_pool_bytes``."""
+        ``compile_seconds`` (and ``recompiles.observe_compile``) and
+        ``capture_seconds``, and its capture's memory booked in
+        ``graph_pool_bytes``."""
         if prog.calls:
             return prog()
         t0 = time.perf_counter()
         out = prog()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        for book, n in ((self.compile_seconds, time.perf_counter() - t0),
+        seconds = time.perf_counter() - t0
+        recompiles.observe_compile(name, seconds)
+        for book, n in ((self.compile_seconds, seconds),
                         (self.capture_seconds, prog.capture_seconds),
                         (self.graph_pool_bytes, prog.pool_bytes)):
             book[name] = book.get(name, 0) + n
@@ -482,6 +499,7 @@ class _Request:
     prompt: np.ndarray
     tokens: list = field(default_factory=list)
     max_new_tokens: Optional[int] = None  # None -> engine config default
+    trace_id: str = ""                    # serving-layer trace correlation
     sampler: Optional[SamplerConfig] = None   # None -> greedy row
     grammar: Optional[_constrain.TokenDFA] = None  # None -> unconstrained
     gstart: int = -1                      # arena GLOBAL start state
@@ -492,10 +510,13 @@ class ContinuousBatchingEngine(_Programs):
     """Fixed-slot continuous batching over the paged KV cache (module
     docstring for the pipelines and the decoding options).
 
-    Service API: ``submit(prompt, sampler=, grammar=, grammar_prefix=)
-    -> rid``; ``step(params)`` runs one admit + ``chunk`` rounds (or one
-    speculative round); ``collect()`` drains finished requests;
-    ``serve(params, prompts)`` streams a whole list through.
+    Service API: ``submit(prompt, max_new_tokens=, trace_id=, sampler=,
+    grammar=, grammar_prefix=) -> rid``; ``step(params)`` runs one admit
+    + ``chunk`` rounds (or one speculative round); ``collect()`` drains
+    finished requests; ``cancel(rid)``; ``serve(params, prompts)``
+    streams a whole list through. The serving layer's hooks:
+    ``token_callback``, ``finish_callback``, ``num_free_slots``,
+    ``num_queued``, ``num_chips`` (1) and ``mesh`` (None).
     ``device=None`` means the card (raises without one); the CPU runs
     only when asked for with ``device="cpu"``.
 
@@ -637,6 +658,17 @@ class ContinuousBatchingEngine(_Programs):
         self._unified_step: Optional[Program] = None
         self._decode_chunk: Optional[Program] = None
         self._compiled_prefill: Dict[tuple, Program] = {}
+        # per-slot coalesced span window [kind, t0_ns, t1_ns, units] of
+        # an armed unified step: spans materialise at a phase change or
+        # at retirement, not every step
+        self._win: List[Optional[list]] = [None] * num_slots
+        # memory ledger feed decimation (engines without per-step audits)
+        self._mem_tick = 0
+        # serving-layer hooks (paddle_tpu_torch.serving), None by default:
+        # token_callback(rid, token) fires for every KEPT token as step()
+        # unpacks; finish_callback(rid, tokens) fires at _retire
+        self.token_callback: Optional[Callable[[int, int], None]] = None
+        self.finish_callback: Optional[Callable[[int, list], None]] = None
 
     # -- compiled programs --------------------------------------------------
 
@@ -831,10 +863,34 @@ class ContinuousBatchingEngine(_Programs):
         return (req.max_new_tokens if req.max_new_tokens is not None
                 else self.config.max_new_tokens)
 
+    @property
+    def num_chips(self) -> int:
+        """Chips the engine is sharded over (1: the port serves on one
+        card)."""
+        return self.mgr.mesh_chips
+
+    @property
+    def mesh(self):
+        """The serving mesh (None: single card)."""
+        return None
+
+    @property
+    def num_free_slots(self) -> int:
+        """Slots not occupied by a live sequence (the queue not
+        counted)."""
+        return self._slot_rid.count(None)
+
+    @property
+    def num_queued(self) -> int:
+        """Submitted requests waiting in the engine's own FIFO (not yet
+        holding a slot); the scheduler's admission headroom reads it."""
+        return len(self._queue)
+
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               sampler: Optional[SamplerConfig] = None, grammar=None,
-               grammar_prefix=None) -> int:
-        """Queue a request; returns its id. ``sampler`` carries the
+               trace_id: str = "", sampler: Optional[SamplerConfig] = None,
+               grammar=None, grammar_prefix=None) -> int:
+        """Queue a request; returns its id. ``trace_id`` tags its spans
+        and events (the serving scheduler's trace). ``sampler`` carries the
         per-request temperature/top-k/top-p/seed (None: a sampler from the
         engine's ``GenerationConfig`` when ``do_sample``, else greedy);
         ``grammar`` is a ``constrain.TokenDFA`` constraining every
@@ -879,6 +935,7 @@ class ContinuousBatchingEngine(_Programs):
         if grammar is not None:
             # ValueError on vocab mismatch / arena overflow, at submit
             gstart = self._arena.register(grammar)
+            _sampling.set_grammar_states(self._arena.used)
             ghost = grammar.start
             for t in (grammar_prefix if grammar_prefix is not None
                       else ()):
@@ -890,14 +947,16 @@ class ContinuousBatchingEngine(_Programs):
                         "stream cannot have produced it")
         counts = self.sampling_counts
         counts["paddle_sampling_grammar_states"] = self._arena.used
-        if grammar is not None:
-            counts["paddle_sampling_requests_total"]["constrained"] += 1
-        elif sampler is not None and sampler.temperature > 0:
-            counts["paddle_sampling_requests_total"]["sampled"] += 1
+        mode = ("constrained" if grammar is not None else "sampled"
+                if sampler is not None and sampler.temperature > 0 else None)
+        if mode is not None:
+            counts["paddle_sampling_requests_total"][mode] += 1
+            _sampling.note_request(mode)
         self._queue.append(_Request(rid, prompt,
                                     max_new_tokens=max_new_tokens,
-                                    sampler=sampler, grammar=grammar,
-                                    gstart=gstart, gstate_host=ghost))
+                                    trace_id=trace_id, sampler=sampler,
+                                    grammar=grammar, gstart=gstart,
+                                    gstate_host=ghost))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -930,8 +989,10 @@ class ContinuousBatchingEngine(_Programs):
                 self.mgr.free(req.rid)
                 self._queue.insert(0, req)
             raise
-        for n_cached, cow_src in recorded:
-            self.cache.record(n_cached, cow=cow_src is not None)
+        for req, lp, n_cached, n_shared, cow_src in recorded:
+            self.cache.record(n_cached, cow=cow_src is not None,
+                              request_id=req.rid, prompt_len=lp,
+                              shared_pages=n_shared, trace_id=req.trace_id)
         return picked
 
     def _admit_window(self, picked, recorded):
@@ -964,6 +1025,11 @@ class ContinuousBatchingEngine(_Programs):
                 # infeasibility is judged against WHOLE-pool capacity
                 if not self._live and not picked \
                         and self.mgr.pages_for(total) > self.mgr.usable_pages:
+                    memory_ledger.note_oom(
+                        "infeasible", self.mgr,
+                        need_pages=self.mgr.pages_for(total),
+                        free_pages=self.mgr.num_free_pages,
+                        request_id=req.rid, trace_id=req.trace_id)
                     raise MemoryError(
                         f"request {req.rid} needs "
                         f"{self.mgr.pages_for(total)} pages but the pool "
@@ -983,8 +1049,13 @@ class ContinuousBatchingEngine(_Programs):
                 # private device-side copy, never the shared page
                 self.mgr.copy_page(cow_src, pages[len(shared)])
             self.mgr._lens[req.rid] = lp
+            if memory_armed[0]:
+                # per-request attribution: cached-vs-fresh page split
+                memory_ledger.note_request(
+                    self.mgr, req.rid, prompt_len=lp,
+                    cached_pages=len(shared), trace_id=req.trace_id)
             if self.cache is not None:
-                recorded.append((n_cached, cow_src))
+                recorded.append((req, lp, n_cached, len(shared), cow_src))
 
     def _complete(self, req: _Request) -> bool:
         if len(req.tokens) >= self._budget(req):
@@ -993,11 +1064,58 @@ class ContinuousBatchingEngine(_Programs):
         return eos is not None and bool(req.tokens) \
             and req.tokens[-1] == eos
 
+    def _note_win(self, s: int, kind: str, t0_ns: int, t1_ns: int,
+                  units: int, batch: list) -> None:
+        """Merge one armed step's activity into the slot's pending span
+        window (same kind: extend and accumulate; a phase change flushes
+        the old window into ``batch`` and starts a new one)."""
+        w = self._win[s]
+        if w is not None:
+            if w[0] == kind:
+                w[2] = t1_ns
+                w[3] += units
+                return
+            self._flush_win(s, batch)
+        self._win[s] = [kind, t0_ns, t1_ns, units]
+
+    def _flush_win(self, s: int, batch: Optional[list] = None) -> None:
+        """Emit the slot's pending coalesced span (no-op when none); a
+        cancel flushes too, so a request's trace keeps its last
+        segment."""
+        w = self._win[s]
+        if w is None:
+            return
+        self._win[s] = None
+        rid = self._slot_rid[s]
+        req = self._live.get(rid)
+        if req is None:
+            return
+        kind, t0_ns, t1_ns, units = w
+        if kind == "prefill":
+            sp = make_span("engine.prefill", t0_ns, t1_ns, "Operator",
+                           req.trace_id,
+                           args={"request_id": rid, "slot": s,
+                                 "prefill_tokens": units})
+        else:
+            sp = make_span("engine.decode_chunk", t0_ns, t1_ns,
+                           "Operator", req.trace_id,
+                           args={"request_id": rid, "slot": s,
+                                 "chunk": units})
+        if batch is None:
+            emit_spans([sp])
+        else:
+            batch.append(sp)
+
     def _retire(self, s: int, cancelled: bool = False) -> None:
         """Free a finished (or cancelled) slot: with the cache, index the
         finished prefix first (pages backing its full token blocks stay
         resident); then pages back to the pool, output to the finished
-        map, the slot's table back to page 0."""
+        map, the slot's table back to page 0. A cancelled slot produces
+        no finished entry and no ``finish_callback``. Host books only:
+        the slot's device rows (carry, sampler, grammar state) are
+        rewritten when the next request is admitted into it, before any
+        program reads them."""
+        self._flush_win(s)
         rid = self._slot_rid[s]
         req = self._live.pop(rid)
         if not cancelled:
@@ -1016,6 +1134,8 @@ class ContinuousBatchingEngine(_Programs):
                     # written): index one token short
                     toks = toks[:-1]
                 self.cache.insert(toks, self.mgr.sequence_pages(rid))
+            if self.finish_callback is not None:
+                self.finish_callback(rid, out)
         self.mgr.free(rid)
         self._slot_rid[s] = None
         self._bt[s] = 0
@@ -1024,12 +1144,16 @@ class ContinuousBatchingEngine(_Programs):
 
     def _deliver_tokens(self, s: int, tokens) -> bool:
         """Append one slot's emitted tokens to its request (up to its
-        budget or EOS) and retire the slot when the request completes.
-        A constrained request's host mirror walks its automaton per
-        token (an illegal token is counted in
-        ``paddle_sampling_violations_total``; the device mask makes it
-        never expected). Returns True while the slot keeps decoding."""
-        req = self._live[self._slot_rid[s]]
+        budget or EOS), fire ``token_callback`` per token, and retire the
+        slot when the request completes. The callback may cancel its own
+        request (or another) in place: the unpack stops for a slot whose
+        request is gone. A constrained request's host mirror walks its
+        automaton per token (an illegal token is counted in
+        ``paddle_sampling_violations_total`` and emits a
+        ``constraint_violation`` event; the device mask makes it never
+        expected). Returns True while the slot keeps decoding."""
+        rid = self._slot_rid[s]
+        req = self._live[rid]
         counts = self.sampling_counts
         mode = ("constrained" if req.grammar is not None else
                 "sampled" if (req.sampler is not None
@@ -1042,12 +1166,26 @@ class ContinuousBatchingEngine(_Programs):
                         req.gstate_host, t)
                 else:
                     counts["paddle_sampling_violations_total"] += 1
+                    _sampling.note_violation()
+                    emit_event("constraint_violation", request_id=rid,
+                               trace_id=req.trace_id, token=t,
+                               state=int(req.gstate_host),
+                               pattern=req.grammar.pattern)
             if mode is not None:
                 counts["paddle_sampling_tokens_total"][mode] += 1
+                _sampling.note_tokens(mode, 1)
             req.tokens.append(t)
+            if self.token_callback is not None:
+                self.token_callback(rid, t)
+                if self._slot_rid[s] != rid:
+                    return False   # the callback cancelled this request
             if self._complete(req):
-                self._retire(s)
-                return False
+                break
+        if self._slot_rid[s] != rid:
+            return False           # retired by a reentrant cancel
+        if self._complete(req):
+            self._retire(s)
+            return False
         return True
 
     def step(self, params) -> int:
@@ -1066,7 +1204,34 @@ class ContinuousBatchingEngine(_Programs):
             self.mgr.check_conservation()
         if self.cache is not None:
             self.cache.update_gauges()
+        if memory_armed[0]:
+            # the memory half of the per-step audit (one list index when
+            # disarmed)
+            self._note_memory(params)
         return n
+
+    def _note_memory(self, params) -> None:
+        """Feed the memory ledger one accounting round (armed only): the
+        weights (once per params object), the pool's page split with the
+        speculative tails, and the prefix-cache stats; host metadata
+        only (tensor ``.nbytes`` and the page books), never a device
+        sync. An engine without per-step page audits feeds every 16th
+        step."""
+        if not self._check_invariants:
+            self._mem_tick += 1
+            if self._mem_tick & 15:
+                return
+        memory_ledger.note_weights(params)
+        reserved = None
+        if self._speculative:
+            reserved = {self._slot_rid[s]: int(self._reserved[s])
+                        for s in range(self.num_slots)
+                        if self._slot_rid[s] is not None}
+        memory_ledger.observe(
+            self.mgr, reserved=reserved,
+            cache_stats=self.cache.stats if self.cache is not None
+            else None,
+            audit=self._check_invariants)
 
     def _set_row_sampler(self, s: int, req: _Request) -> None:
         """Write an admitted request's sampler and grammar state into the
@@ -1177,14 +1342,44 @@ class ContinuousBatchingEngine(_Programs):
         emit, fed = self._plan_step(prog.host)
         prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
+        t0_ns = time.perf_counter_ns() if spans_armed() else 0
         toks = self._run("cbe.unified_step", prog).cpu().numpy()  # the fence
         self.micro_rounds += self.chunk
+        if t0_ns:
+            self._note_step_windows(t0_ns, emit.sum(axis=0), fed)
         for s in range(self.num_slots):
             if self._slot_rid[s] is None:
                 continue
             self._deliver_tokens(
                 s, (toks[k, s] for k in range(self.chunk) if emit[k, s]))
         return len(self._live)
+
+    def _note_step_windows(self, t0_ns: int, emit_counts, fed) -> None:
+        """Per-request phase bookkeeping over an armed step's window
+        (dispatch to the fence): each live slot's prefill and decode
+        activity extends its coalesced window; spans materialise at a
+        phase change (here) or at retirement."""
+        t1_ns = time.perf_counter_ns()
+        batch: list = []
+        win = self._win
+        for s in range(self.num_slots):
+            if self._slot_rid[s] is None:
+                continue
+            c, f = int(emit_counts[s]), fed[s]
+            if (c == 0) != (f == 0):
+                # steady single-phase round: extend the window inline
+                w = win[s]
+                kind = "decode" if c else "prefill"
+                if w is not None and w[0] == kind:
+                    w[2] = t1_ns
+                    w[3] += c or f
+                    continue
+            if f > 0:
+                self._note_win(s, "prefill", t0_ns, t1_ns, f, batch)
+            if c:
+                self._note_win(s, "decode", t0_ns, t1_ns, c, batch)
+        if batch:
+            emit_spans(batch)
 
     # -- the legacy pipeline (unified=False) ---------------------------------
 
@@ -1232,9 +1427,20 @@ class ContinuousBatchingEngine(_Programs):
                 host["lens"][i] = lp - nc
                 if warm:
                     host["starts"][i] = nc
+            t0_ns = time.perf_counter_ns() if spans_armed() else 0
             tok = self._run("cbe.prefill", prog)
             self.prefill_calls += 1
             self._prefill_tokens += int(sum(it[3] - it[4] for it in items))
+            if t0_ns:
+                # the wave has no fence of its own (its first tokens stay
+                # in the device carry): its device time lands inside the
+                # next decode chunk's span, which closes after the fence
+                t1_ns = time.perf_counter_ns()
+                for s, req, pages, lp, nc in items:
+                    emit_span("engine.prefill", t0_ns, t1_ns,
+                              event_type="Operator", trace_id=req.trace_id,
+                              args={"request_id": req.rid, "bucket": bucket,
+                                    "prompt_len": lp, "cached_tokens": nc})
             slots = torch.as_tensor([it[0] for it in items],
                                     device=self.device)
             self._tok_dev[slots] = tok[:real]
@@ -1255,8 +1461,20 @@ class ContinuousBatchingEngine(_Programs):
         prog.host["bt"][:] = self._bt
         if self.config.do_sample:
             prog.host["key"][:] = self._next_key()
+        t0_ns = time.perf_counter_ns() if spans_armed() else 0
         toks = self._run("cbe.decode_chunk", prog).cpu().numpy()  # the fence
         self.decode_steps += self.chunk
+        if t0_ns:
+            t1_ns = time.perf_counter_ns()
+            for s in range(self.num_slots):
+                rid = self._slot_rid[s]
+                if rid is None:
+                    continue
+                emit_span("engine.decode_chunk", t0_ns, t1_ns,
+                          event_type="Operator",
+                          trace_id=self._live[rid].trace_id,
+                          args={"request_id": rid, "slot": s,
+                                "chunk": self.chunk})
         for s in range(self.num_slots):
             if self._slot_rid[s] is None:
                 continue
@@ -1293,11 +1511,14 @@ class ContinuousBatchingEngine(_Programs):
         fed = [0] * n_rows
         live = [s for s in range(n_rows) if self._slot_rid[s] is not None]
         spans: Dict[int, tuple] = {}
+        armed = spans_armed()
+        draft_spans: list = []
         for s in live:
             if self._pend[s] is not None:
                 continue                      # prefilling: planned below
             rid = self._slot_rid[s]
             req = self._live[rid]
+            d0_ns = time.perf_counter_ns() if armed else 0
             # committed history (prompt + delivered tokens; the last
             # delivered token IS the carry whose K/V this round writes)
             history = [int(t) for t in req.prompt] + req.tokens
@@ -1323,9 +1544,18 @@ class ContinuousBatchingEngine(_Programs):
             tbl = self.mgr.sequence_pages(rid)
             self._bt[s] = 0
             self._bt[s, :len(tbl)] = tbl
+            if d0_ns:
+                # host drafting and page growth: a segment of its own,
+                # apart from the verify dispatch (engine.spec_round)
+                draft_spans.append(make_span(
+                    "engine.spec_draft", d0_ns, time.perf_counter_ns(),
+                    "Operator", req.trace_id,
+                    args={"request_id": rid, "slot": s,
+                          "drafted": len(draft)}))
             spans[s] = (pos0, [history[-1]] + draft, draft)
             drafts[s, :len(draft)] = draft
             draft_len[s] = len(draft)
+        emit_spans(draft_spans)
         budget = len(ids) - sum(1 + len(d) for _, _, d in spans.values())
         cursor = 0
         for s in live:
@@ -1394,6 +1624,10 @@ class ContinuousBatchingEngine(_Programs):
                 self._bt[s] = 0
                 self._bt[s, :len(tbl)] = tbl
                 self.spec.note_rollback(len(freed))
+                emit_event("spec_rollback", request_id=rid,
+                           trace_id=self._live[rid].trace_id,
+                           drafted=len(draft), accepted=a,
+                           freed_pages=len(freed))
             self._pos[s] = committed
             self.mgr._lens[rid] = committed
             self._deliver_tokens(
@@ -1415,8 +1649,30 @@ class ContinuousBatchingEngine(_Programs):
         info, fed = self._plan_spec(prog.host)
         prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
+        t0_ns = time.perf_counter_ns() if spans_armed() else 0
         out = self._run("cbe.spec_step", prog).cpu().numpy()   # the fence
         self.spec_rounds += 1
+        if t0_ns:
+            t1_ns = time.perf_counter_ns()
+            batch = []
+            for s in range(self.num_slots):
+                rid = self._slot_rid[s]
+                if rid is None:
+                    continue
+                req = self._live[rid]
+                if fed[s] > 0:
+                    batch.append(make_span(
+                        "engine.prefill", t0_ns, t1_ns, "Operator",
+                        req.trace_id,
+                        args={"request_id": rid, "slot": s,
+                              "prefill_tokens": int(fed[s])}))
+                if info.get(s, ("",))[0] == "spec":
+                    batch.append(make_span(
+                        "engine.spec_round", t0_ns, t1_ns, "Operator",
+                        req.trace_id,
+                        args={"request_id": rid, "slot": s,
+                              "drafted": len(info[s][2])}))
+            emit_spans(batch)
         self._verify_spec(out[:, :-1], info, out[:, -1])
         return len(self._live)
 

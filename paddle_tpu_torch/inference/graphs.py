@@ -20,6 +20,11 @@ the capture added (``ops._common.launch_counts``) are taken back and
 added once per replay. ``launches`` thus counts the kernels the card ran,
 by eager calls or by replays.
 
+A capture is thread-local (``capture_error_mode="thread_local"``): the
+serving scheduler's step watchdog may capture a new program on its own
+thread while the calling thread goes on, and CUDA calls made by other
+threads during the capture do not invalidate it.
+
 The graphs of one engine share one memory pool and one capture stream
 (:class:`GraphPool`). They never run concurrently, and each program's
 outputs stay alive in the program, so no capture reuses another's
@@ -117,7 +122,8 @@ class Program:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graphs.pool,
-                              stream=self._graphs.stream):
+                              stream=self._graphs.stream,
+                              capture_error_mode="thread_local"):
             # read after the capture's own empty_cache
             reserved = torch.cuda.memory_reserved(self._graphs.device)
             out = self.body(**self.static)

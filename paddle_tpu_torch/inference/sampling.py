@@ -31,6 +31,11 @@ them before this module's temperature/top-k/top-p processing. The
 epilogue is plain PyTorch (sorts, a cumsum, gathers and the threefry
 hash), as the JAX package computes it in XLA outside any Pallas kernel;
 on the card it runs inside the step's CUDA graph.
+
+The ``paddle_sampling_*`` registry families (the JAX package's) are
+process-global, fed by the engines from the host (:func:`note_request`,
+:func:`note_tokens`, :func:`note_violation`,
+:func:`set_grammar_states`).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..observability.registry import get_registry
 from . import constrain as _constrain
 from . import prng
 
@@ -47,6 +53,42 @@ from . import prng
 SALT_DRAW = 0
 SALT_ACCEPT = 1
 SALT_RESAMPLE = 2
+
+_reg = get_registry()
+_c_requests = _reg.counter(
+    "paddle_sampling_requests_total",
+    "requests admitted with a non-greedy epilogue, by mode "
+    "(sampled | constrained)",
+    labels=("mode",))
+_c_tokens = _reg.counter(
+    "paddle_sampling_tokens_total",
+    "tokens committed through the sampling epilogue, by mode",
+    labels=("mode",))
+_c_violations = _reg.counter(
+    "paddle_sampling_violations_total",
+    "tokens the host grammar mirror rejected (device/host automaton "
+    "disagreement — never expected; each also emits a "
+    "constraint_violation event)")
+_g_states = _reg.gauge(
+    "paddle_sampling_grammar_states",
+    "grammar-arena rows in use across registered token DFAs")
+
+
+def note_request(mode: str) -> None:
+    _c_requests.inc(mode=mode)
+
+
+def note_tokens(mode: str, n: int) -> None:
+    if n:
+        _c_tokens.inc(n, mode=mode)
+
+
+def note_violation() -> None:
+    _c_violations.inc()
+
+
+def set_grammar_states(n: int) -> None:
+    _g_states.set(float(n))
 
 
 @dataclass(frozen=True)

@@ -10,9 +10,9 @@ The engine side lives in ``decoding.ContinuousBatchingEngine``
   propose the tokens that followed the most recent earlier occurrence of
   the history's trailing n-gram. :class:`DraftModel` drafts with a small
   Llama; anything with ``draft(history, k) -> tokens`` plugs in.
-* **Telemetry**: :class:`SpeculationTelemetry` keeps, as plain numbers
-  on the engine, what the JAX package's ``paddle_spec_*`` registry
-  families count.
+* **Telemetry**: :class:`SpeculationTelemetry` declares the JAX
+  package's ``paddle_spec_*`` registry families (with their ``replica``
+  label) and keeps the plain mirror the engine reports.
 
 Verifying k drafted tokens is a short prefill of k+1 tokens at
 consecutive positions: the ragged kernel's mask rule
@@ -26,6 +26,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from ..observability.registry import get_registry
 
 
 class Drafter:
@@ -102,15 +104,35 @@ class DraftModel(Drafter):
 
 
 class SpeculationTelemetry:
-    """Speculation counts of one engine (``stats``: rounds, drafted,
-    accepted, rejected, rollbacks, rollback pages), the numbers the JAX
-    package's ``paddle_spec_*`` registry families count."""
+    """Registry families and host mirror of one engine's speculation
+    (``stats``: rounds, drafted, accepted, rejected, rollbacks, rollback
+    pages). The families' ``replica`` label is ``"0"``: the port serves
+    one engine (the fleet tier that stamps replica ids is not ported)."""
+
+    replica = "0"
 
     def __init__(self):
         self.stats: Dict[str, int] = {
             "rounds": 0, "drafted": 0, "accepted": 0, "rejected": 0,
             "rollbacks": 0, "rollback_pages": 0,
         }
+        reg = get_registry()
+        self._c_drafted = reg.counter(
+            "paddle_spec_drafted_tokens_total",
+            "draft tokens fed into speculative verification",
+            labels=("replica",))
+        self._c_accepted = reg.counter(
+            "paddle_spec_accepted_tokens_total",
+            "draft tokens verified equal to the greedy continuation",
+            labels=("replica",))
+        self._c_rejected = reg.counter(
+            "paddle_spec_rejected_tokens_total",
+            "draft tokens rejected (KV rolled back per row)",
+            labels=("replica",))
+        self._g_ratio = reg.gauge(
+            "paddle_spec_acceptance_ratio",
+            "cumulative accepted/drafted draft-token ratio",
+            labels=("replica",))
 
     def note_verify(self, drafted: int, accepted: int) -> None:
         """Account one row's verify outcome (``accepted <= drafted``)."""
@@ -118,6 +140,14 @@ class SpeculationTelemetry:
         self.stats["drafted"] += drafted
         self.stats["accepted"] += accepted
         self.stats["rejected"] += drafted - accepted
+        if drafted:
+            self._c_drafted.inc(drafted, replica=self.replica)
+            if accepted:
+                self._c_accepted.inc(accepted, replica=self.replica)
+            if drafted - accepted:
+                self._c_rejected.inc(drafted - accepted,
+                                     replica=self.replica)
+            self._g_ratio.set(self.acceptance_ratio, replica=self.replica)
 
     def note_rollback(self, pages_freed: int) -> None:
         self.stats["rollbacks"] += 1

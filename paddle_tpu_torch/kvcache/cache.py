@@ -19,17 +19,18 @@ counterpart of ``paddle_tpu/kvcache/cache.py``.
 
 Telemetry: :attr:`stats` counts hits, misses, evictions, COW copies and
 cached tokens, and :meth:`update_gauges` keeps the free/live/cached page
-split in :attr:`gauges`. The JAX package also feeds these into its
-process-global metrics registry (``paddle_kvcache_*``) and emits
-``cache_hit``/``cache_evict`` events; both come with the observability
-slice. ``import_prefix`` (migrating a prefix from another host) comes
-with multi-host serving.
+split in :attr:`gauges`; both feed the process registry's
+``paddle_kvcache_*`` families too, and an admitted hit and an eviction
+emit ``cache_hit`` / ``cache_evict`` events. ``import_prefix`` (migrating
+a prefix from another host) comes with multi-host serving.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..observability.events import emit_event
+from ..observability.registry import get_registry
 from ..ops._common import not_ported as _later
 from .policy import LRUEvictionPolicy
 from .pool import RefcountedKVCacheManager
@@ -52,6 +53,26 @@ class PrefixCache:
         }
         #: the page pool split as of the last :meth:`update_gauges`
         self.gauges: Dict[str, int] = {}
+        reg = get_registry()
+        self._c_hits = reg.counter(
+            "paddle_kvcache_hits_total",
+            "admissions that reused >=1 cached prefix page")
+        self._c_misses = reg.counter(
+            "paddle_kvcache_misses_total",
+            "admissions with no reusable cached prefix")
+        self._c_evict = reg.counter(
+            "paddle_kvcache_evictions_total",
+            "cached pages LRU-evicted back to the free list")
+        self._c_cow = reg.counter(
+            "paddle_kvcache_cow_copies_total",
+            "copy-on-write page copies (suffix append into a shared page)")
+        self._c_cached_tokens = reg.counter(
+            "paddle_kvcache_cached_tokens_total",
+            "prompt tokens served from cache instead of prefill")
+        self._g_pages = reg.gauge(
+            "paddle_kvcache_pages",
+            "page pool split: free / live (refcounted) / cached (evictable)",
+            labels=("state",))
 
     # -- admission ------------------------------------------------------------
 
@@ -83,15 +104,26 @@ class PrefixCache:
         touching LRU or stats."""
         return self._capped_match(prompt, touch=False)
 
-    def record(self, cached_tokens: int, cow: bool) -> None:
-        """Account one ADMITTED request's lookup outcome."""
+    def record(self, cached_tokens: int, cow: bool, *, request_id=None,
+               prompt_len: int = 0, shared_pages: int = 0,
+               trace_id: str = "") -> None:
+        """Account one ADMITTED request's lookup outcome (counters, and a
+        ``cache_hit`` event for a hit)."""
         if cow:
             self.stats["cow_copies"] += 1
+            self._c_cow.inc()
         if cached_tokens > 0:
             self.stats["hits"] += 1
             self.stats["cached_tokens"] += cached_tokens
+            self._c_hits.inc()
+            self._c_cached_tokens.inc(cached_tokens)
+            emit_event("cache_hit", request_id=request_id,
+                       trace_id=trace_id, prompt_len=prompt_len,
+                       cached_tokens=cached_tokens, pages=shared_pages,
+                       cow=cow)
         else:
             self.stats["misses"] += 1
+            self._c_misses.inc()
 
     # -- retire ---------------------------------------------------------------
 
@@ -119,8 +151,13 @@ class PrefixCache:
         for victim in victims:        # children precede parents
             self.tree.remove(victim)
             self.mgr.evict_cached(victim.page)
-        self.stats["evictions"] += len(victims)
-        return len(victims)
+        freed = len(victims)
+        if freed:
+            self.stats["evictions"] += freed
+            self._c_evict.inc(freed)
+            emit_event("cache_evict", pages=freed,
+                       cached_left=self.mgr.num_cached_pages)
+        return freed
 
     @property
     def evictable_pages(self) -> int:
@@ -129,10 +166,13 @@ class PrefixCache:
     # -- telemetry ------------------------------------------------------------
 
     def update_gauges(self) -> None:
-        """Refresh the free/live/cached page split in :attr:`gauges`."""
+        """Refresh the free/live/cached page split in :attr:`gauges` and
+        the registry."""
         self.gauges = {"free": self.mgr.num_free_pages,
                        "live": self.mgr.num_live_pages,
                        "cached": self.mgr.num_cached_pages}
+        for state, n in self.gauges.items():
+            self._g_pages.set(n, state=state)
 
     def snapshot(self) -> Dict[str, int]:
         out = dict(self.stats)

@@ -65,6 +65,7 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
                 f"{len(shared)} shared pages exceed the "
                 f"{self.pages_for(n_tokens)} this sequence spans")
         if len(self._free) < need:
+            self._oom("allocate", need)
             raise MemoryError(
                 f"KV pool exhausted: need {need} pages, "
                 f"{len(self._free)} free")
@@ -84,6 +85,7 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
         need = self.pages_for(new_len) - len(self._tables[seq_id])
         for _ in range(need):
             if not self._free:
+                self._oom("extend", 1)
                 raise MemoryError("KV pool exhausted on extend")
             p = self._free.pop()
             self._refs[p] = self._refs.get(p, 0) + 1

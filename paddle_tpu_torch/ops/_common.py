@@ -10,6 +10,7 @@ version, a CUDA tensor launches the op's kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -53,6 +54,24 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def stream_scope(device=None) -> Callable[[], contextlib.AbstractContextManager]:
+    """A context factory that makes the CALLING thread's current CUDA
+    device and stream current wherever it is entered (another thread's
+    current stream is its device's default stream). For a CPU device,
+    or None, the context does nothing."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        return contextlib.nullcontext
+    stream = torch.cuda.current_stream(dev)
+
+    def scope() -> contextlib.ExitStack:
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(stream.device))
+        stack.enter_context(torch.cuda.stream(stream))
+        return stack
+    return scope
 
 
 @functools.lru_cache(maxsize=None)

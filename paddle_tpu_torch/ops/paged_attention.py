@@ -657,14 +657,16 @@ class PagedKVCacheManager:
         self._free: List[int] = list(range(num_pages - 1, 0, -1))  # 0 reserved
         self._tables: dict = {}   # seq_id -> List[int]
         self._lens: dict = {}     # seq_id -> int
+        self._page_nb: int = 0    # page_nbytes memo (geometry is fixed)
+        #: chips the pool is sharded over (1: the port serves on one
+        #: card); the memory ledger splits per-chip bytes off it
+        self.mesh_chips: int = 1
 
     # -- allocation ---------------------------------------------------------
 
     def can_allocate(self, n_tokens: int) -> bool:
         """Whether ``n_tokens`` fit in the free pages now. An allocation
-        that does not fit raises ``MemoryError``; the JAX manager's
-        ``_oom`` hook, which first files it in the HBM ledger of
-        ``observability.memory``, comes with the observability slice."""
+        that does not fit raises ``MemoryError`` (after :meth:`_oom`)."""
         return len(self._free) >= self.pages_for(n_tokens)
 
     @staticmethod
@@ -680,10 +682,31 @@ class PagedKVCacheManager:
         """Allocatable pool capacity (page 0 is the reserved pad page)."""
         return self.num_pages - 1
 
+    @property
+    def page_nbytes(self) -> int:
+        """Device bytes of ONE page (K and V across every layer), read
+        off the pool tensors' ``nbytes`` (host metadata) and memoized:
+        the memory ledger's byte unit."""
+        pb = self._page_nb
+        if not pb:
+            pb = self._page_nb = (
+                int(self.k_pages.nbytes)
+                + int(self.v_pages.nbytes)) // self.num_pages
+        return pb
+
+    def _oom(self, source: str, need: int) -> None:
+        """Every ``MemoryError`` this pool raises first lands in the
+        memory ledger (an ``oom_pressure`` event and a once-per-reason
+        flight bundle; gated on ``memory_armed`` inside)."""
+        from ..observability.memory import note_oom
+        note_oom(source, self, need_pages=need,
+                 free_pages=len(self._free))
+
     def allocate(self, seq_id, n_tokens: int) -> List[int]:
         """Reserve pages for a new sequence of n_tokens (prefill)."""
         need = self.pages_for(n_tokens)
         if len(self._free) < need:
+            self._oom("allocate", need)
             raise MemoryError(
                 f"KV pool exhausted: need {need} pages, "
                 f"{len(self._free)} free")
@@ -698,6 +721,7 @@ class PagedKVCacheManager:
         need = self.pages_for(new_len) - len(self._tables[seq_id])
         for _ in range(need):
             if not self._free:
+                self._oom("extend", 1)
                 raise MemoryError("KV pool exhausted on extend")
             self._tables[seq_id].append(self._free.pop())
         self._lens[seq_id] = new_len
@@ -723,6 +747,7 @@ class PagedKVCacheManager:
         if need <= 0:
             return []
         if len(self._free) < need:
+            self._oom("grow_to", need)
             raise MemoryError(
                 f"KV pool exhausted on speculative grow: need {need} "
                 f"pages, {len(self._free)} free")

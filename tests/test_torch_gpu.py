@@ -13,6 +13,8 @@ conftest):
 Whether a card exists is decided inside the fixture, never at import.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1690,3 +1692,151 @@ def test_eager_llama_main_grad_on_card_matches_cpu(cuda):
             l2_close(a[n], b[n], MAIN_GRAD_PARITY_TOL,
                      f"step {step} main_grad {n}")
     trained_weights_close(wc, wp, lr=1e-3, steps=2)
+
+
+# ---------------------------------------------------------------------------
+# the serving scheduler over the card's engine
+# ---------------------------------------------------------------------------
+
+def _sched_cfg():
+    return L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                        num_key_value_heads=4, intermediate_size=512,
+                        num_hidden_layers=2)
+
+
+def _sched_engine(cfg, device, **kw):
+    return D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=6), num_slots=2,
+        page_size=16, max_seq_len=96, chunk=3, device=device, **kw)
+
+
+def _sched_prompts(cfg, n=7):
+    rng = np.random.RandomState(5)
+    return [rng.randint(1, cfg.vocab_size, (int(m),)).astype(np.int32)
+            for m in rng.randint(2, 40, size=n)]
+
+
+def _scheduled(eng, params, prompts, sleep=time.sleep, **cfg_kw):
+    """Serve through ``ServingScheduler``: priority i % 3, queue cap 5
+    (two shed at submit), request 1 cancelled by its own on_token after
+    its 2nd token. Returns the scheduler, the handles and the admitted
+    handles in admission order."""
+    from paddle_tpu_torch.serving import SchedulerConfig, ServingScheduler
+    sched = ServingScheduler(eng, SchedulerConfig(max_queue_depth=5,
+                                                  **cfg_kw), sleep=sleep)
+    box = {}
+
+    def stop(tok):
+        if len(box["h"].stream.tokens) == 2:
+            sched.cancel(box["h"].rid)
+
+    hs = [sched.submit(p, priority=i % 3, on_token=stop if i == 1 else None)
+          for i, p in enumerate(prompts)]
+    box["h"] = hs[1]
+    while sched.pending:
+        sched.step(params)
+    order = sorted((h for h in hs if h.engine_rid is not None),
+                   key=lambda h: h.engine_rid)
+    return sched, hs, order
+
+
+def test_scheduled_serve_on_card_equals_engine_oracle_and_cpu(cuda):
+    """The scheduler over the card's engine (CUDA graphs): every finished
+    stream equals the same engine's plain serve of the admitted prompts in
+    admission order, and equals the CPU port's scheduled serve; the shed
+    and cancelled requests are the reference policy's."""
+    cfg = _sched_cfg()
+    params = L.init_params(cfg, seed=1, device="cpu")
+    gpu = {k: t.to(cuda) for k, t in params.items()}
+    prompts = _sched_prompts(cfg)
+    eng = _sched_engine(cfg, cuda)
+    sched, hs, order = _scheduled(eng, gpu, prompts)
+    # priorities 0 1 2 0 1 2 0 under a cap of 5: the 6th submit sheds
+    # the latest priority-2 arrival (5), the 7th the other one (2)
+    assert [h.rid for h in hs if h.state == "shed"] == [2, 5]
+    assert hs[1].state == "cancelled" and len(hs[1].stream.tokens) == 2
+    n0 = len(eng.compile_misses)
+    oracle = eng.serve(gpu, [h.prompt for h in order])
+    assert len(eng.compile_misses) == n0            # the oracle replays
+    for h, want in zip(order, oracle):
+        if h.state == "done":
+            assert h.stream.result() == want
+        else:
+            assert h.stream.tokens == want[:len(h.stream.tokens)]
+    _, cpu_hs, _ = _scheduled(_sched_engine(cfg, "cpu"), params, prompts)
+    assert [h.stream.tokens for h in hs] == [h.stream.tokens
+                                             for h in cpu_hs]
+    assert eng.mgr.num_free_pages == eng.mgr.usable_pages
+    text = sched.metrics.to_prometheus_text()
+    assert 'paddle_serving_requests_shed_total{reason="queue_full"} 2' in text
+
+
+@pytest.mark.parametrize("when", ["build", "build_tight", "replay"])
+def test_watchdog_scheduler_on_card_builds_and_replays(cuda, when):
+    """``step_timeout_s`` runs each engine step on the watchdog thread:
+    a first step that captures the program there (with a generous
+    timeout; with a timeout shorter than the capture, so the retries wait
+    on the straggler while the calling thread runs CUDA work of its own
+    during the capture), and steps that replay there, give the tokens of
+    the plain scheduled serve."""
+    cfg = _sched_cfg()
+    params = L.init_params(cfg, seed=1, device="cpu")
+    gpu = {k: t.to(cuda) for k, t in params.items()}
+    prompts = _sched_prompts(cfg)
+    _, want, _ = _scheduled(_sched_engine(cfg, cuda), gpu, prompts)
+    eng = _sched_engine(cfg, cuda)
+    if when == "replay":
+        eng.serve(gpu, prompts[:2])
+    n0 = len(eng.compile_misses)
+    kw, sleep = dict(step_timeout_s=30.0), time.sleep
+    if when == "build_tight":
+        def sleep(dt):
+            # CUDA work (an allocation and a sync) on this thread while
+            # the watchdog thread may be capturing
+            assert torch.ones(1024, device=cuda).sum().item() == 1024
+            time.sleep(dt)
+        kw = dict(step_timeout_s=1e-3, max_step_retries=100_000,
+                  retry_backoff_s=1e-3, retry_backoff_multiplier=1.0)
+    sched, hs, _ = _scheduled(eng, gpu, prompts, sleep=sleep, **kw)
+    if when == "build_tight":
+        assert sched.metrics.counters["step_failures_total"] >= 1
+    assert not sched.degraded
+    assert [h.stream.tokens for h in hs] == [h.stream.tokens for h in want]
+    assert [h.state for h in hs] == [h.state for h in want]
+    assert len(eng.compile_misses) == n0 + (when != "replay")
+    eng.mgr.check_conservation()
+
+
+def test_memory_ledger_bytes_equal_tensor_nbytes_on_card(cuda):
+    """An armed memory ledger over a bf16 serve on the card counts the
+    weights and the pool exactly as the tensors' ``nbytes``, and its
+    planner verdict predicts the pool's pages; the capacity plan for the
+    card's own memory is a real one."""
+    from paddle_tpu_torch.observability import memory as M
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                       num_key_value_heads=4, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=1, device=cuda)
+    M.memory_ledger.reset()
+    M.memory_ledger.arm()
+    try:
+        eng = _sched_engine(cfg, cuda, prefix_cache=True)
+        eng.serve(params, _sched_prompts(cfg, 4))
+        snap = M.memory_ledger.snapshot()
+    finally:
+        M.memory_ledger.disarm()
+        M.memory_ledger.reset()
+    assert snap["classes"]["weights"] == sum(t.nbytes
+                                             for t in params.values())
+    pool = snap["pools"][0]
+    assert pool["pool_bytes"] == eng.mgr.k_pages.nbytes \
+        + eng.mgr.v_pages.nbytes
+    assert pool["page_bytes"] == eng.mgr.page_nbytes
+    assert pool["planner"]["exact"]
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    plan = M.plan_capacity(num_layers=2, num_kv_heads=4, head_dim=128,
+                           page_size=16, dtype_bytes=2, hbm_bytes=total,
+                           weight_bytes=snap["classes"]["weights"],
+                           max_seq_len=96)
+    assert plan.max_pages * eng.mgr.page_nbytes <= total
+    assert plan.max_slots >= 1
