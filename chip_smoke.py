@@ -177,7 +177,33 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     e2e / queue-wait p50 and p99, the host gap between engine steps, a
     profiled prefill and decode step's idle share, the step wall with
     every tap armed against disarmed (A B B A by step), and the share
-    of tokens equal to phase 7's greedy streams.
+    of tokens equal to phase 7's greedy streams;
+24. the serving fleet on phase 7's weights (run right after phase 23):
+    two unified 7B replicas with the prefix cache, each its own pool and
+    CUDA graph, built and warmed before any timed window. (a) phase 7's
+    12 prompts, four of them behind a shared 256-token prefix, through
+    ``FleetRouter``: requests per replica, prefix-affinity and cache
+    hits, tokens/s against phase 7's engine-only serve, TTFT / ITL p50
+    and p99, the router's host work between steps and a profiled step's
+    idle share. (b) a ``FaultInjector`` ``replica_die`` on replica 0 at
+    the first step where one of its requests is mid-decode: every
+    request finishes, fails unless the tokens streamed before the kill
+    equal phase 7's greedy streams, reports the share equal after it;
+    then ``replica_stall`` and the half-open probe re-admitting the
+    replica. (c) ``DisaggRouter`` with a PREFILL and a DECODE replica:
+    handoffs, pages and bytes, handoff ms split into export, wire
+    (frame, CRC, decode) and import, bytes/s against a pinned host round
+    trip of the same size, the decode side's ITL against (a)'s, stream
+    equality with phase 7's before and after the handoff,
+    ``check_conservation`` on both pools after every import and no page
+    left live. (d) a signal bus on a replica's scheduler and the
+    fleet's, a ``DiagServer`` on 127.0.0.1 answering every route with
+    the reference's keys, and an ``AutoscaleController`` scaling up
+    through a factory that builds a third replica on the same weights
+    (its capture seconds), flipping its role and draining it back down.
+    Launch counts are checked against the replicas' micro-rounds in
+    every window, no program is built after the warm-up, and every
+    replica is released before the later phases.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -197,7 +223,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 23
+N_PHASES = 24
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -1999,6 +2025,655 @@ def scheduled_7b_phase(torch, L, D, rn, pa, cfg, params, eng, serve,
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the serving fleet at Llama-2-7B width (router, chaos, roles)
+# ---------------------------------------------------------------------------
+
+FLEET_PREFIX = 256            # tokens of the shared prefix in (a)
+FLEET_SHARED = (0, 3, 6, 9)   # (a): phase 7's prompts that get the prefix
+#: the JAX package's DiagServer route documents (top-level keys) for a
+#: server with an SLO monitor, a router, a signal bus, an autoscaler and a
+#: prefix cache attached
+FLEET_ROUTE_KEYS = {
+    "/": ("endpoints",),
+    "/healthz": ("status",),
+    "/statusz": ("autoscale", "flight_recorder", "health", "journal",
+                 "kvcache", "memory", "router", "signals", "slo",
+                 "timelines"),
+    "/tracez": ("active", "armed", "completed", "dropped_spans", "slowest",
+                "traces"),
+    "/varz": ("anomalies", "armed", "history", "interval_s", "signals",
+              "ticks", "window_s"),
+    "/scalez": ("config", "kind", "pending_ops", "records", "replicas",
+                "roles", "rounds", "schema_version"),
+    "/journalz": ("armed", "capacity", "dropped", "frames", "frames_total",
+                  "head", "journal_version", "step"),
+    "/memz": ("armed", "audits", "classes", "last_oom", "migration",
+              "peaks", "pools"),
+    "/debugz": ("armed", "capacity", "dump_dir", "dumps", "events",
+                "metric_samples", "spans"),
+}
+
+
+class _JumpClock:
+    """The host's monotonic clock plus a settable offset: a chaos run's
+    breaker cooldowns pass without sleeping."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self):
+        return time.monotonic() + self.offset
+
+    def sleep(self, dt):
+        time.sleep(dt)
+
+
+class _Launches:
+    """Launch counts of the fleet's kernels over one window: the counters
+    zeroed at ``start`` and checked at ``stop`` against the micro-rounds
+    the window's engines ran (each engine's compiled unified step: 2L+1
+    RMSNorm calls and L ragged calls a micro-round)."""
+
+    def __init__(self, torch, rn, pa, n_layers):
+        self.torch, self.rn, self.pa, self.n_layers = torch, rn, pa, n_layers
+        self.total = {}
+
+    def start(self, engines):
+        self.rn.rms_norm.launches = 0
+        _reset_ragged(self.pa)
+        self.rounds0 = {id(e): e.micro_rounds for e in engines}
+
+    def stop(self, engines):
+        self.torch.cuda.synchronize()
+        rounds = sum(e.micro_rounds - self.rounds0.get(id(e), 0)
+                     for e in engines)
+        got = {"rms_norm_fwd": self.rn.rms_norm.launches,
+               **_ragged_launches(self.pa)}
+        want = {"rms_norm_fwd": (2 * self.n_layers + 1) * rounds,
+                **_ragged_want(self.torch, self.pa, self.n_layers * rounds)}
+        if got != want:
+            raise AssertionError(f"fleet launch counts {got} != {want}")
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return dict(got, micro_rounds=rounds)
+
+
+def _pct(xs):
+    xs = [float(x) for x in xs]
+    if not xs:
+        return None
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "count": len(xs)}
+
+
+def _fleet_handles(S, engines, clock, health_kw=None):
+    return [S.ReplicaHandle(i, eng, health_config=S.HealthConfig(
+        **(health_kw or {})), clock=clock, sleep=clock.sleep)
+        for i, eng in enumerate(engines)]
+
+
+def _submit_timed(router, prompt, log, **kw):
+    """``router.submit`` with every token's host time and the replica it
+    came from recorded in ``log[rid]`` (the first entry: the submit)."""
+    box = {}
+
+    def on_token(tok):
+        log[box["rid"]].append((time.perf_counter(),
+                                box["req"].replica_id))
+    t0 = time.perf_counter()
+    req = router.submit(prompt, on_token=on_token, **kw)
+    box.update(rid=req.rid, req=req)
+    log[req.rid] = [(t0, None)]
+    return req
+
+
+def _latency(log, only_replica=None):
+    """TTFT (submit to first token) and ITL (gaps between a request's
+    consecutive tokens), ms; ``only_replica`` keeps the gaps whose both
+    tokens came from that replica."""
+    ttft, itl = [], []
+    for stamps in log.values():
+        t_sub, toks = stamps[0][0], stamps[1:]
+        if toks:
+            ttft.append((toks[0][0] - t_sub) * 1e3)
+        for (a, ra), (b, rb) in zip(toks, toks[1:]):
+            if only_replica is None or ra == rb == only_replica:
+                itl.append((b - a) * 1e3)
+    return {"ttft_ms": _pct(ttft), "itl_ms": _pct(itl)}
+
+
+def _timed_router_steps(router, params, handles, max_steps=400,
+                        before_step=None):
+    """Step ``router`` until nothing is pending; returns each router
+    step's wall and the host work outside the replicas' own steps (the
+    router's routing, breaker, handoff and bookkeeping time), ms."""
+    inside = [0.0]
+    real = {}
+    for h in handles:
+        real[h.replica_id] = h.step
+
+        def step(params, _f=h.step):
+            t0 = time.perf_counter()
+            try:
+                return _f(params)
+            finally:
+                inside[0] += time.perf_counter() - t0
+        h.step = step
+    walls, host = [], []
+    try:
+        while router.pending:
+            if before_step is not None:
+                before_step()
+            inside[0] = 0.0
+            t0 = time.perf_counter()
+            router.step(params)
+            wall = time.perf_counter() - t0
+            walls.append(wall * 1e3)
+            host.append((wall - inside[0]) * 1e3)
+            if len(walls) > max_steps:
+                raise AssertionError(f"the fleet did not finish: "
+                                     f"{router.statusz()['counters']}")
+    finally:
+        for h in handles:
+            del h.step
+    return walls, host
+
+
+def _equal_share(pairs):
+    n = sum(len(a) for a, _ in pairs)
+    eq = sum(int(x == y) for a, b in pairs for x, y in zip(a, b))
+    return (eq / n if n else None), eq, n
+
+
+def _fleet_profiled_step(torch, router, params, vocab, n):
+    """Where a router step that decodes on every replica spends its time
+    (as ``step_breakdown`` does for one engine): ``n`` requests of 256
+    prompt tokens, a first (prefill) router step, then the second
+    (decode) one; wall from an unprofiled pass, device time from a
+    torch.profiler pass over the same load; each pass drained."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [rng.randint(1, vocab, (256,)).astype(np.int32)
+               for _ in range(n)]
+    out = {}
+    for profiled in (False, True):
+        reqs = [router.submit(p) for p in prompts]
+        router.step(params)
+        torch.cuda.synchronize()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                router.step(params)
+                torch.cuda.synchronize()
+        else:
+            t0 = time.perf_counter()
+            router.step(params)     # each replica ends in its host copy
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        while router.pending:
+            router.step(params)
+        if any(r.state != "done" for r in reqs):
+            raise AssertionError("the profiled fleet requests did not "
+                                 "finish")
+    by_kind, top = _kernel_ms_by_kind(prof)
+    busy = sum(by_kind.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time in the "
+                             "fleet step")
+    return dict(out, device_busy_ms=busy, kernel_ms=by_kind,
+                top_kernels=top, idle_share=1 - busy / out["wall_ms"])
+
+
+def _pinned_copy_bytes_per_s(torch, nbytes):
+    """A plain device -> pinned host -> device round trip of ``nbytes``
+    (the bytes a handoff moves), timed on the host around synchronised
+    copies: bytes over the two copies' seconds."""
+    n = max(int(nbytes) // 2, 1)
+    dev = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    host = torch.empty(n, dtype=torch.bfloat16, pin_memory=True)
+    back = torch.empty_like(dev)
+    best = math.inf
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.copy_(dev)
+        torch.cuda.synchronize()
+        back.copy_(host)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 2 * n / best, best
+
+
+class _FleetScript:
+    """An autoscale policy that decides a written-out sequence, one
+    decision a round: the controller's actuation path on the card."""
+
+    def __init__(self, S, decisions):
+        self.config = S.AutoscaleConfig(max_replicas=3)
+        self._script = list(decisions)
+
+    def decide(self, snap, roles, t):
+        return self._script.pop(0) if self._script else None
+
+
+def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
+    """Phase 24: ``FleetRouter`` / ``DisaggRouter`` over replicas of the
+    7B engine on one card, sharing phase 7's weights (each replica its
+    own pool and CUDA graph): (a) a routed serve with a shared prefix,
+    (b) a replica killed mid-decode and a stall re-admitted through the
+    half-open probe, (c) a PREFILL and a DECODE replica with the KV page
+    handoff, (d) the signal bus, the DiagServer's routes and one
+    autoscaler scale-up, role flip and drain back down."""
+    import urllib.request
+    import paddle_tpu_torch.observability as O
+    import paddle_tpu_torch.resilience as RS
+    import paddle_tpu_torch.serving as S
+    prompts = serve_load(cfg)
+    n_layers = cfg.num_hidden_layers
+    launches = _Launches(torch, rn, pa, n_layers)
+    reg = O.get_registry()
+
+    def total(name):
+        m = reg.get(name)
+        return 0.0 if m is None else m.total
+
+    def make_engine():
+        eng = _serve_engine(D, cfg, step_tokens=256, prefix_cache=True)
+        # the warm build: one short request captures the unified step
+        eng.serve(params, [prompts[0][:16]])
+        eng.cache.evict(eng.mgr.num_pages)
+        eng.mgr.check_conservation()
+        return eng
+
+    out = {}
+    t_setup = time.perf_counter()
+    engines = [make_engine(), make_engine()]
+    pool_bytes = engines[0].mgr.k_pages.nbytes + engines[0].mgr.v_pages.nbytes
+    out["setup"] = dict(
+        replicas=2, setup_s=time.perf_counter() - t_setup,
+        capture_s=[sum(e.capture_seconds.values()) for e in engines],
+        builds=[len(e.compile_misses) for e in engines],
+        weight_bytes=sum(t.nbytes for t in params.values()),
+        pool_bytes_each=pool_bytes,
+        allocated_gb=torch.cuda.memory_allocated() / 1e9,
+        reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    misses0 = [list(e.compile_misses) for e in engines]
+
+    def no_new_builds(what):
+        for e, m in zip(engines, misses0):
+            if e.compile_misses != m:
+                raise AssertionError(f"{what} built programs: "
+                                     f"{e.compile_misses[len(m):]}")
+
+    def cold_caches():
+        for e in engines:
+            e.cache.evict(e.mgr.num_pages)
+            e.mgr.check_conservation()
+            if e.mgr.num_live_pages:
+                raise AssertionError("a replica holds live pages")
+
+    # -- (a) the routed serve ----------------------------------------------
+    rng = np.random.RandomState(SEED + 24)
+    prefix = rng.randint(1, cfg.vocab_size, (FLEET_PREFIX,)).astype(np.int32)
+    a_prompts = [np.concatenate([prefix, p]).astype(np.int32)
+                 if i in FLEET_SHARED else p for i, p in enumerate(prompts)]
+    clock = _JumpClock()
+    handles = _fleet_handles(S, engines, clock)
+    router = S.FleetRouter(handles, clock=clock, sleep=clock.sleep)
+    log = {}
+    aff0 = total("paddle_router_prefix_affinity_hits_total")
+    hits0 = [e.cache.snapshot()["hits"] for e in engines]
+    skipped0 = [e.cache.snapshot()["cached_tokens"] for e in engines]
+    launches.start(engines)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [_submit_timed(router, a_prompts[0], log)]
+    walls, host = _timed_router_steps(router, params, handles)
+    reqs += [_submit_timed(router, p, log) for p in a_prompts[1:]]
+    w2, h2 = _timed_router_steps(router, params, handles)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    a_launch = launches.stop(engines)
+    walls += w2
+    host += h2
+    if any(r.state != "done" or len(r.stream.tokens) != NEW_TOKENS
+           for r in reqs):
+        raise AssertionError(f"(a) states {[r.state for r in reqs]}")
+    no_new_builds("the routed serve")
+    generated = sum(len(r.stream.tokens) for r in reqs)
+    plain = [(r.stream.tokens, greedy[i]) for i, r in enumerate(reqs)
+             if i not in FLEET_SHARED]
+    share, eq, n = _equal_share(plain)
+    if share != 1.0:
+        raise AssertionError(f"routed streams: {eq} of {n} tokens equal to "
+                             "phase 7's greedy streams")
+    per_replica = {str(k): sum(1 for r in reqs if r.replica_id == k)
+                   for k in range(2)}
+    out["a_routed"] = dict(
+        requests=len(reqs), requests_per_replica=per_replica,
+        affinity_hits=total("paddle_router_prefix_affinity_hits_total")
+        - aff0,
+        shared_prefix_replicas=sorted({reqs[i].replica_id
+                                       for i in FLEET_SHARED}),
+        cache_hits=[e.cache.snapshot()["hits"] - h
+                    for e, h in zip(engines, hits0)],
+        prefill_tokens_skipped=[e.cache.snapshot()["cached_tokens"] - s
+                                for e, s in zip(engines, skipped0)],
+        router_steps=len(walls), serve_s=wall_a, generated_tokens=generated,
+        tokens_per_s=generated / wall_a,
+        phase7_engine_only_tokens_per_s=serve[
+            "generated_tokens_per_s_without_capture"],
+        mean_router_step_ms=float(np.mean(walls)),
+        router_host_ms=dict(mean=float(np.mean(host)),
+                            median=float(np.median(host)), max=max(host)),
+        latency=_latency(log), launches=a_launch,
+        equal_to_phase7_greedy=share, equal_tokens=[eq, n])
+    hybrid_itl = out["a_routed"]["latency"]["itl_ms"]
+    out["a_routed"]["profiled_step"] = _fleet_profiled_step(
+        torch, router, params, cfg.vocab_size, 2 * engines[0].num_slots)
+    no_new_builds("the profiled fleet step")
+    del router, handles, reqs
+    cold_caches()
+
+    # -- (b) chaos: a replica dies mid-decode; a stall and the probe --------
+    clock = _JumpClock()
+    inj = RS.FaultInjector()
+    handles = _fleet_handles(S, engines, clock, dict(
+        eject_after=1, probe_cooldown_s=0.5))
+    router = S.FleetRouter(handles, clock=clock, sleep=clock.sleep,
+                           fault_injector=inj)
+    fo0 = total("paddle_router_failovers_total")
+    reqs = [router.submit(p) for p in prompts]
+    at_kill = {}
+
+    def arm_kill():
+        # the first step at which a request of replica 0 is mid-decode
+        if at_kill:
+            return
+        mid = [r for r in reqs if r.replica_id == 0
+               and 0 < len(r.stream.tokens) < NEW_TOKENS]
+        if mid:
+            at_kill.update({r.rid: list(r.stream.tokens) for r in reqs})
+            inj.schedule.append(RS.Fault("replica_die", router._steps + 1,
+                                         replica=0))
+
+    launches.start(engines)
+    t0 = time.perf_counter()
+    walls_b, _ = _timed_router_steps(router, params, handles,
+                                     before_step=arm_kill)
+    wall_b = time.perf_counter() - t0
+    b_launch = launches.stop(engines)
+    if not inj.fired or inj.fired[0][0] != "replica_die":
+        raise AssertionError(f"the kill did not fire: {inj.fired}")
+    if any(r.state != "done" or len(r.stream.tokens) != NEW_TOKENS
+           for r in reqs):
+        raise AssertionError(f"(b) states {[r.state for r in reqs]}")
+    failed_over = [r for r in reqs if r.failovers]
+    if not failed_over or any(r.replica_id != 1 for r in failed_over):
+        raise AssertionError("no request failed over to replica 1")
+    before = [(at_kill[r.rid], greedy[r.rid][:len(at_kill[r.rid])])
+              for r in reqs]
+    if any(a != b for a, b in before):
+        raise AssertionError("tokens streamed before the kill differ from "
+                             "phase 7's greedy streams")
+    after = [(r.stream.tokens[len(at_kill[r.rid]):],
+              greedy[r.rid][len(at_kill[r.rid]):]) for r in failed_over]
+    kept = [(r.stream.tokens, greedy[r.rid]) for r in reqs
+            if not r.failovers]
+    s_after, eq_after, n_after = _equal_share(after)
+    s_kept, eq_kept, n_kept = _equal_share(kept)
+    if s_kept != 1.0:
+        raise AssertionError(f"streams that stayed on replica 1: {eq_kept} "
+                             f"of {n_kept} tokens equal to phase 7's")
+    first_diff = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                       None) for a, b in after]
+    no_new_builds("the chaos serve")
+    chaos = dict(
+        kill_step=inj.fired[0][1], router_steps=len(walls_b),
+        serve_s=wall_b, failovers=total("paddle_router_failovers_total")
+        - fo0, failed_over_requests=[r.rid for r in failed_over],
+        streamed_before_kill={str(r.rid): len(at_kill[r.rid])
+                              for r in failed_over},
+        equal_before_kill=1.0,
+        equal_after_kill=s_after, equal_after_kill_tokens=[eq_after,
+                                                           n_after],
+        first_differing_token_after_kill=first_diff,
+        equal_not_failed_over=s_kept, equal_not_failed_over_tokens=[
+            eq_kept, n_kept],
+        replica0_state=handles[0].health.state, launches=b_launch)
+
+    # the dead replica comes back on its engine, stalls, is ejected and
+    # re-admitted through the half-open probe
+    for e in engines:
+        e.mgr.check_conservation()
+    handles[0] = _fleet_handles(S, engines[:1], clock, dict(
+        eject_after=1, probe_cooldown_s=0.5))[0]
+    router.replace_replica(handles[0])
+    inj.schedule.append(RS.Fault("replica_stall", router._steps + 1,
+                                 replica=0))
+    trail = []
+    probe = None
+    launches.start(engines)
+    for step in range(200):
+        state = handles[0].health.state
+        if not trail or trail[-1] != state:
+            trail.append(state)
+        if state == "ejected":
+            clock.offset += 1.0          # the cooldown passes
+        if state == "half_open" and probe is None:
+            probe = router.submit(prompts[1])
+        elif step % 3 == 0 and len(trail) < 6 and not router.pending:
+            router.submit(prompts[2])
+        if probe is not None and probe.state == "done" \
+                and state == "healthy" and not router.pending:
+            break
+        router.step(params)
+    stall_launch = launches.stop(engines)
+    if trail[-1] != "healthy" or "half_open" not in trail or probe is None \
+            or probe.replica_id != 0:
+        raise AssertionError(f"the stalled replica was not re-admitted "
+                             f"through its probe: {trail}")
+    if probe.stream.tokens != greedy[1]:
+        raise AssertionError("the probe's stream differs from phase 7's")
+    chaos.update(stall_trail=trail, stall_launches=stall_launch,
+                 fired=[list(f) for f in inj.fired])
+    out["b_chaos"] = chaos
+    no_new_builds("the stall and probe")
+    del router, handles, reqs, probe
+    cold_caches()
+
+    # -- (c) disaggregated serve: PREFILL -> DECODE with the page handoff --
+    clock = _JumpClock()
+    handles = _fleet_handles(S, engines, clock)
+    router = S.DisaggRouter(handles, roles={0: S.ReplicaRole.PREFILL,
+                                            1: S.ReplicaRole.DECODE},
+                            clock=clock, sleep=clock.sleep)
+    audits = [0]
+    real_import = engines[1].cache.import_prefix
+
+    def audited_import(tokens, ks, vs):
+        got = real_import(tokens, ks, vs)
+        for e in engines:
+            e.mgr.check_conservation()
+        audits[0] += 1
+        return got
+    engines[1].cache.import_prefix = audited_import
+    at_handoff = {}
+    real_handoff = router._handoff
+
+    def noted_handoff(req, src, dst):
+        at_handoff[req.rid] = len(req.stream.tokens)
+        return real_handoff(req, src, dst)
+    router._handoff = noted_handoff
+    log = {}
+    bytes0 = total("paddle_handoff_bytes_total")
+    launches.start(engines)
+    t0 = time.perf_counter()
+    reqs = [_submit_timed(router, p, log) for p in prompts]
+    walls_c, host_c = _timed_router_steps(router, params, handles)
+    wall_c = time.perf_counter() - t0
+    c_launch = launches.stop(engines)
+    del engines[1].cache.import_prefix
+    if any(r.state != "done" or len(r.stream.tokens) != NEW_TOKENS
+           for r in reqs):
+        raise AssertionError(f"(c) states {[r.state for r in reqs]}")
+    if router.handoffs_failed or audits[0] != router.handoffs_ok \
+            or not router.handoffs_ok:
+        raise AssertionError(f"handoffs ok {router.handoffs_ok}, failed "
+                             f"{router.handoffs_failed}, audited "
+                             f"{audits[0]}")
+    for e in engines:
+        e.mgr.check_conservation()
+        if e.mgr.num_live_pages:
+            raise AssertionError("pages leaked after the handoffs")
+    no_new_builds("the disaggregated serve")
+    phases = list(router.handoff_phases)
+    moved = sum(p["bytes"] for p in phases)
+    secs = [p["export_s"] + p["wire_s"] + p["import_s"] for p in phases]
+    biggest = max(phases, key=lambda p: p["bytes"])
+    plain_bps, plain_s = _pinned_copy_bytes_per_s(torch, biggest["bytes"])
+    pre = [(r.stream.tokens[:at_handoff.get(r.rid, NEW_TOKENS)],
+            greedy[r.rid][:at_handoff.get(r.rid, NEW_TOKENS)]) for r in reqs]
+    post = [(r.stream.tokens[at_handoff[r.rid]:],
+             greedy[r.rid][at_handoff[r.rid]:]) for r in reqs
+            if r.rid in at_handoff]
+    s_pre, eq_pre, n_pre = _equal_share(pre)
+    s_post, eq_post, n_post = _equal_share(post)
+    decode_lat = _latency(log, only_replica=1)
+    out["c_disagg"] = dict(
+        router_steps=len(walls_c), serve_s=wall_c,
+        tokens_per_s=NEW_TOKENS * len(reqs) / wall_c,
+        handoffs=router.handoffs_ok, pages=router.handoff_pages_total,
+        bytes=moved, bytes_counter=total("paddle_handoff_bytes_total")
+        - bytes0, page_bytes=engines[0].mgr.page_nbytes,
+        handoff_ms=_pct([s * 1e3 for s in secs]),
+        export_ms=_pct([p["export_s"] * 1e3 for p in phases]),
+        wire_ms=_pct([p["wire_s"] * 1e3 for p in phases]),
+        import_ms=_pct([p["import_s"] * 1e3 for p in phases]),
+        handoff_bytes_per_s=moved / sum(secs),
+        largest_handoff=dict(bytes=biggest["bytes"], pages=biggest["pages"],
+                             ms=1e3 * (biggest["export_s"]
+                                       + biggest["wire_s"]
+                                       + biggest["import_s"])),
+        pinned_copy_bytes_per_s=plain_bps, pinned_copy_ms=plain_s * 1e3,
+        decode_replica_itl_ms=decode_lat["itl_ms"],
+        hybrid_itl_ms=hybrid_itl, latency=_latency(log),
+        router_host_ms=dict(mean=float(np.mean(host_c)),
+                            max=max(host_c)),
+        conservation_audits=audits[0], leaked_pages=0,
+        streamed_at_handoff={str(k): v for k, v in at_handoff.items()},
+        equal_before_handoff=s_pre, equal_before_handoff_tokens=[eq_pre,
+                                                                 n_pre],
+        equal_after_handoff=s_post, equal_after_handoff_tokens=[eq_post,
+                                                                n_post],
+        finished_on_decode=sum(1 for r in reqs if r.replica_id == 1),
+        launches=c_launch)
+    if s_pre != 1.0:
+        raise AssertionError("tokens streamed before the handoff differ "
+                             "from phase 7's greedy streams")
+
+    # -- (d) sensors, the DiagServer and the autoscaler --------------------
+    fleet_engines = list(engines)
+    capture = {}
+
+    def engine_factory():
+        t = time.perf_counter()
+        eng = make_engine()
+        capture.update(build_s=time.perf_counter() - t,
+                       capture_s=sum(eng.capture_seconds.values()),
+                       builds=len(eng.compile_misses))
+        fleet_engines.append(eng)
+        return eng
+
+    def handle_factory(rid, eng):
+        return S.ReplicaHandle(rid, eng, clock=clock, sleep=clock.sleep)
+
+    sbus = handles[0]._scheduler.attach_signal_bus(interval_s=0.0)
+    script = _FleetScript(S, [
+        S.Decision("scale_up", "smoke", role=S.ReplicaRole.HYBRID),
+        S.Decision("role_change", "smoke", replica_id=2,
+                   role=S.ReplicaRole.PREFILL),
+        S.Decision("scale_down", "smoke", replica_id=2)])
+    ctl = S.AutoscaleController(router, engine_factory, handle_factory,
+                                policy=script, interval_s=0.0)
+    ctl.bus.arm()
+    launches.start(fleet_engines)
+    records = []
+    try:
+        for i in range(60):
+            if i in (0, 4, 8):
+                router.submit(prompts[4 + i // 4])
+            rec = ctl.evaluate()
+            if rec is not None:
+                records.append(rec)
+            router.step(params)
+            clock.offset += 0.05
+            if len(records) == 3 and records[-1].state == "done" \
+                    and not router.pending:
+                break
+    finally:
+        ctl.bus.disarm()
+    d_launch = launches.stop(fleet_engines)
+    acts = [(r.action, r.state) for r in ctl.records]
+    if acts != [("scale_up", "done"), ("role_change", "done"),
+                ("scale_down", "done")] or len(router.replicas) != 2:
+        raise AssertionError(f"autoscaler records {acts}, replicas "
+                             f"{sorted(router.replicas)}")
+    srv = O.DiagServer(port=0, host="127.0.0.1",
+                       monitor=router.make_slo_monitor())
+    srv.attach_router(router)
+    srv.attach_signals(ctl.bus)
+    srv.attach_autoscale(ctl)
+    srv.attach_kvcache(engines[1].cache)
+    port = srv.start()
+    routes = {}
+    try:
+        for route, want in FLEET_ROUTE_KEYS.items():
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                        timeout=30) as resp:
+                body = json.loads(resp.read())
+                status = resp.status
+            if status != 200 or tuple(sorted(body)) != want:
+                raise AssertionError(f"{route}: {status} "
+                                     f"{sorted(body)} != {want}")
+            routes[route] = status
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            text = resp.read().decode()
+            routes["/metrics"] = resp.status
+    finally:
+        srv.stop()
+    for fam in ("paddle_router_requests_total",
+                "paddle_router_replica_role", "paddle_handoff_pages_total",
+                "paddle_autoscale_decisions_total", "paddle_signal_value"):
+        if f"# TYPE {fam}" not in text:
+            raise AssertionError(f"/metrics lacks {fam}")
+    out["d_sensors"] = dict(
+        routes=routes, scale_records=acts,
+        third_replica=capture, signals=len(ctl.bus.values()),
+        scheduler_signals=sorted(sbus.values()), launches=d_launch,
+        metrics_lines=len(text.splitlines()))
+    for e in fleet_engines:
+        e.mgr.check_conservation()
+    out["launches"] = launches.total
+    # the process-wide recorder keeps the last router, bus and controller
+    # for its bundles: let go of them so the replicas' pools free
+    O.flight_recorder._router = O.flight_recorder._signals = None
+    O.flight_recorder._autoscale = O.flight_recorder._slo_monitor = None
+    return out
+
+
+def fleet_released(torch, allocated0, report):
+    """After phase 24 returns (its replicas out of scope): the card holds
+    what it held before the phase, within 1 GiB."""
+    _free_card(torch)
+    kept = torch.cuda.memory_allocated() - allocated0
+    report["kept_gb_after_release"] = kept / 1e9
+    if kept > 2**30:
+        raise AssertionError(f"the fleet kept {kept / 1e9:.2f} GB on the "
+                             "card after its release")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the RMSNorm backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3274,6 +3949,12 @@ def main() -> int:
     _free_card(torch)
     done(23, f"Llama-2-7B bf16 scheduled serve (ServingScheduler) on "
          f"{card}", sched)
+    allocated0 = torch.cuda.memory_allocated()
+    fleet = fleet_7b_phase(torch, L, D, rn, pa, cfg7b, params7b, serve,
+                           greedy_tokens)
+    fleet_released(torch, allocated0, fleet)
+    done(24, f"Llama-2-7B bf16 serving fleet (router, chaos, roles, "
+         f"sensors) on {card}", fleet)
     legacy = legacy_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b, serve)
     done(8, f"Llama-2-7B bf16 legacy serve and prefix-cache wave on {card}",
          legacy)
@@ -3338,6 +4019,7 @@ def main() -> int:
              replaces="paddle_tpu/ops/rms_norm.py:48",
              launches=serve["launches"]["rms_norm_fwd"]
              + sched["launches"]["rms_norm_fwd"]
+             + fleet["launches"]["rms_norm_fwd"]
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
              + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
@@ -3350,6 +4032,7 @@ def main() -> int:
              replaces="paddle_tpu/ops/paged_attention.py:215",
              launches=serve["launches"]["ragged_paged_attention"]
              + sched["launches"]["ragged_paged_attention"]
+             + fleet["launches"]["ragged_paged_attention"]
              + warm["launches"]["ragged_paged_attention"]
              + cold["launches"]["ragged_paged_attention"]
              + mixed["ragged_paged_attention"]

@@ -33,6 +33,7 @@ outputs; the engine copies what it keeps before the next program runs.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -121,12 +122,23 @@ class Program:
         t0 = time.perf_counter()
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graphs.pool,
-                              stream=self._graphs.stream,
-                              capture_error_mode="thread_local"):
-            # read after the capture's own empty_cache
-            reserved = torch.cuda.memory_reserved(self._graphs.device)
-            out = self.body(**self.static)
+        # a garbage collection inside the capture may free another
+        # program's graph (a retired engine's, a dropped replica's), and
+        # freeing a graph while a stream captures invalidates the capture:
+        # collect before it, and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graphs.pool,
+                                  stream=self._graphs.stream,
+                                  capture_error_mode="thread_local"):
+                # read after the capture's own empty_cache
+                reserved = torch.cuda.memory_reserved(self._graphs.device)
+                out = self.body(**self.static)
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self._counts = {k: n - before[k] for k, n in after.items()
                         if n != before[k]}

@@ -21,8 +21,9 @@ Telemetry: :attr:`stats` counts hits, misses, evictions, COW copies and
 cached tokens, and :meth:`update_gauges` keeps the free/live/cached page
 split in :attr:`gauges`; both feed the process registry's
 ``paddle_kvcache_*`` families too, and an admitted hit and an eviction
-emit ``cache_hit`` / ``cache_evict`` events. ``import_prefix`` (migrating
-a prefix from another host) comes with multi-host serving.
+emit ``cache_hit`` / ``cache_evict`` events. :meth:`PrefixCache.import_prefix`
+adopts a prefix whose pages another engine exported (the prefill ->
+decode KV handoff), all-or-nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..observability.events import emit_event
 from ..observability.registry import get_registry
-from ..ops._common import not_ported as _later
 from .policy import LRUEvictionPolicy
 from .pool import RefcountedKVCacheManager
 from .radix import RadixTree
@@ -136,9 +136,78 @@ class PrefixCache:
             self.mgr.adopt_cached(p)
         return len(adopted)
 
-    def import_prefix(self, tokens, k_slabs, v_slabs):
-        raise _later("PrefixCache.import_prefix (page migration)",
-                     "multi-host serving")
+    # -- migration import -----------------------------------------------------
+
+    def _slab_shape(self) -> Tuple[int, ...]:
+        """Expected shape of ONE page's K (or V) slab: the pool array
+        minus its page axis — ``(layers, page_size, kv_heads, head_dim)``."""
+        s = tuple(self.mgr.k_pages.shape)
+        return (s[0],) + s[2:]
+
+    def import_prefix(self, tokens: Sequence[int], k_slabs: Sequence,
+                      v_slabs: Sequence) -> Dict[str, int]:
+        """Adopt a migrated prefix into THIS host's cache: ``k_slabs[i]``/
+        ``v_slabs[i]`` hold the KV for ``tokens``' i-th full block.
+        Blocks the radix tree already caches are skipped (their payload
+        is dropped, not written — the destination replays only pages it
+        lacks); the remainder is staged off the free list, written
+        device-side, and indexed.
+
+        All-or-nothing: geometry is validated before the pool is
+        touched, and any failure mid-import hands every staged page back
+        (``give_back_pages``) so a half-transferred payload can never
+        leak — ``check_conservation`` runs on every exit path that
+        mutated the pool. Returns ``{imported_pages, skipped_pages,
+        imported_bytes, evicted_pages}``."""
+        ps = self.page_size
+        n_blocks = len(k_slabs)
+        if len(v_slabs) != n_blocks:
+            raise ValueError(
+                f"K/V slab count mismatch: {n_blocks} != {len(v_slabs)}")
+        if len(tokens) < n_blocks * ps:
+            raise ValueError(
+                f"{len(tokens)} tokens cannot cover {n_blocks} "
+                f"full blocks of {ps}")
+        want = self._slab_shape()
+        for i in range(n_blocks):
+            for name, slab in (("k", k_slabs[i]), ("v", v_slabs[i])):
+                got = tuple(getattr(slab, "shape", ()))
+                if got != want:
+                    raise ValueError(
+                        f"{name}_slab[{i}] shape {got} != pool page "
+                        f"geometry {want}")
+        blocks = list(tokens[:n_blocks * ps])
+        matched = self.tree.match(blocks, touch=False)
+        n_have = len(matched)
+        n_new = n_blocks - n_have
+        out = {"imported_pages": 0, "skipped_pages": n_have,
+               "imported_bytes": 0, "evicted_pages": 0}
+        if n_new <= 0:
+            return out
+        protect = [nd.page for nd in matched]
+        deficit = n_new - self.mgr.num_free_pages
+        if deficit > 0:
+            out["evicted_pages"] = self.evict(deficit, protect=protect)
+        staged = self.mgr.take_free_pages(n_new)
+        try:
+            for j, p in enumerate(staged):
+                i = n_have + j
+                self.mgr.write_page(p, k_slabs[i], v_slabs[i])
+            adopted, dup = self.tree.insert(blocks, protect + staged)
+        except Exception:
+            self.mgr.give_back_pages(staged)
+            self.mgr.check_conservation()
+            raise
+        for p in adopted:
+            self.mgr.adopt_cached(p)
+        if dup:
+            # a block raced into the tree under another page between
+            # match and insert — the staged copy is redundant
+            self.mgr.give_back_pages(dup)
+        out["imported_pages"] = len(adopted)
+        out["imported_bytes"] = len(adopted) * self.mgr.page_nbytes
+        self.mgr.check_conservation()
+        return out
 
     # -- pressure -------------------------------------------------------------
 

@@ -30,15 +30,19 @@ sequence appends into its private copy; the original stays immutable
 for other sharers.
 
 The speculative tail (``grow_to``, ``truncate_pages``) takes and
-returns pages under shared ownership. Not in this slice: the migration
-surface (``take_free_pages``, ``give_back_pages``, ``export_page``,
-``write_page``), which comes with multi-host serving.
+returns pages under shared ownership. Page migration (the prefill ->
+decode KV handoff, ``PrefixCache.import_prefix``) stages pages with
+``take_free_pages`` / ``give_back_pages`` and moves one page's slabs
+with ``export_page`` (device -> host numpy) and ``write_page`` (host ->
+the pool, in place on the current stream: the engines' CUDA graphs keep
+the pool's addresses, so nothing is captured again).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Set
 
+from ..core.host_arrays import from_host, to_host
 from ..ops.paged_attention import PagedKVCacheManager
 
 
@@ -162,6 +166,51 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
         ``dst``, in place: one page slab moves, never the whole pool."""
         self.k_pages[:, dst].copy_(self.k_pages[:, src])
         self.v_pages[:, dst].copy_(self.v_pages[:, src])
+
+    # -- page-granular export/import (migration) -----------------------------
+
+    def take_free_pages(self, n: int) -> List[int]:
+        """Reserve ``n`` pages off the free list WITHOUT binding them to a
+        sequence or bumping refcounts — the migration import's staging
+        step. The caller owns them transiently and must hand every one
+        back (``give_back_pages``) or into the radix tree
+        (``adopt_cached``); anything else breaks conservation, which is
+        exactly what makes partial-transfer rollback auditable."""
+        if n < 0:
+            raise ValueError(f"cannot take {n} pages")
+        if len(self._free) < n:
+            self._oom("import", n)
+            raise MemoryError(
+                f"KV pool exhausted: need {n} pages, "
+                f"{len(self._free)} free")
+        return [self._free.pop() for _ in range(n)]
+
+    def give_back_pages(self, pages: Sequence[int]) -> None:
+        """Return staged pages (from ``take_free_pages``) to the free
+        list — the rollback half of an aborted import."""
+        for p in pages:
+            if p == 0 or p in self._refs or p in self._cached:
+                raise RuntimeError(
+                    f"page {p} is not a staged page (reserved/live/cached)")
+        self._free.extend(pages)
+
+    def export_page(self, page: int):
+        """Read one page's K and V slabs (every layer) off the device as
+        a ``(k_slab, v_slab)`` pair of host arrays — the wire format's
+        payload unit (bf16 as ``core.host_arrays.BFLOAT16``). Waits for
+        the work queued on the current stream."""
+        return to_host(self.k_pages[:, page]), to_host(self.v_pages[:, page])
+
+    def write_page(self, page: int, k_slab, v_slab) -> None:
+        """Write a host-provided slab pair into ``page``, in place on the
+        current stream (bf16 bit patterns move unchanged)."""
+        for pool, slab in ((self.k_pages, k_slab), (self.v_pages, v_slab)):
+            src = from_host(slab, pool.dtype, pool.device)
+            if tuple(src.shape) != tuple(pool[:, page].shape):
+                raise ValueError(
+                    f"slab shape {tuple(src.shape)} != page geometry "
+                    f"{tuple(pool[:, page].shape)}")
+            pool[:, page].copy_(src)
 
     # -- accounting ----------------------------------------------------------
 

@@ -16,15 +16,26 @@ Ported, with the JAX package's code and names:
 * :mod:`.journal` — the black-box incident journal and
   ``token_checksum``;
 * :mod:`.memory` — the device-memory ledger and capacity planner;
-* :mod:`.step_timer`, :mod:`.timeseries`, :mod:`.slo`.
+* :mod:`.step_timer`, :mod:`.timeseries`, :mod:`.slo`;
+* :mod:`.anomaly` — median/MAD z-score and CUSUM detectors behind the
+  cooldown'd :class:`AnomalyMonitor`;
+* :mod:`.goodput` — goodput buckets and the straggler detector;
+* :mod:`.signals` — the :class:`SignalBus` sensor plane (``/varz``);
+* :mod:`.catalog` — every registry family, event kind and span name;
+* :mod:`.server` — the stdlib :class:`DiagServer` (``/metrics``,
+  ``/healthz``, ``/statusz``, ``/tracez``, ``/varz``, ``/scalez``,
+  ``/journalz``, ``/memz``, ``/debugz``).
 
-Not yet ported: ``signals``, ``anomaly``, ``profiling``, ``goodput``,
-``catalog``, ``server`` (DiagServer), ``replay`` and ``federation``.
+Not yet ported: ``profiling``, ``replay`` and ``federation``.
 """
 
 from . import format  # noqa: F401
+from .anomaly import (  # noqa: F401
+    AnomalyMonitor, CusumDetector, RobustZScoreDetector, robust_zscore,
+)
 from .events import EventLog, configure_event_log, emit_event, event_log  # noqa: F401
 from .flight import FlightRecorder, flight_recorder  # noqa: F401
+from .goodput import GoodputTracker, StragglerDetector  # noqa: F401
 from .journal import (  # noqa: F401
     JournalError, JournalRecorder, journal, journal_armed, token_checksum,
 )
@@ -37,6 +48,10 @@ from .registry import (  # noqa: F401
 )
 from .runtime import (  # noqa: F401
     DispatchTelemetry, RecompileDetector, recompiles, telemetry,
+)
+from .server import DiagServer  # noqa: F401
+from .signals import (  # noqa: F401
+    SIGNAL_SNAPSHOT_VERSION, SignalBus, SignalSnapshot,
 )
 from .slo import (  # noqa: F401
     SLObjective, SLOMonitor, latency_objective, ratio_objective,
@@ -60,4 +75,7 @@ __all__ = [
     "MetricHistory", "CapacityPlan", "MemoryLedger", "memory_ledger",
     "plan_capacity", "pool_occupancy", "pytree_nbytes", "JournalError",
     "JournalRecorder", "journal", "journal_armed", "token_checksum",
+    "GoodputTracker", "StragglerDetector", "DiagServer", "SignalBus",
+    "SignalSnapshot", "SIGNAL_SNAPSHOT_VERSION", "AnomalyMonitor",
+    "RobustZScoreDetector", "CusumDetector", "robust_zscore",
 ]

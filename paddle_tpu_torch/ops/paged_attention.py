@@ -734,6 +734,10 @@ class PagedKVCacheManager:
         """The sequence's block table in token order (a copy)."""
         return list(self._tables.get(seq_id, ()))
 
+    def sequence_len(self, seq_id) -> int:
+        """Committed token length of a live sequence (0 if unknown)."""
+        return int(self._lens.get(seq_id, 0))
+
     # -- speculative tail growth / rollback ----------------------------------
 
     def grow_to(self, seq_id, n_tokens: int) -> List[int]:

@@ -3,7 +3,12 @@ continuous-batching engine (counterpart of ``paddle_tpu/serving``): a
 priority/deadline admission scheduler with load shedding and
 cancellation (:mod:`.scheduler`), per-request streaming token delivery
 (:mod:`.stream`) and TTFT/ITL/utilization metrics exported as Prometheus
-text and profiler spans (:mod:`.metrics`).
+text and profiler spans (:mod:`.metrics`); and the fleet tier — a
+prefix-aware router over N engine replicas with circuit-breaker failure
+detection, graceful drain and mid-stream failover (:mod:`.router`,
+:mod:`.replica`, :mod:`.health`), disaggregated prefill/decode roles
+with a wire-framed KV page handoff (:mod:`.roles`, :mod:`.wire`) and a
+signal-driven autoscaler (:mod:`.autoscale`).
 
 Quick start::
 
@@ -21,17 +26,36 @@ Quick start::
     tokens = handle.stream.result()
     print(sched.metrics.to_prometheus_text())
 
-Not yet ported: the fleet tier (``router``, ``replica``, ``health``,
-``elastic``, ``roles``, ``autoscale``, ``wire``, ``multihost``).
+Not yet ported: ``elastic`` (mesh resize) and ``multihost``.
 """
 
+from .autoscale import (  # noqa: F401
+    AutoscaleConfig, AutoscaleController, AutoscalePolicy, Decision,
+    ScaleRecord,
+)
+from .health import (  # noqa: F401
+    HealthConfig, HealthTracker, ReplicaState,
+)
 from .metrics import Histogram, ServingMetrics  # noqa: F401
+from .replica import ReplicaFault, ReplicaHandle  # noqa: F401
+from .roles import DisaggRouter, ReplicaRole  # noqa: F401
+from .router import FleetRouter, RouterConfig, RouterRequest  # noqa: F401
 from .scheduler import (  # noqa: F401
     RequestState, SchedulerConfig, ServingRequest, ServingScheduler,
 )
 from .stream import ServingError, TokenStream  # noqa: F401
+from .wire import (  # noqa: F401
+    WIRE_VERSION, WireError, decode_message, decode_pages, encode_message,
+    encode_pages,
+)
 
 __all__ = [
     "Histogram", "ServingMetrics", "RequestState", "SchedulerConfig",
     "ServingRequest", "ServingScheduler", "ServingError", "TokenStream",
+    "HealthConfig", "HealthTracker", "ReplicaState", "ReplicaFault",
+    "ReplicaHandle", "FleetRouter", "RouterConfig", "RouterRequest",
+    "WIRE_VERSION", "WireError", "encode_message", "decode_message",
+    "encode_pages", "decode_pages",
+    "DisaggRouter", "ReplicaRole", "AutoscaleConfig", "AutoscaleController",
+    "AutoscalePolicy", "Decision", "ScaleRecord",
 ]

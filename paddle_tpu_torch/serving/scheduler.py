@@ -49,8 +49,7 @@ queued; a program that step builds is captured in that thread
 work during the capture cannot break it). A build is part of the timed
 attempt, as a jit compile is in the JAX package: under a timeout
 shorter than the build, the attempt times out and the retry waits on the
-straggler, whose completion counts as the step. ``attach_signal_bus``
-waits for the port of ``observability.signals``.
+straggler, whose completion counts as the step.
 
 Determinism: scheduling order depends only on (priority, arrival order)
 and on deadline comparisons against the injected ``clock``; with a fixed
@@ -85,7 +84,7 @@ from ..observability.step_timer import StepTimer
 from ..observability.timeline import span_collector, timeline_armed
 from ..observability.timeseries import history_armed
 from ..observability.trace import new_trace_id, trace_context
-from ..ops._common import not_ported, stream_scope
+from ..ops._common import stream_scope
 from ..profiler.record import emit_span, emit_spans, make_span, spans_armed
 from .metrics import ServingMetrics
 from .stream import ServingError, TokenStream
@@ -433,11 +432,14 @@ class ServingScheduler:
         the plane is armed (``timeseries.history_armed`` — one list
         index disarmed; the tick itself is decimated to the bus
         interval). ``bus=None`` builds one on the scheduler's own clock
-        so fake-clock tests stay deterministic end to end. Not ported yet:
-        raises ``NotImplementedError``."""
-        raise not_ported("ServingScheduler.attach_signal_bus (the sensor "
-                         "plane, observability.signals)",
-                         "observability signals")
+        so fake-clock tests stay deterministic end to end."""
+        if bus is None:
+            from ..observability.signals import SignalBus
+            bus_kw.setdefault("clock", self._clock)
+            bus = SignalBus(**bus_kw)
+        bus.attach_scheduler(self)
+        self.signal_bus = bus
+        return bus
 
     def _on_slo_breach(self, name: str, state: dict) -> None:
         self.metrics.set_gauge("slo_breached", 1.0)

@@ -1840,3 +1840,175 @@ def test_memory_ledger_bytes_equal_tensor_nbytes_on_card(cuda):
                            max_seq_len=96)
     assert plan.max_pages * eng.mgr.page_nbytes <= total
     assert plan.max_slots >= 1
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet: page migration and failover on the card
+# ---------------------------------------------------------------------------
+
+def _card_pool(cuda, dtype, num_pages=12):
+    from paddle_tpu_torch.kvcache.pool import RefcountedKVCacheManager
+    return RefcountedKVCacheManager(4, num_pages, 16, 8, 128, dtype=dtype,
+                                    device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_export_write_page_round_trip_bitwise_on_card(cuda, dtype):
+    """A page's K and V slabs leave the card (``export_page``), cross the
+    wire frame and land in another page and another pool
+    (``write_page``, in place) bit for bit; the other pages and the
+    pool's addresses do not move."""
+    from paddle_tpu_torch.serving import wire
+    src, dst = _card_pool(cuda, dtype), _card_pool(cuda, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for pool in (src.k_pages, src.v_pages, dst.k_pages, dst.v_pages):
+        pool.copy_(torch.randn(pool.shape, generator=gen,
+                               device=cuda).to(dtype))
+    ptrs = (dst.k_pages.data_ptr(), dst.v_pages.data_ptr())
+    keep = dst.k_pages.clone(), dst.v_pages.clone()
+    pages = [3, 7]
+    ks, vs = zip(*(src.export_page(p) for p in pages))
+    _, meta, arrays = wire.decode_message(
+        wire.encode_pages("kv", {}, list(ks), list(vs)))
+    ks2, vs2 = wire.decode_pages(meta, arrays)
+    for p, k, v in zip((5, 9), ks2, vs2):
+        dst.write_page(p, k, v)
+    torch.cuda.synchronize()
+    assert (dst.k_pages.data_ptr(), dst.v_pages.data_ptr()) == ptrs
+    for a, b in ((3, 5), (7, 9)):
+        assert torch.equal(dst.k_pages[:, b], src.k_pages[:, a])
+        assert torch.equal(dst.v_pages[:, b], src.v_pages[:, a])
+    others = [p for p in range(dst.num_pages) if p not in (5, 9)]
+    assert torch.equal(dst.k_pages[:, others], keep[0][:, others])
+    assert torch.equal(dst.v_pages[:, others], keep[1][:, others])
+
+
+def test_import_prefix_rolls_back_on_card_under_forced_failure(cuda):
+    """``PrefixCache.import_prefix`` into a card pool whose second page
+    write dies: every staged page goes back to the free list, nothing is
+    indexed, the books balance; the same import then succeeds and serves
+    the pages bit for bit."""
+    from paddle_tpu_torch.kvcache.cache import PrefixCache
+    src = _card_pool(cuda, torch.bfloat16)
+    table = src.allocate("a", 48)
+    src.k_pages.copy_(torch.randn(src.k_pages.shape, device=cuda).to(
+        torch.bfloat16))
+    src.v_pages.copy_(torch.randn(src.v_pages.shape, device=cuda).to(
+        torch.bfloat16))
+    ks, vs = zip(*(src.export_page(p) for p in table))
+    dst = _card_pool(cuda, torch.bfloat16)
+    cache = PrefixCache(dst)
+    # the free LIST is the rollback's point  # tpu-lint: disable=private-kvcache
+    free0 = sorted(dst._free)
+    real, calls = dst.write_page, [0]
+
+    def dying(page, k, v):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("transfer died mid-page")
+        real(page, k, v)
+
+    dst.write_page = dying
+    tokens = list(range(1, 49))
+    with pytest.raises(RuntimeError, match="mid-page"):
+        cache.import_prefix(tokens, list(ks), list(vs))
+    # tpu-lint: disable=private-kvcache
+    assert sorted(dst._free) == free0 and len(cache.tree) == 0
+    dst.check_conservation()
+    dst.write_page = real
+    out = cache.import_prefix(tokens, list(ks), list(vs))
+    assert out["imported_pages"] == 3
+    dst.check_conservation()
+    shared, n_cached, _ = cache.lookup(tokens + [7])
+    assert n_cached == 48
+    torch.cuda.synchronize()
+    for p_dst, p_src in zip(shared, table):
+        assert torch.equal(dst.k_pages[:, p_dst], src.k_pages[:, p_src])
+        assert torch.equal(dst.v_pages[:, p_dst], src.v_pages[:, p_src])
+
+
+def _fleet_streams(cfg, params, prompts, cuda, mode):
+    """Two replicas on the card: ``"plain"`` and ``"failover"`` behind
+    ``FleetRouter`` (replica 0 dies at the first step where one of its
+    requests is mid-decode), ``"handoff"`` behind ``DisaggRouter`` (a
+    PREFILL and a DECODE replica, every request's settled pages handed
+    over). Returns the streams, the tokens each request held when its
+    stream moved, and the moved request ids."""
+    from paddle_tpu_torch.resilience import Fault, FaultInjector
+    from paddle_tpu_torch.serving import (DisaggRouter, FleetRouter,
+                                          HealthConfig, ReplicaHandle,
+                                          ReplicaRole)
+    inj = FaultInjector()
+    handles = [ReplicaHandle(i, _fleet_engine(cfg, cuda),
+                             health_config=HealthConfig(eject_after=1))
+               for i in range(2)]
+    if mode == "handoff":
+        router = DisaggRouter(handles, roles={0: ReplicaRole.PREFILL,
+                                              1: ReplicaRole.DECODE})
+    else:
+        router = FleetRouter(handles, fault_injector=inj)
+    reqs = [router.submit(p) for p in prompts]
+    moved_at = {}
+    if mode == "handoff":
+        real = router._handoff
+
+        def noted(req, src, dst):
+            moved_at[req.rid] = list(req.stream.tokens)
+            return real(req, src, dst)
+        router._handoff = noted
+    while router.pending:
+        if mode == "failover" and not moved_at and any(
+                r.replica_id == 0 and 0 < len(r.stream.tokens) < 24
+                for r in reqs):
+            moved_at = {r.rid: list(r.stream.tokens) for r in reqs
+                        if r.replica_id == 0}
+            inj.schedule.append(Fault("replica_die", router._steps + 1,
+                                      replica=0))
+        router.step(params)
+    assert all(r.state == "done" for r in reqs)
+    for h in handles:
+        h.engine.mgr.check_conservation()
+        assert h.engine.mgr.num_live_pages == 0
+    moved = [r.rid for r in reqs if r.rid in moved_at
+             and (r.failovers or mode == "handoff")]
+    return [r.stream.tokens for r in reqs], moved_at, moved
+
+
+def _fleet_engine(cfg, cuda):
+    return D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=24), num_slots=4,
+        page_size=16, max_seq_len=160, chunk=4, step_tokens=64,
+        prefix_cache=True, device=cuda)
+
+
+@pytest.mark.parametrize("mode", ["failover", "handoff"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_replica_failover_on_card_against_single_engine(cuda, dtype,
+                                                            mode):
+    """A stream that moves between two replicas on the card, by a replica
+    killed mid-decode (``failover``) or by the prefill -> decode page
+    handoff (``handoff``): every request finishes, the tokens streamed
+    before the move equal a single engine's greedy streams, and so does
+    every token after it (the reference's promise, though the
+    destination prefills tokens that the uninterrupted run decoded).
+    At bf16 the promise does not hold yet (ROADMAP Queue C 3): the
+    assertion states how many tokens after the move are equal."""
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=8,
+                       num_key_value_heads=8, intermediate_size=1024,
+                       num_hidden_layers=2, dtype=dtype)
+    params = L.init_params(cfg, seed=5, device=cuda)
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.randint(20, 120, size=8)]
+    oracle = _fleet_engine(cfg, cuda).serve(params, prompts)
+    plain, _, _ = _fleet_streams(cfg, params, prompts, cuda, "plain")
+    assert plain == oracle
+    got, moved_at, moved = _fleet_streams(cfg, params, prompts, cuda, mode)
+    assert moved
+    for rid, toks in moved_at.items():
+        assert toks == oracle[rid][:len(toks)]
+    after = [(got[r][len(moved_at[r]):], oracle[r][len(moved_at[r]):])
+             for r in moved]
+    same = [a == b for x, y in after for a, b in zip(x, y)]
+    assert got == oracle, (f"{sum(same)} of {len(same)} tokens after the "
+                           f"move equal ({len(moved)} requests moved)")

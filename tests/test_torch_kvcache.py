@@ -190,8 +190,11 @@ def test_stats_gauges_and_statusz():
             snap["cached_tokens"], snap["tree_nodes"]) == (2, 1, 1, 15, 2)
     assert cache.statusz()["pages"] == {"usable": 11, "free": 9, "live": 2,
                                         "cached": 0}
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        cache.import_prefix([1, 2, 3, 4], [], [])
+    # no slab to adopt: nothing moves and the books still balance
+    assert cache.import_prefix([1, 2, 3, 4], [], []) == {
+        "imported_pages": 0, "skipped_pages": 0, "imported_bytes": 0,
+        "evicted_pages": 0}
+    mgr.check_conservation()
 
 
 # ---------------------------------------------------------------------------

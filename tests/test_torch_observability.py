@@ -11,6 +11,7 @@ are compared over the same serves of the JAX engine and the port's CPU
 engine on the same ``llama_tiny`` weights."""
 
 import importlib
+import itertools
 import json
 import tarfile
 from collections import Counter as Multiset
@@ -191,8 +192,16 @@ def _event_lines(O, path):
     return out
 
 
-def test_trace_context_and_event_records_equal(tmp_path):
+def test_trace_context_and_event_records_equal(tmp_path, monkeypatch):
+    # a minted trace id numbers from its package's process-global counter,
+    # which earlier tests in the same worker advance: start both afresh
+    for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+        monkeypatch.setattr(importlib.import_module(
+            f"{pkg}.observability.trace"), "_counter", itertools.count(1))
     want = _event_lines(JO, tmp_path / "j.jsonl")
+    for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+        monkeypatch.setattr(importlib.import_module(
+            f"{pkg}.observability.trace"), "_counter", itertools.count(1))
     got = _event_lines(TO, tmp_path / "t.jsonl")
     assert got == want and len(got) == 3
     assert TO.new_trace_id("req").startswith("req-")

@@ -636,9 +636,13 @@ def test_stream_producer_death_unblocks_consumer():
 
 
 def test_signal_bus_waits_for_its_port():
+    """The sensor plane is ported: the bus attaches on the scheduler's
+    clock and carries the scheduler's signal set (its parity with the
+    JAX bus is in tests/test_torch_sensors.py)."""
     env = _setup(STACKS["torch"])
-    with pytest.raises(NotImplementedError, match="signals"):
-        env.sched.attach_signal_bus()
+    bus = env.sched.attach_signal_bus()
+    assert env.sched.signal_bus is bus and bus._clock is env.clock
+    assert {"queue_depth", "page_pressure"} <= set(bus.values())
 
 
 def test_scheduler_runs_the_engine_on_the_card_by_default():
