@@ -188,13 +188,14 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     idle share. (b) a ``FaultInjector`` ``replica_die`` on replica 0 at
     the first step where one of its requests is mid-decode: every
     request finishes, fails unless the tokens streamed before the kill
-    equal phase 7's greedy streams, reports the share equal after it;
+    and after it (the continuation flags its streamed tokens
+    ``decoded``) equal phase 7's greedy streams;
     then ``replica_stall`` and the half-open probe re-admitting the
     replica. (c) ``DisaggRouter`` with a PREFILL and a DECODE replica:
     handoffs, pages and bytes, handoff ms split into export, wire
     (frame, CRC, decode) and import, bytes/s against a pinned host round
     trip of the same size, the decode side's ITL against (a)'s, stream
-    equality with phase 7's before and after the handoff,
+    equality with phase 7's before and after the handoff (asserted),
     ``check_conservation`` on both pools after every import and no page
     left live. (d) a signal bus on a replica's scheduler and the
     fleet's, a ``DiagServer`` on 127.0.0.1 answering every route with
@@ -203,7 +204,28 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     (its capture seconds), flipping its role and draining it back down.
     Launch counts are checked against the replicas' micro-rounds in
     every window, no program is built after the warm-up, and every
-    replica is released before the later phases.
+    replica is released before the later phases;
+25. tiny GPT parity (run after phase 19): ``gpt_tiny`` at h 128 with 2
+    heads of 64 (the flash kernels' d), 2 layers, fp32, TF32 off, on the
+    card against the same weights on the CPU — logits, ``generate``
+    tokens (identical), ``fused_multi_transformer_array`` with a ragged
+    ``seq_lens`` decode, and 3 AdamW steps of ``compute_loss`` (losses
+    and weights), the launches held to the layer count; then the
+    LayerNorm kernels at h 1600 (4096 and 8 rows, bf16 and fp32) and the
+    causal flash kernels at d 64 with 25 heads ((100, 1024), (200, 512)
+    and a 37-token prompt) against their plain versions, with times,
+    bounds, plain and library (``F.layer_norm``, SDPA) times at the
+    training step's shapes;
+26. GPT-2 XL at its published widths (vocab 50257, h 1600, 48 layers,
+    25 heads, FFN 6400, 1024 positions; bf16, seeded random weights,
+    nothing cut): ``generate`` at the ``decode`` workload's shape (8
+    prompts of 512 tokens, 128 new) with its prefill ms, decode tok/s, a
+    profiled decode step by kind and its idle share, the mean step
+    against its HBM bound, peak memory, launches checked and the share
+    of tokens equal to a full re-forward's argmax; then training on a
+    (4, 1024) batch with ``AdamW(multi_precision=True)``, 2 warm-up and 3
+    timed steps, every step's launches checked, the loss falling,
+    tokens/s, MFU, peak memory and a profiled breakdown.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -223,7 +245,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 24
+N_PHASES = 26
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -1111,20 +1133,17 @@ def kernel_breakdown_ms(torch, fn, kinds, iters: int = 10) -> dict:
     return {k: v / iters for k, v in by_kind.items()}
 
 
-def profiled_ms(torch, fn, iters: int = 5) -> float:
-    """Device time per call of ``fn`` summed over every kernel it runs,
-    from torch.profiler — for library calls that go through autograd
-    and cannot be captured in a CUDA graph."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kinds, _ = _kernel_ms_by_kind(prof, ())
-    return sum(kinds.values()) / iters
+def backward_ms(torch, fwd_bwd, fwd, iters: int = 10) -> float:
+    """Device time of a library call's autograd backward: ``fwd_bwd()``
+    (the call, then ``torch.autograd.grad`` of its output) less
+    ``fwd()`` (the call alone), each captured in a CUDA graph and
+    replayed (:func:`device_ms`; inside the capture the backward runs
+    on the capture stream with its forward). torch.profiler, which timed
+    these backwards before, saw none or part of their device time late
+    in this script's run (0 ms for ``F.layer_norm``'s, torch 2.11 on the
+    H100)."""
+    return (device_ms(torch, fwd_bwd, iters=iters, replays=3)
+            - device_ms(torch, fwd, iters=iters, replays=3))
 
 
 def step_breakdown(torch, eng, params, vocab, kinds=SERVE_KINDS,
@@ -2426,6 +2445,12 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
                              f"of {n_kept} tokens equal to phase 7's")
     first_diff = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                        None) for a, b in after]
+    if s_after != 1.0:
+        # the continuation's streamed tokens are flagged ``decoding``
+        # (``submit(decoded=)``): they take the route they were decoded on
+        raise AssertionError(f"streams after the kill: {eq_after} of "
+                             f"{n_after} tokens equal to phase 7's (first "
+                             f"differing token {first_diff})")
     no_new_builds("the chaos serve")
     chaos = dict(
         kill_step=inj.fired[0][1], router_steps=len(walls_b),
@@ -2570,6 +2595,9 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
     if s_pre != 1.0:
         raise AssertionError("tokens streamed before the handoff differ "
                              "from phase 7's greedy streams")
+    if s_post != 1.0:
+        raise AssertionError(f"streams after the handoff: {eq_post} of "
+                             f"{n_post} tokens equal to phase 7's")
 
     # -- (d) sensors, the DiagServer and the autoscaler --------------------
     fleet_engines = list(engines)
@@ -2706,16 +2734,19 @@ def rms_norm_bwd_phase(torch, rn):
         bms, by = bound_ms(nbytes, 10 * rows * h, "fp32")
         xl = x.detach().requires_grad_(True)
         wl = w.detach().requires_grad_(True)
-        y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
-        lib = profiled_ms(torch, lambda: torch.autograd.grad(
-            y, (xl, wl), g, retain_graph=True))
+
+        def lib_fwd():
+            return torch.nn.functional.rms_norm(xl, (h,), wl, eps)
+
+        lib = backward_ms(torch, lambda: torch.autograd.grad(
+            lib_fwd(), (xl, wl), g), lib_fwd)
         report[kind] = dict(
             shape=[rows, h], max_abs_err=err, tol=tol,
             ms=device_ms(torch, lambda: rn.rms_norm_bwd_kernel(x, w, g, eps)),
             plain_ms=device_ms(torch, lambda: rn.rms_norm_bwd_plain(
                 x, w, g, eps), iters=5, replays=2),
             bound_ms=bms, bound_by=by, library_ms=lib)
-        del x, g, w, xl, wl, y, dx, dw, pdx, pdw
+        del x, g, w, xl, wl, dx, dw, pdx, pdw
         torch.cuda.empty_cache()
     return report
 
@@ -2830,10 +2861,10 @@ def flash_phase(torch, fa):
     fwd["library_ms"] = device_ms(torch, lambda: sdpa(q4, k4, v4,
                                                       is_causal=True))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
-    o4 = sdpa(ql, kl, vl, is_causal=True)
-    dq["library_ms"] = dkv["library_ms"] = profiled_ms(
-        torch, lambda: torch.autograd.grad(o4, (ql, kl, vl), do4,
-                                           retain_graph=True))
+    dq["library_ms"] = dkv["library_ms"] = backward_ms(
+        torch, lambda: torch.autograd.grad(
+            sdpa(ql, kl, vl, is_causal=True), (ql, kl, vl), do4),
+        lambda: sdpa(ql, kl, vl, is_causal=True), iters=5)
     # fp32 at the check shape (BH 32), for the record
     q, k, v, do = _flash_inputs(torch, 32, s, d, torch.float32)
     out32, lse32 = fa.flash_fwd_kernel(q, k, v, sc, True)
@@ -2847,7 +2878,7 @@ def flash_phase(torch, fa):
             ("dkv_ms", lambda: fa.flash_bwd_dkv_kernel(
                 q, k, v, do, lse32, delta32, sc, True))):
         fp32[key] = device_ms(torch, fn, iters=5, replays=2)
-    del q, k, v, do, q4, k4, v4, do4, ql, kl, vl, o4, out, lse, delta
+    del q, k, v, do, q4, k4, v4, do4, ql, kl, vl, out, lse, delta
     torch.cuda.empty_cache()
     for key, r in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
         r["max_abs_err"] = step_check["max_abs_err"][key]
@@ -3094,6 +3125,25 @@ def _ln_bwd_launches(ln, rows, h, sms):
                 cfg.rows_per_tile), sms))}
 
 
+def _ln_library_bwd_ms(torch, copies, w, b, eps):
+    """``F.layer_norm``'s backward (:func:`backward_ms`), each call on
+    the next of the L2-cold ``copies`` of (x, g)."""
+    h = w.shape[0]
+    wl, bl = (t.detach().requires_grad_(True) for t in (w, b))
+    nxt = itertools.cycle([(xc.detach().requires_grad_(True), gx)
+                           for xc, gx in copies]).__next__
+
+    def fwd(xl=None):
+        return torch.nn.functional.layer_norm(
+            nxt()[0] if xl is None else xl, (h,), wl, bl, eps)
+
+    def fwd_bwd():
+        xl, gx = nxt()
+        return torch.autograd.grad(fwd(xl), (xl, wl, bl), gx)
+
+    return backward_ms(torch, fwd_bwd, fwd)
+
+
 def layer_norm_phase(torch, ln):
     """layer_norm and its backward at the BERT-large step's (rows, h) =
     (16·512, 1024), eps 1e-12, with F.layer_norm's forward and backward
@@ -3158,14 +3208,6 @@ def layer_norm_phase(torch, ln):
             xc, gx = nxt()
             return ln.layer_norm_bwd_kernel(xc, w, gx, eps, config=cfg)
 
-        # the library's backward, one recorded forward per copy
-        wl, bl = (t.detach().requires_grad_(True) for t in (w, b))
-        graphs = []
-        for xc, gx in copies:
-            xl = xc.detach().requires_grad_(True)
-            graphs.append((torch.nn.functional.layer_norm(
-                xl, (h,), wl, bl, eps), (xl, wl, bl), gx))
-        lib = itertools.cycle(graphs).__next__
         launch_ms = {name: device_ms(torch, lambda: kernel_bwd(cfg))
                      for name, cfg in launches.items()}
         bwd[kind] = dict(
@@ -3175,10 +3217,8 @@ def layer_norm_phase(torch, ln):
             plain_ms=device_ms(torch, lambda: ln.ln_bwd_plain(x, w, g, eps),
                                iters=5, replays=2),
             bound_ms=bb, bound_by=bby,
-            library_ms=profiled_ms(torch, lambda: torch.autograd.grad(
-                *lib(), retain_graph=True), iters=len(graphs)))
+            library_ms=_ln_library_bwd_ms(torch, copies, w, b, eps))
         del x, g, w, b, y, dx, dw, db, dw2, db2, pdx, pdw, pdb, copies, nxt
-        del graphs, lib, wl, bl
         torch.cuda.empty_cache()
     return dict(fwd=fwd, bwd=bwd)
 
@@ -3252,10 +3292,10 @@ def seg_flash_phase(torch, E, fa):
     rep["fwd"]["library_ms"] = device_ms(torch, lambda: sdpa(
         q4, k4, v4, attn_mask=mask))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
-    o4 = sdpa(ql, kl, vl, attn_mask=mask)
-    rep["dq"]["library_ms"] = rep["dkv"]["library_ms"] = profiled_ms(
-        torch, lambda: torch.autograd.grad(o4, (ql, kl, vl), do4,
-                                           retain_graph=True))
+    rep["dq"]["library_ms"] = rep["dkv"]["library_ms"] = backward_ms(
+        torch, lambda: torch.autograd.grad(
+            sdpa(ql, kl, vl, attn_mask=mask), (ql, kl, vl), do4),
+        lambda: sdpa(ql, kl, vl, attn_mask=mask), iters=5)
     # fp32 kernel times, for the record
     q, k, v, do = _flash_inputs(torch, bh, s, d, torch.float32)
     out32, lse32 = fa.flash_fwd_kernel(q, k, v, *args)
@@ -3268,7 +3308,7 @@ def seg_flash_phase(torch, E, fa):
         dkv=device_ms(torch, lambda: fa.flash_bwd_dkv_kernel(
             q, k, v, do, lse32, delta32, *args), iters=5, replays=2),
         fwd_bound_ms=bound_ms(0, 4 * d * pairs, "fp32")[0])
-    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, ql, kl, vl, o4, mask
+    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, ql, kl, vl, mask
     del out32, lse32, delta32
     torch.cuda.empty_cache()
     return dict(checks=checks, step_shape=rep,
@@ -3858,6 +3898,460 @@ def main_grad_7b_phase(torch, L, rn, fa, fl, dw_ms):
                       bound_ms_per_step=per_step["bound_ms"]))
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: GPT on the fused decoder stack
+# ---------------------------------------------------------------------------
+
+#: phase 25's tiny GPT: head dim 64 (128 / 2 heads), which the flash
+#: kernels take; 2 layers, vocab 128, 64 positions
+GPT_TINY = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256)
+#: GPT-2 XL as published (openai-community/gpt2-xl config.json: n_embd
+#: 1600, n_layer 48, n_head 25, n_inner null = 4·n_embd, n_positions
+#: 1024, vocab 50257, layer_norm_epsilon 1e-5, gelu_new = tanh GELU)
+GPT2_XL = dict(vocab_size=50257, hidden_size=1600, num_hidden_layers=48,
+               num_attention_heads=25, intermediate_size=6400,
+               max_position_embeddings=1024, layer_norm_epsilon=1e-5)
+GPT_KINDS = (("flash_fwd", ("flash_attention_fwd",)),
+             ("flash_bwd", ("flash_attention_bwd",)),
+             ("layer_norm", ("layer_norm",)), ("matmul", MATMUL_NAMES))
+GPT_GEN_KINDS = (("layer_norm_fwd", ("layer_norm",)),
+                 ("matmul", MATMUL_NAMES))
+GPT_TRAIN_B, GPT_TRAIN_S = 4, 1024
+
+
+def _gpt_counters(ln, fa):
+    return {"layer_norm_fwd": ln.layer_norm,
+            "layer_norm_bwd": ln.layer_norm_bwd,
+            "flash_attention_fwd": fa.flash_fwd_kernel,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+
+
+def _gpt_want(n_layers, forwards=1, prefills=1, train_steps=0):
+    """Launches on the GPT path: a forward runs 2L + 1 LayerNorms (two
+    per layer and the final one), a prefill (or training forward) one
+    flash forward a layer, a training step's backward as many LayerNorm
+    backwards and one dQ and one dK/dV a layer."""
+    ln_fwd = (2 * n_layers + 1) * forwards
+    return {"layer_norm_fwd": ln_fwd,
+            "layer_norm_bwd": (2 * n_layers + 1) * train_steps,
+            "flash_attention_fwd": n_layers * prefills,
+            "flash_attention_bwd_dq": n_layers * train_steps,
+            "flash_attention_bwd_dkv": n_layers * train_steps}
+
+
+def _check_launches(what, counters, want):
+    got = {k: c.launches for k, c in counters.items()}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
+
+
+def gpt_parity_phase(torch, G, ftb, ln, fa):
+    """Tiny GPT (h 128, 2 heads of 64, 2 layers, fp32, TF32 off) on the
+    card (kernels) against the same weights on the CPU (plain versions):
+    logits of a (3, 37) batch, ``generate`` tokens (identical),
+    ``fused_multi_transformer_array`` over the model's layers with a
+    ragged ``seq_lens`` decode, and 3 AdamW steps of ``compute_loss``
+    (losses and weights), with the launches of each run held to the
+    layer count. Then the kernels at GPT-2 XL's shapes
+    (:func:`gpt_kernel_checks`)."""
+    from paddle_tpu_torch.optimizer.adamw import AdamW
+    from paddle_tpu_torch.testing import CARD_CPU_TOL, trained_weights_close
+    cfg = G.gpt_tiny(**GPT_TINY)
+    n_layers, tol = cfg.num_hidden_layers, CARD_CPU_TOL
+    cpu = G.init(G.GPTForCausalLM(cfg, device="cpu"), SEED)
+    card = G.GPTForCausalLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    counters = _gpt_counters(ln, fa)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (3, 37)).astype(np.int64)
+    out = {}
+    _reset(counters)
+    with torch.no_grad():
+        got = card(torch.from_numpy(ids).cuda())
+        torch.cuda.synchronize()
+        _check_launches("gpt forward", counters, _gpt_want(n_layers))
+        want = cpu(torch.from_numpy(ids))
+    out["logits_max_abs_err"] = check_close(torch, "gpt logits", got.cpu(),
+                                            want, *tol["out"])
+    prompt, new = ids[:, :20], 12
+    _reset(counters)
+    toks = card.generate(prompt, max_new_tokens=new)
+    _check_launches("gpt generate", counters, _gpt_want(n_layers, new))
+    if not np.array_equal(toks, cpu.generate(prompt, max_new_tokens=new)):
+        raise AssertionError("gpt generate: card tokens differ from the "
+                             "CPU's")
+    out["generate_tokens_equal"] = True
+
+    # the decoder stack alone: a padded prefill, then a 2-token decode
+    # with ragged seq_lens, over the model's own per-layer weights
+    x = rng.normal(0, 1, (3, 16, cfg.hidden_size)).astype(np.float32)
+    new_x = rng.normal(0, 1, (3, 2, cfg.hidden_size)).astype(np.float32)
+    lens = np.asarray([5, 11, 16], np.int64)
+    res = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        dec = model.gpt.decoder
+        params = {k: list(getattr(dec, a)) for k, a in dec._STACK_KEYS}
+        with torch.no_grad():
+            _, kv = ftb.fused_multi_transformer_array(
+                torch.from_numpy(x).to(dev), params,
+                num_heads=cfg.num_attention_heads, max_cache_len=24)
+            y, kv = ftb.fused_multi_transformer_array(
+                torch.from_numpy(new_x).to(dev), params,
+                num_heads=cfg.num_attention_heads, cache_kv=kv,
+                time_step=16, seq_lens=torch.from_numpy(lens).to(dev))
+        res[dev] = (y.cpu(), kv.cpu())
+    out["stack_max_abs_err"] = max(
+        check_close(torch, "gpt stack out", res["cuda"][0], res["cpu"][0],
+                    *tol["out"]),
+        check_close(torch, "gpt stack cache", res["cuda"][1], res["cpu"][1],
+                    *tol["out"]))
+
+    steps, lr = 3, 1e-3
+    batch = rng.randint(0, cfg.vocab_size, (4, 48)).astype(np.int64)
+    labels = np.roll(batch, -1, axis=1)
+    labels[:, -1] = -100
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        opt = AdamW(model.named_parameters(), learning_rate=lr)
+        losses = []
+        for i in range(steps):
+            _reset(counters)
+            opt.clear_grad()
+            loss = model.compute_loss(torch.from_numpy(batch).to(dev),
+                                      torch.from_numpy(labels).to(dev))
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+            if dev == "cuda":
+                _check_launches(f"gpt train step {i}", counters,
+                                _gpt_want(n_layers, train_steps=1))
+        runs[dev] = (losses, {n: p.detach().cpu()
+                              for n, p in model.named_parameters()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                               *tol["loss"])
+    out.update(steps=steps, losses_card=runs["cuda"][0],
+               losses_cpu=runs["cpu"][0],
+               **trained_weights_close(runs["cuda"][1], runs["cpu"][1], lr,
+                                       steps, hidden=cfg.hidden_size,
+                                       msg="gpt parity"))
+    del card, cpu
+    out["kernels"] = gpt_kernel_checks(torch, ln, fa)
+    return out
+
+
+def gpt_kernel_checks(torch, ln, fa):
+    """The LayerNorm and flash kernels against their plain versions at
+    the GPT-2 XL shapes of phase 26, where no earlier phase runs them:
+    LayerNorm at h 1600 (not a power of two: the forward's block is
+    2048 with a masked tail) and eps 1e-5, over the training step's and
+    the prefill's 4096 rows and a decode step's 8, bf16 and fp32; the
+    causal flash kernels at d 64 with 25 heads, over the training step's
+    (4·25, 1024), the prefill's (8·25, 512) and a 37-token prompt. Times
+    (device, L2-cold for the LayerNorms), bounds, plain and library
+    times (``F.layer_norm``; SDPA ``is_causal``) at the training step's
+    shapes, bf16."""
+    from paddle_tpu_torch.testing import LN_TOL, rms_close
+    h, eps = GPT2_XL["hidden_size"], GPT2_XL["layer_norm_epsilon"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    report = {"layer_norm": {}, "flash": {}}
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        tol = LN_TOL[dt]
+        for rows in (GPT_TRAIN_B * GPT_TRAIN_S, 8):
+            x = (2 * torch.randn(rows, h, generator=gen, device="cuda")
+                 + 0.5).to(dt)
+            g = torch.randn(rows, h, generator=gen, device="cuda").to(dt)
+            w = (1 + 0.1 * torch.randn(h, generator=gen,
+                                       device="cuda")).to(dt)
+            b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+            y = ln.layer_norm_kernel(x, w, b, eps)
+            dx, dw, db = ln.layer_norm_bwd_kernel(x, w, g, eps)
+            torch.cuda.synchronize()
+            pdx, pdw, pdb = ln.ln_bwd_plain(x, w, g, eps)
+            r = dict(shape=[rows, h], eps=eps, max_abs_err=dict(
+                fwd=rms_close(y, ln.ln_plain(x, w, b, eps), *tol["y"],
+                              f"layer_norm h{h} {kind}"),
+                bwd=max(rms_close(dx, pdx, *tol["dx"], "ln dx"),
+                        rms_close(dw, pdw, *tol["sums"], "ln dw"),
+                        rms_close(db, pdb, *tol["sums"], "ln db"))))
+            if rows > 8 and kind == "bf16":
+                isz = x.element_size()
+                copies = _l2_cold((x, g))
+                nxt = itertools.cycle(copies).__next__
+                fb, fby = bound_ms(2 * rows * h * isz + 2 * h * isz,
+                                   8 * rows * h, "fp32")
+                bb, bby = bound_ms(3 * rows * h * isz + 3 * h * isz,
+                                   20 * rows * h, "fp32")
+                r.update(
+                    fwd=dict(ms=device_ms(torch, lambda: ln.layer_norm_kernel(
+                        nxt()[0], w, b, eps)), bound_ms=fb, bound_by=fby,
+                        plain_ms=device_ms(torch, lambda: ln.ln_plain(
+                            x, w, b, eps), iters=5, replays=2),
+                        library_ms=device_ms(torch, lambda: torch.nn.
+                                             functional.layer_norm(
+                                                 nxt()[0], (h,), w, b,
+                                                 eps))),
+                    bwd=dict(ms=device_ms(torch, lambda: ln.
+                                          layer_norm_bwd_kernel(
+                                              *(lambda c: (c[0], w, c[1]))(
+                                                  nxt()), eps)),
+                             launch=ln.ln_bwd_config(
+                                 rows, h, torch.cuda.get_device_properties(
+                                     0).multi_processor_count)._asdict(),
+                             bound_ms=bb, bound_by=bby,
+                             plain_ms=device_ms(torch, lambda: ln.
+                                                ln_bwd_plain(x, w, g, eps),
+                                                iters=5, replays=2),
+                             library_ms=_ln_library_bwd_ms(
+                                 torch, copies, w, b, eps)))
+                del copies, nxt
+            report["layer_norm"][f"rows{rows}_{kind}"] = r
+            del x, g, w, b, y, dx, dw, db, pdx, pdw, pdb
+        torch.cuda.empty_cache()
+    nh, d = GPT2_XL["num_attention_heads"], 64
+    sc = 1.0 / math.sqrt(d)
+    for name, bh, s, dt in (
+            ("train_bf16", GPT_TRAIN_B * nh, GPT_TRAIN_S, torch.bfloat16),
+            ("prefill_bf16", 8 * nh, 512, torch.bfloat16),
+            ("prompt37_bf16", 2 * nh, 37, torch.bfloat16),
+            ("prompt37_fp32", 2 * nh, 37, torch.float32),
+            ("train_fp32", 8, GPT_TRAIN_S, torch.float32)):
+        q, k, v, do = _flash_inputs(torch, bh, s, d, dt)
+        report["flash"][name] = dict(bh=bh, s=s, **_flash_check(
+            torch, fa, f"gpt {name}", q, k, v, do, (sc, True, None, 0, 1)))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    # times at the training step's shape: (B·nh, S, d) = (100, 1024, 64)
+    bh, s = GPT_TRAIN_B * nh, GPT_TRAIN_S
+    q, k, v, do = _flash_inputs(torch, bh, s, d, torch.bfloat16)
+    out, lse = fa.flash_fwd_kernel(q, k, v, sc, True)
+    delta = fa._delta(out, do)
+    mat, row, pairs = bh * s * d * 2, bh * s * 4, bh * s * (s + 1) / 2
+    times = {}
+    for key, fn, nbytes, ops in (
+            ("fwd", lambda: fa.flash_fwd_kernel(q, k, v, sc, True),
+             4 * mat + row, 4 * d * pairs),
+            ("dq", lambda: fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                  sc, True),
+             5 * mat + 2 * row, 6 * d * pairs),
+            ("dkv", lambda: fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                    sc, True),
+             6 * mat + 2 * row, 8 * d * pairs)):
+        times[key] = dict(ms=device_ms(torch, fn, iters=10, replays=3))
+        times[key]["bound_ms"], times[key]["bound_by"] = bound_ms(
+            nbytes, ops, "bf16")
+    times["fwd"]["plain_ms"] = eager_ms(torch, lambda: fa.flash_fwd_plain(
+        q, k, v, sc, True), iters=2, warmup=1)
+    times["dq"]["plain_ms"] = times["dkv"]["plain_ms"] = eager_ms(
+        torch, lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, sc, True),
+        iters=2, warmup=1)
+    q4, k4, v4, do4 = (t.reshape(GPT_TRAIN_B, nh, s, d)
+                       for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times["fwd"]["library_ms"] = device_ms(
+        torch, lambda: sdpa(q4, k4, v4, is_causal=True))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    times["dq"]["library_ms"] = times["dkv"]["library_ms"] = backward_ms(
+        torch, lambda: torch.autograd.grad(
+            sdpa(ql, kl, vl, is_causal=True), (ql, kl, vl), do4),
+        lambda: sdpa(ql, kl, vl, is_causal=True), iters=5)
+    report["flash"]["train_shape_times"] = dict(bh=bh, s=s, d=d, **times)
+    del q, k, v, do, out, lse, delta, q4, k4, v4, do4, ql, kl, vl
+    torch.cuda.empty_cache()
+    return report
+
+
+def gpt2_xl_phase(torch, G, ftb, ln, fa):
+    """GPT-2 XL at its published widths (``GPT2_XL``; nothing cut), bf16,
+    seeded random weights. (a) ``generate`` at the reference's ``decode``
+    workload shape (8 prompts of 512 tokens, 128 new): the prefill's
+    and the whole call's wall (decode tokens/s = 8·127 / (call -
+    prefill)), a profiled decode step's device time by kind (matmul,
+    the cached attention from a profile of one layer's
+    ``_decode_attention`` at the step's shapes times L, LayerNorm,
+    other) and idle share, the mean step against its HBM bound (every
+    weight and the valid K/V of the mean step read once), peak memory,
+    launches checked (flash forward L in the prefill, LayerNorm forward
+    2L + 1 a forward), and the share of generated tokens equal to a full
+    re-forward's argmax (reported). (b) Training: a (4, 1024) batch
+    through ``compute_loss``, backward and ``AdamW(multi_precision=
+    True)`` (fp32 master weights and moments), 2 warm-up and 3 timed
+    steps, the loss falling, every step's launches checked, tokens/s,
+    MFU, peak memory and a profiled step's breakdown and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.optimizer.adamw import AdamW
+    cfg = G.GPTConfig(**GPT2_XL)
+    n_layers, h, nh = (cfg.num_hidden_layers, cfg.hidden_size,
+                       cfg.num_attention_heads)
+    d = h // nh
+    counters = _gpt_counters(ln, fa)
+    t0 = time.perf_counter()
+    model = G.init(G.GPTForCausalLM(cfg, dtype=torch.bfloat16,
+                                    device="cuda"), SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (GEN_B, GEN_T)).astype(np.int64)
+    ids_t = torch.from_numpy(ids).cuda()
+    s_max = GEN_T + GEN_NEW
+    model.generate(ids, max_new_tokens=2)         # first use of each kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    with torch.no_grad():
+        _reset(counters)
+        t0 = time.perf_counter()
+        logits, kv = model(ids_t, gen_cache_len=s_max)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _check_launches("gpt-2 xl prefill", counters, _gpt_want(n_layers))
+        # a decode step's wall and device time by kind, at time_step 512
+        step = logits[:, -1].float().argmax(-1)[:, None]
+        del logits
+        n_prof = 4
+
+        def steps():
+            for i in range(n_prof):
+                model(step, caches=kv, time_step=GEN_T + i)
+
+        steps()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3 / n_prof
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize()
+        kinds, top = _kernel_ms_by_kind(prof, GPT_GEN_KINDS, n_top=8)
+        kinds = {k: v / n_prof for k, v in kinds.items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q = torch.randn((GEN_B, nh, 1, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        attn = kernel_breakdown_ms(
+            torch, lambda: ftb._decode_attention(q, kv[0, 0], kv[0, 1],
+                                                 GEN_T + 1), GPT_GEN_KINDS)
+        del kv, q
+    torch.cuda.empty_cache()
+    busy = sum(kinds.values())
+    step_kinds = dict(
+        matmul=kinds["matmul"] - n_layers * attn["matmul"],
+        cached_attention=n_layers * sum(attn.values()),
+        layer_norm_fwd=kinds["layer_norm_fwd"] - n_layers * attn[
+            "layer_norm_fwd"],
+        other=kinds["other"] - n_layers * attn["other"])
+
+    _reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = model.generate(ids, max_new_tokens=GEN_NEW)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = _check_launches("gpt-2 xl generate", counters,
+                               _gpt_want(n_layers, GEN_NEW))
+    peak_gen = torch.cuda.max_memory_allocated() / 1e9
+    if toks.shape != (GEN_B, GEN_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"gpt-2 xl generate: bad output {toks.shape}")
+    # a full re-forward of prompt + generated: its argmax at each
+    # generated position (bf16: reported, not asserted)
+    with torch.no_grad():
+        seq = torch.from_numpy(np.concatenate(
+            [ids, toks[:, :-1].astype(np.int64)], axis=1)).cuda()
+        ref = model(seq)[:, GEN_T - 1:].float().argmax(-1).cpu().numpy()
+        del seq
+    torch.cuda.empty_cache()
+    decode_steps = GEN_NEW - 1
+    decode_ms = (call_ms - prefill_ms) / decode_steps
+    mean_len = GEN_T + GEN_NEW // 2          # valid keys of the mean step
+    kv_bytes = 2 * n_layers * GEN_B * mean_len * h * 2
+    bound, by = bound_ms(weight_bytes + kv_bytes, 2 * n_params * GEN_B,
+                         "bf16")
+    generate = dict(
+        batch=GEN_B, prompt=GEN_T, new_tokens=GEN_NEW, prefill_ms=prefill_ms,
+        call_ms=call_ms, decode_step_ms=decode_ms,
+        decode_tokens_per_s=GEN_B * decode_steps / (call_ms - prefill_ms)
+        * 1e3,
+        profiled_step=dict(at=GEN_T, wall_ms=step_wall, kernel_ms=step_kinds,
+                           device_busy_ms=busy,
+                           idle_share=1 - busy / step_wall,
+                           cached_attention_one_layer_ms=attn,
+                           top_kernels=top),
+        step_bound_ms=bound, step_bound_by=by,
+        step_bytes=dict(weights=weight_bytes, kv=kv_bytes),
+        step_vs_bound=decode_ms / bound, peak_mem_gb=peak_gen,
+        launches=launches,
+        equal_to_reforward_argmax=float((ref == toks).mean()))
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(model.named_parameters(), learning_rate=1e-4,
+                weight_decay=0.01, multi_precision=True)
+    batch = rng.randint(0, cfg.vocab_size,
+                        (GPT_TRAIN_B, GPT_TRAIN_S)).astype(np.int64)
+    labels = np.roll(batch, -1, axis=1)
+    labels[:, -1] = -100
+    batch, labels = (torch.from_numpy(a).cuda() for a in (batch, labels))
+    want = _gpt_want(n_layers, train_steps=1)
+
+    def train_step():
+        opt.clear_grad()
+        loss = model.compute_loss(batch, labels)
+        loss.backward()
+        opt.step()
+        return loss
+
+    losses, step_ms, totals = [], [], {k: 0 for k in counters}
+    for i in range(5):                       # 2 warm-up + 3 timed steps
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step()))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, n in _check_launches(f"gpt-2 xl train step {i}", counters,
+                                    want).items():
+            totals[k] += n
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt-2 xl losses did not fall: {losses}")
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step()
+        torch.cuda.synchronize()
+    t_kinds, t_top = _kernel_ms_by_kind(prof, GPT_KINDS, n_top=10)
+    t_busy = sum(t_kinds.values())
+    mean_ms = float(np.mean(step_ms[2:]))
+    tokens = GPT_TRAIN_B * GPT_TRAIN_S
+    # 6 FLOPs per parameter and token (forward and backward), plus causal
+    # attention: 12·L·h·S² a sequence for the full square, halved
+    flops = 6.0 * n_params * tokens + 6.0 * n_layers * h * GPT_TRAIN_B \
+        * GPT_TRAIN_S ** 2
+    train = dict(
+        batch=[GPT_TRAIN_B, GPT_TRAIN_S], lr=1e-4, weight_decay=0.01,
+        multi_precision=True, remat="none", losses=losses, step_ms=step_ms,
+        mean_step_ms=mean_ms, tokens_per_s=tokens / (mean_ms / 1e3),
+        flops_per_step=flops,
+        flops_counted="6·N·tokens + 6·L·h·B·S² (causal attention)",
+        mfu_vs_989tflops=flops / (mean_ms / 1e3) / PEAK_OPS_PER_S["bf16"],
+        peak_mem_gb=peak_train, launches_per_step=want, launches=totals,
+        breakdown=dict(kernel_ms=t_kinds, top_kernels=t_top,
+                       device_busy_ms=t_busy, wall_ms=mean_ms,
+                       idle_share=1 - t_busy / mean_ms))
+    launch_sum = {k: launches.get(k, 0) + totals[k]
+                  + _gpt_want(n_layers)[k] for k in counters}
+    del model, opt, batch, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config="openai-community/gpt2-xl config.json", reduced="nothing",
+                params=n_params, weight_gb=weight_bytes / 1e9, init_s=init_s,
+                generate=generate, train=train, launches=launch_sum)
+
+
 def _kernel_entry(name, route, source, replaces, launches, r):
     """One entry of the kernels line: ``launches`` from the main paths,
     the rest from the kernel's own phase."""
@@ -3880,8 +4374,10 @@ def main() -> int:
     from paddle_tpu_torch.inference import constrain as C
     from paddle_tpu_torch.inference import decoding as D
     from paddle_tpu_torch.models import ernie as E
+    from paddle_tpu_torch.models import gpt as G
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.ops import _common
+    from paddle_tpu_torch.ops import fused_transformer_block as ftb
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_linear as fl
     from paddle_tpu_torch.ops import layer_norm_fused as ln
@@ -3998,6 +4494,14 @@ def main() -> int:
     done(19, f"Llama-2-7B widths, 8 layers, main-grad training on {card}",
          main_grad)
     mg = main_grad["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    done(25, "tiny GPT, card == cpu; LayerNorm at h 1600 and flash at d 64 "
+         "x 25 heads vs plain", gpt_parity_phase(torch, G, ftb, ln, fa))
+    gpt_xl = gpt2_xl_phase(torch, G, ftb, ln, fa)
+    done(26, f"GPT-2 XL bf16 generate and training on {card}", gpt_xl)
+    gl = gpt_xl["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
@@ -4070,13 +4574,14 @@ def main() -> int:
             name, "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
-            + mg[name] + leg.get(name, 0) + plaunch.get(name, 0), r))
+            + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
+            + gl[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
-            bert["launches"][name], lnr[key]["bf16"]))
+            bert["launches"][name] + gl[name], lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32
     kernels.append(_kernel_entry(

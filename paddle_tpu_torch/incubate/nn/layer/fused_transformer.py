@@ -1,8 +1,9 @@
-"""``FusedMultiHeadAttention`` and ``FusedFeedForward`` — counterparts of
-the layers in ``paddle_tpu/incubate/nn/layer/fused_transformer.py``,
-pre-LN and post-LN, with the reference's parameter names and its
-``(in, out)`` weight layout (``x @ W + b``). The reference's dropout
-arguments, which its layers ignore, are left out.
+"""``FusedMultiTransformer``, ``FusedMultiHeadAttention`` and
+``FusedFeedForward`` — counterparts of the layers in
+``paddle_tpu/incubate/nn/layer/fused_transformer.py``, with the
+reference's parameter names and its ``(in, out)`` weight layout
+(``x @ W + b``). The reference's dropout arguments, which its layers
+ignore, are left out.
 
 The JAX layers run as one op over all their parameters, so in post-LN
 mode the unused ``pre_ln_scale``/``pre_ln_bias`` still get a gradient,
@@ -15,7 +16,13 @@ skips one whose gradient is ``None``.
 Weights are initialised when a layer is built, on ``device`` (``None``
 means the card), as ``nn/common_layers.py`` says.
 
-``FusedMultiTransformer`` and its int8 variant belong to a later slice.
+``FusedMultiTransformer`` keeps each of its per-layer weights as a
+parameter of its own (``qkv_weights.0``, ...; ``nn.ParameterList`` gives
+the reference's names) and hands the lists to
+``ops.fused_transformer_block.fused_multi_transformer_array``, which
+loops over them: the reference stacks them on every call
+(``_run_stacked_block``), which at GPT-2 XL would copy 3 GB a decode
+step. Its int8 variant waits for the quantization slice.
 """
 
 from __future__ import annotations
@@ -45,6 +52,87 @@ class _ZeroGradInputs(torch.autograd.Function):
 
 def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+class FusedMultiTransformer(nn.Module):
+    """A stack of ``num_layers`` pre-LN decoder layers (ref l.58-123).
+
+    ``forward(src, attn_mask=None, caches=None, time_step=None,
+    gen_cache_len=None, seq_lens=None)``: prefill when ``time_step`` is
+    None (returning ``(out, cache)`` when ``caches`` or
+    ``gen_cache_len`` asks for a KV cache, else ``out``), decode at
+    ``time_step`` against ``caches`` (written in place) otherwise. Post-LN
+    raises, as in the reference."""
+
+    _NAMES = ("ln_scales", "ln_biases", "qkv_weights", "qkv_biases",
+              "linear_weights", "linear_biases", "ffn_ln_scales",
+              "ffn_ln_biases", "ffn1_weights", "ffn1_biases",
+              "ffn2_weights", "ffn2_biases")
+    #: the block op's keys (ops/fused_transformer_block.py) -> the lists
+    _STACK_KEYS = (
+        ("ln_scale", "ln_scales"), ("ln_bias", "ln_biases"),
+        ("qkv_w", "qkv_weights"), ("qkv_b", "qkv_biases"),
+        ("out_w", "linear_weights"), ("out_b", "linear_biases"),
+        ("ffn_ln_scale", "ffn_ln_scales"), ("ffn_ln_bias", "ffn_ln_biases"),
+        ("ffn1_w", "ffn1_weights"), ("ffn1_b", "ffn1_biases"),
+        ("ffn2_w", "ffn2_weights"), ("ffn2_b", "ffn2_biases"),
+    )
+
+    def __init__(self, embed_dim, num_heads, dim_feedforward,
+                 activation="gelu", normalize_before=True, epsilon=1e-5,
+                 num_layers=1, dtype=torch.float32, device=None):
+        super().__init__()
+        if not normalize_before:
+            raise NotImplementedError(
+                "post-LN fused stack not supported (reference default is "
+                "pre-LN)")
+        if embed_dim % num_heads:
+            raise ValueError("num_heads must divide embed_dim")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.dim_feedforward = dim_feedforward
+        self.activation = activation
+        self.epsilon = epsilon
+        self.num_layers = num_layers
+        device = resolve_device(device)
+        H, Fh = embed_dim, dim_feedforward
+        shapes = {
+            "ln_scales": (H,), "ln_biases": (H,),
+            "qkv_weights": (H, 3 * H), "qkv_biases": (3 * H,),
+            "linear_weights": (H, H), "linear_biases": (H,),
+            "ffn_ln_scales": (H,), "ffn_ln_biases": (H,),
+            "ffn1_weights": (H, Fh), "ffn1_biases": (Fh,),
+            "ffn2_weights": (Fh, H), "ffn2_biases": (H,),
+        }
+        for n in self._NAMES:
+            setattr(self, n, nn.ParameterList(
+                [_param(shapes[n], dtype, device)
+                 for _ in range(num_layers)]))
+        self.reset_parameters()
+
+    def reset_parameters(self, gen=None):
+        """Scales 1, biases 0, weights Xavier-uniform, drawn layer by
+        layer in the reference's order."""
+        for i in range(self.num_layers):
+            for n in self._NAMES:
+                p = getattr(self, n)[i]
+                if n.endswith("scales"):
+                    I.constant_(p, 1.0)
+                elif n.endswith("biases"):
+                    I.constant_(p, 0.0)
+                else:
+                    I.xavier_uniform_(p, gen)
+
+    def forward(self, src, attn_mask=None, caches=None, time_step=None,
+                gen_cache_len=None, seq_lens=None):
+        params = {key: list(getattr(self, attr))
+                  for key, attr in self._STACK_KEYS}
+        out, kv = ftb.fused_multi_transformer_array(
+            src, params, num_heads=self.num_heads, act=self.activation,
+            epsilon=self.epsilon, attn_mask=attn_mask, cache_kv=caches,
+            time_step=time_step, max_cache_len=gen_cache_len,
+            seq_lens=seq_lens)
+        return out if kv is None else (out, kv)
 
 
 class FusedMultiHeadAttention(nn.Module):

@@ -46,6 +46,11 @@ Decoding options (the JAX engine's, with its token streams):
   num_slots·(spec_k+1)``): the attention kernels route each token alike
   in both steps, but the projections' GEMMs may round a row differently
   at another row count, so the engine warns when the axes differ.
+* ``submit(..., decoded=n)``: the last ``n`` prompt tokens were generated
+  elsewhere (a failover or handoff continuation). The unified and
+  speculative steps flag them ``decoding`` as the carry tokens they
+  were, so each takes the attention kernels' route it took when it was
+  decoded, and the continuation's bits are the uninterrupted stream's.
 
 The sampling epilogue is built lazily: until the first sampled or
 constrained request the programs end in the argmax; that request
@@ -504,6 +509,8 @@ class _Request:
     grammar: Optional[_constrain.TokenDFA] = None  # None -> unconstrained
     gstart: int = -1                      # arena GLOBAL start state
     gstate_host: int = -1                 # host DFA mirror (LOCAL ids)
+    decoded: int = 0                      # trailing prompt tokens that
+    #                                     # were generated, not given
 
 
 class ContinuousBatchingEngine(_Programs):
@@ -592,6 +599,9 @@ class ContinuousBatchingEngine(_Programs):
         self._pos = np.zeros((num_slots,), np.int32)
         self._bt = np.zeros((num_slots, self._table_width), np.int32)
         self._pend: List[Optional[np.ndarray]] = [None] * num_slots
+        # first prompt position of each slot that was decoded elsewhere
+        # (``submit(decoded=)``): its prefill flags ``decoding`` from it
+        self._dec_from = np.zeros((num_slots,), np.int64)
         # the legacy programs' engine-wide key chain (``jax.random.key(
         # seed)``, split on the host per prefill wave and decode chunk)
         self._rng = prng.prng_key(self.config.seed)
@@ -682,7 +692,10 @@ class ContinuousBatchingEngine(_Programs):
         """ONE program for every unified step: ``chunk`` micro-rounds of
         ``models.llama.ragged_step`` (the JAX engine's one ``lax.scan``).
         Decode slots take their row's carry token, prefill slots the
-        host-fed prompt tokens; each round emits its INPUT carry, then
+        host-fed prompt tokens; ``decoding`` flags the carry tokens and
+        the prompt tokens that were decoded elsewhere (the attention
+        kernels' route of a token decoded alone, ``ragged_step(
+        decoding=)``); each round emits its INPUT carry, then
         updates the carry (and grammar state) of the rows that sampled.
         With the epilogue on, the grammar mask rides the model's logits
         hook and ``sampling.sample_rows`` draws each row's token keyed
@@ -699,13 +712,14 @@ class ContinuousBatchingEngine(_Programs):
         tail = _sampling.sample_rows if epilogue else _sampling.greedy_rows
         i32, b8 = torch.int32, torch.bool
         inputs = dict(ids=((K, tb), i32), use_carry=((K, tb), b8),
+                      decoding=((K, tb), b8),
                       token_row=((K, tb), i32), positions=((K, tb), i32),
                       kv_lens=((K, n_rows), i32), last_idx=((K, n_rows), i32),
                       sample_mask=((K, n_rows), b8),
                       bt=((n_rows, self._table_width), i32))
 
-        def run(ids, use_carry, token_row, positions, kv_lens, last_idx,
-                sample_mask, bt):
+        def run(ids, use_carry, decoding, token_row, positions, kv_lens,
+                last_idx, sample_mask, bt):
             tok, gst = carry, gcarry
             emitted = []
             for k in range(K):
@@ -713,12 +727,12 @@ class ContinuousBatchingEngine(_Programs):
                 ids_eff = torch.where(use_carry[k], tok[row_c], ids[k])
                 hook = ((lambda lg, g=gst: _constrain.mask_logits(
                     lg.float(), g, gtable)) if epilogue else None)
-                # the decode tokens are the carry's: the attention route
-                # follows the token (the spec step's spans match them)
+                # the attention route follows the token: decoded tokens
+                # (the carry's, a continuation's) take a lone token's
                 logits, _, _ = L.ragged_step(
                     params, ids_eff, token_row[k], positions[k], kv_lens[k],
                     last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg,
-                    logits_epilogue=hook, decoding=use_carry[k])
+                    logits_epilogue=hook, decoding=decoding[k])
                 nxt, ngst = tail(logits, kv_lens[k], samp, gst, gtable)
                 emitted.append(tok)
                 tok = torch.where(sample_mask[k], nxt, tok)
@@ -888,7 +902,8 @@ class ContinuousBatchingEngine(_Programs):
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                trace_id: str = "", sampler: Optional[SamplerConfig] = None,
-               grammar=None, grammar_prefix=None) -> int:
+               grammar=None, grammar_prefix=None, *,
+               decoded: int = 0) -> int:
         """Queue a request; returns its id. ``trace_id`` tags its spans
         and events (the serving scheduler's trace). ``sampler`` carries the
         per-request temperature/top-k/top-p/seed (None: a sampler from the
@@ -896,10 +911,21 @@ class ContinuousBatchingEngine(_Programs):
         ``grammar`` is a ``constrain.TokenDFA`` constraining every
         generated token; ``grammar_prefix`` advances its automaton through
         tokens the request already generated elsewhere. Both ride the
-        unified step's epilogue."""
+        unified step's epilogue. ``decoded`` says that the last
+        ``decoded`` prompt tokens were generated (a continuation of a
+        stream that moved): the unified and speculative steps prefill
+        them flagged ``decoding``, each over exactly the keys it saw when
+        it was decoded, so the continuation equals the uninterrupted
+        stream at every dtype. 0 (a fresh prompt) changes nothing. The
+        legacy pipeline takes the count and has no route to give: its
+        prefill wave runs the flash forward, its decode the paged decode
+        kernel, so a bf16 continuation there may still differ."""
         budget = (max_new_tokens if max_new_tokens is not None
                   else self.config.max_new_tokens)
         prompt = np.asarray(prompt, np.int32)
+        if not 0 <= decoded <= len(prompt):
+            raise ValueError(f"decoded={decoded} is not within the prompt's "
+                             f"{len(prompt)} tokens")
         if len(prompt) + budget > self.max_seq_len:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens + max_new_tokens="
@@ -956,7 +982,7 @@ class ContinuousBatchingEngine(_Programs):
                                     max_new_tokens=max_new_tokens,
                                     trace_id=trace_id, sampler=sampler,
                                     grammar=grammar, gstart=gstart,
-                                    gstate_host=ghost))
+                                    gstate_host=ghost, decoded=int(decoded)))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -1255,6 +1281,7 @@ class ContinuousBatchingEngine(_Programs):
             self._bt[s] = 0
             self._bt[s, :len(pages)] = pages
             self._pend[s] = np.asarray(req.prompt[n_cached:], np.int32)
+            self._dec_from[s] = lp - req.decoded
             if self._speculative:
                 self._reserved[s] = len(pages)
             self._set_row_sampler(s, req)
@@ -1273,12 +1300,14 @@ class ContinuousBatchingEngine(_Programs):
         slot."""
         K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
         for name, fill in (("ids", 0), ("use_carry", False),
+                           ("decoding", False),
                            ("token_row", -1), ("positions", 0),
                            ("kv_lens", 0), ("last_idx", 0),
                            ("sample_mask", False)):
             plan[name].fill(fill)
-        ids, use_carry, token_row, positions = (
-            plan[n] for n in ("ids", "use_carry", "token_row", "positions"))
+        ids, use_carry, decoding, token_row, positions = (
+            plan[n] for n in ("ids", "use_carry", "decoding", "token_row",
+                              "positions"))
         kv_lens, last_idx, sample_mask = (
             plan[n] for n in ("kv_lens", "last_idx", "sample_mask"))
         emit = np.zeros((K, n_rows), bool)
@@ -1300,6 +1329,8 @@ class ContinuousBatchingEngine(_Programs):
                     ids[k, sl] = self._pend[s][fed[s]:fed[s] + n]
                     token_row[k, sl] = s
                     positions[k, sl] = pos[s] + np.arange(n)
+                    # prompt tokens decoded elsewhere: a carry's route
+                    decoding[k, sl] = positions[k, sl] >= self._dec_from[s]
                     pos[s] += n
                     fed[s] += n
                     rem[s] -= n
@@ -1311,6 +1342,7 @@ class ContinuousBatchingEngine(_Programs):
                     cursor += n
                 else:                          # decoding
                     use_carry[k, cursor] = True
+                    decoding[k, cursor] = True
                     token_row[k, cursor] = s
                     positions[k, cursor] = pos[s]
                     pos[s] += 1
@@ -1580,6 +1612,8 @@ class ContinuousBatchingEngine(_Programs):
                 ids[cursor:cursor + n] = self._pend[s][:n]
                 token_row[cursor:cursor + n] = s
                 positions[cursor:cursor + n] = pos0 + np.arange(n)
+                decoding[cursor:cursor + n] = (positions[cursor:cursor + n]
+                                               >= self._dec_from[s])
                 kv_lens[s] = pos0 + n
                 budget -= n
                 fed[s] = n

@@ -1,20 +1,34 @@
-"""Pieces of the fused transformer block — counterpart of
-``paddle_tpu/ops/fused_transformer_block.py``, as far as the encoder
-layers (``incubate/nn/layer/fused_transformer.py``) use it: the
-activations, the LayerNorm, the head split and the prefill attention.
+"""The fused transformer block — counterpart of
+``paddle_tpu/ops/fused_transformer_block.py``: the activations, the
+LayerNorm, the head split and the prefill attention that the encoder
+layers use, and the decoder stack ``fused_multi_transformer_array`` with
+its cached decode attention (``time_step``).
 
-The stacked decoder (``fused_multi_transformer_array``), its cached
-decode attention and its int8 path belong to a later slice of the port.
+The reference scans the stacked per-layer weights (``lax.scan``); here
+the stack is a Python loop over the layers, and ``params`` maps each key
+to a stacked ``[L, ...]`` tensor or to a list of the L per-layer tensors
+(the ``FusedMultiTransformer`` layer passes its own lists, so nothing is
+stacked on a call). Prefill attention is the causal flash kernels
+(``ops/flash_attention.py``), every LayerNorm the fused op
+(``ops/layer_norm_fused.py``); the decode attention is the reference's
+plain einsums over the whole cache slab. The KV cache is one tensor
+``[L, 2, B, nh, S, hd]`` (k = 0, v = 1); a decode step writes its new
+K/V into it in place at ``time_step`` (the reference returns an updated
+copy), so a step never copies the cache. The int8 stack
+(``int8=True``) waits for the quantization slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import flash_attention as fa
+from ._common import not_ported, resolve_device
 from .layer_norm_fused import _stats, layer_norm
 
 #: ``jax.nn.gelu`` defaults to the tanh approximation; the reference's FFN
@@ -73,3 +87,150 @@ def _prefill_attention(q, k, v, attn_mask, causal=True, seg_ids=None):
     logits = logits + attn_mask.float()
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bnkd->bnqd", p, v)
+
+
+def _decode_attention(q, k_cache, v_cache, cur_len, seq_lens=None,
+                      new_span=None):
+    """Attention of the new tokens' queries q (B, nh, s, hd) over the
+    whole cache slab (B, nh, Smax, hd) (l.103-128): scores in fp32,
+    positions at or past ``cur_len`` masked with -inf, the softmax's
+    probabilities cast to q's dtype for the product with the cache.
+
+    ``seq_lens`` (B,) makes a ragged batch: a prefix position is valid
+    below its row's own length, and the slots this step wrote
+    (``new_span = (start, s)``) are valid for every row."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k_cache.float().transpose(-1, -2))
+    logits = logits * scale
+    pos = torch.arange(k_cache.shape[2], device=q.device)
+    if seq_lens is None:
+        valid = (pos < cur_len)[None, None, None, :]
+    else:
+        start, s = new_span
+        prefix = pos[None, :] < seq_lens.to(q.device)[:, None]
+        new = (pos >= start) & (pos < start + s)
+        valid = (prefix | new[None, :])[:, None, None, :]
+    logits = logits.masked_fill(~valid, -math.inf)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(p, v_cache)
+
+
+def _update_slab(cache, new, start: int):
+    """``lax.dynamic_update_slice_in_dim(cache, new, start, axis=2)`` in
+    place: the start is clamped into ``[0, S - s]`` as XLA clamps it."""
+    start = min(max(int(start), 0), cache.shape[2] - new.shape[2])
+    cache[:, :, start:start + new.shape[2]] = new
+
+
+def _one_layer(x, p, *, num_heads, act, eps, attn_mask, kv_cache, time_step,
+               seq_lens=None):
+    """One pre-LN decoder layer (l.154-185): LN, QKV, attention (causal
+    flash prefill, or the cached decode over ``kv_cache = (k, v)``
+    slabs, written in place at ``time_step``), out projection and
+    residual, LN, FFN and residual. ``p`` maps the stacked keys
+    (``ln_scale``, ``qkv_w``, ...) to this layer's tensors. Returns
+    ``(y, (k, v))``: the updated slabs in decode, this layer's new K/V
+    in prefill."""
+    b, s, h = x.shape
+    xn = layer_norm_array(x, p["ln_scale"], p["ln_bias"], eps)
+    qkv = xn @ p["qkv_w"] + p["qkv_b"]
+    q, k, v = _split_heads(qkv, num_heads)
+    if kv_cache is not None and time_step is not None:
+        k_cache, v_cache = kv_cache
+        _update_slab(k_cache, k, time_step)
+        _update_slab(v_cache, v, time_step)
+        attn = _decode_attention(q, k_cache, v_cache, time_step + s,
+                                 seq_lens=seq_lens, new_span=(time_step, s))
+        new_kv = (k_cache, v_cache)
+    else:
+        attn = _prefill_attention(q, k, v, attn_mask)
+        new_kv = (k, v)
+    attn = attn.transpose(1, 2).reshape(b, s, h)
+    x = x + (attn @ p["out_w"] + p["out_b"]).to(x.dtype)
+    xn = layer_norm_array(x, p["ffn_ln_scale"], p["ffn_ln_bias"], eps)
+    f = _ACTS[act](xn @ p["ffn1_w"] + p["ffn1_b"])
+    x = x + (f @ p["ffn2_w"] + p["ffn2_b"]).to(x.dtype)
+    return x, new_kv
+
+
+_KEYS = ("ln_scale", "ln_bias", "qkv_w", "qkv_b", "out_w", "out_b",
+         "ffn_ln_scale", "ffn_ln_bias", "ffn1_w", "ffn1_b", "ffn2_w",
+         "ffn2_b")
+
+
+def fused_multi_transformer_array(
+        x, params, *, num_heads: int, act: str = "gelu",
+        epsilon: float = 1e-5, attn_mask=None, cache_kv=None,
+        time_step: Optional[int] = None, max_cache_len: Optional[int] = None,
+        seq_lens=None, int8: bool = False):
+    """The whole decoder stack (l.188-251), one layer after the other.
+
+    Prefill (``time_step`` None): causal flash attention (or the plain
+    path under an additive ``attn_mask``); with ``max_cache_len`` (or a
+    ``cache_kv``, whose length it takes) it returns a new KV cache, each
+    layer's K/V in its leading slots and zeros after them. Decode
+    (``time_step`` set): ``cache_kv`` is required and is updated IN
+    PLACE, the new tokens' K/V written at ``time_step``; it is returned.
+
+    Returns ``(out, cache_kv)``, the cache ``[L, 2, B, nh, Sc, hd]`` or
+    None when none was asked for."""
+    if int8:
+        raise not_ported("fused_multi_transformer_array(int8=True)",
+                         "quantization")
+    n_layers = len(params["qkv_w"])
+
+    def layer(i):
+        return {key: params[key][i] for key in _KEYS}
+
+    if time_step is not None:
+        if cache_kv is None:
+            raise ValueError("decode mode (time_step set) requires cache_kv")
+        for i in range(n_layers):
+            x, _ = _one_layer(
+                x, layer(i), num_heads=num_heads, act=act, eps=epsilon,
+                attn_mask=None, kv_cache=(cache_kv[i, 0], cache_kv[i, 1]),
+                time_step=time_step, seq_lens=seq_lens)
+        return x, cache_kv
+    b, s, h = x.shape
+    out_cache = None
+    if max_cache_len is not None or cache_kv is not None:
+        target = max_cache_len or cache_kv.shape[4]
+        if target < s:
+            raise ValueError(f"sequence {s} exceeds cache length {target}")
+        out_cache = torch.zeros((n_layers, 2, b, num_heads, target,
+                                 h // num_heads), dtype=x.dtype,
+                                device=x.device)
+    for i in range(n_layers):
+        x, (k, v) = _one_layer(
+            x, layer(i), num_heads=num_heads, act=act, eps=epsilon,
+            attn_mask=attn_mask, kv_cache=None, time_step=None)
+        if out_cache is not None:
+            out_cache[i, 0, :, :, :s] = k
+            out_cache[i, 1, :, :, :s] = v
+    return x, out_cache
+
+
+def init_stacked_block_params(num_layers, hidden, ffn_hidden, seed=0,
+                              dtype=torch.float32, device=None):
+    """The stacked parameter dict of the reference's convenience init
+    (l.254): the same numpy draws (``RandomState(seed)``, normal 0.02),
+    so fp32 weights are the reference's bits."""
+    rng = np.random.RandomState(seed)
+    dev = resolve_device(device)
+
+    def w(*shape, scale=0.02):
+        return torch.from_numpy(rng.normal(0, scale, shape)).to(
+            device=dev, dtype=dtype)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    L, H, Fh = num_layers, hidden, ffn_hidden
+    return {
+        "ln_scale": full((L, H), 1.0), "ln_bias": full((L, H), 0.0),
+        "qkv_w": w(L, H, 3 * H), "qkv_b": full((L, 3 * H), 0.0),
+        "out_w": w(L, H, H), "out_b": full((L, H), 0.0),
+        "ffn_ln_scale": full((L, H), 1.0), "ffn_ln_bias": full((L, H), 0.0),
+        "ffn1_w": w(L, H, Fh), "ffn1_b": full((L, Fh), 0.0),
+        "ffn2_w": w(L, Fh, H), "ffn2_b": full((L, H), 0.0),
+    }

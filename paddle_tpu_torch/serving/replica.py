@@ -83,13 +83,14 @@ class ReplicaHandle:
                trace_id: Optional[str] = None,
                sampler: Any = None,
                grammar: Any = None,
-               grammar_prefix: Any = None) -> ServingRequest:
+               grammar_prefix: Any = None, *,
+               decoded: int = 0) -> ServingRequest:
         return self._scheduler.submit(
             prompt, priority=priority, deadline_ms=deadline_ms,
             max_new_tokens=max_new_tokens, on_token=on_token,
             defer_s=defer_s, no_shed=no_shed, trace_id=trace_id,
             sampler=sampler, grammar=grammar,
-            grammar_prefix=grammar_prefix)
+            grammar_prefix=grammar_prefix, decoded=decoded)
 
     def cancel(self, rid: int) -> bool:
         return self._scheduler.cancel(rid)

@@ -34,7 +34,10 @@ end to end:
    ``grammar_prefix``, so the resumed stream is **byte-identical** to a
    hybrid-replica run (greedy, sampled-seeded and grammar-constrained
    alike); the destination prefills only the un-exported tail (at most
-   one page plus the unsettled token);
+   one page plus the unsettled token), and the continuation's
+   ``decoded`` count flags the streamed tokens of that tail, so they
+   take the attention route they were decoded on at the source (the
+   tokens inside the imported pages are cache hits, never prefilled);
 5. cancel at the source, freeing its copy of the pages.
 
 A handoff that fails at ANY point is not an outage: export/import are

@@ -439,7 +439,10 @@ class FleetRouter:
         # tokens, budget shrinks by the same count — decode then resumes
         # byte-identically on the sibling (greedy trivially; sampled
         # because the epilogue keys its PRNG by absolute token position
-        # from a seed pinned at router submit)
+        # from a seed pinned at router submit). ``decoded`` tells the
+        # engine which prompt tokens were decoded: it prefills them on
+        # the attention route they were decoded on, so the bits hold at
+        # bf16 too
         prompt = (req.prompt if not streamed else
                   np.concatenate([req.prompt,
                                   np.asarray(streamed, np.int32)]))
@@ -462,7 +465,8 @@ class FleetRouter:
                               sampler=req.sampler, grammar=req.grammar,
                               grammar_prefix=(list(streamed)
                                               if req.grammar is not None
-                                              and streamed else None))
+                                              and streamed else None),
+                              decoded=len(streamed))
         if req._failover_ns:
             if spans_armed():
                 # the attributed failover segment: replica ejected ->

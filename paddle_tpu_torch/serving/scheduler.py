@@ -149,6 +149,9 @@ class ServingRequest:
     grammar_prefix: Any = None            # already-emitted tokens to
     # pre-advance the grammar through (failover continuations: the
     # streamed tokens became prompt, so the DFA must resume mid-string)
+    decoded: int = 0                      # trailing prompt tokens that were
+    # generated (a continuation): the engine prefills them on the route
+    # they were decoded on (ContinuousBatchingEngine.submit)
     token_checksum: Optional[int] = None  # crc32 of the engine-retired
     # tokens, stamped at finish — the journal's engine-side twin of the
     # router's stream checksum (a mismatch localizes divergence to the
@@ -228,7 +231,8 @@ class ServingScheduler:
                trace_id: Optional[str] = None,
                sampler: Any = None,
                grammar: Any = None,
-               grammar_prefix: Any = None) -> ServingRequest:
+               grammar_prefix: Any = None, *,
+               decoded: int = 0) -> ServingRequest:
         """Queue a request. ``priority`` is a class (0 = most urgent, FIFO
         within a class); ``deadline_ms`` is the admission SLO relative to
         now — a request still queued past it is shed; ``max_new_tokens``
@@ -251,7 +255,9 @@ class ServingScheduler:
         ``sampler`` (a ``SamplerConfig``) and ``grammar`` (a
         ``TokenDFA``) ride the handle into the engine's in-program
         sampling epilogue; ``grammar_prefix`` pre-advances the grammar
-        through tokens already emitted before a failover continuation.
+        through tokens already emitted before a failover continuation,
+        and ``decoded`` counts those tokens at the prompt's end (the
+        engine's ``submit(decoded=)``).
         Returns the request handle (its
         ``.stream`` is the consumption surface). The handle may come back
         already shed if the queue cap evicts it immediately.
@@ -296,7 +302,7 @@ class ServingScheduler:
             else now + deadline_ms / 1e3,
             trace_id=trace_id or new_trace_id("req"),
             sampler=sampler, grammar=grammar,
-            grammar_prefix=grammar_prefix)
+            grammar_prefix=grammar_prefix, decoded=int(decoded))
         req._span = self.metrics.span("request",
                                       args={"request_id": rid},
                                       trace_id=req.trace_id)
@@ -716,7 +722,8 @@ class ServingScheduler:
             req.engine_rid = self.engine.submit(
                 req.prompt, max_new_tokens=req.max_new_tokens,
                 trace_id=req.trace_id, sampler=req.sampler,
-                grammar=req.grammar, grammar_prefix=req.grammar_prefix)
+                grammar=req.grammar, grammar_prefix=req.grammar_prefix,
+                decoded=req.decoded)
             req.state = RequestState.RUNNING
             self._by_engine_rid[req.engine_rid] = req
             if journal_armed[0]:

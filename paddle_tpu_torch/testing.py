@@ -7,6 +7,7 @@ miss."""
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import torch
@@ -37,6 +38,15 @@ LN_TOL = {torch.bfloat16: dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
                                sums=(1.6e-2, 1e-2)),
           torch.float32: dict(y=(1e-5, 1e-5), dx=(1e-4, 1e-5),
                               sums=(1e-5, 1e-4))}
+
+
+# A tiny fp32 model on the card (kernels, cuBLAS, TF32 off) against the
+# same model on the CPU (plain versions), as (rtol, atol): outputs
+# (logits, a decoder stack's output and KV cache) and losses differ by
+# sums in other orders and the online against the one-pass softmax, a
+# few fp32 steps; a lost key tile or a wrong LayerNorm row moves them by
+# orders of magnitude more.
+CARD_CPU_TOL = dict(out=(1e-4, 1e-5), loss=(1e-5, 1e-6))
 
 
 # The weight-gradient accumulation kernel against its plain version, by
@@ -124,13 +134,15 @@ def l2_close(got, want, tol, msg):
 
 
 def key_bias_split(name, t, hidden: int):
-    """``(key part, the rest)`` of a fused attention's ``qkv_bias``
-    (``t[h:2h]`` and the query and value parts), ``(None, t)`` for any
-    other parameter. The key bias's true gradient is 0 (a softmax does
-    not see a constant added to a row's scores), so what each side
-    computes there is rounding noise, which AdamW scales to steps of up
-    to ±lr: it is held to 2·lr·steps only."""
-    if not name.endswith("self_attn.qkv_bias"):
+    """``(key part, the rest)`` of a fused attention's QKV bias (ERNIE's
+    ``self_attn.qkv_bias``, a ``FusedMultiTransformer``'s
+    ``qkv_biases.<i>``): ``t[h:2h]`` and the query and value parts;
+    ``(None, t)`` for any other parameter. The key bias's true gradient
+    is 0 (a softmax does not see a constant added to a row's scores), so
+    what each side computes there is rounding noise, which AdamW scales
+    to steps of up to ±lr: it is held to 2·lr·steps only."""
+    if not (name.endswith("self_attn.qkv_bias")
+            or re.search(r"(^|\.)qkv_biases\.\d+$", name)):
         return None, t
     h = hidden
     return t[h:2 * h], torch.cat([t[:h], t[2 * h:]])

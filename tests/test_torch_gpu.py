@@ -1927,7 +1927,8 @@ def test_import_prefix_rolls_back_on_card_under_forced_failure(cuda):
         assert torch.equal(dst.v_pages[:, p_dst], src.v_pages[:, p_src])
 
 
-def _fleet_streams(cfg, params, prompts, cuda, mode):
+def _fleet_streams(cfg, params, prompts, cuda, mode, unified=True,
+                   samplers=None):
     """Two replicas on the card: ``"plain"`` and ``"failover"`` behind
     ``FleetRouter`` (replica 0 dies at the first step where one of its
     requests is mid-decode), ``"handoff"`` behind ``DisaggRouter`` (a
@@ -1939,7 +1940,7 @@ def _fleet_streams(cfg, params, prompts, cuda, mode):
                                           HealthConfig, ReplicaHandle,
                                           ReplicaRole)
     inj = FaultInjector()
-    handles = [ReplicaHandle(i, _fleet_engine(cfg, cuda),
+    handles = [ReplicaHandle(i, _fleet_engine(cfg, cuda, unified),
                              health_config=HealthConfig(eject_after=1))
                for i in range(2)]
     if mode == "handoff":
@@ -1947,7 +1948,8 @@ def _fleet_streams(cfg, params, prompts, cuda, mode):
                                               1: ReplicaRole.DECODE})
     else:
         router = FleetRouter(handles, fault_injector=inj)
-    reqs = [router.submit(p) for p in prompts]
+    reqs = [router.submit(p, sampler=None if samplers is None
+                          else samplers[i]) for i, p in enumerate(prompts)]
     moved_at = {}
     if mode == "handoff":
         real = router._handoff
@@ -1974,11 +1976,11 @@ def _fleet_streams(cfg, params, prompts, cuda, mode):
     return [r.stream.tokens for r in reqs], moved_at, moved
 
 
-def _fleet_engine(cfg, cuda):
+def _fleet_engine(cfg, cuda, unified=True):
     return D.ContinuousBatchingEngine(
         cfg, D.GenerationConfig(max_new_tokens=24), num_slots=4,
         page_size=16, max_seq_len=160, chunk=4, step_tokens=64,
-        prefix_cache=True, device=cuda)
+        prefix_cache=True, device=cuda, unified=unified)
 
 
 @pytest.mark.parametrize("mode", ["failover", "handoff"])
@@ -1989,10 +1991,45 @@ def test_two_replica_failover_on_card_against_single_engine(cuda, dtype,
     killed mid-decode (``failover``) or by the prefill -> decode page
     handoff (``handoff``): every request finishes, the tokens streamed
     before the move equal a single engine's greedy streams, and so does
-    every token after it (the reference's promise, though the
-    destination prefills tokens that the uninterrupted run decoded).
-    At bf16 the promise does not hold yet (ROADMAP Queue C 3): the
-    assertion states how many tokens after the move are equal."""
+    every token after it (the reference's promise). The destination
+    prefills tokens that the uninterrupted run decoded; the router's
+    ``decoded`` count flags them, so at bf16 too each takes the route it
+    was decoded on and the streams are equal bit for bit."""
+    _check_moved_streams(cuda, dtype, mode, unified=True)
+
+
+@pytest.mark.parametrize("mode", ["failover", "handoff"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_legacy_two_replica_failover_on_card_against_single_engine(
+        cuda, dtype, mode):
+    """The same moves between legacy replicas (``unified=False``): the
+    destination's prefill wave runs the streamed tokens through the
+    flash forward (row 5), where the uninterrupted run decoded them one
+    by one through the paged decode kernel (row 4)."""
+    _check_moved_streams(cuda, dtype, mode, unified=False)
+
+
+@pytest.mark.parametrize("mode", ["failover", "handoff"])
+def test_two_replica_sampled_failover_on_card_against_single_engine(cuda,
+                                                                    mode):
+    """Seeded sampled streams (temperature 0.8, top-k 50; the seed pinned
+    at submit) that move at bf16 equal a single engine's bit for bit:
+    the draw is keyed by position, the logits are the uninterrupted
+    run's."""
+    _check_moved_streams(cuda, torch.bfloat16, mode, unified=True,
+                         sampled=True)
+
+
+def _serve_with(eng, params, prompts, samplers):
+    rids = [eng.submit(p, sampler=s) for p, s in zip(prompts, samplers)]
+    done = {}
+    while len(done) < len(rids):
+        eng.step(params)
+        done.update(eng.collect())
+    return [done[r] for r in rids]
+
+
+def _check_moved_streams(cuda, dtype, mode, unified, sampled=False):
     cfg = L.llama_tiny(hidden_size=512, num_attention_heads=8,
                        num_key_value_heads=8, intermediate_size=1024,
                        num_hidden_layers=2, dtype=dtype)
@@ -2000,10 +2037,19 @@ def test_two_replica_failover_on_card_against_single_engine(cuda, dtype,
     rng = np.random.RandomState(12)
     prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.randint(20, 120, size=8)]
-    oracle = _fleet_engine(cfg, cuda).serve(params, prompts)
-    plain, _, _ = _fleet_streams(cfg, params, prompts, cuda, "plain")
+    samplers = None
+    if sampled:
+        samplers = [SamplerConfig(temperature=0.8, top_k=50, seed=100 + i)
+                    for i in range(len(prompts))]
+        oracle = _serve_with(_fleet_engine(cfg, cuda, unified), params,
+                             prompts, samplers)
+    else:
+        oracle = _fleet_engine(cfg, cuda, unified).serve(params, prompts)
+    plain, _, _ = _fleet_streams(cfg, params, prompts, cuda, "plain",
+                                 unified, samplers)
     assert plain == oracle
-    got, moved_at, moved = _fleet_streams(cfg, params, prompts, cuda, mode)
+    got, moved_at, moved = _fleet_streams(cfg, params, prompts, cuda, mode,
+                                          unified, samplers)
     assert moved
     for rid, toks in moved_at.items():
         assert toks == oracle[rid][:len(toks)]
@@ -2012,3 +2058,67 @@ def test_two_replica_failover_on_card_against_single_engine(cuda, dtype,
     same = [a == b for x, y in after for a, b in zip(x, y)]
     assert got == oracle, (f"{sum(same)} of {len(same)} tokens after the "
                            f"move equal ({len(moved)} requests moved)")
+
+
+# ---------------------------------------------------------------------------
+# GPT slice: the kernels at GPT-2 XL's shapes, the model card vs CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4096, 1600), (8, 1600), (3, 37, 1600)])
+def test_layer_norm_kernels_match_plain_at_gpt2_xl_width(cuda, dtype, shape):
+    """h 1600 (GPT-2 XL), eps 1e-5: not a power of two, so the forward's
+    2048-wide block and the backward's tiles end in masked columns; the
+    forward and backward within LN_TOL of the plain versions, and the
+    backward's dw and db the same bits at every launch."""
+    test_layer_norm_kernels_match_plain(cuda, dtype, shape, 1e-5)
+    test_layer_norm_bwd_repeats_bitwise_at_every_launch(cuda, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,s", [(100, 1024), (200, 512), (50, 37),
+                                  (25, 639)])
+def test_flash_kernels_match_plain_at_gpt2_xl_heads(cuda, dtype, bh, s):
+    """Causal flash at d 64 over GPT-2 XL's 25 heads a sequence: the
+    training step's (4·25, 1024), the prefill's (8·25, 512), a 37-token
+    prompt and the 639-token re-forward of phase 26."""
+    test_flash_kernels_match_plain(cuda, dtype, (bh, s, s, 64, True, 1,
+                                                 None))
+
+
+def test_gpt_on_card_matches_cpu(cuda):
+    """Tiny GPT (h 128, 2 heads of 64, 2 layers, fp32): logits, greedy
+    ``generate`` tokens and one ``compute_loss`` step's gradients on the
+    card against the same weights on the CPU, under CARD_CPU_TOL; the
+    forward launches 2L + 1 LayerNorms and L flash forwards."""
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.testing import CARD_CPU_TOL, key_bias_split
+    cfg = G.gpt_tiny(hidden_size=128, num_attention_heads=2,
+                     intermediate_size=256)
+    cpu = G.init(G.GPTForCausalLM(cfg, device="cpu"), 3)
+    card = G.GPTForCausalLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (2, 29)))
+    before = (ln.layer_norm.launches, fa.flash_fwd_kernel.launches)
+    with torch.no_grad():
+        got = card(ids.to(cuda))
+        torch.cuda.synchronize()
+    assert (ln.layer_norm.launches - before[0],
+            fa.flash_fwd_kernel.launches - before[1]) == (5, 2)
+    rtol, atol = CARD_CPU_TOL["out"]
+    with torch.no_grad():
+        torch.testing.assert_close(got.cpu(), cpu(ids), rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(card.generate(ids[:, :9], 10),
+                                  cpu.generate(ids[:, :9], 10))
+    labels = torch.roll(ids, -1, dims=1)
+    for model, dev in ((card, cuda), (cpu, "cpu")):
+        model.compute_loss(ids.to(dev), labels.to(dev)).backward()
+    grads = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        # the key bias's true gradient is 0: both sides hold noise there
+        gk, got = key_bias_split(name, grads[name].grad.cpu(), 128)
+        wk, want = key_bias_split(name, p.grad, 128)
+        if gk is not None:
+            assert gk.abs().max() < 1e-5 and wk.abs().max() < 1e-5, name
+        rms_close(got, want, 1e-3, 1e-4, name)
