@@ -185,13 +185,16 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     ``FleetRouter``: requests per replica, prefix-affinity and cache
     hits, tokens/s against phase 7's engine-only serve, TTFT / ITL p50
     and p99, the router's host work between steps and a profiled step's
-    idle share. (b) a ``FaultInjector`` ``replica_die`` on replica 0 at
-    the first step where one of its requests is mid-decode: every
-    request finishes, fails unless the tokens streamed before the kill
-    and after it (the continuation flags its streamed tokens
-    ``decoded``) equal phase 7's greedy streams;
-    then ``replica_stall`` and the half-open probe re-admitting the
-    replica. (c) ``DisaggRouter`` with a PREFILL and a DECODE replica:
+    idle share. (b) on two fresh replicas, a step clock and the journal
+    armed (its head ``model_spec(cfg, SEED)`` and the fleet's topology):
+    a ``FaultInjector`` ``replica_die`` on replica 0 at the first step
+    where one of its requests is mid-decode: every request finishes,
+    fails unless the tokens streamed before the kill and after it (the
+    continuation flags its streamed tokens ``decoded``) equal phase 7's
+    greedy streams; the ejection's automatic debug bundle and a final
+    one are kept for phase 29; then ``replica_stall`` and the half-open
+    probe re-admitting the replica. (c) ``DisaggRouter`` with a PREFILL
+    and a DECODE replica:
     handoffs, pages and bytes, handoff ms split into export, wire
     (frame, CRC, decode) and import, bytes/s against a pinned host round
     trip of the same size, the decode side's ITL against (a)'s, stream
@@ -225,7 +228,36 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     of tokens equal to a full re-forward's argmax; then training on a
     (4, 1024) batch with ``AdamW(multi_precision=True)``, 2 warm-up and 3
     timed steps, every step's launches checked, the loss falling,
-    tokens/s, MFU, peak memory and a profiled breakdown.
+    tokens/s, MFU, peak memory and a profiled breakdown;
+27. the eager training API, card against CPU (after phase 26): every
+    optimizer family (SGD, Momentum with Nesterov, Adam, AdamW with a
+    decay filter, Adamax, Lamb, centered RMSProp with momentum,
+    Adagrad; fp32) over a tiny GPT's parameters under
+    ``LinearWarmup(CosineAnnealingDecay)`` and ``ClipGradByGlobalNorm``
+    for 3 steps, each step's gradients from the CPU model given to both
+    sides: weights and every state slot within ``CARD_CPU_TOL``;
+    ``GradScaler`` with AdamW, a good step and an inf step (skipped,
+    weights and moments bitwise unchanged, the scale halved, the CPU
+    twin's state); legacy replicas' bf16 continuations, a failover and a
+    handoff, equal to a single engine's streams, with the paged decode,
+    flash forward and RMSNorm launches counted;
+28. GPT-2 XL training with the reference's recipe (phase 26's config
+    and batches): ``amp.decorate(level="O2")``, AdamW under the warm-up
+    and cosine schedule with ``ClipGradByGlobalNorm(1.0)`` and no decay
+    on biases and norms, ``GradScaler``; 2 warm-up and 5 timed steps
+    (launches checked), the step against phase 26's plain-AdamW step,
+    tokens/s, MFU, peak memory, idle share, the unscale's and the clip's
+    device ms, the card reads a step and the loss curve; an inf step
+    that moves nothing and halves the scale; the optimizer's,
+    scheduler's and scaler's state through host memory into fresh
+    objects, the next step's weights bitwise the uninterrupted run's;
+29. postmortem replay on the card (after phase 22, once phase 7's
+    weights are freed): ``replay_bundle`` over phase 24 (b)'s ejection
+    and final bundles, each rebuilding the 7B weights and both replicas
+    from the head frame: ``ok``, no divergence, no leaked page, the
+    launches checked against the micro-rounds, the wall against the
+    original run's, builds and capture seconds; a copy with one flipped
+    token must diverge at that outcome frame.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -238,6 +270,8 @@ import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -245,7 +279,10 @@ import time
 
 import numpy as np
 
-N_PHASES = 26
+N_PHASES = 29
+#: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
+BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_bundles")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {                 # H100 SXM dense peaks
     "bf16": 989e12,                # tensor cores, bf16
@@ -2087,6 +2124,25 @@ class _JumpClock:
         time.sleep(dt)
 
 
+class _StepClock:
+    """A deterministic clock for a journaled run: ``advance`` moves it a
+    router step, sleeps add their time, ``offset`` jumps a cooldown (as
+    :class:`_JumpClock`'s). A replay pins it to each journaled sample
+    and lets sleeps add theirs, as here."""
+
+    def __init__(self):
+        self.t = 1000.0
+        self.offset = 0.0
+
+    def __call__(self):
+        return self.t + self.offset
+
+    def sleep(self, dt):
+        self.t += dt
+
+    advance = sleep
+
+
 class _Launches:
     """Launch counts of the fleet's kernels over one window: the counters
     zeroed at ``start`` and checked at ``stop`` against the micro-rounds
@@ -2284,6 +2340,7 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
     autoscaler scale-up, role flip and drain back down."""
     import urllib.request
     import paddle_tpu_torch.observability as O
+    from paddle_tpu_torch.observability.journal import journal, model_spec
     import paddle_tpu_torch.resilience as RS
     import paddle_tpu_torch.serving as S
     prompts = serve_load(cfg)
@@ -2394,13 +2451,27 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
     cold_caches()
 
     # -- (b) chaos: a replica dies mid-decode; a stall and the probe --------
-    clock = _JumpClock()
+    # fresh replicas on a step clock, journaled from their first step
+    # (phase 29 replays the bundles: its replicas, rebuilt from the head
+    # frame, start from zero too: request ids, programs, caches)
+    engines[:] = []
+    _free_card(torch)
+    engines[:] = [_serve_engine(D, cfg, step_tokens=256, prefix_cache=True)
+                  for _ in range(2)]
+    clock = _StepClock()
     inj = RS.FaultInjector()
     handles = _fleet_handles(S, engines, clock, dict(
         eject_after=1, probe_cooldown_s=0.5))
     router = S.FleetRouter(handles, clock=clock, sleep=clock.sleep,
                            fault_injector=inj)
     fo0 = total("paddle_router_failovers_total")
+    shutil.rmtree(BUNDLE_DIR, ignore_errors=True)
+    os.makedirs(BUNDLE_DIR)
+    O.flight_recorder.clear()
+    O.flight_recorder.arm(dump_dir=BUNDLE_DIR)
+    journal.arm(capacity=1 << 15)
+    journal.record_head(model=model_spec(cfg, SEED),
+                        fleet=router.journal_topology())
     reqs = [router.submit(p) for p in prompts]
     at_kill = {}
 
@@ -2415,12 +2486,24 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
             inj.schedule.append(RS.Fault("replica_die", router._steps + 1,
                                          replica=0))
 
+    def step_b():
+        clock.advance(0.05)
+        arm_kill()
+
     launches.start(engines)
     t0 = time.perf_counter()
     walls_b, _ = _timed_router_steps(router, params, handles,
-                                     before_step=arm_kill)
+                                     before_step=step_b)
     wall_b = time.perf_counter() - t0
     b_launch = launches.stop(engines)
+    bundles = dict(final=O.flight_recorder.dump_debug_bundle(
+        reason="smoke_chaos_final"))
+    journal.disarm()
+    O.flight_recorder.disarm()
+    bundles["ejection"] = os.path.join(BUNDLE_DIR, next(
+        f for f in sorted(os.listdir(BUNDLE_DIR))
+        if "replica_ejected" in f))
+    out["_bundles"] = bundles
     if not inj.fired or inj.fired[0][0] != "replica_die":
         raise AssertionError(f"the kill did not fire: {inj.fired}")
     if any(r.state != "done" or len(r.stream.tokens) != NEW_TOKENS
@@ -2451,7 +2534,9 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
         raise AssertionError(f"streams after the kill: {eq_after} of "
                              f"{n_after} tokens equal to phase 7's (first "
                              f"differing token {first_diff})")
-    no_new_builds("the chaos serve")
+    # (b)'s replicas built their programs in the chaos serve: later parts
+    # build none
+    misses0[:] = [list(e.compile_misses) for e in engines]
     chaos = dict(
         kill_step=inj.fired[0][1], router_steps=len(walls_b),
         serve_s=wall_b, failovers=total("paddle_router_failovers_total")
@@ -2492,6 +2577,7 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
                 and state == "healthy" and not router.pending:
             break
         router.step(params)
+        clock.advance(0.05)
     stall_launch = launches.stop(engines)
     if trail[-1] != "healthy" or "half_open" not in trail or probe is None \
             or probe.replica_id != 0:
@@ -3336,7 +3422,7 @@ def ernie_parity_phase(torch, E):
                                             device="cpu")
         model, _ = init(seed=SEED)
         model.to(dev)
-        opt = E.AdamW(model.named_parameters(), learning_rate=lr)
+        opt = E.AdamW(learning_rate=lr, parameters=model.named_parameters())
         losses = [float(step(model, opt, *(t.to(dev) for t in batch)))
                   for _ in range(steps)]
         runs[dev] = (losses, {n: p.detach().cpu()
@@ -4014,7 +4100,7 @@ def gpt_parity_phase(torch, G, ftb, ln, fa):
     labels[:, -1] = -100
     runs = {}
     for dev, model in (("cuda", card), ("cpu", cpu)):
-        opt = AdamW(model.named_parameters(), learning_rate=lr)
+        opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
         losses = []
         for i in range(steps):
             _reset(counters)
@@ -4288,7 +4374,7 @@ def gpt2_xl_phase(torch, G, ftb, ln, fa):
         equal_to_reforward_argmax=float((ref == toks).mean()))
 
     torch.cuda.reset_peak_memory_stats()
-    opt = AdamW(model.named_parameters(), learning_rate=1e-4,
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
                 weight_decay=0.01, multi_precision=True)
     batch = rng.randint(0, cfg.vocab_size,
                         (GPT_TRAIN_B, GPT_TRAIN_S)).astype(np.int64)
@@ -4350,6 +4436,616 @@ def gpt2_xl_phase(torch, G, ftb, ln, fa):
     return dict(config="openai-community/gpt2-xl config.json", reduced="nothing",
                 params=n_params, weight_gb=weight_bytes / 1e9, init_s=init_s,
                 generate=generate, train=train, launches=launch_sum)
+
+
+# ---------------------------------------------------------------------------
+# phases 27-29: the training recipe's eager API, and postmortem replay
+# ---------------------------------------------------------------------------
+
+#: phase 27's optimizer families: (class, keyword arguments)
+RECIPE_FAMILIES = {
+    "sgd": ("SGD", dict(weight_decay=0.01)),
+    "momentum": ("Momentum", dict(momentum=0.9, use_nesterov=True,
+                                  weight_decay=0.01)),
+    "adam": ("Adam", dict(weight_decay=0.01)),
+    "adamw": ("AdamW", dict(weight_decay=0.01)),
+    "adamax": ("Adamax", dict(weight_decay=0.01)),
+    "lamb": ("Lamb", dict(lamb_weight_decay=0.01)),
+    "rmsprop": ("RMSProp", dict(centered=True, momentum=0.5)),
+    "adagrad": ("Adagrad", dict(initial_accumulator_value=0.1)),
+}
+
+
+def _no_decay(name):
+    """The recipe's decay filter: no decay on biases and norms."""
+    return not any(k in name for k in ("bias", "ln_", "norm"))
+
+
+def _recipe_schedule(LR, peak, total):
+    """The recipe's schedule: 2 warm-up steps from peak/10 to peak, then
+    a cosine over ``total`` steps."""
+    return LR.LinearWarmup(LR.CosineAnnealingDecay(peak, total), 2,
+                           peak / 10, peak)
+
+
+def _recipe_family(torch, O, LR, cls, kw, params, lr):
+    extra = {}
+    if cls == "AdamW":
+        extra["apply_decay_param_fun"] = _no_decay
+    elif cls == "Lamb":
+        extra["exclude_from_weight_decay_fn"] = lambda p: p.dim() < 2
+    return getattr(O, cls)(learning_rate=_recipe_schedule(LR, lr, 10),
+                           parameters=params,
+                           grad_clip=O.ClipGradByGlobalNorm(1.0),
+                           **kw, **extra)
+
+
+def _legacy_moved_streams(torch, L, D, mode):
+    """Two legacy replicas (``unified=False``, bf16, tiny widths) on the
+    card: the streams of a ``"failover"`` (replica 0 killed mid-decode)
+    or a ``"handoff"`` (PREFILL -> DECODE page handoff) run, each
+    request's tokens at its move, and a single engine's streams (the
+    uninterrupted run)."""
+    from paddle_tpu_torch.resilience import Fault, FaultInjector
+    import paddle_tpu_torch.serving as S
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=8,
+                       num_key_value_heads=8, intermediate_size=1024,
+                       num_hidden_layers=2, dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=5, device="cuda")
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.randint(20, 120, size=8)]
+
+    def engine():
+        return D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=24), num_slots=4,
+            page_size=16, max_seq_len=160, chunk=4, prefix_cache=True,
+            device="cuda", unified=False)
+
+    oracle = engine().serve(params, prompts)
+    inj = FaultInjector()
+    handles = [S.ReplicaHandle(i, engine(), health_config=S.HealthConfig(
+        eject_after=1)) for i in range(2)]
+    if mode == "handoff":
+        router = S.DisaggRouter(handles, roles={0: S.ReplicaRole.PREFILL,
+                                                1: S.ReplicaRole.DECODE})
+    else:
+        router = S.FleetRouter(handles, fault_injector=inj)
+    reqs = [router.submit(p) for p in prompts]
+    moved_at = {}
+    if mode == "handoff":
+        real = router._handoff
+
+        def noted(req, src, dst):
+            moved_at[req.rid] = list(req.stream.tokens)
+            return real(req, src, dst)
+        router._handoff = noted
+    while router.pending:
+        if mode == "failover" and not moved_at and any(
+                r.replica_id == 0 and 0 < len(r.stream.tokens) < 24
+                for r in reqs):
+            moved_at = {r.rid: list(r.stream.tokens) for r in reqs
+                        if r.replica_id == 0}
+            inj.schedule.append(Fault("replica_die", router._steps + 1,
+                                      replica=0))
+        router.step(params)
+    if any(r.state != "done" for r in reqs):
+        raise AssertionError(f"legacy {mode}: states "
+                             f"{[r.state for r in reqs]}")
+    for h in handles:
+        h.engine.mgr.check_conservation()
+        if h.engine.mgr.num_live_pages:
+            raise AssertionError(f"legacy {mode}: pages leaked")
+    moved = [r.rid for r in reqs if r.rid in moved_at
+             and (r.failovers or mode == "handoff")]
+    return [r.stream.tokens for r in reqs], moved_at, moved, oracle
+
+
+def recipe_parity_phase(torch, G, L, D, rn, pa, fa):
+    """Phase 27: the eager training API on the card against the CPU.
+    (a) Every optimizer family (fp32) over a tiny GPT's parameters, with
+    the recipe's ``LinearWarmup(CosineAnnealingDecay)`` schedule,
+    ``ClipGradByGlobalNorm(1.0)`` and decay filter, 3 steps: a CPU model
+    gives each step's gradients, and the same gradients go to a card
+    copy and a CPU copy of the weights, so the comparison holds the
+    optimizers' own arithmetic (weights and every state slot within
+    ``CARD_CPU_TOL``). (b) ``GradScaler`` with AdamW: a good step, then a
+    gradient holding an inf: the step is skipped, weights and moments
+    bitwise unchanged on the card, the scale halved, the scaler's state
+    the CPU twin's. (c) Legacy replicas' bf16 continuations (a failover
+    and a handoff) equal the uninterrupted streams (ROADMAP Queue C 4),
+    with their kernels' launches."""
+    from paddle_tpu_torch import amp as A
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.optimizer import lr as LR
+    from paddle_tpu_torch.testing import CARD_CPU_TOL, close
+    cfg = G.gpt_tiny(**GPT_TINY)
+    model = G.init(G.GPTForCausalLM(cfg, device="cpu"), SEED)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.RandomState(SEED + 27)
+    batch = rng.randint(0, cfg.vocab_size, (4, 48)).astype(np.int64)
+    labels = np.roll(batch, -1, axis=1)
+    labels[:, -1] = -100
+    batch, labels = torch.from_numpy(batch), torch.from_numpy(labels)
+    rtol, atol = CARD_CPU_TOL["out"]
+    steps, lr = 3, 1e-3
+
+    def load_start():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+            model.zero_grad(set_to_none=True)
+
+    def card_copy():
+        return [(n, torch.nn.Parameter(w.to("cuda", copy=True)))
+                for n, w in start.items()]
+
+    families = {}
+    for fam, (cls, kw) in RECIPE_FAMILIES.items():
+        load_start()
+        cpu = _recipe_family(torch, O, LR, cls, kw,
+                             list(model.named_parameters()), lr)
+        card_params = card_copy()
+        card = _recipe_family(torch, O, LR, cls, kw, card_params, lr)
+        for i in range(steps):
+            model.zero_grad(set_to_none=True)
+            model.compute_loss(batch, labels).backward()
+            for (_, p), q in zip(card_params, model.parameters()):
+                p.grad = q.grad.to("cuda", copy=True)
+            cpu.step()
+            card.step()
+            for o in (cpu, card):
+                o._learning_rate.step()
+        errs = {"weights": 0.0, "state": 0.0}
+        for (name, p), q in zip(card_params, model.parameters()):
+            errs["weights"] = max(errs["weights"], close(
+                p.detach().cpu(), q.detach(), rtol, atol,
+                f"{fam} {name}"))
+            cs, ks = card.state[name], cpu.state[name]
+            if set(cs) != set(ks):
+                raise AssertionError(f"{fam} {name}: slots {sorted(cs)} "
+                                     f"!= {sorted(ks)}")
+            for slot in ks:
+                errs["state"] = max(errs["state"], close(
+                    cs[slot].cpu(), ks[slot], rtol, atol,
+                    f"{fam} {name}.{slot}"))
+        families[fam] = dict(max_abs_err=errs, slots=sorted(
+            cpu.state[cpu._names[0]]), lr_after=card.get_lr())
+
+    # (b) the loss scaler: a good step, then an inf
+    load_start()
+    card_params = card_copy()
+    sides = {"cuda": (card_params, O.AdamW(learning_rate=lr,
+                                           parameters=card_params)),
+             "cpu": (list(model.named_parameters()),
+                     O.AdamW(learning_rate=lr,
+                             parameters=list(model.named_parameters())))}
+    scalers = {dev: A.GradScaler(init_loss_scaling=2.0 ** 10,
+                                 decr_every_n_nan_or_inf=1)
+               for dev in sides}
+    scaler_trace = []
+    for i, bad in enumerate([False, True]):
+        model.zero_grad(set_to_none=True)
+        scalers["cpu"].scale(model.compute_loss(batch, labels)).backward()
+        grads = [q.grad.clone() for q in model.parameters()]
+        if bad:
+            grads[3].view(-1)[5] = float("inf")
+            before = [p.detach().clone() for _, p in card_params]
+            moments = {n: {k: v.clone() for k, v in s.items()}
+                       for n, s in sides["cuda"][1].state.items()}
+        for dev, (params, opt) in sides.items():
+            for (_, p), g in zip(params, grads):
+                p.grad = g.to(dev, copy=True)
+            scalers[dev].step(opt)
+            scalers[dev].update()
+        if scalers["cuda"].state_dict() != scalers["cpu"].state_dict():
+            raise AssertionError("scaler state: card "
+                                 f"{scalers['cuda'].state_dict()} != cpu "
+                                 f"{scalers['cpu'].state_dict()}")
+        scaler_trace.append(scalers["cuda"].state_dict())
+    card_opt = sides["cuda"][1]
+    if not all(torch.equal(a, p.detach())
+               for a, (_, p) in zip(before, card_params)):
+        raise AssertionError("the inf step changed a weight")
+    if not all(torch.equal(v, card_opt.state[n][k])
+               for n, s in moments.items() for k, v in s.items()):
+        raise AssertionError("the inf step changed a moment")
+    if card_opt.step_count != 1 or scaler_trace[-1]["scale"] != 2.0 ** 9:
+        raise AssertionError(f"scaler trace {scaler_trace}")
+    scaler = dict(trace=scaler_trace, skipped_step_bitwise=True,
+                  weights_max_abs_err=max(
+                      close(p.detach().cpu(), q.detach(), rtol, atol,
+                            f"scaler {n}")
+                      for (n, p), q in zip(card_params, model.parameters())),
+                  host_reads=scalers["cuda"].host_reads)
+    del sides, card_params, card_opt
+
+    # (c) Queue C 4: legacy continuations at bf16
+    counters = {"rms_norm_fwd": rn.rms_norm,
+                "paged_decode_attention": pa.paged_attention,
+                "flash_attention_fwd": fa.flash_fwd_kernel}
+    _reset(counters)
+    legacy = {}
+    for mode in ("failover", "handoff"):
+        got, moved_at, moved, oracle = _legacy_moved_streams(torch, L, D,
+                                                             mode)
+        after = [(got[r][len(moved_at[r]):], oracle[r][len(moved_at[r]):])
+                 for r in moved]
+        share, eq, n = _equal_share(after)
+        if not moved or got != oracle:
+            raise AssertionError(f"legacy {mode}: {eq} of {n} tokens after "
+                                 f"the move equal ({len(moved)} moved)")
+        legacy[mode] = dict(moved_requests=len(moved),
+                            equal_after_move=share,
+                            equal_after_move_tokens=[eq, n])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"legacy continuations: launches {launches}")
+    _free_card(torch)
+    return dict(families=families, steps=steps, scaler=scaler,
+                legacy_bf16=legacy, launches=launches)
+
+
+def _digest(torch, tensors):
+    """Bit-pattern sums of a list of tensors (int64, on the device): a
+    change of any one element changes its tensor's sum."""
+    out = []
+    for t in tensors:
+        bits = t.detach().view({2: torch.int16, 4: torch.int32}[
+            t.element_size()])
+        out.append(bits.sum(dtype=torch.int64))
+    return torch.stack(out)
+
+
+def gpt2_xl_recipe_phase(torch, G, ln, fa, plain):
+    """Phase 28: GPT-2 XL (phase 26's config and (4, 1024) batches) with
+    the reference's training recipe: ``amp.decorate(level="O2",
+    dtype="bfloat16")`` over the fp32 model, ``AdamW(learning_rate=
+    LinearWarmup(CosineAnnealingDecay), grad_clip=ClipGradByGlobalNorm(
+    1.0), apply_decay_param_fun=<no decay on biases and norms>)`` and
+    ``GradScaler(enable=True, decr_every_n_nan_or_inf=1)``: 2 warm-up
+    and 5 timed steps (each step's launches checked), the step's wall,
+    tokens/s, MFU, peak memory and a profiled step's idle share beside
+    phase 26's plain-AdamW step (``plain``), the unscale's and the
+    clip's device ms, the card reads a step (sync-debug warnings), the
+    loss curve. Then one step whose gradient holds an inf: it changes no
+    weight, master or moment (bit-pattern sums of every tensor, and
+    three tensors compared whole) and halves the scale. Then the
+    optimizer's, scheduler's and scaler's state go through host memory
+    into fresh objects: the next step from the restored weights gives
+    the uninterrupted run's weights bit for bit."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import amp as A
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.optimizer import lr as LR
+    cfg = G.GPTConfig(**GPT2_XL)
+    n_layers, h = cfg.num_hidden_layers, cfg.hidden_size
+    counters = _gpt_counters(ln, fa)
+    peak_lr = 1e-4
+    t0 = time.perf_counter()
+    model = G.init(G.GPTForCausalLM(cfg, device="cuda"), SEED)
+    named = list(model.named_parameters())
+
+    def recipe():
+        sched = _recipe_schedule(LR, peak_lr, 100)
+        opt = O.AdamW(learning_rate=sched, parameters=named,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0),
+                      apply_decay_param_fun=_no_decay, weight_decay=0.01)
+        return sched, opt, A.GradScaler(enable=True,
+                                        decr_every_n_nan_or_inf=1)
+
+    sched, opt, scaler = recipe()
+    model, opt = A.decorate(models=model, optimizers=opt, level="O2",
+                            dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in named)
+    if any(p.dtype != torch.bfloat16 for _, p in named) \
+            or not opt._multi_precision:
+        raise AssertionError("amp.decorate(O2) did not cast the model")
+    rng = np.random.RandomState(SEED + 28)
+    batch = rng.randint(0, cfg.vocab_size,
+                        (GPT_TRAIN_B, GPT_TRAIN_S)).astype(np.int64)
+    labels = np.roll(batch, -1, axis=1)
+    labels[:, -1] = -100
+    batch, labels = (torch.from_numpy(a).cuda() for a in (batch, labels))
+    want = _gpt_want(n_layers, train_steps=1)
+
+    def backward(scaler):
+        model.zero_grad(set_to_none=True)
+        loss = model.compute_loss(batch, labels)
+        scaler.scale(loss).backward()
+        return loss.detach()
+
+    def finish(scaler, sched, opt):
+        scaler.step(opt)
+        scaler.update()
+        sched.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, totals = [], [], {k: 0 for k in counters}
+    for i in range(7):                        # 2 warm-up + 5 timed steps
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = backward(scaler)
+        finish(scaler, sched, opt)
+        losses.append(float(loss))           # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, n in _check_launches(f"gpt-2 xl recipe step {i}", counters,
+                                    want).items():
+            totals[k] += n
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt-2 xl recipe losses did not fall: "
+                             f"{losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # one step with its card reads counted (sync-debug warnings, by the
+    # line that raised them; a site an empty window raises too is the
+    # mode switch's own), one profiled; the unscale and the clip timed
+    # apart with CUDA events
+    def sync_sites(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, ["/".join(w.filename.split(os.sep)[-3:])
+                     + f":{w.lineno}" for w in caught
+                     if "synchroniz" in str(w.message)]
+
+    def recipe_step():
+        loss = backward(scaler)
+        finish(scaler, sched, opt)
+        return loss
+
+    _, empty = sync_sites(lambda: None)
+    loss, reads = sync_sites(recipe_step)
+    losses.append(float(loss))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = backward(scaler)
+        finish(scaler, sched, opt)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    losses.append(float(loss))
+    kinds, top = _kernel_ms_by_kind(prof, GPT_KINDS, n_top=10)
+    busy = sum(kinds.values())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    loss = backward(scaler)
+    ev[0].record()
+    scaler.unscale_(opt)
+    ev[1].record()
+    pairs = [(p, g) for (_, p), g in zip(named, scaler._unscaled)
+             if g is not None]
+    ev[2].record()
+    clipped = opt._grad_clip(pairs)
+    ev[3].record()
+    torch.cuda.synchronize()
+    unscale_ms, clip_ms = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+    del pairs, clipped
+    finish(scaler, sched, opt)
+    losses.append(float(loss))
+
+    # the inf step: nothing moves, the scale halves
+    backward(scaler)
+    named[0][1].grad.view(-1)[7] = float("inf")
+    state = opt.state
+    keep = [named[0][0], named[len(named) // 2][0], named[-1][0]]
+    whole = {n: [dict(named)[n].detach().clone()]
+             + [v.clone() for v in state[n].values()] for n in keep}
+    flat = [p for _, p in named] + [v for n, _ in named
+                                    for v in state[n].values()]
+    d0 = _digest(torch, flat)
+    scale0, steps0 = scaler.get_loss_scaling(), opt.step_count
+    finish(scaler, sched, opt)
+    if not torch.equal(d0, _digest(torch, flat)) or not all(
+            torch.equal(a, b) for n in keep for a, b in zip(
+                whole[n], [dict(named)[n]] + list(state[n].values()))):
+        raise AssertionError("the inf step changed a weight or a moment")
+    if scaler.get_loss_scaling() != scale0 / 2 or opt.step_count != steps0:
+        raise AssertionError(f"inf step: scale {scaler.get_loss_scaling()} "
+                             f"(was {scale0}), step {opt.step_count}")
+    del whole, flat
+
+    # resume: state through host memory into fresh objects
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    saved = {k: (host(v) if isinstance(v, torch.Tensor) else v)
+             for k, v in opt.state_dict().items()}
+    saved_sched, saved_scaler = sched.state_dict(), scaler.state_dict()
+    start = {n: host(p) for n, p in named}
+    t0 = time.perf_counter()
+    backward(scaler)
+    grads = _digest(torch, [p.grad for _, p in named])
+    finish(scaler, sched, opt)
+    ref_digest = _digest(torch, [p for _, p in named])
+    ref_whole = {n: host(dict(named)[n]) for n in keep}
+    del opt, state
+    gc.collect()
+    with torch.no_grad():
+        for n, p in named:
+            p.copy_(start[n])
+    sched2, opt2, scaler2 = recipe()
+    _, opt2 = A.decorate(models=model, optimizers=opt2, level="O2",
+                         dtype="bfloat16")
+    opt2.set_state_dict(saved)
+    sched2.set_state_dict(saved_sched)
+    scaler2.load_state_dict(saved_scaler)
+    restore_s = time.perf_counter() - t0
+    backward(scaler2)
+    grads2 = _digest(torch, [p.grad for _, p in named])
+    finish(scaler2, sched2, opt2)
+    torch.cuda.synchronize()
+    equal_grads = bool(torch.equal(grads, grads2))
+    if not torch.equal(ref_digest, _digest(torch, [p for _, p in named])) \
+            or not all(torch.equal(ref_whole[n], dict(named)[n].cpu())
+                       for n in keep):
+        raise AssertionError(f"resumed weights differ from the "
+                             f"uninterrupted run's (gradients equal: "
+                             f"{equal_grads})")
+    mean_ms = float(np.mean(step_ms[2:]))
+    tokens = GPT_TRAIN_B * GPT_TRAIN_S
+    flops = 6.0 * n_params * tokens + 6.0 * n_layers * h * GPT_TRAIN_B \
+        * GPT_TRAIN_S ** 2
+    out = dict(
+        recipe=dict(amp="decorate O2 bf16", optimizer="AdamW wd 0.01",
+                    lr="LinearWarmup(2 steps, 1e-5 -> 1e-4) then "
+                       "CosineAnnealingDecay(1e-4, T_max 100)",
+                    grad_clip="ClipGradByGlobalNorm(1.0)",
+                    decay_filter="none on biases and norms",
+                    scaler="GradScaler(2^16, decr_every_n_nan_or_inf=1)"),
+        init_s=init_s, losses=losses, step_ms=step_ms, mean_step_ms=mean_ms,
+        tokens_per_s=tokens / (mean_ms / 1e3),
+        mfu_vs_989tflops=flops / (mean_ms / 1e3) / PEAK_OPS_PER_S["bf16"],
+        plain_adamw_step_ms=plain["mean_step_ms"],
+        plain_adamw_tokens_per_s=plain["tokens_per_s"],
+        peak_mem_gb=peak, plain_peak_mem_gb=plain["peak_mem_gb"],
+        unscale_ms=unscale_ms, clip_ms=clip_ms,
+        card_reads_per_step=sum(r not in empty for r in reads),
+        card_reads=reads, card_reads_empty_window=empty,
+        breakdown=dict(kernel_ms=kinds, top_kernels=top,
+                       device_busy_ms=busy, wall_ms=prof_wall,
+                       idle_share=1 - busy / prof_wall),
+        inf_step=dict(weights_moments_unchanged=True,
+                      scale_before=scale0,
+                      scale_after=scaler.get_loss_scaling()),
+        resume=dict(bitwise_equal=True, gradients_equal=equal_grads,
+                    state_tensors=len(saved) - 2, restore_s=restore_s),
+        launches_per_step=want, launches=totals)
+    del model, opt2, named, batch, labels, saved, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rewrite_member(src, dst, name, data):
+    """Copy a bundle tarball with one member's bytes replaced."""
+    import io
+    import os
+    import tarfile
+    with tarfile.open(src, "r:gz") as a, tarfile.open(dst, "w:gz") as b:
+        for m in a.getmembers():
+            buf = a.extractfile(m).read()
+            if os.path.basename(m.name) == name:
+                buf = data
+                m.size = len(buf)
+            b.addfile(m, io.BytesIO(buf))
+    return dst
+
+
+def _audit_pools(engines):
+    """Every replica's page books balance. (Its own frame: a loop
+    variable in the phase would keep the last replica, with its pool,
+    graphs and weights, alive past the replay.)"""
+    for e in engines:
+        e.mgr.check_conservation()
+
+
+def replay_7b_phase(torch, rn, pa, bundles, original):
+    """Phase 29: ``replay_bundle`` on the card over phase 24 (b)'s two
+    bundles (the ejection auto-dump, a clean prefix of the incident, and
+    the final bundle): each rebuilds the 7B weights from the journaled
+    seed and both replicas from the head frame, re-drives the router and
+    must come back ``ok`` with no divergence and zero leaked pages (the
+    final one with every page back); its launches checked against the
+    replicas' micro-rounds. Then a copy of the final bundle with one
+    outcome token flipped: the divergence names that frame. Reported:
+    each replay's wall against the original run's, its program builds
+    and capture seconds."""
+    from paddle_tpu_torch.observability import replay as R
+    from paddle_tpu_torch.observability.flight import (flight_recorder,
+                                                       validate_bundle)
+    from paddle_tpu_torch.observability.journal import encode_frames
+    allocated0 = torch.cuda.memory_allocated()
+    built = []
+    real = R.rebuild_fleet
+
+    def keep(head, clock, injector, device=None):
+        out = real(head, clock, injector, device)
+        built.append(out)
+        return out
+
+    R.rebuild_fleet = keep
+    out = {}
+    try:
+        for name in ("ejection", "final", "flipped"):
+            path = bundles.get(name)
+            if name == "flipped":
+                doc = validate_bundle(bundles["final"])
+                frames = [dict(f) for f in doc["journal"].frames]
+                target = next(f for f in frames if f["t"] == "outcome")
+                target["tokens"] = list(target["tokens"])
+                target["tokens"][0] ^= 1
+                path = _rewrite_member(
+                    bundles["final"], bundles["final"] + ".flipped.tar.gz",
+                    "journal.jsonl",
+                    encode_frames(doc["journal"].head, frames))
+            built.clear()
+            rn.rms_norm.launches = 0
+            _reset_ragged(pa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = R.replay_bundle(path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cfg, params, router, replicas = built[0]
+            engines = [h.engine for h in replicas]
+            cfg_layers = cfg.num_hidden_layers
+            rounds = sum(e.micro_rounds for e in engines)
+            got = {"rms_norm_fwd": rn.rms_norm.launches,
+                   **_ragged_launches(pa)}
+            want = {"rms_norm_fwd": (2 * cfg_layers + 1) * rounds,
+                    **_ragged_want(torch, pa, cfg_layers * rounds)}
+            if got != want:
+                raise AssertionError(f"replay {name}: launches {got} != "
+                                     f"{want}")
+            res = dict(rep.as_dict(), wall_s=wall,
+                       builds=[len(e.compile_misses) for e in engines],
+                       capture_s=[sum(e.capture_seconds.values())
+                                  for e in engines],
+                       micro_rounds=rounds, launches=got)
+            if name == "flipped":
+                d = rep.divergence
+                if d is None or rep.ok or (d.step, d.replica, d.component) \
+                        != (target["step"], target["replica"], "outcome"):
+                    raise AssertionError(f"the flipped token was not "
+                                         f"localized: {res}")
+            else:
+                if rep.refused is not None or rep.divergence is not None \
+                        or not rep.ok or rep.leaked_pages:
+                    raise AssertionError(f"replay of the {name} bundle: "
+                                         f"{res}")
+                if name == "final" and (rep.pending or any(
+                        e.mgr.num_live_pages for e in engines)):
+                    raise AssertionError(f"replay of the final bundle "
+                                         f"left pages live: {res}")
+                _audit_pools(engines)
+            out[name] = res
+            del cfg, params, router, replicas, engines
+            built.clear()
+            # the recorder keeps the last router for its bundles (and
+            # through it the replicas' pools and graphs): let go of it
+            flight_recorder._router = flight_recorder._signals = None
+            flight_recorder._autoscale = flight_recorder._slo_monitor = None
+            _free_card(torch)
+    finally:
+        R.rebuild_fleet = real
+    fleet_released(torch, allocated0, out)
+    out["original_serve_s"] = original
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in
+                              ("ejection", "final", "flipped"))
+                       for k in out["final"]["launches"]}
+    return out
 
 
 def _kernel_entry(name, route, source, replaces, launches, r):
@@ -4448,6 +5144,7 @@ def main() -> int:
     allocated0 = torch.cuda.memory_allocated()
     fleet = fleet_7b_phase(torch, L, D, rn, pa, cfg7b, params7b, serve,
                            greedy_tokens)
+    bundles = fleet.pop("_bundles")
     fleet_released(torch, allocated0, fleet)
     done(24, f"Llama-2-7B bf16 serving fleet (router, chaos, roles, "
          f"sensors) on {card}", fleet)
@@ -4465,6 +5162,12 @@ def main() -> int:
     del params7b             # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
+    # the replay rebuilds its own 7B weights: it runs once phase 7's are
+    # gone (13.5 GB of weights and two 4.3 GB pools a replay)
+    replay = replay_7b_phase(torch, rn, pa, bundles,
+                             fleet["b_chaos"]["serve_s"])
+    done(29, f"postmortem replay of phase 24 (b)'s 7B bundles on {card}",
+         replay)
 
     rms_bwd = rms_norm_bwd_phase(torch, rn)
     done(9, "rms_norm backward kernel vs plain", rms_bwd)
@@ -4502,6 +5205,13 @@ def main() -> int:
     gpt_xl = gpt2_xl_phase(torch, G, ftb, ln, fa)
     done(26, f"GPT-2 XL bf16 generate and training on {card}", gpt_xl)
     gl = gpt_xl["launches"]
+    recipe = recipe_parity_phase(torch, G, L, D, rn, pa, fa)
+    done(27, "every optimizer family, the clip, the scheduler and the loss "
+         "scaler card == cpu; legacy bf16 continuations", recipe)
+    xl_recipe = gpt2_xl_recipe_phase(torch, G, ln, fa, gpt_xl["train"])
+    done(28, f"GPT-2 XL training with the reference's recipe on {card}",
+         xl_recipe)
+    rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
     leg, warm = legacy["legacy"]["launches"], legacy["prefix_cache"]["warm"]
@@ -4527,7 +5237,8 @@ def main() -> int:
              + leg["rms_norm_fwd"] + warm["launches"]["rms_norm_fwd"]
              + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
-             + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"],
+             + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
+             + rl["rms_norm_fwd"] + pl["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -4540,7 +5251,8 @@ def main() -> int:
              + warm["launches"]["ragged_paged_attention"]
              + cold["launches"]["ragged_paged_attention"]
              + mixed["ragged_paged_attention"]
-             + specl["ragged_paged_attention"],
+             + specl["ragged_paged_attention"]
+             + pl["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
@@ -4550,7 +5262,8 @@ def main() -> int:
                       "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                       "paddle_tpu/ops/paged_attention.py:650",
                       leg["paged_decode_attention"]
-                      + plaunch["paged_decode_attention"],
+                      + plaunch["paged_decode_attention"]
+                      + rl["paged_decode_attention"],
                       dict(decode["nkv32_d128_bf16"], max_abs_err=max(
                           r["max_abs_err"] for k, r in decode.items()
                           if k != "resources"))),
@@ -4575,13 +5288,14 @@ def main() -> int:
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
-            + gl[name], r))
+            + gl[name] + rl.get(name, 0) + xr[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
-            bert["launches"][name] + gl[name], lnr[key]["bf16"]))
+            bert["launches"][name] + gl[name] + xr[name],
+            lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32
     kernels.append(_kernel_entry(

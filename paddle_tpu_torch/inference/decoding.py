@@ -51,6 +51,10 @@ Decoding options (the JAX engine's, with its token streams):
   speculative steps flag them ``decoding`` as the carry tokens they
   were, so each takes the attention kernels' route it took when it was
   decoded, and the continuation's bits are the uninterrupted stream's.
+  The legacy pipeline prefills only the given prompt and feeds the
+  streamed tokens through its decode chunk as forced tokens, one a step
+  as they were decoded (paged decode attention, not the prefill's flash
+  forward); forced steps deliver nothing.
 
 The sampling epilogue is built lazily: until the first sampled or
 constrained request the programs end in the argmax; that request
@@ -602,6 +606,9 @@ class ContinuousBatchingEngine(_Programs):
         # first prompt position of each slot that was decoded elsewhere
         # (``submit(decoded=)``): its prefill flags ``decoding`` from it
         self._dec_from = np.zeros((num_slots,), np.int64)
+        # legacy: each slot's streamed tokens still to force through the
+        # decode chunk (``submit(decoded=)``), None when there are none
+        self._forced: List[Optional[np.ndarray]] = [None] * num_slots
         # the legacy programs' engine-wide key chain (``jax.random.key(
         # seed)``, split on the host per prefill wave and decode chunk)
         self._rng = prng.prng_key(self.config.seed)
@@ -795,18 +802,24 @@ class ContinuousBatchingEngine(_Programs):
         their extra tokens are dropped). Each step emits its INPUT token,
         so a chunk's output chains to the next and delivers each
         admission's prefill token first; with do_sample each step splits
-        the chunk's key for its draw, on the device. Returns (slots,
-        chunk) tokens; the carry ``_tok_dev`` is updated in place."""
+        the chunk's key for its draw, on the device. ``forced[s, k]``,
+        where it is not -1, replaces row s's input token at step k (a
+        continuation's streamed tokens, ``submit(decoded=)``). Returns
+        (slots, chunk) tokens; the carry ``_tok_dev`` is updated in
+        place."""
         K, n_rows, cfg = self.chunk, self.num_slots, self.config
         mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
         inputs = self._key_input(dict(
             pos=((n_rows,), torch.int32),
-            bt=((n_rows, self._table_width), torch.int32)))
+            bt=((n_rows, self._table_width), torch.int32),
+            forced=((n_rows, K), torch.int32)))
 
-        def run(pos, bt, key=None):
+        def run(pos, bt, forced, key=None):
             tok = carry
             emitted = []
-            for _ in range(K):
+            for k in range(K):
+                f = forced[:, k]
+                tok = torch.where(f >= 0, f, tok)
                 logits, _, _ = L.decode_step_paged(
                     params, tok, pos, mgr.k_pages, mgr.v_pages, bt, mcfg)
                 emitted.append(tok)
@@ -916,10 +929,10 @@ class ContinuousBatchingEngine(_Programs):
         stream that moved): the unified and speculative steps prefill
         them flagged ``decoding``, each over exactly the keys it saw when
         it was decoded, so the continuation equals the uninterrupted
-        stream at every dtype. 0 (a fresh prompt) changes nothing. The
-        legacy pipeline takes the count and has no route to give: its
-        prefill wave runs the flash forward, its decode the paged decode
-        kernel, so a bf16 continuation there may still differ."""
+        stream at every dtype. The legacy pipeline prefills the given
+        prompt only and forces the decoded tokens through its decode
+        chunk, one a step, as the uninterrupted run decoded them. 0 (a
+        fresh prompt) changes nothing."""
         budget = (max_new_tokens if max_new_tokens is not None
                   else self.config.max_new_tokens)
         prompt = np.asarray(prompt, np.int32)
@@ -1167,6 +1180,7 @@ class ContinuousBatchingEngine(_Programs):
         self._bt[s] = 0
         self._pos[s] = 0
         self._pend[s] = None
+        self._forced[s] = None
 
     def _deliver_tokens(self, s: int, tokens) -> bool:
         """Append one slot's emitted tokens to its request (up to its
@@ -1426,13 +1440,36 @@ class ContinuousBatchingEngine(_Programs):
         are dropped. Cold rows never share a call with warm rows, so
         cold traffic runs the full prefill whether the cache is on or
         off. Each group's call is the prefill program of its key; its
-        first tokens go into the carry in place."""
+        first tokens go into the carry in place.
+
+        A continuation (``submit(decoded=n)``) prefills only its given
+        prompt, the first ``lp - n`` tokens; its streamed tokens past the
+        cached prefix wait in ``_forced`` for the decode chunk, which runs
+        them one a step as the uninterrupted run decoded them. A row whose
+        given prompt is all cached (a handoff's imported pages) skips the
+        prefill. One the cache covers only in part is prefilled whole, in
+        a cold wave, as the uninterrupted run prefilled a prompt it had
+        no cached prefix for: the suffix prefill attends through a page
+        gather, the full one through the flash kernel, and at bf16 the
+        two round differently. Its shared pages stay shared: the wave's
+        writes for their positions go to the reserved page 0."""
         cfg = self.config
         groups: Dict[tuple, list] = {}
-        for item in self._admit_pick():
-            lp, n_cached = item[3], item[4]
-            groups.setdefault((_bucket(lp - n_cached), n_cached > 0),
-                              []).append(item)
+        for s, req, pages, lp, n_cached in self._admit_pick():
+            given = lp - req.decoded
+            self._forced[s] = (np.asarray(req.prompt[max(given, n_cached):],
+                                          np.int32)
+                               if req.decoded else None)
+            if given <= n_cached:
+                self._seat(s, req, pages, n_cached)
+                continue
+            start = 0 if req.decoded else n_cached
+            # pages shared with the cache (no copy-on-write here: that
+            # needs the whole prompt cached)
+            shared = n_cached // self.page_size
+            groups.setdefault((_bucket(given - start), start > 0),
+                              []).append((s, req, pages, given, start,
+                                          shared))
         for (bucket, warm), items in groups.items():
             real = len(items)
             b_pad = 1
@@ -1453,12 +1490,16 @@ class ContinuousBatchingEngine(_Programs):
                 host["starts"].fill(0)
             if cfg.do_sample:
                 host["key"][:] = self._next_key()
-            for i, (s, req, pages, lp, nc) in enumerate(items):
-                host["ids"][i, :lp - nc] = req.prompt[nc:]
+            for i, (s, req, pages, given, start, shared) in enumerate(items):
+                host["ids"][i, :given - start] = req.prompt[start:given]
                 host["rows"][i, :len(pages)] = pages
-                host["lens"][i] = lp - nc
+                host["lens"][i] = given - start
                 if warm:
-                    host["starts"][i] = nc
+                    host["starts"][i] = start
+                else:
+                    # a continuation's shared pages: its writes there go
+                    # to the reserved page 0 (0 pages for a fresh prompt)
+                    host["rows"][i, :shared] = 0
             t0_ns = time.perf_counter_ns() if spans_armed() else 0
             tok = self._run("cbe.prefill", prog)
             self.prefill_calls += 1
@@ -1468,19 +1509,26 @@ class ContinuousBatchingEngine(_Programs):
                 # in the device carry): its device time lands inside the
                 # next decode chunk's span, which closes after the fence
                 t1_ns = time.perf_counter_ns()
-                for s, req, pages, lp, nc in items:
+                for s, req, pages, given, start, _ in items:
                     emit_span("engine.prefill", t0_ns, t1_ns,
                               event_type="Operator", trace_id=req.trace_id,
                               args={"request_id": req.rid, "bucket": bucket,
-                                    "prompt_len": lp, "cached_tokens": nc})
+                                    "prompt_len": len(req.prompt),
+                                    "cached_tokens": start})
             slots = torch.as_tensor([it[0] for it in items],
                                     device=self.device)
             self._tok_dev[slots] = tok[:real]
-            for i, (s, req, pages, lp, nc) in enumerate(items):
-                self._slot_rid[s] = req.rid
-                self._live[req.rid] = req
-                self._pos[s] = lp
-                self._bt[s] = host["rows"][i]
+            for s, req, pages, given, _, _ in items:
+                self._seat(s, req, pages, given)
+
+    def _seat(self, s: int, req: _Request, row, pos: int) -> None:
+        """Seat an admitted legacy row: its slot, its next position and
+        its block table."""
+        self._slot_rid[s] = req.rid
+        self._live[req.rid] = req
+        self._pos[s] = pos
+        self._bt[s] = 0
+        self._bt[s, :len(row)] = row
 
     def _step_legacy(self, params) -> int:
         self._admit(params)
@@ -1491,6 +1539,14 @@ class ContinuousBatchingEngine(_Programs):
             (self.num_slots, self.chunk), self._build_decode_chunk, params)
         prog.host["pos"][:] = self._pos
         prog.host["bt"][:] = self._bt
+        forced = prog.host["forced"]
+        forced.fill(-1)
+        n_forced = [0] * self.num_slots
+        for s, f in enumerate(self._forced):
+            if f is not None and len(f):
+                n_forced[s] = n = min(len(f), self.chunk)
+                forced[s, :n] = f[:n]
+                self._forced[s] = f[n:]
         if self.config.do_sample:
             prog.host["key"][:] = self._next_key()
         t0_ns = time.perf_counter_ns() if spans_armed() else 0
@@ -1510,7 +1566,8 @@ class ContinuousBatchingEngine(_Programs):
         for s in range(self.num_slots):
             if self._slot_rid[s] is None:
                 continue
-            if self._deliver_tokens(s, toks[s]):
+            # forced tokens are already in the stream: never delivered
+            if self._deliver_tokens(s, toks[s][n_forced[s]:]):
                 self._pos[s] += self.chunk
         return len(self._live)
 

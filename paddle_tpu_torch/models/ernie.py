@@ -266,7 +266,7 @@ def build_mlm_train_step(config: ErnieConfig, learning_rate: float = 1e-4,
     def init_fn(seed: int = 0):
         model = init(ErnieForMaskedLM(config, dtype=dtype, device=device),
                      seed)
-        opt = AdamW(model.named_parameters(), learning_rate=lr,
+        opt = AdamW(learning_rate=lr, parameters=model.named_parameters(),
                     weight_decay=weight_decay,
                     multi_precision=dtype in (torch.bfloat16, torch.float16))
         return model, opt

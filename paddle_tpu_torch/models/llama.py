@@ -64,10 +64,15 @@ class LlamaConfig:
     num_hidden_layers: int = 32
     num_attention_heads: int = 32
     num_key_value_heads: int = 32
+    # the JAX package's config fields, kept so a journal head frame (and
+    # its replay) carries the same config: no port path reads them yet
+    # (rope tables are sized by their callers; no sequence parallelism)
+    max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: Any = torch.float32
+    sep_mode: str = "ulysses"
 
     @property
     def head_dim(self) -> int:
@@ -84,7 +89,7 @@ def llama_tiny(**over) -> LlamaConfig:
     return LlamaConfig(**{**dict(
         vocab_size=256, hidden_size=64, intermediate_size=128,
         num_hidden_layers=4, num_attention_heads=4,
-        num_key_value_heads=4), **over})
+        num_key_value_heads=4, max_position_embeddings=128), **over})
 
 
 def param_count(config: LlamaConfig) -> int:

@@ -24,9 +24,11 @@ Ported, with the JAX package's code and names:
 * :mod:`.catalog` — every registry family, event kind and span name;
 * :mod:`.server` — the stdlib :class:`DiagServer` (``/metrics``,
   ``/healthz``, ``/statusz``, ``/tracez``, ``/varz``, ``/scalez``,
-  ``/journalz``, ``/memz``, ``/debugz``).
+  ``/journalz``, ``/memz``, ``/debugz``);
+* :mod:`.replay` — postmortem replay of a bundle's journal
+  (``python -m paddle_tpu_torch.observability.replay <bundle>``).
 
-Not yet ported: ``profiling``, ``replay`` and ``federation``.
+Not yet ported: ``profiling`` and ``federation``.
 """
 
 from . import format  # noqa: F401
@@ -78,4 +80,19 @@ __all__ = [
     "GoodputTracker", "StragglerDetector", "DiagServer", "SignalBus",
     "SignalSnapshot", "SIGNAL_SNAPSHOT_VERSION", "AnomalyMonitor",
     "RobustZScoreDetector", "CusumDetector", "robust_zscore",
+    "ReplayClock", "ReplayRefused", "ReplayReport", "replay_bundle",
+    "replay_journal",
 ]
+
+_REPLAY = ("ReplayClock", "ReplayRefused", "ReplayReport", "replay_bundle",
+           "replay_journal")
+
+
+def __getattr__(name):
+    # the replay names load on first use, so ``python -m
+    # paddle_tpu_torch.observability.replay`` runs a module the package
+    # has not imported yet
+    if name in _REPLAY:
+        from . import replay
+        return getattr(replay, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -459,15 +459,20 @@ journal = JournalRecorder()
 def model_spec(cfg, params_seed: int,
                vocab: Optional[List[str]] = None) -> Dict[str, Any]:
     """Serialize a model config dataclass for the head frame. ``dtype``
-    is stored by numpy name (this module stays JAX-free); replay
+    is stored by name, as the JAX package's frame stores it
+    (``torch.bfloat16`` -> ``"bfloat16"``, the numpy name); replay
     resolves it back. ``vocab`` is required only when grammar-
     constrained arrivals must be re-compiled at replay."""
     import dataclasses
     d = dataclasses.asdict(cfg)
     if "dtype" in d:
-        try:
-            d["dtype"] = np.dtype(d["dtype"]).name
-        except Exception:
-            d["dtype"] = str(d["dtype"])
+        text = str(d["dtype"])
+        if text.startswith("torch."):
+            d["dtype"] = text[len("torch."):]
+        else:
+            try:
+                d["dtype"] = np.dtype(d["dtype"]).name
+            except Exception:
+                d["dtype"] = text
     return {"arch": type(cfg).__name__, "config": d,
             "params_seed": int(params_seed), "vocab": vocab}

@@ -25,11 +25,11 @@ weights).
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import torch
 
-from .optimizer import Optimizer
+from .optimizer import Adam, Optimizer
 
 #: elements per multi-tensor pass: each pass's fp32 temporaries stay
 #: within a few times 256 MB however large the model
@@ -115,7 +115,8 @@ def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
         upd = F.div(ms, bc1)
         F.div_(upd, den)
         del den
-        F.add_(upd, F.mul(p32, weight_decay))
+        if weight_decay:
+            F.add_(upd, F.mul(p32, weight_decay))
         F.mul_(upd, lr)
         F.sub_(p32, upd)
         del upd
@@ -126,37 +127,38 @@ def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
 
 
 class AdamW(Optimizer):
-    """``AdamW`` (l.298-337) over :func:`adamw_update_`: fp32 moments,
-    and fp32 master weights for bf16/fp16 parameters under
-    ``multi_precision``. Takes ``named_parameters`` (first, as the
-    ported training steps pass them) or ``parameters``."""
+    """``AdamW`` (ref l.298-343) over :func:`adamw_update_`: fp32
+    moments, and fp32 master weights for bf16/fp16 parameters under
+    ``multi_precision``; the reference's signature. ``lr_ratio`` and
+    ``lazy_mode`` are accepted and ignored, as there. The parameters of
+    a step go through :func:`adamw_update_` in groups of one learning
+    rate and one decay (``optimize_attr`` and ``apply_decay_param_fun``
+    split them), so a filter costs a group, not a pass per parameter."""
 
-    def __init__(self, named_parameters: Optional[
-                     Iterable[Tuple[str, torch.Tensor]]] = None,
-                 learning_rate: float = 1e-3, beta1: float = 0.9,
-                 beta2: float = 0.999, epsilon: float = 1e-8,
-                 weight_decay: float = 0.01, multi_precision: bool = False,
-                 parameters: Optional[Iterable[torch.Tensor]] = None):
-        super().__init__(learning_rate, parameters, weight_decay,
-                         multi_precision, named_parameters)
-        self._b1, self._b2, self._eps = float(beta1), float(beta2), epsilon
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None, *,
+                 named_parameters=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name,
+                         named_parameters=named_parameters)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = epsilon
+        self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _new_state(self, p):
-        s = super()._new_state(p)
-        s["moment1"] = torch.zeros_like(p, dtype=torch.float32)
-        s["moment2"] = torch.zeros_like(p, dtype=torch.float32)
-        return s
+    _init_slots = Adam._init_slots
 
-    @torch.no_grad()
-    def step(self):
-        self.step_count += 1
-        t = self.step_count
-        live = self._live()
-        states = [self._state_of(n, p) for n, p, _ in live]
-        adamw_update_([p for _, p, _ in live], [g for _, _, g in live],
-                      [s["moment1"] for s in states],
-                      [s["moment2"] for s in states],
-                      masters=[s.get("master") for s in states],
-                      lr=self._lr, beta1=self._b1, beta2=self._b2,
-                      eps=self._eps, weight_decay=self._wd,
-                      bc1=1 - self._b1 ** t, bc2=1 - self._b2 ** t)
+    def _apply(self, items, t: int) -> None:
+        groups = {}
+        for name, p, g, lr, wd in items:
+            groups.setdefault((lr, wd), []).append(
+                (p, g, self._state_of(name, p)))
+        b1, b2 = self._beta1, self._beta2
+        for (lr, wd), group in groups.items():
+            adamw_update_([p for p, _, _ in group], [g for _, g, _ in group],
+                          [s["moment1"] for _, _, s in group],
+                          [s["moment2"] for _, _, s in group],
+                          masters=[s.get("master") for _, _, s in group],
+                          lr=lr, beta1=b1, beta2=b2, eps=self._epsilon,
+                          weight_decay=wd, bc1=1 - b1 ** t, bc2=1 - b2 ** t)

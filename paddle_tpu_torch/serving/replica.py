@@ -201,6 +201,10 @@ class ReplicaHandle:
                 "speculative": eng._speculative,
                 "spec_k": eng.spec_k,
                 "unified": eng._unified,
+                # beyond the JAX package's frame: the packed axis decides
+                # which step a prompt token rides (and, on the card, how
+                # a GEMM rounds), so replay needs it
+                "step_tokens": eng._step_tokens,
             },
             "generation": asdict(eng.config),
             "scheduler": asdict(self._scheduler.config),

@@ -9,10 +9,16 @@ engine's plans must flag the same tokens when it prefills them, and
 nothing else, so that on the card their K/V and logits are the
 uninterrupted run's bits. Here, on the CPU, the plans are checked array
 by array (the plain attention takes no route) and the streams against a
-single engine's."""
+single engine's.
+
+The legacy pipeline (``unified=False``) prefills only the given prompt
+and forces the streamed tokens through its decode chunk, one a step:
+its programs then get the uninterrupted run's inputs, byte for byte,
+but for the decode chunk's ``forced`` tokens."""
 
 import numpy as np
 import pytest
+import torch
 
 from paddle_tpu_torch.inference import decoding as D
 from paddle_tpu_torch.models import llama as L
@@ -124,6 +130,113 @@ def test_decoded_zero_leaves_every_plan_array_as_it_was(params,
         np.testing.assert_array_equal(dec, carry)
 
 
+def _legacy_recorded(params, decoded):
+    """Legacy serve of the two prompts; slot 1's continues its
+    uninterrupted stream after ``decoded`` of its tokens when given
+    ``(stream, n)``. Returns every program call's (name, inputs) and the
+    streams."""
+    eng = _engine(unified=False)
+    real, calls = eng._run, []
+
+    def run(name, prog):
+        calls.append((name, {k: v.copy() for k, v in prog.host.items()}))
+        return real(name, prog)
+
+    eng._run = run
+    p0, p1 = _prompts()
+    if decoded is None:
+        rids = [eng.submit(p0), eng.submit(p1)]
+    else:
+        stream, n = decoded
+        rids = [eng.submit(p0),
+                eng.submit(np.concatenate([p1, np.asarray(stream[:n],
+                                                           np.int32)]),
+                           max_new_tokens=6 - n, decoded=n)]
+    done = {}
+    while len(done) < 2:
+        eng.step(params)
+        done.update(eng.collect())
+    return calls, [done[r] for r in rids]
+
+
+def test_legacy_decoded_zero_forces_nothing(params):
+    """A fresh prompt: every decode chunk's ``forced`` input is -1 (each
+    step keeps its own token) beside the inputs it had before."""
+    calls, _ = _legacy_recorded(params, None)
+    chunks = [h for name, h in calls if name == "cbe.decode_chunk"]
+    assert chunks and all(set(h) == {"pos", "bt", "forced"} for h in chunks)
+    assert all((h["forced"] == -1).all() for h in chunks)
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_legacy_continuation_forces_the_streamed_tokens(params, n):
+    """Slot 1 resubmitted as prompt + its first ``n`` streamed tokens
+    (``decoded=n``): the prefill runs the given prompt only, the decode
+    chunks force the streamed tokens in order from the first step (over
+    two chunks at n 4, chunk 3), nothing is delivered twice, the rest of
+    the stream equals the uninterrupted one, and every program input but
+    ``forced`` is the uninterrupted run's, byte for byte."""
+    plain, streams = _legacy_recorded(params, None)
+    moved, got = _legacy_recorded(params, (streams[1], n))
+    assert got == [streams[0], streams[1][n:]]
+    assert [name for name, _ in moved] == [name for name, _ in plain]
+    forced, lens = [], []
+    for (name, a), (_, b) in zip(plain, moved):
+        assert set(a) == set(b)
+        for k in a:
+            if k != "forced":
+                assert a[k].tobytes() == b[k].tobytes(), (name, k)
+        if name == "cbe.prefill":
+            lens += b["lens"].tolist()
+        if name == "cbe.decode_chunk":
+            row = b["forced"][1]
+            live = row[row >= 0]
+            assert (row[:len(live)] == live).all() and (b["forced"][0]
+                                                        == -1).all()
+            forced += live.tolist()
+    assert forced == streams[1][:n]
+    assert sorted(lens) == [5, LP]          # the given prompts, whole
+
+
+def test_legacy_continuation_prefills_a_partly_cached_prompt_whole(params):
+    """A legacy continuation whose given prompt the prefix cache covers
+    only in part (two pages of another request's prompt) is prefilled
+    whole in a cold wave, as the uninterrupted run prefilled it (the
+    suffix path would attend through a page gather); the shared pages'
+    entries in its rows go to the reserved page 0, so the cached pages
+    keep their bytes, and the stream continues the uninterrupted one."""
+    _, p1 = _prompts()
+    plain = _engine(unified=False, prefix_cache=True)
+    stream = plain.serve(params, [p1])[0]
+    eng = _engine(unified=False, prefix_cache=True)
+    eng.serve(params, [p1[:10]])          # caches p1's first two pages
+    shared, n_cached, _ = eng.cache.lookup(p1)
+    assert n_cached == 8 and len(shared) == 2
+    before = [eng.mgr.k_pages[:, q].clone() for q in shared]
+    real, calls = eng._run, []
+
+    def run(name, prog):
+        calls.append((name, {k: v.copy() for k, v in prog.host.items()}))
+        return real(name, prog)
+
+    eng._run = run
+    n = 4
+    rid = eng.submit(np.concatenate([p1, np.asarray(stream[:n], np.int32)]),
+                     max_new_tokens=6 - n, decoded=n)
+    done = {}
+    while rid not in done:
+        eng.step(params)
+        done.update(eng.collect())
+    prefill = [h for name, h in calls if name == "cbe.prefill"]
+    assert len(prefill) == 1 and "starts" not in prefill[0]
+    assert prefill[0]["lens"][0] == LP
+    assert (prefill[0]["rows"][0, :2] == 0).all()
+    assert (prefill[0]["rows"][0, 2:5] > 0).all()
+    assert all(torch.equal(b, eng.mgr.k_pages[:, q])
+               for b, q in zip(before, shared))
+    assert done[rid] == stream[n:]
+
+
 def test_submit_rejects_a_count_beyond_the_prompt():
     eng = _engine()
     with pytest.raises(ValueError, match="decoded"):
@@ -159,12 +272,24 @@ def test_continuation_passes_the_streamed_count_to_the_engine(params, mode):
     a PREFILL to a DECODE replica) reaches the destination's engine as
     prompt + streamed tokens with ``decoded`` = the streamed count; the
     streams equal a single engine's."""
+    _check_moved_count(params, mode, unified=True)
+
+
+@pytest.mark.parametrize("mode", ["failover", "handoff"])
+def test_legacy_continuation_passes_the_streamed_count_to_the_engine(
+        params, mode):
+    """The same moves between legacy replicas (``unified=False``)."""
+    _check_moved_count(params, mode, unified=False)
+
+
+def _check_moved_count(params, mode, unified):
     rng = np.random.RandomState(5)
     prompts = [rng.randint(1, CFG.vocab_size, (int(n),)).astype(np.int32)
                for n in (9, 14, 6, 11)]
-    oracle = _fleet_engine().serve(params, prompts)
+    oracle = _fleet_engine(unified=unified).serve(params, prompts)
     inj = FaultInjector()
-    handles = [ReplicaHandle(i, _fleet_engine(prefix_cache=True),
+    handles = [ReplicaHandle(i, _fleet_engine(prefix_cache=True,
+                                              unified=unified),
                              health_config=HealthConfig(eject_after=1))
                for i in range(2)]
     seen = _spy(handles)

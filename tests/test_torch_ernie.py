@@ -140,7 +140,7 @@ def test_five_adamw_steps_match_jax_eager():
                      weight_decay=0.01)
     step, _ = TE.build_mlm_train_step(TE.ernie_tiny(**CFG),
                                       learning_rate=1e-3, device="cpu")
-    topt = AdamW(net.named_parameters(), learning_rate=1e-3,
+    topt = AdamW(learning_rate=1e-3, parameters=net.named_parameters(),
                  weight_decay=0.01)
     for i in range(5):
         ids, seg, labels = _batch(seed=10 + i)
@@ -185,8 +185,9 @@ def test_adamw_master_weights_match_jax_multi_precision():
     opt = jopt.AdamW(learning_rate=1e-2, parameters=jp, weight_decay=0.01,
                      multi_precision=True)
     tp = [torch.nn.Parameter(_t(v).bfloat16()) for v in values]
-    topt = AdamW([(str(i), p) for i, p in enumerate(tp)],
-                 learning_rate=1e-2, weight_decay=0.01, multi_precision=True)
+    topt = AdamW(learning_rate=1e-2,
+                 parameters=[(str(i), p) for i, p in enumerate(tp)],
+                 weight_decay=0.01, multi_precision=True)
     for gs in grads:
         for p, t, g in zip(jp, tp, gs):
             p._grad_value = jnp.asarray(g, jnp.bfloat16)

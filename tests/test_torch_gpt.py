@@ -128,7 +128,7 @@ def test_adamw_steps_match_jax_eager():
     jm, tm = _pair(1, num_hidden_layers=1)
     h = tm.config.hidden_size
     jo = jopt.AdamW(learning_rate=LR, parameters=jm.parameters())
-    to = AdamW(tm.named_parameters(), learning_rate=LR)
+    to = AdamW(learning_rate=LR, parameters=tm.named_parameters())
     ids = _ids(2, (4, 16))
     labels = np.roll(ids, -1, axis=1).astype(np.int64)
     labels[:, -1] = -100

@@ -1471,7 +1471,7 @@ def test_ernie_train_step_on_card_matches_cpu(cuda):
                                             device="cpu")
         model, _ = init(seed=2)
         model.to(dev)
-        opt = E.AdamW(model.named_parameters(), learning_rate=1e-3)
+        opt = E.AdamW(learning_rate=1e-3, parameters=model.named_parameters())
         losses = [float(step(model, opt, *(t.to(dev) for t in batch)))
                   for _ in range(3)]
         runs.append((losses, {n: p.detach().cpu()
@@ -2003,9 +2003,10 @@ def test_two_replica_failover_on_card_against_single_engine(cuda, dtype,
 def test_legacy_two_replica_failover_on_card_against_single_engine(
         cuda, dtype, mode):
     """The same moves between legacy replicas (``unified=False``): the
-    destination's prefill wave runs the streamed tokens through the
-    flash forward (row 5), where the uninterrupted run decoded them one
-    by one through the paged decode kernel (row 4)."""
+    destination prefills only the given prompt (flash forward, row 5)
+    and forces the streamed tokens through its decode chunk one a step
+    (paged decode, row 4), as the uninterrupted run decoded them, so at
+    bf16 too the streams are equal bit for bit."""
     _check_moved_streams(cuda, dtype, mode, unified=False)
 
 
@@ -2122,3 +2123,194 @@ def test_gpt_on_card_matches_cpu(cuda):
         if gk is not None:
             assert gk.abs().max() < 1e-5 and wk.abs().max() < 1e-5, name
         rms_close(got, want, 1e-3, 1e-4, name)
+
+
+# ---------------------------------------------------------------------------
+# the training recipe's eager API: optimizers, clips, the loss scaler
+# ---------------------------------------------------------------------------
+
+_FAMILIES = {
+    "sgd": ("SGD", dict(weight_decay=0.01)),
+    "momentum": ("Momentum", dict(momentum=0.9, use_nesterov=True)),
+    "adam": ("Adam", dict(weight_decay=0.01)),
+    "adamw": ("AdamW", dict(weight_decay=0.01)),
+    "adamax": ("Adamax", dict(weight_decay=0.01)),
+    "lamb": ("Lamb", dict(lamb_weight_decay=0.01)),
+    "rmsprop": ("RMSProp", dict(centered=True, momentum=0.5)),
+    "adagrad": ("Adagrad", dict(initial_accumulator_value=0.1)),
+}
+_SHAPES = [(64, 48), (48,), (3, 5, 7), (1000,)]
+
+
+def _grad_seq(steps, seed=0):
+    rng = np.random.RandomState(seed)
+    return [[torch.from_numpy(rng.randn(*s).astype(np.float32))
+             for s in _SHAPES] for _ in range(steps)]
+
+
+def _twin(cls, kw, cuda, clip=None, dtype=torch.float32, **extra):
+    """The same optimizer over the same weights on the card and on the
+    CPU."""
+    from paddle_tpu_torch import optimizer as O
+    rng = np.random.RandomState(1)
+    vals = [torch.from_numpy((0.5 * rng.randn(*s)).astype(np.float32))
+            for s in _SHAPES]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ps = [(f"w{i}", torch.nn.Parameter(v.to(dev, dtype, copy=True)))
+              for i, v in enumerate(vals)]
+        out[dev.type] = (ps, getattr(O, cls)(
+            learning_rate=1e-2, parameters=ps,
+            grad_clip=None if clip is None else clip(), **kw, **extra))
+    return out
+
+
+def _drive_twin(twin, grads):
+    for gs in grads:
+        for ps, opt in twin.values():
+            for (_, p), g in zip(ps, gs):
+                p.grad = g.to(p.device, p.dtype)
+            opt.step()
+
+
+def _twin_close(twin, rtol=1e-4, atol=1e-5):
+    """Weights and every state slot, card against CPU (``CARD_CPU_TOL``'s
+    bound: the same gradients, so only the two devices' fp32 rounding of
+    a scalar division or a norm's sum differ)."""
+    (cps, copt), (hps, hopt) = twin["cuda"], twin["cpu"]
+    for (name, a), (_, b) in zip(cps, hps):
+        torch.testing.assert_close(a.detach().cpu().float(),
+                                   b.detach().float(), rtol=rtol, atol=atol,
+                                   msg=name)
+        assert set(copt.state[name]) == set(hopt.state[name])
+        for k, v in hopt.state[name].items():
+            torch.testing.assert_close(copt.state[name][k].cpu(), v,
+                                       rtol=rtol, atol=atol,
+                                       msg=f"{name}.{k}")
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_optimizer_family_on_card_matches_cpu(cuda, family):
+    """Five steps of each family from the same gradients (a cosine
+    schedule behind a warm-up, the global-norm clip): the card's weights
+    and state slots are the CPU's within ``CARD_CPU_TOL["out"]``."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.optimizer import lr as LR
+    from paddle_tpu_torch.testing import CARD_CPU_TOL
+    cls, kw = _FAMILIES[family]
+    twin = _twin(cls, kw, cuda, clip=lambda: O.ClipGradByGlobalNorm(1.0))
+    scheds = []
+    for _, opt in twin.values():
+        opt._learning_rate = LR.LinearWarmup(
+            LR.CosineAnnealingDecay(1e-2, 10), 2, 1e-3, 1e-2)
+        scheds.append(opt._learning_rate)
+    for gs in _grad_seq(5):
+        _drive_twin(twin, [gs])
+        for sc in scheds:
+            sc.step()
+    _twin_close(twin, *CARD_CPU_TOL["out"])
+
+
+@pytest.mark.parametrize("clip", ["value", "norm", "global_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip_classes_on_card_match_cpu(cuda, clip, dtype):
+    """Each clip class over the same gradients on the card and the CPU:
+    the clipped gradients agree to fp32 rounding (bf16: one rounding
+    step), a ``need_clip = False`` parameter passes through untouched,
+    and the global norm stays a 0-d tensor on the card (no host read)."""
+    from paddle_tpu_torch import optimizer as O
+    make = {"value": lambda: O.ClipGradByValue(0.5),
+            "norm": lambda: O.ClipGradByNorm(0.7),
+            "global_norm": lambda: O.ClipGradByGlobalNorm(1.5)}[clip]
+    grads = [3 * g for g in _grad_seq(1, seed=4)[0]]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ps = [torch.nn.Parameter(torch.zeros(g.shape, device=dev))
+              for g in grads]
+        ps[1].need_clip = False
+        pairs = [(p, g.to(dev, dtype)) for p, g in zip(ps, grads)]
+        got = make()(pairs)
+        assert got[1][1] is pairs[1][1]
+        out[dev.type] = [g for _, g in got]
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-6)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.cpu().float(), b.float(), **tol)
+    norm = O.ClipGradByGlobalNorm.global_norm(
+        [g.to(cuda) for g in grads])
+    assert norm.device.type == "cuda" and norm.dim() == 0
+
+
+def test_grad_scaler_skips_an_inf_step_bitwise_on_card(cuda):
+    """bf16 parameters, AdamW with fp32 masters, ``GradScaler``: a good
+    step, then one whose gradient holds an inf: no weight, master or
+    moment moves (bitwise), the step count stays, the scale halves, and
+    the scaler reads the card once a step."""
+    from paddle_tpu_torch import amp as A
+    twin = _twin("AdamW", dict(multi_precision=True), cuda,
+                 dtype=torch.bfloat16)
+    ps, opt = twin["cuda"]
+    scaler = A.GradScaler(init_loss_scaling=2.0 ** 8,
+                          decr_every_n_nan_or_inf=1)
+    for k, gs in enumerate(_grad_seq(2, seed=2)):
+        for (_, p), g in zip(ps, gs):
+            p.grad = (g * scaler.get_loss_scaling()).to(cuda, torch.bfloat16)
+        if k == 1:
+            ps[2][1].grad.view(-1)[4] = float("inf")
+            before = [p.detach().clone() for _, p in ps]
+            state = {n: {s: v.clone() for s, v in d.items()}
+                     for n, d in opt.state.items()}
+        scaler.step(opt)
+        scaler.update()
+    assert all(torch.equal(a, p.detach()) for a, (_, p) in zip(before, ps))
+    assert all(torch.equal(state[n][s], opt.state[n][s])
+               for n in state for s in state[n])
+    assert opt.step_count == 1 and scaler.get_loss_scaling() == 2.0 ** 7
+    assert scaler.host_reads == 2
+
+
+@pytest.mark.parametrize("family", ["adamw", "lamb", "momentum"])
+def test_state_dict_resume_on_card_is_bitwise(cuda, family):
+    """Three steps; the state (with a scheduler's) through host memory
+    into a fresh optimizer over fresh parameters on the card; two more
+    steps give the uninterrupted run's bits."""
+    from paddle_tpu_torch.optimizer import lr as LR
+    cls, kw = _FAMILIES[family]
+    grads = _grad_seq(5, seed=3)
+
+    def run(twin, grads):
+        ps, opt = twin["cuda"]
+        for gs in grads:
+            for (_, p), g in zip(ps, gs):
+                p.grad = g.to(cuda, p.dtype)
+            opt.step()
+            opt._learning_rate.step()
+        return ps, opt
+
+    def make():
+        twin = _twin(cls, dict(kw, multi_precision=cls != "Momentum"), cuda,
+                     dtype=torch.bfloat16 if cls != "Momentum"
+                     else torch.float32)
+        twin["cuda"][1]._learning_rate = LR.CosineAnnealingDecay(1e-2, 8)
+        return twin
+
+    ps, opt = run(make(), grads[:3])
+    saved = {k: (v.detach().to("cpu", copy=True)
+                 if isinstance(v, torch.Tensor) else v)
+             for k, v in opt.state_dict().items()}
+    weights = [p.detach().to("cpu", copy=True) for _, p in ps]
+    run({"cuda": (ps, opt)}, grads[3:])
+    twin2 = make()
+    ps2, opt2 = twin2["cuda"]
+    with torch.no_grad():
+        for (_, p), w in zip(ps2, weights):
+            p.copy_(w)
+    opt2.set_state_dict(saved)
+    run(twin2, grads[3:])
+    for (_, a), (_, b) in zip(ps, ps2):
+        assert torch.equal(a, b)
+    for name in opt.state:
+        for k, v in opt.state[name].items():
+            assert torch.equal(v, opt2.state[name][k]), (name, k)
+
