@@ -257,7 +257,31 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     from the head frame: ``ok``, no divergence, no leaked page, the
     launches checked against the micro-rounds, the wall against the
     original run's, builds and capture seconds; a copy with one flipped
-    token must diverge at that outcome frame.
+    token must diverge at that outcome frame;
+30. multi-host serving (right after phase 24, with phase 7's weights
+    still alive in this process): two spawned engine processes
+    (``chip_smoke:llama7b_host``, each building its own 7B weights from
+    the seed, the unified engine with the prefix cache and its CUDA
+    graph) behind a ``HostFleetRouter`` over ``PipeTransport``, the
+    memory reckoned first; ``hello`` must say ``bfloat16``, nvidia-smi
+    must list both processes holding at least their weights. (a) a
+    storm of 16 requests (64-512 prompt tokens, 128 new), its streams
+    equal to an in-process engine's on this process's weights, the
+    fleet's tokens/s and the router's host ms a step; (d) the
+    federation armed, one merged /metrics scraped from a DiagServer
+    (validator-clean, a ``host`` label per process, the scrape ms, clock
+    offsets and RTTs); (b) ``migrate_host`` mid-decode with the pages
+    (4 of the storm's prompts, 2 a host): continuations equal to the
+    storm's streams, pages imported and prefill tokens skipped on the
+    destination, no live page left, the migration's ms (its export and
+    import RPCs), bytes and bytes/s beside phase 24 (c)'s handoff; (c)
+    a real SIGKILL mid-decode (8 of the storm's prompts): the breaker
+    walks SUSPECT to EJECTED, the interrupted streams finish equal on
+    the survivor with no live page, the card frees the dead process's
+    weights; each process's
+    launches (counted in the process, read from its telemetry frames)
+    checked against its micro-rounds; the tear-down leaves no process
+    and the card within 0.1 GB of its level before the phase.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -271,6 +295,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -279,7 +304,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 29
+N_PHASES = 30
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -2788,6 +2813,485 @@ def fleet_released(torch, allocated0, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 30: multi-host serving — two Llama-2-7B engine processes
+# ---------------------------------------------------------------------------
+
+MH_REQUESTS = 16      # (a): the storm's requests, prompts of 64-512 tokens
+MH_NEW_TOKENS = 128
+MH_MIGRATE = 4        # (b): the drain's requests (a migration moves
+#                       ~200 MB a request at ~6 MB/s through the frames)
+MH_KILL = 8           # (c): the kill's requests
+#: the gauges each host process publishes after every engine step
+MH_GAUGE = re.compile(r'^(smoke_host_\w+)(?:\{host="h\d+"(?:,kernel="(\w+)")?'
+                      r'\}|\{kernel="(\w+)"\})? (\S+)$')
+
+
+def llama7b_host(seed: int = SEED, max_new_tokens: int = MH_NEW_TOKENS):
+    """Phase 30's host factory (``"chip_smoke:llama7b_host"``, run in a
+    spawned process): Llama-2-7B bf16 with its own seeded weights on the
+    card (the draw of phase 7's ``init_7b``), the unified engine with the
+    prefix cache (phase 24's geometry: 8 slots, page 16, 1024 positions,
+    256 tokens a step), its step captured as a CUDA graph by one short
+    warm request. The kernels' launch counters are zeroed after the warm
+    request; after every engine step the process publishes them, its
+    micro-rounds and its allocated bytes as registry gauges, which reach
+    the parent in the telemetry frames."""
+    import torch
+    from paddle_tpu_torch.inference import decoding as D
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.observability import get_registry
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    cfg = L.llama2_7b(dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=seed, device="cuda")
+    eng = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=max_new_tokens),
+        num_slots=8, page_size=16, max_seq_len=1024, chunk=8,
+        step_tokens=256, prefix_cache=True, device="cuda")
+    eng.serve(params, [np.arange(1, 17, dtype=np.int32)])
+    eng.cache.evict(eng.mgr.num_pages)
+    eng.mgr.check_conservation()
+    reg = get_registry()
+    g_launch = reg.gauge("smoke_host_kernel_launches",
+                         "kernel launches in this host since its warm-up",
+                         labels=("kernel",))
+    g_rounds = reg.gauge("smoke_host_micro_rounds",
+                         "engine micro-rounds since the warm-up")
+    g_alloc = reg.gauge("smoke_host_allocated_bytes",
+                        "device bytes this process holds")
+    g_weights = reg.gauge("smoke_host_weight_bytes",
+                          "device bytes of this host's weights")
+    g_weights.set(float(sum(t.nbytes for t in params.values())))
+    rn.rms_norm.launches = 0
+    _reset_ragged(pa)
+    rounds0 = eng.micro_rounds
+
+    def publish():
+        g_launch.set(float(rn.rms_norm.launches), kernel="rms_norm_fwd")
+        for k, v in _ragged_launches(pa).items():
+            g_launch.set(float(v), kernel=k)
+        g_rounds.set(float(eng.micro_rounds - rounds0))
+        g_alloc.set(float(torch.cuda.memory_allocated()))
+
+    real_step = eng.step
+
+    def step(p):
+        n = real_step(p)
+        publish()
+        return n
+    eng.step = step
+    publish()
+    return eng, params
+
+
+def _host_gauges(text):
+    """The ``smoke_host_*`` gauges of one host's exposition text:
+    ``{kernel: launches, ..., "smoke_host_micro_rounds": n, ...}``."""
+    out = {}
+    for line in text.splitlines():
+        m = MH_GAUGE.match(line)
+        if m:
+            out[m.group(2) or m.group(3) or m.group(1)] = float(m.group(4))
+    return out
+
+
+def _compute_apps():
+    """``nvidia-smi``'s compute processes as ``[(pid, used MiB)]``."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], check=True,
+                       capture_output=True, text=True, timeout=60)
+    apps = []
+    for line in r.stdout.strip().splitlines():
+        pid, mib = (s.strip() for s in line.split(","))
+        apps.append((int(pid), float(mib)))
+    return apps
+
+
+def _check_host_apps(apps, pids, weight_bytes):
+    """nvidia-smi must list both host processes, each holding at least
+    its weights. Where a PID namespace hides the pids (every process
+    reads as one pid, and each line then shows the card's total), it
+    must list this process and two more; each host's own allocated
+    bytes, from its telemetry, are checked in ``_host_launches``."""
+    held = {}
+    for pid, mib in apps:
+        held[pid] = max(held.get(pid, 0.0), mib)
+    if set(pids) <= set(held):
+        small = [p for p in pids if held[p] * 2**20 < weight_bytes]
+        if small:
+            raise AssertionError(f"nvidia-smi: hosts {small} hold under "
+                                 f"their weights ({apps})")
+        return "by pid"
+    big = [mib for _, mib in apps if mib * 2**20 >= weight_bytes]
+    if len(apps) < 3 or len(big) < 3:
+        raise AssertionError(f"nvidia-smi lists {apps}: not this process "
+                             "and two hosts holding their weights")
+    return "by count (pids hidden)"
+
+
+def _host_launches(torch, pa, hub, hid, n_layers):
+    """One host's launch counts from its last telemetry frame, checked
+    against the micro-rounds its engine ran (2L+1 RMSNorm launches and L
+    ragged calls a micro-round, as phase 24's)."""
+    m = hub.mirror(hid)
+    if m.frame is None:
+        raise AssertionError(f"no telemetry frame from host {hid}")
+    g = _host_gauges(m.frame["metrics_text"])
+    rounds = int(g["smoke_host_micro_rounds"])
+    got = {"rms_norm_fwd": int(g["rms_norm_fwd"]),
+           **{k: int(g[k]) for k in _ragged_want(torch, pa, 0)}}
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+            **_ragged_want(torch, pa, n_layers * rounds)}
+    if got != want or rounds <= 0:
+        raise AssertionError(f"host {hid} launches {got} != {want}")
+    if g["smoke_host_allocated_bytes"] < g["smoke_host_weight_bytes"]:
+        raise AssertionError(f"host {hid} holds "
+                             f"{g['smoke_host_allocated_bytes']} bytes, "
+                             "under its weights")
+    return dict(got, micro_rounds=rounds,
+                allocated_gb=g["smoke_host_allocated_bytes"] / 1e9)
+
+
+def _mid_decode(router, prompts, what):
+    """Submit ``prompts`` one a router step (so both hosts take some)
+    and step until every stream is mid-decode (16 tokens in, 16 to go);
+    returns the router requests."""
+    reqs = []
+    for _ in range(400):
+        if len(reqs) < len(prompts):
+            reqs.append(router.submit(prompts[len(reqs)]))
+        elif all(16 <= len(r.stream.tokens) < MH_NEW_TOKENS - 16
+                 for r in reqs):
+            if len({r.replica_id for r in reqs}) != 2:
+                raise AssertionError(f"{what} one host took every request")
+            return reqs
+        router.step(None)
+    raise AssertionError(f"{what} no mid-decode moment")
+
+
+def multihost_7b_phase(torch, L, D, pa, cfg, params, fleet):
+    """Phase 30: two spawned engine processes, each with its own 7B
+    weights, behind a ``HostFleetRouter`` over ``PipeTransport``: (a) a
+    storm, (d) the federation's one merged /metrics, (b) ``migrate_host``
+    with the pages, (c) a real SIGKILL mid-decode; then the tear-down."""
+    import urllib.request
+    import paddle_tpu_torch.serving as S
+    from paddle_tpu_torch.observability import DiagServer
+    from paddle_tpu_torch.observability.format import (
+        validate_exposition_text)
+    n_layers = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 30)
+    prompts = [rng.randint(1, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.randint(64, 513, size=MH_REQUESTS)]
+    out = {}
+
+    # the in-process reference: the children's engine on the parent's
+    # weights (the same seed's draw)
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=MH_NEW_TOKENS),
+        num_slots=8, page_size=16, max_seq_len=1024, chunk=8,
+        step_tokens=256, prefix_cache=True, device="cuda")
+    t0 = time.perf_counter()
+    inproc, _ = _serve_checked(eng, params, prompts, max_steps=1000)
+    inproc_s = time.perf_counter() - t0
+    engine_bytes = torch.cuda.max_memory_allocated() - alloc0
+    del eng
+    _free_card(torch)
+
+    # memory: the parent's weights stay (phases 8 and 20-22 need them)
+    weight_bytes = sum(t.nbytes for t in params.values())
+    free0, total = torch.cuda.mem_get_info()
+    parent_bytes = total - free0
+    context_bytes = 0.6e9            # a process's CUDA context, about
+    plan = parent_bytes + 2 * (weight_bytes + engine_bytes + context_bytes)
+    out["memory_plan_gb"] = dict(
+        card=total / 1e9, parent_in_use=parent_bytes / 1e9,
+        weights_per_host=weight_bytes / 1e9,
+        engine_per_host=engine_bytes / 1e9,
+        context_per_host=context_bytes / 1e9, total=plan / 1e9)
+    print("  phase 30 memory plan (GB):", json.dumps(out["memory_plan_gb"]),
+          flush=True)
+    if plan > 0.95 * total:
+        raise AssertionError(f"two 7B hosts need {plan / 1e9:.1f} GB of "
+                             f"the card's {total / 1e9:.1f}")
+
+    # -- the two host processes --------------------------------------------
+    t0 = time.perf_counter()
+    transports = [S.PipeTransport("chip_smoke:llama7b_host",
+                                  {"seed": SEED}, host_id=i)
+                  for i in range(2)]
+    hosts = []
+    router = None
+    try:
+        hosts = [S.HostHandle(i, S.HostEndpoint(tr, timeout_s=600.0),
+                              health_config=S.HealthConfig(
+                                  probe_cooldown_s=1e9))
+                 for i, tr in enumerate(transports)]
+        start_s = time.perf_counter() - t0
+        pids = [tr._proc.pid for tr in transports]
+        if any(h.engine.kv_dtype != "bfloat16" or not
+               h.engine.has_prefix_cache for h in hosts):
+            raise AssertionError("hello: " + str(
+                [vars(h.engine) for h in hosts]))
+        apps = _compute_apps()
+        free1 = torch.cuda.mem_get_info()[0]
+        out["hosts"] = dict(
+            start_s=start_s, pids=pids, kv_dtype=hosts[0].engine.kv_dtype,
+            page_nbytes=hosts[0].engine.page_nbytes,
+            usable_pages=hosts[0].engine.mgr.usable_pages,
+            compute_apps_mib=apps,
+            compute_apps_check=_check_host_apps(apps, pids, weight_bytes),
+            free_drop_gb=(free0 - free1) / 1e9)
+        if free0 - free1 < 2 * weight_bytes:
+            raise AssertionError(f"the hosts took {(free0 - free1) / 1e9:.1f}"
+                                 f" GB of the card, under two 7B weights")
+        router = S.HostFleetRouter(hosts, config=S.RouterConfig())
+        hub = router.federation
+
+        # -- (a) the storm: the fault-free reference streams ---------------
+        # one submit a router step: each host's heartbeat reports its
+        # load before the next request is routed (a host's load is what
+        # its last step reply said)
+        log = {}
+        reqs = []
+        todo = iter(prompts)
+
+        def submit_next():
+            p = next(todo, None)
+            if p is not None:
+                reqs.append(_submit_timed(router, p, log))
+        t0 = time.perf_counter()
+        submit_next()
+        walls, host_ms = _timed_router_steps(router, None, hosts,
+                                             max_steps=2000,
+                                             before_step=submit_next)
+        wall_a = time.perf_counter() - t0
+        if any(r.state != "done" or len(r.stream.tokens) != MH_NEW_TOKENS
+               for r in reqs):
+            raise AssertionError(f"(a) states {[r.state for r in reqs]}")
+        storm = [list(r.stream.tokens) for r in reqs]
+        share, eq, n = _equal_share(list(zip(storm, inproc)))
+        if share != 1.0:
+            raise AssertionError(f"(a) {eq} of {n} tokens equal to the "
+                                 "in-process engine's")
+        generated = MH_NEW_TOKENS * len(reqs)
+        out["a_storm"] = dict(
+            requests=len(reqs),
+            requests_per_host={str(k): sum(r.replica_id == k for r in reqs)
+                               for k in range(2)},
+            router_steps=len(walls), serve_s=wall_a,
+            generated_tokens=generated, tokens_per_s=generated / wall_a,
+            phase24_in_process_fleet_tokens_per_s=fleet["a_routed"][
+                "tokens_per_s"],
+            in_process_engine_s=inproc_s,
+            in_process_engine_tokens_per_s=generated / inproc_s,
+            mean_router_step_ms=float(np.mean(walls)),
+            router_host_ms=dict(mean=float(np.mean(host_ms)),
+                                median=float(np.median(host_ms)),
+                                max=max(host_ms)),
+            phase24_router_host_ms=fleet["a_routed"]["router_host_ms"],
+            latency=_latency(log), equal_to_in_process=share,
+            equal_tokens=[eq, n])
+
+        # -- (d) federation: one merged /metrics ----------------------------
+        hub.arm()
+        router.step(None)           # a beat from each host
+        launches_a = {str(h): _host_launches(torch, pa, hub, h, n_layers)
+                      for h in range(2)}
+        srv = DiagServer()
+        srv.attach_federation(hub)
+        srv.start()
+        try:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(srv.url + "/metrics",
+                                        timeout=60) as resp:
+                text = resp.read().decode()
+            scrape_ms = (time.perf_counter() - t0) * 1e3
+            with urllib.request.urlopen(srv.url + "/statusz",
+                                        timeout=60) as resp:
+                fed = json.loads(resp.read())["federation"]
+        finally:
+            srv.stop()
+        validate_exposition_text(text)
+        for h in range(2):
+            needle = (f'smoke_host_kernel_launches{{host="h{h}",'
+                      f'kernel="rms_norm_fwd"}}')
+            if needle not in text or f'{{host="h{h}"' not in text:
+                raise AssertionError(f"/metrics has no series of host h{h}")
+        clocks = {k: v["clock"] for k, v in fed["hosts"].items()}
+        out["d_federation"] = dict(
+            scrape_ms=scrape_ms, bytes=len(text),
+            families=text.count("# TYPE "),
+            hosts=sorted(fed["hosts"]),
+            reconcile_error_ms=fed["reconcile_error_ms"],
+            clock_offset_ms={k: c["offset_ms"] for k, c in clocks.items()},
+            rtt_ms={k: dict(p50=c["rtt_p50_ms"], p90=c["rtt_p90_ms"],
+                            samples=c["samples"])
+                    for k, c in clocks.items()},
+            launches_after_a=launches_a)
+
+        # -- (b) migrate_host: drain host 0 with its pages ------------------
+        sub = list(range(MH_MIGRATE))
+        src = 0
+        dst = 1
+        reqs = _mid_decode(router, [prompts[i] for i in sub], "(b)")
+        moved = [i for i, r in zip(sub, reqs) if r.replica_id == src]
+        at_move = {i: len(r.stream.tokens) for i, r in zip(sub, reqs)}
+        skipped0 = hosts[dst].statusz()["host"]["prefix_cache"][
+            "cached_tokens"]
+        # each request's two RPCs timed in the parent: the export (the
+        # source's page reads and frame, the pipe, the parent's decode)
+        # and the import (the parent's frame, the pipe, the
+        # destination's decode and page writes)
+        rpc_s = {"export_flight": [], "import_prefix": []}
+        for h, name in ((hosts[src], "export_flight"),
+                        (hosts[dst], "import_prefix")):
+            def timed(*a, _f=getattr(h, name), _l=rpc_s[name]):
+                t = time.perf_counter()
+                try:
+                    return _f(*a)
+                finally:
+                    _l.append(time.perf_counter() - t)
+            setattr(h, name, timed)
+        t0 = time.perf_counter()
+        try:
+            summary = router.migrate_host(src, dst)
+        finally:
+            del hosts[src].export_flight, hosts[dst].import_prefix
+        mig_wall = time.perf_counter() - t0
+        entries = router.multihost_snapshot()["migrations"][
+            -summary["requests"] - summary["failed"]:]
+        steps = 0
+        while router.pending:
+            router.step(None)
+            steps += 1
+            if steps > 2000:
+                raise AssertionError("(b) did not finish")
+        if (summary["failed"] or summary["requests"] != len(moved)
+                or summary["pages"] <= 0
+                or any(r.state != "done" for r in reqs)):
+            raise AssertionError(f"(b) {summary}")
+        share_b, eq_b, n_b = _equal_share(
+            [(r.stream.tokens, storm[i]) for i, r in zip(sub, reqs)])
+        if share_b != 1.0:
+            raise AssertionError(f"(b) {eq_b} of {n_b} tokens equal to the "
+                                 "storm's")
+        st = [h.statusz()["host"] for h in hosts]
+        skipped = st[dst]["prefix_cache"]["cached_tokens"] - skipped0
+        imported = sum(e["imported_pages"] for e in entries)
+        if imported <= 0 or skipped <= 0:
+            raise AssertionError(f"(b) imported {imported} pages, skipped "
+                                 f"{skipped} prefill tokens")
+        if any(s["pages"]["live"] for s in st):
+            raise AssertionError(f"(b) live pages {[s['pages'] for s in st]}")
+        secs = [e["seconds"] for e in entries]
+        c = fleet["c_disagg"]
+        out["b_migrate"] = dict(
+            src=src, dst=dst, requests=summary["requests"],
+            streamed_at_move=[at_move[i] for i in moved],
+            pages=summary["pages"], bytes=summary["bytes"],
+            imported_pages=imported,
+            skipped_pages=summary["skipped_pages"],
+            prefill_tokens_skipped=skipped,
+            migration_ms=_pct([s * 1e3 for s in secs]),
+            migration_ms_per_request=[s * 1e3 for s in secs],
+            bytes_per_request=[e["bytes"] for e in entries],
+            export_rpc_ms=[t * 1e3 for t in rpc_s["export_flight"]],
+            import_rpc_ms=[t * 1e3 for t in rpc_s["import_prefix"]],
+            bytes_per_s=summary["bytes"] / sum(secs),
+            drain_wall_s=mig_wall,
+            phase24_handoff_ms=c["handoff_ms"],
+            phase24_handoff_bytes_per_s=c["handoff_bytes_per_s"],
+            equal_to_storm=share_b, equal_tokens=[eq_b, n_b],
+            live_pages=[s["pages"]["live"] for s in st])
+        router.undrain(src)
+
+        # -- (c) host_die: a real SIGKILL mid-decode ------------------------
+        victim, survivor = 1, 0
+        sub = list(range(MH_KILL))
+        reqs = _mid_decode(router, [prompts[i] for i in sub], "(c)")
+        steps = 0
+        interrupted = [i for i, r in zip(sub, reqs)
+                       if r.replica_id == victim]
+        victim_launches = _host_launches(torch, pa, hub, victim, n_layers)
+        fo0 = sum(r.failovers for r in reqs)
+        free_kill = torch.cuda.mem_get_info()[0]
+        t_kill = time.perf_counter()
+        hosts[victim].kill()                  # SIGKILL of the process
+        walk, t_eject, t_freed, rise = [], None, None, 0
+        while router.pending:
+            router.step(None)
+            state = hosts[victim].health.state
+            if not walk or walk[-1] != state:
+                walk.append(state)
+            if t_eject is None and state == "ejected":
+                t_eject = time.perf_counter() - t_kill
+            rise = torch.cuda.mem_get_info()[0] - free_kill
+            if t_freed is None and rise >= weight_bytes:
+                t_freed = time.perf_counter() - t_kill
+            steps += 1
+            if steps > 3000:
+                raise AssertionError("(c) did not finish")
+        while t_freed is None and time.perf_counter() - t_kill < 10.0:
+            time.sleep(0.05)
+            rise = torch.cuda.mem_get_info()[0] - free_kill
+            if rise >= weight_bytes:
+                t_freed = time.perf_counter() - t_kill
+        if walk[:1] != ["suspect"] or walk[-1] != "ejected":
+            raise AssertionError(f"(c) health walk {walk}")
+        if t_freed is None:
+            raise AssertionError(f"(c) the card freed {rise / 1e9:.1f} GB "
+                                 "after the kill")
+        if any(r.state != "done" for r in reqs):
+            raise AssertionError(f"(c) states {[r.state for r in reqs]}")
+        share_c, eq_c, n_c = _equal_share(
+            [(r.stream.tokens, storm[i]) for i, r in zip(sub, reqs)])
+        if share_c != 1.0:
+            raise AssertionError(f"(c) {eq_c} of {n_c} tokens equal to the "
+                                 "storm's")
+        st_s = hosts[survivor].statusz()["host"]
+        if st_s["pages"]["live"]:
+            raise AssertionError(f"(c) survivor pages {st_s['pages']}")
+        router.step(None)             # a last beat from the survivor
+        survivor_launches = _host_launches(torch, pa, hub, survivor,
+                                           n_layers)
+        out["c_host_die"] = dict(
+            victim=victim, interrupted=len(interrupted),
+            health_walk=walk, kill_to_ejected_s=t_eject,
+            kill_to_weights_freed_s=t_freed, freed_gb=rise / 1e9,
+            failovers=sum(r.failovers for r in reqs) - fo0,
+            equal_to_storm=share_c, equal_tokens=[eq_c, n_c],
+            survivor_live_pages=st_s["pages"]["live"])
+        out["launches"] = {
+            "rms_norm_fwd": victim_launches["rms_norm_fwd"]
+            + survivor_launches["rms_norm_fwd"],
+            "ragged_paged_attention":
+                victim_launches["ragged_paged_attention"]
+                + survivor_launches["ragged_paged_attention"],
+            "per_host": {str(victim): victim_launches,
+                         str(survivor): survivor_launches}}
+        hub.disarm()
+    finally:
+        # -- tear-down ----------------------------------------------------
+        if router is not None:
+            router.close()
+        for tr in transports:
+            tr.close()
+    alive = [tr._proc.is_alive() for tr in transports]
+    free_end = torch.cuda.mem_get_info()[0]
+    out["teardown"] = dict(alive=alive,
+                           card_vs_before_gb=(free0 - free_end) / 1e9)
+    if any(alive):
+        raise AssertionError(f"host processes survived: {alive}")
+    if abs(free0 - free_end) > 0.1e9:
+        raise AssertionError(f"the card is {(free0 - free_end) / 1e9:.2f} "
+                             "GB from its level before the hosts")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the RMSNorm backward kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -4970,8 +5474,8 @@ def replay_7b_phase(torch, rn, pa, bundles, original):
     built = []
     real = R.rebuild_fleet
 
-    def keep(head, clock, injector, device=None):
-        out = real(head, clock, injector, device)
+    def keep(head, clock, injector, *, device=None):
+        out = real(head, clock, injector, device=device)
         built.append(out)
         return out
 
@@ -5148,6 +5652,9 @@ def main() -> int:
     fleet_released(torch, allocated0, fleet)
     done(24, f"Llama-2-7B bf16 serving fleet (router, chaos, roles, "
          f"sensors) on {card}", fleet)
+    hosts = multihost_7b_phase(torch, L, D, pa, cfg7b, params7b, fleet)
+    done(30, f"two Llama-2-7B bf16 engine processes (HostFleetRouter: "
+         f"storm, federation, migrate_host, host_die) on {card}", hosts)
     legacy = legacy_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b, serve)
     done(8, f"Llama-2-7B bf16 legacy serve and prefix-cache wave on {card}",
          legacy)
@@ -5238,7 +5745,8 @@ def main() -> int:
              + cold["launches"]["rms_norm_fwd"] + mixed["rms_norm_fwd"]
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
-             + rl["rms_norm_fwd"] + pl["rms_norm_fwd"],
+             + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
+             + hosts["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -5252,7 +5760,8 @@ def main() -> int:
              + cold["launches"]["ragged_paged_attention"]
              + mixed["ragged_paged_attention"]
              + specl["ragged_paged_attention"]
-             + pl["ragged_paged_attention"],
+             + pl["ragged_paged_attention"]
+             + hosts["launches"]["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),

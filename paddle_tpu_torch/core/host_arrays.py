@@ -28,8 +28,11 @@ _DTYPE_NAMES = {"torch.bfloat16": "bfloat16", "torch.float32": "float32",
 
 def dtype_name(dtype) -> str:
     """The numpy-style name of a torch dtype (``torch.bfloat16`` ->
+    ``"bfloat16"``) or of a host array's dtype (:data:`BFLOAT16` ->
     ``"bfloat16"``), as the JAX package's ``str(array.dtype)`` spells
     it."""
+    if isinstance(dtype, np.dtype):
+        return "bfloat16" if dtype == BFLOAT16 else str(dtype)
     key = str(dtype)
     if key not in _DTYPE_NAMES:
         raise ValueError(f"no wire name for dtype {key}")

@@ -20,8 +20,9 @@ class MixPrecisionLayer:
     every parameter's gradient into its fp32 ``main_grad`` and clears
     the gradient."""
 
-    def __init__(self, layers):
+    def __init__(self, layers, dtype: str = "bfloat16"):
         self._layers = layers
+        self._dtype = dtype
 
     def __getattr__(self, item):
         return getattr(self._layers, item)

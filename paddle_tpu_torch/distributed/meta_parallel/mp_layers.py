@@ -4,10 +4,10 @@ degree 1, the one-device case: ``ColumnParallelLinear``,
 ``RowParallelLinear`` and ``VocabParallelEmbedding`` with the
 reference's ``(in, out)`` / ``(vocab, emb)`` weights, parameter names
 and initialisers (Xavier-uniform weights, zero biases, normal(0, 0.02)
-embeddings). At degree 1 the reference's ``gather_output`` and
-``input_is_parallel`` change nothing (its GSPMD mode), so the port has
-neither. An mp group (degree > 1) comes with the distributed slice of
-the port and raises.
+embeddings). At degree 1 the reference's ``gather_output``,
+``input_is_parallel`` and ``fuse_matmul_bias`` change nothing (its GSPMD
+mode): the port takes them and does the same. An mp group (degree > 1)
+and a ``ParamAttr`` come with later slices of the port and raise.
 
 Weights are drawn when a layer is built (torch's default generator;
 ``nn.common_layers.init_layers`` redraws a model seeded), on ``device``:
@@ -21,6 +21,7 @@ from torch import nn
 
 from ...nn import functional as F
 from ...nn import initializer as I
+from ...nn.common_layers import param_attr
 from ...ops._common import not_ported, resolve_device
 
 
@@ -30,13 +31,12 @@ def _one_device(mp_group):
                          "distributed")
 
 
-class ColumnParallelLinear(nn.Module):
-    """Weight (in, out); at mp degree > 1 it would be split on out."""
-
-    def __init__(self, in_features, out_features, has_bias=True,
-                 mp_group=None, dtype=torch.float32, device=None):
+class _ParallelLinear(nn.Module):
+    def __init__(self, in_features, out_features, weight_attr, has_bias,
+                 mp_group, dtype, device):
         super().__init__()
         _one_device(mp_group)
+        param_attr(weight_attr, type(self).__name__)
         kw = dict(dtype=dtype, device=resolve_device(device))
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
                                                **kw))
@@ -53,18 +53,40 @@ class ColumnParallelLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class RowParallelLinear(ColumnParallelLinear):
+class ColumnParallelLinear(_ParallelLinear):
+    """Weight (in, out); at mp degree > 1 it would be split on out."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=True, fuse_matmul_bias=False,
+                 mp_group=None, name=None, *, dtype=torch.float32,
+                 device=None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         mp_group, dtype, device)
+        self.gather_output = gather_output
+
+
+class RowParallelLinear(_ParallelLinear):
     """Weight (in, out); at mp degree > 1 it would be split on in."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False,
+                 fuse_matmul_bias=False, mp_group=None, name=None, *,
+                 dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         mp_group, dtype, device)
+        self.input_is_parallel = input_is_parallel
 
 
 class VocabParallelEmbedding(nn.Module):
     """Weight (vocab, emb); at mp degree > 1 it would be split on
     vocab."""
 
-    def __init__(self, num_embeddings, embedding_dim, mp_group=None,
-                 dtype=torch.float32, device=None):
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 mp_group=None, name=None, *, dtype=torch.float32,
+                 device=None):
         super().__init__()
         _one_device(mp_group)
+        param_attr(weight_attr, "VocabParallelEmbedding")
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, dtype=dtype,
             device=resolve_device(device)))

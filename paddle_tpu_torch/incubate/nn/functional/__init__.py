@@ -74,7 +74,8 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
                                            ln_scale=None, ln_bias=None,
                                            dropout_rate=0.5, ln_epsilon=1e-5,
                                            training=True,
-                                           mode="upscale_in_train"):
+                                           mode="upscale_in_train",
+                                           name=None):
     """``LayerNorm(dropout(x + bias) + residual)`` (l.90), the reference's
     argument names and defaults, the LayerNorm in fp32
     (``ops.fused_transformer_block.layer_norm_array``). Inference
@@ -89,13 +90,14 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
     return ftb.layer_norm_array(y + residual, ln_scale, ln_bias, ln_epsilon)
 
 
-def fused_linear(x, weight, bias=None, transpose_weight=False):
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
     """``fused_matmul_bias`` with ``transpose_y=transpose_weight``
     (l.136): one product plus the bias."""
     return fused_matmul_bias(x, weight, bias, transpose_y=transpose_weight)
 
 
-def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False):
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
+                      name=None):
     """``matmul(x, y) + bias`` (l.143); a transpose swaps the last two
     dims only (Paddle's matmul for batched inputs)."""
     a = x.transpose(-1, -2) if transpose_x else x

@@ -79,9 +79,12 @@ class FusedMultiTransformer(nn.Module):
     )
 
     def __init__(self, embed_dim, num_heads, dim_feedforward,
-                 activation="gelu", normalize_before=True, epsilon=1e-5,
-                 num_layers=1, dtype=torch.float32, device=None):
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 epsilon=1e-5, num_layers=1, name=None, *,
+                 dtype=torch.float32, device=None):
         super().__init__()
+        # stored and not applied, as in the reference (l.82)
+        self.dropout_rate = dropout_rate
         if not normalize_before:
             raise NotImplementedError(
                 "post-LN fused stack not supported (reference default is "
@@ -139,8 +142,9 @@ class FusedMultiHeadAttention(nn.Module):
     """Self-attention block with residual; pre-LN by default
     (``normalize_before``), post-LN otherwise."""
 
-    def __init__(self, embed_dim, num_heads, normalize_before=True,
-                 epsilon=1e-5, dtype=torch.float32, device=None):
+    def __init__(self, embed_dim, num_heads, dropout_rate=0.0,
+                 attn_dropout_rate=0.0, normalize_before=True, epsilon=1e-5,
+                 name=None, *, dtype=torch.float32, device=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("num_heads must divide embed_dim")
@@ -194,9 +198,9 @@ class FusedFeedForward(nn.Module):
     default, post-LN otherwise. The activations are the reference's
     ``_ACTS`` (``gelu`` is the tanh approximation)."""
 
-    def __init__(self, d_model, dim_feedforward, activation="relu",
-                 normalize_before=True, epsilon=1e-5, dtype=torch.float32,
-                 device=None):
+    def __init__(self, d_model, dim_feedforward, dropout_rate=0.0,
+                 activation="relu", normalize_before=True, epsilon=1e-5,
+                 name=None, *, dtype=torch.float32, device=None):
         super().__init__()
         self.activation = activation
         self.normalize_before = normalize_before

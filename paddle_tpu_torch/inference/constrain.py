@@ -444,7 +444,7 @@ class GrammarArena:
     the engine's programs never see a new tensor. State ``-1`` opts a row
     out of masking."""
 
-    def __init__(self, vocab_size: int, capacity_states: int = 64,
+    def __init__(self, vocab_size: int, capacity_states: int = 64, *,
                  device=None):
         self.vocab_size = int(vocab_size)
         self.capacity = max(int(capacity_states), 1)

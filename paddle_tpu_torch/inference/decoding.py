@@ -300,7 +300,8 @@ class GenerationEngine(_Programs):
 
     def __init__(self, prefill: Callable, decode_step: Callable,
                  init_cache: Callable,
-                 config: Optional[GenerationConfig] = None, device=None):
+                 config: Optional[GenerationConfig] = None, *,
+                 device=None):
         self._prefill = prefill
         self._decode = decode_step
         self._init_cache = init_cache
@@ -380,7 +381,7 @@ class GenerationEngine(_Programs):
 
 def llama_engine(config: L.LlamaConfig,
                  generation_config: Optional[GenerationConfig] = None,
-                 device=None) -> GenerationEngine:
+                 *, device=None) -> GenerationEngine:
     """``GenerationEngine`` over the stacked-param Llama family
     (``models.llama.prefill_stacked``, ``decode_step_stacked``,
     ``init_kv_cache``)."""
@@ -413,7 +414,7 @@ class PagedGenerationEngine(_Programs):
     def __init__(self, model_config: L.LlamaConfig,
                  generation_config: Optional[GenerationConfig] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 device=None):
+                 *, device=None):
         self.model_config = model_config
         self.config = generation_config or GenerationConfig()
         self.page_size = page_size
@@ -528,8 +529,11 @@ class ContinuousBatchingEngine(_Programs):
     streams a whole list through. The serving layer's hooks:
     ``token_callback``, ``finish_callback``, ``num_free_slots``,
     ``num_queued``, ``num_chips`` (1) and ``mesh`` (None).
-    ``device=None`` means the card (raises without one); the CPU runs
-    only when asked for with ``device="cpu"``.
+    The parameters are the reference's, in its order; ``mesh`` other
+    than None (multi-chip serving) and ``fused_tail=True`` raise.
+    ``device`` is the port's, keyword-only: ``None`` means the card
+    (raises without one); the CPU runs only when asked for with
+    ``device="cpu"``.
 
     Compiled programs (module docstring): the JAX engine's jit takes the
     params as an argument and never rebuilds for new weights; a CUDA
@@ -545,11 +549,13 @@ class ContinuousBatchingEngine(_Programs):
                  generation_config: Optional[GenerationConfig] = None,
                  num_slots: int = 8, page_size: int = 16,
                  max_seq_len: int = 2048, num_pages: Optional[int] = None,
-                 chunk: int = 16, step_tokens: Optional[int] = None,
-                 device=None, *, prefix_cache: bool = False,
-                 unified: bool = True, speculative: bool = False,
-                 spec_k: int = 4, drafter=None, grammar_states: int = 0,
-                 fused_tail: bool = False, mesh=None):
+                 chunk: int = 16, prefix_cache: bool = False,
+                 check_invariants: bool = True, unified: bool = True,
+                 step_tokens: Optional[int] = None,
+                 speculative: bool = False, spec_k: int = 4,
+                 drafter=None, fused_tail: bool = False,
+                 mesh=None, mp_axis: str = "mp",
+                 grammar_states: int = 0, *, device=None):
         if fused_tail:
             raise _later("fused_tail=True", "fusion")
         if mesh is not None:
@@ -584,8 +590,11 @@ class ContinuousBatchingEngine(_Programs):
             self.mgr = PagedKVCacheManager(*geo, dtype=mcfg.dtype,
                                            device=self.device)
         # the page books are audited after every step that can move them:
-        # with the cache, and with speculation (growth and rollback)
-        self._check_invariants = prefix_cache or speculative
+        # with the cache, and with speculation (growth and rollback). The
+        # audit is O(pool) host work a step; ``check_invariants=False``
+        # opts out, as in the reference (l.453)
+        self._check_invariants = check_invariants and (prefix_cache
+                                                       or speculative)
         # packed token budget per micro-round (unified pipeline)
         self._step_tokens = max(step_tokens or
                                 max(num_slots, chunk, page_size), num_slots)
@@ -614,7 +623,7 @@ class ContinuousBatchingEngine(_Programs):
         self._rng = prng.prng_key(self.config.seed)
         # per-row sampling state (inference/sampling.py): (seeds, temps,
         # top_k, top_p), written in place at admission; greedy defaults
-        self._samp_dev = _sampling.init_row_state(num_slots, self.device)
+        self._samp_dev = _sampling.init_row_state(num_slots, device=self.device)
         # per-row grammar DFA state; -1 = unconstrained (mask is a no-op)
         self._gstate_dev = torch.full((num_slots,), -1, dtype=torch.int32,
                                       device=self.device)
@@ -1029,9 +1038,8 @@ class ContinuousBatchingEngine(_Programs):
                 self._queue.insert(0, req)
             raise
         for req, lp, n_cached, n_shared, cow_src in recorded:
-            self.cache.record(n_cached, cow=cow_src is not None,
-                              request_id=req.rid, prompt_len=lp,
-                              shared_pages=n_shared, trace_id=req.trace_id)
+            self.cache.record(req.rid, lp, n_cached, n_shared,
+                              cow_src is not None, trace_id=req.trace_id)
         return picked
 
     def _admit_window(self, picked, recorded):

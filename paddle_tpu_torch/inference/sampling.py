@@ -113,7 +113,7 @@ def greedy_config() -> SamplerConfig:
     return SamplerConfig(temperature=0.0, seed=0)
 
 
-def init_row_state(num_rows: int, device=None) -> Tuple[torch.Tensor, ...]:
+def init_row_state(num_rows: int, *, device=None) -> Tuple[torch.Tensor, ...]:
     """The per-row device tensors of one engine, in tuple order: seeds
     (int64 holding uint32), temperatures (fp32), top-k (int32), top-p
     (fp32). Greedy defaults."""

@@ -106,12 +106,11 @@ class DraftModel(Drafter):
 class SpeculationTelemetry:
     """Registry families and host mirror of one engine's speculation
     (``stats``: rounds, drafted, accepted, rejected, rollbacks, rollback
-    pages). The families' ``replica`` label is ``"0"``: the port serves
-    one engine (the fleet tier that stamps replica ids is not ported)."""
+    pages). ``replica`` is the families' label value (``ReplicaHandle``
+    stamps its replica id so the fleet view can tell engines apart)."""
 
-    replica = "0"
-
-    def __init__(self):
+    def __init__(self, replica: str = "0"):
+        self.replica = str(replica)
         self.stats: Dict[str, int] = {
             "rounds": 0, "drafted": 0, "accepted": 0, "rejected": 0,
             "rollbacks": 0, "rollback_pages": 0,

@@ -104,9 +104,8 @@ class PrefixCache:
         touching LRU or stats."""
         return self._capped_match(prompt, touch=False)
 
-    def record(self, cached_tokens: int, cow: bool, *, request_id=None,
-               prompt_len: int = 0, shared_pages: int = 0,
-               trace_id: str = "") -> None:
+    def record(self, request_id, prompt_len: int, cached_tokens: int,
+               shared_pages: int, cow: bool, trace_id: str = "") -> None:
         """Account one ADMITTED request's lookup outcome (counters, and a
         ``cache_hit`` event for a hit)."""
         if cow:

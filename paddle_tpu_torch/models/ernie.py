@@ -32,6 +32,7 @@ flash forward, dQ and dK/dV (``ops/flash_attention.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as TF
@@ -71,7 +72,7 @@ def ernie_tiny(**over) -> ErnieConfig:
 
 
 class ErnieEmbeddings(nn.Module):
-    def __init__(self, config: ErnieConfig, dtype, device):
+    def __init__(self, config: ErnieConfig, *, dtype, device):
         super().__init__()
         h = config.hidden_size
 
@@ -106,7 +107,7 @@ class ErnieEmbeddings(nn.Module):
 class ErnieEncoderLayer(nn.Module):
     """Post-LN encoder block over the fused attention and FFN layers."""
 
-    def __init__(self, config: ErnieConfig, dtype, device):
+    def __init__(self, config: ErnieConfig, *, dtype, device):
         super().__init__()
         self.self_attn = FusedMultiHeadAttention(
             config.hidden_size, config.num_attention_heads,
@@ -124,7 +125,7 @@ class ErnieEncoderLayer(nn.Module):
 
 
 class ErniePooler(nn.Module):
-    def __init__(self, config: ErnieConfig, dtype, device):
+    def __init__(self, config: ErnieConfig, *, dtype, device):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size,
                             dtype=dtype, device=device)
@@ -152,16 +153,16 @@ def packed_position_ids(segment_ids):
 
 
 class ErnieModel(nn.Module):
-    def __init__(self, config: ErnieConfig, dtype=torch.float32,
+    def __init__(self, config: ErnieConfig, *, dtype=torch.float32,
                  device=None):
         super().__init__()
         self.config = config
         device = resolve_device(device)
-        self.embeddings = ErnieEmbeddings(config, dtype, device)
+        self.embeddings = ErnieEmbeddings(config, dtype=dtype, device=device)
         self.encoder = nn.ModuleList(
-            [ErnieEncoderLayer(config, dtype, device)
+            [ErnieEncoderLayer(config, dtype=dtype, device=device)
              for _ in range(config.num_hidden_layers)])
-        self.pooler = ErniePooler(config, dtype, device)
+        self.pooler = ErniePooler(config, dtype=dtype, device=device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 segment_ids=None):
@@ -188,10 +189,11 @@ class ErnieModel(nn.Module):
 
 class ErnieForSequenceClassification(nn.Module):
     def __init__(self, config: ErnieConfig, num_classes: int = 2,
-                 dtype=torch.float32, device=None):
+                 dropout: Optional[float] = None, *, dtype=torch.float32,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
-        self.ernie = ErnieModel(config, dtype, device)
+        self.ernie = ErnieModel(config, dtype=dtype, device=device)
         self.classifier = Linear(config.hidden_size, num_classes,
                                  dtype=dtype, device=device)
 
@@ -204,12 +206,12 @@ class ErnieForMaskedLM(nn.Module):
     """MLM head tied to the word embedding: ``LN(gelu(h @ W + b)) @
     word_embeddingsᵀ + bias``, with the exact (erf) GELU."""
 
-    def __init__(self, config: ErnieConfig, dtype=torch.float32,
+    def __init__(self, config: ErnieConfig, *, dtype=torch.float32,
                  device=None):
         super().__init__()
         self.config = config
         device = resolve_device(device)
-        self.ernie = ErnieModel(config, dtype, device)
+        self.ernie = ErnieModel(config, dtype=dtype, device=device)
         self.transform = Linear(config.hidden_size, config.hidden_size,
                                 dtype=dtype, device=device)
         self.transform_ln = LayerNorm(config.hidden_size,

@@ -57,7 +57,8 @@ def gpt_tiny(**over) -> GPTConfig:
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, config: GPTConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: GPTConfig, *, dtype=torch.float32,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=resolve_device(device))
         h = config.hidden_size
@@ -85,11 +86,12 @@ class GPTEmbeddings(nn.Module):
 class GPTModel(nn.Module):
     """Embeddings → fused decoder stack → final LN."""
 
-    def __init__(self, config: GPTConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: GPTConfig, *, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.config = config
         device = resolve_device(device)
-        self.embeddings = GPTEmbeddings(config, dtype, device)
+        self.embeddings = GPTEmbeddings(config, dtype=dtype, device=device)
         self.decoder = FusedMultiTransformer(
             config.hidden_size, config.num_attention_heads,
             config.intermediate_size, activation=config.activation,
@@ -115,10 +117,11 @@ class GPTForCausalLM(nn.Module):
     """LM head tied to the word embedding (the reference's pretraining
     head)."""
 
-    def __init__(self, config: GPTConfig, dtype=torch.float32, device=None):
+    def __init__(self, config: GPTConfig, *, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.config = config
-        self.gpt = GPTModel(config, dtype, device)
+        self.gpt = GPTModel(config, dtype=dtype, device=device)
 
     def forward(self, input_ids, caches=None, time_step=None,
                 gen_cache_len=None):

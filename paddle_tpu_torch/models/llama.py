@@ -177,7 +177,8 @@ def _check_dense(params) -> None:
 @torch.no_grad()
 def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
                 k_pages, v_pages, block_tables, config: LlamaConfig,
-                logits_epilogue=None, decoding=None):
+                mesh=None, mp_axis: str = "mp", logits_epilogue=None, *,
+                decoding=None):
     """One forward over a RAGGED packed token batch — the unified model
     step behind the engine's serving loop (``llama.ragged_step``).
 
@@ -206,8 +207,11 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     Returns (logits (C, V), k_pages, v_pages).
 
     The port updates the pools IN PLACE (the returned pools are the
-    arguments) where the JAX function returns new arrays.
+    arguments) where the JAX function returns new arrays. A ``mesh``
+    (tensor-parallel serving) comes with multi-chip serving and raises.
     """
+    if mesh is not None:
+        raise _later("ragged_step(mesh=)", "multi-chip")
     _check_dense(params)
     t = ids.shape[0]
     d = config.head_dim
@@ -449,7 +453,7 @@ def decode_step_paged(params, tok, positions, k_pages, v_pages, block_tables,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
-                  device=None) -> Dict[str, torch.Tensor]:
+                  *, device=None) -> Dict[str, torch.Tensor]:
     """Contiguous per-layer KV cache ``{"k", "v"}``, each zeros of shape
     (L, B, S_max, nkv, d) in ``dtype`` (default the config's) on
     ``device``. The paged cache of the serving engines is
@@ -616,14 +620,15 @@ def _token_ce(logits, labels):
     return -picked.mean()
 
 
-def forward_stacked(params, ids, config: LlamaConfig, remat: bool = False):
+def forward_stacked(params, ids, config: LlamaConfig, *,
+                    remat: bool = False):
     """Single-device forward over the stacked layout → logits (B, S, V).
     ``remat``: each layer is a checkpoint (see :func:`_hidden`)."""
     _check_dense(params)
     return _hidden(params, ids, config, remat=remat) @ params["lm_head"]
 
 
-def loss_stacked(params, ids, labels, config: LlamaConfig,
+def loss_stacked(params, ids, labels, config: LlamaConfig, *,
                  remat: bool = False):
     """Mean token cross-entropy of :func:`forward_stacked`'s logits,
     taken in fp32."""
@@ -754,7 +759,7 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
 # ---------------------------------------------------------------------------
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         h, d = config.hidden_size, config.head_dim
@@ -777,7 +782,7 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         kw = dict(has_bias=False, dtype=config.dtype, device=device)
@@ -790,14 +795,14 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         kw = dict(epsilon=config.rms_norm_eps, dtype=config.dtype,
                   device=device)
         self.input_layernorm = RMSNorm(config.hidden_size, **kw)
-        self.self_attn = LlamaAttention(config, device)
+        self.self_attn = LlamaAttention(config, device=device)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, **kw)
-        self.mlp = LlamaMLP(config, device)
+        self.mlp = LlamaMLP(config, device=device)
 
     def forward(self, x, cos, sin):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin)
@@ -805,13 +810,13 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, dtype=config.dtype,
             device=device)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, device)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(config, device=device)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             dtype=config.dtype, device=device)
@@ -834,10 +839,10 @@ class LlamaForCausalLM(nn.Module):
     With ``tie_word_embeddings`` the logits are ``h @ embedᵀ`` (l.181)
     and there is no ``lm_head``."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
-        self.llama = LlamaModel(config, device)
+        self.llama = LlamaModel(config, device=device)
         self.lm_head = None if config.tie_word_embeddings else \
             ColumnParallelLinear(config.hidden_size, config.vocab_size,
                                  has_bias=False, dtype=config.dtype,

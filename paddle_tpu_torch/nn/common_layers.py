@@ -16,44 +16,69 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops._common import resolve_device
+from ..ops._common import not_ported, resolve_device
 from . import functional as F
 from . import initializer as I
 
 
+def param_attr(attr, layer: str) -> bool:
+    """Whether a layer makes the parameter of a ``weight_attr`` /
+    ``bias_attr`` (the reference's ``create_parameter``): ``None`` makes
+    it, ``False`` leaves it out. A ``ParamAttr`` (initializer, learning
+    rate, regularizer) comes with the eager API and raises."""
+    if attr is None:
+        return True
+    if attr is False:
+        return False
+    raise not_ported(f"{layer} with a ParamAttr", "eager API")
+
+
+def _maybe(make: bool, shape, kw):
+    return nn.Parameter(torch.empty(shape, **kw)) if make else None
+
+
 class Linear(nn.Module):
-    def __init__(self, in_features, out_features, dtype=torch.float32,
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, dtype=torch.float32,
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=resolve_device(device))
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               **kw))
-        self.bias = nn.Parameter(torch.empty(out_features, **kw))
+        self.weight = _maybe(param_attr(weight_attr, "Linear"),
+                             (in_features, out_features), kw)
+        self.bias = _maybe(param_attr(bias_attr, "Linear"),
+                           (out_features,), kw)
         self.reset_parameters()
 
     def reset_parameters(self, gen=None):
-        I.xavier_uniform_(self.weight, gen)
-        I.constant_(self.bias, 0.0)
+        if self.weight is not None:
+            I.xavier_uniform_(self.weight, gen)
+        if self.bias is not None:
+            I.constant_(self.bias, 0.0)
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-5, dtype=torch.float32,
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, dtype=torch.float32,
                  device=None):
         super().__init__()
         self._shape = ((normalized_shape,) if isinstance(normalized_shape, int)
                        else tuple(normalized_shape))
         self._epsilon = epsilon
         kw = dict(dtype=dtype, device=resolve_device(device))
-        self.weight = nn.Parameter(torch.empty(self._shape, **kw))
-        self.bias = nn.Parameter(torch.empty(self._shape, **kw))
+        self.weight = _maybe(param_attr(weight_attr, "LayerNorm"),
+                             self._shape, kw)
+        self.bias = _maybe(param_attr(bias_attr, "LayerNorm"),
+                           self._shape, kw)
         self.reset_parameters()
 
     def reset_parameters(self, gen=None):
-        I.constant_(self.weight, 1.0)
-        I.constant_(self.bias, 0.0)
+        if self.weight is not None:
+            I.constant_(self.weight, 1.0)
+        if self.bias is not None:
+            I.constant_(self.bias, 0.0)
 
     def forward(self, x):
         return F.layer_norm(x, self._shape, self.weight, self.bias,
@@ -63,16 +88,18 @@ class LayerNorm(nn.Module):
 class RMSNorm(nn.Module):
     """Llama's RMSNorm (l.236): a scale initialised to ones."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, dtype=torch.float32,
-                 device=None):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, dtype=torch.float32, device=None):
         super().__init__()
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.empty(
-            hidden_size, dtype=dtype, device=resolve_device(device)))
+        self.weight = _maybe(param_attr(weight_attr, "RMSNorm"),
+                             (hidden_size,),
+                             dict(dtype=dtype, device=resolve_device(device)))
         self.reset_parameters()
 
     def reset_parameters(self, gen=None):
-        I.constant_(self.weight, 1.0)
+        if self.weight is not None:
+            I.constant_(self.weight, 1.0)
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)

@@ -26,9 +26,12 @@ Ported, with the JAX package's code and names:
   ``/healthz``, ``/statusz``, ``/tracez``, ``/varz``, ``/scalez``,
   ``/journalz``, ``/memz``, ``/debugz``);
 * :mod:`.replay` — postmortem replay of a bundle's journal
-  (``python -m paddle_tpu_torch.observability.replay <bundle>``).
+  (``python -m paddle_tpu_torch.observability.replay <bundle>``);
+* :mod:`.federation` — fleet-wide telemetry federation: per-host
+  mirrors fed by the engine processes' heartbeats, clock-offset
+  estimation, one merged ``/metrics`` document.
 
-Not yet ported: ``profiling`` and ``federation``.
+Not yet ported: ``profiling``.
 """
 
 from . import format  # noqa: F401
@@ -36,6 +39,10 @@ from .anomaly import (  # noqa: F401
     AnomalyMonitor, CusumDetector, RobustZScoreDetector, robust_zscore,
 )
 from .events import EventLog, configure_event_log, emit_event, event_log  # noqa: F401
+from .federation import (  # noqa: F401
+    ClockSync, FederationHub, HostTelemetryMirror, collect_telemetry,
+    federation_armed, merge_expositions,
+)
 from .flight import FlightRecorder, flight_recorder  # noqa: F401
 from .goodput import GoodputTracker, StragglerDetector  # noqa: F401
 from .journal import (  # noqa: F401
@@ -80,6 +87,8 @@ __all__ = [
     "GoodputTracker", "StragglerDetector", "DiagServer", "SignalBus",
     "SignalSnapshot", "SIGNAL_SNAPSHOT_VERSION", "AnomalyMonitor",
     "RobustZScoreDetector", "CusumDetector", "robust_zscore",
+    "ClockSync", "FederationHub", "HostTelemetryMirror",
+    "collect_telemetry", "federation_armed", "merge_expositions",
     "ReplayClock", "ReplayRefused", "ReplayReport", "replay_bundle",
     "replay_journal",
 ]

@@ -123,7 +123,7 @@ class ReplayClock:
 
 # -- reconstruction ----------------------------------------------------------
 
-def rebuild_model(head: Dict[str, Any], device=None):
+def rebuild_model(head: Dict[str, Any], *, device=None):
     """(cfg, params) from the head frame's ``model_spec``: the dtype
     resolved from its name, the weights ``init_params`` draws from the
     journaled seed on ``device``."""
@@ -163,7 +163,7 @@ def rebuild_injector(frames: List[Dict[str, Any]]):
     return FaultInjector(schedule=sched) if sched else None
 
 
-def rebuild_fleet(head: Dict[str, Any], clock: ReplayClock, injector,
+def rebuild_fleet(head: Dict[str, Any], clock: ReplayClock, injector, *,
                   device=None):
     """The fleet from the head frame's ``journal_topology``, its engines
     on ``device``."""
@@ -181,7 +181,7 @@ def rebuild_fleet(head: Dict[str, Any], clock: ReplayClock, injector,
     specs = fleet.get("replicas") or []
     if not specs:
         raise ReplayRefused("topology", "head frame names no replicas")
-    cfg, params = rebuild_model(head, device)
+    cfg, params = rebuild_model(head, device=device)
     replicas = []
     for spec in specs:
         e = spec.get("engine") or {}
@@ -256,7 +256,7 @@ def _refuse_unreplayable(decoded: DecodedJournal) -> None:
 
 
 def replay_journal(decoded: DecodedJournal, bundle: str = "<journal>",
-                   device=None) -> ReplayReport:
+                   *, device=None) -> ReplayReport:
     """Re-execute a decoded journal on ``device`` (None: the card); see
     the module docstring for the verification contract."""
     report = ReplayReport(bundle=bundle, ok=False)
@@ -265,7 +265,7 @@ def replay_journal(decoded: DecodedJournal, bundle: str = "<journal>",
         clock = ReplayClock()
         injector = rebuild_injector(decoded.frames)
         cfg, params, router, replicas = rebuild_fleet(
-            decoded.head, clock, injector, device)
+            decoded.head, clock, injector, device=device)
     except ReplayRefused as e:
         report.refused = e.as_dict()
         return report
@@ -331,7 +331,7 @@ def replay_journal(decoded: DecodedJournal, bundle: str = "<journal>",
     return report
 
 
-def replay_bundle(path: str, device=None) -> ReplayReport:
+def replay_bundle(path: str, *, device=None) -> ReplayReport:
     """Validate + replay one debug-bundle tarball on ``device`` (None:
     the card)."""
     from .flight import BundleError, validate_bundle

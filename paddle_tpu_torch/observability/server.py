@@ -42,9 +42,6 @@ route      serves
            signal snapshot it decided on
 ========== ==============================================================
 
-Telemetry federation (``attach_federation``) is not ported yet: it comes
-with multi-host serving and raises ``NotImplementedError``.
-
 Providers are callables returning JSON-able data, registered with
 :meth:`DiagServer.add_statusz` or via the ``attach_*`` conveniences.
 Handlers never let a torn provider kill the scrape: a provider raising
@@ -69,7 +66,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
-from ..ops._common import not_ported
 from .flight import flight_recorder
 from .journal import journal
 from .memory import memory_ledger
@@ -165,9 +161,9 @@ class DiagServer:
         (mirror freshness, clock offsets, reconcile error) joins
         /statusz. The per-host + fleet-aggregate signals reach /varz by
         also calling ``hub.attach_fleet_signals(bus)`` on the attached
-        SignalBus. Not ported yet: raises ``NotImplementedError``."""
-        raise not_ported("DiagServer.attach_federation (telemetry "
-                         "federation)", "multi-host serving")
+        SignalBus."""
+        self._federation = hub
+        self.add_statusz("federation", hub.fleet_varz)
 
     # -- derived health -----------------------------------------------------
 

@@ -467,7 +467,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def flash_attention_bhsd(q, k, v, scale, causal, kv_rep: int = 1):
+def flash_attention_bhsd(q, k, v, scale, causal, *, kv_rep: int = 1):
     """(BH, S, D) flash attention, differentiable. ``sq != sk`` with
     ``causal`` is end-aligned (row i attends cols <= i + sk − sq), as in
     the JAX package. ``kv_rep`` > 1: k/v carry BH / kv_rep rows (GQA)."""

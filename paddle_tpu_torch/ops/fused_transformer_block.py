@@ -211,7 +211,7 @@ def fused_multi_transformer_array(
 
 
 def init_stacked_block_params(num_layers, hidden, ffn_hidden, seed=0,
-                              dtype=torch.float32, device=None):
+                              dtype=torch.float32, *, device=None):
     """The stacked parameter dict of the reference's convenience init
     (l.254): the same numpy draws (``RandomState(seed)``, normal 0.02),
     so fp32 weights are the reference's bits."""

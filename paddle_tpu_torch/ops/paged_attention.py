@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ._common import (check_cuda_tensor, count_launches, load_cuda_library,
-                      resolve_device, sm_count)
+                      not_ported, resolve_device, sm_count)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
@@ -394,11 +394,14 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
                            positions, kv_lens, scale: Optional[float] = None,
-                           decoding=None):
+                           mesh=None, mp_axis: str = "mp", *, decoding=None):
     """CPU tensors: the plain version (a token's result does not depend
     on its route there; ``decoding`` is unused). CUDA tensors: the CUDA
     kernels, which need ``decoding``
-    (:func:`ragged_paged_attention_kernel`)."""
+    (:func:`ragged_paged_attention_kernel`). A ``mesh`` (the reference's
+    head-sharded wrapper) comes with multi-chip serving and raises."""
+    if mesh is not None:
+        raise not_ported("ragged_paged_attention(mesh=)", "multi-chip")
     if q.is_cuda:
         return ragged_paged_attention_kernel(
             q, k_pages, v_pages, block_tables, token_row, positions,
@@ -647,7 +650,7 @@ class PagedKVCacheManager:
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 device=None):
+                 *, device=None):
         self.page_size = page_size
         self.num_pages = num_pages
         self.device = resolve_device(device)

@@ -256,13 +256,14 @@ def _rms_norm_fwd(x, w, eps):
     return rms_norm_plain(x, w, eps)
 
 
-def rms_norm(x, w, eps: float = 1e-6):
-    """RMSNorm over the last axis, differentiable in ``x`` and ``w``.
-    CPU tensors take the plain versions; CUDA tensors launch the Triton
-    kernels. Under ``no_grad`` (serving) it is one forward launch."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return RMSNormFunction.apply(x, w, eps)
-    return _rms_norm_fwd(x, w, eps)
+def rms_norm(x, weight, epsilon: float = 1e-6):
+    """RMSNorm over the last axis, differentiable in ``x`` and
+    ``weight``. CPU tensors take the plain versions; CUDA tensors launch
+    the Triton kernels. Under ``no_grad`` (serving) it is one forward
+    launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return RMSNormFunction.apply(x, weight, epsilon)
+    return _rms_norm_fwd(x, weight, epsilon)
 
 
 #: kernel launches since the last reset (the plain version never counts)

@@ -19,7 +19,7 @@ def _rotate_half(x):
 
 def build_rope_cache(seq_len: int, head_dim: int, base: float = 10000.0,
                      dtype=torch.float32, position_offset: int = 0,
-                     device=None):
+                     *, device=None):
     """(cos, sin), each (seq_len, head_dim), computed in fp32."""
     dev = resolve_device(device)
     inv_freq = 1.0 / (base ** (torch.arange(0, head_dim, 2,

@@ -8,7 +8,9 @@ prefix-aware router over N engine replicas with circuit-breaker failure
 detection, graceful drain and mid-stream failover (:mod:`.router`,
 :mod:`.replica`, :mod:`.health`), disaggregated prefill/decode roles
 with a wire-framed KV page handoff (:mod:`.roles`, :mod:`.wire`) and a
-signal-driven autoscaler (:mod:`.autoscale`).
+signal-driven autoscaler (:mod:`.autoscale`); and the host tier —
+engine processes behind one router, with page migration between them
+and telemetry federation (:mod:`.multihost`).
 
 Quick start::
 
@@ -26,7 +28,7 @@ Quick start::
     tokens = handle.stream.result()
     print(sched.metrics.to_prometheus_text())
 
-Not yet ported: ``elastic`` (mesh resize) and ``multihost``.
+Not yet ported: ``elastic`` (mesh resize).
 """
 
 from .autoscale import (  # noqa: F401
@@ -37,6 +39,10 @@ from .health import (  # noqa: F401
     HealthConfig, HealthTracker, ReplicaState,
 )
 from .metrics import Histogram, ServingMetrics  # noqa: F401
+from .multihost import (  # noqa: F401
+    HostEndpoint, HostFault, HostFleetRouter, HostHandle, HostServer,
+    LocalTransport, PipeTransport, RemoteRequest,
+)
 from .replica import ReplicaFault, ReplicaHandle  # noqa: F401
 from .roles import DisaggRouter, ReplicaRole  # noqa: F401
 from .router import FleetRouter, RouterConfig, RouterRequest  # noqa: F401
@@ -54,6 +60,8 @@ __all__ = [
     "ServingRequest", "ServingScheduler", "ServingError", "TokenStream",
     "HealthConfig", "HealthTracker", "ReplicaState", "ReplicaFault",
     "ReplicaHandle", "FleetRouter", "RouterConfig", "RouterRequest",
+    "HostEndpoint", "HostFault", "HostFleetRouter", "HostHandle",
+    "HostServer", "LocalTransport", "PipeTransport", "RemoteRequest",
     "WIRE_VERSION", "WireError", "encode_message", "decode_message",
     "encode_pages", "decode_pages",
     "DisaggRouter", "ReplicaRole", "AutoscaleConfig", "AutoscaleController",

@@ -149,9 +149,6 @@ class ServingRequest:
     grammar_prefix: Any = None            # already-emitted tokens to
     # pre-advance the grammar through (failover continuations: the
     # streamed tokens became prompt, so the DFA must resume mid-string)
-    decoded: int = 0                      # trailing prompt tokens that were
-    # generated (a continuation): the engine prefills them on the route
-    # they were decoded on (ContinuousBatchingEngine.submit)
     token_checksum: Optional[int] = None  # crc32 of the engine-retired
     # tokens, stamped at finish — the journal's engine-side twin of the
     # router's stream checksum (a mismatch localizes divergence to the
@@ -164,6 +161,10 @@ class ServingRequest:
     _key: tuple = field(default=(), repr=False)        # (priority, seq)
     _no_shed: bool = field(default=False, repr=False)  # remediation: never
     # a queue-cap/SLO shed victim (deadlines still apply)
+    #: the port's extra, keyword-only: trailing prompt tokens that were
+    #: generated (a continuation); the engine prefills them on the route
+    #: they were decoded on (ContinuousBatchingEngine.submit)
+    decoded: int = field(default=0, kw_only=True)
 
     @property
     def done(self) -> bool:

@@ -2314,3 +2314,80 @@ def test_state_dict_resume_on_card_is_bitwise(cuda, family):
         for k, v in opt.state[name].items():
             assert torch.equal(v, opt2.state[name][k]), (name, k)
 
+
+
+# ---------------------------------------------------------------------------
+# multi-host serving on the card
+# ---------------------------------------------------------------------------
+
+def test_spawned_host_on_card_matches_in_process_engine(cuda):
+    """A host process spawned by ``PipeTransport`` builds the default
+    host on the card (one head of 64: the kernels' head dims are 64 and
+    128): its ``hello`` describes the in-process engine of the same
+    factory, and its greedy tokens equal that engine's."""
+    from paddle_tpu_torch import serving as S
+    from paddle_tpu_torch.serving.multihost import llama_tiny_host
+    kw = {"max_new_tokens": 8, "max_seq_len": 48, "device": "cuda",
+          "num_attention_heads": 1}
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 256, (int(n),)).astype(np.int32)
+               for n in (5, 9, 13)]
+    eng, params = llama_tiny_host(**kw)
+    want = eng.serve(params, prompts)
+    h = S.HostHandle(0, S.HostEndpoint(S.PipeTransport(factory_kwargs=kw),
+                                       timeout_s=300.0))
+    try:
+        f = h.engine
+        assert (f.kv_dtype, f.page_size, f.max_seq_len, f.page_nbytes,
+                f.mgr.usable_pages, f.has_prefix_cache) == (
+            "float32", eng.page_size, eng.max_seq_len, eng.mgr.page_nbytes,
+            eng.mgr.usable_pages, True)
+        mirrors = [h.submit(p) for p in prompts]
+        for _ in range(200):
+            if all(m.done for m in mirrors):
+                break
+            h.step(None)
+        assert [m.state for m in mirrors] == ["done"] * 3
+        assert [list(m.stream.tokens) for m in mirrors] == want
+    finally:
+        h.close()
+    assert not h.endpoint.transport.alive()
+
+
+def test_host_export_import_of_bf16_pages_is_bitwise_on_card(cuda):
+    """``export_flight`` at one host and ``import_prefix`` at another
+    move bf16 KV pages through the wire frames bit for bit, tagged
+    ``bfloat16``."""
+    from paddle_tpu_torch import serving as S
+    cfg = L.llama_tiny(num_hidden_layers=2, num_attention_heads=1,
+                       num_key_value_heads=1, dtype=torch.bfloat16)
+    params = L.init_params(cfg, seed=4, device=cuda)
+    servers, hosts = [], []
+    for i in range(2):
+        eng = D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=12), num_slots=2,
+            page_size=4, max_seq_len=48, chunk=2, prefix_cache=True,
+            device=cuda)
+        servers.append(S.HostServer(eng, params, host_id=i))
+        hosts.append(S.HostHandle(i, S.HostEndpoint(
+            S.LocalTransport(servers[-1]))))
+    assert hosts[0].engine.kv_dtype == "bfloat16"
+    mirror = hosts[0].submit(np.arange(1, 20, dtype=np.int32))
+    for _ in range(4):
+        hosts[0].step(None)
+    tokens, ks, vs = hosts[0].export_flight(mirror)
+    assert ks and len(ks) == len(vs)
+    src = servers[0].engine
+    erid = servers[0]._reqs[mirror.rid].engine_rid
+    src_pages = src.mgr.sequence_pages(erid)[:len(ks)]
+    got = hosts[1].import_prefix(tokens, ks, vs)
+    assert got["imported_pages"] == len(ks)
+    dst = servers[1].engine
+    dst.mgr.check_conservation()
+    dst_pages = [n.page for n in dst.cache.tree.match(tokens, touch=False)]
+    assert len(dst_pages) == len(ks)
+    for a, b in zip(src_pages, dst_pages):
+        for pool in ("k_pages", "v_pages"):
+            pa_ = getattr(src.mgr, pool)[:, a].view(torch.int16)
+            pb_ = getattr(dst.mgr, pool)[:, b].view(torch.int16)
+            assert torch.equal(pa_, pb_)

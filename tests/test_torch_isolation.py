@@ -18,8 +18,10 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 
 
 def _port_sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("*_torch.py")))
     assert len(files) >= 10
+    assert REPO / "scripts" / "multihost_serve_smoke_torch.py" in files
     return files
 
 
@@ -113,3 +115,52 @@ def test_chip_smoke_fails_alone(tmp_path):
 def _cuda_available():
     import torch
     return torch.cuda.is_available()
+
+
+def probe_host(**kw):
+    """A spawned host's factory (``"test_torch_isolation:probe_host"``):
+    the port's default host on the CPU, refusing to build, and failing
+    every engine step, while the process holds a module of JAX or of the
+    JAX package."""
+    from paddle_tpu_torch.serving.multihost import llama_tiny_host
+
+    def check():
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in FORBIDDEN)
+        if bad:
+            raise ImportError(f"the host process imported {bad[:5]}")
+    check()
+    eng, params = llama_tiny_host(device="cpu", **kw)
+    real_step = eng.step
+
+    def step(p):
+        out = real_step(p)
+        check()
+        return out
+    eng.step = step
+    check()
+    return eng, params
+
+
+def test_a_spawned_host_imports_no_jax():
+    """A host process spawned by ``PipeTransport`` (the parent here has
+    JAX loaded) builds and serves a request with no module of JAX or of
+    the JAX package in its ``sys.modules``."""
+    import numpy as np
+    from paddle_tpu_torch.serving import (HostEndpoint, HostHandle,
+                                          PipeTransport)
+    tr = PipeTransport("test_torch_isolation:probe_host",
+                       {"max_new_tokens": 4}, host_id=0)
+    h = HostHandle(0, HostEndpoint(tr, timeout_s=60.0))
+    try:
+        mirror = h.submit(np.arange(1, 8, dtype=np.int32))
+        deadline = 100
+        while not mirror.done:
+            h.step(None)
+            deadline -= 1
+            assert deadline > 0
+        assert mirror.state == "done", mirror.stream.error
+        assert len(mirror.stream.tokens) == 4
+    finally:
+        h.close()
+    assert not tr.alive()

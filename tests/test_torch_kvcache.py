@@ -180,9 +180,9 @@ def test_stats_gauges_and_statusz():
     mgr = _mgr(num_pages=12, page_size=4)
     cache = PrefixCache(mgr)
     cache.insert(list(range(8)), mgr.allocate("a", 8))
-    cache.record(8, cow=False)
-    cache.record(0, cow=False)
-    cache.record(7, cow=True)
+    cache.record(0, 8, 8, 2, False)
+    cache.record(1, 8, 0, 0, False)
+    cache.record(2, 8, 7, 1, True)
     cache.update_gauges()
     assert cache.gauges == {"free": 9, "live": 2, "cached": 0}
     snap = cache.snapshot()

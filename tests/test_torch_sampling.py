@@ -150,7 +150,7 @@ def test_sampler_config_resolved_and_row_state():
     r = c.resolved(1234)
     assert r.seed == 1234 and r.temperature == 0.7
     assert TS.SamplerConfig(seed=9).resolved(1234).seed == 9
-    samp = TS.init_row_state(3, "cpu")
+    samp = TS.init_row_state(3, device="cpu")
     TS.set_row(samp, 1, TS.SamplerConfig(temperature=0.5, top_k=3,
                                          top_p=0.8, seed=2**32 - 1))
     assert int(samp[0][1]) == 2**32 - 1 and int(samp[2][1]) == 3
@@ -275,7 +275,7 @@ def test_spec_greedy_rows_prefix_match():
     R, V, k = 2, 6, 2
     lg = np.full((R, k + 1, V), -5.0, np.float32)
     lg[:, 0, 3] = lg[:, 1, 1] = lg[:, 2, 4] = 5.0  # argmax path 3,1,4
-    samp = TS.init_row_state(R, "cpu")              # greedy defaults
+    samp = TS.init_row_state(R, device="cpu")              # greedy defaults
     gst = torch.full((R,), -1, dtype=torch.int32)
     toks, acc, _ = TS.spec_sample_rows(
         _t(lg), _t(np.asarray([[3, 1], [3, 2]], np.int32)),

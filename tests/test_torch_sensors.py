@@ -580,7 +580,8 @@ def test_every_route_answers_with_the_reference_keys(clean_plane):
     """GET every route of a fleet-attached DiagServer in both stacks:
     each answers 200 with the same top-level keys; /scalez and /varz
     carry equal documents (same fleet, same clock), and
-    ``attach_federation`` raises in the port."""
+    ``attach_federation`` mounts the fleet view on /statusz as the
+    reference's does."""
     docs = {}
     for name, st in STACKS.items():
         srv, env, ctl, _ = _fleet_server(st)
@@ -607,5 +608,10 @@ def test_every_route_answers_with_the_reference_keys(clean_plane):
     for fam in ("paddle_router_requests_total", "paddle_handoff_pages_total",
                 "paddle_router_replica_role", "paddle_signal_value"):
         assert f"# TYPE {fam}" in t["/metrics"]
-    with pytest.raises(NotImplementedError, match="federation"):
-        TO.DiagServer().attach_federation(object())
+    views = {}
+    for name, O in (("jax", JO), ("torch", TO)):
+        srv = O.DiagServer()
+        srv.attach_federation(O.FederationHub())
+        views[name] = srv.statusz()["federation"]
+    assert views["torch"] == views["jax"]
+    assert set(views["torch"]) == {"armed", "reconcile_error_ms", "hosts"}
