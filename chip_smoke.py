@@ -282,6 +282,24 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     launches (counted in the process, read from its telemetry frames)
     checked against its micro-rounds; the tear-down leaves no process
     and the card within 0.1 GB of its level before the phase.
+31. the Paddle-shaped eager Tensor surface (right after phase 12): (a)
+    ``scripts/eager_llama_step.py`` (``paddle.to_tensor``, Parameters,
+    ``paddle.matmul``, ``F.embedding``, ``F.rms_norm``, the incubate
+    rotary embedding, causal SDPA, ``F.silu``, ``F.cross_entropy``,
+    ``backward``, ``ClipGradByGlobalNorm`` and AdamW) at tiny widths on
+    the card against the CPU, fp32 (TF32 off) and under ``auto_cast``
+    O1 bf16, loss and every gradient within ``EAGER_CARD_CPU_TOL``; the
+    training ``fused_bias_dropout_residual_layer_norm`` with the same
+    mask on both devices; the tensor checker and the ``checkify_wrap``
+    counterpart naming the op. (b) the same script at Llama-2-7B widths
+    with 8 layers (phase 12's cut), fp32 Parameters under O1, a (1,
+    2048) batch: 1 warm and 3 timed steps with rows 1, 2, 5 and 6
+    launched 2L+1, 2L+1, L and L times a step, the loss falling, matmul
+    and flash inputs bf16 and RMSNorm fp32 at the dispatcher, step 1's
+    loss against ``forward_stacked`` on the bf16 weights; the step wall,
+    tokens/s, device ms by kind, idle share, ops a step, the
+    dispatcher's µs per op disarmed and armed, and peak memory beside
+    phase 12's step.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -304,7 +322,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 30
+N_PHASES = 31
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -5552,6 +5570,297 @@ def replay_7b_phase(torch, rn, pa, bundles, original):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the Paddle-shaped eager Tensor surface, tiny parity and 7B widths
+# ---------------------------------------------------------------------------
+
+EAGER_TINY = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2)
+
+
+def _eager_batch(vocab, b, s, seed=SEED):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (b, s)).astype(np.int64)
+    return ids, np.roll(ids, -1, axis=-1)
+
+
+def _eager_grads(params):
+    return {k: p.grad._value.float().cpu() for k, p in params.items()}
+
+
+def eager_parity_phase(torch, L, ln):
+    """(a) scripts/eager_llama_step.py at tiny widths (2 heads of d 64
+    per KV head, S 100: no tile multiple) on the card against the CPU,
+    fp32 (TF32 off) and under ``auto_cast`` O1 bf16: loss and every
+    gradient within ``EAGER_CARD_CPU_TOL``; the training
+    ``fused_bias_dropout_residual_layer_norm``'s mask equal on both
+    devices for one seed and its output within ``LN_TOL``; the tensor
+    checker stopping at an injected inf and naming the op; the
+    ``checkify_wrap`` counterpart naming the ATen op inside a function."""
+    from scripts import eager_llama_step as E
+    from paddle_tpu_torch import random as R
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.amp import debugging as dbg
+
+    S = E.surface("paddle_tpu_torch")
+    P = S.paddle
+    cfg = L.llama_tiny(**EAGER_TINY)
+    d = cfg.hidden_size // cfg.num_attention_heads
+    stacked = {k: v.numpy() for k, v in
+               L.init_params(cfg, SEED, device="cpu").items()}
+    for k in ("ln1", "ln2", "ln_f"):       # norms off one, so dw is seen
+        stacked[k] = stacked[k] + 0.1 * np.random.RandomState(SEED).randn(
+            *stacked[k].shape).astype(np.float32)
+    ids, labels = _eager_batch(cfg.vocab_size, 2, 100)
+    report = {}
+    try:
+        for level in (None, "O1"):
+            runs = {}
+            for dev in ("gpu", "cpu"):
+                P.set_device(dev)
+                params = E.make_parameters(S, stacked, cfg.num_hidden_layers)
+                cos, sin = E.rope_tables(S, ids.shape[1], d)
+                loss = E.forward_backward(S, params, P.to_tensor(ids),
+                                          P.to_tensor(labels), cfg, cos, sin,
+                                          level)
+                runs[dev] = (float(loss), _eager_grads(params))
+            tol = testing.EAGER_CARD_CPU_TOL["fp32" if level is None
+                                             else "bf16"]
+            name = "fp32" if level is None else "o1_bf16"
+            testing.close(torch.tensor(runs["gpu"][0]),
+                          torch.tensor(runs["cpu"][0]), *tol["loss"],
+                          f"eager {name} loss")
+            worst = (0.0, 0.0)
+            for k, g in runs["cpu"][1].items():
+                err = testing.l2_close(runs["gpu"][1][k], g, tol["grads"],
+                                       f"eager {name} grad {k}")
+                worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+            report[name] = dict(loss_card=runs["gpu"][0],
+                                loss_cpu=runs["cpu"][0],
+                                grad_max_abs_err=worst[0],
+                                grad_max_rel_l2=worst[1])
+
+        # the training dropout of the fused epilogue: one seed, one mask
+        from paddle_tpu_torch.incubate.nn import functional as IF
+        rng = np.random.RandomState(SEED)
+        x, res = (rng.randn(64, cfg.hidden_size).astype(np.float32)
+                  for _ in range(2))
+        g, b = (rng.randn(cfg.hidden_size).astype(np.float32)
+                for _ in range(2))
+        outs, masks = {}, {}
+        for dev in ("gpu", "cpu"):
+            P.set_device(dev)
+            P.seed(SEED)
+            key = R.get_rng_state()[1]
+            nxt = R.prng.fold_in(key, 1)
+            masks[dev] = R.bernoulli_draw(nxt, 0.9, x.shape,
+                                          "cuda" if dev == "gpu" else "cpu")
+            ln.layer_norm.launches = 0
+            outs[dev] = IF.fused_bias_dropout_residual_layer_norm(
+                P.to_tensor(x), P.to_tensor(res), None, P.to_tensor(g),
+                P.to_tensor(b), dropout_rate=0.1, training=True)
+            if dev == "gpu" and ln.layer_norm.launches != 1:
+                raise AssertionError("the fused epilogue did not launch the "
+                                     "LayerNorm kernel on the card")
+        if not torch.equal(masks["gpu"].cpu(), masks["cpu"]):
+            raise AssertionError("dropout masks differ between card and CPU")
+        ln_err = testing.close(outs["gpu"]._value.cpu(), outs["cpu"]._value,
+                               *testing.LN_TOL[torch.float32]["y"],
+                               "fused_bias_dropout_residual_layer_norm")
+        report["dropout"] = dict(rate=0.1,
+                                 dropped=int((~masks["cpu"]).sum()),
+                                 elements=masks["cpu"].numel(),
+                                 ln_max_abs_err=ln_err)
+
+        # the nan/inf checker at the dispatcher, and inside a function
+        P.set_device("gpu")
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(enable=True))
+        try:
+            P.divide(P.ones([4]), P.to_tensor([1.0, 0.0, 2.0, 3.0]))
+            raise AssertionError("the tensor checker let an inf through")
+        except FloatingPointError as e:
+            if "divide" not in str(e):
+                raise AssertionError(f"checker error names no op: {e}")
+            checker_msg = str(e)
+        finally:
+            dbg.disable_tensor_checker()
+        wrapped = dbg.checkify_wrap(lambda t: torch.log(t).sum())
+        wrapped(torch.ones(3, device="cuda"))
+        try:
+            wrapped(torch.tensor([-1.0, 1.0], device="cuda"))
+            raise AssertionError("checkify_wrap let a nan through")
+        except FloatingPointError as e:
+            if "aten.log" not in str(e):
+                raise AssertionError(f"checkify error names no ATen op: {e}")
+            checkify_msg = str(e)
+        report.update(checker=checker_msg, checkify=checkify_msg)
+    finally:
+        P.set_device("gpu")
+    return report
+
+
+def _dispatch_us(torch, P, n_ops=2000, trials=9):
+    """The dispatcher's host µs per op, disarmed and armed (the always-on
+    telemetry), as the reference's benchmarks/bench_dispatch_overhead.py
+    measures them: a small ``add`` on the card, bursts timed A B B A,
+    the overhead the median of the per-round ratios."""
+    from paddle_tpu_torch.observability import telemetry
+    x = P.to_tensor(np.ones((8, 8), np.float32))
+    y = P.to_tensor(np.ones((8, 8), np.float32))
+    was = telemetry.enabled
+
+    def burst(armed, n=n_ops):
+        (telemetry.enable if armed else telemetry.disable)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x + y
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    burst(True, 500)
+    ratios, base, armed = [], [], []
+    for _ in range(trials):
+        d1, a1, a2, d2 = (burst(False), burst(True), burst(True),
+                          burst(False))
+        base += [d1, d2]
+        armed += [a1, a2]
+        ratios.append((a1 + a2) / (d1 + d2))
+    (telemetry.enable if was else telemetry.disable)()
+    return dict(disarmed_us_per_op=min(base) * 1e6,
+                armed_us_per_op=min(armed) * 1e6,
+                armed_overhead_pct=(sorted(ratios)[len(ratios) // 2] - 1) * 100,
+                n_ops=n_ops, trials=trials)
+
+
+def eager_7b_phase(torch, L, rn, fa, train12):
+    """(b) scripts/eager_llama_step.py at Llama-2-7B widths, 8 layers
+    (phase 12's cut), one (1, 2048) batch, fp32 Parameters from
+    ``init_params`` under ``auto_cast(level="O1", dtype="bfloat16")``,
+    AdamW with ``ClipGradByGlobalNorm(1.0)``: one warm and 3 timed
+    steps, every step's launches of rows 1, 2, 5 and 6 checked (2L+1,
+    2L+1, L, L), the loss finite and falling, the dtypes each op
+    receives after the cast hook (matmul and flash bf16, RMSNorm fp32),
+    step 1's loss against ``forward_stacked`` on the bf16 cast of the
+    same weights (``EAGER_BF16_LOSS_TOL``); then the step wall, tokens/s,
+    device ms by kind and idle share of a profiled step, ops dispatched
+    a step, the dispatcher's µs per op and the peak memory."""
+    from scripts import eager_llama_step as E
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.core import dispatch as D
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.observability import telemetry
+
+    S = E.surface("paddle_tpu_torch")
+    P = S.paddle
+    P.set_device("gpu")
+    cfg = L.llama2_7b(num_hidden_layers=8, dtype=torch.float32)
+    n_layers, b, s = cfg.num_hidden_layers, 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stacked = L.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids_np, labels_np = _eager_batch(cfg.vocab_size, b, s)
+    ids_t = torch.from_numpy(ids_np).cuda()
+    with torch.no_grad():
+        p16 = {k: v.to(torch.bfloat16) for k, v in stacked.items()}
+        logits = L.forward_stacked(p16, ids_t, cfg)
+        ref_loss = float(L._token_ce(
+            logits, torch.from_numpy(labels_np).cuda()))
+        del p16, logits
+    torch.cuda.empty_cache()
+
+    params = E.make_parameters(S, stacked, n_layers)
+    del stacked
+    opt = E.make_optimizer(S, params, lr=1e-4)
+    cos, sin = E.rope_tables(S, s, cfg.head_dim)
+    ids, labels = P.to_tensor(ids_np), P.to_tensor(labels_np)
+    counters = {"rms_norm_fwd": rn.rms_norm, "rms_norm_bwd": rn.rms_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    want = {"rms_norm_fwd": 2 * n_layers + 1,
+            "rms_norm_bwd": 2 * n_layers + 1,
+            "flash_attention_fwd": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers}
+    totals = dict.fromkeys(counters, 0)
+
+    # the dtypes each op receives after the cast hook (step 1 only)
+    seen, hook = {}, D.amp_cast_hook
+
+    def spy(op_name, args):
+        args = hook(op_name, args)
+        seen.setdefault(op_name, set()).update(
+            str(a.dtype).rpartition(".")[2] for a in args
+            if isinstance(a, Tensor))
+        return args
+
+    losses, step_ms, ops_per_step = [], [], []
+    for i in range(4):                  # 1 warm + 3 timed steps
+        for c in counters.values():
+            c.launches = 0
+        D.amp_cast_hook = spy if i == 0 else hook
+        n0 = sum(telemetry.op_counts.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = E.train_step(S, params, opt, ids, labels, cfg, cos, sin,
+                            amp_level="O1")
+        losses.append(float(loss))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        ops_per_step.append(sum(telemetry.op_counts.values()) - n0)
+        D.amp_cast_hook = hook
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"step {i}: launch counts {got} != {want}")
+        for k in totals:
+            totals[k] += got[k]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over 4 steps: {losses}")
+    for op, dts in (("matmul", {"bfloat16"}), ("flash_attention", {"bfloat16"}),
+                    ("rms_norm", {"float32"})):
+        if seen.get(op) != dts:
+            raise AssertionError(f"{op} received {seen.get(op)}, want {dts}")
+    rtol, atol = testing.EAGER_BF16_LOSS_TOL
+    testing.close(torch.tensor(losses[0]), torch.tensor(ref_loss), rtol, atol,
+                  "step 1 loss against forward_stacked on bf16 weights")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_ms = float(np.mean(step_ms[1:]))
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        E.train_step(S, params, opt, ids, labels, cfg, cos, sin,
+                     amp_level="O1")
+        torch.cuda.synchronize()
+    kinds, top = _kernel_ms_by_kind(prof, TRAIN_KINDS, n_top=10)
+    busy = sum(kinds.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    del params, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        layers=n_layers, reduced="num_hidden_layers 32 -> 8 (memory)",
+        batch=[b, s], amp="O1 bfloat16", lr=1e-4, init_s=init_s,
+        losses=losses, ref_loss_bf16_forward_stacked=ref_loss,
+        step_ms=step_ms, mean_step_ms=mean_ms,
+        tokens_per_s=b * s / (mean_ms / 1e3), peak_mem_gb=peak_gb,
+        ops_dispatched_per_step=ops_per_step[-1],
+        op_dtypes={k: sorted(v) for k, v in sorted(seen.items())},
+        launches_per_step=want, launches=totals,
+        breakdown=dict(kernel_ms=kinds, top_kernels=top, device_busy_ms=busy,
+                       wall_ms=mean_ms, idle_share=1 - busy / mean_ms),
+        dispatch=_dispatch_us(torch, P),
+        phase12_mean_step_ms=train12["mean_step_ms"],
+        phase12_batch=train12["batch"])
+
+
 def _kernel_entry(name, route, source, replaces, launches, r):
     """One entry of the kernels line: ``launches`` from the main paths,
     the rest from the kernel's own phase."""
@@ -5685,6 +5994,13 @@ def main() -> int:
     done(12, f"Llama-2-7B widths, 8 layers, bf16 training on {card}", train)
     gc.collect()
     torch.cuda.empty_cache()
+    done(31, "tiny eager Tensor path (fp32 and auto_cast O1), training "
+         "dropout, nan/inf checkers, card == cpu",
+         eager_parity_phase(torch, L, ln))
+    eager = eager_7b_phase(torch, L, rn, fa, train)
+    done(31, f"Llama-2-7B widths, 8 layers, eager Tensor-path training "
+         f"under auto_cast O1 on {card}", eager)
+    el = eager["launches"]
 
     lnr = layer_norm_phase(torch, ln)
     done(13, "layer_norm kernels vs plain", lnr)
@@ -5746,7 +6062,7 @@ def main() -> int:
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
              + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
-             + hosts["launches"]["rms_norm_fwd"],
+             + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -5779,7 +6095,8 @@ def main() -> int:
         _kernel_entry("rms_norm_bwd", "triton",
                       "paddle_tpu_torch/ops/rms_norm.py",
                       "paddle_tpu/ops/rms_norm.py:55",
-                      train["launches"]["rms_norm_bwd"] + mg["rms_norm_bwd"],
+                      train["launches"]["rms_norm_bwd"] + mg["rms_norm_bwd"]
+                      + el["rms_norm_bwd"],
                       rms_bwd["bf16"]),
     ]
     # the flash kernels run on every training path (the Llama step's
@@ -5797,7 +6114,7 @@ def main() -> int:
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
-            + gl[name] + rl.get(name, 0) + xr[name], r))
+            + gl[name] + rl.get(name, 0) + xr[name] + el[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(

@@ -13,10 +13,15 @@
 * ``WHITE_LIST``, ``BLACK_LIST``, :func:`amp_state` and
   :func:`_target_dtype`: the reference's per-op cast rule.
 
-:func:`auto_cast` with ``enable=True`` raises: the reference casts each
-op's inputs through its dispatcher's hook (``core/dispatch``), which the
-port does not have yet. ``enable=False`` is the no-op context it is
-there.
+:func:`auto_cast` casts each op's inputs through the dispatcher's hook
+(``core.dispatch.amp_cast_hook``), as the reference's does: at O1 the
+fp32 Tensor inputs of a white-listed op (``matmul``, ``linear``,
+``flash_attention``, ...) are cast to the low dtype; at O2 the low-dtype
+inputs of a black-listed op (``rms_norm``, ``cross_entropy``, ...) are
+cast to fp32. The cast is a recorded op (``Tensor.astype``), so the
+backward casts the gradient back. Only ``core.tensor.Tensor`` inputs
+are cast: torch tensors handed to the ported models directly never pass
+the dispatcher.
 
 The unscaled gradients are fp32 and stay beside the optimizer, never in
 ``.grad``: torch refuses a ``.grad`` whose dtype differs from its bf16
@@ -34,8 +39,9 @@ from typing import Optional
 
 import torch
 
+from ..core import dispatch as _dispatch
+from ..core.tensor import Tensor
 from ..distributed.fleet.meta_optimizers import unwrap_optimizer
-from ..ops._common import not_ported
 
 # ops that benefit from low precision (matmul-class), as the reference's
 WHITE_LIST = {"matmul", "mm", "bmm", "linear", "conv2d", "conv1d", "conv3d",
@@ -69,14 +75,10 @@ def amp_state():
 @contextlib.contextmanager
 def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="bfloat16"):
-    """The reference's per-op cast context. ``enable=False`` is a no-op
-    context; ``enable=True`` raises (module docstring)."""
-    if enable:
-        raise not_ported("amp.auto_cast(enable=True) (per-op casts)",
-                         "eager API (core/dispatch)")
+    """The reference's per-op cast context (module docstring)."""
     prev = dict(_amp_state)
     _amp_state.update(
-        enabled=False, dtype=_convert_dtype(dtype), level=level,
+        enabled=enable, dtype=_convert_dtype(dtype), level=level,
         custom_white=set(custom_white_list or ()),
         custom_black=set(custom_black_list or ()))
     try:
@@ -103,6 +105,24 @@ def _target_dtype(op_name, cur_dtype):
     if op_name in white and cur_dtype == torch.float32:
         return dt
     return None
+
+
+def _amp_hook(op_name, args):
+    """The dispatcher's cast hook: each Tensor input cast to
+    :func:`_target_dtype`'s dtype by a recorded cast op."""
+    if not _amp_state["enabled"]:
+        return args
+    cast_args = []
+    for a in args:
+        if isinstance(a, Tensor):
+            tgt = _target_dtype(op_name, a._value.dtype)
+            if tgt is not None:
+                a = a.astype(tgt)
+        cast_args.append(a)
+    return tuple(cast_args)
+
+
+_dispatch.amp_cast_hook = _amp_hook
 
 
 def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
@@ -240,3 +260,6 @@ class GradScaler:
         self._scale = s["scale"]
         self._good = s["good"]
         self._bad = s["bad"]
+
+
+from . import debugging  # noqa: E402,F401

@@ -115,6 +115,8 @@ from ..models import llama as L
 from ..observability.events import emit_event
 from ..observability.journal import token_checksum
 from ..observability.memory import memory_armed, memory_ledger
+from ..observability.profiling import chain_armed as _chain_armed
+from ..observability.profiling import note_chain as _note_chain
 from ..observability.runtime import recompiles
 from ..ops._common import not_ported as _later, resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
@@ -1379,6 +1381,12 @@ class ContinuousBatchingEngine(_Programs):
                              else self._pend[s][fed[s]:])
         return emit, fed
 
+    def _epilogue_active(self) -> bool:
+        """Any live request exercising the sampling epilogue (sampled or
+        constrained rows): gates the armed ``cbe.sample_epilogue`` tap."""
+        return any(r.sampler is not None or r.grammar is not None
+                   for r in self._live.values())
+
     def _step_unified(self, params) -> int:
         """One admit + ragged round. Admission is host bookkeeping (a
         warm/COW row is just a row whose first position is its cached
@@ -1393,11 +1401,25 @@ class ContinuousBatchingEngine(_Programs):
             (self.num_slots, self.chunk, self._step_tokens,
              self._table_width, False, 1, self._epilogue_on),
             self._build_unified_step, params)
+        # armed-only chain taps (observability.profiling): the plan ->
+        # dispatch -> unpack phases; one list index per step disarmed
+        armed_chain = _chain_armed[0]
+        tc0 = time.perf_counter_ns() if armed_chain else 0
         emit, fed = self._plan_step(prog.host)
+        if armed_chain:
+            tc1 = time.perf_counter_ns()
+            _note_chain(op_name="cbe.plan_step", dur_ns=tc1 - tc0)
+            tc0 = tc1
         prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
         t0_ns = time.perf_counter_ns() if spans_armed() else 0
         toks = self._run("cbe.unified_step", prog).cpu().numpy()  # the fence
+        if armed_chain:
+            _note_chain(op_name="cbe.unified_step",
+                        dur_ns=time.perf_counter_ns() - tc0)
+            if self._epilogue_active():
+                # the sampling epilogue runs inside the step's program
+                _note_chain(op_name="cbe.sample_epilogue", dur_ns=0)
         self.micro_rounds += self.chunk
         if t0_ns:
             self._note_step_windows(t0_ns, emit.sum(axis=0), fed)
@@ -1745,11 +1767,22 @@ class ContinuousBatchingEngine(_Programs):
             (self.num_slots, self._spec_tokens, self.spec_k,
              self._table_width, False, 1, self._epilogue_on),
             self._build_spec_step, params)
+        armed_chain = _chain_armed[0]
+        tc0 = time.perf_counter_ns() if armed_chain else 0
         info, fed = self._plan_spec(prog.host)
+        if armed_chain:
+            tc1 = time.perf_counter_ns()
+            _note_chain(op_name="cbe.plan_step", dur_ns=tc1 - tc0)
+            tc0 = tc1
         prog.host["bt"][:] = self._bt
         self._prefill_tokens += sum(fed)
         t0_ns = time.perf_counter_ns() if spans_armed() else 0
         out = self._run("cbe.spec_step", prog).cpu().numpy()   # the fence
+        if armed_chain:
+            _note_chain(op_name="cbe.spec_step",
+                        dur_ns=time.perf_counter_ns() - tc0)
+            if self._epilogue_active():
+                _note_chain(op_name="cbe.sample_epilogue", dur_ns=0)
         self.spec_rounds += 1
         if t0_ns:
             t1_ns = time.perf_counter_ns()

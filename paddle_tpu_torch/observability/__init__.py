@@ -29,9 +29,10 @@ Ported, with the JAX package's code and names:
   (``python -m paddle_tpu_torch.observability.replay <bundle>``);
 * :mod:`.federation` — fleet-wide telemetry federation: per-host
   mirrors fed by the engine processes' heartbeats, clock-offset
-  estimation, one merged ``/metrics`` document.
-
-Not yet ported: ``profiling``.
+  estimation, one merged ``/metrics`` document;
+* :mod:`.profiling` — hot producer→consumer dispatch chains from the
+  dispatcher's and the serving engine's taps, exported as a stable JSON
+  artifact.
 """
 
 from . import format  # noqa: F401
@@ -45,6 +46,9 @@ from .federation import (  # noqa: F401
 )
 from .flight import FlightRecorder, flight_recorder  # noqa: F401
 from .goodput import GoodputTracker, StragglerDetector  # noqa: F401
+from .profiling import (  # noqa: F401
+    DispatchChainProfiler, chain_armed, chain_profiler, note_chain,
+)
 from .journal import (  # noqa: F401
     JournalError, JournalRecorder, journal, journal_armed, token_checksum,
 )
@@ -89,6 +93,7 @@ __all__ = [
     "RobustZScoreDetector", "CusumDetector", "robust_zscore",
     "ClockSync", "FederationHub", "HostTelemetryMirror",
     "collect_telemetry", "federation_armed", "merge_expositions",
+    "DispatchChainProfiler", "chain_armed", "chain_profiler", "note_chain",
     "ReplayClock", "ReplayRefused", "ReplayReport", "replay_bundle",
     "replay_journal",
 ]

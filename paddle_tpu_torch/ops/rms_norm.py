@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dispatch import any_tensor, apply
 from ._common import check_cuda_tensor, count_launches, triton_cache_dir
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -260,7 +261,11 @@ def rms_norm(x, weight, epsilon: float = 1e-6):
     """RMSNorm over the last axis, differentiable in ``x`` and
     ``weight``. CPU tensors take the plain versions; CUDA tensors launch
     the Triton kernels. Under ``no_grad`` (serving) it is one forward
-    launch."""
+    launch. ``Tensor``s go through the dispatcher as op ``rms_norm``
+    (the reference's Tensor-level entry, l.186-189)."""
+    if any_tensor(x, weight):
+        return apply(lambda xv, wv: rms_norm(xv, wv, epsilon), x, weight,
+                     op_name="rms_norm")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return RMSNormFunction.apply(x, weight, epsilon)
     return _rms_norm_fwd(x, weight, epsilon)

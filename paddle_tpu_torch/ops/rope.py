@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dispatch import any_tensor, apply, unwrap
 from ._common import resolve_device
 
 
@@ -49,5 +50,10 @@ def apply_rope_array(q, k, cos, sin):
 
 def fused_rotary_position_embedding(q, k, cos, sin):
     """``fused_rotary_position_embedding`` (l.48): :func:`apply_rope_array`
-    on (B, S, H, D) q and k."""
+    on (B, S, H, D) q and k; ``Tensor``s go through the dispatcher as op
+    ``fused_rope``."""
+    if any_tensor(q, k):
+        cos_v, sin_v = unwrap(cos), unwrap(sin)
+        return apply(lambda a, b: apply_rope_array(a, b, cos_v, sin_v), q, k,
+                     op_name="fused_rope")
     return apply_rope_array(q, k, cos, sin)

@@ -58,11 +58,15 @@ def _lr_factor(p) -> float:
 
 
 def _named(parameters) -> List[tuple]:
-    """``(name, tensor)`` pairs from a list of tensors or of pairs."""
+    """``(name, tensor)`` pairs from a list of tensors or of pairs. A
+    ``core.tensor.Parameter`` (or Tensor) is unwrapped to its torch leaf,
+    named by its ``name``; its ``trainable``, ``optimize_attr`` and
+    ``need_clip`` live on that leaf."""
     items = list(parameters)
     if items and isinstance(items[0], tuple):
-        return [(str(n), p) for n, p in items]
-    return [(f"param_{i}", p) for i, p in enumerate(items)]
+        return [(str(n), getattr(p, "_value", p)) for n, p in items]
+    return [(p.name, p._value) if hasattr(p, "_value") else (f"param_{i}", p)
+            for i, p in enumerate(items)]
 
 
 class Optimizer:

@@ -3,7 +3,8 @@
 each kernel against its plain version, per tensor and scaled by the
 tensor's own rms, and weights trained on the card against the same
 training on the CPU. The functions raise ``AssertionError`` on a
-miss."""
+miss. The port's CPU tests also set their thread count here
+(``one_cpu_thread``)."""
 
 from __future__ import annotations
 
@@ -47,6 +48,31 @@ LN_TOL = {torch.bfloat16: dict(y=(1.6e-2, 1e-5), dx=(1.6e-2, 1e-4),
 # few fp32 steps; a lost key tile or a wrong LayerNorm row moves them by
 # orders of magnitude more.
 CARD_CPU_TOL = dict(out=(1e-4, 1e-5), loss=(1e-5, 1e-6))
+
+
+# The eager Tensor path (scripts/eager_llama_step.py at tiny widths) on
+# the card against the CPU, by precision. "loss" is (rtol, atol); "grads"
+# is l2_close's (rtol, atol as a share of the CPU gradient's rms, most
+# relative L2 error) for every parameter's gradient. fp32 (TF32 off):
+# sums in other orders and the online against the one-pass softmax, as
+# CARD_CPU_TOL, through two layers' backward. O1 bf16: every matmul and
+# attention output is one bf16 rounding (2^-9 relative) of fp32 sums that
+# differ in their last bits between cuBLAS and the CPU, so now and then
+# an element rounds the other way by one bf16 step (2^-8) and carries it
+# through the layers; a wrong cast (an fp32 matmul, a bf16 norm) or a
+# lost tile moves the loss by orders of magnitude more.
+EAGER_CARD_CPU_TOL = {
+    "fp32": dict(loss=(1e-5, 1e-6), grads=(1e-3, 1e-3, 1e-4)),
+    "bf16": dict(loss=(2 ** -8, 1e-4), grads=(2 ** -4, 2 ** -4, 2 ** -5)),
+}
+
+# Step 1's loss of the eager O1 path at Llama-2-7B widths (fp32 weights,
+# residual stream and norms; bf16 matmul and attention inputs) against
+# forward_stacked on the bf16 cast of the same weights (everything bf16),
+# as (rtol, atol): the two round different tensors to bf16, which moves a
+# ~10.4 loss over a 2048-token mean by a few 1e-3; a missed cast or a
+# wrong layer moves it by 0.1 or more.
+EAGER_BF16_LOSS_TOL = (2 ** -8, 1e-3)
 
 
 # The weight-gradient accumulation kernel against its plain version, by
@@ -178,3 +204,12 @@ def trained_weights_close(got: Dict[str, torch.Tensor],
                              "(rtol 1e-4, atol 1e-5)")
     return dict(max_abs_param_err=err, weights_outside_tight_tol=outside,
                 weights=total)
+
+
+def one_cpu_thread() -> None:
+    """Run PyTorch's CPU ops in this process on one thread. The tests run
+    in several processes at once, at sizes where a pool of one thread
+    per core gains nothing: each process's pool then spins on the cores
+    the others need, which doubled the CPU time of the test suite and
+    slowed its timed tests."""
+    torch.set_num_threads(1)

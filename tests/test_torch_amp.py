@@ -2,8 +2,9 @@
 ``GradScaler`` state machine over a scripted run of finite and inf/nan
 steps (the scale, the good and bad counts, which steps were applied and
 the state dict, step by step), ``decorate`` at O1 and O2, the cast rule
-``_target_dtype``, and ``auto_cast`` (a no-op context disabled; raising
-enabled, until the port has a dispatcher).
+``_target_dtype``, and ``auto_cast`` (a no-op context disabled; enabled,
+the dispatcher's cast hook, held to the reference's per-op casts in
+tests/test_torch_dispatch.py).
 
 Weights after each step are held to fp32 rounding (``F32``): the
 unscale multiplies by the same power-of-two reciprocal on both sides and
@@ -21,6 +22,9 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.core.tensor import Parameter as JParameter
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 F32 = dict(rtol=4e-6, atol=1e-7)
 SHAPES = [(5, 4), (6,)]
@@ -212,7 +216,11 @@ def test_auto_cast_disabled_is_a_no_op_and_enabled_raises():
         assert tamp.amp_state()["enabled"] is False
         assert tamp.amp_state()["level"] == "O2"
     assert tamp.amp_state() == before
-    with pytest.raises(NotImplementedError, match="core/dispatch"):
-        with tamp.auto_cast():
-            pass
+    # enabled it no longer raises: the port's dispatcher casts per op
+    import paddle_tpu_torch as TP
+    x = TP.to_tensor(np.ones((2, 2), np.float32), place=TP.CPUPlace())
+    with tamp.auto_cast():
+        assert tamp.amp_state()["enabled"] is True
+        assert TP.matmul(x, x).dtype == torch.bfloat16
+    assert tamp.amp_state() == before
     assert tamp.amp_guard is tamp.auto_cast

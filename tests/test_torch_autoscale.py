@@ -41,8 +41,11 @@ from paddle_tpu_torch.inference import constrain as TC
 from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.inference.sampling import SamplerConfig as TSampler
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.testing import one_cpu_thread
 from test_torch_router import (EVENT_KEYS, FakeClock, _weights,
                                counter_total, greedy_ref, quiet)
+
+one_cpu_thread()
 
 STACKS = {
     "jax": SimpleNamespace(name="jax", D=JD, SV=JSV, EV=JEV, O=JO, RS=JRS,

@@ -26,6 +26,9 @@ from paddle_tpu_torch.resilience import Fault, FaultInjector
 from paddle_tpu_torch.serving import (DisaggRouter, FleetRouter,
                                       HealthConfig, ReplicaHandle,
                                       ReplicaRole)
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 CFG = L.llama_tiny(num_hidden_layers=1)
 LP, DECODED = 19, 7          # slot 1's prompt; its last 7 were decoded

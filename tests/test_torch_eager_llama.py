@@ -24,7 +24,9 @@ from paddle_tpu_torch.distributed.fleet.utils import (
     mix_precision_utils as tmpu)
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.optimizer.adamw import AdamW
-from paddle_tpu_torch.testing import trained_weights_close
+from paddle_tpu_torch.testing import one_cpu_thread, trained_weights_close
+
+one_cpu_thread()
 
 # fp32, two layers: products, norms and softmaxes summed in other orders
 # by XLA and PyTorch (test_torch_ernie's tolerances)

@@ -14,6 +14,9 @@ from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import rope as trope
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _engines(max_new=6, num_slots=2, chunk=3, seed=3, eos=None, **kw):

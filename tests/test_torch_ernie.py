@@ -17,7 +17,9 @@ from paddle_tpu_torch.models import ernie as TE
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import layer_norm_fused as tln
 from paddle_tpu_torch.optimizer.adamw import AdamW
-from paddle_tpu_torch.testing import key_bias_split
+from paddle_tpu_torch.testing import key_bias_split, one_cpu_thread
+
+one_cpu_thread()
 
 # fp32, two layers: products, norms and softmaxes summed in other orders
 # by XLA and PyTorch (test_torch_train's tolerances)

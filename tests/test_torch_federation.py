@@ -35,8 +35,11 @@ import paddle_tpu_torch.observability.server as TSRV
 import paddle_tpu_torch.observability.signals as TSIG
 import paddle_tpu_torch.observability.timeline as TT
 import paddle_tpu_torch.profiler.record as TREC
+from paddle_tpu_torch.testing import one_cpu_thread
 from test_torch_multihost import (STACKS, FakeClock, _quiet, local_fleet,
                                   prompt)
+
+one_cpu_thread()
 
 FED = {
     "jax": SimpleNamespace(F=JF, FL=JFL, FMT=JFMT, R=JR, SRV=JSRV, SIG=JSIG,

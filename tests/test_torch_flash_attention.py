@@ -14,6 +14,9 @@ import torch
 
 from paddle_tpu.ops import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # the reference's own tolerances for its flash kernels
 # (tests/test_ring_attention.py): forward 2e-4, backward 2e-3

@@ -21,6 +21,9 @@ from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.ops import fused_linear as JFL
 from paddle_tpu_torch.incubate.nn import functional as TIF
 from paddle_tpu_torch.ops import fused_linear as TFL
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32 accumulators: the same exact products (bf16 products are exact in
 # fp32) summed in another order by XLA and PyTorch; over 384 rows the

@@ -17,6 +17,9 @@ from paddle_tpu.ops import fused_transformer_block as JB
 import paddle_tpu_torch.incubate.nn.functional as TF
 from paddle_tpu_torch.incubate.nn.layer import fused_transformer as TFT
 from paddle_tpu_torch.ops import fused_transformer_block as TB
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32, two layers: sums in other orders (test_torch_ernie's bound)
 OUT = dict(rtol=1e-4, atol=1e-5)
@@ -262,7 +265,16 @@ def test_int8_and_training_dropout_raise_not_ported():
     with pytest.raises(NotImplementedError, match="quantization"):
         TB.fused_multi_transformer_array(torch.from_numpy(_x()), tp,
                                          num_heads=NH, int8=True)
-    x = torch.from_numpy(_x())
-    with pytest.raises(NotImplementedError, match="random"):
-        TF.fused_bias_dropout_residual_layer_norm(x, x, dropout_rate=0.1,
-                                                  training=True)
+    # training dropout runs now (the eager key stream is ported): the same
+    # seed draws the JAX package's mask, so the outputs agree
+    import paddle_tpu_torch
+    xn = _x()
+    x = torch.from_numpy(xn)
+    paddle.seed(5)
+    want = JF.fused_bias_dropout_residual_layer_norm(
+        paddle.to_tensor(xn), paddle.to_tensor(xn), dropout_rate=0.1,
+        training=True)
+    paddle_tpu_torch.seed(5)
+    got = TF.fused_bias_dropout_residual_layer_norm(x, x, dropout_rate=0.1,
+                                                    training=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), **OUT)

@@ -17,6 +17,9 @@ from paddle_tpu.inference import decoding as JD
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch import inference as TI
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # two layers of products, norms and softmax summed in different orders by
 # XLA and PyTorch (tests/test_torch_legacy_model.py's bound)

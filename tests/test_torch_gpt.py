@@ -14,7 +14,9 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.models import gpt as JG
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.optimizer.adamw import AdamW
-from paddle_tpu_torch.testing import key_bias_split
+from paddle_tpu_torch.testing import key_bias_split, one_cpu_thread
+
+one_cpu_thread()
 
 # fp32 logits: the reference test's bound is 2e-3 (tests/test_gpt.py:74);
 # the two stacks sum products, LayerNorms and softmaxes in other orders,

@@ -2391,3 +2391,92 @@ def test_host_export_import_of_bf16_pages_is_bitwise_on_card(cuda):
             pa_ = getattr(src.mgr, pool)[:, a].view(torch.int16)
             pb_ = getattr(dst.mgr, pool)[:, b].view(torch.int16)
             assert torch.equal(pa_, pb_)
+
+
+# ---------------------------------------------------------------------------
+# the Paddle-shaped Tensor surface on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card_place(cuda):
+    from paddle_tpu_torch.core import place as tplace
+    prev = tplace._current_place[0]
+    tplace._current_place[0] = None          # the default place
+    yield
+    tplace._current_place[0] = prev
+
+
+def test_default_place_is_the_card(card_place):
+    import paddle_tpu_torch as TP
+    t = TP.to_tensor([1.0, 2.0])
+    assert t.place == TP.CUDAPlace(0) and t._value.is_cuda
+    assert TP.get_device() == "gpu:0"
+    assert TP.randn([3]).place == TP.CUDAPlace(0)
+
+
+def test_tensor_path_launches_the_kernels(card_place):
+    """Tensors through F.rms_norm and causal SDPA launch rows 1, 2, 5 and
+    6 (fp32 and under auto_cast O1), never the plain versions."""
+    import paddle_tpu_torch as TP
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+    TP.seed(0)
+    for level in (None, "O1"):
+        x = TP.Parameter(TP.randn([2, 64, 4, 64]))
+        g = TP.Parameter(TP.ones([64]))
+        counts = [rn.rms_norm, rn.rms_norm_bwd, fa.flash_fwd_kernel,
+                  fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel]
+        before = [c.launches for c in counts]
+        with amp.auto_cast(enable=level is not None, level=level or "O1"):
+            y = F.rms_norm(x, g, 1e-5)
+            o = F.scaled_dot_product_attention(y, y, y, is_causal=True)
+        assert o.dtype == (torch.bfloat16 if level else torch.float32)
+        o.astype("float32").sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counts, before)] == [1] * 5
+        assert x.grad is not None and torch.isfinite(x.grad._value).all()
+
+
+def test_random_draws_on_card_equal_the_cpu(card_place):
+    import paddle_tpu_torch as TP
+    got = {}
+    for dev in ("gpu", "cpu"):
+        TP.set_device(dev)
+        TP.seed(3)
+        got[dev] = [t.numpy() for t in (
+            TP.rand([5, 7]), TP.uniform([9], min=-2.0, max=3.0),
+            TP.randint(0, 100, [11]), TP.bernoulli(TP.full([13], 0.4)),
+            TP.randperm(50), TP.multinomial(TP.to_tensor([0.2, 0.8]), 4,
+                                            replacement=True))]
+    for a, b in zip(got["gpu"], got["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_eager_script_on_card_matches_cpu(card_place):
+    """scripts/eager_llama_step.py at tiny widths, fp32: the card's loss
+    and every gradient against the CPU's (``EAGER_CARD_CPU_TOL``)."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.testing import EAGER_CARD_CPU_TOL, close
+    from scripts import eager_llama_step as ES
+    S = ES.surface("paddle_tpu_torch")
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=4,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2)
+    stacked = {k: v.numpy() for k, v in
+               L.init_params(cfg, 0, device="cpu").items()}
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (2, 100))
+    labels = np.roll(ids, -1, axis=-1)
+    runs = {}
+    for dev in ("gpu", "cpu"):
+        TP.set_device(dev)
+        params = ES.make_parameters(S, stacked, cfg.num_hidden_layers)
+        cos, sin = ES.rope_tables(S, 100, 64)
+        loss = ES.forward_backward(S, params, TP.to_tensor(ids),
+                                   TP.to_tensor(labels), cfg, cos, sin)
+        runs[dev] = (loss._value.detach().cpu(),
+                     {k: p.grad._value.cpu() for k, p in params.items()})
+    tol = EAGER_CARD_CPU_TOL["fp32"]
+    close(runs["gpu"][0], runs["cpu"][0], *tol["loss"], "loss")
+    for k, g in runs["cpu"][1].items():
+        l2_close(runs["gpu"][1][k], g, tol["grads"], k)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or anything of the JAX package, kernels
+``chip_smoke.py``, nor the scripts it runs) imports JAX or anything of
+the JAX package, kernels
 are built and imported lazily, and the smoke script refuses to run
 without a card."""
 
@@ -12,6 +13,10 @@ from pathlib import Path
 
 import pytest
 
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "paddle_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
@@ -19,7 +24,8 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 
 def _port_sources():
     files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted((REPO / "scripts").glob("*_torch.py")))
+             + sorted((REPO / "scripts").glob("*_torch.py"))
+             + [REPO / "scripts" / "eager_llama_step.py"])
     assert len(files) >= 10
     assert REPO / "scripts" / "multihost_serve_smoke_torch.py" in files
     return files

@@ -16,6 +16,9 @@ import torch
 from paddle_tpu_torch.ops import fused_linear as fl
 from paddle_tpu_torch.ops import layer_norm_fused as ln
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _tiles_numpy(token_row, n_rows, ts, decoding=None):

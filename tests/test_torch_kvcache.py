@@ -12,6 +12,9 @@ import torch
 from paddle_tpu import kvcache as jkv
 from paddle_tpu_torch.kvcache import (LRUEvictionPolicy, PrefixCache,
                                       RefcountedKVCacheManager, RadixTree)
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _mgr(num_pages=12, page_size=4):

@@ -14,6 +14,9 @@ from paddle_tpu.ops import layer_norm_fused as jln
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import fused_transformer_block as tftb
 from paddle_tpu_torch.ops import layer_norm_fused as tln
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32: the same math with sums in other orders
 FP32 = dict(rtol=1e-5, atol=1e-5)

@@ -13,6 +13,9 @@ from paddle_tpu.inference.decoding import GenerationConfig as JGen
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 STORM_LENS = (5, 12, 3, 9, 17, 2, 7, 30)
 

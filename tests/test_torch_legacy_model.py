@@ -17,6 +17,9 @@ from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # two layers of products, norms and softmax summed in different orders by
 # XLA and PyTorch (the same bound as tests/test_torch_llama.py's step)

@@ -15,6 +15,9 @@ from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.ops import rope as jrope
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops import rope as trope
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # ragged_step in fp32: two layers of products, norms and softmax summed
 # in different orders by XLA and PyTorch

@@ -21,6 +21,9 @@ from paddle_tpu_torch.distributed.fleet.utils import (
 from paddle_tpu_torch.nn.common_layers import Linear, load_layer_state
 from paddle_tpu_torch.optimizer.adamw import AdamW
 from paddle_tpu_torch.optimizer.optimizer import SGD
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32 nets: products summed in another order by XLA and PyTorch
 F32 = dict(rtol=1e-5, atol=1e-6)

@@ -46,6 +46,9 @@ from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.inference import sampling as TS
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.serving import multihost as TMH
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 STACKS = {
     "jax": SimpleNamespace(name="jax", SV=JSV, MH=JMH, EV=JEV, O=JO, RS=JRS,

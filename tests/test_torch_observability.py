@@ -43,6 +43,9 @@ from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.inference.sampling import SamplerConfig as TSampler
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops.paged_attention import PagedKVCacheManager as TMgr
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # the packages export their ``journal`` recorder under the module's name
 JJ = importlib.import_module("paddle_tpu.observability.journal")

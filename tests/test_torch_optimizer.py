@@ -33,6 +33,9 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.optimizer import lr as tlr
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 F32 = dict(rtol=4e-6, atol=1e-7)
 LAMB = dict(rtol=1e-5, atol=1e-6)

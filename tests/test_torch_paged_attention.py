@@ -12,6 +12,9 @@ import torch
 
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # the JAX package's own tolerance for this kernel (test_unified_step.py)
 FP32 = dict(rtol=1e-5, atol=1e-6)

@@ -13,6 +13,9 @@ import torch
 
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # the JAX package's own tolerance for the decode kernel against its array
 # path (tests/test_paged_attention.py): fp32, sums in another order

@@ -20,6 +20,9 @@ from paddle_tpu_torch.inference.graphs import Program, params_key
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops import _common
 from paddle_tpu_torch.ops import rms_norm as rn
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 STORM_LENS = (5, 12, 3, 9, 17, 2, 7, 30)
 GEO = dict(num_slots=2, page_size=4, max_seq_len=64, chunk=3)

@@ -40,6 +40,9 @@ from paddle_tpu_torch.observability.replay import (main, replay_bundle,
 from paddle_tpu_torch.serving import (FleetRouter, HealthConfig,
                                       ReplicaHandle, RouterConfig,
                                       SchedulerConfig)
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 MAX_NEW = 8
 SEED = 3

@@ -12,6 +12,9 @@ import torch
 
 from paddle_tpu.ops import rms_norm as jrn
 from paddle_tpu_torch.ops import rms_norm as trn
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32: both compute in fp32 and differ only in summation order
 FP32 = dict(rtol=1e-6, atol=1e-6)

@@ -30,6 +30,9 @@ from paddle_tpu.inference import decoding as JD
 from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 STACKS = {
     "jax": SimpleNamespace(name="jax", L=JL, D=JD, SV=JSV, EV=JEV, O=JO,

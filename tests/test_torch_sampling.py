@@ -29,6 +29,9 @@ from paddle_tpu_torch.inference import decoding as TD
 from paddle_tpu_torch.inference import prng
 from paddle_tpu_torch.inference import sampling as TS
 from paddle_tpu_torch.models import llama as TL
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 NEAR_TIE_ULPS = 4
 

@@ -35,7 +35,10 @@ import paddle_tpu_torch.observability.timeseries as TTS
 import paddle_tpu_torch.serving as TSV
 from paddle_tpu.inference import decoding as JD
 from paddle_tpu_torch.inference import decoding as TD
+from paddle_tpu_torch.testing import one_cpu_thread
 from test_torch_router import _weights
+
+one_cpu_thread()
 
 STACKS = {
     "jax": SimpleNamespace(name="jax", O=JO, AN=JAN, SG=JSG, TS=JTS,

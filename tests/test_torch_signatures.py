@@ -25,6 +25,9 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 P = inspect.Parameter
 _POS = (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)

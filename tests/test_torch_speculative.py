@@ -20,6 +20,9 @@ from paddle_tpu_torch.inference.speculative import (DraftModel, Drafter,
 from paddle_tpu_torch.kvcache import RefcountedKVCacheManager
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops.paged_attention import PagedKVCacheManager
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 JCFG = JL.llama_tiny(num_hidden_layers=2)
 JPARAMS = JL.init_stacked_params(JCFG, seed=0)

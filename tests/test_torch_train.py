@@ -17,6 +17,9 @@ from paddle_tpu.parallel import mesh as pmesh
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import rms_norm as trn
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 # fp32, two layers: products, norms and softmaxes summed in other orders
 # by XLA and PyTorch (the serving step's tolerance, test_torch_llama)

@@ -31,6 +31,9 @@ from paddle_tpu_torch.core.host_arrays import BFLOAT16, from_host, to_host
 from paddle_tpu_torch.inference import constrain as TC
 from paddle_tpu_torch.kvcache.cache import PrefixCache as TCache
 from paddle_tpu_torch.kvcache.pool import RefcountedKVCacheManager as TMgr
+from paddle_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 REPO = Path(__file__).resolve().parents[1]
 
