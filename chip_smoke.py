@@ -301,6 +301,20 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     dispatcher's µs per op disarmed and armed, and peak memory beside
     phase 12's step.
 
+32. GPT-2 XL's widths cut to 8 layers (the machine's 45 GiB of disk
+    writes a call) under phase 28's recipe driven by ``ResilientTrainer``
+    (right after phase 28): six steps in a plain loop, then the chaos
+    run with fresh objects (``save_interval=2``, ``keep=2``, async saves
+    of the 4.6 GB ``TrainState`` under ``build/``): a preemption at step
+    2 through the real SIGTERM path with its flush corrupted by a
+    ``truncate_shard`` fault, a resume by a new model, optimizer,
+    scheduler and scaler from another seed that skips the corrupt
+    checkpoint, a NaN at step 4 rolled back and replayed. The final
+    weights, masters, moments and scheduler state bitwise the plain
+    run's; the counters; every step's rows 5, 6 and 8 launches; each
+    save's stall and write GB/s, each load's GB/s, beside the card's
+    name and power limit.
+
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -322,7 +336,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 31
+N_PHASES = 32
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -5450,6 +5464,382 @@ def gpt2_xl_recipe_phase(torch, G, ln, fa, plain):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: GPT-2 XL's recipe through ResilientTrainer (checkpoints, a
+# preemption, a corrupt shard, a NaN rollback)
+# ---------------------------------------------------------------------------
+
+#: the durable checkpoints of phase 32 (under the gitignored ``build/``)
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke_checkpoints")
+RESILIENT_STEPS = 6
+#: GPT-2 XL's widths cut to 8 of its 48 layers: the card's machine allows
+#: a call 45 GiB of disk writes (deleted files count), and the phase's
+#: five saves of the whole model's 21.8 GB TrainState would write 109 GB;
+#: at 8 layers a save is 4.6 GB (the embeddings and 8 layers, 14 bytes a
+#: parameter)
+RESILIENT_LAYERS = 8
+
+
+class _IOLog:
+    """Times the checkpoint path from outside: each save's stall (the
+    trainer's ``save``), host snapshot, commit and its CRC passes, each
+    load's target build, read and verify and its copy onto the card.
+    Wraps module attributes and puts them back on ``close``."""
+
+    def __init__(self, R, U):
+        self.saves, self.loads, self.stalls = [], [], []
+        self._snap_ms = None
+        self._tls = threading.local()
+        self._undo = []
+        D = R.durable
+        self._wrap(U, "file_crc32", self._crc)
+        self._wrap(D, "host_snapshot", self._snapshot)
+        self._wrap(D, "_commit", self._commit)
+        self._wrap(D, "_target_from_metadata", self._target)
+        self._wrap(D, "load_state_dict", self._load)
+
+    def trainer(self, tr):
+        """``tr`` with its ``save`` timed: the training loop's stall."""
+        real = tr.save
+
+        def save(block=False):
+            t0 = time.perf_counter()
+            try:
+                return real(block)
+            finally:
+                self.stalls.append(dict(
+                    step=tr.state.global_step, block=bool(block),
+                    stall_ms=(time.perf_counter() - t0) * 1e3,
+                    snapshot_ms=self._snap_ms))
+        tr.save = save
+        return tr
+
+    def _wrap(self, mod, name, make):
+        real = getattr(mod, name)
+        setattr(mod, name, make(real))
+        self._undo.append((mod, name, real))
+
+    def close(self):
+        for mod, name, real in reversed(self._undo):
+            setattr(mod, name, real)
+
+    def _timed(self, rec, key, fn, *a):
+        t0 = time.perf_counter()
+        prev = getattr(self._tls, "rec", None)
+        self._tls.rec = rec
+        try:
+            return fn(*a)
+        except Exception as e:
+            rec["error"] = type(e).__name__
+            raise
+        finally:
+            rec[key] = time.perf_counter() - t0
+            self._tls.rec = prev
+
+    def _crc(self, real):
+        def f(path, *a):
+            t0 = time.perf_counter()
+            try:
+                return real(path, *a)
+            finally:
+                rec = getattr(self._tls, "rec", None)
+                if rec is not None:
+                    rec["crc_s"] = rec.get("crc_s", 0.0) \
+                        + time.perf_counter() - t0
+        return f
+
+    def _snapshot(self, real):
+        def f(sd):
+            t0 = time.perf_counter()
+            out = real(sd)
+            self._snap_ms = (time.perf_counter() - t0) * 1e3
+            return out
+        return f
+
+    def _commit(self, real):
+        def f(snapshot, root, step, keep, fi=None):
+            rec = dict(step=int(step), thread=threading.current_thread().name)
+            self.saves.append(rec)
+            return self._timed(rec, "write_s", real, snapshot, root, step,
+                               keep, fi)
+        return f
+
+    def _target(self, real):
+        def f(meta):
+            rec = dict()
+            self.loads.append(rec)
+            return self._timed(rec, "target_s", real, meta)
+        return f
+
+    def _load(self, real):
+        def f(target, path, *a):
+            rec = self.loads[-1]
+            rec["path"] = os.path.basename(path)
+            return self._timed(rec, "read_verify_s", real, target, path, *a)
+        return f
+
+
+def _resilient_digest(torch, named, opt, sched, scaler):
+    """Bit-pattern sums of every weight and every optimizer state tensor
+    (master, moments) in parameter order, and the scalar state."""
+    flat = [p for _, p in named] + [opt.state[n][k] for n, _ in named
+                                    for k in sorted(opt.state[n])]
+    return dict(digest=_digest(torch, flat).cpu(), step=opt.step_count,
+                sched=sched.state_dict(),
+                lr=opt.state_dict().get("LR_Scheduler"),
+                scale=scaler.get_loss_scaling())
+
+
+def gpt2_xl_resilience_phase(torch, G, ln, fa):
+    """Phase 32: GPT-2 XL's widths (phase 26's config cut to
+    ``RESILIENT_LAYERS`` layers by the machine's disk-write allowance;
+    (4, 1024) batches) under phase 28's recipe, driven by
+    ``ResilientTrainer``. The
+    step's batch is a pure function of its index, so a replay retraces
+    it. (1) The free space under ``build/`` must hold three checkpoints
+    (``keep=2`` and a staging directory). (2) Six steps in a plain loop,
+    no trainer and no save: the digest of every weight, master and
+    moment, the scheduler's state and the scale. (3) The chaos run with
+    fresh objects (``save_interval=2``, ``keep=2``, async saves, one
+    ``ResilienceMetrics`` for both trainers): a seed save at step 0, an
+    async save at 2, a preemption at step 2 through the real SIGTERM
+    path (step 2 finishes, the flush saves ``step_3``, ``Preempted``), a
+    ``truncate_shard`` fault corrupting that flush; then a new model,
+    optimizer, scheduler and scaler from another seed resume, skip the
+    corrupt ``step_3`` and restore ``step_2``; an async save at 4, a NaN
+    at 4 rolled back to ``step_4`` and replayed; the final save at 6.
+    Asserts: the final state bitwise the plain run's, the counters, each
+    step's row 5, 6 and 8 launches, the scale (the scaler is outside
+    ``TrainState``, as in the reference; no step overflows), the card
+    back within 0.1 GB and no checkpoint left. Reports the checkpoint's
+    bytes, each save's stall, snapshot, write s and GB/s and CRC share,
+    each load's s and GB/s (read and verify, copy onto the card), the
+    step wall with an async write in flight against without, the chaos
+    run's wall against the plain run's, peak memory and goodput's
+    buckets."""
+    import signal
+    from paddle_tpu_torch import amp as A
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch import resilience as R
+    from paddle_tpu_torch.distributed.checkpoint import (TrainState,
+                                                         flatten_state_dict)
+    from paddle_tpu_torch.distributed.checkpoint import utils as U
+    from paddle_tpu_torch.optimizer import lr as LR
+    cfg = G.GPTConfig(**dict(GPT2_XL, num_hidden_layers=RESILIENT_LAYERS))
+    n_layers = cfg.num_hidden_layers
+    counters = _gpt_counters(ln, fa)
+    want = _gpt_want(n_layers, train_steps=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def build(seed):
+        model = G.init(G.GPTForCausalLM(cfg, device="cuda"), seed)
+        named = list(model.named_parameters())
+        sched = _recipe_schedule(LR, 1e-4, 100)
+        opt = O.AdamW(learning_rate=sched, parameters=named,
+                      grad_clip=O.ClipGradByGlobalNorm(1.0),
+                      apply_decay_param_fun=_no_decay, weight_decay=0.01)
+        scaler = A.GradScaler(enable=True, decr_every_n_nan_or_inf=1)
+        model, opt = A.decorate(models=model, optimizers=opt, level="O2",
+                                dtype="bfloat16")
+        return model, named, sched, opt, scaler
+
+    def batch(i):
+        rng = np.random.RandomState(SEED + 3200 + i)
+        ids = rng.randint(0, cfg.vocab_size,
+                          (GPT_TRAIN_B, GPT_TRAIN_S)).astype(np.int64)
+        labels = np.roll(ids, -1, axis=1)
+        labels[:, -1] = -100
+        return (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+
+    walls, launches = [], {k: 0 for k in counters}
+
+    def step_fn(objs, fi=None, trainer=None):
+        model, _, sched, opt, scaler = objs
+
+        def step(i):
+            if fi is not None and fi.fire("nan", i):
+                return float("nan")
+            busy = bool(trainer and trainer[0]._pending is not None
+                        and not trainer[0]._pending.done())
+            ids, labels = batch(i)
+            _reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            loss = model.compute_loss(ids, labels)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            sched.step()
+            torch.cuda.synchronize()
+            # checked after the run: a raise here would be retried
+            walls.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3,
+                              write_in_flight=busy,
+                              launches={k: c.launches
+                                        for k, c in counters.items()}))
+            return loss.detach()
+        return step
+
+    def check_steps(what):
+        for w in walls:
+            if w["launches"] != want:
+                raise AssertionError(f"{what} step {w['step']}: launches "
+                                     f"{w['launches']} != {want}")
+            for k, n in w.pop("launches").items():
+                launches[k] += n
+
+    # (1) the disk: bf16 weights, fp32 masters and two fp32 moments
+    t0 = time.perf_counter()
+    objs = build(SEED)
+    n_params = sum(p.numel() for _, p in objs[1])
+    ckpt_bytes = n_params * (2 + 4 + 4 + 4)
+    if os.path.exists(CKPT_DIR):
+        shutil.rmtree(CKPT_DIR)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    need = 3 * ckpt_bytes + (2 << 30)
+    if free < need:
+        raise RuntimeError(
+            f"phase 32 needs {need / 1e9:.1f} GB free under {CKPT_DIR} "
+            f"(three {ckpt_bytes / 1e9:.1f} GB checkpoints: keep=2 and a "
+            f"staging directory); {free / 1e9:.1f} GB are free")
+
+    # (2) the plain run
+    step = step_fn(objs)
+    losses = [float(step(i)) for i in range(RESILIENT_STEPS)]
+    plain_s = time.perf_counter() - t0
+    check_steps("plain run")
+    plain = _resilient_digest(torch, objs[1], objs[3], objs[2], objs[4])
+    flat, _ = flatten_state_dict(
+        TrainState(objs[0], objs[3], objs[2]).state_dict())
+    state_bytes = sum(v.nbytes for v in flat.values()
+                      if isinstance(v, torch.Tensor))
+    del flat
+    plain_walls = [w["ms"] for w in walls]
+    del objs, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the chaos run
+    io = _IOLog(R, U)
+    metrics = R.ResilienceMetrics()
+    fi = R.FaultInjector([R.Fault("preempt", 2), R.Fault("truncate_shard", 3),
+                          R.Fault("nan", 4)])
+    rcfg = R.ResilienceConfig(checkpoint_dir=CKPT_DIR, save_interval=2,
+                              keep=2, async_save=True, fault_injector=fi,
+                              tokens_per_step=GPT_TRAIN_B * GPT_TRAIN_S)
+    handler = signal.getsignal(signal.SIGTERM)
+    walls.clear()
+    try:
+        t0 = time.perf_counter()
+        objs = build(SEED)
+        first = [io.trainer(R.ResilientTrainer(
+            TrainState(objs[0], objs[3], objs[2]), rcfg, metrics))]
+        try:
+            first[0].run(step_fn(objs, fi, first), RESILIENT_STEPS)
+            raise AssertionError("the preemption did not stop the run")
+        except R.Preempted as e:
+            preempted = dict(step=e.step,
+                             checkpoint=os.path.basename(e.checkpoint))
+        first_goodput = first[0].goodput.finalize(time.perf_counter() - t0)
+        if signal.getsignal(signal.SIGTERM) is not handler:
+            raise AssertionError("the trainer left its SIGTERM handler")
+        del objs, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        objs = build(SEED + 1)
+        ts = TrainState(objs[0], objs[3], objs[2])
+        real_set = ts.set_state_dict
+
+        def set_state_dict(state):
+            t = time.perf_counter()
+            real_set(state)
+            torch.cuda.synchronize()
+            io.loads[-1]["to_card_s"] = time.perf_counter() - t
+        ts.set_state_dict = set_state_dict
+        second = [io.trainer(R.ResilientTrainer(ts, rcfg, metrics))]
+        res = second[0].run(step_fn(objs, fi, second), RESILIENT_STEPS)
+        chaos_s = time.perf_counter() - t0
+        got = _resilient_digest(torch, objs[1], objs[3], objs[2], objs[4])
+    finally:
+        io.close()
+    check_steps("chaos run")
+    counts = metrics.counters
+    want_counts = dict(preemptions=1, preempt_flushes=1,
+                       corrupt_checkpoints_skipped=1, nan_rollbacks=1)
+    if any(counts.get(k) != v for k, v in want_counts.items()) \
+            or counts.get("restores", 0) < 2:
+        raise AssertionError(f"resilience counters {counts}")
+    if preempted != dict(step=3, checkpoint="step_3") \
+            or res["resumed_from"] != 2 or res["end_step"] != 6 \
+            or res["skipped_steps"] != []:
+        raise AssertionError(f"preempted {preempted}, run {res}")
+    if not torch.equal(plain["digest"], got["digest"]) \
+            or plain["step"] != got["step"] \
+            or plain["sched"] != got["sched"] or plain["lr"] != got["lr"]:
+        raise AssertionError(
+            f"the chaos run's state differs from the plain run's: steps "
+            f"{got['step']} vs {plain['step']}, schedulers {got['sched']} "
+            f"vs {plain['sched']}, tensors equal "
+            f"{torch.eq(plain['digest'], got['digest']).sum().item()} of "
+            f"{plain['digest'].numel()}")
+    if res["last_loss"] != losses[-1]:
+        raise AssertionError(f"last loss {res['last_loss']} != {losses[-1]}")
+    if got["scale"] != plain["scale"]:
+        raise AssertionError(f"scale {got['scale']} != {plain['scale']}")
+    saves = [s for s in io.saves if "error" not in s]
+    loads = [r for r in io.loads if "error" not in r]
+    failed = [r for r in io.loads if "error" in r]
+    if [s["step"] for s in saves] != [0, 2, 3, 4, 6] or len(loads) != 2 \
+            or len(failed) != 1 or failed[0]["path"] != "step_3":
+        raise AssertionError(f"saves {io.saves}, loads {io.loads}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    on_disk = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(CKPT_DIR) for f in fs)
+    del objs, ts, second, set_state_dict, real_set
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR)
+    getattr(torch._C, "_host_emptyCache", lambda: None)()  # pinned snapshots
+    left = (torch.cuda.memory_allocated() - mem0) / 1e9
+    if abs(left) > 0.1 or os.path.exists(CKPT_DIR):
+        raise AssertionError(f"phase 32 left {left:.3f} GB on the card "
+                             f"or a checkpoint under build/")
+    gb = state_bytes / 1e9
+    stalls = [st for st in io.stalls if st["snapshot_ms"] is not None]
+    if [st["step"] for st in stalls] != [s["step"] for s in saves]:
+        raise AssertionError(f"stalls {io.stalls} against saves {saves}")
+    for s, st in zip(saves, stalls):
+        s.update(stall_ms=st["stall_ms"], snapshot_ms=st["snapshot_ms"],
+                 sync=st["block"],
+                 write_gb_per_s=gb / s["write_s"],
+                 crc_share=s.get("crc_s", 0.0) / s["write_s"])
+    for r in loads:
+        r.update(read_verify_gb_per_s=gb / r["read_verify_s"],
+                 to_card_gb_per_s=gb / r["to_card_s"],
+                 crc_share=r.get("crc_s", 0.0) / r["read_verify_s"])
+    busy = [w["ms"] for w in walls if w["write_in_flight"]]
+    idle = [w["ms"] for w in walls if not w["write_in_flight"]]
+    return dict(
+        card=card_line(), layers=n_layers, checkpoint_bytes=state_bytes,
+        checkpoint_bytes_reckoned=ckpt_bytes, bytes_on_disk_at_end=on_disk,
+        scaler="outside TrainState (as in the reference); no step "
+               "overflows, so only its scale is compared",
+        free_disk_gb=free / 1e9, losses=losses,
+        saves=saves, loads=loads, failed_verify=failed,
+        step_ms_write_in_flight=busy, step_ms_no_write=idle,
+        plain_step_ms=plain_walls, plain_s=plain_s, chaos_s=chaos_s,
+        peak_mem_gb=peak, counters=counts, preempted=preempted,
+        resumed_from=res["resumed_from"],
+        goodput=dict(first=first_goodput, second=res["goodput"]),
+        step_timer=res["step_timer"], bitwise_equal=True,
+        scale=got["scale"], launches_per_step=want, launches=launches)
+
+
 def _rewrite_member(src, dst, name, data):
     """Copy a bundle tarball with one member's bytes replaced."""
     import io
@@ -6034,6 +6424,10 @@ def main() -> int:
     xl_recipe = gpt2_xl_recipe_phase(torch, G, ln, fa, gpt_xl["train"])
     done(28, f"GPT-2 XL training with the reference's recipe on {card}",
          xl_recipe)
+    resilient = gpt2_xl_resilience_phase(torch, G, ln, fa)
+    done(32, f"GPT-2 XL's recipe through ResilientTrainer (preemption, "
+         f"corrupt shard, NaN rollback) on {card}", resilient)
+    xs = resilient["launches"]
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -6114,13 +6508,14 @@ def main() -> int:
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
-            + gl[name] + rl.get(name, 0) + xr[name] + el[name], r))
+            + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name],
+            r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
-            bert["launches"][name] + gl[name] + xr[name],
+            bert["launches"][name] + gl[name] + xr[name] + xs[name],
             lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32

@@ -18,10 +18,10 @@ card unless ``set_device("cpu")``.
 The top level is the Paddle surface of ``paddle_tpu/__init__.py``:
 ``Tensor``/``Parameter``, places and dtypes, the math, extra and
 schema-generated ops, creation and the random stream (``seed``),
-``grad``, ``set_flags``/``get_flags`` and ``in_dynamic_mode``. It loads
-on first use (``_surface``), so ``import paddle_tpu_torch`` by itself
-imports nothing of torch and touches no card. Names of later slices
-(``ParamAttr``, ``save``/``load``, ``io``, ``metric``, ``jit``, ...)
+``grad``, ``set_flags``/``get_flags``, ``save``/``load`` and
+``in_dynamic_mode``. It loads on first use (``_surface``), so ``import
+paddle_tpu_torch`` by itself imports nothing of torch and touches no
+card. Names of later slices (``ParamAttr``, ``metric``, ``jit``, ...)
 raise ``NotImplementedError``.
 
 Ported so far:
@@ -35,6 +35,10 @@ Ported so far:
 - training: the one-device Llama step, packed ERNIE/BERT MLM with fp32
   master weights, main-grad training, GPT on the fused decoder stack,
   the optimizer families, schedulers, clipping and loss scaling;
+- checkpoints and resilient training: ``distributed.checkpoint`` (the
+  reference's layout, async saves, ``TrainState``), ``save``/``load``,
+  ``resilience`` (durable checkpoints, ``ResilientTrainer``), the
+  ``nn.Layer`` base and ``io`` (datasets, samplers, ``DataLoader``);
 - the Paddle-shaped eager surface: ``core`` (Tensor, dispatcher with
   its AMP cast hook and nan/inf scan, autograd, the op tables),
   ``creation``, ``random``, ``flags``, ``device``, ``autograd``
@@ -70,20 +74,16 @@ def device_count() -> int:
 #: subpackages and modules of the port, imported on first use
 _SUBMODULES = frozenset((
     "amp", "autograd", "core", "creation", "device", "distributed", "flags",
-    "incubate", "inference", "kvcache", "models", "nn", "observability",
-    "ops", "optimizer", "profiler", "random", "regularizer", "resilience",
-    "serving", "testing",
+    "framework", "incubate", "inference", "io", "kvcache", "models", "nn",
+    "observability", "ops", "optimizer", "profiler", "random", "regularizer",
+    "resilience", "serving", "testing",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
 _LATER = {
     "ParamAttr": "eager nn (nn.layer)",
-    "save": "checkpoint (framework/io_save)",
-    "load": "checkpoint (framework/io_save)",
-    "io": "eager data pipeline (io)",
     "metric": "eager API (metric)",
     "jit": "jit (to_static)",
-    "framework": "checkpoint (framework/io_save)",
     "Model": "high-level API (hapi)",
     "summary": "high-level API (hapi)",
 }

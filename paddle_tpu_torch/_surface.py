@@ -41,9 +41,12 @@ from .creation import (  # noqa: F401,E402
     create_parameter,
 )
 from .random import seed, get_rng_state, set_rng_state  # noqa: F401,E402
+from .framework import save, load  # noqa: F401,E402
 
 from . import nn  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
 from . import ops  # noqa: F401,E402
 from . import amp  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
+from . import framework  # noqa: F401,E402
+from . import io  # noqa: F401,E402

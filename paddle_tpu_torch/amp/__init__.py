@@ -109,7 +109,9 @@ def _target_dtype(op_name, cur_dtype):
 
 def _amp_hook(op_name, args):
     """The dispatcher's cast hook: each Tensor input cast to
-    :func:`_target_dtype`'s dtype by a recorded cast op."""
+    :func:`_target_dtype`'s dtype by a recorded cast op, and each
+    floating torch tensor (a ``Layer``'s parameter) by a differentiable
+    ``to``."""
     if not _amp_state["enabled"]:
         return args
     cast_args = []
@@ -118,6 +120,10 @@ def _amp_hook(op_name, args):
             tgt = _target_dtype(op_name, a._value.dtype)
             if tgt is not None:
                 a = a.astype(tgt)
+        elif isinstance(a, torch.Tensor) and a.dtype.is_floating_point:
+            tgt = _target_dtype(op_name, a.dtype)
+            if tgt is not None:
+                a = a.to(tgt)
         cast_args.append(a)
     return tuple(cast_args)
 

@@ -48,9 +48,11 @@ amp_cast_hook = None
 def apply(fn: Callable, *args, op_name: str = "op", n_outputs: int = None, **static):
     """Run ``fn(*values, **static)`` over Tensor args.
 
-    Positional args may be Tensors, torch tensors or Python scalars (only
-    Tensors can carry gradients). Returns Tensor(s) mirroring fn's output
-    structure (a single tensor or a tuple of tensors).
+    Positional args may be Tensors, torch tensors or Python scalars (a
+    Tensor that does not stop gradients, or a torch tensor that requires
+    grad, such as a ``Layer``'s parameter, makes the outputs carry
+    gradients). Returns Tensor(s) mirroring fn's output structure (a
+    single tensor or a tuple of tensors).
     """
     if _obs.dispatch_armed[0]:
         if host_recorder._enabled:
@@ -107,6 +109,10 @@ def _apply_impl(fn: Callable, args, op_name: str, static):
             if not a._sg:
                 grad = True
         else:
+            # a layer's parameters are torch leaves: one that requires
+            # grad carries gradients as a Parameter does
+            if isinstance(a, torch.Tensor) and a.requires_grad:
+                grad = True
             vals.append(a)
     stop = not (grad and torch.is_grad_enabled())
     out = fn(*vals, **static)

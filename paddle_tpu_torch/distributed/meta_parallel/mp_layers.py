@@ -22,6 +22,7 @@ from torch import nn
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.common_layers import param_attr
+from ...nn.layer import Layer
 from ...ops._common import not_ported, resolve_device
 
 
@@ -31,7 +32,7 @@ def _one_device(mp_group):
                          "distributed")
 
 
-class _ParallelLinear(nn.Module):
+class _ParallelLinear(Layer):
     def __init__(self, in_features, out_features, weight_attr, has_bias,
                  mp_group, dtype, device):
         super().__init__()
@@ -77,7 +78,7 @@ class RowParallelLinear(_ParallelLinear):
         self.input_is_parallel = input_is_parallel
 
 
-class VocabParallelEmbedding(nn.Module):
+class VocabParallelEmbedding(Layer):
     """Weight (vocab, emb); at mp degree > 1 it would be split on
     vocab."""
 

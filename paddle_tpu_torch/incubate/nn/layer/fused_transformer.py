@@ -17,12 +17,16 @@ Weights are initialised when a layer is built, on ``device`` (``None``
 means the card), as ``nn/common_layers.py`` says.
 
 ``FusedMultiTransformer`` keeps each of its per-layer weights as a
-parameter of its own (``qkv_weights.0``, ...; ``nn.ParameterList`` gives
-the reference's names) and hands the lists to
+parameter of its own (``qkv_weights.0``, ...; one ``ParameterList`` a
+kind gives the reference's names) and hands the lists to
 ``ops.fused_transformer_block.fused_multi_transformer_array``, which
 loops over them: the reference stacks them on every call
 (``_run_stacked_block``), which at GPT-2 XL would copy 3 GB a decode
-step. Its int8 variant waits for the quantization slice.
+step. It lists its parameters layer by layer, as the reference
+registers them (``ln_scales.0, ln_biases.0, ..., ffn2_biases.0,
+ln_scales.1, ...``; l.99-108): that order is what binds a saved
+optimizer state whose names are not this process's. Its int8 variant
+waits for the quantization slice.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from ....nn import initializer as I
+from ....nn.layer import Layer, ParameterList
 from ....ops import fused_transformer_block as ftb
 from ....ops._common import resolve_device
 
@@ -54,7 +59,7 @@ def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-class FusedMultiTransformer(nn.Module):
+class FusedMultiTransformer(Layer):
     """A stack of ``num_layers`` pre-LN decoder layers (ref l.58-123).
 
     ``forward(src, attn_mask=None, caches=None, time_step=None,
@@ -108,10 +113,20 @@ class FusedMultiTransformer(nn.Module):
             "ffn2_weights": (Fh, H), "ffn2_biases": (H,),
         }
         for n in self._NAMES:
-            setattr(self, n, nn.ParameterList(
+            setattr(self, n, ParameterList(
                 [_param(shapes[n], dtype, device)
                  for _ in range(num_layers)]))
         self.reset_parameters()
+
+    def _parameter_items(self, prefix, include_sublayers):
+        """Layer-major: every kind of layer 0, then of layer 1, ... (the
+        lists are the reference's own parameters, so they are listed
+        with or without sublayers)."""
+        for i in range(self.num_layers):
+            for n in self._NAMES:
+                name = f"{n}.{i}"
+                yield (f"{prefix}.{name}" if prefix else name,
+                       getattr(self, n)[i])
 
     def reset_parameters(self, gen=None):
         """Scales 1, biases 0, weights Xavier-uniform, drawn layer by
@@ -138,7 +153,7 @@ class FusedMultiTransformer(nn.Module):
         return out if kv is None else (out, kv)
 
 
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     """Self-attention block with residual; pre-LN by default
     (``normalize_before``), post-LN otherwise."""
 
@@ -193,7 +208,7 @@ class FusedMultiHeadAttention(nn.Module):
         return _ZeroGradInputs.apply(y, self.pre_ln_scale, self.pre_ln_bias)
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     """FFN block with residual: ``act(x @ w1 + b1) @ w2 + b2``; pre-LN by
     default, post-LN otherwise. The activations are the reference's
     ``_ACTS`` (``gelu`` is the tanh approximation)."""

@@ -45,6 +45,7 @@ from ..nn import initializer as I
 from ..nn.common_layers import LayerNorm, Linear
 from ..nn.common_layers import init_layers as init
 from ..nn.common_layers import load_layer_state as params_from_numpy
+from ..nn.layer import Layer, LayerList
 from ..ops._common import resolve_device
 from ..optimizer.adamw import AdamW
 
@@ -71,7 +72,7 @@ def ernie_tiny(**over) -> ErnieConfig:
     return ErnieConfig(**base)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, config: ErnieConfig, *, dtype, device):
         super().__init__()
         h = config.hidden_size
@@ -104,7 +105,7 @@ class ErnieEmbeddings(nn.Module):
         return self.layer_norm(x)
 
 
-class ErnieEncoderLayer(nn.Module):
+class ErnieEncoderLayer(Layer):
     """Post-LN encoder block over the fused attention and FFN layers."""
 
     def __init__(self, config: ErnieConfig, *, dtype, device):
@@ -124,7 +125,7 @@ class ErnieEncoderLayer(nn.Module):
         return self.ffn(x)
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     def __init__(self, config: ErnieConfig, *, dtype, device):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size,
@@ -152,14 +153,14 @@ def packed_position_ids(segment_ids):
     return torch.where(seg < 0, 0, idx - start).to(torch.int32)
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     def __init__(self, config: ErnieConfig, *, dtype=torch.float32,
                  device=None):
         super().__init__()
         self.config = config
         device = resolve_device(device)
         self.embeddings = ErnieEmbeddings(config, dtype=dtype, device=device)
-        self.encoder = nn.ModuleList(
+        self.encoder = LayerList(
             [ErnieEncoderLayer(config, dtype=dtype, device=device)
              for _ in range(config.num_hidden_layers)])
         self.pooler = ErniePooler(config, dtype=dtype, device=device)
@@ -187,7 +188,7 @@ class ErnieModel(nn.Module):
         return x, self.pooler(x)
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     def __init__(self, config: ErnieConfig, num_classes: int = 2,
                  dropout: Optional[float] = None, *, dtype=torch.float32,
                  device=None):
@@ -202,7 +203,7 @@ class ErnieForSequenceClassification(nn.Module):
         return self.classifier(pooled)
 
 
-class ErnieForMaskedLM(nn.Module):
+class ErnieForMaskedLM(Layer):
     """MLM head tied to the word embedding: ``LN(gelu(h @ W + b)) @
     word_embeddingsᵀ + bias``, with the exact (erf) GELU."""
 

@@ -33,6 +33,7 @@ from ..nn import initializer as I
 from ..nn.common_layers import LayerNorm
 from ..nn.common_layers import init_layers as init
 from ..nn.common_layers import load_layer_state as params_from_numpy
+from ..nn.layer import Layer
 from ..ops._common import resolve_device
 
 
@@ -56,7 +57,7 @@ def gpt_tiny(**over) -> GPTConfig:
     return GPTConfig(**base)
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, *, dtype=torch.float32,
                  device=None):
         super().__init__()
@@ -83,7 +84,7 @@ class GPTEmbeddings(nn.Module):
         return tok + self.position_embeddings[start:start + s][None]
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Embeddings → fused decoder stack → final LN."""
 
     def __init__(self, config: GPTConfig, *, dtype=torch.float32,
@@ -113,7 +114,7 @@ class GPTModel(nn.Module):
         return self.final_layernorm(out)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head tied to the word embedding (the reference's pretraining
     head)."""
 

@@ -10,7 +10,7 @@ on a leading L axis) and its ``x @ W`` orientation (``wq`` is
 ``(L, h, h)``, ``lm_head`` is ``(h, V)``), so weights made by the JAX
 package carry across as a plain copy (:func:`params_from_numpy`).
 
-The imperative model is an ``nn.Module`` over the one-device
+The imperative model is a ``Layer`` over the one-device
 ``meta_parallel`` layers whose parameter names are the JAX model's
 ``named_parameters()`` names (``llama.layers.0.self_attn.q_proj.weight``,
 …), with the same ``(in, out)`` weights, so the JAX model's weights carry
@@ -37,7 +37,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.meta_parallel.mp_layers import (
@@ -45,6 +44,7 @@ from ..distributed.meta_parallel.mp_layers import (
 from ..nn import functional as NF
 from ..nn.common_layers import (  # noqa: F401
     RMSNorm, init_layers, load_layer_state, to_tensor)
+from ..nn.layer import Layer, LayerList
 from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
 from ..ops import rope as rope_ops
@@ -758,7 +758,7 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
 # Imperative model (l.93-191)
 # ---------------------------------------------------------------------------
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
@@ -781,7 +781,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape([b, s, -1]))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
@@ -794,7 +794,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(NF.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         kw = dict(epsilon=config.rms_norm_eps, dtype=config.dtype,
@@ -809,14 +809,14 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, dtype=config.dtype,
             device=device)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, device=device)
+        self.layers = LayerList([LlamaDecoderLayer(config, device=device)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             dtype=config.dtype, device=device)
@@ -832,7 +832,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """The eager Llama: (B, S) ids → (B, S, V) logits, parameters in
     ``config.dtype`` on ``device`` (``None`` means the card and raises
     without one; pass ``device="cpu"`` for the plain kernel versions).

@@ -1,12 +1,13 @@
-"""``Linear``, ``LayerNorm`` and ``RMSNorm`` of
-``paddle_tpu/nn/common_layers.py``,
+"""``Linear``, ``LayerNorm``, ``RMSNorm`` and ``ReLU`` of
+``paddle_tpu/nn/common_layers.py``, on the :class:`~.layer.Layer` base,
 with the reference's parameter names, its ``(in, out)`` weight layout
 (``y = x @ W + b``) and its initialisers (:mod:`.initializer`).
 
 As in the reference, a layer's weights are initialised when it is built
 (from torch's default generator; ``models.ernie.init`` redraws a whole
-model from a seeded one), on ``device``: ``None`` means the card and
-raises without one (``ops._common.resolve_device``)."""
+model from a seeded one), on ``device``: ``None`` means the current
+place, the card unless ``set_device`` says otherwise, and raises without
+one (:func:`.layer.layer_device`)."""
 
 from __future__ import annotations
 
@@ -16,33 +17,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops._common import not_ported, resolve_device
 from . import functional as F
 from . import initializer as I
-
-
-def param_attr(attr, layer: str) -> bool:
-    """Whether a layer makes the parameter of a ``weight_attr`` /
-    ``bias_attr`` (the reference's ``create_parameter``): ``None`` makes
-    it, ``False`` leaves it out. A ``ParamAttr`` (initializer, learning
-    rate, regularizer) comes with the eager API and raises."""
-    if attr is None:
-        return True
-    if attr is False:
-        return False
-    raise not_ported(f"{layer} with a ParamAttr", "eager API")
+from .layer import Layer, layer_device, param_attr, to_tensor
 
 
 def _maybe(make: bool, shape, kw):
     return nn.Parameter(torch.empty(shape, **kw)) if make else None
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, dtype=torch.float32,
                  device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=resolve_device(device))
+        kw = dict(dtype=dtype, device=layer_device(device))
         self.weight = _maybe(param_attr(weight_attr, "Linear"),
                              (in_features, out_features), kw)
         self.bias = _maybe(param_attr(bias_attr, "Linear"),
@@ -59,7 +48,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, *, dtype=torch.float32,
                  device=None):
@@ -67,7 +56,7 @@ class LayerNorm(nn.Module):
         self._shape = ((normalized_shape,) if isinstance(normalized_shape, int)
                        else tuple(normalized_shape))
         self._epsilon = epsilon
-        kw = dict(dtype=dtype, device=resolve_device(device))
+        kw = dict(dtype=dtype, device=layer_device(device))
         self.weight = _maybe(param_attr(weight_attr, "LayerNorm"),
                              self._shape, kw)
         self.bias = _maybe(param_attr(bias_attr, "LayerNorm"),
@@ -85,7 +74,7 @@ class LayerNorm(nn.Module):
                             self._epsilon)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """Llama's RMSNorm (l.236): a scale initialised to ones."""
 
     def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
@@ -94,7 +83,7 @@ class RMSNorm(nn.Module):
         self._epsilon = epsilon
         self.weight = _maybe(param_attr(weight_attr, "RMSNorm"),
                              (hidden_size,),
-                             dict(dtype=dtype, device=resolve_device(device)))
+                             dict(dtype=dtype, device=layer_device(device)))
         self.reset_parameters()
 
     def reset_parameters(self, gen=None):
@@ -105,27 +94,28 @@ class RMSNorm(nn.Module):
         return F.rms_norm(x, self.weight, self._epsilon)
 
 
+class ReLU(Layer):
+    """``max(x, 0)`` (the reference's ``_act_layer("ReLU", F.relu)``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)
+
+
 def init_layers(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter of ``model`` in place, seeded: each layer's
     ``reset_parameters`` draws from the reference initialisers'
     distributions with one ``torch.Generator`` on the parameters'
     device. Returns ``model``."""
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for m in model.modules():
         if hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)
     return model
-
-
-def to_tensor(a: np.ndarray) -> torch.Tensor:
-    """A numpy array (ml_dtypes bfloat16 from JAX included) as a CPU
-    tensor of its own memory."""
-    a = np.array(a, order="C")           # a writable copy
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 def load_layer_state(model: nn.Module, np_state: Dict[str, Any]) -> None:

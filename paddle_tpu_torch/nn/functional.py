@@ -1,5 +1,5 @@
 """Functions of ``paddle_tpu/nn/functional.py`` that the ported models
-use: ``linear``, ``embedding``, ``silu``, ``gelu``, ``layer_norm``,
+use: ``linear``, ``embedding``, ``relu``, ``silu``, ``gelu``, ``layer_norm``,
 ``rms_norm``, ``scaled_dot_product_attention`` and ``cross_entropy``.
 
 Each takes ``core.tensor.Tensor``s, as the reference's do: they go
@@ -39,6 +39,12 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0, out)
     return out
+
+
+def relu(x, name=None):
+    if any_tensor(x):
+        return apply(F.relu, x, op_name="relu")
+    return F.relu(x)
 
 
 def silu(x, name=None):

@@ -1,9 +1,10 @@
 """Deterministic fault injection — counterpart of
 ``paddle_tpu/resilience/faults.py``. In the port the fleet router
-(``replica_*`` events) asks it; the training runtime (``durable``,
-``ResilientTrainer``), the elastic controller and the multi-host router
-that ask for the other events are not ported yet, and the schedule
-format stays the reference's so one chaos repro drives either package.
+(``replica_*`` events), the multi-host router (``host_*``, ``link_slow``)
+and the training runtime (``durable``, ``ResilientTrainer``) ask it; the
+elastic controller that asks for ``chip_*`` is not ported yet. The
+schedule format stays the reference's, so one chaos repro drives either
+package.
 
 A :class:`FaultInjector` holds a *schedule* of faults — either written out
 explicitly or generated from a seed — and the runtime asks it at

@@ -2480,3 +2480,88 @@ def test_eager_script_on_card_matches_cpu(card_place):
     close(runs["gpu"][0], runs["cpu"][0], *tol["loss"], "loss")
     for k, g in runs["cpu"][1].items():
         l2_close(runs["gpu"][1][k], g, tol["grads"], k)
+
+
+def _tiny_gpt_recipe(seed):
+    """A tiny GPT on the card (h 128, 2 heads of 64, 2 layers) under the
+    training recipe: O2 bf16 with fp32 masters, AdamW over a warm-up and
+    cosine schedule, the global-norm clip and the loss scaler."""
+    from paddle_tpu_torch import amp as A
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.optimizer import lr as LR
+    model = G.init(G.GPTForCausalLM(G.gpt_tiny(
+        hidden_size=128, num_attention_heads=2, intermediate_size=256),
+        device="cuda"), seed)
+    named = list(model.named_parameters())
+    sched = LR.LinearWarmup(LR.CosineAnnealingDecay(1e-3, 10), 2, 1e-4,
+                            1e-3)
+    opt = O.AdamW(learning_rate=sched, parameters=named,
+                  grad_clip=O.ClipGradByGlobalNorm(1.0))
+    scaler = A.GradScaler(enable=True)
+    model, opt = A.decorate(models=model, optimizers=opt, level="O2",
+                            dtype="bfloat16")
+    return model, named, sched, opt, scaler
+
+
+def test_resilient_trainer_on_card_resumes_bitwise(cuda, tmp_path):
+    """Phase 32's schedule at tiny widths on the card: a preemption at
+    step 2 with its flush truncated, a resume by fresh objects from
+    another seed, a NaN at step 4 rolled back; the final weights,
+    masters, moments and scheduler state equal a plain run's bit for
+    bit, through pinned snapshots and loads back onto the card."""
+    from paddle_tpu_torch import resilience as R
+    from paddle_tpu_torch.distributed.checkpoint import TrainState
+
+    def step_fn(objs, fi=None):
+        model, _, sched, opt, scaler = objs
+
+        def step(i):
+            if fi is not None and fi.fire("nan", i):
+                return float("nan")
+            rng = np.random.RandomState(100 + i)
+            ids = torch.from_numpy(rng.randint(0, 128, (2, 64))).cuda()
+            model.zero_grad(set_to_none=True)
+            loss = model.compute_loss(ids, torch.roll(ids, -1, 1))
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            sched.step()
+            return loss.detach()
+        return step
+
+    def state(objs):
+        _, named, sched, opt, _ = objs
+        return ([p.detach().cpu() for _, p in named]
+                + [opt.state[n][k].cpu() for n, _ in named
+                   for k in sorted(opt.state[n])], sched.state_dict())
+
+    plain = _tiny_gpt_recipe(0)
+    run = step_fn(plain)
+    for i in range(6):
+        run(i)
+    want = state(plain)
+    fi = R.FaultInjector([R.Fault("preempt", 2), R.Fault("truncate_shard", 3),
+                          R.Fault("nan", 4)])
+    cfg = R.ResilienceConfig(checkpoint_dir=str(tmp_path / "ck"),
+                             save_interval=2, keep=2, fault_injector=fi)
+    metrics = R.ResilienceMetrics()
+    objs = _tiny_gpt_recipe(0)
+    with pytest.raises(R.Preempted) as ei:
+        R.ResilientTrainer(TrainState(objs[0], objs[3], objs[2]), cfg,
+                           metrics).run(step_fn(objs, fi), 6)
+    assert ei.value.step == 3
+    objs = _tiny_gpt_recipe(1)
+    res = R.ResilientTrainer(TrainState(objs[0], objs[3], objs[2]), cfg,
+                             metrics).run(step_fn(objs, fi), 6)
+    assert res["resumed_from"] == 2 and res["end_step"] == 6
+    assert {k: metrics.get(k) for k in (
+        "preemptions", "preempt_flushes", "corrupt_checkpoints_skipped",
+        "nan_rollbacks", "restores")} == dict(
+        preemptions=1, preempt_flushes=1, corrupt_checkpoints_skipped=1,
+        nan_rollbacks=1, restores=2)
+    got = state(objs)
+    assert got[1] == want[1]
+    assert len(got[0]) == len(want[0])
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)

@@ -91,7 +91,14 @@ def test_the_walk_covers_the_ported_surface():
                  "models.ernie.ErnieForSequenceClassification",
                  "incubate.nn.layer.fused_transformer.FusedMultiTransformer",
                  "serving.multihost.HostHandle.submit",
-                 "observability.federation.FederationHub.ingest"):
+                 "observability.federation.FederationHub.ingest",
+                 "nn.layer.Layer.state_dict", "nn.layer.Layer.set_state_dict",
+                 "resilience.trainer.ResilientTrainer.run",
+                 "resilience.durable.restore_train_state",
+                 "distributed.checkpoint.save_state_dict.save_state_dict",
+                 "distributed.checkpoint.async_save.TrainState.skip_batches",
+                 "distributed.env.get_rank", "framework.io_save.save",
+                 "io.DataLoader"):
         assert must in ids, must
 
 
