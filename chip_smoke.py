@@ -315,6 +315,29 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     save's stall and write GB/s, each load's GB/s, beside the card's
     name and power limit.
 
+33. the rest of ``nn/``, ``metric/`` and the high-level API (last):
+    (a) ``scripts/transformer_mt.py`` at tiny widths (d_model 64, 4
+    heads, 2 + 2 layers, d_ff 128, vocabulary 101) on the card against
+    the CPU: 3 ``Model.fit`` steps over batches of 4 pairs of 5-12
+    tokens with dropout 0.1 (the key stream's masks on both devices),
+    the losses and weights within ``testing.MT_FIT``, greedy tokens and
+    the beam ids of a tiny LSTM seq2seq (hidden 32, beam 4) identical,
+    then each new ``functional`` family once card against CPU. (b)
+    Transformer-base (PaddleNLP's ``transformer.base.yaml``: d_model 512,
+    8 heads, 6 + 6 layers, d_ff 2048, 33 712 shared BPE tokens, post-LN,
+    tied output) fp32 through ``Model.fit``: 30 steps of ≤4096-target-
+    token buckets with ``ModelCheckpoint`` and ``LRScheduler``, row 8's
+    30 forward and 30 backward launches a step; the step wall (median of
+    steps 6-30), target and total tokens/s, MFU against the fp32 peak, a
+    profiled step's device ms by kind and idle share, the dropout draws
+    and the masked attentions timed alone at its shapes, the host ms
+    hapi adds a batch, peak memory; ``evaluate`` with ``Accuracy``,
+    ``save`` / ``load`` (bitwise) and ``predict``; greedy decoding (64
+    equal-length sources, 128 tokens) with row 5's 12 launches a step.
+    (c) beam search over the LSTM seq2seq at PaddleNLP's IWSLT'15 widths
+    (hidden 512, target vocabulary 7709): batch 128, beam 10, 50 steps;
+    ms a step, tokens/s, ``gather_tree`` alone.
+
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -336,7 +359,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 32
+N_PHASES = 33
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -6251,6 +6274,594 @@ def eager_7b_phase(torch, L, rn, fa, train12):
         phase12_batch=train12["batch"])
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the rest of nn, metric and the high-level API — Transformer-base
+# through Model.fit (scripts/transformer_mt.py)
+# ---------------------------------------------------------------------------
+
+def _t2n(t):
+    v = t._value if hasattr(t, "_value") else t
+    return v.detach().float().cpu().numpy()
+
+
+def nn_families_card_cpu(torch):
+    """Each family of ``nn.functional`` that this slice ports, once on
+    the card against the CPU at small shapes, fp32 (TF32 off), within
+    ``CARD_CPU_TOL["out"]``: activations, the dropouts (one seed: the
+    same kept elements on both devices), convolutions, pools, norms,
+    padding and resizing, losses, the masked dropout attention and the
+    LSTM. Returns the worst error per family."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import testing
+    rs = np.random.RandomState(SEED)
+
+    def f(*s):
+        return rs.randn(*s).astype(np.float32)
+
+    def lstm(xs):
+        P.seed(SEED)
+        layer = P.nn.LSTM(16, 24, num_layers=2, direction="bidirect")
+        out, (h, c) = layer(xs[0], sequence_length=xs[1])
+        return [out, h, c]
+
+    lab = rs.randint(0, 10, (8, 12)).astype(np.int32)
+    cases = {
+        "activations": (lambda xs: [
+            F.gelu(xs[0]), F.mish(xs[0]), F.softplus(xs[0], 2.0),
+            F.hardswish(xs[0]), F.log_softmax(xs[0]), F.selu(xs[0]),
+            F.glu(xs[0])], [f(64, 96)]),
+        "dropout": (lambda xs: [
+            F.dropout(xs[0], 0.3), F.dropout(xs[0], 0.5, axis=1),
+            F.dropout2d(xs[1], 0.5), F.alpha_dropout(xs[0], 0.2),
+            F.rrelu(xs[0])], [f(64, 96), f(4, 8, 6, 6)]),
+        "conv": (lambda xs: [
+            F.conv2d(xs[0], xs[1], stride=2, padding=1, groups=2),
+            F.conv2d_transpose(xs[0], xs[2], stride=2, padding=1,
+                               output_padding=1),
+            F.conv1d(xs[3], xs[4], padding="SAME")],
+            [f(2, 8, 16, 16), f(12, 4, 3, 3), f(8, 6, 3, 3), f(2, 8, 20),
+             f(6, 8, 5)]),
+        "pool": (lambda xs: list(F.max_pool2d(
+            xs[0], 3, 2, 1, ceil_mode=True, return_mask=True)) + [
+            F.avg_pool2d(xs[0], 3, 2, 1), F.adaptive_avg_pool2d(xs[0], 4),
+            F.max_pool3d(xs[1], 2)], [f(2, 4, 16, 16), f(1, 2, 6, 6, 6)]),
+        "norm": (lambda xs: [
+            F.batch_norm(xs[0], P.zeros([8]), P.ones([8]), training=True),
+            F.group_norm(xs[0], 4), F.instance_norm(xs[0]),
+            F.local_response_norm(xs[0], 5)], [f(4, 8, 6, 6)]),
+        "resize": (lambda xs: [
+            F.pad(xs[0], [2, 1, 1, 3], mode="reflect"),
+            F.interpolate(xs[0], size=(13, 7), mode="bicubic"),
+            F.interpolate(xs[0], scale_factor=2, mode="bilinear"),
+            F.grid_sample(xs[0], xs[1]), F.unfold(xs[0], 3, paddings=1)],
+            [f(2, 3, 9, 10), np.tanh(f(2, 5, 4, 2))]),
+        "loss": (lambda xs: [
+            F.cross_entropy(xs[0], xs[1], label_smoothing=0.1),
+            F.cross_entropy(xs[0], F.label_smooth(F.one_hot(xs[1], 10)),
+                            soft_label=True, reduction="none"),
+            F.ctc_loss(F.log_softmax(xs[2]), xs[3], xs[4], xs[5]),
+            F.binary_cross_entropy_with_logits(xs[6], xs[7])],
+            [f(8, 12, 10), lab, f(20, 4, 6),
+             rs.randint(1, 6, (4, 5)).astype(np.int32),
+             np.array([20, 18, 15, 20], np.int32),
+             np.array([5, 3, 4, 1], np.int32), f(6, 7),
+             (rs.rand(6, 7) > 0.5).astype(np.float32)]),
+        "attention": (lambda xs: [
+            F.scaled_dot_product_attention(xs[0], xs[1], xs[1],
+                                           attn_mask=xs[2], dropout_p=0.1),
+            F.scaled_dot_product_attention(xs[0], xs[1], xs[1],
+                                           attn_mask=xs[3])],
+            [f(4, 9, 8, 64), f(4, 11, 8, 64),
+             (rs.rand(4, 1, 1, 11) > 0.2) | np.eye(1, 11, dtype=bool),
+             np.triu(np.full((9, 11), -1e9, np.float32), 3)]),
+        "rnn": (lstm, [f(3, 7, 16), np.array([7, 3, 5], np.int32)]),
+    }
+    rtol, atol = testing.CARD_CPU_TOL["out"]
+    report = {}
+    try:
+        for name, (fn, arrays) in cases.items():
+            outs = {}
+            for dev in ("gpu", "cpu"):
+                P.set_device(dev)
+                P.seed(SEED)
+                outs[dev] = [_t2n(o) for o in fn([P.to_tensor(a)
+                                                  for a in arrays])]
+            worst = 0.0
+            for i, (g, c) in enumerate(zip(outs["gpu"], outs["cpu"])):
+                if name == "dropout" and not np.array_equal(g == 0, c == 0):
+                    raise AssertionError(f"dropout output {i}: the kept "
+                                         "elements differ card vs CPU")
+                worst = max(worst, testing.close(
+                    torch.from_numpy(g), torch.from_numpy(c), rtol, atol,
+                    f"nn family {name} output {i}"))
+            report[name] = worst
+    finally:
+        P.set_device("gpu")
+    return report
+
+
+def _mt_run(torch, M, S, cfg, pairs, batches, s2s, src, src2):
+    """scripts/transformer_mt.py at ``cfg`` on the current place: three
+    ``fit`` steps (losses, weights), greedy tokens, beam-search ids."""
+    P = S.paddle
+    P.seed(3)
+    net = M.build_model(S, cfg)
+    model = M.prepare(S, net, cfg)
+    losses = []
+
+    class Rec(S.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    ck = os.path.join("build", "mt_tiny_ck")
+    M.train(S, model, M.make_loader(S, pairs, 0, cfg["max_length"], batches),
+            ck, callbacks=[Rec()])
+    shutil.rmtree(ck, ignore_errors=True)
+    weights = {k: v.detach().float().cpu() for k, v in
+               net.state_dict().items()}
+    greedy = _t2n(M.greedy_decode(S, net, P.to_tensor(src), 6))
+    P.seed(5)
+    parts = M.build_seq2seq(S, s2s)
+    beams = _t2n(M.beam_search(S, parts, P.to_tensor(src2), s2s,
+                               s2s["max_step_num"]))
+    return losses, weights, greedy, beams
+
+
+def mt_parity_phase(torch, ln):
+    """(a) scripts/transformer_mt.py at its tiny widths (d_model 64, 4
+    heads, 2 + 2 layers, d_ff 128, vocabulary 101) on the card against
+    the CPU: 3 ``fit`` steps over batches of 4 pairs of length 5-12 with
+    dropout 0.1 (the key stream's masks on both devices), each step's
+    loss and the weights after them within ``testing.MT_FIT``, the
+    LayerNorm kernels launched on the card; greedy tokens identical, and
+    the beam ids of the tiny LSTM seq2seq (hidden 32, beam 4); then each
+    new ``functional`` family card against CPU."""
+    from scripts import transformer_mt as M
+    from paddle_tpu_torch import testing
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    cfg, s2s = dict(M.TINY), dict(M.SEQ2SEQ_TINY)
+    pairs = M.sentence_pairs(12, cfg["vocab"], 5, 12, seed=SEED)
+    batches = [list(range(i, i + 4)) for i in range(0, 12, 4)]
+    rs = np.random.RandomState(SEED + 1)
+    src = rs.randint(2, cfg["vocab"], (3, 9)).astype(np.int32)
+    src[1, 6:] = M.BOS                                  # a padded source
+    src2 = rs.randint(2, s2s["src_vocab"], (3, 9)).astype(np.int32)
+    runs = {}
+    try:
+        for dev in ("gpu", "cpu"):
+            P.set_device(dev)
+            ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
+            runs[dev] = _mt_run(torch, M, S, cfg, pairs, batches, s2s, src,
+                                src2)
+            if dev == "gpu":
+                ln_launches = (ln.layer_norm.launches,
+                               ln.layer_norm_bwd.launches)
+    finally:
+        P.set_device("gpu")
+    (gl, gw, gg, gb), (cl, cw, cg, cb) = runs["gpu"], runs["cpu"]
+    tol = testing.MT_FIT
+    loss_err = testing.close(torch.tensor(gl), torch.tensor(cl),
+                             tol["rtol"], tol["atol"], "tiny MT fit losses")
+    w_err = max(testing.close(gw[k], cw[k], tol["rtol"], tol["atol"],
+                              f"tiny MT weight {k}") for k in cw)
+    if not np.array_equal(gg, cg):
+        raise AssertionError(f"greedy tokens differ:\n{gg}\n{cg}")
+    if not np.array_equal(gb, cb):
+        raise AssertionError("beam-search ids differ card vs CPU")
+    # 3 steps: 2 encoder + 2 decoder layers, 2 and 3 norms each
+    want_ln = 3 * (2 * 2 + 3 * 2)
+    if ln_launches[0] < want_ln or ln_launches[1] != want_ln:
+        raise AssertionError(f"LayerNorm launches {ln_launches}, want "
+                             f">= {want_ln} forward, {want_ln} backward")
+    return dict(losses_card=gl, losses_cpu=cl, loss_max_abs_err=loss_err,
+                weight_max_abs_err=w_err, greedy_tokens=gg.tolist(),
+                beam_ids_equal=True, ln_launches=list(ln_launches),
+                families=nn_families_card_cpu(torch))
+
+
+def _mt_flops(b, ss, st, cfg):
+    """Matmul FLOPs of one training step of TransformerMT on a (b, ss)
+    source and (b, st) target batch: forward from the shapes, backward
+    twice the forward."""
+    d, ff, v = cfg["d_model"], cfg["d_ff"], cfg["vocab"]
+    enc = cfg["n_enc"] * (8 * b * ss * d * d + 4 * b * ss * d * ff
+                          + 4 * b * ss * ss * d)
+    dec = cfg["n_dec"] * (8 * b * st * d * d + 4 * b * st * st * d
+                          + 4 * b * st * d * d + 4 * b * ss * d * d
+                          + 4 * b * st * ss * d + 4 * b * st * d * ff)
+    return 3 * (enc + dec + 2 * b * st * d * v)
+
+
+MT_STEPS, MT_DECODE_B, MT_DECODE_STEPS = 30, 64, 128
+
+
+def mt_base_phase(torch, ln, fa):
+    """(b) Transformer-base at full width, fp32, on the card: 30
+    ``Model.fit`` steps of ≤4096-target-token batches (PaddleNLP's token
+    buckets over seeded pairs of 16-128 tokens, in a seeded order), with
+    ``ModelCheckpoint(save_freq=1)`` and ``LRScheduler(by_step=True)``;
+    every step's LayerNorm launches (30 forward, 30 backward); the step
+    wall, tokens/s, MFU against the fp32 peak from the shapes' FLOPs, a
+    profiled step's device ms by kind and idle share, the dropout draws
+    and the masked attention timed alone at the step's shapes, the host
+    ms that hapi adds a batch, peak memory; ``evaluate`` with
+    ``Accuracy``, ``save`` and ``load`` (bitwise), ``predict``; greedy
+    decoding of 64 equal-length sources for 128 tokens with row 5's
+    launches counted."""
+    from scripts import transformer_mt as M
+    from paddle_tpu_torch import random as R
+    from paddle_tpu_torch.nn import functional as NF
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    P.set_device("gpu")
+    cfg = dict(M.BASE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    P.seed(SEED)
+    net = M.build_model(S, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pairs = M.sentence_pairs(3000, cfg["vocab"], 16, 128, seed=SEED)
+    buckets = M.token_buckets(pairs, cfg["max_tokens"], cfg["max_length"])
+    order = np.random.RandomState(SEED).permutation(len(buckets))
+    batches = [buckets[i] for i in order[:MT_STEPS]]
+    shapes = [(len(b), max(len(pairs[i][0]) for i in b),
+               max(len(pairs[i][1]) for i in b) + 1) for b in batches]
+    model = M.prepare(S, net, cfg)
+    counters = {"layer_norm_fwd": ln.layer_norm,
+                "layer_norm_bwd": ln.layer_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    n_ln = 2 * cfg["n_enc"] + 3 * cfg["n_dec"]
+    step_ms, gap_ms, losses, per_step = [], [], [], []
+    marks = {}
+
+    class Timer(S.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            now = time.perf_counter()
+            if "end" in marks:
+                gap_ms.append((now - marks["end"]) * 1e3)
+            for c in counters.values():
+                c.launches = 0
+            marks["begin"] = now
+
+        def on_train_batch_end(self, step, logs=None):
+            now = time.perf_counter()          # float(loss) has synced
+            step_ms.append((now - marks["begin"]) * 1e3)
+            losses.append(logs["loss"])
+            per_step.append({k: c.launches for k, c in counters.items()})
+            marks["end"] = now
+
+    ck = os.path.join("build", "mt_base_ck")
+    t0 = time.perf_counter()
+    M.train(S, model, M.make_loader(S, pairs, 0, 256, batches), ck,
+            callbacks=[Timer()])
+    fit_s = time.perf_counter() - t0
+    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"fit step {i}: launches {got} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    saved = sorted(os.listdir(ck))
+    if saved != ["0.pdopt", "0.pdparams", "final.pdopt", "final.pdparams"]:
+        raise AssertionError(f"ModelCheckpoint wrote {saved}")
+    shutil.rmtree(ck, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = slice(5, None)                       # steps 6-30
+    med = float(np.median(step_ms[timed]))
+    tgt_tok = [b * (st - 1) for b, _, st in shapes]
+    all_tok = [b * (ss + st) for b, ss, st in shapes]
+    flops = [_mt_flops(b, ss, st, cfg) for b, ss, st in shapes]
+    sec = float(np.sum(step_ms[timed])) / 1e3
+    tgt_tps = float(np.sum(tgt_tok[timed])) / sec
+    tok_tps = float(np.sum(all_tok[timed])) / sec
+    mfu = float(np.sum(flops[timed])) / sec / PEAK_OPS_PER_S["fp32"]
+
+    # the median-sized batch: one timed step with the shapes of its
+    # dropout draws and masked attentions recorded (profiled last, below:
+    # the profiler's CUPTI hooks can stay behind and slow what follows)
+    loader = list(M.make_loader(S, pairs, 0, 256, batches))
+    mid = int(np.argsort([b * st for b, _, st in shapes])[len(shapes) // 2])
+    src, trg, lab = loader[mid]
+    draws, attns = [], []
+    draw0, sdpa0 = R.bernoulli_draw, NF._sdpa_masked
+
+    def draw_spy(key, p, shape, device=None):
+        draws.append((float(p), tuple(shape)))
+        return draw0(key, p, shape, device)
+
+    def sdpa_spy(q, k, v, mask, scale, dropout_p, dropout_key, causal):
+        attns.append((tuple(q.shape), tuple(k.shape),
+                      None if mask is None else tuple(mask.shape),
+                      mask is not None and mask.dtype == torch.bool))
+        return sdpa0(q, k, v, mask, scale, dropout_p, dropout_key, causal)
+
+    R.bernoulli_draw, NF._sdpa_masked = draw_spy, sdpa_spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train_batch([src, trg], [lab])
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        R.bernoulli_draw, NF._sdpa_masked = draw0, sdpa0
+    n_draws = len(draws)
+    key = R.next_key().to("cuda")
+
+    def run_draws():
+        for p, shape in draws:
+            R.bernoulli_draw(key, p, shape, "cuda")
+    draw_ms = eager_ms(torch, run_draws, iters=3, warmup=1)
+    qkv = {}
+
+    def run_attns():
+        for qs, ks, ms, is_bool in attns:
+            if qs not in qkv:
+                qkv[qs] = torch.randn(qs, device="cuda",
+                                      requires_grad=True)
+            if ks not in qkv:
+                qkv[ks] = torch.randn(ks, device="cuda",
+                                      requires_grad=True)
+            q, k = qkv[qs], qkv[ks]
+            m = (torch.ones(ms, dtype=torch.bool, device="cuda")
+                 if is_bool else torch.zeros(ms, device="cuda"))
+            o = sdpa0(q, k, k, m, 0.125, 0.0, None, False)
+            o.sum().backward()
+    attn_ms = eager_ms(torch, run_attns, iters=3, warmup=1)
+    del qkv
+
+    # the host time hapi adds a batch: each of batches 6-15 again through
+    # the network, the criterion, backward and the update alone (inputs
+    # already on the card, no callback, no float(loss)), against its own
+    # fit step
+    crit = M.make_criterion(S, cfg["vocab"])
+    opt = model._optimizer
+    bare = range(5, min(15, len(loader)))
+    bare_ms = []
+    for i in bare:
+        s_, t_, l_ = [P.to_tensor(a) for a in loader[i]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = crit(net(s_, t_), l_)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    added = [step_ms[i] - b for i, b in zip(bare, bare_ms)]
+    del s_, t_, l_, loss
+
+    # evaluate with Accuracy, save / load, predict
+    emodel = S.paddle.Model(net)
+    emodel.prepare(None, crit, S.metric.Accuracy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = emodel.evaluate([loader[mid]], verbose=0)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join("build", "mt_base_save", "m")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    P.seed(SEED + 1)
+    net2 = M.build_model(S, cfg)
+    model2 = M.prepare(S, net2, cfg)
+    t0 = time.perf_counter()
+    model2.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    for (n, a), (_, b) in zip(net.state_dict().items(),
+                              net2.state_dict().items()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"loaded {n} differs from the saved one")
+    del model2, net2
+    pred = model.predict_batch([src, trg])[0]
+    if pred.shape != (src.shape[0], trg.shape[1], cfg["vocab"]) or \
+            not np.isfinite(pred).all():
+        raise AssertionError(f"predict gave {pred.shape}")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # greedy decoding: 64 sources of one length (no padding mask, so
+    # every attention is the flash forward)
+    dsrc = P.to_tensor(np.random.RandomState(SEED).randint(
+        2, cfg["vocab"], (MT_DECODE_B, 64)).astype(np.int32))
+    M.greedy_decode(S, net, dsrc, 4, memory_mask=False)      # warm
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = M.greedy_decode(S, net, dsrc, MT_DECODE_STEPS, memory_mask=False)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    dec_launches = {k: c.launches for k, c in counters.items()}
+    want_fa = cfg["n_enc"] + 2 * cfg["n_dec"] * MT_DECODE_STEPS
+    if dec_launches["flash_attention_fwd"] != want_fa:
+        raise AssertionError(f"greedy decode: flash launches "
+                             f"{dec_launches['flash_attention_fwd']} != "
+                             f"{want_fa}")
+    if tuple(toks.shape) != (MT_DECODE_B, MT_DECODE_STEPS):
+        raise AssertionError(f"greedy tokens {toks.shape}")
+
+    # the same median-sized step, profiled: device ms by kind
+    from torch.profiler import ProfilerActivity, profile
+    model.train_batch([src, trg], [lab])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.train_batch([src, trg], [lab])
+        torch.cuda.synchronize()
+    kinds, top = _kernel_ms_by_kind(prof, MT_KINDS, n_top=10)
+    busy = sum(kinds.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    del net, model, emodel, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        config="Transformer-base (d_model 512, 8 heads, 6 + 6 layers, d_ff "
+               "2048, vocab 33712 shared, post-LN), fp32, TF32 off",
+        reduced="none of the widths; 30 steps of synthetic WMT14-shaped "
+                "pairs", init_s=init_s, steps=MT_STEPS, batches=shapes,
+        losses=losses, step_ms=step_ms, median_step_ms_6_30=med,
+        target_tokens_per_s=tgt_tps, tokens_per_s=tok_tps,
+        mfu_fp32=mfu, fit_s=fit_s, peak_mem_gb=peak_gb,
+        launches_per_step=want,
+        launches={k: v * MT_STEPS for k, v in want.items()},
+        profiled_step=dict(batch=list(shapes[mid]), wall_ms=step_wall,
+                           kernel_ms=kinds, top_kernels=top,
+                           device_busy_ms=busy,
+                           idle_share=1 - busy / step_wall,
+                           dropout_draws=n_draws,
+                           dropout_draws_ms_alone=draw_ms,
+                           masked_attentions=len(attns),
+                           masked_attention_fwd_bwd_ms_alone=attn_ms),
+        hapi=dict(bare_step_ms=bare_ms, fit_step_ms=[step_ms[i]
+                                                    for i in bare],
+                  added_ms_per_batch_median=float(np.median(added)),
+                  gap_between_batches_ms=float(np.median(gap_ms))),
+        row8=_mt_ln_row8(torch, ln, shapes[mid][0] * shapes[mid][2],
+                         cfg["d_model"]),
+        row5_decode=_mt_flash_decode(torch, fa, MT_DECODE_B * cfg["nhead"],
+                                     cfg["d_model"] // cfg["nhead"]),
+        evaluate=dict(ms=eval_ms, logs=ev), save_s=save_s, load_s=load_s,
+        greedy=dict(batch=MT_DECODE_B, new_tokens=MT_DECODE_STEPS,
+                    ms_per_step=dec_s * 1e3 / MT_DECODE_STEPS,
+                    tokens_per_s=MT_DECODE_B * MT_DECODE_STEPS / dec_s,
+                    launches=dec_launches))
+
+
+def _mt_ln_row8(torch, ln, rows, h, eps=1e-5):
+    """Row 8 at the Transformer-base step's (tokens, 512) fp32 shape:
+    forward and backward kernel against the plain versions and
+    ``F.layer_norm`` (fresh copies of x and g a call, out of L2)."""
+    from paddle_tpu_torch.testing import LN_TOL, rms_close
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = 2 * torch.randn(rows, h, generator=gen, device="cuda") + 0.5
+    g = torch.randn(rows, h, generator=gen, device="cuda")
+    w = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    tol = LN_TOL[torch.float32]
+    y_err = rms_close(ln.layer_norm_kernel(x, w, b, eps),
+                      ln.ln_plain(x, w, b, eps), *tol["y"], "row 8 fwd")
+    got, want = ln.layer_norm_bwd_kernel(x, w, g, eps), \
+        ln.ln_bwd_plain(x, w, g, eps)
+    b_err = max(rms_close(got[0], want[0], *tol["dx"], "row 8 dx"),
+                rms_close(got[1], want[1], *tol["sums"], "row 8 dw"),
+                rms_close(got[2], want[2], *tol["sums"], "row 8 db"))
+    copies = _l2_cold((x, g))
+    nxt = itertools.cycle(copies).__next__
+    fb, fby = bound_ms(2 * rows * h * 4 + 2 * h * 4, 8 * rows * h, "fp32")
+    bb, bby = bound_ms(3 * rows * h * 4 + 3 * h * 4, 20 * rows * h, "fp32")
+
+    def kernel_bwd():
+        xc, gc = nxt()
+        return ln.layer_norm_bwd_kernel(xc, w, gc, eps)
+    out = dict(
+        shape=[rows, h], dtype="fp32",
+        fwd=dict(max_abs_err=y_err,
+                 ms=device_ms(torch, lambda: ln.layer_norm_kernel(
+                     nxt()[0], w, b, eps)),
+                 plain_ms=device_ms(torch, lambda: ln.ln_plain(x, w, b, eps),
+                                    iters=5, replays=2),
+                 bound_ms=fb, bound_by=fby,
+                 library_ms=device_ms(torch, lambda: torch.nn.functional
+                                      .layer_norm(nxt()[0], (h,), w, b,
+                                                  eps))),
+        bwd=dict(max_abs_err=b_err, ms=device_ms(torch, kernel_bwd),
+                 plain_ms=device_ms(torch, lambda: ln.ln_bwd_plain(
+                     x, w, g, eps), iters=5, replays=2),
+                 bound_ms=bb, bound_by=bby,
+                 library_ms=_ln_library_bwd_ms(torch, copies, w, b, eps)))
+    del x, g, copies, nxt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_flash_decode(torch, fa, bh, d):
+    """Row 5 at greedy decoding's shapes, fp32: one query a row over 64
+    keys (the cross-attention of a 64-token source) and over 128 (the
+    self-attention's last step), against the plain version and SDPA."""
+    from paddle_tpu_torch import testing
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for sk in (64, 128):
+        q = torch.randn(bh, 1, d, generator=gen, device="cuda")
+        k = torch.randn(bh, sk, d, generator=gen, device="cuda")
+        v = torch.randn(bh, sk, d, generator=gen, device="cuda")
+        sc = 1.0 / math.sqrt(d)
+        got = fa.flash_fwd_kernel(q, k, v, sc, False)[0]
+        want = fa.flash_fwd_plain(q, k, v, sc, False)[0]
+        err = testing.flash_close(got, want, torch.float32,
+                                  f"row 5 decode sk {sk}")[0]
+        bnd, by = bound_ms((2 * bh * d + 2 * bh * sk * d) * 4 + bh * 4,
+                           4 * bh * sk * d, "fp32")
+        out[f"sk{sk}"] = dict(
+            shape=[bh, 1, sk, d], max_abs_err=err,
+            ms=device_ms(torch, lambda: fa.flash_fwd_kernel(q, k, v, sc,
+                                                            False)),
+            plain_ms=device_ms(torch, lambda: fa.flash_fwd_plain(
+                q, k, v, sc, False)),
+            bound_ms=bnd, bound_by=by,
+            library_ms=device_ms(torch, lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     q[None], k[None], v[None])))
+    return out
+
+
+MT_KINDS = (("products", MATMUL_NAMES), ("layer_norm", ("layer_norm",)),
+            ("flash", ("flash_attention",)), ("softmax", ("softmax",)))
+
+
+def seq2seq_beam_phase(torch):
+    """(c) beam search over the LSTM seq2seq at PaddleNLP's IWSLT'15
+    widths (embedding and hidden 512, 2-layer LSTM encoder, two
+    LSTMCells with attention, target vocabulary 7709): batch 128, beam
+    10, 50 steps over 32-token sources; ms a step, tokens/s, and
+    ``gather_tree`` alone."""
+    from scripts import transformer_mt as M
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    P.set_device("gpu")
+    cfg = dict(M.SEQ2SEQ)
+    b, k, steps = 128, cfg["beam_size"], cfg["max_step_num"]
+    P.seed(SEED)
+    parts = M.build_seq2seq(S, cfg)
+    src = P.to_tensor(np.random.RandomState(SEED).randint(
+        2, cfg["src_vocab"], (b, 32)).astype(np.int32))
+    M.beam_search(S, parts, src[:8], cfg, 3)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = M.beam_search(S, parts, src, cfg, steps)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if tuple(ids.shape) != (b, steps, k):
+        raise AssertionError(f"beam ids {ids.shape}")
+    v = ids._value
+    if int(v.min()) < 0 or int(v.max()) >= cfg["tgt_vocab"]:
+        raise AssertionError("beam ids outside the vocabulary")
+    tid = torch.randint(0, cfg["tgt_vocab"], (steps, b, k), device="cuda",
+                        dtype=torch.int32)
+    par = torch.randint(0, k, (steps, b, k), device="cuda",
+                        dtype=torch.int32)
+    gt_ms = eager_ms(torch, lambda: S.nn.functional.gather_tree(tid, par),
+                     iters=5, warmup=1)
+    return dict(batch=b, beam=k, steps=steps, source_len=32,
+                ms_per_step=sec * 1e3 / steps,
+                tokens_per_s=b * steps / sec,
+                beam_tokens_per_s=b * k * steps / sec,
+                gather_tree_ms=gt_ms)
+
+
 def _kernel_entry(name, route, source, replaces, launches, r):
     """One entry of the kernels line: ``launches`` from the main paths,
     the rest from the kernel's own phase."""
@@ -6428,6 +7039,20 @@ def main() -> int:
     done(32, f"GPT-2 XL's recipe through ResilientTrainer (preemption, "
          f"corrupt shard, NaN rollback) on {card}", resilient)
     xs = resilient["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    done(33, "tiny Transformer MT through Model.fit, greedy and beam "
+         "search, and each new nn family, card == cpu",
+         mt_parity_phase(torch, ln))
+    t33 = time.perf_counter()
+    beam = seq2seq_beam_phase(torch)
+    done(33, f"LSTM seq2seq beam search (batch 128, beam 10, 50 steps) on "
+         f"{card}", beam)
+    mt = mt_base_phase(torch, ln, fa)
+    done(33, f"Transformer-base fp32 through Model.fit, evaluate, save / "
+         f"load, predict and greedy decoding on {card} ((b) and (c) in "
+         f"{time.perf_counter() - t33:.1f} s)", mt)
+    ml = mt["launches"]
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -6508,15 +7133,15 @@ def main() -> int:
             f"paddle_tpu/ops/flash_attention.py:{line}",
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
-            + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name],
-            r))
+            + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name]
+            + ml[name] + mt["greedy"]["launches"][name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
-            bert["launches"][name] + gl[name] + xr[name] + xs[name],
-            lnr[key]["bf16"]))
+            bert["launches"][name] + gl[name] + xr[name] + xs[name]
+            + ml[name] + mt["greedy"]["launches"][name], lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32
     kernels.append(_kernel_entry(

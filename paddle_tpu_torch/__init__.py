@@ -21,8 +21,8 @@ schema-generated ops, creation and the random stream (``seed``),
 ``grad``, ``set_flags``/``get_flags``, ``save``/``load`` and
 ``in_dynamic_mode``. It loads on first use (``_surface``), so ``import
 paddle_tpu_torch`` by itself imports nothing of torch and touches no
-card. Names of later slices (``ParamAttr``, ``metric``, ``jit``, ...)
-raise ``NotImplementedError``.
+card. Names of later slices (``jit``, ``vision``, ...) raise
+``NotImplementedError``.
 
 Ported so far:
 
@@ -44,7 +44,11 @@ Ported so far:
   ``creation``, ``random``, ``flags``, ``device``, ``autograd``
   (``PyLayer``, ``jacobian``), ``amp.auto_cast`` and
   ``amp.debugging``; the Tensor-level ``nn.functional``, ``ops`` and
-  ``incubate.nn.functional`` entries dispatch through it.
+  ``incubate.nn.functional`` entries dispatch through it;
+- ``nn`` whole (the layers, ``ParamAttr`` and the initializers drawing
+  from the key stream, ``functional``, the Transformer family, the
+  recurrent layers, beam-search decoding, ``utils``), ``metric`` and the
+  high-level API (``Model``, ``summary``, ``hapi``, ``callbacks``).
 """
 
 __version__ = "0.1.0"
@@ -73,23 +77,20 @@ def device_count() -> int:
 
 #: subpackages and modules of the port, imported on first use
 _SUBMODULES = frozenset((
-    "amp", "autograd", "core", "creation", "device", "distributed", "flags",
-    "framework", "incubate", "inference", "io", "kvcache", "models", "nn",
-    "observability", "ops", "optimizer", "profiler", "random", "regularizer",
-    "resilience", "serving", "testing",
+    "amp", "autograd", "callbacks", "core", "creation", "device",
+    "distributed", "flags", "framework", "hapi", "incubate", "inference",
+    "io", "kvcache", "metric", "models", "nn", "observability", "ops",
+    "optimizer", "profiler", "random", "regularizer", "resilience",
+    "serving", "testing",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
 _LATER = {
-    "ParamAttr": "eager nn (nn.layer)",
-    "metric": "eager API (metric)",
     "jit": "jit (to_static)",
-    "Model": "high-level API (hapi)",
-    "summary": "high-level API (hapi)",
 }
-for _n in ("vision", "hapi", "parallel", "static", "quantization", "linalg",
+for _n in ("vision", "parallel", "static", "quantization", "linalg",
            "fft", "sparse", "distribution", "signal", "audio", "text",
-           "utils", "onnx", "geometric", "callbacks", "version", "hub"):
+           "utils", "onnx", "geometric", "version", "hub"):
     _LATER.setdefault(_n, f"long tail ({_n})")
 
 

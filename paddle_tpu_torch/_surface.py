@@ -50,3 +50,8 @@ from . import amp  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
 from . import framework  # noqa: F401,E402
 from . import io  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
+from .hapi import Model, summary  # noqa: F401,E402

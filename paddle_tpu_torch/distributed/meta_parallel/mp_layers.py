@@ -21,9 +21,15 @@ from torch import nn
 
 from ...nn import functional as F
 from ...nn import initializer as I
-from ...nn.common_layers import param_attr
 from ...nn.layer import Layer
 from ...ops._common import not_ported, resolve_device
+
+
+def param_attr(attr, layer: str) -> None:
+    """A ``weight_attr`` other than None / False (a ``ParamAttr``, an
+    initializer) comes with a later slice here and raises."""
+    if attr is not None and attr is not False:
+        raise not_ported(f"{layer} with a ParamAttr", "distributed")
 
 
 def _one_device(mp_group):

@@ -34,10 +34,16 @@ a dotted parameter name) declares its own order by overriding
 A ``core.tensor.Parameter`` given to ``add_parameter`` (or assigned as
 an attribute) is registered through its torch leaf: the leaf becomes an
 ``nn.Parameter`` that the Parameter then wraps, so both see one
-gradient. ``create_parameter`` returns the ``nn.Parameter``. A layer's
-``device=None`` is the current place (``set_device``; the card unless
-set otherwise). A ``ParamAttr`` comes with the rest of the eager API
-and raises.
+gradient. ``create_parameter`` returns the ``nn.Parameter``, drawn from
+the framework key stream by the attribute's initializer, else the
+default one, else the reference's rule (Xavier-uniform for a weight,
+zeros for a bias); a :class:`ParamAttr`'s learning rate,
+``trainable``, regularizer and ``need_clip`` are set on it as the
+optimizers read them (a torch tensor's ``name`` is not writable, so its
+name is not kept). A layer's parameter is a :class:`LayerParameter`. A layer's ``device=None`` is the current place
+(``set_device``; the card unless set otherwise). ``apply`` visits the
+layer before its sublayers, as the reference does; ``to``/``astype``
+take Paddle's place strings and dtype names.
 """
 
 from __future__ import annotations
@@ -53,28 +59,77 @@ from ..core.dtype import convert_dtype, get_default_dtype
 from ..core import place as _place
 from ..core.tensor import Parameter as _CoreParameter
 from ..core.tensor import Tensor, to_torch
-from ..ops._common import not_ported, resolve_device
 from . import initializer as I
 
 
-def layer_device(device=None) -> torch.device:
-    """The device a layer builds its parameters on: ``device``, or when
-    None the place ``set_device`` set, else the card (raising without
-    one)."""
-    if device is None and _place._current_place[0] is not None:
-        return _place._current_place[0].torch_device()
-    return resolve_device(device)
+#: the device a layer builds its parameters on: ``device``, or when None
+#: the place ``set_device`` set, else the card (raising without one)
+layer_device = I.init_device
 
 
-def param_attr(attr, layer: str) -> bool:
-    """Whether a ``weight_attr`` / ``bias_attr`` asks for its parameter:
-    ``None`` makes it, ``False`` leaves it out. A ``ParamAttr``
-    (initializer, learning rate, regularizer) raises."""
-    if attr is None:
-        return True
-    if attr is False:
-        return False
-    raise not_ported(f"{layer} with a ParamAttr", "eager API")
+class ParamAttr:
+    """Parity with paddle.ParamAttr."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 trainable=True, regularizer=None, need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.trainable = trainable
+        self.regularizer = regularizer
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        if attr is None:
+            return ParamAttr()
+        if isinstance(attr, ParamAttr):
+            return attr
+        if isinstance(attr, I.Initializer):
+            return ParamAttr(initializer=attr)
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        if attr is False:
+            return False
+        raise TypeError(f"invalid param attr {attr!r}")
+
+
+class LayerParameter(nn.Parameter):
+    """A layer's parameter: an ``nn.Parameter`` with the two host-side
+    methods of the reference's Parameter that user code calls on a
+    layer's weights, ``set_value`` (an in-place copy, no gradient) and
+    ``numpy`` (a host copy, whatever ``requires_grad`` says)."""
+
+    def set_value(self, value):
+        with torch.no_grad():
+            self.copy_(as_torch(value).to(self.dtype))
+
+    def numpy(self, *args, **kwargs):
+        return self.detach().cpu().numpy().copy()
+
+
+def make_parameter(value: torch.Tensor, attr: "ParamAttr") -> nn.Parameter:
+    """``value`` as an ``nn.Parameter`` carrying ``attr``'s settings
+    where the optimizers read them (a torch tensor's ``name`` is not
+    writable: the attribute's name is not kept)."""
+    p = LayerParameter(value, requires_grad=bool(attr.trainable))
+    p.trainable = bool(attr.trainable)
+    p.optimize_attr = {"learning_rate": attr.learning_rate}
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    return p
+
+
+def _place_device(device):
+    """A torch device for a Paddle place string (``"gpu:1"``, ``"cpu"``),
+    a Place or a torch device."""
+    if isinstance(device, _place.Place):
+        return device.torch_device()
+    if isinstance(device, str):
+        name, _, idx = device.partition(":")
+        if name in ("gpu", "cuda"):
+            return torch.device("cuda", int(idx or 0))
+    return torch.device(device)
 
 
 def to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -104,7 +159,7 @@ def _leaf(p):
         return p
     if isinstance(p, _CoreParameter):
         v = p._value
-        leaf = nn.Parameter(v.detach(), requires_grad=v.requires_grad)
+        leaf = LayerParameter(v.detach(), requires_grad=v.requires_grad)
         leaf.__dict__.update(v.__dict__)
         p._value = leaf
         return leaf
@@ -128,6 +183,7 @@ class Layer(nn.Module):
     def __init__(self, name_scope: Optional[str] = None, dtype=None):
         super().__init__()
         self._dtype = convert_dtype(dtype) or get_default_dtype()
+        self._name_scope = name_scope or self.__class__.__name__.lower()
 
     def __setattr__(self, name, value):
         if isinstance(value, _CoreParameter):
@@ -138,22 +194,22 @@ class Layer(nn.Module):
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
-        """A new ``nn.Parameter`` on the current place: from
-        ``default_initializer(shape, dtype)`` where given, else zeros for
-        a bias and Xavier-uniform otherwise (torch's default
-        generator)."""
-        if not param_attr(attr, "create_parameter"):
+        """A new ``nn.Parameter`` on the current place, drawn by the
+        attribute's initializer, else ``default_initializer``, else zeros
+        for a bias and Xavier-uniform otherwise (the key stream)."""
+        attr = ParamAttr._to_attr(attr)
+        if attr is False:
             return None
-        shape = tuple(int(s) for s in shape)
         dt = convert_dtype(dtype) or self._dtype
-        dev = layer_device()
-        if default_initializer is not None:
-            v = to_torch(default_initializer(shape, dt), dev).to(dt)
-            return nn.Parameter(v)
-        p = nn.Parameter(torch.zeros(shape, dtype=dt, device=dev))
-        if not is_bias:
-            I.xavier_uniform_(p)
-        return p
+        init = attr.initializer or default_initializer or (
+            I.Constant(0.0) if is_bias else I.XavierUniform())
+        shape = tuple(int(s) for s in shape)
+        dev = getattr(self, "_build_device", None) or layer_device()
+        if isinstance(init, I.Initializer):
+            v = init(shape, dt, device=dev)
+        else:
+            v = to_torch(init(shape, dt), dev)
+        return make_parameter(v.to(device=dev, dtype=dt), attr)
 
     def add_parameter(self, name: str, parameter):
         self.register_parameter(name, _leaf(parameter))
@@ -216,6 +272,47 @@ class Layer(nn.Module):
             if m is self and not include_self:
                 continue
             yield name, m
+
+    def apply(self, fn):
+        """``fn(layer)`` for this layer, then every sublayer in the
+        reference's order (pre-order)."""
+        for layer in self.sublayers(include_self=True):
+            fn(layer)
+        return self
+
+    def full_name(self):
+        return self._name_scope
+
+    # -- dtype / place --------------------------------------------------------
+
+    def to(self, device=None, dtype=None, blocking=None, **kwargs):
+        """Paddle's ``to(device, dtype, blocking)``: a place string
+        (``"gpu:0"``, ``"cpu"``), a Place or a torch device, and a dtype
+        that floating parameters and buffers are cast to. The parameter
+        objects stay the same (an optimizer holding them keeps them).
+        Torch's spellings (a tensor or a dtype first, ``non_blocking=``)
+        are torch's."""
+        if kwargs or isinstance(device, (torch.Tensor, torch.dtype)):
+            return super().to(*[a for a in (device, dtype) if a is not None],
+                              **kwargs)
+        dev = None if device is None else _place_device(device)
+        dt = convert_dtype(dtype)
+        if dev is not None or dt is not None:
+            super().to(**({"device": dev} if dev is not None else {}),
+                       **({"dtype": dt} if dt is not None else {}))
+        if dt is not None:
+            for layer in self.sublayers(include_self=True):
+                layer._dtype = dt
+        return self
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    def float(self):
+        return self.to(dtype="float32")
+
+    def bfloat16(self):
+        return self.to(dtype="bfloat16")
 
     # -- modes ----------------------------------------------------------------
 

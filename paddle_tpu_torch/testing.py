@@ -158,6 +158,19 @@ def l2_close(got, want, tol, msg):
         raise AssertionError(f"{msg}: relative L2 error {l2} > {l2_tol}")
     return err, l2
 
+# scripts/transformer_mt.py at its tiny widths (chip_smoke phase 33 (a),
+# tests/test_torch_transformer_mt.py): the losses of three Model.fit
+# steps with dropout 0.1, and the weights after them, from the same
+# weights, data and dropout masks on two sides (the two packages on the
+# CPU, or the card and the CPU), as (rtol, atol). fp32 sums in other
+# orders move the ~4.9 loss by a few 1e-6 relative (1.6e-6 measured
+# between the packages); NoamDecay's first steps at d_model 64 are
+# ~1e-6, so Adam moves a weight by about that much a step whatever the
+# two sides' rounding, and a key bias (a gradient that is zero up to
+# rounding, see key_bias_split) by that much in a noisy direction. A lost
+# dropout mask or attention mask moves the loss by 1e-2 or more.
+MT_FIT = dict(rtol=1e-5, atol=1e-5)
+
 
 def key_bias_split(name, t, hidden: int):
     """``(key part, the rest)`` of a fused attention's QKV bias (ERNIE's

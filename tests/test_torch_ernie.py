@@ -13,6 +13,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import optimizer as jopt
 from paddle_tpu.models import ernie as JE
+import paddle_tpu_torch as TP
 from paddle_tpu_torch.models import ernie as TE
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import layer_norm_fused as tln
@@ -336,16 +337,20 @@ def _nn():
 def test_layers_default_to_the_card_and_initialise_when_built(layer,
                                                              monkeypatch):
     """``device=None`` means the card (and raises without one); built on
-    the CPU, every weight is drawn at construction, from torch's default
-    generator, as the reference draws from its global seed."""
+    the CPU, every weight is drawn at construction, from the framework
+    key stream (the ``Linear`` and ``LayerNorm`` layers) and torch's
+    default generator (the model's own embeddings), so one seed of each
+    builds the same weights twice."""
     make = _PUBLIC_LAYERS[layer]
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(None)
     torch.manual_seed(21)
+    TP.seed(21)
     a = dict(make("cpu").named_parameters())
     torch.manual_seed(21)
+    TP.seed(21)
     b = dict(make("cpu").named_parameters())
     for name, p in a.items():
         assert p.device.type == "cpu" and torch.isfinite(p).all(), name

@@ -2565,3 +2565,42 @@ def test_resilient_trainer_on_card_resumes_bitwise(cuda, tmp_path):
     assert len(got[0]) == len(want[0])
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# nn, metric and hapi (Transformer-base's path)
+# ---------------------------------------------------------------------------
+
+def test_nn_families_on_card_match_cpu(card_place):
+    """Each family of nn.functional this slice ports, on the card
+    against the CPU (chip_smoke phase 33 (a)'s check)."""
+    import chip_smoke
+    worst = chip_smoke.nn_families_card_cpu(torch)
+    assert set(worst) >= {"activations", "dropout", "conv", "pool", "norm",
+                          "resize", "loss", "attention", "rnn"}
+
+
+def test_transformer_mt_tiny_on_card_matches_cpu(card_place):
+    """scripts/transformer_mt.py at its tiny widths: three fit steps with
+    dropout, greedy tokens and beam ids, card against CPU."""
+    import chip_smoke
+    rep = chip_smoke.mt_parity_phase(torch, ln)
+    assert rep["beam_ids_equal"] and len(rep["losses_card"]) == 3
+
+
+def test_attention_routes_on_card(card_place):
+    """Without a mask or dropout, nn attention launches the flash
+    forward; with a padding mask it takes the masked path (no launch);
+    Accuracy stays on the card."""
+    import paddle_tpu_torch as TP
+    TP.seed(0)
+    mha = TP.nn.MultiHeadAttention(128, 2)
+    x = TP.randn([2, 5, 128])
+    before = fa.flash_fwd_kernel.launches
+    mha(x)
+    assert fa.flash_fwd_kernel.launches == before + 1
+    mask = TP.to_tensor(np.zeros((2, 1, 1, 5), np.float32))
+    mha(x, attn_mask=mask)
+    assert fa.flash_fwd_kernel.launches == before + 1
+    c = TP.metric.Accuracy().compute(x, TP.zeros([2, 5], dtype="int32"))
+    assert c.is_cuda

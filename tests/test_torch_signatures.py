@@ -261,7 +261,11 @@ def test_layers_take_weight_attr_and_bias_attr():
     emb = TMP.VocabParallelEmbedding(10, 4, None, None, "emb", device="cpu")
     assert emb.weight.shape == (10, 4)
     with pytest.raises(NotImplementedError):
+        TMP.ColumnParallelLinear(4, 8, object(), device="cpu")
+    with pytest.raises(TypeError):                  # as the reference's
         TC.Linear(4, 3, object(), device="cpu")
+    with pytest.raises(TypeError):
+        JNN.Linear(4, 3, object())
 
 
 def test_embedding_padding_idx_and_cross_entropy_options():
@@ -276,9 +280,13 @@ def test_embedding_padding_idx_and_cross_entropy_options():
     np.testing.assert_array_equal(got.numpy(), want)
     logits = torch.zeros(2, 4)
     label = torch.tensor([1, 2])
-    TF.cross_entropy(logits, label, None, -100, "mean")
-    with pytest.raises(NotImplementedError):
-        TF.cross_entropy(logits, label, None, -100, "sum")
+    for red in ("mean", "sum"):
+        want = JF.cross_entropy(paddle.to_tensor(logits.numpy()),
+                                paddle.to_tensor(label.numpy()), None, -100,
+                                red)
+        got = TF.cross_entropy(logits, label, None, -100, red)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
+                                   rtol=1e-6)
 
 
 def test_mix_precision_layer_and_speculation_telemetry_arguments():

@@ -297,11 +297,16 @@ def test_importing_the_package_touches_no_torch():
 
 
 def test_later_names_raise_not_ported():
-    for name in ("ParamAttr", "metric", "jit"):
+    for name in ("jit", "vision", "static"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(TP, name)
-    # ported since: the checkpoint tier and the data pipeline
+    # ported since: the checkpoint tier, the data pipeline, nn whole, the
+    # metrics and the high-level API
     assert TP.save is TP.framework.save and TP.load is TP.framework.load
+    assert TP.ParamAttr is TP.nn.ParamAttr
+    assert TP.metric.Accuracy is not None and TP.Model is TP.hapi.Model
+    assert TP.summary is TP.hapi.summary
+    assert TP.callbacks.VisualDL is TP.hapi.callbacks.VisualDL
     assert TP.io.DataLoader is not None
     assert TP.in_dynamic_mode()
     TP.enable_static()
