@@ -337,6 +337,35 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     (c) beam search over the LSTM seq2seq at PaddleNLP's IWSLT'15 widths
     (hidden 512, target vocabulary 7709): batch 128, beam 10, 50 steps;
     ms a step, tokens/s, ``gather_tree`` alone.
+34. Compiled programs (``jit``, ``static``, the Predictor, fusion), TF32
+    off. (a) Tiny widths, card == CPU and every CUDA graph == the same
+    program with graphs off (bitwise): ``to_static``, ``TrainStep`` (3
+    steps with dropout) and ``multi_step(2)``, the dy2static ``if`` /
+    ``while`` (a counted graph break) / ``for`` / early-``return``
+    functions, a ``to_static`` function of Python numbers (one capture,
+    each call its own values), ``jit.save`` → ``load`` → ``Predictor``
+    (the saved programs launch rows 8, 1 and 5), the fused-tail
+    engine's streams,
+    the fused Adam (bitwise against eager on each device). (b)
+    Transformer-base at full widths through ``Model.prepare(jit_compile=
+    True)`` over phase 33's 30 buckets padded by ``ShapeBucketer`` (5
+    signatures, one CUDA graph each); the first 3 steps bitwise against
+    the graphs-off body; the eager ``Model.fit`` over the same padded
+    batches; step median, idle share, MFU, peak memory, captures and
+    ``recompile_count``. (c) ``jit.save`` of its forward through
+    ``inference.create_predictor``: against the layer, row 8's 30
+    launches a run, save / load seconds, ms a run. (d) (run after phase
+    21, on phase 7's weights) the 7B unified serve with
+    ``fused_tail=True``: phase 7's streams, one build, 2 plan uploads a
+    step against 8, ``enable_fused_tail()`` mid-serve (one counted
+    rebuild), the fused speculative step, and warm fused and unfused
+    serves alternating (3 each: step ms and the host's planning ms a
+    step). (e) ``install_optimizer_fusion`` on Transformer-base's Adam
+    under the eager ``Model.fit``: 3 steps bitwise, the optimizer step's
+    ms fused and unfused. (f) Rows 1, 8 and 5's custom-op dispatch (the
+    form an exported program holds) against the direct call of their
+    wrappers: µs a call, and Transformer-base's greedy decoding with
+    each patched in, alternating, same tokens.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -359,7 +388,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 33
+N_PHASES = 34
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -6871,6 +6900,813 @@ def _kernel_entry(name, route, source, replaces, launches, r):
                 bound_by=r["bound_by"], library_ms=r["library_ms"])
 
 
+
+# ---------------------------------------------------------------------------
+# phase 34: compiled programs (jit, static, the Predictor, fusion)
+# ---------------------------------------------------------------------------
+
+def _same(torch, a, b, what):
+    """Bitwise equality of two tensors (or lists of them)."""
+    if isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(torch, x, y, f"{what}[{i}]")
+        return
+    a = a._value if hasattr(a, "_value") else a
+    b = b._value if hasattr(b, "_value") else b
+    if not torch.equal(a.detach().cpu(), b.detach().cpu()):
+        diff = (a.float().cpu() - b.float().cpu()).abs().max()
+        raise AssertionError(f"{what}: graph != graphs-off run "
+                             f"(max diff {diff})")
+
+
+def _jit_mlp(P, drop):
+    nn = P.nn
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(16, 64)
+            self.norm = nn.LayerNorm(64)
+            self.fc2 = nn.Linear(64, 8)
+            self.d = nn.Dropout(drop)
+
+        def forward(self, x):
+            return self.fc2(self.d(self.norm(P.nn.functional.relu(
+                self.fc1(x)))))
+    return MLP()
+
+
+def _jit_scaled(x, s, n):
+    """A compiled function of a tensor and two Python numbers."""
+    return x * s + n
+
+
+def _dy2_branch(x):
+    if (x.sum() > 0):
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    return y + 1.0
+
+
+def _dy2_while(x):
+    s = x * 0.0
+    while (s.sum() < 10.0):
+        s = s + x
+        if (s.sum() >= 6.0):
+            break
+    return s
+
+
+def _dy2_for(x):
+    s = x[0] * 0.0
+    for i, row in enumerate(x):
+        s = s + row * float(i)
+    return s
+
+
+def _dy2_early(x):
+    s = x
+    while s.sum() < 40.0:
+        s = s * 2.0
+        if s.max() > 9.0:
+            return s * -1.0
+    return s
+
+
+class _JitTinyLlama:
+    """A pre-norm attention block over RMSNorm (row 1) and causal
+    attention at head dim 64 (row 5), for ``jit.save`` on the card."""
+
+    @staticmethod
+    def build(P):
+        nn = P.nn
+
+        class Block(nn.Layer):
+            def __init__(self, h=128, heads=2):
+                super().__init__()
+                self.heads = heads
+                self.norm1 = nn.RMSNorm(h)
+                self.qkv = nn.Linear(h, 3 * h)
+                self.out = nn.Linear(h, h)
+                self.norm2 = nn.RMSNorm(h)
+
+            def forward(self, x):
+                b, s, h = x.shape
+                q, k, v = P.split(self.qkv(self.norm1(x)), 3, axis=-1)
+                shape = [b, s, self.heads, h // self.heads]
+                a = P.nn.functional.scaled_dot_product_attention(
+                    q.reshape(shape), k.reshape(shape), v.reshape(shape),
+                    is_causal=True)
+                return self.norm2(x + self.out(a.reshape([b, s, h])))
+        return Block()
+
+
+def jit_parity_phase(torch, L, D, ln, rn, fa):
+    """(a) Tiny widths, card against CPU and every CUDA graph against the
+    same program run with graphs off on the card (bitwise): a
+    ``to_static`` MLP with LayerNorm; ``TrainStep`` (AdamW, global-norm
+    clip, dropout 0.5) for 3 steps and ``multi_step(2)``; the dy2static
+    ``if`` / ``while`` with ``break`` (a counted graph break) / ``for``
+    over a tensor / early ``return`` functions; ``jit.save`` → ``load`` →
+    ``Predictor`` of the MLP and of a tiny RMSNorm + flash attention
+    block; the fused-tail engine's greedy streams; and the fused Adam
+    step (bitwise against the eager one on each device)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import jit, testing
+    from paddle_tpu_torch.inference.config import Config
+    from paddle_tpu_torch.inference.predictor import create_predictor
+    from paddle_tpu_torch.jit import dy2static as D2
+    tol = testing.MT_FIT
+    rs = np.random.RandomState(SEED)
+    xs = rs.randn(3, 12, 16).astype(np.float32)
+    ys = rs.randint(0, 8, size=(3, 12)).astype(np.int64)
+    out = {}
+
+    def on(dev, fn):
+        P.set_device(dev)
+        try:
+            return fn()
+        finally:
+            P.set_device("gpu")
+
+    # to_static
+    def static_run(graphs):
+        P.seed(SEED)
+        net = jit.to_static(_jit_mlp(P, 0.5))
+        net.eval()
+        net.forward._graphs = graphs
+        return [net(P.to_tensor(x)) for x in xs] + [net(P.to_tensor(xs[0]))]
+    g, e = static_run(True), static_run(False)
+    _same(torch, g, e, "to_static")
+    c = on("cpu", lambda: static_run(True))
+    out["to_static_max_abs_err"] = max(
+        testing.close(a._value.cpu(), b._value, tol["rtol"], tol["atol"],
+                      "to_static card vs cpu") for a, b in zip(g, c))
+
+    # to_static over Python numbers: each is a program input (one
+    # capture, every value computed with), as jax.jit traces it
+    def numbers_run(graphs):
+        sf = jit.to_static(_jit_scaled)
+        sf._graphs = graphs
+        return [sf(P.to_tensor(xs[0]), s, 2) for s in (2.0, 3.0, 0.5)], sf
+    (g, gsf), (e, _) = numbers_run(True), numbers_run(False)
+    _same(torch, g, e, "to_static numbers")
+    if gsf.programs.captures != 1:
+        raise AssertionError(f"to_static numbers: "
+                             f"{gsf.programs.captures} captures")
+    c, _ = on("cpu", lambda: numbers_run(True))
+    out["numbers_max_abs_err"] = max(
+        testing.close(a._value.cpu(), torch.from_numpy(xs[0] * s + 2),
+                      tol["rtol"], tol["atol"], f"to_static numbers {s}")
+        for a, s in zip(g, (2.0, 3.0, 0.5)))
+    _same(torch, g, c, "to_static numbers card vs cpu")
+
+    # TrainStep (3 steps with dropout) and multi_step(2)
+    def train_run(graphs):
+        P.seed(SEED)
+        net = _jit_mlp(P, 0.5)
+        opt = P.optimizer.AdamW(
+            learning_rate=1e-2, parameters=net.parameters(),
+            grad_clip=P.optimizer.ClipGradByGlobalNorm(1.0))
+        step = jit.TrainStep(net, lambda m, x, y: P.nn.functional
+                             .cross_entropy(m(x), y), opt)
+        step._graphs = graphs
+        losses = [step(P.to_tensor(x), P.to_tensor(y))
+                  for x, y in zip(xs, ys)]
+        multi = step.multi_step(2)
+        losses.append(multi(P.to_tensor(xs[:2]), P.to_tensor(ys[:2])))
+        losses.append(multi(P.to_tensor(xs[1:]), P.to_tensor(ys[1:])))
+        return losses, [p.detach().clone() for p in net.parameters()], step
+    (gl, gw, gstep), (el, ew, _) = train_run(True), train_run(False)
+    _same(torch, gl, el, "TrainStep losses")
+    _same(torch, gw, ew, "TrainStep weights")
+    if gstep.programs.captures != 1 or \
+            gstep._multi[2].programs.captures != 1:
+        raise AssertionError("TrainStep captured "
+                             f"{gstep.programs.captures} graphs")
+    cl, cw, _ = on("cpu", lambda: train_run(True))
+    out["train_losses_card"] = [float(x) for x in gl]
+    out["train_losses_cpu"] = [float(x) for x in cl]
+    out["train_loss_max_abs_err"] = testing.close(
+        torch.tensor([float(x) for x in gl]),
+        torch.tensor([float(x) for x in cl]), tol["rtol"], tol["atol"],
+        "TrainStep losses card vs cpu")
+    out["train_weight_max_abs_err"] = max(
+        testing.close(a.cpu(), b, tol["rtol"], tol["atol"],
+                      "TrainStep weights card vs cpu")
+        for a, b in zip(gw, cw))
+
+    # dy2static
+    xin = {"if": (np.ones(4), -np.ones(4)), "while_break": (np.ones(4),),
+           "for_tensor": (np.arange(6.0).reshape(3, 2),),
+           "early_return": (np.ones(2) * 0.5, np.ones(2) * 3.0)}
+    fns = {"if": _dy2_branch, "while_break": _dy2_while,
+           "for_tensor": _dy2_for, "early_return": _dy2_early}
+    breaks0 = sum(D2.graph_breaks.values())
+    dy2 = {}
+    for name, fn in fns.items():
+        def dy_run(graphs, fn=fn, name=name):
+            sf = jit.to_static(fn)
+            sf._graphs = graphs
+            return [sf(P.to_tensor(x.astype(np.float32)))
+                    for x in xin[name] for _ in range(2)]
+        g, e = dy_run(True), dy_run(False)
+        _same(torch, g, e, f"dy2static {name}")
+        c = on("cpu", lambda: dy_run(True))
+        dy2[name] = max(testing.close(a._value.cpu(), b._value, tol["rtol"],
+                                      tol["atol"], f"dy2static {name}")
+                        for a, b in zip(g, c))
+    out["dy2static_max_abs_err"] = dy2
+    out["graph_breaks"] = sum(D2.graph_breaks.values()) - breaks0
+    if out["graph_breaks"] <= 0:
+        raise AssertionError("the data-dependent while was not counted")
+
+    # jit.save -> load -> Predictor, card and CPU
+    def save_run(build, shape, dev, tag):
+        P.seed(SEED + 1)
+        layer = build()
+        layer.eval()
+        x = np.random.RandomState(SEED).randn(*shape).astype(np.float32)
+        want = layer(P.to_tensor(x))
+        path = os.path.join("build", "jit_smoke", f"{tag}_{dev}")
+        jit.save(layer, path, input_spec=[P.static.InputSpec(list(shape),
+                                                             "float32")])
+        cfg = Config(path)
+        if dev == "cpu":
+            cfg.disable_gpu()
+        pred = create_predictor(cfg)
+        got = [pred.run([x])[0] for _ in range(3)]
+        return want, got
+    saved = {}
+    for tag, build, shape in (
+            ("mlp", lambda: _jit_mlp(P, 0.0), (12, 16)),
+            ("llama_block", lambda: _JitTinyLlama.build(P), (2, 32, 128))):
+        rn.rms_norm.launches = fa.flash_fwd_kernel.launches = 0
+        ln.layer_norm.launches = 0
+        gwant, ggot = save_run(build, shape, "gpu", tag)
+        launches = dict(rms_norm_fwd=rn.rms_norm.launches,
+                        flash_attention_fwd=fa.flash_fwd_kernel.launches,
+                        layer_norm_fwd=ln.layer_norm.launches)
+        cwant, cgot = on("cpu", lambda: save_run(build, shape, "cpu", tag))
+        if not all(np.array_equal(ggot[0], o) for o in ggot[1:]):
+            raise AssertionError(f"{tag}: predictor replays differ")
+        saved[tag] = dict(
+            vs_layer=testing.close(torch.from_numpy(ggot[0]),
+                                   gwant._value.cpu(), tol["rtol"],
+                                   tol["atol"], f"{tag} predictor vs layer"),
+            card_vs_cpu=testing.close(torch.from_numpy(ggot[0]),
+                                      torch.from_numpy(cgot[0]),
+                                      tol["rtol"], tol["atol"],
+                                      f"{tag} predictor card vs cpu"),
+            launches=launches)
+    # the layer's own forward and 3 predictor runs (a warm-up and two
+    # replays): the MLP's one LayerNorm, the block's two RMSNorms and
+    # one flash forward each time
+    if saved["mlp"]["launches"]["layer_norm_fwd"] != 4:
+        raise AssertionError(f"mlp program launches {saved['mlp']}")
+    bl = saved["llama_block"]["launches"]
+    if bl["rms_norm_fwd"] != 8 or bl["flash_attention_fwd"] != 4:
+        raise AssertionError(f"block program launches {bl}")
+    shutil.rmtree(os.path.join("build", "jit_smoke"), ignore_errors=True)
+    out["saved_programs"] = saved
+
+    # fused tail: tiny engine, fused on card == unfused on card == CPU
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
+    prompts = [rs.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3, 29)]
+    streams = {}
+    for dev, params, fused, graphs in (("cuda", params_gpu, True, True),
+                                       ("cuda", params_gpu, True, False),
+                                       ("cuda", params_gpu, False, True),
+                                       ("cpu", params_cpu, True, True)):
+        eng = D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=8), num_slots=2,
+            page_size=16, max_seq_len=128, chunk=4, device=dev,
+            fused_tail=fused)
+        eng._graphs = graphs
+        streams[(dev, fused, graphs)] = eng.serve(params, prompts)
+    if len({str(v) for v in streams.values()}) != 1:
+        raise AssertionError(f"fused-tail streams differ: {streams}")
+    out["fused_tail_tokens"] = streams[("cuda", True, True)]
+
+    # fused optimizer: bitwise against the eager step on each device
+    fused_ok = {}
+    for dev in ("cuda", "cpu"):
+        runs = []
+        for fused in (False, True):
+            gen = torch.Generator().manual_seed(SEED)
+            ps = [torch.randn(s, generator=gen).to(dev).requires_grad_(True)
+                  for s in ((64, 32), (32,), (128, 8))]
+            opt = P.optimizer.Adam(
+                learning_rate=P.optimizer.lr.StepDecay(0.01, 2, 0.5),
+                parameters=ps, weight_decay=0.01,
+                grad_clip=P.optimizer.ClipGradByGlobalNorm(1.0))
+            if fused:
+                jit.install_optimizer_fusion(opt)
+            for k in range(4):
+                g2 = torch.Generator().manual_seed(100 + k)
+                for p in ps:
+                    p.grad = torch.randn(p.shape, generator=g2).to(dev)
+                opt.step()
+                opt._learning_rate.step()
+            runs.append([p.detach().clone() for p in ps] +
+                        [v.clone() for s in opt.state.values()
+                         for v in s.values()])
+        _same(torch, runs[1], runs[0], f"fused Adam on {dev}")
+        fused_ok[dev] = True
+    out["fused_adam_bitwise"] = fused_ok
+    return out
+
+
+def _mt_padded(M, pairs, batches):
+    """Phase 33's batches collated and padded by ``ShapeBucketer`` to the
+    recipe's buckets (``M.JIT_BUCKETS``)."""
+    S = M.surface("paddle_tpu_torch")
+    raw = [M.collate([pairs[i] for i in b]) for b in batches]
+    return [M.bucket_batch(S, *r) for r in raw], raw
+
+
+def _mt_profile(torch, model, batch):
+    """One step of ``model`` on ``batch`` under torch.profiler: wall ms,
+    device ms and the idle share (None where the profiler saw no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    src, trg, lab = batch
+    model.train_batch([src, trg], [lab])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_batch([src, trg], [lab])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds, top = _kernel_ms_by_kind(prof, MT_KINDS, n_top=6)
+    busy = sum(kinds.values())
+    return dict(wall_ms=wall, device_busy_ms=busy, kernel_ms=kinds,
+                top_kernels=top,
+                idle_share=(1 - busy / wall) if busy > 0 else None)
+
+
+def jit_mt_base_phase(torch, ln):
+    """(b) Transformer-base at full widths (phase 33's recipe) through
+    ``Model.prepare(jit_compile=True)``: phase 33's 30 token buckets
+    padded by ``ShapeBucketer`` (pad id BOS, which the source bias, the
+    causal mask and the criterion's weights already ignore) to at most
+    6 signatures, one CUDA graph each; the first 3 compiled steps equal
+    the graphs-off ``TrainStep`` body bitwise (losses and weights); the
+    same padded batches through the eager ``Model.fit``; step median,
+    idle share, MFU and peak memory for both, captures, capture seconds
+    and ``recompile_count`` for the compiled run. (e)
+    ``install_optimizer_fusion`` on its Adam under the eager
+    ``Model.fit``: 3 steps bitwise against the unfused optimizer, and
+    the optimizer step's ms fused against unfused."""
+    from scripts import transformer_mt as M
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    P.set_device("gpu")
+    cfg = dict(M.BASE)
+    pairs = M.sentence_pairs(3000, cfg["vocab"], 16, 128, seed=SEED)
+    buckets = M.token_buckets(pairs, cfg["max_tokens"], cfg["max_length"])
+    order = np.random.RandomState(SEED).permutation(len(buckets))
+    batches = [buckets[i] for i in order[:MT_STEPS]]
+    padded, raw = _mt_padded(M, pairs, batches)
+    shapes = [(s.shape[0], s.shape[1], t.shape[1]) for s, t, _ in padded]
+    real = [(len(b), max(len(pairs[i][0]) for i in b),
+             max(len(pairs[i][1]) for i in b) + 1) for b in batches]
+    sigs = sorted(set(shapes))
+    if len(sigs) > 6:
+        raise AssertionError(f"{len(sigs)} padded signatures: {sigs}")
+    n_ln = 2 * cfg["n_enc"] + 3 * cfg["n_dec"]
+
+    def fit(jit_compile, graphs=True, n=MT_STEPS, snapshot_at=None):
+        """``Model.fit`` over the first ``n`` padded batches, each step
+        timed by a callback (``float(loss)`` ends a step)."""
+        torch.cuda.reset_peak_memory_stats()
+        P.seed(SEED)
+        net = M.build_model(S, cfg)
+        model = M.prepare(S, net, cfg, jit_compile=jit_compile)
+        if jit_compile:
+            model._train_step._graphs = graphs
+        step_ms, losses, snap, marks = [], [], {}, {}
+
+        class Timer(S.callbacks.Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                marks["t0"] = time.perf_counter()
+
+            def on_train_batch_end(self, step, logs=None):
+                step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+                losses.append(logs["loss"])
+                if snapshot_at is not None and step + 1 == snapshot_at:
+                    snap.update({k: v.detach().clone()
+                                 for k, v in net.state_dict().items()})
+
+        ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the guard's recaptures
+            model.fit(padded[:n], epochs=1, verbose=0, shuffle=False,
+                      callbacks=[Timer()])
+        return dict(net=net, model=model, step_ms=step_ms, losses=losses,
+                    snap=snap, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches=(ln.layer_norm.launches,
+                              ln.layer_norm_bwd.launches))
+
+    def summary(run):
+        timed = slice(5, None)
+        sec = float(np.sum(run["step_ms"][timed])) / 1e3
+        flops_pad = [_mt_flops(b, ss, st, cfg) for b, ss, st in shapes]
+        flops_real = [_mt_flops(b, ss, st, cfg) for b, ss, st in real]
+        return dict(
+            median_step_ms_6_30=float(np.median(run["step_ms"][timed])),
+            step_ms=run["step_ms"], losses=run["losses"],
+            mfu_fp32_padded=float(np.sum(flops_pad[timed])) / sec
+            / PEAK_OPS_PER_S["fp32"],
+            mfu_fp32_real_tokens=float(np.sum(flops_real[timed])) / sec
+            / PEAK_OPS_PER_S["fp32"],
+            peak_mem_gb=run["peak_gb"])
+
+    # the compiled run, its first 3 steps against the graphs-off body
+    comp = fit(True, snapshot_at=3)
+    ts = comp["model"]._train_step
+    if comp["launches"] != (n_ln * MT_STEPS, n_ln * MT_STEPS):
+        raise AssertionError(f"compiled LayerNorm launches "
+                             f"{comp['launches']}")
+    report = dict(
+        config="Transformer-base (d_model 512, 8 heads, 6 + 6 layers, "
+               "d_ff 2048, vocab 33712 shared, post-LN), fp32, TF32 off",
+        reduced="none of the widths; phase 33's 30 synthetic "
+                "WMT14-shaped buckets padded to the recipe's buckets",
+        buckets=M.JIT_BUCKETS, padded_shapes=shapes, real_shapes=real,
+        signatures=[list(s) for s in sigs],
+        real_token_share=float(np.sum([b * (ss + st) for b, ss, st in real])
+                               / np.sum([b * (ss + st)
+                                         for b, ss, st in shapes])))
+    compiled = summary(comp)
+    compiled.update(captures=ts.programs.captures,
+                    capture_s=ts.programs.capture_seconds,
+                    recompile_count=ts.guard.recompile_count,
+                    layer_norm_launches=list(comp["launches"]))
+    if ts.programs.captures != len(sigs) or \
+            ts.guard.recompile_count != len(sigs) - 1:
+        raise AssertionError(f"{ts.programs.captures} captures for "
+                             f"{len(sigs)} signatures")
+    compiled["profiled_step"] = _mt_profile(torch, comp["model"],
+                                            padded[len(padded) // 2])
+    snap = comp.pop("snap")
+    del comp
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = fit(True, graphs=False, n=3)
+    for a, b in zip(compiled["losses"][:3], off["losses"]):
+        if a != b:
+            raise AssertionError(f"compiled losses {compiled['losses'][:3]} "
+                                 f"!= graphs-off {off['losses']}")
+    for k, v in off["net"].state_dict().items():
+        if not torch.equal(v, snap[k]):
+            raise AssertionError(f"compiled weight {k} after 3 steps != "
+                                 "the graphs-off body's")
+    compiled["first_3_bitwise_vs_graphs_off"] = True
+    del off, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["compiled"] = compiled
+
+    # the eager run over the same padded batches
+    eag = fit(False)
+    eager = summary(eag)
+    eager["profiled_step"] = _mt_profile(torch, eag["model"],
+                                         padded[len(padded) // 2])
+    report["eager"] = eager
+    del eag
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the fused optimizer under the eager Model.fit
+    runs = []
+    for fused in (False, True):
+        P.seed(SEED)
+        net = M.build_model(S, cfg)
+        model = M.prepare(S, net, cfg)
+        if fused:
+            S.jit.install_optimizer_fusion(model._optimizer)
+        losses = [model.train_batch([s, t], [l])[0]
+                  for s, t, l in padded[:3]]
+        opt = model._optimizer
+        state = [v.clone() for s in opt.state.values() for v in s.values()]
+        runs.append((losses, {k: v.detach().clone()
+                              for k, v in net.state_dict().items()}, state))
+        # the optimizer step alone, on the last step's gradients
+        s_, t_, l_ = [P.to_tensor(a) for a in padded[3]]
+        loss = model._loss(net(s_, t_), l_)
+        loss.backward()
+        for _ in range(2):
+            opt.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            opt.step()
+        torch.cuda.synchronize()
+        runs[-1] += ((time.perf_counter() - t0) * 1e2,
+                     opt._fused_step.steps_fused if fused else 0)
+        del net, model, opt, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ul, uw, us, ums, _), (fl_, fw, fs, fms, nf) = runs
+    if ul != fl_:
+        raise AssertionError(f"fused Adam losses {fl_} != unfused {ul}")
+    for k in uw:
+        if not torch.equal(uw[k], fw[k]):
+            raise AssertionError(f"fused Adam weight {k} != unfused")
+    _same(torch, fs, us, "fused Adam state")
+    report["fused_adam"] = dict(bitwise_3_steps=True, losses=fl_,
+                                optimizer_step_ms_unfused=ums,
+                                optimizer_step_ms_fused=fms,
+                                steps_fused=nf)
+    return report
+
+
+def jit_predictor_phase(torch, ln):
+    """(c) ``jit.save`` of Transformer-base's forward (eval, sources and
+    targets of 8 × 64 tokens), then ``inference.create_predictor(Config
+    (prefix))`` on the card: the output against the layer's own forward
+    on the card, row 8's launches counted inside the predictor (30 a
+    run), save and load seconds, ms per ``run``."""
+    from scripts import transformer_mt as M
+    from paddle_tpu_torch import inference, testing
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    cfg = dict(M.BASE)
+    P.seed(SEED)
+    net = M.build_model(S, cfg)
+    net.eval()
+    rs = np.random.RandomState(SEED)
+    src = rs.randint(2, cfg["vocab"], (8, 64)).astype(np.int32)
+    trg = rs.randint(2, cfg["vocab"], (8, 64)).astype(np.int32)
+    src[3, 50:] = M.BOS
+    with P.no_grad():
+        want = net(P.to_tensor(src), P.to_tensor(trg))._value.float().cpu()
+    path = os.path.join("build", "jit_mt_base", "m")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S.jit.save(net, path, input_spec=[P.static.InputSpec([8, 64], "int32"),
+                                      P.static.InputSpec([8, 64], "int32")])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ln.layer_norm.launches = 0
+    got = pred.run([src, trg])[0]                 # capture
+    ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.run([src, trg])[0]
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_ln = 2 * cfg["n_enc"] + 3 * cfg["n_dec"]
+    if ln.layer_norm.launches != 11 * n_ln:
+        raise AssertionError(f"predictor row 8 launches "
+                             f"{ln.layer_norm.launches} != {11 * n_ln}")
+    if not np.array_equal(got, out):
+        raise AssertionError("predictor replays differ")
+    tol = testing.MT_FIT
+    err = testing.close(torch.from_numpy(got), want, tol["rtol"], tol["atol"],
+                        "predictor vs the layer's forward")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    captures = pred.programs.captures
+    del net, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(shape=[8, 64, 64], max_abs_err_vs_layer=err,
+                layer_norm_launches=ln.layer_norm.launches,
+                layer_norm_launches_per_run=n_ln, save_s=save_s,
+                load_s=load_s, run_ms_median=float(np.median(ms)),
+                captures=captures)
+
+
+def _dispatch_arms(torch, ln, rn, fa):
+    """The two dispatches of rows 1, 8 and 5's forwards on the card:
+    ``direct`` calls each kernel's wrapper, ``op`` goes through its
+    ``torch.library`` custom op (the form an exported program holds).
+    Each arm maps a module's dispatcher name to its function."""
+    def fa_direct(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
+                  kv_rep=1, seg_q=None, seg_k=None):
+        return fa.flash_fwd_kernel(q, k, v, scale, causal, kv_valid,
+                                   causal_offset, kv_rep, seg_q, seg_k)
+
+    def fa_op(q, k, v, scale, causal, kv_valid=None, causal_offset=0,
+              kv_rep=1, seg_q=None, seg_k=None):
+        return fa.flash_fwd_op(q, k, v, float(scale), bool(causal), kv_valid,
+                               int(causal_offset), int(kv_rep), seg_q, seg_k)
+    return {
+        "direct": {(rn, "_rms_norm_fwd"): rn.rms_norm_kernel,
+                   (ln, "_layer_norm_fwd"): ln.layer_norm_kernel,
+                   (fa, "flash_attention_fwd"): fa_direct},
+        "op": {(rn, "_rms_norm_fwd"): rn.rms_norm_op,
+               (ln, "_layer_norm_fwd"): ln.layer_norm_op,
+               (fa, "flash_attention_fwd"): fa_op}}
+
+
+def dispatch_cost_phase(torch, ln, rn, fa):
+    """(f) The host cost of the custom-op dispatch of rows 1, 8 and 5
+    against the direct call of their kernel wrappers: the µs a call at
+    decoding's shapes (2000 calls an arm, host-bound: a kernel takes a
+    few µs), and Transformer-base's greedy decoding (phase 33's 64
+    sources, 128 steps: 19 row-8 and 12 row-5 launches a step) with each
+    arm patched into the modules' dispatchers; after a full-length warm
+    run each, the arms alternate in ABBA order, 4 runs each, and must
+    emit the same tokens."""
+    from scripts import transformer_mt as M
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    arms = _dispatch_arms(torch, ln, rn, fa)
+    saved = {k: getattr(*k) for k in arms["direct"]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xr = torch.randn(8, 4096, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    xl = torch.randn(MT_DECODE_B, 512, generator=gen, device="cuda")
+    q = torch.randn(MT_DECODE_B * 8, 1, 64, generator=gen, device="cuda")
+    kv = torch.randn(MT_DECODE_B * 8, 128, 64, generator=gen, device="cuda")
+    calls = {"rms_norm_fwd": lambda f: f(xr, xr[0], 1e-5),
+             "layer_norm_fwd": lambda f: f(xl, xl[0], xl[1], 1e-5),
+             "flash_attention_fwd": lambda f: f(q, kv, kv, 0.125, False)}
+    names = {"rms_norm_fwd": (rn, "_rms_norm_fwd"),
+             "layer_norm_fwd": (ln, "_layer_norm_fwd"),
+             "flash_attention_fwd": (fa, "flash_attention_fwd")}
+    per_call = {n: {a: [] for a in arms} for n in calls}
+    for n, call in calls.items():
+        for a in arms:
+            call(arms[a][names[n]])                         # warm
+        for _ in range(3):
+            for a in arms:
+                f = arms[a][names[n]]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    call(f)
+                torch.cuda.synchronize()
+                per_call[n][a].append((time.perf_counter() - t0) / 2000
+                                      * 1e6)
+    P.seed(SEED)
+    cfg = dict(M.BASE)
+    net = M.build_model(S, cfg)
+    net.eval()
+    dsrc = P.to_tensor(np.random.RandomState(SEED).randint(
+        2, cfg["vocab"], (MT_DECODE_B, 64)).astype(np.int32))
+    step_ms = {a: [] for a in arms}
+    tokens = {}
+    try:
+        for a in arms:               # warm: the caches' full length too
+            for k, f in arms[a].items():
+                setattr(*k, f)
+            M.greedy_decode(S, net, dsrc, MT_DECODE_STEPS,
+                            memory_mask=False)
+        for r in range(4):           # ABBA: drift cancels in the medians
+            for a in (("direct", "op") if r % 2 == 0 else ("op", "direct")):
+                for k, f in arms[a].items():
+                    setattr(*k, f)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = M.greedy_decode(S, net, dsrc, MT_DECODE_STEPS,
+                                       memory_mask=False)
+                torch.cuda.synchronize()
+                step_ms[a].append((time.perf_counter() - t0) * 1e3
+                                  / MT_DECODE_STEPS)
+                tokens.setdefault(a, np.asarray(toks._value.cpu()))
+    finally:
+        for k, f in saved.items():
+            setattr(*k, f)
+    if not np.array_equal(tokens["direct"], tokens["op"]):
+        raise AssertionError("greedy tokens differ between the dispatches")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(per_call_us=per_call, greedy_step_ms=step_ms,
+                greedy_op_minus_direct_ms=float(
+                    np.median(step_ms["op"]) - np.median(step_ms["direct"])))
+
+
+def fused_tail_7b_phase(torch, D, rn, pa, cfg, params, serve, greedy):
+    """(d) Llama-2-7B (phase 7's configuration) through the unified
+    engine with ``fused_tail=True``: the streams equal phase 7's token
+    for token, the same one build, 2 plan uploads a step (plus the block
+    table) against the unfused program's 8, the step wall beside phase
+    7's; ``enable_fused_tail()`` after 3 steps of an unfused serve adds
+    one counted rebuild and the streams stay equal; and the speculative
+    step fused at phase 21's configuration (spec_k 4, the n-gram
+    drafter) gives phase 7's streams."""
+    prompts = serve_load(cfg)
+    n_layers = cfg.num_hidden_layers
+    rn.rms_norm.launches = 0
+    _reset_ragged(pa)
+    eng = _serve_engine(D, cfg, step_tokens=256, fused_tail=True)
+    t0 = time.perf_counter()
+    outs, step_ms = _serve_checked(eng, params, prompts)
+    serve_s = time.perf_counter() - t0
+    if outs != greedy:
+        raise AssertionError("fused-tail streams differ from phase 7's")
+    _check_outputs(cfg, outs, eng)
+    programs = _programs(eng, "cbe.unified_step")
+    prog = eng._unified_step
+    launches = {"rms_norm_fwd": rn.rms_norm.launches,
+                **_ragged_launches(pa)}
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * eng.micro_rounds,
+            **_ragged_want(torch, pa, n_layers * eng.micro_rounds)}
+    if launches != want:
+        raise AssertionError(f"fused launches {launches} != {want}")
+    uploads = prog.uploads / prog.calls
+    if uploads != 3:
+        raise AssertionError(f"fused step uploads {uploads} a step")
+    report = dict(serve_s=serve_s, steps=len(step_ms),
+                  mean_step_ms=float(np.mean(step_ms)),
+                  phase7_mean_step_ms=serve["mean_step_ms"],
+                  uploads_per_step=dict(fused_plan=2, fused_total=uploads,
+                                        unfused_plan=8, unfused_total=9),
+                  programs=programs, launches=launches,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # the step wall fused against unfused: two warm engines, their
+    # serves alternating, 3 each, with the host's planning ms a step
+    # (the packed plan's ``_plan_step_packed`` against ``_plan_step``)
+    engs = {"unfused": _serve_engine(D, cfg, step_tokens=256), "fused": eng}
+    if _serve_checked(engs["unfused"], params, prompts)[0] != greedy:
+        raise AssertionError("unfused streams differ from phase 7's")
+    plan_s = {}
+    for name, meth in (("unfused", "_plan_step"),
+                       ("fused", "_plan_step_packed")):
+        acc = plan_s[name] = [0.0]
+
+        def timed(*a, _f=getattr(engs[name], meth), _acc=acc, **k):
+            t0 = time.perf_counter()
+            try:
+                return _f(*a, **k)
+            finally:
+                _acc[0] += time.perf_counter() - t0
+        setattr(engs[name], meth, timed)
+    alt = {n: dict(mean_step_ms=[], plan_ms_per_step=[]) for n in engs}
+    for _ in range(3):
+        for name, e in engs.items():
+            plan_s[name][0] = 0.0
+            outs, step_ms = _serve_checked(e, params, prompts)
+            if outs != greedy:
+                raise AssertionError(f"{name} streams differ from phase 7's")
+            alt[name]["mean_step_ms"].append(float(np.mean(step_ms)))
+            alt[name]["plan_ms_per_step"].append(
+                plan_s[name][0] * 1e3 / len(step_ms))
+    report["alternating"] = alt
+    del eng, prog, engs
+    _free_card(torch)
+
+    # enable_fused_tail() mid-serve
+    eng = _serve_engine(D, cfg, step_tokens=256)
+    rids = [eng.submit(p) for p in prompts]
+    for _ in range(3):
+        eng.step(params)
+    eng.enable_fused_tail()
+    done = dict(eng.collect())
+    n = 3
+    while len(done) < len(rids):
+        eng.step(params)
+        eng.mgr.check_conservation()
+        done.update(eng.collect())
+        n += 1
+        if n > 200:
+            raise AssertionError("mid-serve fused serve did not finish")
+    if [done[r] for r in rids] != greedy:
+        raise AssertionError("streams changed after enable_fused_tail()")
+    keys = [k[4] for name, k in eng.compile_misses]
+    if keys != [False, True]:
+        raise AssertionError(f"enable_fused_tail builds {eng.compile_misses}")
+    report["mid_serve"] = dict(builds=len(keys), steps=n)
+    del eng
+    _free_card(torch)
+
+    # the speculative step, fused
+    eng = _serve_engine(D, cfg, step_tokens=256, speculative=True,
+                        spec_k=4, fused_tail=True)
+    t0 = time.perf_counter()
+    outs, step_ms = _serve_checked(eng, params, prompts)
+    if outs != greedy:
+        raise AssertionError("fused speculative streams differ from "
+                             "phase 7's")
+    if [n for n, _ in eng.compile_misses] != ["cbe.spec_step"]:
+        raise AssertionError(f"program builds {eng.compile_misses}")
+    report["speculative"] = dict(
+        rounds=eng.spec_rounds, serve_s=time.perf_counter() - t0,
+        mean_step_ms=float(np.mean(step_ms)),
+        uploads_per_round=eng._spec_step.uploads / eng._spec_step.calls,
+        spec=eng.spec.snapshot())
+    report["launches"] = {k: v for k, v in launches.items()}
+    del eng
+    _free_card(torch)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6974,6 +7810,10 @@ def main() -> int:
                                 serve, greedy_tokens)
     done(21, f"Llama-2-7B bf16 sampled, constrained and speculative serves "
          f"on {card}", options)
+    fused7 = fused_tail_7b_phase(torch, D, rn, pa, cfg7b, params7b, serve,
+                                 greedy_tokens)
+    done(34, f"(d) Llama-2-7B bf16 unified and speculative serves with "
+         f"fused_tail=True on {card}", fused7)
     gens = generate_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b)
     done(22, f"Llama-2-7B bf16 generate engines on {card}", gens)
     del params7b             # the training phases need the memory
@@ -7053,6 +7893,21 @@ def main() -> int:
          f"load, predict and greedy decoding on {card} ((b) and (c) in "
          f"{time.perf_counter() - t33:.1f} s)", mt)
     ml = mt["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    done(34, "(a) to_static, TrainStep, multi_step, dy2static, jit.save / "
+         "Predictor, fused tail and fused Adam: card == cpu, graphs == "
+         "graphs off bitwise", jit_parity_phase(torch, L, D, ln, rn, fa))
+    jmt = jit_mt_base_phase(torch, ln)
+    done(34, f"(b) Transformer-base through Model.prepare(jit_compile=True) "
+         f"against the eager Model.fit on the same padded batches, (e) the "
+         f"fused Adam, on {card}", jmt)
+    jpred = jit_predictor_phase(torch, ln)
+    done(34, f"(c) jit.save of Transformer-base's forward through the "
+         f"Predictor on {card}", jpred)
+    done(34, f"(f) the custom-op dispatch of rows 1, 8 and 5 against the "
+         f"direct call, a call and in Transformer-base's greedy decoding, "
+         f"on {card}", dispatch_cost_phase(torch, ln, rn, fa))
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -7081,7 +7936,8 @@ def main() -> int:
              + specl["rms_norm_fwd"] + glaunch + plaunch["rms_norm_fwd"]
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
              + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
-             + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"],
+             + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
+             + fused7["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -7096,7 +7952,8 @@ def main() -> int:
              + mixed["ragged_paged_attention"]
              + specl["ragged_paged_attention"]
              + pl["ragged_paged_attention"]
-             + hosts["launches"]["ragged_paged_attention"],
+             + hosts["launches"]["ragged_paged_attention"]
+             + fused7["launches"]["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
@@ -7141,7 +7998,10 @@ def main() -> int:
             name, "triton", "paddle_tpu_torch/ops/layer_norm_fused.py",
             f"paddle_tpu/ops/layer_norm_fused.py:{line}",
             bert["launches"][name] + gl[name] + xr[name] + xs[name]
-            + ml[name] + mt["greedy"]["launches"][name], lnr[key]["bf16"]))
+            + ml[name] + mt["greedy"]["launches"][name]
+            + jmt["compiled"]["layer_norm_launches"][key == "bwd"]
+            + (jpred["layer_norm_launches"] if key == "fwd" else 0),
+            lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32
     kernels.append(_kernel_entry(

@@ -21,7 +21,7 @@ schema-generated ops, creation and the random stream (``seed``),
 ``grad``, ``set_flags``/``get_flags``, ``save``/``load`` and
 ``in_dynamic_mode``. It loads on first use (``_surface``), so ``import
 paddle_tpu_torch`` by itself imports nothing of torch and touches no
-card. Names of later slices (``jit``, ``vision``, ...) raise
+card. Names of later slices (``vision``, ``linalg``, ...) raise
 ``NotImplementedError``.
 
 Ported so far:
@@ -48,7 +48,11 @@ Ported so far:
 - ``nn`` whole (the layers, ``ParamAttr`` and the initializers drawing
   from the key stream, ``functional``, the Transformer family, the
   recurrent layers, beam-search decoding, ``utils``), ``metric`` and the
-  high-level API (``Model``, ``summary``, ``hapi``, ``callbacks``).
+  high-level API (``Model``, ``summary``, ``hapi``, ``callbacks``);
+- compiled programs: ``jit`` (``to_static``, dy2static, ``TrainStep``,
+  bucketing, ``save``/``load`` as ``torch.export`` programs, the fusion
+  pass), ``static`` and the inference ``Config``/``Predictor``; a
+  compiled program is a CUDA graph per input signature on the card.
 """
 
 __version__ = "0.1.0"
@@ -79,16 +83,14 @@ def device_count() -> int:
 _SUBMODULES = frozenset((
     "amp", "autograd", "callbacks", "core", "creation", "device",
     "distributed", "flags", "framework", "hapi", "incubate", "inference",
-    "io", "kvcache", "metric", "models", "nn", "observability", "ops",
-    "optimizer", "profiler", "random", "regularizer", "resilience",
-    "serving", "testing",
+    "io", "jit", "kvcache", "metric", "models", "nn", "observability",
+    "ops", "optimizer", "profiler", "random", "regularizer", "resilience",
+    "serving", "static", "testing",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
-_LATER = {
-    "jit": "jit (to_static)",
-}
-for _n in ("vision", "parallel", "static", "quantization", "linalg",
+_LATER = {}
+for _n in ("vision", "parallel", "quantization", "linalg",
            "fft", "sparse", "distribution", "signal", "audio", "text",
            "utils", "onnx", "geometric", "version", "hub"):
     _LATER.setdefault(_n, f"long tail ({_n})")

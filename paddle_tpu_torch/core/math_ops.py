@@ -30,8 +30,9 @@ def _scalar(x):
 
 def _like(v, ref):
     """A Python scalar as a 0-d tensor beside ``ref`` (0-d tensors take
-    part in type promotion as scalars do: weakly)."""
-    return torch.as_tensor(v, device=ref.device) if _scalar(v) else v
+    part in type promotion as scalars do: weakly). A fill, not a copy
+    from the host, so a CUDA graph can capture it."""
+    return torch.full((), v, device=ref.device) if _scalar(v) else v
 
 
 # ---------------------------------------------------------------------------

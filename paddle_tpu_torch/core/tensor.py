@@ -18,9 +18,17 @@ Paddle semantics kept:
 * every value has a canonical dtype (``core.dtype``: no int64 or
   float64, as under the reference's x64-off JAX).
 
-``Tensor.place`` is where the storage lives (``core.place``). The
-reference's guard against iterating a traced tensor has no tracing to
-guard here: ``__iter__`` yields rows.
+``Tensor.place`` is where the storage lives (``core.place``).
+
+Inside a compiled program's body (``jit``: ``to_static``, ``TrainStep``;
+:data:`_tracing` counts the bodies being run) every tensor is "traced",
+as the reference's values are tracers under ``jax.jit``: reading one on
+the host (``bool``, ``float``, ``int``, ``item``) raises
+:class:`ConcretizationError`, the counterpart of JAX's
+``ConcretizationTypeError`` (on the card such a read would also break
+the CUDA graph's capture), and iterating one past
+:data:`TRACED_ITER_UNROLL_LIMIT` rows raises
+:class:`TracedIterationError`, on any device.
 """
 
 from __future__ import annotations
@@ -35,6 +43,40 @@ from .dtype import X64_TO_32, canonical_dtype
 from .place import Place, current_place, place_of
 
 _tensor_count = [0]
+
+# Cap on how many rows a `for` over a TRACED tensor may unroll (each row
+# repeats the consuming code in the program). dy2static reuses this
+# constant; its eager fallback catches TracedIterationError.
+TRACED_ITER_UNROLL_LIMIT = 256
+
+#: how many compiled-program bodies are running (``jit``): tensors are
+#: "traced" while it is not 0
+_tracing = [0]
+#: the pinned host constants of the CUDA graph being captured
+#: (:func:`to_torch`); ``jit`` gives each capture its own list
+_capture_keep: list = [[]]
+
+
+def is_tracing() -> bool:
+    return _tracing[0] > 0
+
+
+class TracedIterationError(RuntimeError):
+    """Iterating a traced tensor in a way that cannot (or should not)
+    lower to a compiled program; the message says what to change."""
+
+
+class ConcretizationError(TypeError):
+    """A traced tensor read on the host inside a compiled program's body
+    (``jax.errors.ConcretizationTypeError`` of the reference)."""
+
+
+def _concrete(what: str):
+    if _tracing[0]:
+        raise ConcretizationError(
+            f"{what} of a traced tensor inside a compiled program: the "
+            "value is not known while the program is built (convert the "
+            "control flow, or keep the read outside the program)")
 
 
 def to_torch(value, device=None) -> torch.Tensor:
@@ -53,6 +95,15 @@ def to_torch(value, device=None) -> torch.Tensor:
             t = torch.from_numpy(a)
     dev = current_place().torch_device() if device is None else device
     d = X64_TO_32.get(t.dtype, t.dtype)
+    if torch.device(dev).type == "cuda" and not isinstance(value, torch.Tensor) \
+            and torch.cuda.is_current_stream_capturing():
+        # a host constant made inside a CUDA graph's capture (a mask the
+        # body builds from numpy): the graph copies it from pinned memory
+        # on every replay, so the pinned copy lives as long as the graph
+        host = t.to(dtype=d).pin_memory()
+        _capture_keep[0].append(host)
+        return torch.empty(host.shape, dtype=d, device=dev).copy_(
+            host, non_blocking=True)
     return t.to(device=dev, dtype=d, copy=not isinstance(value, torch.Tensor))
 
 
@@ -177,6 +228,7 @@ class Tensor:
         return v.cpu().numpy() if v.is_cuda else v.numpy().copy()
 
     def item(self):
+        _concrete("item()")
         return self._value.detach().item()
 
     def tolist(self):
@@ -187,12 +239,15 @@ class Tensor:
         return a.astype(dtype) if dtype is not None else a
 
     def __float__(self):
+        _concrete("float()")
         return float(self._value.detach())
 
     def __int__(self):
+        _concrete("int()")
         return int(self._value.detach())
 
     def __bool__(self):
+        _concrete("bool()")
         return bool(self._value.detach())
 
     def __len__(self):
@@ -303,6 +358,21 @@ class Tensor:
 
     # -- iteration ----------------------------------------------------------
     def __iter__(self):
+        # guarded here, not only in dy2static's check_iterable, so that
+        # wrapped iteration (enumerate/zip/reversed over a tensor) hits
+        # the same error
+        if _tracing[0]:
+            if not self._value.dim():
+                raise TracedIterationError(
+                    "iterating a 0-d traced tensor; loops need a leading "
+                    "axis (or use a tensor op)")
+            n = self._value.shape[0]
+            if n > TRACED_ITER_UNROLL_LIMIT:
+                raise TracedIterationError(
+                    f"iterating a traced tensor with leading axis {n} would "
+                    f"unroll {n} copies of the consuming code (limit "
+                    f"{TRACED_ITER_UNROLL_LIMIT}); loop over `range(n)` and "
+                    "index, or use a tensor op (scan/vmap)")
         for i in range(len(self)):
             yield self[i]
 

@@ -6,15 +6,19 @@ and ``optimizer.step()``. ``train_batch`` returns ``float(loss)`` for
 every batch, as the reference does, which waits for the card each step.
 ``save`` / ``load`` go through ``framework.io_save`` (``.pdparams`` and
 ``.pdopt``), so a ``Model.save`` of the JAX package loads here.
-``prepare(jit_compile=True)`` needs ``jit.TrainStep``, which the port
-does not have yet, and raises; ``amp_configs`` is stored and not used,
-as in the reference. ``summary_of`` lists the parameters in the
+``prepare(jit_compile=True)`` trains through ``jit.TrainStep`` (the
+whole step one CUDA graph per batch signature on the card), with the
+reference's rules: metrics are not computed in the compiled step (a
+warning says so), ``update=False`` raises, and so does a label count
+that changes between calls. ``amp_configs`` is stored and not used, as
+in the reference. ``summary_of`` lists the parameters in the
 reference's order (``Layer._parameter_items``).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import List
 
 import numpy as np
@@ -60,14 +64,12 @@ class Model:
         self._loss = None
         self._metrics: List[Metric] = []
         self.stop_training = False
+        self._train_step = None  # compiled TrainStep when jit_compile=True
 
     # -- setup --------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit_compile: bool = False):
-        if jit_compile:
-            from ..ops._common import not_ported
-            raise not_ported("Model.prepare(jit_compile=True)",
-                             "jit (jit.TrainStep)")
+        self._train_step = None  # re-prepare drops any old compiled step
         self._optimizer = optimizer
         if loss is not None and not callable(loss):
             raise TypeError("loss must be a Layer or a callable")
@@ -78,6 +80,29 @@ class Model:
                 raise TypeError(
                     f"metric {m} is not a paddle_tpu_torch.metric.Metric")
         self._amp_configs = amp_configs
+        if jit_compile:
+            from ..jit import TrainStep
+            if self._metrics:
+                warnings.warn(
+                    "jit_compile=True: train-loop metrics are not computed "
+                    "inside the compiled step (evaluate() still reports them)")
+            loss_fn = self._loss
+            model_self = self
+
+            def step_loss(model, *batch):
+                # _jit_n_labels is pinned by train_batch before the first
+                # call, i.e. before the step is first run
+                n = model_self._jit_n_labels
+                outs = _to_list(model(*batch[:-n] if n else batch))
+                labs = list(batch[-n:]) if n else []
+                losses = _to_list(loss_fn(*(outs + labs)))
+                total = losses[0]
+                for extra in losses[1:]:
+                    total = total + extra
+                return total
+
+            self._jit_n_labels = None
+            self._train_step = TrainStep(self.network, step_loss, optimizer)
         return self
 
     def parameters(self):
@@ -88,6 +113,20 @@ class Model:
         self.network.train()
         inputs = [_to_tensor(x) for x in _to_list(inputs)]
         labels = [_to_tensor(y) for y in _to_list(labels)]
+        if self._train_step is not None:
+            if not update:
+                raise ValueError(
+                    "gradient accumulation (update=False) is not supported "
+                    "with jit_compile=True; fold accumulation into the "
+                    "compiled step or use the eager path")
+            if self._jit_n_labels is None:
+                self._jit_n_labels = len(labels)
+            elif self._jit_n_labels != len(labels):
+                raise ValueError(
+                    f"label count changed between jit-compiled train_batch "
+                    f"calls ({self._jit_n_labels} -> {len(labels)})")
+            loss = self._train_step(*inputs, *labels)
+            return [float(loss)]
         outputs = self.network(*inputs)
         losses = self._loss(*(_to_list(outputs) + labels))
         losses = _to_list(losses)

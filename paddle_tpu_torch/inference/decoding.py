@@ -532,7 +532,11 @@ class ContinuousBatchingEngine(_Programs):
     ``token_callback``, ``finish_callback``, ``num_free_slots``,
     ``num_queued``, ``num_chips`` (1) and ``mesh`` (None).
     The parameters are the reference's, in its order; ``mesh`` other
-    than None (multi-chip serving) and ``fused_tail=True`` raise.
+    than None (multi-chip serving) raises. ``fused_tail=True`` (or
+    :meth:`enable_fused_tail`, the fusion pass's ``decode_tail`` region)
+    feeds the unified and speculative programs from a packed plan: two
+    uploads a step instead of one per plan array, and a vectorized plan
+    for steady all-decode rounds; the emitted tokens are byte-identical.
     ``device`` is the port's, keyword-only: ``None`` means the card
     (raises without one); the CPU runs only when asked for with
     ``device="cpu"``.
@@ -558,8 +562,10 @@ class ContinuousBatchingEngine(_Programs):
                  drafter=None, fused_tail: bool = False,
                  mesh=None, mp_axis: str = "mp",
                  grammar_states: int = 0, *, device=None):
-        if fused_tail:
-            raise _later("fused_tail=True", "fusion")
+        if fused_tail and not unified:
+            raise ValueError(
+                "fused_tail packs the unified ragged step's plan; "
+                "construct with unified=True")
         if mesh is not None:
             raise _later("mesh= (multi-chip serving)", "multi-chip")
         if speculative and not unified:
@@ -574,6 +580,7 @@ class ContinuousBatchingEngine(_Programs):
         self.chunk = chunk
         self.max_seq_len = max_seq_len
         self._unified = unified
+        self._fused_tail = bool(fused_tail)
         self._table_width = PagedKVCacheManager.pages_needed(max_seq_len,
                                                              page_size)
         # pool sized for every slot at max length unless told otherwise
@@ -706,6 +713,30 @@ class ContinuousBatchingEngine(_Programs):
         self._rng, sub = _split(self._rng)
         return sub.numpy()
 
+    def enable_fused_tail(self) -> "ContinuousBatchingEngine":
+        """Install the fusion pass's decode-tail region (idempotent).
+        Enabled before the first step it adds no build; enabled
+        mid-serve it drops the unified and speculative programs, and the
+        next step rebuilds them — one counted miss, like a flag flip."""
+        if not self._unified:
+            raise ValueError(
+                "fused_tail packs the unified ragged step's plan; "
+                "construct with unified=True")
+        if not self._fused_tail:
+            self._fused_tail = True
+            self._unified_step = None
+            self._spec_step = None
+        return self
+
+    def _unified_inputs(self) -> dict:
+        K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
+        i32, b8 = torch.int32, torch.bool
+        return dict(ids=((K, tb), i32), use_carry=((K, tb), b8),
+                    decoding=((K, tb), b8),
+                    token_row=((K, tb), i32), positions=((K, tb), i32),
+                    kv_lens=((K, n_rows), i32), last_idx=((K, n_rows), i32),
+                    sample_mask=((K, n_rows), b8))
+
     def _build_unified_step(self, params) -> Program:
         """ONE program for every unified step: ``chunk`` micro-rounds of
         ``models.llama.ragged_step`` (the JAX engine's one ``lax.scan``).
@@ -728,13 +759,9 @@ class ContinuousBatchingEngine(_Programs):
                                 self._arena.table)
         epilogue = self._epilogue_on
         tail = _sampling.sample_rows if epilogue else _sampling.greedy_rows
-        i32, b8 = torch.int32, torch.bool
-        inputs = dict(ids=((K, tb), i32), use_carry=((K, tb), b8),
-                      decoding=((K, tb), b8),
-                      token_row=((K, tb), i32), positions=((K, tb), i32),
-                      kv_lens=((K, n_rows), i32), last_idx=((K, n_rows), i32),
-                      sample_mask=((K, n_rows), b8),
-                      bt=((n_rows, self._table_width), i32))
+        i32 = torch.int32
+        inputs = self._unified_inputs()
+        inputs["bt"] = ((n_rows, self._table_width), i32)
 
         def run(ids, use_carry, decoding, token_row, positions, kv_lens,
                 last_idx, sample_mask, bt):
@@ -762,6 +789,30 @@ class ContinuousBatchingEngine(_Programs):
                 gcarry.copy_(gst)
             return out
 
+        if self._fused_tail:
+            # the decode-tail twin: the same ops over the packed plan
+            from ..jit.fusion import build_fused_unified_step
+
+            def model_step(ids_eff, token_row, positions, kv_lens,
+                           last_idx, bt, gst, decoding):
+                hook = ((lambda lg, g=gst: _constrain.mask_logits(
+                    lg.float(), g, gtable)) if epilogue else None)
+                return L.ragged_step(
+                    params, ids_eff, token_row, positions, kv_lens,
+                    last_idx, mgr.k_pages, mgr.v_pages, bt, mcfg,
+                    logits_epilogue=hook, decoding=decoding)[0]
+
+            fused = build_fused_unified_step(
+                model_step,
+                lambda logits, kv_lens, gst: tail(logits, kv_lens, samp,
+                                                  gst, gtable),
+                n_rows, epilogue=epilogue)
+            packed = dict(plan_tt=((5, K, tb), i32),
+                          plan_tr=((3, K, n_rows), i32), bt=inputs["bt"])
+            return self._program(
+                lambda plan_tt, plan_tr, bt: fused(plan_tt, plan_tr, bt,
+                                                   carry, gcarry),
+                packed, params)
         return self._program(run, inputs, params)
 
     def _key_input(self, inputs: dict) -> dict:
@@ -892,6 +943,25 @@ class ContinuousBatchingEngine(_Programs):
             gcarry.copy_(torch.where(sampled, ngst, gcarry))
             return torch.cat([toks, accepted[:, None]], dim=1)
 
+        if self._fused_tail:
+            from ..jit.fusion import build_fused_spec_step
+            fused = build_fused_spec_step(
+                lambda ids, token_row, positions, kv_lens, cand_idx, bt,
+                decoding: L.ragged_step(
+                    params, ids, token_row, positions, kv_lens, cand_idx,
+                    mgr.k_pages, mgr.v_pages, bt, mcfg,
+                    decoding=decoding)[0],
+                lambda lg, drafts, draft_len, pos_base, gst: tail(
+                    lg, drafts, draft_len, pos_base, samp, gst, gtable),
+                self.spec_k, n_rows)
+            kd = max(self.spec_k, 1)
+            packed = dict(plan_tt=((4, T), i32),
+                          plan_tr=((3 + k1 + kd, n_rows), i32),
+                          bt=inputs["bt"])
+            return self._program(
+                lambda plan_tt, plan_tr, bt: fused(plan_tt, plan_tr, bt,
+                                                   gcarry),
+                packed, params)
         return self._program(run, inputs, params)
 
     # -- service API --------------------------------------------------------
@@ -1381,6 +1451,53 @@ class ContinuousBatchingEngine(_Programs):
                              else self._pend[s][fed[s]:])
         return emit, fed
 
+    def _plan_step_packed(self, host: Dict[str, np.ndarray]):
+        """Fused-tail planning: the plan arrays of :meth:`_plan_step`
+        packed into the two uploads ``plan_tt`` / ``plan_tr``
+        (``jit.fusion.pack_plan``), with a vectorized path for the steady
+        round where every live slot decodes (the K x slots simulation
+        collapses to numpy broadcasts; the arrays are the generic
+        planner's, byte for byte)."""
+        from ..jit.fusion import pack_plan
+        K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
+        live = [s for s in range(n_rows) if self._slot_rid[s] is not None]
+        if live and all(self._pend[s] is None for s in live):
+            nl = len(live)
+            lv = np.asarray(live, np.int64)
+            ids = np.zeros((K, tb), np.int32)
+            use_carry = np.zeros((K, tb), bool)
+            use_carry[:, :nl] = True
+            decoding = use_carry.copy()
+            token_row = np.full((K, tb), -1, np.int32)
+            token_row[:, :nl] = lv
+            positions = np.zeros((K, tb), np.int32)
+            base = self._pos[lv].astype(np.int64)
+            k_col = np.arange(K, dtype=np.int64)[:, None]
+            positions[:, :nl] = base[None, :] + k_col
+            kv_lens = np.zeros((K, n_rows), np.int32)
+            kv_lens[:, lv] = base[None, :] + k_col + 1
+            last_idx = np.zeros((K, n_rows), np.int32)
+            last_idx[:, lv] = np.arange(nl, dtype=np.int64)[None, :]
+            sample_mask = np.zeros((K, n_rows), bool)
+            sample_mask[:, lv] = True
+            emit = sample_mask.copy()
+            self._pos[lv] = (base + K).astype(np.int32)
+            fed = [0] * n_rows
+        else:
+            plan = {n: np.zeros(shape, np.int32 if dt == torch.int32
+                                else bool)
+                    for n, (shape, dt) in self._unified_inputs().items()}
+            emit, fed = self._plan_step(plan)
+            ids, use_carry, decoding, token_row, positions = (
+                plan[n] for n in ("ids", "use_carry", "decoding",
+                                  "token_row", "positions"))
+            kv_lens, last_idx, sample_mask = (
+                plan[n] for n in ("kv_lens", "last_idx", "sample_mask"))
+        host["plan_tt"][:], host["plan_tr"][:] = pack_plan(
+            ids, use_carry, token_row, positions, kv_lens, last_idx,
+            sample_mask, decoding=decoding)
+        return emit, fed
+
     def _epilogue_active(self) -> bool:
         """Any live request exercising the sampling epilogue (sampled or
         constrained rows): gates the armed ``cbe.sample_epilogue`` tap."""
@@ -1399,13 +1516,16 @@ class ContinuousBatchingEngine(_Programs):
         self._unified_step = prog = self._fetch(
             self._unified_step, "cbe.unified_step",
             (self.num_slots, self.chunk, self._step_tokens,
-             self._table_width, False, 1, self._epilogue_on),
+             self._table_width, self._fused_tail, 1, self._epilogue_on),
             self._build_unified_step, params)
         # armed-only chain taps (observability.profiling): the plan ->
         # dispatch -> unpack phases; one list index per step disarmed
         armed_chain = _chain_armed[0]
         tc0 = time.perf_counter_ns() if armed_chain else 0
-        emit, fed = self._plan_step(prog.host)
+        if self._fused_tail:
+            emit, fed = self._plan_step_packed(prog.host)
+        else:
+            emit, fed = self._plan_step(prog.host)
         if armed_chain:
             tc1 = time.perf_counter_ns()
             _note_chain(op_name="cbe.plan_step", dur_ns=tc1 - tc0)
@@ -1415,11 +1535,12 @@ class ContinuousBatchingEngine(_Programs):
         t0_ns = time.perf_counter_ns() if spans_armed() else 0
         toks = self._run("cbe.unified_step", prog).cpu().numpy()  # the fence
         if armed_chain:
-            _note_chain(op_name="cbe.unified_step",
-                        dur_ns=time.perf_counter_ns() - tc0)
+            tc1 = time.perf_counter_ns()
+            _note_chain(op_name="cbe.unified_step", dur_ns=tc1 - tc0)
             if self._epilogue_active():
                 # the sampling epilogue runs inside the step's program
                 _note_chain(op_name="cbe.sample_epilogue", dur_ns=0)
+            tc0 = tc1
         self.micro_rounds += self.chunk
         if t0_ns:
             self._note_step_windows(t0_ns, emit.sum(axis=0), fed)
@@ -1428,6 +1549,10 @@ class ContinuousBatchingEngine(_Programs):
                 continue
             self._deliver_tokens(
                 s, (toks[k, s] for k in range(self.chunk) if emit[k, s]))
+        if armed_chain:
+            # the unpack phase: the fusion pass's decode_tail signature
+            _note_chain(op_name="cbe.decode_tail",
+                        dur_ns=time.perf_counter_ns() - tc0)
         return len(self._live)
 
     def _note_step_windows(self, t0_ns: int, emit_counts, fed) -> None:
@@ -1765,11 +1890,29 @@ class ContinuousBatchingEngine(_Programs):
         self._spec_step = prog = self._fetch(
             self._spec_step, "cbe.spec_step",
             (self.num_slots, self._spec_tokens, self.spec_k,
-             self._table_width, False, 1, self._epilogue_on),
+             self._table_width, self._fused_tail, 1, self._epilogue_on),
             self._build_spec_step, params)
         armed_chain = _chain_armed[0]
         tc0 = time.perf_counter_ns() if armed_chain else 0
-        info, fed = self._plan_spec(prog.host)
+        if self._fused_tail:
+            from ..jit.fusion import pack_spec_plan
+            T, n_rows, k1 = (self._spec_tokens, self.num_slots,
+                             self.spec_k + 1)
+            kd = max(self.spec_k, 1)
+            plan = dict(ids=np.zeros((T,), np.int32),
+                        token_row=np.zeros((T,), np.int32),
+                        positions=np.zeros((T,), np.int32),
+                        decoding=np.zeros((T,), bool),
+                        kv_lens=np.zeros((n_rows,), np.int32),
+                        cand_idx=np.zeros((n_rows * k1,), np.int32),
+                        drafts=np.zeros((n_rows, kd), np.int32),
+                        draft_len=np.zeros((n_rows,), np.int32),
+                        sampled=np.zeros((n_rows,), bool))
+            info, fed = self._plan_spec(plan)
+            prog.host["plan_tt"][:], prog.host["plan_tr"][:] = \
+                pack_spec_plan(spec_k=self.spec_k, **plan)
+        else:
+            info, fed = self._plan_spec(prog.host)
         if armed_chain:
             tc1 = time.perf_counter_ns()
             _note_chain(op_name="cbe.plan_step", dur_ns=tc1 - tc0)
@@ -1779,10 +1922,11 @@ class ContinuousBatchingEngine(_Programs):
         t0_ns = time.perf_counter_ns() if spans_armed() else 0
         out = self._run("cbe.spec_step", prog).cpu().numpy()   # the fence
         if armed_chain:
-            _note_chain(op_name="cbe.spec_step",
-                        dur_ns=time.perf_counter_ns() - tc0)
+            tc1 = time.perf_counter_ns()
+            _note_chain(op_name="cbe.spec_step", dur_ns=tc1 - tc0)
             if self._epilogue_active():
                 _note_chain(op_name="cbe.sample_epilogue", dur_ns=0)
+            tc0 = tc1
         self.spec_rounds += 1
         if t0_ns:
             t1_ns = time.perf_counter_ns()
@@ -1806,6 +1950,9 @@ class ContinuousBatchingEngine(_Programs):
                               "drafted": len(info[s][2])}))
             emit_spans(batch)
         self._verify_spec(out[:, :-1], info, out[:, -1])
+        if armed_chain:
+            _note_chain(op_name="cbe.decode_tail",
+                        dur_ns=time.perf_counter_ns() - tc0)
         return len(self._live)
 
     # -- results -------------------------------------------------------------

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -83,10 +83,10 @@ class Program:
         #: numpy views of the staging tensors: the host writes here
         self.host = {n: t.numpy() for n, t in self._staging.items()}
         self._graphs = graphs
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._out: Optional[torch.Tensor] = None
-        self._counts: Dict[tuple, int] = {}
+        self._captured: Optional[Captured] = None
         self.calls = 0
+        #: host-to-device input copies made (one per static input a call)
+        self.uploads = 0
         #: seconds the capture took (0 until captured, and without graphs)
         self.capture_seconds = 0.0
         #: device memory the capture reserved for the graph's
@@ -97,53 +97,89 @@ class Program:
     def __call__(self) -> torch.Tensor:
         for name, buf in self.static.items():
             buf.copy_(self._staging[name], non_blocking=True)
+        self.uploads += len(self.static)
         self.calls += 1
-        if self._graph is not None:
-            self._graph.replay()
-            add_launch_counts(self._counts)
-            return self._out
+        if self._captured is not None:
+            return self._captured.replay()
         if self._graphs is None:
             return self.body(**self.static)
-        out = self._warm_up()
-        self._capture()
+        run = lambda: self.body(**self.static)        # noqa: E731
+        out = warm_up(run, self._graphs.stream, self._graphs.device)
+        # a capture that raises leaves the program uncaptured: the next
+        # call warms up and captures again
+        self._captured = capture(run, self._graphs.stream,
+                                 self._graphs.device, self._graphs.pool)
+        self.capture_seconds = self._captured.seconds
+        self.pool_bytes = self._captured.pool_bytes
         return out
 
-    def _warm_up(self) -> torch.Tensor:
-        """The first call's real work, on the capture stream."""
-        side = self._graphs.stream
-        main = torch.cuda.current_stream(self._graphs.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.body(**self.static)
-        main.wait_stream(side)
-        return out
 
-    def _capture(self) -> None:
-        t0 = time.perf_counter()
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # a garbage collection inside the capture may free another
-        # program's graph (a retired engine's, a dropped replica's), and
-        # freeing a graph while a stream captures invalidates the capture:
-        # collect before it, and not during it
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._graphs.pool,
-                                  stream=self._graphs.stream,
-                                  capture_error_mode="thread_local"):
-                # read after the capture's own empty_cache
-                reserved = torch.cuda.memory_reserved(self._graphs.device)
-                out = self.body(**self.static)
-        finally:
-            if collecting:
-                gc.enable()
+def warm_up(body: Callable[[], Any], stream: torch.cuda.Stream,
+            device: torch.device):
+    """``body()`` run on ``stream``: a first call's real work, before
+    its capture (it also compiles the kernels and warms cuBLAS)."""
+    main = torch.cuda.current_stream(device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = body()
+    main.wait_stream(stream)
+    return out
+
+
+class Captured:
+    """One captured body: its graph, its outputs (the graph's own
+    buffers, rewritten by each replay), the kernel launches one replay
+    makes, the pinned host constants the graph copies from, the seconds
+    the capture took and the memory it reserved in its pool."""
+
+    __slots__ = ("graph", "out", "counts", "keep", "seconds", "pool_bytes")
+
+    def replay(self):
+        self.graph.replay()
+        add_launch_counts(self.counts)
+        return self.out
+
+
+def capture(body: Callable[[], Any], stream: torch.cuda.Stream,
+            device: torch.device, pool=None) -> Captured:
+    """Capture ``body()`` into a CUDA graph on ``stream``, in ``pool``
+    (a private pool when None). The one capture path of the port's
+    compiled programs (this module's and ``jit``'s). A failed capture
+    raises; the launch counts it added are taken back either way."""
+    from ..core import tensor as _tensor_mod
+    t0 = time.perf_counter()
+    c = Captured()
+    c.keep = []
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    # a garbage collection inside the capture may free another
+    # program's graph (a retired engine's, a dropped replica's), and
+    # freeing a graph while a stream captures invalidates the capture:
+    # collect before it, and not during it
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    # a host constant built in the body is copied from pinned memory
+    # that lives as long as the graph (``core.tensor.to_torch``)
+    keep = _tensor_mod._capture_keep[0]
+    _tensor_mod._capture_keep[0] = c.keep
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            # read after the capture's own empty_cache
+            reserved = torch.cuda.memory_reserved(device)
+            out = body()
+    finally:
+        _tensor_mod._capture_keep[0] = keep
+        if collecting:
+            gc.enable()
         after = launch_counts()
-        self._counts = {k: n - before[k] for k, n in after.items()
-                        if n != before[k]}
-        add_launch_counts(self._counts, -1)     # capture ran nothing
-        self._graph, self._out = graph, out
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = (torch.cuda.memory_reserved(self._graphs.device)
-                           - reserved)
+        counts = {k: n - before.get(k, 0) for k, n in after.items()
+                  if n != before.get(k, 0)}
+        add_launch_counts(counts, -1)       # capture ran nothing
+    torch.cuda.current_stream(device).wait_stream(stream)
+    c.graph, c.out, c.counts = graph, out, counts
+    c.seconds = time.perf_counter() - t0
+    c.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    return c

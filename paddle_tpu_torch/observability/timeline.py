@@ -131,7 +131,8 @@ def _strip_internal(node: Dict[str, Any]) -> None:
 def attribute_spans(spans, trace_id: str = "") -> Dict[str, Any]:
     """Critical-path attribution for one trace's spans (see module
     docstring). The returned ``segments`` (ms) tile the root interval,
-    so ``sum(segments.values()) == e2e_ms`` exactly."""
+    so ``sum(segments.values()) == e2e_ms``, also after rounding to
+    1e-4 ms."""
     roots = [sp for sp in spans if is_root_span(sp.name)]
     fleet = [sp for sp in roots if sp.name == "router.request"]
     pool = fleet or roots or list(spans)
@@ -162,13 +163,19 @@ def attribute_spans(spans, trace_id: str = "") -> Dict[str, Any]:
         else:
             cat = "host"             # scheduler/plan time between spans
         segments[cat] = segments.get(cat, 0.0) + (q - p)
-    e2e_ms = (t1 - t0) / 1e6
+    # to 1e-4 ms (100 ns ticks), rounding the running sum and not each
+    # segment: the rounded segments then add up to the rounded envelope
+    # (rounded apart, n segments can miss it by n/2 ticks)
+    rounded, cum, tick = {}, 0, 0
+    for k, v in sorted(segments.items()):
+        cum += v
+        prev, tick = tick, round(cum / 100)
+        rounded[k] = (tick - prev) / 1e4
     return {
         "trace_id": trace_id,
         "root": getattr(root_name, "name", None),
-        "e2e_ms": round(e2e_ms, 4),
-        "segments": {k: round(v / 1e6, 4)
-                     for k, v in sorted(segments.items())},
+        "e2e_ms": round((t1 - t0) / 100) / 1e4,
+        "segments": rounded,
         "spans": len(spans),
         "complete": bool(roots),
     }

@@ -37,6 +37,24 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: per-source ``nvcc -Xptxas -v`` output (registers, shared memory,
 #: spills) of the build this process ran or found, for the smoke report
 build_logs: Dict[str, str] = {}
+#: set while ``jit.save`` exports a program (``torch.export``): the
+#: forwards of rows 1, 5 and 8 then go through their custom ops, so the
+#: exported graph names them and a loaded program launches the kernels.
+#: Eager calls keep the direct call: the custom op's dispatch costs
+#: 10-40 µs a call more on the H100, 28 % of an eager greedy decoding
+#: step (``chip_smoke.py`` phase 34 (f))
+_exporting = [False]
+
+
+@contextlib.contextmanager
+def exporting():
+    """The scope of one ``torch.export`` trace (see ``_exporting``)."""
+    prev = _exporting[0]
+    _exporting[0] = True
+    try:
+        yield
+    finally:
+        _exporting[0] = prev
 
 
 def resolve_device(device=None) -> torch.device:

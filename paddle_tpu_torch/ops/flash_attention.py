@@ -38,12 +38,12 @@ from __future__ import annotations
 import ctypes
 import math
 import re
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _common
-from ._common import (check_cuda_tensor, count_launches,
+from ._common import (_exporting, check_cuda_tensor, count_launches,
                       load_cuda_library)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
@@ -422,10 +422,43 @@ def _check_bwd_extras(q, do, lse, delta):
 # Dispatch by device, autograd, public entry points
 # ---------------------------------------------------------------------------
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool, kv_valid: Optional[int],
+                 causal_offset: int, kv_rep: int,
+                 seg_q: Optional[torch.Tensor],
+                 seg_k: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 5 as a custom op, the form an exported program (``jit.save``)
+    holds: the plain version on the CPU, the kernel on CUDA tensors
+    (counted in ``flash_fwd_kernel.launches``)."""
+    return flash_fwd_plain(q, k, v, scale, causal, kv_valid, causal_offset,
+                           kv_rep, seg_q, seg_k)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v, scale, causal, kv_valid, causal_offset,
+                       kv_rep, seg_q, seg_k):
+    return flash_fwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                            scale, causal, kv_valid, causal_offset, kv_rep,
+                            seg_q, seg_k)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, scale, causal, kv_valid, causal_offset,
+                       kv_rep, seg_q, seg_k):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
 def flash_attention_fwd(q, k, v, scale, causal, kv_valid=None,
                         causal_offset=0, kv_rep=1, seg_q=None, seg_k=None):
     """``(out, lse)``. CPU tensors: the plain version. CUDA tensors: the
     forward kernel."""
+    if _exporting[0]:
+        return flash_fwd_op(q, k, v, float(scale), bool(causal), kv_valid,
+                            int(causal_offset), int(kv_rep), seg_q, seg_k)
     fn = flash_fwd_kernel if q.is_cuda else flash_fwd_plain
     return fn(q, k, v, scale, causal, kv_valid, causal_offset, kv_rep,
               seg_q, seg_k)

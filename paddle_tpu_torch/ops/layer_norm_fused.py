@@ -55,7 +55,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._common import (check_cuda_tensor, count_launches, sm_count,
+from ._common import (_exporting, check_cuda_tensor, count_launches, sm_count,
                       triton_cache_dir)
 from .rms_norm import _num_warps
 
@@ -315,7 +315,28 @@ def layer_norm_bwd(x, w, g, eps: float = 1e-5):
 count_launches(layer_norm_bwd)
 
 
+@torch.library.custom_op("paddle_tpu_torch::layer_norm", mutates_args=())
+def layer_norm_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Row 8's forward as a custom op, the form an exported program
+    (``jit.save``) holds: the plain version on the CPU, the kernel on
+    CUDA tensors (counted in ``layer_norm.launches``)."""
+    return ln_plain(x, w, b, eps)
+
+
+@layer_norm_op.register_kernel("cuda")
+def _layer_norm_op_cuda(x, w, b, eps):
+    return layer_norm_kernel(x.contiguous(), w, b, eps)
+
+
+@layer_norm_op.register_fake
+def _layer_norm_op_fake(x, w, b, eps):
+    return torch.empty_like(x)
+
+
 def _layer_norm_fwd(x, w, b, eps):
+    if _exporting[0]:
+        return layer_norm_op(x, w, b, eps)
     if x.is_cuda:
         return layer_norm_kernel(x, w, b, eps)
     return ln_plain(x, w, b, eps)

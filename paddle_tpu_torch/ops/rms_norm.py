@@ -46,7 +46,8 @@ from __future__ import annotations
 import torch
 
 from ..core.dispatch import any_tensor, apply
-from ._common import check_cuda_tensor, count_launches, triton_cache_dir
+from ._common import (_exporting, check_cuda_tensor, count_launches,
+                      triton_cache_dir)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -251,7 +252,28 @@ class RMSNormFunction(torch.autograd.Function):
         return dx, dw, None
 
 
+@torch.library.custom_op("paddle_tpu_torch::rms_norm", mutates_args=())
+def rms_norm_op(x: torch.Tensor, w: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """Row 1 as a custom op, the form an exported program (``jit.save``)
+    holds: the plain version on the CPU, the kernel on CUDA tensors
+    (counted in ``rms_norm.launches``)."""
+    return rms_norm_plain(x, w, eps)
+
+
+@rms_norm_op.register_kernel("cuda")
+def _rms_norm_op_cuda(x, w, eps):
+    return rms_norm_kernel(x.contiguous(), w, eps)
+
+
+@rms_norm_op.register_fake
+def _rms_norm_op_fake(x, w, eps):
+    return torch.empty_like(x)
+
+
 def _rms_norm_fwd(x, w, eps):
+    if _exporting[0]:
+        return rms_norm_op(x, w, eps)
     if x.is_cuda:
         return rms_norm_kernel(x, w, eps)
     return rms_norm_plain(x, w, eps)

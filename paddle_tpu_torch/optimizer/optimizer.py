@@ -37,11 +37,14 @@ to what it returns.
 from __future__ import annotations
 
 import re
+import time
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from ..observability.profiling import chain_armed as _chain_armed
+from ..observability.profiling import note_chain as _note_chain
 from .clip import ClipGradBase
 from .lr import LRScheduler
 
@@ -93,6 +96,9 @@ class Optimizer:
         #: name -> the parameter's fp32 state (slots, master weight)
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
+        #: the fusion pass's optimizer region (``jit.fusion.
+        #: install_optimizer_fusion``): ``step`` delegates to it when set
+        self._fused_step = None
 
     @property
     def step_count(self) -> int:
@@ -168,13 +174,29 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        if self._fused_step is not None:
+            return self._fused_step.step()
+        # armed-only profiling taps: the grad-transform -> update chain is
+        # the fusion pass's optimizer_chain signature (jit/fusion.py);
+        # disarmed cost is one list index
+        armed = _chain_armed[0]
         self._step_count += 1
         lr = self.get_lr()
+        t0 = time.perf_counter_ns() if armed else 0
+        live = self._live()
+        if armed and self._grad_clip is not None:
+            _note_chain(op_name="grad_clip",
+                        dur_ns=time.perf_counter_ns() - t0)
         items = []
-        for name, p, g in self._live():
+        for name, p, g in live:
             wd = self._weight_decay if self._decay_enabled(name, p) else 0.0
             items.append((name, p, g, lr * _lr_factor(p), wd))
+        t0 = time.perf_counter_ns() if armed else 0
         self._apply(items, self._step_count)
+        if armed and items:
+            share = (time.perf_counter_ns() - t0) / len(items)
+            for _ in items:
+                _note_chain(op_name="optimizer_update", dur_ns=share)
 
     def _apply(self, items, t: int) -> None:
         """Update each ``(name, param, grad, lr, wd)`` (one parameter at

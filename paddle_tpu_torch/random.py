@@ -36,9 +36,14 @@ class _RNGState:
         self.seed = seed
         self.base_key = prng.prng_key(seed)
         self.counter = 0
+        #: the key of a compiled program's call, while its body runs
+        #: (:class:`traced_key_scope`); None outside
+        self.traced_key = None
 
     def next_key(self):
         self.counter += 1
+        if self.traced_key is not None:
+            return prng.fold_in(self.traced_key, self.counter)
         return prng.fold_in(self.base_key, self.counter)
 
 
@@ -61,6 +66,28 @@ def get_rng_state():
 
 def set_rng_state(state) -> None:
     _state.counter, _state.base_key = state
+
+
+class traced_key_scope:
+    """The key stream inside a compiled program's body (``jit``): draws
+    fold a counter reset to 0 into ``key``, the call's own key, as the
+    reference's traced key does (``paddle_tpu/random.py:41-46, 70-84``).
+    ``key`` is a static device input of the program, written before
+    each replay, so ``fold_in`` runs on the card inside the graph and
+    every call draws fresh masks."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __enter__(self):
+        self.prev = (_state.traced_key, _state.counter)
+        _state.traced_key = self.key
+        _state.counter = 0
+        return self
+
+    def __exit__(self, *exc):
+        _state.traced_key, _state.counter = self.prev
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -185,4 +212,5 @@ def categorical_draw(key, logits: torch.Tensor, shape) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
-__all__ = ["seed", "next_key", "get_rng_state", "set_rng_state"]
+__all__ = ["seed", "next_key", "get_rng_state", "set_rng_state",
+           "traced_key_scope"]

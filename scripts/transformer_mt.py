@@ -63,13 +63,13 @@ SEQ2SEQ_TINY = dict(src_vocab=50, tgt_vocab=40, hidden=32, num_layers=2,
 
 def surface(package: str) -> types.SimpleNamespace:
     """The Paddle surface of ``package``: ``paddle``, ``nn``, ``F``,
-    ``optimizer``, ``io``, ``metric`` and ``callbacks``."""
+    ``optimizer``, ``io``, ``metric``, ``callbacks`` and ``jit``."""
     def sub(name):
         return importlib.import_module(f"{package}.{name}")
     return types.SimpleNamespace(
         paddle=importlib.import_module(package), nn=sub("nn"),
         F=sub("nn.functional"), optimizer=sub("optimizer"), io=sub("io"),
-        metric=sub("metric"), callbacks=sub("callbacks"))
+        metric=sub("metric"), callbacks=sub("callbacks"), jit=sub("jit"))
 
 
 def sinusoid_table(n_position: int, d_model: int) -> np.ndarray:
@@ -228,13 +228,36 @@ def make_loader(S, pairs, max_tokens: int, max_length: int, batches=None):
                            collate_fn=collate)
 
 
-def prepare(S, net, cfg: dict, metrics=None):
+def prepare(S, net, cfg: dict, metrics=None, jit_compile: bool = False):
     """``paddle.Model(net)`` prepared with the recipe's optimizer and
-    criterion."""
+    criterion; ``jit_compile=True`` trains through the compiled step
+    (``jit.TrainStep``)."""
     model = S.paddle.Model(net)
     model.prepare(make_optimizer(S, net, cfg["d_model"]),
-                  make_criterion(S, cfg["vocab"]), metrics=metrics)
+                  make_criterion(S, cfg["vocab"]), metrics=metrics,
+                  jit_compile=jit_compile)
     return model
+
+
+#: the compiled run's shape buckets (``jit.ShapeBucketer``): batch rows,
+#: target length (BOS/EOS included) and source length. Over the smoke's
+#: 30 token buckets of 16-128-token pairs they give 5 signatures.
+JIT_BUCKETS = dict(rows=(40, 64, 128), trg=(40, 64, 96, 129), src=(128,))
+
+
+def bucket_batch(S, src, trg, lab, buckets=None):
+    """Pad one collated batch to its bucket shape with ``BOS``, the id
+    the recipe already treats as padding: a padded source position is
+    masked by ``src_bias``, a padded target position comes after every
+    real one under the causal mask and has weight 0 in the criterion,
+    and a padded row is all padding. Returns the three arrays."""
+    b = buckets or JIT_BUCKETS
+    rows_trg = S.jit.ShapeBucketer({0: b["rows"], 1: b["trg"]},
+                                   pad_value=BOS)
+    rows_src = S.jit.ShapeBucketer({0: b["rows"], 1: b["src"]},
+                                   pad_value=BOS)
+    return (rows_src(np.asarray(src))[0], rows_trg(np.asarray(trg))[0],
+            rows_trg(np.asarray(lab))[0])
 
 
 def train(S, model, loader, save_dir, num_iters=None, callbacks=()):

@@ -150,19 +150,21 @@ def test_submit_and_admission_limits():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,ported", [
-    (dict(speculative=True), True), (dict(fused_tail=True), False),
+    (dict(speculative=True), True), (dict(fused_tail=True), True),
     (dict(mesh=object()), False),
     (dict(generation_config=TD.GenerationConfig(do_sample=True)), True)],
     ids=["speculative", "fused_tail", "mesh", "do_sample"])
 def test_unported_engine_options_raise(kwargs, ported):
-    """``fused_tail`` and ``mesh`` come with later slices and raise;
-    speculative decoding and ``do_sample`` are ported (the sampling
-    slice) and construct (tests/test_torch_sampling.py and
-    tests/test_torch_speculative.py hold them to the JAX engine)."""
+    """``mesh`` comes with a later slice and raises; speculative
+    decoding and ``do_sample`` (the sampling slice) and ``fused_tail``
+    (the jit slice) are ported and construct (tests/test_torch_sampling.py,
+    tests/test_torch_speculative.py and tests/test_torch_fusion.py hold
+    them to the JAX engine)."""
     if ported:
         eng = TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu",
                                           **kwargs)
         assert (eng.spec is not None) == bool(kwargs.get("speculative"))
+        assert eng._fused_tail == bool(kwargs.get("fused_tail"))
         return
     with pytest.raises(NotImplementedError, match="slice"):
         TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu", **kwargs)

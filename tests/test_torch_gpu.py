@@ -2604,3 +2604,157 @@ def test_attention_routes_on_card(card_place):
     assert fa.flash_fwd_kernel.launches == before + 1
     c = TP.metric.Accuracy().compute(x, TP.zeros([2, 5], dtype="int32"))
     assert c.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# compiled programs: jit, static, the Predictor, fusion
+# ---------------------------------------------------------------------------
+
+def test_jit_programs_on_card_match_graphs_off_and_cpu(card_place):
+    """Every CUDA graph of ``to_static``, ``TrainStep`` / ``multi_step``,
+    dy2static functions and the Predictor equals the same program with
+    graphs off on the card, bitwise, and the CPU within MT_FIT; the saved
+    programs launch rows 8, 1 and 5 (by their counters); the fused-tail
+    streams and the fused Adam are bitwise (chip_smoke phase 34 (a))."""
+    import chip_smoke
+    rep = chip_smoke.jit_parity_phase(torch, L, D, ln, rn, fa)
+    assert rep["graph_breaks"] > 0
+    assert rep["saved_programs"]["llama_block"]["launches"] == dict(
+        rms_norm_fwd=8, flash_attention_fwd=4, layer_norm_fwd=0)
+    assert rep["saved_programs"]["mlp"]["launches"]["layer_norm_fwd"] == 4
+
+
+def test_to_static_python_numbers_replay_with_new_values(card_place):
+    """A compiled function called with Python numbers: one capture for
+    the signature, and each call computes with its own values, equal to
+    the graphs-off run on the card bitwise and to the CPU."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import jit
+
+    def f(x, s, n):
+        return x * s + n
+
+    x = np.random.RandomState(0).randn(5, 7).astype(np.float32)
+    calls = ((2.0, 1), (3.0, 1), (2.0, 4), (-0.25, 0))
+    runs = {}
+    for graphs in (True, False):
+        sf = jit.to_static(f)
+        sf._graphs = graphs
+        runs[graphs] = ([sf(TP.to_tensor(x), s, n)._value for s, n in calls],
+                        sf.programs.captures)
+    assert runs[True][1] == 1 and runs[False][1] == 0
+    for a, b, (s, n) in zip(runs[True][0], runs[False][0], calls):
+        assert a.is_cuda and torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), torch.from_numpy(x * s + n),
+                                   rtol=0, atol=0)
+
+
+_FUSED_FAMILIES = {
+    "sgd": lambda O, ps: O.SGD(0.01, parameters=ps, weight_decay=0.01),
+    "momentum": lambda O, ps: O.Momentum(0.01, 0.9, parameters=ps,
+                                         use_nesterov=True),
+    "adam": lambda O, ps: O.Adam(0.003, parameters=ps, weight_decay=0.01),
+    "adamw": lambda O, ps: AdamW(0.01, parameters=ps, weight_decay=0.05),
+    "adamax": lambda O, ps: O.Adamax(0.01, parameters=ps),
+    "lamb": lambda O, ps: O.Lamb(0.01, parameters=ps),
+    "rmsprop": lambda O, ps: O.RMSProp(0.01, centered=True, momentum=0.9,
+                                       parameters=ps),
+    "adagrad": lambda O, ps: O.Adagrad(0.01, parameters=ps),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_FUSED_FAMILIES))
+def test_fused_optimizer_bitwise_on_card(cuda, family):
+    """The fused optimizer step (one CUDA graph, host scalars staged as
+    the eager kernels receive them) commits the eager step's bits, with
+    a global-norm clip and parameters of other learning rates."""
+    from paddle_tpu_torch.jit import install_optimizer_fusion
+    from paddle_tpu_torch.optimizer import clip as Cl
+    from paddle_tpu_torch.optimizer import optimizer as O
+    runs = []
+    for fused in (False, True):
+        gen = torch.Generator().manual_seed(0)
+        named = []
+        for i, s in enumerate(((256, 64), (64,), (4096, 8), (3, 5, 7))):
+            p = torch.randn(s, generator=gen).to(cuda).requires_grad_(True)
+            if i % 2:
+                p.optimize_attr = {"learning_rate": 0.5}
+            named.append((f"p_{i}", p))
+        opt = _FUSED_FAMILIES[family](O, named)
+        opt._grad_clip = Cl.ClipGradByGlobalNorm(1.0)
+        if fused:
+            install_optimizer_fusion(opt)
+        for k in range(4):
+            g = torch.Generator().manual_seed(10 + k)
+            for _, p in named:
+                p.grad = torch.randn(p.shape, generator=g).to(cuda)
+            opt.step()
+        runs.append(([p.detach().clone() for _, p in named],
+                     {n: {k: v.clone() for k, v in s.items()}
+                      for n, s in opt.state.items()}))
+    (pe, se), (pf, sf) = runs
+    for a, b in zip(pe, pf):
+        assert torch.equal(a, b)
+    for n in se:
+        for k in se[n]:
+            assert torch.equal(se[n][k], sf[n][k]), (n, k)
+
+
+def test_model_fit_jit_compile_tiny_mt_graph_equals_graphs_off(card_place):
+    """``Model.prepare(jit_compile=True)`` on the tiny Transformer: the
+    compiled steps (one graph per padded signature) equal the TrainStep
+    body run with graphs off on the card, bitwise."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import transformer_mt as M
+    S = M.surface("paddle_tpu_torch")
+    cfg = dict(M.TINY)
+    pairs = M.sentence_pairs(24, cfg["vocab"], 5, 12, seed=0)
+    batches = [M.bucket_batch(S, *M.collate(pairs[i:i + 4]),
+                              buckets=dict(rows=(4, 8), trg=(16,),
+                                           src=(16,)))
+               for i in range(0, 24, 4)]
+    runs = []
+    for graphs in (True, False):
+        S.paddle.seed(0)
+        net = M.build_model(S, cfg)
+        model = M.prepare(S, net, cfg, jit_compile=True)
+        model._train_step._graphs = graphs
+        losses = [model.train_batch([s, t], [l])[0] for s, t, l in batches]
+        runs.append((losses, [p.detach().clone()
+                              for p in net.parameters()],
+                     model._train_step.programs.captures))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    assert runs[0][2] == 1 and runs[1][2] == 0
+
+
+def test_capture_failure_raises(cuda):
+    """A body that reads the card on the host captures nothing: the
+    capture's error is raised, with no eager fallback (run in its own
+    process, so the failed capture cannot disturb the other tests)."""
+    import subprocess
+    import sys
+    code = (
+        "import torch, paddle_tpu_torch as P\n"
+        "from paddle_tpu_torch import jit\n"
+        "def f(x):\n"
+        "    return x * float(x._value.sum().cpu())\n"
+        "sf = jit.to_static(f)\n"
+        "for _ in range(2):\n"
+        "    try:\n"
+        "        sf(P.to_tensor([1.0, 2.0]))\n"
+        "        print('no error')\n"
+        "    except Exception as e:\n"
+        "        print('raised', type(e).__name__)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    # the second call warms up and captures again: it fails as the first
+    # did, not on the entry the failed capture left
+    assert len(lines) == 2 and all(ln.startswith("raised") for ln in lines), \
+        (proc.stdout, proc.stderr[-2000:])
+    assert "AttributeError" not in proc.stdout

@@ -3,7 +3,7 @@ the progress bar, ``summary``) against ``paddle_tpu``'s on the CPU: the
 same training history, evaluation, predictions, printed text and
 VisualDL log from one seed through both packages; a ``Model.save`` of
 the JAX package loading into the port; ``prepare(jit_compile=True)``
-raising until ``jit`` is ported; and the reference's own scenarios
+training through ``jit.TrainStep``; and the reference's own scenarios
 (``tests/test_hapi.py``) run through the port."""
 
 import os
@@ -215,17 +215,22 @@ def test_port_save_load_round_trip(tmp_path):
 
 
 def test_jit_compile_raises_not_ported():
+    """``prepare(jit_compile=True)`` raised until ``jit`` was ported; it
+    now trains through ``jit.TrainStep`` (tests/test_torch_jit.py holds
+    it to the reference)."""
     net = TP.nn.Sequential(TP.nn.Linear(2, 2))
     model = TP.Model(net)
     opt = TP.optimizer.Adam(parameters=net.parameters())
-    with pytest.raises(NotImplementedError, match="jit"):
-        model.prepare(opt, TP.nn.CrossEntropyLoss(), jit_compile=True)
+    model.prepare(opt, TP.nn.CrossEntropyLoss(), jit_compile=True)
+    assert model._train_step is not None
+    losses = model.train_batch([np.ones((4, 2), np.float32)],
+                               [np.zeros((4, 1), np.int64)])
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
-#: the reference's scenarios that read ``Parameter._value`` (a layer's
-#: parameter is a torch leaf here) or compile with ``jit``: their port
-#: counterparts are above
-HAPI_SKIP = {"test_save_load", "test_jit_compile_path"}
+#: the reference's scenario that reads ``Parameter._value`` (a layer's
+#: parameter is a torch leaf here): its port counterpart is above
+HAPI_SKIP = {"test_save_load"}
 
 
 @pytest.mark.parametrize("scenario", torch_scenarios.scenario_ids(

@@ -312,6 +312,28 @@ def _storm_timeline(SV, T, eng, params, spec=False):
         T.span_collector.clear()
 
 
+def test_attribution_rounded_segments_tile_the_envelope():
+    """Three 140 ns segments of a 420 ns request: rounded to 1e-4 ms
+    each, they would add up to 0.0003 ms against an envelope of 0.0004;
+    the port rounds their running sum, so they tile it exactly, each
+    within one 1e-4 ms tick of the reference's own rounding."""
+    names = ("paddle_serving_r0.queue_wait", "engine.prefill",
+             "engine.decode_chunk")
+    got = {}
+    for pkg, rec in (("port", TREC), ("ref", JREC)):
+        spans = [rec.make_span("router.request", 0, 420, trace_id="t")]
+        spans += [rec.make_span(n, 140 * i, 140 * (i + 1), trace_id="t")
+                  for i, n in enumerate(names)]
+        got[pkg] = (TT if pkg == "port" else JT).attribute_spans(spans, "t")
+    tl = got["port"]
+    assert tl["e2e_ms"] == got["ref"]["e2e_ms"] == 0.0004
+    assert sum(tl["segments"].values()) == pytest.approx(tl["e2e_ms"],
+                                                         rel=1e-9)
+    assert tl["segments"].keys() == got["ref"]["segments"].keys()
+    for k, v in tl["segments"].items():
+        assert abs(v - got["ref"]["segments"][k]) <= 1e-4 + 1e-12, k
+
+
 @pytest.mark.parametrize("spec", [False, True], ids=["unified", "spec"])
 def test_timeline_span_trees_from_served_storm_equal(spec):
     kw = dict(speculative=True, spec_k=2, step_tokens=8) if spec else {}

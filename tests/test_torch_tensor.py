@@ -297,9 +297,11 @@ def test_importing_the_package_touches_no_torch():
 
 
 def test_later_names_raise_not_ported():
-    for name in ("jit", "vision", "static"):
+    for name in ("vision", "linalg", "quantization"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(TP, name)
+    # ported since: jit and static (the compiled-program slice)
+    assert TP.jit.to_static is not None and TP.static.Executor is not None
     # ported since: the checkpoint tier, the data pipeline, nn whole, the
     # metrics and the high-level API
     assert TP.save is TP.framework.save and TP.load is TP.framework.load
