@@ -366,6 +366,21 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     form an exported program holds) against the direct call of their
     wrappers: µs a call, and Transformer-base's greedy decoding with
     each patched in, alternating, same tokens.
+35. Distributed I, TF32 off. (a) ``init_parallel_env()`` at world size
+    1 with an explicit ``PADDLE_MASTER``: a one-rank NCCL group; every
+    collective, both ``new_group`` forms, the object collectives,
+    ``barrier`` and ``destroy_process_group`` on CUDA tensors, bitwise
+    against a one-rank gloo group on the CPU; the native ``TCPStore``
+    (built by g++) round trip; ``RNGStatesTracker`` draws card == CPU.
+    (b) Phase 12's configuration under the remat policies ``full``,
+    ``dots``, ``attn``, ``offload`` (and ``full`` again), each from the
+    same weights for 1 warm-up and 3 timed steps: losses and weights
+    against ``full``, step ms, tokens/s, MFU, peak memory, the bytes
+    ``offload`` moves to the host, each policy's launches of rows 1, 2,
+    5 and 6 checked. (c) Phase 33's Transformer-base with every layer
+    under ``fleet.recompute`` and its Adam in ``AMPOptimizer``, 3 steps
+    against the plain ones from the same weights and key stream: losses
+    and gradients bitwise, step ms and peak memory of both.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -374,6 +389,7 @@ result line, when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import functools
 import gc
 import itertools
 import json
@@ -388,7 +404,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 34
+N_PHASES = 35
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -7707,6 +7723,390 @@ def fused_tail_7b_phase(torch, D, rn, pa, cfg, params, serve, greedy):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 35: Distributed I — the collective API over a one-rank NCCL group,
+# the remat policies at 7B widths, recompute with dropout
+# ---------------------------------------------------------------------------
+
+def _collective_calls(torch, D, device):
+    """Every collective of the API at this one rank, on ``device``'s
+    tensors (fp32 and bf16): the results on the host, in call order."""
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    base = torch.randn(4096, generator=torch.Generator().manual_seed(SEED))
+
+    def t(x):
+        return Tensor._wrap(x.to(device), True)
+
+    out = {}
+    for op in ("sum", "max", "min", "avg", "prod"):
+        x = t(base)
+        D.all_reduce(x, op=op)
+        out[f"all_reduce_{op}"] = x
+    x = t(base.to(torch.bfloat16))
+    D.all_reduce(x)
+    out["all_reduce_bf16"] = x
+    out["all_gather"] = D.all_gather(t(base))
+    parts = []
+    D.all_gather(parts, t(base))
+    out["all_gather_list"] = parts[0]
+    out["reduce_scatter"] = D.reduce_scatter(t(base))
+    x = t(torch.zeros(4096))
+    D.reduce_scatter(x, [t(3 * base)])
+    out["reduce_scatter_list"] = x
+    out["alltoall"] = D.alltoall(t(base))
+    x = t(base)
+    D.broadcast(x, src=0)
+    out["broadcast"] = x
+    x = t(base)
+    D.reduce(x, dst=0)
+    out["reduce"] = x
+    out["gather"] = D.gather(t(base), dst=0)[0]
+    x = t(torch.zeros(4096))
+    D.scatter(x, [t(2 * base)], src=0)
+    out["scatter"] = x
+    out["all_reduce_replicated"] = D.collective.all_reduce_replicated(t(base))
+    x = t(base)
+    D.all_reduce(x, group=D.new_group(ranks=[0]))
+    out["new_group_ranks"] = x
+    pmesh.set_global_mesh(pmesh.build_mesh({}))
+    x = t(base)
+    D.all_reduce(x, group=D.new_group(axis="mp"))
+    out["new_group_axis"] = x
+    pmesh.set_global_mesh(None)
+    objs = []
+    D.all_gather_object(objs, {"rank": D.get_rank(), "v": [1, 2.5]})
+    bl = ["a", 7]
+    D.broadcast_object_list(bl, src=0)
+    so = []
+    D.scatter_object_list(so, [{"to": 0}], src=0)
+    D.barrier()
+    D.wait(out["all_reduce_sum"])
+    res = {k: v._value.detach().float().cpu() if hasattr(v, "_value")
+           else v.detach().float().cpu() for k, v in out.items()}
+    res["objects"] = (objs, bl, so)
+    return res
+
+
+def distributed_phase(torch):
+    """(a) ``init_parallel_env()`` with ``PADDLE_TRAINERS_NUM=1`` and an
+    explicit ``PADDLE_MASTER``: a one-rank NCCL group on the card. Every
+    collective of the API, both ``new_group`` forms, the object
+    collectives, ``barrier`` and ``destroy_process_group`` on CUDA
+    tensors, bitwise against the same calls over a one-rank gloo group
+    on the CPU; the native ``TCPStore`` round trip; ``RNGStatesTracker``
+    draws card == CPU. Point-to-point calls need two ranks: one card
+    holds one NCCL rank, so they are checked on gloo ranks (tier-1)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import random as R
+    from paddle_tpu_torch.distributed import store as ST
+    from paddle_tpu_torch.distributed.launch.context import free_port
+    from paddle_tpu_torch.distributed.meta_parallel import random_state
+    saved = {k: os.environ.get(k) for k in
+             ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "PADDLE_MASTER")}
+    runs, backends, init_ms = {}, {}, {}
+    try:
+        os.environ.update(PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0")
+        for dev in ("cpu", "cuda"):
+            os.environ["PADDLE_MASTER"] = f"127.0.0.1:{free_port()}"
+            t0 = time.perf_counter()
+            D.init_parallel_env(device=None if dev == "cuda" else "cpu")
+            init_ms[dev] = (time.perf_counter() - t0) * 1e3
+            backends[dev] = D.get_backend()
+            runs[dev] = _collective_calls(torch, D, dev)
+            D.destroy_process_group()
+            if D.is_initialized() or D.env.distributed_is_initialized():
+                raise AssertionError("destroy_process_group left a group")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if backends != {"cpu": "GLOO", "cuda": "NCCL"}:
+        raise AssertionError(f"backends {backends}")
+    if runs["cuda"]["objects"] != runs["cpu"]["objects"]:
+        raise AssertionError(f"object collectives {runs['cuda']['objects']} "
+                             f"!= {runs['cpu']['objects']}")
+    calls = sorted(k for k in runs["cpu"] if k != "objects")
+    for k in calls:
+        if not torch.equal(runs["cuda"][k], runs["cpu"][k]):
+            raise AssertionError(f"{k}: NCCL != gloo")
+
+    # the native store
+    s = ST.TCPStore(is_master=True, world_size=1, timeout=30.0)
+    try:
+        t0 = time.perf_counter()
+        for i in range(200):
+            s.set(f"k{i}", b"v" * 64)
+            if s.get(f"k{i}") != b"v" * 64:
+                raise AssertionError("TCPStore round trip")
+        rt_us = (time.perf_counter() - t0) / 200 * 1e6
+        if s.add("n", 5) != 5 or s.add("n", -2) != 3:
+            raise AssertionError("TCPStore.add")
+        s.wait("n", timeout=1.0)
+        s.barrier("smoke")
+        s.delete_key("k0")
+        store = dict(backend=s.backend, daemon=s.daemon.backend,
+                     set_get_us=rt_us)
+    finally:
+        s.close()
+    if store["backend"] != "native" or store["daemon"] != "native":
+        raise AssertionError(f"the native store did not build: {store}")
+
+    # the tracker's draws on the card and on the host
+    draws = {}
+    for dev in ("cpu", "cuda"):
+        random_state.model_parallel_random_seed(1234)
+        tr = random_state.get_rng_state_tracker()
+        with tr.rng_state():
+            u = R.uniform_draw(R.next_key(), (1 << 20,), device=dev)
+            m = R.bernoulli_draw(R.next_key(), 0.9, (1 << 20,), device=dev)
+        with tr.rng_state():
+            n = R.normal_draw(R.next_key(), (1 << 16,), device=dev)
+        draws[dev] = [x.cpu() for x in (u, m, n)]
+    tracker_equal = [torch.equal(a, b) for a, b in
+                     zip(draws["cuda"][:2], draws["cpu"][:2])]
+    if not all(tracker_equal):
+        raise AssertionError("tracker uniform/bernoulli draws card != cpu")
+    normal_max_diff = float((draws["cuda"][2] - draws["cpu"][2]).abs().max())
+    if normal_max_diff > 1e-5:
+        raise AssertionError(f"tracker normal draws differ by "
+                             f"{normal_max_diff}")
+    return dict(backends=backends, init_ms=init_ms, collectives=calls,
+                bitwise=True, store=store, tracker_bitwise=tracker_equal,
+                tracker_normal_max_diff=normal_max_diff)
+
+
+def _weights_digest(torch, params, want=None):
+    """The sum of every weight in fp64 and, against ``want`` (another
+    run's weights), the tensors that differ and their largest gap."""
+    total = sum(float(v.double().sum()) for v in params.values())
+    if want is None:
+        return dict(sum=total)
+    diff = {k: float((params[k].float() - want[k].float()).abs().max())
+            for k in params if not torch.equal(params[k], want[k])}
+    return dict(sum=total, bitwise=not diff, differ=diff)
+
+
+#: phase 35 (b)'s steps a policy: one warm-up and three timed
+REMAT_STEPS = 4
+
+
+class _GcPauses:
+    """The milliseconds Python's cyclic garbage collector ran while
+    inside (``gc.callbacks``): a host pause inside a timed step."""
+
+    def __enter__(self):
+        self.ms, self._t0 = 0.0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+        return False
+
+
+def remat_7b_phase(torch, L, rn, fa):
+    """(b) Phase 12's configuration (Llama-2-7B widths, 8 layers, bf16,
+    one (8, 2048) microbatch) under each remat policy: ``full``,
+    ``dots``, ``attn``, ``offload`` and ``full`` again (the repeat shows
+    the card's own run-to-run bits), each from the same weights for 1
+    warm-up and 3 timed steps (with the garbage collector's pauses inside
+    each). Losses and weights against ``full``'s;
+    step ms, tokens/s, MFU, peak memory above the weights and the AdamW
+    state, the bytes ``offload`` moves to the host a step, and each
+    policy's launches of rows 1, 2, 5 and 6 against its ``want``."""
+    cfg = L.llama2_7b(num_hidden_layers=8, dtype=torch.bfloat16)
+    n = cfg.num_hidden_layers
+    b, s = 8, 2048
+    _, init = L.build_train_step(cfg, learning_rate=1e-4, device="cuda")
+    params0, _ = init(seed=SEED)
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, cfg.vocab_size, (1, b, s)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+    counters = {"rms_norm_fwd": rn.rms_norm, "rms_norm_bwd": rn.rms_norm_bwd,
+                "flash_attention_fwd": fa.flash_fwd_kernel,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+    replay = {"full": 2 * n, "dots": 2 * n, "attn": n, "offload": n}
+    n_matmul = L.param_count(cfg) - cfg.vocab_size * cfg.hidden_size
+    flops_per_token = 6.0 * n_matmul + 6.0 * n * s * cfg.hidden_size
+    out, totals, full_params = {}, {k: 0 for k in counters}, None
+    for run in ("full", "dots", "attn", "offload", "full_again"):
+        policy = run.split("_")[0]
+        want = {"rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
+                "flash_attention_fwd": replay[policy],
+                "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+        step, _ = L.build_train_step(cfg, learning_rate=1e-4, remat=True,
+                                     remat_policy=policy, device="cuda")
+        params = {k: v.clone() for k, v in params0.items()}
+        opt = L.init_opt_state(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, offload, gc_ms = [], [], [], []
+        for i in range(REMAT_STEPS):
+            for c in counters.values():
+                c.launches = 0
+            L.offload_bytes[0] = 0
+            torch.cuda.synchronize()
+            with _GcPauses() as gp:
+                t0 = time.perf_counter()
+                loss, params, opt = step(params, opt, ids, labels)
+                losses.append(float(loss))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            gc_ms.append(gp.ms)
+            offload.append(L.offload_bytes[0])
+            got = {k: c.launches for k, c in counters.items()}
+            if got != want:
+                raise AssertionError(f"{run} step {i}: launches {got} != "
+                                     f"{want}")
+            for k in totals:
+                totals[k] += got[k]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{run}: non-finite loss {losses}")
+        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        mean_ms = float(np.mean(step_ms[1:]))
+        tok_s = b * s / (mean_ms / 1e3)
+        r = dict(losses=losses, step_ms=step_ms, mean_step_ms=mean_ms,
+                 gc_ms=gc_ms, tokens_per_s=tok_s,
+                 mfu_vs_989tflops=flops_per_token * tok_s
+                 / PEAK_OPS_PER_S["bf16"],
+                 peak_above_state_gb=peak_gb,
+                 resident_gb=resident / 1e9,
+                 offload_bytes_per_step=offload[-1],
+                 launches_per_step=want)
+        if full_params is None:
+            full_params = {k: v.clone() for k, v in params.items()}
+            full_losses = losses
+            r["weights"] = _weights_digest(torch, params)
+        else:
+            r["weights"] = _weights_digest(torch, params, full_params)
+            r["losses_equal_full"] = losses == full_losses
+            r["first_loss_gap"] = max(abs(a - c) for a, c in
+                                      zip(losses, full_losses))
+        out[run] = r
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["offload"]["offload_bytes_per_step"] != n * (
+            b * s * cfg.hidden_size * 2 + b * cfg.num_attention_heads * s * 4):
+        raise AssertionError("offload moved other bytes than L x (out + LSE)")
+    for run in ("dots", "attn", "offload", "full_again"):
+        gap = out[run]["first_loss_gap"]
+        if gap > 5e-3 * abs(full_losses[0]):
+            raise AssertionError(f"{run}: losses {out[run]['losses']} far "
+                                 f"from full's {full_losses}")
+    del params0, full_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=n, reduced="num_hidden_layers 32 -> 8 (memory)",
+                batch=[1, b, s], steps=REMAT_STEPS, runs=out,
+                launches=totals)
+
+
+def recompute_mt_phase(torch, ln):
+    """(c) Phase 33's Transformer-base (fp32, TF32 off) with every
+    encoder and decoder layer under ``fleet.recompute``, its Adam
+    wrapped in ``AMPOptimizer``: 3 steps against the same 3 steps
+    without recompute, from the same weights and key stream (dropout
+    0.1 on). Losses and every gradient bitwise (the key stream
+    replays); step ms with the garbage collector's pauses inside them,
+    peak memory above the resident state, and row 8's launches per step
+    for both."""
+    from scripts import transformer_mt as M
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as MO
+    S = M.surface("paddle_tpu_torch")
+    P = S.paddle
+    P.set_device("gpu")
+    cfg = dict(M.BASE)
+    pairs = M.sentence_pairs(3000, cfg["vocab"], 16, 128, seed=SEED)
+    buckets = M.token_buckets(pairs, cfg["max_tokens"], cfg["max_length"])
+    order = np.random.RandomState(SEED).permutation(len(buckets))
+    batches = [buckets[i] for i in order[:3]]
+    loader = list(M.make_loader(S, pairs, 0, 256, batches))
+    crit = M.make_criterion(S, cfg["vocab"])
+    runs = {}
+    for use_rc in (False, True):
+        P.seed(SEED)
+        net = M.build_model(S, cfg)
+        if use_rc:
+            tr = net.transformer
+            for lyr in list(tr.encoder.layers) + list(tr.decoder.layers):
+                lyr.forward = functools.partial(fleet.recompute, lyr.forward)
+        opt = MO.AMPOptimizer(M.make_optimizer(S, net, cfg["d_model"]),
+                              {"level": "O1", "dtype": "bfloat16"})
+        P.seed(SEED + 1)                     # the dropout stream
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads, step_ms, ln_launches, gc_ms = [], [], [], [], []
+        for batch in loader:
+            src, trg, lab = (P.to_tensor(a) for a in batch)
+            ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
+            torch.cuda.synchronize()
+            with _GcPauses() as gp:
+                t0 = time.perf_counter()
+                loss = crit(net(src, trg), lab)
+                loss.backward()
+                losses.append(float(loss))
+                g = [p.grad.detach().clone() for p in net.parameters()]
+                opt.step()
+                opt.clear_grad()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            grads.append(g)
+            gc_ms.append(gp.ms)
+            ln_launches.append((ln.layer_norm.launches,
+                                ln.layer_norm_bwd.launches))
+        runs[use_rc] = dict(
+            losses=losses, grads=grads, step_ms=step_ms, gc_ms=gc_ms,
+            peak_above_state_gb=(torch.cuda.max_memory_allocated()
+                                 - resident) / 1e9,
+            layer_norm_launches=ln_launches,
+            weights=[p.detach().clone() for p in net.parameters()])
+        del net, opt
+    plain, rc = runs[False], runs[True]
+    if rc["losses"] != plain["losses"]:
+        raise AssertionError(f"losses {rc['losses']} != {plain['losses']}")
+    for i, (ga, gb) in enumerate(zip(rc["grads"], plain["grads"])):
+        bad = [j for j, (a, b) in enumerate(zip(ga, gb))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"step {i}: gradients {bad} differ")
+    if not all(torch.equal(a, b) for a, b in zip(rc["weights"],
+                                                 plain["weights"])):
+        raise AssertionError("weights differ after the steps")
+    n_ln = 2 * cfg["n_enc"] + 3 * cfg["n_dec"]
+    for r in (plain, rc):
+        del r["grads"], r["weights"]
+    if any(f != n_ln or bw != n_ln for f, bw in plain["layer_norm_launches"]):
+        raise AssertionError(f"plain LayerNorm launches "
+                             f"{plain['layer_norm_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = [tuple(int(d) for d in trg.shape) for _, trg, _ in loader]
+    return dict(batches=shapes, bitwise=True, plain=plain, recompute=rc,
+                launches={"layer_norm_fwd": sum(
+                    f for f, _ in plain["layer_norm_launches"]
+                    + rc["layer_norm_launches"]),
+                    "layer_norm_bwd": sum(
+                    bw for _, bw in plain["layer_norm_launches"]
+                    + rc["layer_norm_launches"])})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7908,6 +8308,20 @@ def main() -> int:
     done(34, f"(f) the custom-op dispatch of rows 1, 8 and 5 against the "
          f"direct call, a call and in Transformer-base's greedy decoding, "
          f"on {card}", dispatch_cost_phase(torch, ln, rn, fa))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t35 = time.perf_counter()
+    done(35, "(a) the collective API over a one-rank NCCL group == gloo on "
+         "the CPU bitwise, the native TCPStore, the RNG tracker card == cpu",
+         distributed_phase(torch))
+    remat = remat_7b_phase(torch, L, rn, fa)
+    done(35, f"(b) Llama-2-7B widths, 8 layers, bf16 training under the "
+         f"full, dots, attn and offload remat policies on {card}", remat)
+    rcmt = recompute_mt_phase(torch, ln)
+    done(35, f"(c) Transformer-base with every layer under fleet.recompute "
+         f"and AMPOptimizer against the plain steps, bitwise, on {card} "
+         f"(phase 35 in {time.perf_counter() - t35:.1f} s)", rcmt)
+    rml, rcl = remat["launches"], rcmt["launches"]
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -7937,7 +8351,7 @@ def main() -> int:
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
              + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
              + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
-             + fused7["launches"]["rms_norm_fwd"],
+             + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -7972,7 +8386,7 @@ def main() -> int:
                       "paddle_tpu_torch/ops/rms_norm.py",
                       "paddle_tpu/ops/rms_norm.py:55",
                       train["launches"]["rms_norm_bwd"] + mg["rms_norm_bwd"]
-                      + el["rms_norm_bwd"],
+                      + el["rms_norm_bwd"] + rml["rms_norm_bwd"],
                       rms_bwd["bf16"]),
     ]
     # the flash kernels run on every training path (the Llama step's
@@ -7991,7 +8405,7 @@ def main() -> int:
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
             + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name]
-            + ml[name] + mt["greedy"]["launches"][name], r))
+            + ml[name] + mt["greedy"]["launches"][name] + rml[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
@@ -8000,7 +8414,8 @@ def main() -> int:
             bert["launches"][name] + gl[name] + xr[name] + xs[name]
             + ml[name] + mt["greedy"]["launches"][name]
             + jmt["compiled"]["layer_norm_launches"][key == "bwd"]
-            + (jpred["layer_norm_launches"] if key == "fwd" else 0),
+            + (jpred["layer_norm_launches"] if key == "fwd" else 0)
+            + rcl[name],
             lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32

@@ -52,7 +52,13 @@ Ported so far:
 - compiled programs: ``jit`` (``to_static``, dy2static, ``TrainStep``,
   bucketing, ``save``/``load`` as ``torch.export`` programs, the fusion
   pass), ``static`` and the inference ``Config``/``Predictor``; a
-  compiled program is a CUDA graph per input signature on the card.
+  compiled program is a CUDA graph per input signature on the card;
+- distributed, one rank a process: the collective API, point-to-point
+  calls and object collectives over ``torch.distributed`` (gloo for CPU
+  tensors, NCCL for CUDA tensors), ``init_parallel_env``, ``spawn``,
+  the rendezvous store, the process mesh (``parallel``) and topology,
+  the RNG tracker, ``fleet``'s strategy, meta-optimizers and recompute,
+  and the Llama step's ``dots``/``attn``/``offload`` remat policies.
 """
 
 __version__ = "0.1.0"
@@ -84,13 +90,13 @@ _SUBMODULES = frozenset((
     "amp", "autograd", "callbacks", "core", "creation", "device",
     "distributed", "flags", "framework", "hapi", "incubate", "inference",
     "io", "jit", "kvcache", "metric", "models", "nn", "observability",
-    "ops", "optimizer", "profiler", "random", "regularizer", "resilience",
-    "serving", "static", "testing",
+    "ops", "optimizer", "parallel", "profiler", "random", "regularizer",
+    "resilience", "serving", "static", "testing",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
 _LATER = {}
-for _n in ("vision", "parallel", "quantization", "linalg",
+for _n in ("vision", "quantization", "linalg",
            "fft", "sparse", "distribution", "signal", "audio", "text",
            "utils", "onnx", "geometric", "version", "hub"):
     _LATER.setdefault(_n, f"long tail ({_n})")

@@ -6,6 +6,15 @@ from .decoding import (  # noqa: F401
     ContinuousBatchingEngine, GenerationConfig, GenerationEngine, KVCache,
     PagedGenerationEngine, llama_engine,
 )
+from .speculative import (  # noqa: F401
+    Drafter, DraftModel, NgramDrafter, SpeculationTelemetry,
+)
+from . import sampling  # noqa: F401
+from . import constrain  # noqa: F401
+from .sampling import SamplerConfig  # noqa: F401
+from .constrain import (  # noqa: F401
+    GrammarArena, TokenDFA, compile_regex, json_grammar, json_regex,
+)
 
 
 def __getattr__(name):

@@ -481,6 +481,12 @@ class GrammarArena:
         self._grammars[tdfa.fingerprint] = tdfa
         return off + tdfa.start
 
+    def device_table(self) -> torch.Tensor:
+        """The arena the programs read: :attr:`table` itself, which lives
+        on the device and is written in place (the reference caches a
+        device copy until the next registration, l.488)."""
+        return self.table
+
 
 # ---------------------------------------------------------------------------
 # In-program helpers (called from the engine's unified and spec programs)

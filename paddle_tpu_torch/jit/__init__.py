@@ -46,7 +46,9 @@ from ..inference import graphs as _graphs_mod
 from ..inference import prng
 from ..optimizer.optimizer import _lr_factor
 from .dy2static import _leaves, _structure
-from .functional import tree_unwrap, tree_wrap
+from .functional import (  # noqa: F401
+    bind, buffer_arrays, param_arrays, tree_unwrap, tree_wrap,
+)
 
 __all__ = ["RecompileWarning", "CompileGuard", "ProgramCache",
            "StaticFunction", "to_static", "TrainStep", "not_to_static",

@@ -29,6 +29,7 @@ and the paged decode attention of the legacy decode step
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -37,6 +38,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.meta_parallel.mp_layers import (
@@ -85,6 +88,12 @@ def llama2_7b(**over) -> LlamaConfig:
         num_attention_heads=32, num_key_value_heads=32), **over})
 
 
+def llama2_13b(**over) -> LlamaConfig:
+    return LlamaConfig(**{**dict(
+        hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
+        num_attention_heads=40, num_key_value_heads=40), **over})
+
+
 def llama_tiny(**over) -> LlamaConfig:
     return LlamaConfig(**{**dict(
         vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -101,6 +110,31 @@ def param_count(config: LlamaConfig) -> int:
     per_layer = 2 * h * h + 2 * h * kvh + 3 * h * m + 2 * h
     return (config.vocab_size * h + L * per_layer + h
             + h * config.vocab_size)
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def param_nbytes(config: LlamaConfig) -> int:
+    """Device bytes the stacked weights occupy at ``config.dtype``: the
+    ``weight_bytes`` input of the capacity planner
+    (``observability.memory.plan_capacity``)."""
+    return param_count(config) * _itemsize(config.dtype)
+
+
+def kv_geometry(config: LlamaConfig, page_size: int) -> Dict[str, int]:
+    """The paged-KV geometry keywords of the capacity planner: what a
+    page of this model costs."""
+    return {
+        "num_layers": config.num_hidden_layers,
+        "num_kv_heads": config.num_key_value_heads,
+        "head_dim": config.head_dim,
+        "page_size": page_size,
+        "dtype_bytes": _itemsize(config.dtype),
+    }
 
 
 def _param_shapes(config: LlamaConfig) -> Dict[str, tuple]:
@@ -138,6 +172,29 @@ def init_params(config: LlamaConfig, seed: int = 0,
                                    dtype=torch.float32) * 0.02)
         params[name] = out
     return params
+
+
+def init_stacked_params(config: LlamaConfig, seed: int = 0, *,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """The reference's seeded weights (l.222): ``jax.random.key(seed)``
+    split twelve ways, normal(0, 0.02) draws in fp32 cast to
+    ``config.dtype``, norms at one. The draws run on the port's Threefry
+    stream (``random.normal_draw``), equal to the reference's to an ulp
+    of XLA's ``erfinv``. (:func:`init_params` draws from a
+    ``torch.Generator``.)"""
+    from .. import random as R
+    from ..inference import prng
+    dev = resolve_device(device)
+    dt = config.dtype
+    ks = prng.split(prng.prng_key(seed), 12)
+    shapes = _param_shapes(config)
+    drawn = ("embed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+             "lm_head")                           # keys ks[0] .. ks[8]
+    out = {k: (R.normal_draw(ks[i], shapes[k], device=dev) * 0.02).to(dt)
+           for i, k in enumerate(drawn)}
+    return {k: out[k] if k in out
+            else torch.ones(shapes[k], dtype=dt, device=dev)
+            for k in shapes}
 
 
 def params_from_numpy(np_params: Dict[str, Any], config: LlamaConfig,
@@ -595,18 +652,115 @@ def _layer(params, l):
     return {k: params[k][l] for k in LAYER_KEYS}
 
 
-def _hidden(params, ids, config: LlamaConfig, remat: bool = False):
+#: the matmuls the ``dots`` policy keeps (``jax.checkpoint_policies.
+#: dots_saveable``: every dot's output)
+_MATMULS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default))
+#: bytes the ``offload`` policy has copied to the host (its attention
+#: outputs and their LSEs), for the smoke's report
+offload_bytes = [0]
+
+
+class _KeepOutputs(TorchDispatchMode):
+    """The forward of a selectively recomputed layer: every op in
+    ``ops`` runs and its outputs go into ``store`` (pinned host copies
+    when ``host``)."""
+
+    def __init__(self, ops, store, host: bool, as_op: bool):
+        super().__init__()
+        self.ops, self.store, self.host, self.as_op = ops, store, host, as_op
+
+    def __enter__(self):
+        self._route = fa.forward_as_op() if self.as_op else None
+        if self._route is not None:
+            self._route.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        if self._route is not None:
+            self._route.__exit__(*exc)
+        return out
+
+    def _keep(self, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if self.host:
+            offload_bytes[0] += t.numel() * t.element_size()
+            return _OnHost(t)
+        return t.detach()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.ops:
+            self.store.append(tree_map(self._keep, out))
+        return out
+
+
+class _ReuseOutputs(_KeepOutputs):
+    """The recomputation: every op in ``ops`` returns what the forward
+    kept (moved back to its device) instead of running again."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.ops:
+            return tree_map(lambda k: k.back() if isinstance(k, _OnHost)
+                            else k, self.store.popleft())
+        return func(*args, **(kwargs or {}))
+
+
+class _OnHost:
+    """A tensor the ``offload`` policy moved to pinned host memory (on
+    the card's stream, so the copy back is ordered after it)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.device = t.device
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+        else:
+            self.host = t.detach().clone()
+
+    def back(self) -> torch.Tensor:
+        return self.host.to(self.device, non_blocking=self.host.is_pinned())
+
+
+def _policy_contexts(policy: str):
+    """``checkpoint``'s ``context_fn`` for a selective policy: the
+    forward keeps the outputs the policy saves, the recomputation
+    reuses them. ``dots`` keeps the matmuls' outputs; ``attn`` the
+    flash forward's output and LSE (row 5's custom op); ``offload`` the
+    same in pinned host memory."""
+    ops = _MATMULS if policy == "dots" else frozenset(
+        (torch.ops.paddle_tpu_torch.flash_attention_fwd.default,))
+    host = policy == "offload"
+    as_op = policy != "dots"
+
+    def context_fn():
+        store = collections.deque()
+        return (_KeepOutputs(ops, store, host, as_op),
+                _ReuseOutputs(ops, store, host, as_op))
+    return context_fn
+
+
+def _hidden(params, ids, config: LlamaConfig, remat: bool = False,
+            remat_policy: str = "full"):
     """Embedding and the decoder stack: (B, S) ids -> (B, S, h). With
-    ``remat`` each layer is a checkpoint: its activations are recomputed
-    in the backward (the reference's ``jax.checkpoint`` per layer)."""
+    ``remat`` each layer is a checkpoint (the reference's
+    ``jax.checkpoint`` per layer) under ``remat_policy``: ``full``
+    keeps nothing inside the layer; ``dots``, ``attn`` and ``offload``
+    keep what the reference's policies of those names save (see
+    :func:`_policy_contexts`)."""
     cos, sin = rope_ops.build_rope_cache(ids.shape[-1], config.head_dim,
                                          config.rope_theta,
                                          device=ids.device)
     x = params["embed"][ids.long()]
+    kw = {}
+    if remat and remat_policy in ("dots", "attn", "offload"):
+        kw["context_fn"] = _policy_contexts(remat_policy)
     for l in range(config.num_hidden_layers):
         if remat:
             out = checkpoint(decoder_layer, _layer(params, l), x, cos, sin,
-                             config, use_reentrant=False)
+                             config, use_reentrant=False, **kw)
         else:
             out = decoder_layer(_layer(params, l), x, cos, sin, config)
         x = out.to(x.dtype)
@@ -621,19 +775,20 @@ def _token_ce(logits, labels):
 
 
 def forward_stacked(params, ids, config: LlamaConfig, *,
-                    remat: bool = False):
+                    remat: bool = False, remat_policy: str = "full"):
     """Single-device forward over the stacked layout → logits (B, S, V).
     ``remat``: each layer is a checkpoint (see :func:`_hidden`)."""
     _check_dense(params)
-    return _hidden(params, ids, config, remat=remat) @ params["lm_head"]
+    return _hidden(params, ids, config, remat=remat,
+                   remat_policy=remat_policy) @ params["lm_head"]
 
 
 def loss_stacked(params, ids, labels, config: LlamaConfig, *,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "full"):
     """Mean token cross-entropy of :func:`forward_stacked`'s logits,
     taken in fp32."""
-    return _token_ce(forward_stacked(params, ids, config, remat=remat),
-                     labels)
+    return _token_ce(forward_stacked(params, ids, config, remat=remat,
+                                     remat_policy=remat_policy), labels)
 
 
 def init_opt_state(params) -> Dict[str, Any]:
@@ -671,12 +826,19 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
     second copy of the weights and moments) and returns them.
     ``k_steps > 1`` runs k such steps and returns the last loss.
 
-    ``remat=True`` (policy ``"full"``) recomputes each layer in the
-    backward through ``torch.utils.checkpoint``. ``init_fn(seed)`` gives
-    seeded params on ``device`` (``None`` means the card) and a fresh
-    AdamW state. The options of later slices (a mesh with more than one
-    device, pipeline schedules, ZeRO gathers, sequence sharding, other
-    remat policies) raise ``NotImplementedError``.
+    ``remat=True`` recomputes each layer in the backward through
+    ``torch.utils.checkpoint`` under ``remat_policy`` (the reference's
+    l.614-640): ``"full"`` keeps nothing inside a layer; ``"dots"``
+    keeps the matmuls' outputs and recomputes norms and elementwise
+    work; ``"attn"`` keeps only the flash forward's output and LSE, so
+    the backward does not replay the attention (the reference's flash
+    VJP replays it for the LSE); ``"offload"`` keeps them in pinned host
+    memory (:data:`offload_bytes` counts the bytes). Any other name is
+    ``"full"``, as in the reference. ``init_fn(seed)`` gives seeded
+    params on ``device`` (``None`` means the card) and a fresh AdamW
+    state. The options of later slices (a mesh with more than one
+    device, pipeline schedules, ZeRO gathers, sequence sharding) raise
+    ``NotImplementedError``.
     """
     axes = getattr(mesh, "shape", mesh) or {}
     if any(int(n) > 1 for n in dict(axes).values()):
@@ -693,9 +855,6 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
     if zero_gather != "per_layer":
         raise _later(f"zero_gather={zero_gather!r} (ZeRO weight gathers)",
                      "distributed")
-    if remat and remat_policy != "full":
-        raise _later(f"remat_policy={remat_policy!r} (selective remat)",
-                     "selective-remat")
     if k_steps < 1:
         raise ValueError(f"k_steps must be >= 1, got {k_steps}")
     lr = float(learning_rate)
@@ -708,7 +867,7 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
         total = torch.zeros((), dtype=torch.float32, device=ids.device)
         for i in range(n_micro):
             loss = loss_stacked(leaves, ids[i], labels[i], config,
-                                remat=remat)
+                                remat=remat, remat_policy=remat_policy)
             (loss / n_micro).backward()
             total = total + loss.detach()
         with torch.no_grad():

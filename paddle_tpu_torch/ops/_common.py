@@ -57,6 +57,11 @@ def exporting():
         _exporting[0] = prev
 
 
+def next_multiple(x: int, m: int) -> int:
+    """The least multiple of ``m`` that is at least ``x``."""
+    return ((x + m - 1) // m) * m
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card: it resolves to ``cuda`` and raises when
     no GPU is present. The CPU is used only when asked for."""

@@ -35,6 +35,7 @@ threshold like ``_pallas_ok``: the tensor's device alone picks the path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import re
@@ -452,11 +453,28 @@ def _flash_fwd_op_fake(q, k, v, scale, causal, kv_valid, causal_offset,
             q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
+#: set while a selective remat policy keeps the forward's output and
+#: LSE (``models.llama``'s ``attn`` and ``offload``): the forward then
+#: runs as the custom op, which the policy's dispatch mode sees
+_as_op = [False]
+
+
+@contextlib.contextmanager
+def forward_as_op():
+    """The scope in which row 5's forward runs as its custom op."""
+    prev = _as_op[0]
+    _as_op[0] = True
+    try:
+        yield
+    finally:
+        _as_op[0] = prev
+
+
 def flash_attention_fwd(q, k, v, scale, causal, kv_valid=None,
                         causal_offset=0, kv_rep=1, seg_q=None, seg_k=None):
     """``(out, lse)``. CPU tensors: the plain version. CUDA tensors: the
     forward kernel."""
-    if _exporting[0]:
+    if _exporting[0] or _as_op[0]:
         return flash_fwd_op(q, k, v, float(scale), bool(causal), kv_valid,
                             int(causal_offset), int(kv_rep), seg_q, seg_k)
     fn = flash_fwd_kernel if q.is_cuda else flash_fwd_plain
@@ -575,3 +593,15 @@ def sdpa_array(q, k, v, scale: Optional[float] = None, causal: bool = False):
     vt = v.transpose(1, 2).contiguous().reshape(b * hk, v.shape[1], d)
     out = flash_attention_bhsd(qt, kt, vt, sc, causal, kv_rep=hq // hk)
     return out.reshape(b, hq, sq, d).transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None):
+    """The reference's entry at this path (l.739): Paddle-layout (B, S,
+    H, D) attention over Tensors, ``nn.functional.
+    scaled_dot_product_attention`` with ``scale`` positional."""
+    from ..nn import functional as F
+    return F.scaled_dot_product_attention(query, key, value, attn_mask,
+                                          dropout_p, is_causal, training,
+                                          scale=scale)

@@ -741,6 +741,11 @@ class PagedKVCacheManager:
         """Committed token length of a live sequence (0 if unknown)."""
         return int(self._lens.get(seq_id, 0))
 
+    def seq_len(self, seq_id) -> int:
+        """Token length of a live sequence; ``KeyError`` if unknown
+        (the reference's l.631)."""
+        return self._lens[seq_id]
+
     # -- speculative tail growth / rollback ----------------------------------
 
     def grow_to(self, seq_id, n_tokens: int) -> List[int]:

@@ -472,3 +472,7 @@ class Adagrad(Optimizer):
         acc = s["moment"] + g32 * g32
         s["moment"] = acc
         return v32 - lr * g32 / (torch.sqrt(acc) + self._epsilon)
+
+
+# the reference defines AdamW in this module; the port's lives in adamw.py
+from .adamw import AdamW  # noqa: E402,F401

@@ -2758,3 +2758,86 @@ def test_capture_failure_raises(cuda):
     assert len(lines) == 2 and all(ln.startswith("raised") for ln in lines), \
         (proc.stdout, proc.stderr[-2000:])
     assert "AttributeError" not in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# Distributed I: the remat policies, recompute and a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["dots", "attn", "offload"])
+def test_remat_policy_on_card_equals_full(cuda, policy):
+    """The tiny Llama step (bf16, d 64 heads) under each policy: the
+    losses and weights of ``full`` bit for bit; the flash forward
+    replayed (``dots``) or kept (``attn``, ``offload``)."""
+    cfg = L.llama_tiny(num_hidden_layers=2, num_attention_heads=1,
+                       num_key_value_heads=1, dtype=torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (1, 2, 64),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    labels = torch.roll(ids, -1, dims=-1)
+    runs = {}
+    for p in ("full", policy):
+        step, init = L.build_train_step(cfg, remat_policy=p, device="cuda")
+        params, opt = init(seed=0)
+        fa.flash_fwd_kernel.launches = 0
+        losses = []
+        for _ in range(2):
+            loss, params, opt = step(params, opt, ids, labels)
+            losses.append(loss.item())
+        runs[p] = (losses, params, fa.flash_fwd_kernel.launches)
+    assert runs[policy][0] == runs["full"][0]
+    for k, v in runs["full"][1].items():
+        assert torch.equal(runs[policy][1][k], v), k
+    n = cfg.num_hidden_layers * 2            # layers x steps
+    assert runs["full"][2] == 2 * n
+    assert runs[policy][2] == (2 * n if policy == "dots" else n)
+
+
+def test_recompute_with_dropout_on_card_is_bitwise(cuda):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place as tplace
+    from paddle_tpu_torch.distributed import fleet
+    prev = tplace._current_place[0]
+    paddle.set_device("gpu")
+    try:
+        out = []
+        for use_rc in (False, True):
+            paddle.seed(0)
+            net = paddle.nn.Sequential(paddle.nn.Linear(64, 64),
+                                       paddle.nn.Dropout(0.5),
+                                       paddle.nn.GELU(),
+                                       paddle.nn.Linear(64, 64))
+            x = paddle.to_tensor(np.random.RandomState(1).randn(
+                16, 64).astype("float32"))
+            x.stop_gradient = False
+            paddle.seed(4)
+            y = fleet.recompute(net, x) if use_rc else net(x)
+            (y * y).sum().backward()
+            out.append([p.grad.detach().clone() for p in net.parameters()]
+                       + [x.grad._value.clone()])
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+    finally:
+        tplace._current_place[0] = prev
+
+
+def test_one_rank_nccl_group_matches_the_cpu(cuda, monkeypatch):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.launch.context import free_port
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
+    monkeypatch.setenv("PADDLE_MASTER", f"127.0.0.1:{free_port()}")
+    D.init_parallel_env()
+    try:
+        assert D.get_backend() == "NCCL"
+        x = torch.arange(8, dtype=torch.float32, device=cuda)
+        D.all_reduce(x)
+        assert torch.equal(x.cpu(), torch.arange(8, dtype=torch.float32))
+        assert torch.equal(D.all_gather(x).cpu(), x.cpu())
+        assert torch.equal(D.reduce_scatter(x).cpu(), x.cpu())
+        objs = []
+        D.all_gather_object(objs, {"r": 0})
+        assert objs == [{"r": 0}]
+        D.barrier()
+    finally:
+        D.destroy_process_group()
+    assert not D.is_initialized()

@@ -210,8 +210,7 @@ def test_cpu_step_launches_no_kernel(setup):
 @pytest.mark.parametrize("kw", [
     dict(mesh={"dp": 2}), dict(mesh={"pp": 2, "mp": 1}),
     dict(pipeline_schedule="1f1b"), dict(virtual_pp=2),
-    dict(zero_gather="per_step"), dict(seq_shard=True),
-    dict(remat_policy="dots"), dict(remat_policy="offload")],
+    dict(zero_gather="per_step"), dict(seq_shard=True)],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_options_of_later_slices_raise(kw):
     _, tcfg = _configs()
