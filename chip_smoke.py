@@ -381,6 +381,23 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     under ``fleet.recompute`` and its Adam in ``AMPOptimizer``, 3 steps
     against the plain ones from the same weights and key stream: losses
     and gradients bitwise, step ms and peak memory of both.
+36. Distributed II (Fleet hybrid training), TF32 off, over a one-rank
+    NCCL group. (a) ``build_hybrid_train_step`` over ``build_mesh({})``
+    at phase 12's configuration (Llama-2-7B widths, 8 layers, bf16, one
+    (8, 2048) microbatch, full remat) from phase 12's weights, 3 steps,
+    against phase 12's ``build_train_step`` run again from the same
+    weights in this call: losses within ``testing.HYBRID_LOSS_TOL``,
+    step ms (median) of both, peak memory above the weights and AdamW
+    state, and rows 1, 2, 5, 6's launches a step checked. (b)
+    ``fleet.init`` with every ``hybrid_configs`` degree 1,
+    ``distributed_model`` on the imperative ``LlamaForCausalLM`` (7B
+    widths, 2 layers, fp32) and ``distributed_optimizer`` (AdamW under
+    ``HybridParallelClipGrad``): 5 steps of ``compile_train_step`` (a
+    CUDA graph) with losses bitwise equal to the same model under a plain
+    ``jit.TrainStep`` and ``ClipGradByGlobalNorm``; the same for
+    ``group_sharded_parallel(level="os_g")`` under ``jit.TrainStep``, and
+    ``PipelineParallel.train_batch`` at one stage against the eager loop
+    on the same ``PipelineLayer``.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -404,7 +421,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 35
+N_PHASES = 36
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -8107,6 +8124,297 @@ def recompute_mt_phase(torch, ln):
                     + rc["layer_norm_launches"])})
 
 
+# ---------------------------------------------------------------------------
+# phase 36: Distributed II (the hybrid step, the Fleet path)
+# ---------------------------------------------------------------------------
+
+#: phase 36 (a)'s steps a run
+HYBRID_STEPS = 3
+#: phase 36 (b)'s steps a run
+FLEET_STEPS = 5
+
+
+def _one_rank_nccl(D):
+    """A one-rank NCCL process group (``init_parallel_env`` with
+    ``PADDLE_TRAINERS_NUM=1`` and an explicit ``PADDLE_MASTER``); returns
+    the environment to restore after ``destroy_process_group``."""
+    from paddle_tpu_torch.distributed.launch.context import free_port
+    saved = {k: os.environ.get(k) for k in
+             ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "PADDLE_MASTER")}
+    os.environ.update(PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0",
+                      PADDLE_MASTER=f"127.0.0.1:{free_port()}")
+    D.init_parallel_env()
+    if D.get_backend() != "NCCL":
+        raise AssertionError(f"backend {D.get_backend()}, not NCCL")
+    return saved
+
+
+def _restore_env(saved):
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def _train_counters(rn, fa):
+    return {"rms_norm_fwd": rn.rms_norm, "rms_norm_bwd": rn.rms_norm_bwd,
+            "flash_attention_fwd": fa.flash_fwd_kernel,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+
+
+def hybrid_7b_phase(torch, L, rn, fa):
+    """(a) The hybrid step over a one-rank NCCL mesh at phase 12's
+    configuration, against phase 12's step run again here from the same
+    weights: every collective is its input itself (no copy), so the body
+    is the one-device step's work. Returns the report and the process
+    group's saved environment (phase 36 (b) runs on the same group)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    from paddle_tpu_torch.testing import HYBRID_LOSS_TOL
+    cfg = L.llama2_7b(num_hidden_layers=8, dtype=torch.bfloat16)
+    n = cfg.num_hidden_layers
+    b, s = 8, 2048
+    _, init = L.build_train_step(cfg, learning_rate=1e-4, device="cuda")
+    params0, _ = init(seed=SEED)
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, cfg.vocab_size, (1, b, s)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+    counters = _train_counters(rn, fa)
+    want = {"rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
+            "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    totals = {k: 0 for k in counters}
+
+    def run(step, params, what):
+        opt = L.init_opt_state(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(HYBRID_STEPS):
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, ids, labels)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: c.launches for k, c in counters.items()}
+            if got != want:
+                raise AssertionError(f"{what} step {i}: launches {got} != "
+                                     f"{want}")
+            if what == "hybrid":
+                for k in totals:
+                    totals[k] += got[k]
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        del opt
+        return losses, ms, peak, params
+
+    one, _ = L.build_train_step(cfg, learning_rate=1e-4, remat=True,
+                                device="cuda")
+    l12, ms12, peak12, p = run(one, {k: v.clone() for k, v in
+                                     params0.items()}, "one-device")
+    del p, one
+    saved = _one_rank_nccl(D)
+    t0 = time.perf_counter()
+    mesh = pmesh.build_mesh({})
+    pmesh.set_global_mesh(mesh)
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    hstep, _ = L.build_hybrid_train_step(cfg, mesh, learning_rate=1e-4,
+                                         remat=True, device="cuda")
+    params = hstep.shard(params0)          # one rank: each slab is whole
+    del params0
+    lh, msh, peakh, p = run(hstep, params, "hybrid")
+    del p, params, hstep
+    gc.collect()
+    torch.cuda.empty_cache()
+    rtol, atol = HYBRID_LOSS_TOL
+    for a, c in zip(lh, l12):
+        if not math.isfinite(a) or abs(a - c) > atol + rtol * abs(c):
+            raise AssertionError(f"hybrid losses {lh} far from the "
+                                 f"one-device step's {l12}")
+    report = dict(layers=n, reduced="num_hidden_layers 32 -> 8 (memory)",
+                  batch=[1, b, s], steps=HYBRID_STEPS, mesh=dict(mesh.shape),
+                  mesh_build_ms=mesh_ms, losses=lh, one_device_losses=l12,
+                  bitwise=lh == l12, tol=HYBRID_LOSS_TOL,
+                  step_ms=msh, one_device_step_ms=ms12,
+                  median_step_ms=float(np.median(msh)),
+                  one_device_median_step_ms=float(np.median(ms12)),
+                  peak_above_state_gb=peakh,
+                  one_device_peak_above_state_gb=peak12,
+                  launches_per_step=want, launches=totals)
+    return report, saved
+
+
+def _llama_pipe_layers(L, cfg):
+    """Llama as a ``PipelineLayer``'s entries: the embedding, each decoder
+    layer (RoPE tables made from its input), the final norm and head."""
+    from paddle_tpu_torch.distributed.meta_parallel import LayerDesc
+    from paddle_tpu_torch.distributed.meta_parallel import mp_layers as mpl
+    from paddle_tpu_torch.nn.common_layers import RMSNorm
+    from paddle_tpu_torch.nn.layer import Layer
+    from paddle_tpu_torch.ops import rope as rope_ops
+
+    class Embed(Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.embed = mpl.VocabParallelEmbedding(
+                c.vocab_size, c.hidden_size, dtype=c.dtype, device="cuda")
+
+        def forward(self, ids):
+            return self.embed(ids)
+
+    class Block(Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.c = c
+            self.layer = L.LlamaDecoderLayer(c, device="cuda")
+
+        def forward(self, x):
+            cos, sin = rope_ops.build_rope_cache(
+                x.shape[1], self.c.head_dim, self.c.rope_theta, device="cuda")
+            return self.layer(x, cos, sin)
+
+    class Head(Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.norm = RMSNorm(c.hidden_size, epsilon=c.rms_norm_eps,
+                                dtype=c.dtype, device="cuda")
+            self.lm_head = mpl.ColumnParallelLinear(
+                c.hidden_size, c.vocab_size, has_bias=False, dtype=c.dtype,
+                device="cuda")
+
+        def forward(self, x):
+            return self.lm_head(self.norm(x))
+
+    return ([LayerDesc(Embed, cfg)]
+            + [LayerDesc(Block, cfg) for _ in range(cfg.num_hidden_layers)]
+            + [LayerDesc(Head, cfg)])
+
+
+def fleet_hybrid_phase(torch, L, rn, fa):
+    """(b) The Fleet path at every degree 1 over the one-rank NCCL group
+    of (a): ``compile_train_step`` against a plain ``jit.TrainStep``,
+    ``group_sharded_parallel("os_g")`` under ``jit.TrainStep`` against
+    the same, and ``PipelineParallel`` at one stage against the eager
+    loop, each 5 steps from one set of weights, losses bitwise."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        PipelineLayer, PipelineParallel)
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.nn import functional as NF
+    cfg = L.llama2_7b(num_hidden_layers=2)
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, V, (2, 512)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+    counters = _train_counters(rn, fa)
+    totals = {k: 0 for k in counters}
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": 1,
+                               "sep_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    torch.manual_seed(SEED)
+    state0 = {k: v.detach().clone() for k, v in
+              L.LlamaForCausalLM(cfg, device="cuda").state_dict().items()}
+
+    def llama():
+        net = L.LlamaForCausalLM(cfg, device="cuda")
+        net.set_state_dict(state0)
+        return net
+
+    def adamw(params):
+        return optimizer.AdamW(learning_rate=1e-4, parameters=params,
+                               grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+
+    def loss_fn(model, i, l):
+        return model.compute_loss(i, l)
+
+    def steps(fn, what):
+        out, ms = [], []
+        for c in counters.values():
+            c.launches = 0
+        for _ in range(FLEET_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(float(fn()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for k, c in counters.items():
+            totals[k] += c.launches
+        if not all(math.isfinite(x) for x in out):
+            raise AssertionError(f"{what}: non-finite losses {out}")
+        return out, ms
+
+    runs = {}
+    net = llama()
+    plain = jit.TrainStep(net, loss_fn, adamw(net.parameters()))
+    runs["plain"] = steps(lambda: plain(ids, labels), "plain TrainStep")
+    del net, plain
+    net = llama()
+    dopt = fleet.distributed_optimizer(adamw(net.parameters()))
+    dm = fleet.distributed_model(net)
+    step = dm.compile_train_step(loss_fn, dopt)
+    clip = type(dopt.inner_opt._grad_clip).__name__
+    runs["fleet"] = steps(lambda: step(ids, labels), "fleet")
+    captures = step.programs.captures
+    del net, dm, dopt, step
+    net = llama()
+    model, sopt, _ = group_sharded_parallel(net, adamw(net.parameters()),
+                                            "os_g")
+    step = jit.TrainStep(model, loss_fn, sopt)
+    runs["os_g"] = steps(lambda: step(ids, labels), "os_g")
+    del net, model, sopt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def pipe_loss(logits, lab):
+        return NF.cross_entropy(logits.reshape([-1, V]), lab.reshape([-1]))
+
+    pipes = {}
+    for kind in ("eager", "pipeline"):
+        torch.manual_seed(SEED)
+        pipe = PipelineLayer(_llama_pipe_layers(L, cfg), loss_fn=pipe_loss)
+        opt = adamw(pipe.parameters())
+        if kind == "eager":
+            def one(pipe=pipe, opt=opt):
+                loss = pipe._loss_fn(pipe(ids), labels) / 1
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss.detach()
+        else:
+            pp = PipelineParallel(pipe, hcg, strategy)
+
+            def one(pp=pp, opt=opt):
+                return pp.train_batch((ids, labels), opt)
+        pipes[kind] = steps(one, kind)
+        del pipe, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = {"fleet": runs["fleet"][0] == runs["plain"][0],
+             "os_g": runs["os_g"][0] == runs["plain"][0],
+             "pipeline": pipes["pipeline"][0] == pipes["eager"][0]}
+    if not all(equal.values()):
+        raise AssertionError(f"not bitwise: {equal}; {runs}; {pipes}")
+    med = lambda x: float(np.median(x[1]))  # noqa: E731
+    return dict(layers=2, dtype="float32", batch=[2, 512],
+                reduced="num_hidden_layers 32 -> 2",
+                steps=FLEET_STEPS, clip=clip, bitwise=equal,
+                captures=captures,
+                losses={k: v[0] for k, v in {**runs, **pipes}.items()},
+                median_step_ms={k: med(v) for k, v in
+                                {**runs, **pipes}.items()},
+                launches=totals)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8322,6 +8630,27 @@ def main() -> int:
          f"and AMPOptimizer against the plain steps, bitwise, on {card} "
          f"(phase 35 in {time.perf_counter() - t35:.1f} s)", rcmt)
     rml, rcl = remat["launches"], rcmt["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t36 = time.perf_counter()
+    hyb, saved_env = hybrid_7b_phase(torch, L, rn, fa)
+    try:
+        done(36, f"(a) build_hybrid_train_step over a one-rank NCCL mesh at "
+             f"Llama-2-7B widths, 8 layers, bf16, against phase 12's step "
+             f"on {card}", hyb)
+        fh = fleet_hybrid_phase(torch, L, rn, fa)
+    finally:
+        from paddle_tpu_torch import distributed as _D
+        from paddle_tpu_torch.distributed.topology import \
+            set_hybrid_communicate_group
+        set_hybrid_communicate_group(None)
+        _D.destroy_process_group()
+        _restore_env(saved_env)
+    done(36, f"(b) fleet.init / distributed_model / distributed_optimizer, "
+         f"group_sharded_parallel('os_g') and PipelineParallel at degree 1 "
+         f"against the plain steps, bitwise, on {card} (phase 36 in "
+         f"{time.perf_counter() - t36:.1f} s)", fh)
+    hl = {k: hyb["launches"][k] + fh["launches"][k] for k in hyb["launches"]}
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -8351,7 +8680,8 @@ def main() -> int:
              + train["launches"]["rms_norm_fwd"] + mg["rms_norm_fwd"]
              + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
              + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
-             + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"],
+             + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"]
+             + hl["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -8386,7 +8716,8 @@ def main() -> int:
                       "paddle_tpu_torch/ops/rms_norm.py",
                       "paddle_tpu/ops/rms_norm.py:55",
                       train["launches"]["rms_norm_bwd"] + mg["rms_norm_bwd"]
-                      + el["rms_norm_bwd"] + rml["rms_norm_bwd"],
+                      + el["rms_norm_bwd"] + rml["rms_norm_bwd"]
+                      + hl["rms_norm_bwd"],
                       rms_bwd["bf16"]),
     ]
     # the flash kernels run on every training path (the Llama step's
@@ -8405,7 +8736,8 @@ def main() -> int:
             train["launches"][name] + bert["launches"][name]
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
             + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name]
-            + ml[name] + mt["greedy"]["launches"][name] + rml[name], r))
+            + ml[name] + mt["greedy"]["launches"][name] + rml[name]
+            + hl[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(

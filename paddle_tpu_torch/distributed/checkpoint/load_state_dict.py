@@ -26,6 +26,7 @@ import torch
 
 from ...core.tensor import Tensor
 from . import metadata as _metadata
+from ...parallel.mesh import slab_info
 from .metadata import Metadata
 from .utils import (CheckpointCorruptError, flatten_state_dict, is_tensor,
                     to_torch, verify_crc32)
@@ -147,6 +148,21 @@ class _DataFiles:
         self._files.clear()
 
 
+def _assemble(data, storage, key, shards, gshape):
+    """The global tensor ``key`` from its saved pieces (any layout)."""
+    if len(shards) == 1 and tuple(shards[0].local_shape) == gshape:
+        return data.read(storage[(key, shards[0].global_offset)])
+    out = None
+    for s in shards:
+        piece = data.read(storage[(key, s.global_offset)])
+        if out is None:
+            out = torch.empty(gshape, dtype=piece.dtype)
+        idx = tuple(slice(o, o + n) for o, n in
+                    zip(s.global_offset, s.local_shape))
+        out[idx] = piece.reshape(s.local_shape)
+    return out
+
+
 def load_state_dict(state_dict: Dict, path: str, process_group=None,
                     coordinator_rank: int = 0, unique_id=None,
                     offload: bool = False) -> None:
@@ -192,22 +208,24 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
                     gshape[d] = max(gshape[d],
                                     s.global_offset[d] + s.local_shape[d])
             gshape = tuple(gshape)
+            info = slab_info(tv)
+            if info is not None:
+                # a rank's slab: its pieces of the assembled tensor
+                if info.global_shape != gshape:
+                    raise ValueError(
+                        f"shape mismatch for {key!r}: checkpoint {gshape}, "
+                        f"target's global {info.global_shape}")
+                full = _assemble(data, storage, key, shards, gshape)
+                with torch.no_grad():
+                    for local, off, shape in info.pieces:
+                        tv[local].copy_(full[tuple(
+                            slice(o, o + n) for o, n in zip(off, shape))])
+                continue
             if tuple(tv.shape) != gshape:
                 raise ValueError(
                     f"shape mismatch for {key!r}: checkpoint {gshape}, "
                     f"target {tuple(tv.shape)}")
-            if len(shards) == 1 and tuple(shards[0].local_shape) == gshape:
-                out = data.read(storage[(key, shards[0].global_offset)])
-            else:
-                # assemble the global tensor from pieces of any layout
-                out = None
-                for s in shards:
-                    piece = data.read(storage[(key, s.global_offset)])
-                    if out is None:
-                        out = torch.empty(gshape, dtype=piece.dtype)
-                    idx = tuple(slice(o, o + n) for o, n in
-                                zip(s.global_offset, s.local_shape))
-                    out[idx] = piece.reshape(s.local_shape)
+            out = _assemble(data, storage, key, shards, gshape)
             with torch.no_grad():
                 tv.copy_(out.reshape(gshape))
     finally:

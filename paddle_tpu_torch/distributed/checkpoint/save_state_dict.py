@@ -11,10 +11,15 @@ reference's layout so that either package reads the data files:
   written last: its presence is the rank's commit point, and it holds
   the CRC32 of the two data files.
 
-Every file goes through :func:`.utils.atomic_write`. In one process
-every tensor is whole, so each is one shard at offset 0 (the reference's
-unsharded branch, l.82-91); the sharded form comes with the distributed
-slice. A card tensor is copied to the host once.
+Every file goes through :func:`.utils.atomic_write`. A whole tensor
+is one shard at offset 0 (the reference's unsharded branch, l.82-91).
+A rank's slab of a sharded tensor (tagged by ``parallel.mesh.
+mark_slab``, as the hybrid step's params and moments are) is written
+as its pieces at their global offsets, by the first replica only (the
+reference's ``replica_id == 0``), so the checkpoint is one global
+layout whatever the mesh: a load in one process assembles the global
+tensors, and a load into another rank's slabs reads its pieces. A card
+tensor is copied to the host once.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ...core.tensor import Tensor
+from ...parallel.mesh import slab_info
 from .. import env as _env
 from .metadata import LocalTensorIndex, LocalTensorMetadata, Metadata
 from .utils import (atomic_write, flatten_state_dict, fsync_dir, is_tensor,
@@ -54,14 +60,22 @@ def save_state_dict(state_dict: Dict, path: str,
             meta.aux[key] = v
             continue
         arr, dt = to_array(v)
-        off = tuple([0] * arr.ndim)
-        name = f"{key}|{'_'.join(map(str, off)) or 'scalar'}"
-        payload[name] = arr
-        dtypes[name] = dt
-        meta.state_dict_metadata[key] = [
-            LocalTensorMetadata(off, tuple(arr.shape), dt)]
-        meta.storage_metadata[LocalTensorIndex(key, off)] = \
-            f"{data_file}::{name}"
+        info = slab_info(v)
+        if info is None:
+            pieces = [(tuple(slice(0, n) for n in arr.shape),
+                       tuple([0] * arr.ndim), tuple(arr.shape))]
+        elif info.writes:
+            pieces = info.pieces
+        else:
+            continue                 # another rank writes this slab
+        shards = meta.state_dict_metadata.setdefault(key, [])
+        for local, off, shape in pieces:
+            name = f"{key}|{'_'.join(map(str, off)) or 'scalar'}"
+            payload[name] = np.ascontiguousarray(arr[local])
+            dtypes[name] = dt
+            shards.append(LocalTensorMetadata(off, tuple(shape), dt))
+            meta.storage_metadata[LocalTensorIndex(key, off)] = \
+                f"{data_file}::{name}"
 
     # data files first, metadata last (the commit point); the CRC32s let
     # load verify each data file before trusting a shard

@@ -152,3 +152,18 @@ def to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr).view(
             np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def offsets_from_index(index, shape) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(global_offset, local_shape)`` of a shard ``index`` (a tuple of
+    slices over the global ``shape``, as ``SlabSharding.index`` gives
+    a rank's slab)."""
+    if not shape:
+        return (), ()
+    offs, lshape = [], []
+    for sl, dim in zip(index, shape):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = dim if sl.stop is None else int(sl.stop)
+        offs.append(start)
+        lshape.append(stop - start)
+    return tuple(offs), tuple(lshape)

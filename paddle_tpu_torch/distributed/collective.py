@@ -30,8 +30,33 @@ collective is the identity on it (as the reference's at one device).
 With one (``init_parallel_env``), every call goes through
 ``torch.distributed``, at world size 1 too.
 
-``psum`` and ``ppermute`` run inside the reference's compiled hybrid
-step; they come with the Fleet hybrid-training slice and raise.
+The collectives of the reference's compiled hybrid step (``lax.psum``,
+``all_gather``, ``psum_scatter``, ``all_to_all``, ``ppermute`` inside
+``shard_map``) are the functions of the last section: each works on
+this rank's torch tensor over a mesh axis (a ``Group``, an axis name of
+the global mesh, or a tuple of names, major to minor) and carries an
+autograd rule (``torch.autograd.Function``):
+
+=====================  ================================================
+forward                backward
+=====================  ================================================
+all_gather_grad        reduce-scatter (sum)
+reduce_scatter_grad    all-gather
+all_to_all_grad        the inverse all-to-all
+ppermute               the inverse permutation
+copy_to_group          all-reduce (Megatron's identity entering a
+                       tensor-parallel region)
+reduce_from_group      identity (Megatron's all-reduce leaving it);
+                       ``psum`` is this pair's all-reduce
+scatter_to_group       all-gather
+gather_from_group      this rank's slice
+=====================  ================================================
+
+JAX transposes ``psum`` as ``psum``; the port's gradients follow
+Megatron instead: a loss that every rank of a group computes alike is
+one objective, and each rank's backward gives the gradient of its own
+tensors. Over a one-rank axis (or without a process group) every one of
+them returns its input itself: no copy, no autograd node.
 """
 
 from __future__ import annotations
@@ -41,7 +66,6 @@ from typing import List, Optional
 import torch
 
 from ..core.tensor import Tensor
-from ..ops._common import not_ported
 from ..parallel import mesh as _mesh
 
 
@@ -341,16 +365,6 @@ def get_rank(group: Optional[Group] = None) -> int:
     return _mesh.world_rank()
 
 
-def psum(x, axis: str):
-    raise not_ported("psum (a collective inside a compiled hybrid step)",
-                     "Distributed II")
-
-
-def ppermute(x, axis: str, perm):
-    raise not_ported("ppermute (a collective inside a compiled hybrid step)",
-                     "Distributed II")
-
-
 def gather(tensor, gather_list=None, dst=0, group: Optional[Group] = None,
            sync_op=True):
     """The reference's result: every rank's ``gather_list`` is filled
@@ -436,3 +450,311 @@ def scatter_object_list(out_object_list, in_object_list=None, src=0,
         src=int(src), group=pg)
     out_object_list[:] = out
     return out_object_list
+
+
+# ---------------------------------------------------------------------------
+# collectives with gradients (the reference's lax collectives inside its
+# compiled hybrid step), over this rank's tensor
+# ---------------------------------------------------------------------------
+def axis_groups(axis) -> List[Group]:
+    """The groups ``axis`` names, major to minor: a ``Group``, an axis
+    name of the global mesh, or a tuple / list of either; ``None`` is
+    no group."""
+    if axis is None:
+        return []
+    if isinstance(axis, Group):
+        return [axis]
+    if isinstance(axis, str):
+        return [_mesh.ensure_mesh().group(axis)]
+    out: List[Group] = []
+    for a in axis:
+        out += axis_groups(a)
+    return out
+
+
+def _live(groups) -> List[Group]:
+    """The groups that communicate: more than one rank, and a process
+    group initialised."""
+    return [g for g in groups if g.nranks > 1 and _communicates(g)]
+
+
+def _raw_all_gather(x, g: Group, dim: int):
+    import torch.distributed as dist
+    xc = x.contiguous()
+    parts = [torch.empty_like(xc) for _ in range(g.nranks)]
+    dist.all_gather(parts, xc, group=_pg(g))
+    return torch.cat(parts, dim)
+
+
+def _raw_reduce_scatter(x, g: Group, dim: int):
+    import torch.distributed as dist
+    n = g.nranks
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) does not split over "
+                         f"{n} ranks")
+    chunks = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM, group=_pg(g))
+    return out
+
+
+def _raw_all_reduce(x, g: Group, op: str = "sum"):
+    import torch.distributed as dist
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_torch_op(op), group=_pg(g))
+    return out
+
+
+def _raw_all_to_all(x, g: Group, split_dim: int, concat_dim: int):
+    import torch.distributed as dist
+    n = g.nranks
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} ({x.shape[split_dim]}) does not "
+                         f"split over {n} ranks")
+    inp = torch.stack(x.chunk(n, split_dim)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=_pg(g))
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+def _slice_of(x, g: Group, dim: int):
+    n = g.nranks
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) does not split over "
+                         f"{n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, g.rank * size, size).contiguous()
+
+
+#: the tag of the next ``ppermute`` exchange: every rank calls the
+#: collectives of one program in the same order, so their counters agree
+_P2P_TAG = [0]
+
+
+def _raw_ppermute(x, g: Group, perm):
+    """Rank ``src`` of ``g`` sends ``x`` to rank ``dst`` for each pair;
+    a rank nobody sends to gets zeros (``lax.ppermute``). Sends are
+    posted before receives, under one tag per call."""
+    import torch.distributed as dist
+    me = g.rank
+    tag = _P2P_TAG[0] = (_P2P_TAG[0] + 1) % (1 << 30)
+    xc = x.contiguous()
+    out = torch.zeros_like(xc)
+    pg = g.pg
+    ops = [dist.P2POp(dist.isend, xc, g.ranks[dst], pg, tag)
+           for src, dst in perm if src == me]
+    ops += [dist.P2POp(dist.irecv, out, g.ranks[src], pg, tag)
+            for src, dst in perm if dst == me]
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _raw_all_gather(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _raw_reduce_scatter(gy, ctx.g, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _raw_reduce_scatter(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _raw_all_gather(gy, ctx.g, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, split_dim, concat_dim):
+        ctx.g, ctx.dims = g, (split_dim, concat_dim)
+        return _raw_all_to_all(x, g, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        split_dim, concat_dim = ctx.dims
+        return (_raw_all_to_all(gy, ctx.g, concat_dim, split_dim), None,
+                None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, perm):
+        ctx.g, ctx.perm = g, perm
+        return _raw_ppermute(x, g, perm)
+
+    @staticmethod
+    def backward(ctx, gy):
+        inverse = [(dst, src) for src, dst in ctx.perm]
+        return _raw_ppermute(gy, ctx.g, inverse), None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _raw_all_reduce(gy, ctx.g), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, op):
+        return _raw_all_reduce(x, g, op)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _slice_of(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _raw_all_gather(gy, ctx.g, ctx.dim), None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _raw_all_gather(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _slice_of(gy, ctx.g, ctx.dim), None, None
+
+
+def _keep(ref, value):
+    """``value`` as the kind of object ``ref`` is, its gradient kept."""
+    if isinstance(ref, Tensor):
+        return Tensor._wrap(value, not value.requires_grad)
+    return value
+
+
+def _over(x, fn):
+    """``fn`` on ``x``'s torch tensor, the result as the kind of object
+    ``x`` is (a Tensor keeps its gradient)."""
+    v = _unwrap(x)
+    out = fn(v)
+    return x if out is v else _keep(x, out)
+
+
+def all_gather_grad(x, axis, dim: int = 0):
+    """The ranks' tensors concatenated on ``dim`` in rank order (the
+    reference's ``lax.all_gather(..., tiled=True)``); over a tuple of
+    axes the index is major-to-minor, as a ``PartitionSpec`` entry
+    lays a dim out. Backward: reduce-scatter."""
+    def run(v):
+        for g in reversed(_live(axis_groups(axis))):
+            v = _AllGather.apply(v, g, dim)
+        return v
+    return _over(x, run)
+
+
+def reduce_scatter_grad(x, axis, dim: int = 0):
+    """Slab ``rank`` (on ``dim``) of the sum over the ranks
+    (``lax.psum_scatter(..., tiled=True)``). Backward: all-gather."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _ReduceScatter.apply(v, g, dim)
+        return v
+    return _over(x, run)
+
+
+def all_to_all_grad(x, axis, split_dim: int, concat_dim: int):
+    """``split_dim`` cut into one chunk per rank, chunk *j* sent to rank
+    *j*, the received chunks concatenated on ``concat_dim`` in rank
+    order (``lax.all_to_all(..., tiled=True)``). Backward: the inverse
+    all-to-all."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _AllToAll.apply(v, g, split_dim, concat_dim)
+        return v
+    return _over(x, run)
+
+
+def copy_to_group(x, axis):
+    """Identity forward, all-reduce backward: where a tensor that every
+    rank of the group holds alike enters computations split over it."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _CopyToGroup.apply(v, g)
+        return v
+    return _over(x, run)
+
+
+def reduce_from_group(x, axis, op: str = "sum"):
+    """All-reduce forward, identity backward: where partial results
+    leave a split computation (Megatron's ``mp_allreduce``)."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _ReduceFromGroup.apply(v, g, op)
+        return v
+    return _over(x, run)
+
+
+def scatter_to_group(x, axis, dim: int = 0):
+    """This rank's slice of ``dim``; backward: all-gather."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _ScatterToGroup.apply(v, g, dim)
+        return v
+    return _over(x, run)
+
+
+def gather_from_group(x, axis, dim: int = 0):
+    """All-gather on ``dim``; backward: this rank's slice."""
+    def run(v):
+        for g in reversed(_live(axis_groups(axis))):
+            v = _GatherFromGroup.apply(v, g, dim)
+        return v
+    return _over(x, run)
+
+
+def psum(x, axis):
+    """The sum over the ranks of ``axis`` (``lax.psum``), with
+    Megatron's gradient: identity (:func:`reduce_from_group`)."""
+    return reduce_from_group(x, axis)
+
+
+def pmax(x, axis):
+    """The elementwise maximum over the ranks of ``axis``, without a
+    gradient (``lax.pmax``)."""
+    def run(v):
+        for g in _live(axis_groups(axis)):
+            v = _raw_all_reduce(v.detach(), g, "max")
+        return v
+    return _over(x, run)
+
+
+def ppermute(x, axis, perm):
+    """``lax.ppermute``: for each ``(src, dst)`` of ``perm`` (group
+    ranks), rank ``dst`` receives rank ``src``'s tensor; a rank that
+    nobody sends to gets zeros. Backward: the inverse permutation."""
+    groups = axis_groups(axis)
+    if len(groups) != 1:
+        raise ValueError("ppermute runs over one mesh axis")
+    g = groups[0]
+    perm = [(int(s), int(d)) for s, d in perm]
+    if not _live(groups):
+        # one rank: it keeps its tensor only if the permutation maps it
+        # to itself
+        return x if (0, 0) in perm else _over(x, torch.zeros_like)
+    return _over(x, lambda v: _PPermute.apply(v, g, perm))

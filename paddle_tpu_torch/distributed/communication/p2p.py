@@ -8,9 +8,9 @@ mailbox and raises across processes, l.74-86).
 given, in place. The non-blocking calls return a :class:`P2PTask` over
 the ``torch.distributed`` work handle; ``batch_isend_irecv`` issues its
 operations in list order (on NCCL as one coalesced group, so that
-matched pairs cannot deadlock). ``ppermute_exchange`` runs inside the
-reference's compiled pipeline; it comes with the Fleet hybrid-training
-slice and raises.
+matched pairs cannot deadlock). ``ppermute_exchange`` is the exchange
+of the reference's compiled pipeline: ``collective.ppermute`` over a
+mesh axis, with its gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import List, Optional, Tuple
 import torch
 
 from ...core.tensor import Tensor
-from ...ops._common import not_ported
 from ..collective import Group, _unwrap
 
 
@@ -126,5 +125,8 @@ def batch_isend_irecv(p2p_op_list: List[P2POp]) -> List[P2PTask]:
 
 
 def ppermute_exchange(x, axis: str, perm: List[Tuple[int, int]]):
-    raise not_ported("ppermute_exchange (p2p inside a compiled pipeline)",
-                     "Distributed II")
+    """In-program batched p2p, as the pipeline schedules use it:
+    ``perm`` is ``[(src, dst), ...]`` in group ranks of ``axis``, as in
+    ``lax.ppermute`` (see ``collective.ppermute``)."""
+    from ..collective import ppermute
+    return ppermute(x, axis, perm)

@@ -384,7 +384,10 @@ def compiled_update(opt, lr: torch.Tensor, t: torch.Tensor) -> None:
     """One optimizer update inside a compiled program: the optimizer's
     own clip and ``_apply`` with the rate ``lr`` (fp32) and the step
     ``t`` (int32) as device scalars, the state updated in place
-    (:func:`keep_slots`)."""
+    (:func:`keep_slots`). A group-sharded optimizer makes its own
+    (``_sharded_update``: the same arithmetic on its slabs)."""
+    if hasattr(opt, "_sharded_update"):
+        return opt._sharded_update(lr, t)
     held = {n: dict(s) for n, s in opt.state.items()}
     items = []
     for name, p, g in opt._live():
@@ -407,13 +410,20 @@ class TrainStep:
     the parameters, the optimizer state (made for every trainable
     parameter at construction, as the reference's l.201-203) and the
     buffers in place. The gradients are None again after the call. The
-    returned loss is a Tensor."""
+    returned loss is a Tensor.
+
+    ``in_shardings`` (the reference accepts it and places nothing): how
+    the batch splits over the global mesh, a ``parallel.mesh.
+    SlabSharding`` or ``PartitionSpec`` for every batch array, or a
+    list with one per batch argument (None: whole). Every rank passes
+    the global batch and the step takes its slab; the gradients are then
+    averaged over the axes that split the batch (data parallelism), so
+    the update is the global batch's. With one rank on those axes the
+    step is the plain one."""
 
     def __init__(self, model, loss_fn: Callable, optimizer,
                  in_shardings=None, donate: bool = True):
-        if in_shardings is not None:
-            from ..ops._common import not_ported
-            raise not_ported("TrainStep(in_shardings=)", "distributed")
+        self.in_shardings = in_shardings
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -455,7 +465,7 @@ class TrainStep:
                 raw = loss._value if isinstance(loss, Tensor) else loss
                 raw.backward()
         with torch.no_grad():
-            compiled_update(opt, lr, t)
+            self._update(lr, t)
             # a layer that rebinds a buffer: write the new value into the
             # buffer the graph reads, and bind it back
             for m, n, b in bufs:
@@ -465,7 +475,61 @@ class TrainStep:
                     m._buffers[n] = b
         for p in self._params:
             p.grad = None
-        return raw.detach()
+        return self._report(raw.detach())
+
+    def _report(self, loss):
+        """The loss returned: the mean over the groups that split the
+        batch (each rank's is its slab's)."""
+        from ..distributed import collective as C
+        for g in self._batch_groups():
+            loss = C._raw_all_reduce(loss, g, "avg")
+        return loss
+
+    def _batch_shardings(self, n: int) -> list:
+        from ..parallel import mesh as _mesh
+        sh = self.in_shardings
+        if sh is None:
+            return [None] * n
+        if not isinstance(sh, (list, tuple)) or isinstance(
+                sh, _mesh.PartitionSpec):
+            sh = [sh] * n
+        return [None if s is None else _mesh._sharding(s, None) for s in sh]
+
+    def _batch_slabs(self, vals: list, lead: int = 0) -> list:
+        """This rank's slab of each batch array under ``in_shardings``
+        (past ``lead`` leading dims that stay whole)."""
+        out = []
+        for v, s in zip(vals, self._batch_shardings(len(vals))):
+            if s is not None and isinstance(v, torch.Tensor) \
+                    and v.dim() > lead:
+                v = v[(slice(None),) * lead + s.index(tuple(v.shape[lead:]))]
+            out.append(v)
+        return out
+
+    def _batch_groups(self) -> list:
+        """The mesh groups that split the batch (more than one rank)."""
+        groups, seen = [], set()
+        for s in self._batch_shardings(1 if not isinstance(
+                self.in_shardings, (list, tuple)) else len(
+                self.in_shardings)):
+            if s is None:
+                continue
+            for a in s.spec.axes(0):
+                g = s.mesh.group(a)
+                if a not in seen and g is not None and g.nranks > 1:
+                    seen.add(a)
+                    groups.append(g)
+        return groups
+
+    def _update(self, lr, t) -> None:
+        """The update after the backward: the gradients averaged over the
+        groups that split the batch, then :func:`compiled_update`."""
+        from ..distributed import collective as C
+        for g in self._batch_groups():
+            for p in self._params:
+                if p.grad is not None:
+                    C.all_reduce(p.grad, op="avg", group=g)
+        compiled_update(self.optimizer, lr, t)
 
     def _scalars(self, step: int):
         opt = self.optimizer
@@ -474,7 +538,7 @@ class TrainStep:
         return lr, t
 
     def __call__(self, *batch):
-        vals = [v for v in tree_unwrap(list(batch))]
+        vals = self._batch_slabs([v for v in tree_unwrap(list(batch))])
         self.guard.check(tuple(vals))
         opt = self.optimizer
         opt._step_count += 1
@@ -507,7 +571,8 @@ class TrainStep:
         opt = self.optimizer
 
         def run(*batch):
-            vals = [v for v in tree_unwrap(list(batch))]
+            vals = self._batch_slabs([v for v in tree_unwrap(list(batch))],
+                                     lead=1)
             for leaf in vals:
                 shape = tuple(getattr(leaf, "shape", ()))
                 if len(shape) == 0 or shape[0] != k:

@@ -2,16 +2,19 @@
 unified serving step, the legacy paged pipeline (bucketed prefill,
 prefix-cache suffix prefill, ragged decode step), the contiguous-cache
 prefill and decode step of ``GenerationEngine``, the one-device
-training step, and the imperative ``LlamaForCausalLM`` (l.93-191) that
-main-grad training drives.
+training step, the hybrid step over a process mesh
+(``build_hybrid_train_step``, one rank a process, l.285-921), and the
+imperative ``LlamaForCausalLM`` (l.93-191) that main-grad training and
+the Fleet path drive.
 
 Weights use the JAX package's stacked layout (per-layer tensors stacked
 on a leading L axis) and its ``x @ W`` orientation (``wq`` is
 ``(L, h, h)``, ``lm_head`` is ``(h, V)``), so weights made by the JAX
 package carry across as a plain copy (:func:`params_from_numpy`).
 
-The imperative model is a ``Layer`` over the one-device
-``meta_parallel`` layers whose parameter names are the JAX model's
+The imperative model is a ``Layer`` over the ``meta_parallel`` layers
+(split over the mp group as the reference's, l.93-141) whose parameter
+names are the JAX model's
 ``named_parameters()`` names (``llama.layers.0.self_attn.q_proj.weight``,
 …), with the same ``(in, out)`` weights, so the JAX model's weights carry
 across by name (:func:`load_layer_state`).
@@ -836,25 +839,21 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
     memory (:data:`offload_bytes` counts the bytes). Any other name is
     ``"full"``, as in the reference. ``init_fn(seed)`` gives seeded
     params on ``device`` (``None`` means the card) and a fresh AdamW
-    state. The options of later slices (a mesh with more than one
-    device, pipeline schedules, ZeRO gathers, sequence sharding) raise
-    ``NotImplementedError``.
+    state. A ``mesh`` of more than one rank, or any of the hybrid
+    options (``seq_shard``, ``virtual_pp``, ``pipeline_schedule``,
+    ``zero_gather``), builds :func:`build_hybrid_train_step` instead.
     """
     axes = getattr(mesh, "shape", mesh) or {}
-    if any(int(n) > 1 for n in dict(axes).values()):
-        raise _later(f"mesh {dict(axes)} (multi-device training)",
-                     "distributed")
-    if seq_shard:
-        raise _later("seq_shard=True (sequence parallelism)", "distributed")
-    if virtual_pp != 1:
-        raise _later(f"virtual_pp={virtual_pp} (interleaved pipeline)",
-                     "distributed")
-    if pipeline_schedule != "fill_drain":
-        raise _later(f"pipeline_schedule={pipeline_schedule!r}",
-                     "distributed")
-    if zero_gather != "per_layer":
-        raise _later(f"zero_gather={zero_gather!r} (ZeRO weight gathers)",
-                     "distributed")
+    hybrid = (seq_shard or virtual_pp != 1 or pipeline_schedule !=
+              "fill_drain" or zero_gather != "per_layer")
+    if any(int(n) > 1 for n in dict(axes).values()) or hybrid:
+        from ..parallel import mesh as pmesh
+        if not isinstance(mesh, pmesh.Mesh):
+            mesh = pmesh.build_mesh(dict(axes))
+        return build_hybrid_train_step(
+            config, mesh,
+            learning_rate, remat, seq_shard, virtual_pp, remat_policy,
+            pipeline_schedule, zero_gather, k_steps, device=device)
     if k_steps < 1:
         raise ValueError(f"k_steps must be >= 1, got {k_steps}")
     lr = float(learning_rate)
@@ -914,6 +913,495 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
 
 
 # ---------------------------------------------------------------------------
+# The hybrid step (l.285-921): dp x pp x sharding x sep x mp, a rank per
+# process
+# ---------------------------------------------------------------------------
+
+def stacked_param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """PartitionSpecs of the stacked layout (l.285): the L axis over pp,
+    Megatron dims over mp, the big matrices' contraction rows also over
+    ``("dp", "sharding")`` (ZeRO-3 weight sharding)."""
+    from ..parallel.mesh import PartitionSpec as P
+    return {
+        "embed": P("mp", None),
+        "wq": P("pp", ("dp", "sharding"), "mp"),
+        "wk": P("pp", ("dp", "sharding"), "mp"),
+        "wv": P("pp", ("dp", "sharding"), "mp"),
+        "wo": P("pp", "mp", ("dp", "sharding")),
+        "w_gate": P("pp", ("dp", "sharding"), "mp"),
+        "w_up": P("pp", ("dp", "sharding"), "mp"),
+        "w_down": P("pp", "mp", ("dp", "sharding")),
+        "ln1": P("pp", None),
+        "ln2": P("pp", None),
+        "ln_f": P(),
+        "lm_head": P(None, "mp"),
+    }
+
+
+def serving_param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """Megatron tensor-parallel specs of the serving path (l.304): ``mp``
+    only; the attention and gate/up projections column-parallel, ``wo``
+    and ``w_down`` row-parallel, the embedding, head and norms whole."""
+    from ..parallel.mesh import PartitionSpec as P
+    col, row = P(None, None, "mp"), P(None, "mp", None)
+    return {
+        "embed": P(), "lm_head": P(), "ln_f": P(),
+        "ln1": P(None, None), "ln2": P(None, None),
+        "wq": col, "wk": col, "wv": col,
+        "w_gate": col, "w_up": col,
+        "wo": row, "w_down": row,
+    }
+
+
+def shard_params_tp(params: Dict[str, Any], mesh, config: LlamaConfig):
+    """This rank's slabs of a stacked-param dict under
+    :func:`serving_param_specs` (l.323). On a one-rank mesh every slab
+    is the whole tensor (the same tensors come back); a serving engine
+    over more than one rank comes with the multi-chip serving slice."""
+    from ..parallel.mesh import SlabSharding
+    if mesh.devices.size > 1:
+        raise _later(f"shard_params_tp over {dict(mesh.shape)} (a "
+                     "tensor-parallel serving engine)", "Distributed III")
+    _check_dense(params)
+    specs = serving_param_specs(config)
+    return {k: (v if SlabSharding(mesh, specs.get(k, ())).num_parts(0)
+                == 1 else SlabSharding(mesh, specs[k]).shard(v))
+            for k, v in params.items()}
+
+
+def _decoder_layer_manual(p, x, cos, sin, config: LlamaConfig, mp_axis,
+                          fsdp_axis, sep_axis=None):
+    """One decoder layer of a rank (l.392): ``p`` holds this rank's
+    slabs of one layer (``wq`` (h/fsdp, h/mp), ``wo`` (h/mp, h/fsdp),
+    ...), all-gathered over the ``fsdp_axis`` groups where given (the
+    ZeRO-3 gather: ``gather_in`` on the contraction rows, ``gather_out``
+    on ``wo``/``w_down``'s columns; backward: reduce-scatter). Over an
+    ``mp_axis`` group the normed input enters the split projections by
+    ``copy_to_group`` and the row products leave by ``psum`` (l.452,
+    464). With a ``sep_axis`` group the activations are sequence slices
+    and attention runs Ulysses-style: an all-to-all gives each rank the
+    whole sequence for its heads and another one takes it back. The
+    attention output is row 5's custom op under the ``attn`` and
+    ``offload`` remat policies (the reference names it ``"attn_out"``).
+    """
+    from ..distributed import collective as C
+    b, s, _ = x.shape
+    d = config.head_dim
+    eps = config.rms_norm_eps
+
+    def gather_in(w):
+        return C.all_gather_grad(w, fsdp_axis, 0) if fsdp_axis else w
+
+    def gather_out(w):
+        return C.all_gather_grad(w, fsdp_axis, 1) if fsdp_axis else w
+
+    xn = C.copy_to_group(rms_norm(x, p["ln1"], eps), mp_axis)
+    q = (xn @ gather_in(p["wq"])).reshape(b, s, -1, d)
+    k = (xn @ gather_in(p["wk"])).reshape(b, s, -1, d)
+    v = (xn @ gather_in(p["wv"])).reshape(b, s, -1, d)
+    q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+    if sep_axis is not None:
+        # (b, s_local, nh, d) -> (b, s_full, nh/sep, d)
+        q, k, v = (C.all_to_all_grad(t, sep_axis, 2, 1) for t in (q, k, v))
+    attn = fa.sdpa_array(q, k, v, scale=1.0 / math.sqrt(d), causal=True)
+    if sep_axis is not None:
+        attn = C.all_to_all_grad(attn, sep_axis, 1, 2)
+    out = C.psum(attn.reshape(b, s, -1) @ gather_out(p["wo"]), mp_axis)
+    x = x + out.to(x.dtype)
+    xn = C.copy_to_group(rms_norm(x, p["ln2"], eps), mp_axis)
+    g = xn @ gather_in(p["w_gate"])
+    u = xn @ gather_in(p["w_up"])
+    dn = C.psum((F.silu(g) * u) @ gather_out(p["w_down"]), mp_axis)
+    return x + dn.to(x.dtype)
+
+
+#: fsdp-sharded dim of each stacked layer weight (leading dim is L)
+_ZG_DIM = {"wq": 1, "wk": 1, "wv": 1, "w_gate": 1, "w_up": 1,
+           "wo": 2, "w_down": 2}
+
+
+
+def _layer_order(pp: int, vpp: int, layers_per_chunk: int):
+    """Storage order of the stacked layers under the virtual pipeline
+    (l.575-583): ``storage[s] = model[order[s]]``."""
+    from ..parallel.pipeline import interleave_chunk_order
+    return np.asarray([c * layers_per_chunk + r
+                       for c in interleave_chunk_order(pp, vpp)
+                       for r in range(layers_per_chunk)])
+
+
+def microbatch(ids: np.ndarray, labels: np.ndarray, num_micro: int):
+    """(B, S) -> (M, B/M, S) (l.916)."""
+    B = ids.shape[0]
+    assert B % num_micro == 0
+    return (ids.reshape(num_micro, B // num_micro, -1),
+            labels.reshape(num_micro, B // num_micro, -1))
+
+
+def build_hybrid_train_step(config: LlamaConfig, mesh,
+                            learning_rate: float = 1e-3,
+                            remat: bool = True,
+                            seq_shard: bool = False,
+                            virtual_pp: int = 1,
+                            remat_policy: str = "full",
+                            pipeline_schedule: str = "fill_drain",
+                            zero_gather: str = "per_layer",
+                            k_steps: int = 1, *, device=None):
+    """The reference's hybrid train step (l.473), one rank per process.
+    Returns ``(step_fn, init_fn)``.
+
+    ``mesh`` is a ``parallel.mesh.Mesh`` over the world's ranks (axes
+    dp, pp, sharding, sep, mp). Each rank holds its slab of every
+    tensor as :func:`stacked_param_specs` lays it over the mesh (rank
+    ``r``'s slab is the reference's device ``r`` shard), and runs the
+    reference's ``shard_map`` body with the collectives explicit
+    (``distributed/collective.py``): mp Megatron pairs, ZeRO-3
+    all-gathers over ``("dp", "sharding")`` per layer (``zero_gather=
+    "per_layer"``) or once per step (``"per_step"``), Ulysses
+    all-to-alls over sep (``seq_shard=True``; ``config.sep_mode`` =
+    ``"ring"`` comes with the context-parallel slice), and the pp
+    schedules of ``parallel/pipeline.py``: fill-drain, the virtual
+    pipeline (``virtual_pp > 1``; the stacked layers are stored in the
+    interleaved order, l.575-583) or ``pipeline_schedule="1f1b"``.
+
+    ``step_fn(params, opt_state, ids, labels) -> (loss, params,
+    opt_state)``: every rank passes the global (M, B, S) batch (a
+    leading k axis with ``k_steps > 1``) and takes its slab (batch over
+    ``("dp", "sharding")``, sequence over sep). The loss is the global
+    mean (the same on every rank); the gradients are the global mean
+    loss's, each parameter's summed over the data axes its spec does
+    not split it over. AdamW (b1 0.9, b2 0.95, eps 1e-8, wd 0.1, fp32
+    moments) updates the slabs in place, elementwise (l.854-877).
+
+    ``init_fn(seed)`` draws the reference's weights on the Threefry
+    stream (:func:`init_stacked_params`), applies the interleaved layer
+    order and keeps this rank's slabs, tagged for sharded checkpoints
+    (``parallel.mesh.SlabInfo``, in model layer order). Every rank
+    draws the whole model: fine at test widths and at one rank.
+    ``step_fn.gather(tree)`` gives the global tensors of a params-shaped
+    tree of slabs in model layer order (collective) and
+    ``step_fn.shard(global_params)`` this rank's slabs of global
+    model-order params. Over a one-rank mesh every collective is its
+    input itself and the step is the one-device step's arithmetic.
+    """
+    from ..distributed import collective as C
+    from ..parallel import pipeline as ppipe
+    from ..parallel.mesh import SlabSharding, SlabInfo, mark_slab
+
+    if pipeline_schedule not in ("fill_drain", "1f1b"):
+        raise ValueError(f"unknown pipeline_schedule {pipeline_schedule!r}")
+    if zero_gather not in ("per_layer", "per_step"):
+        raise ValueError(f"unknown zero_gather {zero_gather!r} "
+                         "(expected 'per_layer' or 'per_step')")
+    if zero_gather == "per_step" and pipeline_schedule == "1f1b":
+        raise ValueError("zero_gather='per_step' is a fill-drain-family "
+                         "option (1f1b gathers per layer)")
+    if remat_policy not in ("full", "dots", "attn", "offload"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                         "(expected 'full', 'dots', 'attn' or 'offload')")
+    deg = {ax: int(mesh.shape.get(ax, 1)) for ax in
+           ("dp", "pp", "sharding", "sep", "mp")}
+    pp, mp, sep = deg["pp"], deg["mp"], deg["sep"]
+    if pipeline_schedule == "1f1b":
+        if pp <= 1:
+            raise ValueError("pipeline_schedule='1f1b' needs a pp axis > 1")
+        if virtual_pp > 1:
+            raise ValueError("1f1b and virtual_pp are mutually exclusive "
+                             "(interleave is a fill-drain-family schedule)")
+        if seq_shard:
+            raise ValueError("1f1b with sequence parallelism is not "
+                             "supported; use the fill-drain schedule")
+    if seq_shard and sep <= 1:
+        raise ValueError("seq_shard=True requires a 'sep' mesh axis of size>1")
+    sep_mode = getattr(config, "sep_mode", "ulysses")
+    if sep_mode not in ("ulysses", "ring"):
+        raise ValueError(f"unknown sep_mode {sep_mode!r} "
+                         f"(expected 'ulysses' or 'ring')")
+    use_sep = seq_shard and sep > 1
+    if use_sep:
+        if sep_mode == "ring":
+            raise _later("sep_mode='ring' (ring attention over the sep "
+                         "axis)", "Distributed III (context parallelism)")
+        nh, nkv = config.num_attention_heads, config.num_key_value_heads
+        if nh % (mp * sep) or nkv % (mp * sep):
+            raise ValueError(
+                f"Ulysses sep={sep} with mp={mp} needs heads divisible "
+                f"by mp*sep (got q={nh}, kv={nkv})")
+    vpp = max(int(virtual_pp), 1)
+    if vpp > 1 and pp <= 1:
+        raise ValueError("virtual_pp > 1 requires a pp mesh axis of size > 1")
+    n_layers = config.num_hidden_layers
+    if n_layers % (pp * vpp):
+        raise ValueError(
+            f"num_hidden_layers {n_layers} must divide by "
+            f"pp*virtual_pp = {pp * vpp}")
+    if k_steps < 1:
+        raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+    lpc = n_layers // (pp * vpp)
+    order = _layer_order(pp, vpp, lpc) if vpp > 1 else None
+    specs = stacked_param_specs(config)
+    shardings = {k: SlabSharding(mesh, s) for k, s in specs.items()}
+    group = {ax: mesh.group(ax) for ax in mesh.axis_names}
+    mp_axis = group["mp"] if mp > 1 else None
+    fsdp_axis = ([group["dp"], group["sharding"]]
+                 if deg["dp"] * deg["sharding"] > 1 else None)
+    sep_axis = group["sep"] if use_sep else None
+    pp_axis = group["pp"]
+    stage = pp_axis.rank
+    last_stage = stage == pp - 1
+    R = deg["dp"] * deg["sharding"]
+    lr = float(learning_rate)
+    eps = config.rms_norm_eps
+    shapes = _param_shapes(config)
+    kw = {}
+    if remat and remat_policy in ("dots", "attn", "offload"):
+        kw["context_fn"] = _policy_contexts(remat_policy)
+
+    def slab_info(k):
+        """Where this rank's slab of ``k`` sits in the model-order global
+        tensor (one piece a storage block under the virtual pipeline)."""
+        info = SlabInfo.of(shardings[k], shapes[k])
+        if order is None or k not in LAYER_KEYS:
+            return info
+        (_, off, shape), = info.pieces
+        pieces = []
+        for i in range(0, shape[0], lpc):
+            local = (slice(i, i + lpc),) + tuple(slice(0, n)
+                                                for n in shape[1:])
+            goff = (int(order[off[0] + i]),) + off[1:]
+            pieces.append((local, goff, (lpc,) + shape[1:]))
+        return SlabInfo(info.global_shape, pieces, info.writes)
+
+    infos = {k: slab_info(k) for k in shapes}
+
+    def shard(global_params):
+        """This rank's slabs of model-order global params."""
+        out = {}
+        for k, v in global_params.items():
+            if order is not None and k in LAYER_KEYS:
+                v = v[torch.as_tensor(order, device=v.device)]
+            out[k] = mark_slab(shardings[k].shard(v), infos[k])
+        return out
+
+    def gather(tree):
+        """The model-order global tensors of a params-shaped tree of
+        slabs (collective)."""
+        out = {}
+        for k, v in tree.items():
+            full = shardings[k].gather(v)
+            if order is not None and k in LAYER_KEYS:
+                full = full[torch.as_tensor(np.argsort(order),
+                                            device=full.device)]
+            out[k] = full
+        return out
+
+    def embed(leaves, ids):
+        """Token embeddings; vocab-parallel over mp (l.585-603)."""
+        from ..distributed.meta_parallel.mp_layers import \
+            vocab_parallel_embedding_array
+        w = leaves["embed"]
+        if mp_axis is None:
+            return w[ids.long()]
+        return vocab_parallel_embedding_array(w, ids, mp_axis)
+
+    def head_ce(hp, y, lab):
+        """ln_f + lm_head + token CE over any leading dims (mean)."""
+        out = C.copy_to_group(rms_norm(y, hp["ln_f"], eps), mp_axis)
+        logits = (out @ hp["lm_head"]).float()
+        if mp_axis is not None:
+            from ..distributed.meta_parallel.mp_layers import \
+                vocab_parallel_ce_array
+            return vocab_parallel_ce_array(logits, lab, mp_axis).mean()
+        return _token_ce(logits, lab)
+
+    def make_stage_fn(cos, sin, fsdp):
+        def stage_fn(sp, x):
+            for l in range(sp["wq"].shape[0]):
+                lp = {k: sp[k][l] for k in LAYER_KEYS}
+                if remat:
+                    out = checkpoint(_decoder_layer_manual, lp, x, cos, sin,
+                                     config, mp_axis, fsdp, sep_axis,
+                                     use_reentrant=False, **kw)
+                else:
+                    out = _decoder_layer_manual(lp, x, cos, sin, config,
+                                                mp_axis, fsdp, sep_axis)
+                x = out.to(x.dtype)
+            return x
+        return stage_fn
+
+    def rope(S, dev):
+        s_glob = S * sep if use_sep else S
+        cos, sin = rope_ops.build_rope_cache(s_glob, config.head_dim,
+                                             config.rope_theta, device=dev)
+        if use_sep:
+            # RoPE runs before the all-to-all, on this rank's positions
+            off = group["sep"].rank * S
+            cos, sin = cos[off:off + S], sin[off:off + S]
+        return cos, sin
+
+    def fill_drain_loss(leaves, ids, labels):
+        """The reference's ``spmd_loss`` (l.664) on this rank."""
+        M, mb, S = ids.shape
+        cos, sin = rope(S, ids.device)
+        local = {k: leaves[k] for k in LAYER_KEYS}
+        fsdp = fsdp_axis
+        if zero_gather == "per_step" and fsdp_axis is not None:
+            # the ZeRO gather once a step, above the microbatch loop and
+            # the remat scope (its reduce-scatter runs once too)
+            local = {k: (C.all_gather_grad(v, fsdp_axis, _ZG_DIM[k])
+                         if k in _ZG_DIM else v) for k, v in local.items()}
+            fsdp = None
+        stage_fn = make_stage_fn(cos, sin, fsdp)
+        x = embed(leaves, ids)                          # (M, mb, S, h)
+        if pp > 1:
+            if vpp > 1:
+                chunks = {k: v.reshape((vpp, lpc) + tuple(v.shape[1:]))
+                          for k, v in local.items()}
+                out = ppipe.pipeline_spmd_interleaved(stage_fn, chunks, x,
+                                                      vpp, axis_name=pp_axis)
+            else:
+                out = ppipe.pipeline_spmd(stage_fn, local, x,
+                                          axis_name=pp_axis)
+            out = ppipe.last_stage_broadcast(out, pp_axis)
+        else:
+            out = torch.stack([stage_fn(local, x[i]) for i in range(M)])
+        return head_ce({"ln_f": leaves["ln_f"],
+                        "lm_head": leaves["lm_head"]}, out, labels)
+
+    def loss_and_grads_1f1b(leaves, ids, labels):
+        """The reference's ``spmd_1f1b_loss_grads`` (l.728): the layer
+        gradients from the per-tick backward of ``pipeline_1f1b``; the
+        embedding gradient folded in on stage 0 as each microbatch's
+        input gradient arrives (full on every mp rank: no psum, no 1/mp
+        rescale, see the module of the collectives)."""
+        M, mb, S = ids.shape
+        cos, sin = rope(S, ids.device)
+        with torch.no_grad():
+            x = embed(leaves, ids)
+        w = leaves["embed"]
+        per = w.shape[0]
+        start = mp_axis.rank * per if mp_axis is not None else 0
+        h = x.shape[-1]
+
+        def gin_reducer(acc, gx, m_b):
+            g = gx.float().reshape(-1, h)
+            idx = ids[m_b].reshape(-1).long() - start
+            ok = (idx >= 0) & (idx < per)
+            return acc.index_add(0, torch.where(ok, idx, torch.zeros_like(
+                idx)), torch.where(ok[:, None], g, torch.zeros_like(g)))
+
+        layer = {k: leaves[k].detach() for k in LAYER_KEYS}
+        head = {"ln_f": leaves["ln_f"].detach(),
+                "lm_head": leaves["lm_head"].detach()}
+        loss, lgrads, hgrads, gembed = ppipe.pipeline_1f1b(
+            make_stage_fn(cos, sin, fsdp_axis), layer, x, labels, head_ce,
+            axis_name=pp_axis, head_params=head, strip_stage_dim=False,
+            input_grad_reducer=gin_reducer,
+            input_grad_init=torch.zeros(w.shape, dtype=torch.float32,
+                                        device=w.device))
+        loss = ppipe.last_stage_broadcast(loss, pp_axis)
+        grads = dict(lgrads, embed=gembed, **hgrads)
+        return loss, {k: g / R for k, g in grads.items()}
+
+    def batch_slab(t):
+        """This rank's slab of a global (M, B, S) batch array."""
+        B, S = t.shape[1], t.shape[2]
+        rb = deg["dp"] * deg["sharding"]
+        ib = group["dp"].rank * deg["sharding"] + group["sharding"].rank
+        t = t[:, ib * (B // rb):(ib + 1) * (B // rb)]
+        if use_sep:
+            n = S // sep
+            t = t[:, :, group["sep"].rank * n:(group["sep"].rank + 1) * n]
+        return t
+
+    # the axes whose ranks see different data (sep only when the
+    # sequence is split; pp because each stage's loss copy is seeded on
+    # the last stage only): a gradient is summed over those its spec
+    # does not split it over (its all-gathers' reduce-scatters sum the
+    # others); the mp ranks see one objective (Megatron) and never sum
+    data_axes = ("dp", "sharding", "pp") + (("sep",) if use_sep else ())
+
+    def reduce_grads(grads):
+        """Sum each gradient over the data axes its spec does not split
+        it over (the reference's implicit sums over replicated inputs)."""
+        for k, g in grads.items():
+            used = specs[k].used_axes()
+            for ax in data_axes:
+                if deg[ax] > 1 and ax not in used:
+                    C.all_reduce(g, group=group[ax])
+        return grads
+
+    def one_step(params, opt_state, ids_g, labels_g):
+        _check_dense(params)
+        ids, labels = batch_slab(ids_g), batch_slab(labels_g)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        if pipeline_schedule == "1f1b":
+            loss, grads = loss_and_grads_1f1b(leaves, ids, labels)
+            grads = {k: g.to(params[k].dtype) for k, g in grads.items()}
+        else:
+            loss = fill_drain_loss(leaves, ids, labels)
+            # the global mean over R batch slabs and sep sequence slabs;
+            # the loss is seeded on the last stage (the others' copies
+            # run the backward with zeros, so that every rank takes part
+            # in the rings' backward exchanges)
+            seed = (1.0 / (R * (sep if use_sep else 1))) if last_stage \
+                else 0.0
+            (loss * seed).backward()
+            grads = {k: leaves[k].grad for k in params}
+        grads = reduce_grads(grads)
+        with torch.no_grad():
+            rep = loss.detach().float().clone()
+            for ax in ("dp", "sharding") + (("sep",) if use_sep else ()):
+                if deg[ax] > 1:
+                    C.all_reduce(rep, op="avg", group=group[ax])
+            t = opt_state["step"] + 1
+            tf = t.float()
+            bc1 = 1 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32,
+                                             device=tf.device), tf)
+            bc2 = 1 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32,
+                                             device=tf.device), tf)
+            lists = ([], [], [], [])
+            for k, p in params.items():
+                ts = (p, grads[k], opt_state["m"][k], opt_state["v"][k])
+                parts = range(p.shape[0]) if k in LAYER_KEYS else (None,)
+                for l in parts:
+                    sl = slice(None) if l is None else l
+                    for dst, x in zip(lists, ts):
+                        dst.append(x[sl])
+            adamw_update_(*lists, lr=lr, beta1=ADAM_B1, beta2=ADAM_B2,
+                          eps=ADAM_EPS, weight_decay=WEIGHT_DECAY, bc1=bc1,
+                          bc2=bc2)
+            opt_state["step"] = t
+        return rep, params, opt_state
+
+    def step_fn(params, opt_state, ids, labels):
+        if k_steps == 1:
+            return one_step(params, opt_state, ids, labels)
+        if ids.shape[0] != k_steps or labels.shape[0] != k_steps:
+            raise ValueError(f"k_steps={k_steps} needs ids/labels with a "
+                             f"leading axis of {k_steps}")
+        loss = None
+        for i in range(k_steps):
+            loss, params, opt_state = one_step(params, opt_state, ids[i],
+                                               labels[i])
+        return loss, params, opt_state
+
+    def init_fn(seed: int = 0):
+        full = init_stacked_params(config, seed, device=device)
+        params = shard(full)
+        del full
+        opt = init_opt_state(params)
+        for k in params:
+            for slot in ("m", "v"):
+                mark_slab(opt[slot][k], infos[k])
+        return params, opt
+
+    step_fn.shard, step_fn.gather = shard, gather
+    return step_fn, init_fn
+
+
+# ---------------------------------------------------------------------------
 # Imperative model (l.93-191)
 # ---------------------------------------------------------------------------
 
@@ -924,10 +1412,11 @@ class LlamaAttention(Layer):
         h, d = config.hidden_size, config.head_dim
         kv = config.num_key_value_heads * d
         kw = dict(has_bias=False, dtype=config.dtype, device=device)
-        self.q_proj = ColumnParallelLinear(h, h, **kw)
-        self.k_proj = ColumnParallelLinear(h, kv, **kw)
-        self.v_proj = ColumnParallelLinear(h, kv, **kw)
-        self.o_proj = RowParallelLinear(h, h, **kw)
+        col = dict(kw, gather_output=False)
+        self.q_proj = ColumnParallelLinear(h, h, **col)
+        self.k_proj = ColumnParallelLinear(h, kv, **col)
+        self.v_proj = ColumnParallelLinear(h, kv, **col)
+        self.o_proj = RowParallelLinear(h, h, input_is_parallel=True, **kw)
 
     def forward(self, x, cos, sin):
         b, s, _ = x.shape
@@ -945,9 +1434,10 @@ class LlamaMLP(Layer):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         kw = dict(has_bias=False, dtype=config.dtype, device=device)
-        self.gate_proj = ColumnParallelLinear(h, m, **kw)
-        self.up_proj = ColumnParallelLinear(h, m, **kw)
-        self.down_proj = RowParallelLinear(m, h, **kw)
+        col = dict(kw, gather_output=False)
+        self.gate_proj = ColumnParallelLinear(h, m, **col)
+        self.up_proj = ColumnParallelLinear(h, m, **col)
+        self.down_proj = RowParallelLinear(m, h, input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down_proj(NF.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -982,9 +1472,9 @@ class LlamaModel(Layer):
 
     def forward(self, input_ids):
         cfg = self.config
+        dev = getattr(input_ids, "_value", input_ids).device
         cos, sin = rope_ops.build_rope_cache(input_ids.shape[1], cfg.head_dim,
-                                             cfg.rope_theta,
-                                             device=input_ids.device)
+                                             cfg.rope_theta, device=dev)
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
             x = layer(x, cos, sin)

@@ -238,8 +238,13 @@ class Optimizer:
         state, updated in place by later steps: copy them to keep a
         snapshot."""
         out: Dict[str, Any] = {"@step": self._step_count}
-        for name in self._names:
+        for name, p in zip(self._names, self._parameter_list):
+            info = getattr(p, "_slab", None)
             for k, v in self.state.get(name, {}).items():
+                if info is not None and tuple(v.shape) == tuple(p.shape):
+                    # a rank's slab of a split parameter: its state is the
+                    # same slab of the global state (sharded checkpoints)
+                    v._slab = info
                 out[f"{name}.{k}"] = v
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()

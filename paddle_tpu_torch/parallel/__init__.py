@@ -1,5 +1,5 @@
-"""Counterpart of ``paddle_tpu/parallel``: the process mesh (``mesh``)
-and the manual-parallel context (``pcontext``). The compiled pipeline
-schedules (``pipeline``) come with the Fleet hybrid-training slice."""
+"""Counterpart of ``paddle_tpu/parallel``: the process mesh (``mesh``),
+the manual-parallel context (``pcontext``) and the pipeline schedules
+over a pp group (``pipeline``)."""
 
 from . import mesh, pcontext  # noqa: F401

@@ -16,9 +16,14 @@ communicator. Without an initialised process group (one process,
 ``init_parallel_env`` not called) every group has one rank and the
 collectives are identities.
 
-``named_sharding``, ``serving_mesh`` and ``shrink_serving_mesh`` place
-arrays on devices of one controller; they come with the later
-distributed slices and raise.
+``named_sharding(*spec)`` describes which slab of a global tensor this
+rank holds under a ``PartitionSpec`` (the reference places the global
+array over the devices; here each rank keeps its slab): rank ``r``'s
+slab is the reference's device ``r`` shard. :func:`shard_slab` cuts a
+global tensor to this rank's slab and :func:`gather_slab` puts the
+ranks' slabs back together (collective). ``serving_mesh`` and
+``shrink_serving_mesh`` come with the multi-chip serving slice and
+raise.
 """
 
 from __future__ import annotations
@@ -104,6 +109,18 @@ class Mesh:
         """This process's group along ``axis``."""
         return self._groups[axis]
 
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """``{axis: index}`` of world rank ``rank`` (this process's by
+        default) on the mesh."""
+        r = world_rank() if rank is None else int(rank)
+        where = np.argwhere(self.devices == r)
+        if not len(where):
+            raise ValueError(f"rank {r} is not on {self!r}")
+        return {a: int(i) for a, i in zip(self.axis_names, where[0])}
+
+    def degree(self, axis: str) -> int:
+        return int(self.shape.get(axis, 1))
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 
@@ -159,9 +176,195 @@ def current_axis_names() -> Tuple[str, ...]:
     return tuple(m.axis_names) if m is not None else ()
 
 
-def named_sharding(*spec):
-    raise not_ported("named_sharding (arrays placed over a device mesh)",
-                     "Distributed II")
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one entry per leading dim of a
+    tensor, each None (whole), a mesh axis name, or a tuple of names
+    (the dim split over their product, major to minor). Missing
+    trailing entries are None."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return "PartitionSpec" + tuple.__repr__(tuple(self))
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The axes dim ``dim`` is split over, major to minor."""
+        if dim >= len(self) or self[dim] is None:
+            return ()
+        e = self[dim]
+        return tuple(e) if isinstance(e, (tuple, list)) else (e,)
+
+    def used_axes(self) -> set:
+        return {a for d in range(len(self)) for a in self.axes(d)}
+
+
+
+class SlabSharding:
+    """A ``PartitionSpec`` over a :class:`Mesh`: which slab of a global
+    tensor each rank holds (the placement of the reference's
+    ``jax.sharding.NamedSharding``, read rank by rank)."""
+
+    def __init__(self, mesh: Mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*tuple(spec or ()))
+
+    def __repr__(self):
+        return f"SlabSharding({self.mesh!r}, {self.spec!r})"
+
+    def num_parts(self, dim: int) -> int:
+        return int(np.prod([self.mesh.degree(a)
+                            for a in self.spec.axes(dim)] or [1]))
+
+    def part(self, dim: int, rank: Optional[int] = None) -> int:
+        """The index of ``rank``'s slab along ``dim``."""
+        c = self.mesh.coords(rank)
+        idx = 0
+        for a in self.spec.axes(dim):
+            idx = idx * self.mesh.degree(a) + c[a]
+        return idx
+
+    def shard_shape(self, global_shape) -> Tuple[int, ...]:
+        out = []
+        for d, n in enumerate(global_shape):
+            k = self.num_parts(d)
+            if n % k:
+                raise ValueError(f"dim {d} ({n}) of {tuple(global_shape)} "
+                                 f"does not split over {self.spec.axes(d)} "
+                                 f"({k} ranks)")
+            out.append(n // k)
+        return tuple(out)
+
+    def index(self, global_shape, rank: Optional[int] = None):
+        """``rank``'s slab as a tuple of slices of the global shape (the
+        reference's shard ``index``)."""
+        local = self.shard_shape(global_shape)
+        return tuple(slice(self.part(d, rank) * n, (self.part(d, rank) + 1)
+                           * n) for d, n in enumerate(local))
+
+    def replica_id(self, rank: Optional[int] = None) -> int:
+        """0 for the first copy of a slab: the rank whose coordinates on
+        every axis the spec does not split are 0."""
+        c = self.mesh.coords(rank)
+        used = self.spec.used_axes()
+        rid = 0
+        for a in self.mesh.axis_names:
+            if a not in used:
+                rid = rid * self.mesh.degree(a) + c[a]
+        return rid
+
+    def shard(self, x):
+        """This rank's slab of the global tensor ``x`` (a contiguous
+        copy)."""
+        return x[self.index(tuple(x.shape))].contiguous().clone()
+
+    def gather(self, local):
+        """The global tensor from every rank's slab ``local``: an
+        all-gather over each split axis (collective over the mesh)."""
+        import torch
+        from ..distributed import collective as C
+        out = local
+        with torch.no_grad():
+            for d in range(len(self.spec)):
+                axes = self.spec.axes(d)
+                if axes:
+                    out = C.all_gather_grad(
+                        out, [self.mesh.group(a) for a in axes], d)
+        return out
+
+
+def named_sharding(*spec) -> Optional[SlabSharding]:
+    """``SlabSharding(global mesh, PartitionSpec(*spec))``, None
+    without a global mesh (the reference's contract)."""
+    m = get_global_mesh()
+    if m is None:
+        return None
+    return SlabSharding(m, PartitionSpec(*spec))
+
+
+def _sharding(spec, mesh) -> SlabSharding:
+    if isinstance(spec, SlabSharding):
+        return spec
+    m = mesh if mesh is not None else ensure_mesh()
+    return SlabSharding(m, spec if isinstance(spec, PartitionSpec)
+                         else PartitionSpec(*tuple(spec or ())))
+
+
+def shard_slab(x, spec, mesh: Optional[Mesh] = None):
+    """This rank's slab of the global tensor ``x`` under ``spec`` (a
+    ``PartitionSpec``, a tuple of entries or a ``SlabSharding``)."""
+    return _sharding(spec, mesh).shard(x)
+
+
+def gather_slab(local, spec, mesh: Optional[Mesh] = None):
+    """The global tensor whose slabs the ranks hold under ``spec``
+    (collective: every rank calls it)."""
+    return _sharding(spec, mesh).gather(local)
+
+
+class SlabInfo:
+    """Where a rank's tensor sits in its global tensor, for sharded
+    checkpoints: ``global_shape``, and ``pieces``, a list of
+    ``(local slices, global offset, shape)`` (one piece for a plain
+    slab; one per layer block when the storage order is permuted), and
+    whether this rank writes it (``replica_id == 0``)."""
+
+    def __init__(self, global_shape, pieces, writes: bool = True,
+                 axes=()):
+        self.global_shape = tuple(int(n) for n in global_shape)
+        self.pieces = [(tuple(sl), tuple(int(o) for o in off),
+                        tuple(int(n) for n in shape))
+                       for sl, off, shape in pieces]
+        self.writes = bool(writes)
+        self.axes = tuple(axes)
+
+    @classmethod
+    def of(cls, sharding: SlabSharding, global_shape):
+        idx = sharding.index(global_shape)
+        shape = tuple(s.stop - s.start for s in idx)
+        whole = tuple(slice(0, n) for n in shape)
+        return cls(global_shape, [(whole, tuple(s.start for s in idx),
+                                   shape)], sharding.replica_id() == 0,
+                   tuple(sorted(sharding.spec.used_axes())))
+
+    def split(self, dim: int, group) -> "SlabInfo":
+        """The info of this rank's slab of a one-piece slab split again
+        on ``dim`` over ``group`` (a ZeRO split of an mp slab's state);
+        written by the ranks at 0 on every mesh axis neither split
+        uses."""
+        (_, off, shape), = self.pieces
+        k = shape[dim] // group.nranks
+        off = list(off)
+        off[dim] += group.rank * k
+        shape = list(shape)
+        shape[dim] = k
+        axes = set(self.axes) | {group.axis}
+        writes = True
+        if group.mesh is not None:
+            writes = all(v == 0 for a, v in group.mesh.coords().items()
+                         if a not in axes)
+        return SlabInfo(self.global_shape,
+                        [(tuple(slice(0, n) for n in shape), off, shape)],
+                        writes, tuple(sorted(axes)))
+
+    @classmethod
+    def whole(cls, shape) -> "SlabInfo":
+        shape = tuple(int(n) for n in shape)
+        return cls(shape, [(tuple(slice(0, n) for n in shape),
+                            (0,) * len(shape), shape)])
+
+
+def mark_slab(t, info: SlabInfo):
+    """Tag the tensor ``t`` (this rank's slab) with ``info``; returns
+    ``t``. Checkpoint save and load read the tag."""
+    t._slab = info
+    return t
+
+
+def slab_info(t) -> Optional[SlabInfo]:
+    v = getattr(t, "_value", t)
+    return getattr(v, "_slab", None)
 
 
 def serving_mesh(num_chips: int, devices: Optional[Sequence] = None):

@@ -369,13 +369,22 @@ def test_spawn_terminates_siblings_of_a_dead_rank(tmp_path):
 
 
 def test_in_program_helpers_wait_for_the_hybrid_engine():
+    """The in-program collectives run now (their multi-rank forms are
+    held by tests/test_torch_pipeline.py and _hybrid_step.py): over a
+    one-rank axis each is its input itself (no copy), and a permutation
+    that does not map the rank to itself gives zeros, as ``lax``'s."""
+    import torch
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed.communication import p2p
-    for call in (lambda: C.psum(None, "mp"),
-                 lambda: C.ppermute(None, "pp", []),
-                 lambda: p2p.ppermute_exchange(None, "pp", [])):
-        with pytest.raises(NotImplementedError, match="Distributed II"):
-            call()
+    from paddle_tpu_torch.parallel import mesh as tmesh
+    tmesh.set_global_mesh(None)
+    x = torch.arange(4.0, requires_grad=True)
+    assert C.psum(x, "mp") is x
+    assert C.ppermute(x, "pp", [(0, 0)]) is x
+    assert p2p.ppermute_exchange(x, "pp", [(0, 0)]) is x
+    assert C.all_gather_grad(x, ("dp", "sharding")) is x
+    assert torch.equal(C.ppermute(x, "pp", []), torch.zeros(4))
+    tmesh.set_global_mesh(None)
 
 
 def test_coordinator_address_follows_the_references_order(monkeypatch):

@@ -183,8 +183,15 @@ def test_pp_configs_schedule_knob():
 
 
 def test_fleet_engine_names_wait_for_the_hybrid_slice():
+    """The hybrid-training facade is ported (its parity is
+    tests/test_torch_fleet_hybrid.py): the names are fleet_base's and
+    hybrid_optimizer's, as the reference's package exports them."""
+    from paddle_tpu_torch.distributed.fleet import (fleet_base,
+                                                    hybrid_optimizer)
     for name in ("init", "distributed_model", "distributed_optimizer",
-                 "HybridParallelOptimizer"):
-        with pytest.raises(NotImplementedError, match="Distributed II"):
-            getattr(tfleet, name)
+                 "worker_index", "worker_num", "is_first_worker",
+                 "barrier_worker"):
+        assert getattr(tfleet, name) is getattr(fleet_base, name)
+    assert tfleet.HybridParallelOptimizer is \
+        hybrid_optimizer.HybridParallelOptimizer
     assert tfleet.recompute is tfleet.utils.recompute

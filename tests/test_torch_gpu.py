@@ -4,7 +4,8 @@ argument checks, the serving engine (greedy, sampled, constrained and
 speculative; bf16 speculative streams equal to the plain ones), the
 generate engines, the Llama and ERNIE training steps
 and main-grad training of the imperative Llama on the card against the
-same on the CPU, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
+same on the CPU, the hybrid step over one NCCL rank against the CPU and
+the one-device step, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
 present. Run on the card (the machine there has no JAX, so skip the
 conftest):
 
@@ -2841,3 +2842,94 @@ def test_one_rank_nccl_group_matches_the_cpu(cuda, monkeypatch):
     finally:
         D.destroy_process_group()
     assert not D.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# Distributed II: the hybrid step on one NCCL rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_nccl(cuda, monkeypatch):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.launch.context import free_port
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
+    monkeypatch.setenv("PADDLE_MASTER", f"127.0.0.1:{free_port()}")
+    D.init_parallel_env()
+    try:
+        yield pmesh.build_mesh({})
+    finally:
+        D.destroy_process_group()
+
+
+def _hybrid_tiny(dtype):
+    # one head of d 64: the flash kernels' head size
+    return L.llama_tiny(num_hidden_layers=2, num_attention_heads=1,
+                        num_key_value_heads=1, dtype=dtype)
+
+
+def test_hybrid_step_on_one_nccl_rank_matches_the_cpu(one_rank_nccl):
+    """fp32, TF32 off: the hybrid step over a one-rank NCCL mesh on the
+    card against the same step over a one-process mesh on the CPU, from
+    the same Threefry weights, 2 steps."""
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    from paddle_tpu_torch.testing import CARD_CPU_TOL
+    cfg = _hybrid_tiny(torch.float32)
+    ids = torch.randint(0, cfg.vocab_size, (2, 2, 64),
+                        generator=torch.Generator().manual_seed(0))
+    labels = torch.roll(ids, -1, dims=-1)
+    runs = {}
+    for dev, mesh in (("cuda", one_rank_nccl),
+                      ("cpu", pmesh.Mesh(np.zeros((1,) * 5, int),
+                                         pmesh.HYBRID_ORDER))):
+        step, init = L.build_hybrid_train_step(cfg, mesh, remat=True,
+                                               device=dev)
+        params, opt = init(seed=0)
+        losses = []
+        for _ in range(2):
+            loss, params, opt = step(params, opt, ids.to(dev),
+                                     labels.to(dev))
+            losses.append(loss.item())
+        runs[dev] = (losses, {k: v.cpu() for k, v in params.items()})
+    rtol, atol = CARD_CPU_TOL["loss"]
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=rtol,
+                               atol=atol)
+    trained_weights_close(runs["cuda"][1], runs["cpu"][1], 1e-3, 2)
+
+
+def test_hybrid_step_equals_the_one_device_step_on_card(one_rank_nccl):
+    """bf16: the hybrid step and ``build_train_step`` from the same
+    weights and batch, within the named bound, with the same launches of
+    rows 1, 2, 5 and 6 a step."""
+    from paddle_tpu_torch.testing import HYBRID_LOSS_TOL
+    cfg = _hybrid_tiny(torch.bfloat16)
+    ids = torch.randint(0, cfg.vocab_size, (1, 2, 64),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    labels = torch.roll(ids, -1, dims=-1)
+    params0 = L.init_stacked_params(cfg, seed=0, device="cuda")
+    counters = (rn.rms_norm, rn.rms_norm_bwd, fa.flash_fwd_kernel,
+                fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel)
+    runs = {}
+    for kind in ("one", "hybrid"):
+        if kind == "one":
+            step, _ = L.build_train_step(cfg, remat=True, device="cuda")
+            params = {k: v.clone() for k, v in params0.items()}
+        else:
+            step, _ = L.build_hybrid_train_step(cfg, one_rank_nccl,
+                                                remat=True, device="cuda")
+            params = step.shard(params0)
+        opt = L.init_opt_state(params)
+        for c in counters:
+            c.launches = 0
+        losses = []
+        for _ in range(2):
+            loss, params, opt = step(params, opt, ids, labels)
+            losses.append(loss.item())
+        runs[kind] = (losses, [c.launches for c in counters])
+    n = cfg.num_hidden_layers
+    assert runs["hybrid"][1] == runs["one"][1] == [
+        2 * (4 * n + 1), 2 * (2 * n + 1), 2 * 2 * n, 2 * n, 2 * n]
+    rtol, atol = HYBRID_LOSS_TOL
+    np.testing.assert_allclose(runs["hybrid"][0], runs["one"][0], rtol=rtol,
+                               atol=atol)

@@ -33,10 +33,9 @@ from paddle_tpu_torch.testing import one_cpu_thread
 one_cpu_thread()
 
 _JAX = "JAX-only: a Pallas/XLA or jax-device construct with no torch form"
-_D2 = "Queue A item 2 (Distributed II: Fleet hybrid training)"
-_D3 = "Queue A item 3 (Distributed III: context parallelism, MoE, launch)"
-_Q = "Queue A item 4 (quantization)"
-_TAIL = "Queue A item 5 (long tail)"
+_D3 = "Queue A item 1 (Distributed III: context parallelism, MoE, launch)"
+_Q = "Queue A item 2 (other workloads: quantization)"
+_TAIL = "Queue A item 3 (long tail)"
 
 #: reference name -> why the port does not have it yet
 DEFERRED = {
@@ -66,49 +65,6 @@ DEFERRED = {
     "serving.ElasticServingController": _D3,
     "serving.FlightSnapshot": _D3,
     "serving.ResizeRecord": _D3,
-    "models.llama.build_hybrid_train_step": _D2,
-    "models.llama.shard_params_tp": _D2,
-    "models.llama.stacked_param_specs": _D2 + " (mesh specs)",
-    "models.llama.serving_param_specs": _D3 + " (mesh specs)",
-    "models.llama.microbatch": _D2,
-    "distributed.sharding": _D2,
-    "distributed.checkpoint.utils.offsets_from_index": _D2,
-    "distributed.fleet.fleet_base": _D2,
-    "distributed.fleet.hybrid_engine": _D2,
-    "distributed.fleet.dygraph_sharding_optimizer": _D2,
-    "distributed.fleet.hybrid_optimizer": _D2,
-    "distributed.fleet.init": _D2,
-    "distributed.fleet.distributed_model": _D2,
-    "distributed.fleet.distributed_optimizer": _D2,
-    "distributed.fleet.worker_index": _D2,
-    "distributed.fleet.worker_num": _D2,
-    "distributed.fleet.is_first_worker": _D2,
-    "distributed.fleet.barrier_worker": _D2,
-    "distributed.fleet.HybridParallelOptimizer": _D2,
-    "distributed.fleet.HybridParallelClipGrad": _D2,
-    "distributed.fleet.utils.hybrid_parallel_util": _D2,
-    "distributed.fleet.utils.sequence_parallel_utils": _D2,
-    "distributed.fleet.utils.tensor_fusion_helper": _D2,
-    "distributed.meta_parallel.HybridParallelModel": _D2,
-    "distributed.meta_parallel.LayerDesc": _D2,
-    "distributed.meta_parallel.SharedLayerDesc": _D2,
-    "distributed.meta_parallel.PipelineLayer": _D2,
-    "distributed.meta_parallel.PipelineParallel": _D2,
-    "distributed.meta_parallel.PipelineParallelWithInterleave": _D2,
-    "distributed.meta_parallel.ParallelCrossEntropy": _D2,
-    "distributed.meta_parallel.mark_as_sequence_parallel_parameter": _D2,
-    "distributed.meta_parallel.mp_all_gather_last_dim": _D2,
-    "distributed.meta_parallel.mp_all_reduce": _D2,
-    "distributed.meta_parallel.parallel_wrapper": _D2,
-    "distributed.meta_parallel.pipeline_parallel": _D2,
-    "distributed.meta_parallel.pp_layers": _D2,
-    "distributed.meta_parallel.mp_layers.ParallelCrossEntropy": _D2,
-    "distributed.meta_parallel.mp_layers."
-    "mark_as_sequence_parallel_parameter": _D2,
-    "distributed.meta_parallel.mp_layers.mp_all_gather_last_dim": _D2,
-    "distributed.meta_parallel.mp_layers.mp_all_reduce": _D2,
-    "distributed.meta_parallel.mp_layers.vocab_parallel_ce_array": _D2,
-    "parallel.pipeline": _D2 + " (the compiled pipeline schedules)",
     "distributed.auto_parallel": _D3,
     "distributed.shard_tensor": _D3,
     "distributed.ProcessMesh": _D3,

@@ -260,8 +260,15 @@ def test_layers_take_weight_attr_and_bias_attr():
     assert row.input_is_parallel and row.bias is not None
     emb = TMP.VocabParallelEmbedding(10, 4, None, None, "emb", device="cpu")
     assert emb.weight.shape == (10, 4)
-    with pytest.raises(NotImplementedError):
+    # a ParamAttr or an initializer is honoured; anything else is a
+    # TypeError, as the reference's ParamAttr._to_attr raises
+    from paddle_tpu_torch.nn import initializer as TI
+    half = TMP.ColumnParallelLinear(4, 8, TI.Constant(0.5), device="cpu")
+    assert float(half.weight.min()) == float(half.weight.max()) == 0.5
+    with pytest.raises(TypeError):
         TMP.ColumnParallelLinear(4, 8, object(), device="cpu")
+    with pytest.raises(TypeError):
+        JNN.Linear(4, 3, object())
     with pytest.raises(TypeError):                  # as the reference's
         TC.Linear(4, 3, object(), device="cpu")
     with pytest.raises(TypeError):

@@ -102,8 +102,12 @@ def test_global_mesh_queries_at_one_process():
     assert tmesh.current_axis_names() == tmesh.HYBRID_ORDER
     g = m.group("dp")
     assert (g.ranks, g.rank, g.nranks, g.pg) == ([0], 0, 1, None)
-    for fn, args in ((tmesh.named_sharding, ("dp",)),
-                     (tmesh.serving_mesh, (2,)),
+    # named_sharding describes this rank's slab (here, the whole tensor)
+    ns = tmesh.named_sharding("dp", None)
+    assert tuple(ns.spec) == ("dp", None) and ns.mesh is m
+    assert ns.index((4, 3)) == (slice(0, 4), slice(0, 3))
+    assert ns.replica_id() == 0
+    for fn, args in ((tmesh.serving_mesh, (2,)),
                      (tmesh.shrink_serving_mesh, (m, 0, 4))):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             fn(*args)

@@ -213,9 +213,33 @@ def test_cpu_step_launches_no_kernel(setup):
     dict(zero_gather="per_step"), dict(seq_shard=True)],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_options_of_later_slices_raise(kw):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TL.build_train_step(tcfg, device="cpu", **kw)
+    """The hybrid options build ``build_hybrid_train_step`` now: in one
+    process each raises what the reference's raises over one device
+    (the same error and message), or builds where it builds."""
+    import jax
+    from paddle_tpu.parallel import mesh as rmesh
+    jcfg, tcfg = _configs()
+    kw = dict(kw)
+    degrees = kw.pop("mesh", {})
+
+    def ref():
+        mesh = rmesh.build_mesh(degrees, devices=jax.devices()[:1])
+        return JL.build_hybrid_train_step(jcfg, mesh, **kw)
+
+    try:
+        ref()
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if want is None:
+        step, init = TL.build_train_step(tcfg, device="cpu",
+                                         mesh=degrees or None, **kw)
+        assert callable(step) and callable(init)
+    else:
+        with pytest.raises(ValueError) as got:
+            TL.build_train_step(tcfg, device="cpu", mesh=degrees or None,
+                                **kw)
+        assert str(got.value) == want
 
 
 def test_one_device_mesh_is_accepted():
