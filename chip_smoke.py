@@ -398,6 +398,30 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     ``group_sharded_parallel(level="os_g")`` under ``jit.TrainStep``, and
     ``PipelineParallel.train_batch`` at one stage against the eager loop
     on the same ``PipelineLayer``.
+37. Distributed III, TF32 off. (a) Ring attention at Llama-2-7B widths
+    (B 1, S 8192, 32 heads, d 128, bf16, causal) over a 4-rank ring
+    (2048-token chunks), with 32 and with 8 KV heads (kv_rep 4): every
+    rank's hops run in this process through ``ops.ring_attention``'s
+    ``ring_forward`` / ``ring_backward`` (each hop's KV chunk read from
+    the whole-sequence tensors), forward and backward, held against rows
+    5 and 6 over the whole sequence and against the plain versions
+    (``testing.RING_TOL``), with rows 5 and 6's launches (10 each a
+    ring), and the ring's ms beside the whole-sequence kernels'; then
+    ``ring_flash_attention`` over a one-rank NCCL group (rows 5 and 6
+    over the whole sequence, one launch each). (b) GPT-MoE at the
+    reference bench's configuration (vocab 50304, h 1024, 8 layers, 16
+    heads, ff 4096, 8 experts top-2, GShard, fp32, AdamW lr 1e-4, (8,
+    1024)) through ``jit.TrainStep``: 2 warm-up and 3 timed steps, step
+    ms (median), tokens/s, active MFU over the fp32 peak, peak memory,
+    rows 5, 6 and 8's launches a step checked; the losses held to the
+    same steps run eagerly from the same weights and key stream
+    (``testing.MOE_LOSS_TOL``); then one step with every gate biased as
+    ``BENCH_MOE_SKEW`` biases it: a finite loss, block 0's routed, kept
+    (at most the capacity) and dropped tokens an expert, its ms. (c)
+    ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1``
+    runs a trainer that joins NCCL, all-reduces and takes one GPT-MoE
+    tiny step (exit 0); a trainer exiting 3 makes the launcher exit
+    non-zero with its ``failure.json``.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -421,7 +445,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 36
+N_PHASES = 37
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -8415,6 +8439,428 @@ def fleet_hybrid_phase(torch, L, rn, fa):
                 launches=totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 37: Distributed III — ring attention, GPT-MoE, the launch CLI
+# ---------------------------------------------------------------------------
+
+#: phase 37 (a): Llama-2-7B's attention widths over a 4-rank ring
+RING = dict(b=1, s=8192, h=32, d=128, p=4)
+#: phase 37 (b): GPT-MoE at the reference bench's configuration
+#: (``benchmarks/bench_workloads.py:244-253``), warm-up and timed steps
+MOE_CFG = dict(vocab_size=50304, hidden_size=1024, num_hidden_layers=8,
+               num_attention_heads=16, intermediate_size=4096,
+               max_position_embeddings=1024, num_experts=8, moe_topk=2)
+MOE_BATCH = (8, 1024)
+MOE_WARM, MOE_STEPS = 2, 3
+
+
+def _flash_counters(fa):
+    return {"flash_attention_fwd": fa.flash_fwd_kernel,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq_kernel,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_kernel}
+
+
+def ring_one_process(torch, ra, q3, k3, v3, g3, p, scale, causal, kv_rep):
+    """Every rank's hops of one ``p``-rank ring, run in this process
+    through the port's ring code (``ring_forward`` / ``ring_backward``)
+    with an exchange that reads each hop's KV chunk from the
+    whole-sequence tensors and adds each chunk's travelling dK/dV
+    partials into its home slot. q3/g3 (BH, S, D), k3/v3 (BH/kv_rep, S,
+    D). Returns the whole-sequence (out, dq, dk, dv)."""
+    s = q3.shape[1] // p
+
+    def chunks(t):
+        return [t[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
+    qs, ks, vs, gs = (chunks(t) for t in (q3, k3, v3, g3))
+    outs, lses = [], []
+    for my in range(p):
+        held = [my]
+
+        def ex(kr, vr, held=held):
+            held[0] = (held[0] - 1) % p
+            return ks[held[0]], vs[held[0]]
+        out, lse = ra.ring_forward(qs[my], ks[my], vs[my], my, p, ex, scale,
+                                   causal, kv_rep)
+        outs.append(out)
+        lses.append(lse)
+    dks = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+           for k in ks]
+    dvs = [torch.zeros_like(t) for t in dks]
+    dqs = []
+    for my in range(p):
+        held = [my]
+
+        def ex_b(*ts, held=held):
+            dks[held[0]] += ts[-2]
+            dvs[held[0]] += ts[-1]
+            if len(ts) == 2:                      # the last hop: home
+                return ts
+            held[0] = (held[0] - 1) % p
+            return (ks[held[0]], vs[held[0]], torch.zeros_like(ts[2]),
+                    torch.zeros_like(ts[3]))
+        dq, _, _ = ra.ring_backward(qs[my], ks[my], vs[my], outs[my],
+                                    lses[my], gs[my], my, p, ex_b, scale,
+                                    causal, kv_rep)
+        dqs.append(dq)
+    return (torch.cat(outs, 1), torch.cat(dqs, 1),
+            torch.cat(dks, 1).to(k3.dtype), torch.cat(dvs, 1).to(v3.dtype))
+
+
+def _plain_slabs(torch, fa, q, k, v, g, sc, rep, heads=4):
+    """Rows 5 and 6's plain versions over the whole sequence, ``heads``
+    query heads at a time (the fp32 scores of all 32 heads at S 8192
+    would take 8.6 GB a tensor)."""
+    outs, dqs, dks, dvs = [], [], [], []
+    kr = heads // rep
+    for i in range(q.shape[0] // heads):
+        qs, gs = q[i * heads:(i + 1) * heads], g[i * heads:(i + 1) * heads]
+        ks, vs = k[i * kr:(i + 1) * kr], v[i * kr:(i + 1) * kr]
+        out, lse = fa.flash_fwd_plain(qs, ks, vs, sc, True, kv_rep=rep)
+        dq, dk, dv = fa.flash_bwd_plain(qs, ks, vs, out, lse, gs, sc, True,
+                                        kv_rep=rep)
+        outs.append(out)
+        dqs.append(dq)
+        dks.append(dk)
+        dvs.append(dv)
+        del lse
+        torch.cuda.empty_cache()
+    return tuple(torch.cat(t) for t in (outs, dqs, dks, dvs))
+
+
+def ring_attention_phase(torch, fa):
+    """(a) Ring attention at Llama-2-7B widths (B 1, S 8192, 32 heads, d
+    128, bf16, causal) over a 4-rank ring (2048-token chunks), with 32
+    and with 8 KV heads (kv_rep 4): every rank's hops through the port's
+    ring code in this process, held against rows 5 and 6 over the whole
+    sequence and against the plain versions (``testing.RING_TOL``). The
+    ring's launches of rows 5 and 6 are counted on its first run."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.testing import RING_TOL, l2_close
+    b, s, h, d, p = (RING[k] for k in ("b", "s", "h", "d", "p"))
+    sc = 1.0 / math.sqrt(d)
+    tol = RING_TOL[torch.bfloat16]
+    counters = _flash_counters(fa)
+    totals = {k: 0 for k in counters}
+    report = {}
+    for name, hk in (("mha", 32), ("gqa_nkv8", 8)):
+        rep = h // hk
+        q, k, v, g = _flash_inputs(torch, b * h, s, d, torch.bfloat16, rep)
+        for c in counters.values():
+            c.launches = 0
+        ring = ring_one_process(torch, ra, q, k, v, g, p, sc, True, rep)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        blocks = p * (p + 1) // 2              # causal: rank r sees r + 1
+        if launches != {n: blocks for n in counters}:
+            raise AssertionError(f"ring {name}: launches {launches}, "
+                                 f"{blocks} each expected")
+        for n in totals:
+            totals[n] += launches[n]
+        wout, wlse = fa.flash_fwd_kernel(q, k, v, sc, True, kv_rep=rep)
+        whole = (wout,) + fa.flash_attention_bwd(q, k, v, wout, wlse, g, sc,
+                                                 True, kv_rep=rep)
+        plain = _plain_slabs(torch, fa, q, k, v, g, sc, rep)
+        err = {}
+        for i, key in enumerate(("out", "dq", "dk", "dv")):
+            err[key] = dict(
+                vs_whole=l2_close(ring[i], whole[i], tol,
+                                  f"ring {name} {key} vs whole"),
+                vs_plain=l2_close(ring[i], plain[i], tol,
+                                  f"ring {name} {key} vs plain"))
+        del ring, whole, plain, wout, wlse
+        torch.cuda.empty_cache()
+        def ring_step():
+            ring_one_process(torch, ra, q, k, v, g, p, sc, True, rep)
+
+        def whole_step():
+            o, lse = fa.flash_fwd_kernel(q, k, v, sc, True, kv_rep=rep)
+            fa.flash_attention_bwd(q, k, v, o, lse, g, sc, True, kv_rep=rep)
+        # device time (CUDA-graph replays), and the ring's eager wall,
+        # which adds the host's launches of every hop's ops
+        ring_ms = device_ms(torch, ring_step, iters=2, replays=3)
+        whole_ms = device_ms(torch, whole_step, iters=2, replays=3)
+        ring_wall = eager_ms(torch, ring_step, iters=3, warmup=1)
+        report[name] = dict(kv_heads=hk, kv_rep=rep, launches=launches,
+                            errors=err, ring_fwd_bwd_ms=ring_ms,
+                            whole_fwd_bwd_ms=whole_ms,
+                            ring_over_whole=ring_ms / whole_ms,
+                            ring_eager_wall_ms=ring_wall)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    report.update(shape=dict(RING), dtype="bfloat16", causal=True,
+                  tol_rtol_atol_over_rms_l2=tol, launches=totals)
+    return report
+
+
+def ring_flash_one_rank(torch, fa):
+    """``ring_flash_attention`` over the one-rank NCCL group (sep degree
+    1): rows 5 and 6 over the whole sequence, forward and backward, its
+    launches counted; equal to the kernels called directly."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    b, s, h, d = (RING[k] for k in ("b", "s", "h", "d"))
+    pmesh.set_global_mesh(pmesh.build_mesh({}))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    counters = _flash_counters(fa)
+    for c in counters.values():
+        c.launches = 0
+    qg = q.clone().requires_grad_(True)
+    out = ra.ring_flash_attention(qg, k, v, causal=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    if launches != {n: 1 for n in counters}:
+        raise AssertionError(f"ring_flash_attention over one rank: "
+                             f"launches {launches}")
+    want = fa.sdpa_array(q, k, v, causal=True)
+    pmesh.set_global_mesh(None)
+    return dict(launches=launches, equal_to_kernels=bool(torch.equal(
+        out.detach(), want)), shape=[b, s, h, d])
+
+
+def _moe_flops_per_token(cfg, s):
+    """``bench_workloads.py:298-301``'s active FLOPs per token: attention
+    blocks 6·4h², the top-k experts 6·2·h·ff a layer, the LM head and the
+    causal attention 6·L·S·h."""
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+    return (L * (6 * 4 * h * h + cfg.moe_topk * 6 * 2 * h
+                 * cfg.intermediate_size)
+            + 6 * h * cfg.vocab_size + 6.0 * L * s * h)
+
+
+def _routing_counts(torch, net, ids, key):
+    """Block 0's routing of ``ids``: the tokens each expert's top-2 picks
+    (routed) and the ones its gate admits (kept) after random routing and
+    the capacity, as the compiled step's forward computes them."""
+    from paddle_tpu_torch import random as R
+    blk = net.blocks[0]
+    with torch.no_grad(), R.traced_key_scope(key):
+        x = net.embeddings(ids)
+        x = x + blk.attn(blk.ln1(x))
+        xf = blk.ln2(x).reshape(-1, x.shape[-1])
+        probs = torch.softmax((xf @ blk.mlp.gate.gate).float(), -1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :2]
+        idx = blk.mlp.gate._gate(xf)[0]
+    e = blk.mlp.num_expert
+    routed = torch.bincount(top.reshape(-1), minlength=e)
+    kept = torch.bincount(idx[idx >= 0].long(), minlength=e)
+    return routed.tolist(), kept.tolist()
+
+
+def gpt_moe_phase(torch, ln, fa):
+    """(b) GPT-MoE at workload #4's widths (the reference bench's
+    configuration: vocab 50304, h 1024, 8 layers, 16 heads, ff 4096, 8
+    experts top-2, GShard gate, fp32, AdamW lr 1e-4, (8, 1024)) through
+    ``jit.TrainStep`` (a CUDA graph): 2 warm-up and 3 timed steps with
+    rows 5, 6 and 8's launches a step, held to the same steps run
+    eagerly from the same weights and key stream (``testing.
+    MOE_LOSS_TOL``); then one step with every gate biased as
+    ``BENCH_MOE_SKEW`` biases it, with block 0's routed and kept tokens
+    an expert."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt_moe import (GPTMoEConfig,
+                                                 GPTMoEForCausalLM)
+    from paddle_tpu_torch.testing import MOE_LOSS_TOL
+    cfg = GPTMoEConfig(**MOE_CFG)
+    B, S = MOE_BATCH
+    L = cfg.num_hidden_layers
+    TP.seed(SEED)
+    net = GPTMoEForCausalLM(cfg, device="cuda")
+    state0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    rng = np.random.RandomState(SEED)
+    ids_np = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int64)
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=-1)).cuda()
+
+    def loss_fn(model, i, l):
+        return model.compute_loss(i, l)
+
+    counters = dict(_flash_counters(fa), layer_norm_fwd=ln.layer_norm,
+                    layer_norm_bwd=ln.layer_norm_bwd)
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1,
+            "layer_norm_bwd": 2 * L + 1}
+    totals = {k: 0 for k in counters}
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters())
+    step = jit.TrainStep(net, loss_fn, opt)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    TP.seed(SEED + 1)
+    losses, ms = [], []
+    for i in range(MOE_WARM + MOE_STEPS):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"GPT-MoE step {i}: launches {got} != "
+                                 f"{want}")
+        for k in totals:
+            totals[k] += got[k]
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    captures = step.programs.captures
+    timed = ms[MOE_WARM:]
+    step_ms = float(np.median(timed))
+    tok_s = B * S / (step_ms / 1e3)
+    flops_tok = _moe_flops_per_token(cfg, S)
+    mfu = flops_tok * tok_s / PEAK_OPS_PER_S["fp32"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"GPT-MoE losses {losses}")
+
+    # the same steps eagerly, from the same weights and key stream
+    eager_net = GPTMoEForCausalLM(cfg, device="cuda")
+    eager_net.set_state_dict(state0)
+    del state0
+    eopt = optimizer.AdamW(learning_rate=1e-4,
+                           parameters=eager_net.parameters())
+    from paddle_tpu_torch import random as R
+    TP.seed(SEED + 1)
+    eager = []
+    for _ in range(MOE_WARM + MOE_STEPS):
+        key = jit._host_key().cuda()
+        with R.traced_key_scope(key):
+            loss = eager_net.compute_loss(ids, labels)
+        loss.backward()
+        eopt.step()
+        eopt.clear_grad()
+        eager.append(float(loss))
+    del eager_net, eopt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rtol, atol = MOE_LOSS_TOL
+    for a, c in zip(losses, eager):
+        if abs(a - c) > atol + rtol * abs(c):
+            raise AssertionError(f"compiled GPT-MoE losses {losses} far "
+                                 f"from the eager ones {eager}")
+
+    # one step with every gate biased toward experts 0 and 1
+    with torch.no_grad():
+        for blk in net.blocks:
+            gw = blk.mlp.gate.gate
+            gw[:, 0] += 4.0
+            gw[:, 1] += 3.5
+    cap = int(math.ceil(cfg.capacity_factor[0] * B * S / cfg.num_experts))
+    routed, kept = _routing_counts(torch, net, ids,
+                                   jit._host_key().cuda())
+    if any(k > min(r, cap) for k, r in zip(kept, routed)):
+        raise AssertionError(f"skew: kept {kept} over min(routed {routed}, "
+                             f"capacity {cap})")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    skew_loss = float(step(ids, labels))
+    skew_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: c.launches for k, c in counters.items()}
+    if got != want or not math.isfinite(skew_loss):
+        raise AssertionError(f"skewed step: loss {skew_loss}, launches {got}")
+    for k in totals:
+        totals[k] += got[k]
+    del net, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        config=dict(MOE_CFG, moe_gate=cfg.moe_gate, dtype="float32",
+                    capacity_factor=list(cfg.capacity_factor)),
+        batch=[B, S], reduced="nothing cut", steps=dict(
+            warm=MOE_WARM, timed=MOE_STEPS), losses=losses,
+        eager_losses=eager, tol=MOE_LOSS_TOL, step_ms=ms,
+        median_step_ms=step_ms, tokens_per_s=tok_s,
+        active_flops_per_token=flops_tok,
+        fp32_peak_flops=PEAK_OPS_PER_S["fp32"], active_mfu=mfu,
+        peak_above_resident_gb=peak, captures=captures,
+        launches_per_step=want,
+        skew=dict(loss=skew_loss, step_ms=skew_ms, capacity=cap,
+                  block0_routed=routed, block0_kept=kept,
+                  block0_dropped=[r - k for r, k in zip(routed, kept)]),
+        launches=totals)
+
+
+_LAUNCH_SCRIPT = """
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import torch
+import paddle_tpu_torch as TP
+import paddle_tpu_torch.distributed as D
+from paddle_tpu_torch import optimizer
+from paddle_tpu_torch.models.gpt_moe import GPTMoEForCausalLM, gpt_moe_tiny
+
+D.init_parallel_env()
+x = torch.full((4,), float(D.get_rank() + 1), device="cuda")
+D.all_reduce(x)
+cfg = gpt_moe_tiny()
+TP.seed(0)
+net = GPTMoEForCausalLM(cfg, device="cuda")
+opt = optimizer.AdamW(learning_rate=1e-3, parameters=net.parameters())
+ids = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda")
+loss = net.compute_loss(ids, torch.roll(ids, -1, 1))
+loss.backward()
+opt.step()
+with open(os.path.join({out!r}, f"rank{{D.get_rank()}}.json"), "w") as f:
+    json.dump(dict(backend=D.get_backend(), world=D.get_world_size(),
+                   sum=x.tolist(), loss=float(loss)), f)
+D.destroy_process_group()
+"""
+
+
+def launch_cli_phase(torch):
+    """(c) ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 1`` on the card: the trainer joins NCCL, runs one
+    all-reduce and one GPT-MoE tiny step, and exits 0; a trainer that
+    exits 3 makes the launcher exit non-zero."""
+    import tempfile
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="launch_")
+    ok = os.path.join(tmp, "train.py")
+    with open(ok, "w") as f:
+        f.write(_LAUNCH_SCRIPT.format(repo=repo, out=tmp))
+    bad = os.path.join(tmp, "boom.py")
+    with open(bad, "w") as f:
+        f.write("import sys\nsys.exit(3)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "PADDLE_MASTER"):
+        env.pop(k, None)
+
+    def run(script):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "1", "--log_dir",
+             os.path.join(tmp, "log"), script], env=env, cwd=repo,
+            capture_output=True, text=True, timeout=300)
+        return r, time.perf_counter() - t0
+    r, ok_s = run(ok)
+    if r.returncode != 0:
+        log = os.path.join(tmp, "log", "workerlog.0")
+        tail = open(log).read()[-3000:] if os.path.exists(log) else ""
+        raise AssertionError(f"launch exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}\n{tail}")
+    with open(os.path.join(tmp, "rank0.json")) as f:
+        res = json.load(f)
+    if res["backend"] != "NCCL" or res["sum"] != [1.0] * 4 or \
+            not math.isfinite(res["loss"]):
+        raise AssertionError(f"trainer reported {res}")
+    rb, bad_s = run(bad)
+    if rb.returncode == 0:
+        raise AssertionError("a trainer exiting 3 left the launcher at 0")
+    with open(os.path.join(tmp, "log", "failure.json")) as f:
+        failure = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return dict(trainer=res, launch_s=ok_s, failing_exit=rb.returncode,
+                failing_reason=failure["reason"],
+                failing_trainer_exit=failure["container"]["exit_code"],
+                failing_launch_s=bad_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8651,6 +9097,33 @@ def main() -> int:
          f"against the plain steps, bitwise, on {card} (phase 36 in "
          f"{time.perf_counter() - t36:.1f} s)", fh)
     hl = {k: hyb["launches"][k] + fh["launches"][k] for k in hyb["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t37 = time.perf_counter()
+    ring = ring_attention_phase(torch, fa)
+    done(37, f"(a) ring attention at Llama-2-7B widths (S 8192, 4 ranks' "
+         f"hops in one process, MHA and 8 KV heads) against rows 5 and 6 "
+         f"over the whole sequence and the plain version on {card}", ring)
+    from paddle_tpu_torch import distributed as _D
+    saved_env = _one_rank_nccl(_D)
+    try:
+        rf = ring_flash_one_rank(torch, fa)
+    finally:
+        _D.destroy_process_group()
+        _restore_env(saved_env)
+    done(37, "(a) ring_flash_attention over a one-rank NCCL group: rows 5 "
+         "and 6 over the whole sequence", rf)
+    moe = gpt_moe_phase(torch, ln, fa)
+    done(37, f"(b) GPT-MoE (workload #4 widths, 8 experts top-2, GShard, "
+         f"fp32) through jit.TrainStep, against the eager steps, and a "
+         f"skewed step, on {card}", moe)
+    cli = launch_cli_phase(torch)
+    done(37, f"(c) python -m paddle_tpu_torch.distributed.launch on {card} "
+         f"(phase 37 in {time.perf_counter() - t37:.1f} s)", cli)
+    d3 = {k: ring["launches"][k] + rf["launches"][k] + moe["launches"][k]
+          for k in ring["launches"]}
+    d3.update({k: moe["launches"][k] for k in ("layer_norm_fwd",
+                                                "layer_norm_bwd")})
     rl, xr, pl = recipe["launches"], xl_recipe["launches"], replay["launches"]
 
     rb, ab = rms["bf16"], attn["nkv32_bf16"]
@@ -8737,7 +9210,7 @@ def main() -> int:
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
             + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name]
             + ml[name] + mt["greedy"]["launches"][name] + rml[name]
-            + hl[name], r))
+            + hl[name] + d3[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
@@ -8747,7 +9220,7 @@ def main() -> int:
             + ml[name] + mt["greedy"]["launches"][name]
             + jmt["compiled"]["layer_norm_launches"][key == "bwd"]
             + (jpred["layer_norm_launches"] if key == "fwd" else 0)
-            + rcl[name],
+            + rcl[name] + d3[name],
             lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32

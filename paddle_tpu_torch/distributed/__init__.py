@@ -38,11 +38,12 @@ from .communication.p2p import (  # noqa: F401
 from .communication import stream  # noqa: F401
 
 _ITEM2 = "Distributed II (Fleet hybrid training)"
-_ITEM3 = "Distributed III (context parallelism, MoE, launch)"
+_ITEM4 = ("Distributed IV (tensor-parallel serving, elastic resize, "
+          "auto_parallel)")
 _LATER = dict.fromkeys(
     ("auto_parallel", "shard_tensor", "ProcessMesh", "Shard", "Replicate",
      "Partial", "reshard", "shard_layer", "dtensor_from_fn", "Strategy"),
-    _ITEM3)
+    _ITEM4)
 _LATER["sharding"] = _ITEM2
 
 

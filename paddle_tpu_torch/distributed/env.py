@@ -7,7 +7,8 @@ them), or from the initialised process group. ``init_parallel_env``
 starts ``torch.distributed`` at :func:`coordinator_address`, the
 reference's order of variables: NCCL on the card (the default; the
 process takes card ``PADDLE_LOCAL_RANK``), gloo when the caller asks
-for the CPU (``device="cpu"``). One process with no coordinator in its
+for the CPU (``device="cpu"``, or ``FLAGS_selected_devices=cpu`` from
+the launcher's ``--devices cpu``). One process with no coordinator in its
 environment starts no process group, as the reference starts no
 coordination service there: the collectives are then identities on
 the one rank.
@@ -15,6 +16,7 @@ the one rank.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 from typing import Optional
@@ -53,7 +55,8 @@ def init_parallel_env(strategy=None, timeout_s: Optional[int] = None, *,
     process (``PADDLE_TRAINER_ID`` of ``PADDLE_TRAINERS_NUM``) to the
     job's process group at :func:`coordinator_address` and returns once
     every rank has joined. ``device``: ``None`` means the card (NCCL,
-    raising without one), ``"cpu"`` gloo."""
+    raising without one) unless the launcher selected the CPU
+    (``FLAGS_selected_devices=cpu``), ``"cpu"`` gloo."""
     if _initialized[0]:
         return ParallelEnv()
     nprocs = get_world_size()
@@ -63,6 +66,9 @@ def init_parallel_env(strategy=None, timeout_s: Optional[int] = None, *,
         import torch.distributed as dist
 
         from ..ops._common import resolve_device
+        if device is None and os.environ.get(
+                "FLAGS_selected_devices") == "cpu":
+            device = "cpu"
         dev = resolve_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if backend == "nccl":
@@ -75,6 +81,7 @@ def init_parallel_env(strategy=None, timeout_s: Optional[int] = None, *,
         try:
             dist.init_process_group(backend, init_method=f"tcp://{master}",
                                     world_size=nprocs, rank=rank, **kwargs)
+            atexit.register(_destroy_at_exit)
         except Exception as e:
             raise RuntimeError(
                 f"multi-process bring-up failed: rank {rank}/{nprocs} could "
@@ -83,6 +90,14 @@ def init_parallel_env(strategy=None, timeout_s: Optional[int] = None, *,
                 f"Original error: {type(e).__name__}: {e}") from e
     _initialized[0] = True
     return ParallelEnv()
+
+
+def _destroy_at_exit() -> None:
+    """Tear down a process group the program left up: gloo's threads
+    abort the interpreter's exit otherwise."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def is_initialized() -> bool:

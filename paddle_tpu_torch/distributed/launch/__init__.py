@@ -1,12 +1,17 @@
-"""Counterpart of ``paddle_tpu/distributed/launch``: the helpers
-``spawn`` uses (``context.free_port``/``free_ports``/``node_ip``/
-``detect_devices``, ``job.build_trainer_env``). The launch CLI
-(``launch``, ``python -m ...launch``), its controller and its master
-come with the context-parallelism, MoE and launch slice and raise."""
+"""The distributed launcher — counterpart of
+``paddle_tpu/distributed/launch``: ``python -m
+paddle_tpu_torch.distributed.launch [options] train.py [args]``.
+
+One trainer process per local card by default (``detect_devices``: the
+CUDA device count), each given the reference's ``PADDLE_*`` contract
+(``job.build_trainer_env``) and its card (``FLAGS_selected_devices``);
+``init_parallel_env`` then joins NCCL. ``--devices cpu`` (or a node
+without a card) runs ``--nproc_per_node`` ranks on the CPU, which join
+gloo. Across nodes the rendezvous is the native ``TCPStore``
+(``master.StoreMaster``); elastic recovery restarts dead trainers in
+place, or the whole pod at a new generation, up to ``--max_restart``
+times (``controller.CollectiveController``).
+"""
 
 from . import context, job  # noqa: F401
-
-
-def launch(argv=None) -> int:
-    from ...ops._common import not_ported
-    raise not_ported("the launch CLI", "Distributed III")
+from .main import launch  # noqa: F401

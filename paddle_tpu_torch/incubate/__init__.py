@@ -1,1 +1,4 @@
-"""Counterpart of ``paddle_tpu/incubate``."""
+"""Counterpart of ``paddle_tpu/incubate``: the fused layers (``nn``) and
+the MoE package (``distributed``)."""
+
+from . import distributed  # noqa: F401

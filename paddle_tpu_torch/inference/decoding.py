@@ -532,11 +532,12 @@ class ContinuousBatchingEngine(_Programs):
     ``token_callback``, ``finish_callback``, ``num_free_slots``,
     ``num_queued``, ``num_chips`` (1) and ``mesh`` (None).
     The parameters are the reference's, in its order; ``mesh`` other
-    than None (multi-chip serving) raises. ``fused_tail=True`` (or
-    :meth:`enable_fused_tail`, the fusion pass's ``decode_tail`` region)
-    feeds the unified and speculative programs from a packed plan: two
-    uploads a step instead of one per plan array, and a vectorized plan
-    for steady all-decode rounds; the emitted tokens are byte-identical.
+    than None (multi-chip serving, Distributed IV) raises.
+    ``fused_tail=True`` (or :meth:`enable_fused_tail`, the fusion pass's
+    ``decode_tail`` region) feeds the unified and speculative programs
+    from a packed plan: two uploads a step instead of one per plan
+    array, and a vectorized plan for steady all-decode rounds; the
+    emitted tokens are byte-identical.
     ``device`` is the port's, keyword-only: ``None`` means the card
     (raises without one); the CPU runs only when asked for with
     ``device="cpu"``.
@@ -567,7 +568,7 @@ class ContinuousBatchingEngine(_Programs):
                 "fused_tail packs the unified ragged step's plan; "
                 "construct with unified=True")
         if mesh is not None:
-            raise _later("mesh= (multi-chip serving)", "multi-chip")
+            raise _later("mesh= (multi-chip serving)", "Distributed IV")
         if speculative and not unified:
             raise ValueError(
                 "speculative decoding rides the unified ragged step; "

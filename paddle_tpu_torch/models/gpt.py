@@ -70,8 +70,17 @@ class GPTEmbeddings(Layer):
         self.reset_parameters()
 
     def reset_parameters(self, gen=None):
-        I.normal_(self.word_embeddings, gen, 0.0, 0.02)
-        I.normal_(self.position_embeddings, gen, 0.0, 0.02)
+        """N(0, 0.02) draws: from ``gen`` (a ``torch.Generator``,
+        ``init``'s), else from the framework key stream, as the
+        reference's ``create_parameter`` draws them, so that every rank
+        of a job builds the same tables."""
+        for t in (self.word_embeddings, self.position_embeddings):
+            if gen is not None:
+                I.normal_(t, gen, 0.0, 0.02)
+            else:
+                with torch.no_grad():
+                    t.copy_(I.Normal(0.0, 0.02)(tuple(t.shape), t.dtype,
+                                                 device=t.device))
 
     def forward(self, input_ids, position_offset: int = 0):
         """Token rows plus the positions ``[offset, offset + s)``; the

@@ -268,10 +268,10 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
 
     The port updates the pools IN PLACE (the returned pools are the
     arguments) where the JAX function returns new arrays. A ``mesh``
-    (tensor-parallel serving) comes with multi-chip serving and raises.
+    (tensor-parallel serving) comes with Distributed IV and raises.
     """
     if mesh is not None:
-        raise _later("ragged_step(mesh=)", "multi-chip")
+        raise _later("ragged_step(mesh=)", "Distributed IV")
     _check_dense(params)
     t = ids.shape[0]
     d = config.head_dim
@@ -957,11 +957,11 @@ def shard_params_tp(params: Dict[str, Any], mesh, config: LlamaConfig):
     """This rank's slabs of a stacked-param dict under
     :func:`serving_param_specs` (l.323). On a one-rank mesh every slab
     is the whole tensor (the same tensors come back); a serving engine
-    over more than one rank comes with the multi-chip serving slice."""
+    over more than one rank comes with Distributed IV."""
     from ..parallel.mesh import SlabSharding
     if mesh.devices.size > 1:
         raise _later(f"shard_params_tp over {dict(mesh.shape)} (a "
-                     "tensor-parallel serving engine)", "Distributed III")
+                     "tensor-parallel serving engine)", "Distributed IV")
     _check_dense(params)
     specs = serving_param_specs(config)
     return {k: (v if SlabSharding(mesh, specs.get(k, ())).num_parts(0)
@@ -983,6 +983,8 @@ def _decoder_layer_manual(p, x, cos, sin, config: LlamaConfig, mp_axis,
     whole sequence for its heads and another one takes it back. The
     attention output is row 5's custom op under the ``attn`` and
     ``offload`` remat policies (the reference names it ``"attn_out"``).
+    With ``config.sep_mode == "ring"`` the sep group runs ring attention
+    on the rank's chunk instead (l.426-432).
     """
     from ..distributed import collective as C
     b, s, _ = x.shape
@@ -1000,12 +1002,21 @@ def _decoder_layer_manual(p, x, cos, sin, config: LlamaConfig, mp_axis,
     k = (xn @ gather_in(p["wk"])).reshape(b, s, -1, d)
     v = (xn @ gather_in(p["wv"])).reshape(b, s, -1, d)
     q, k = rope_ops.apply_rope_array(q, k, cos, sin)
-    if sep_axis is not None:
-        # (b, s_local, nh, d) -> (b, s_full, nh/sep, d)
-        q, k, v = (C.all_to_all_grad(t, sep_axis, 2, 1) for t in (q, k, v))
-    attn = fa.sdpa_array(q, k, v, scale=1.0 / math.sqrt(d), causal=True)
-    if sep_axis is not None:
-        attn = C.all_to_all_grad(attn, sep_axis, 1, 2)
+    if sep_axis is not None and getattr(config, "sep_mode",
+                                        "ulysses") == "ring":
+        # blockwise ring attention: the KV chunks travel around the sep
+        # group, merged by their log-sum-exp (ops/ring_attention.py)
+        from ..ops import ring_attention as ra
+        attn = ra.ring_attention_array(q, k, v, sep_axis, causal=True,
+                                       scale=1.0 / math.sqrt(d))
+    else:
+        if sep_axis is not None:
+            # (b, s_local, nh, d) -> (b, s_full, nh/sep, d)
+            q, k, v = (C.all_to_all_grad(t, sep_axis, 2, 1)
+                       for t in (q, k, v))
+        attn = fa.sdpa_array(q, k, v, scale=1.0 / math.sqrt(d), causal=True)
+        if sep_axis is not None:
+            attn = C.all_to_all_grad(attn, sep_axis, 1, 2)
     out = C.psum(attn.reshape(b, s, -1) @ gather_out(p["wo"]), mp_axis)
     x = x + out.to(x.dtype)
     xn = C.copy_to_group(rms_norm(x, p["ln2"], eps), mp_axis)
@@ -1058,8 +1069,9 @@ def build_hybrid_train_step(config: LlamaConfig, mesh,
     (``distributed/collective.py``): mp Megatron pairs, ZeRO-3
     all-gathers over ``("dp", "sharding")`` per layer (``zero_gather=
     "per_layer"``) or once per step (``"per_step"``), Ulysses
-    all-to-alls over sep (``seq_shard=True``; ``config.sep_mode`` =
-    ``"ring"`` comes with the context-parallel slice), and the pp
+    all-to-alls over sep (``seq_shard=True``), or with ``config.sep_mode``
+    = ``"ring"`` ring attention over the sep group (each rank keeps its
+    heads and its sequence chunk, ``ops/ring_attention.py``), and the pp
     schedules of ``parallel/pipeline.py``: fill-drain, the virtual
     pipeline (``virtual_pp > 1``; the stacked layers are stored in the
     interleaved order, l.575-583) or ``pipeline_schedule="1f1b"``.
@@ -1119,14 +1131,17 @@ def build_hybrid_train_step(config: LlamaConfig, mesh,
                          f"(expected 'ulysses' or 'ring')")
     use_sep = seq_shard and sep > 1
     if use_sep:
-        if sep_mode == "ring":
-            raise _later("sep_mode='ring' (ring attention over the sep "
-                         "axis)", "Distributed III (context parallelism)")
         nh, nkv = config.num_attention_heads, config.num_key_value_heads
-        if nh % (mp * sep) or nkv % (mp * sep):
+        if sep_mode == "ulysses":
+            # Ulysses repartitions heads over sep; ring never splits heads
+            if nh % (mp * sep) or nkv % (mp * sep):
+                raise ValueError(
+                    f"Ulysses sep={sep} with mp={mp} needs heads divisible "
+                    f"by mp*sep (got q={nh}, kv={nkv})")
+        elif nh % mp or nkv % mp:
             raise ValueError(
-                f"Ulysses sep={sep} with mp={mp} needs heads divisible "
-                f"by mp*sep (got q={nh}, kv={nkv})")
+                f"ring sep with mp={mp} needs heads divisible by mp "
+                f"(got q={nh}, kv={nkv})")
     vpp = max(int(virtual_pp), 1)
     if vpp > 1 and pp <= 1:
         raise ValueError("virtual_pp > 1 requires a pp mesh axis of size > 1")

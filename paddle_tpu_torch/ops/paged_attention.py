@@ -399,9 +399,10 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
     on its route there; ``decoding`` is unused). CUDA tensors: the CUDA
     kernels, which need ``decoding``
     (:func:`ragged_paged_attention_kernel`). A ``mesh`` (the reference's
-    head-sharded wrapper) comes with multi-chip serving and raises."""
+    head-sharded wrapper) comes with Distributed IV and raises."""
     if mesh is not None:
-        raise not_ported("ragged_paged_attention(mesh=)", "multi-chip")
+        raise not_ported("ragged_paged_attention(mesh=)",
+                         "Distributed IV")
     if q.is_cuda:
         return ragged_paged_attention_kernel(
             q, k_pages, v_pages, block_tables, token_row, positions,

@@ -22,8 +22,8 @@ array over the devices; here each rank keeps its slab): rank ``r``'s
 slab is the reference's device ``r`` shard. :func:`shard_slab` cuts a
 global tensor to this rank's slab and :func:`gather_slab` puts the
 ranks' slabs back together (collective). ``serving_mesh`` and
-``shrink_serving_mesh`` come with the multi-chip serving slice and
-raise.
+``shrink_serving_mesh`` come with Distributed IV (tensor-parallel
+serving) and raise.
 """
 
 from __future__ import annotations
@@ -369,7 +369,7 @@ def slab_info(t) -> Optional[SlabInfo]:
 
 def serving_mesh(num_chips: int, devices: Optional[Sequence] = None):
     raise not_ported("serving_mesh (tensor-parallel serving replicas)",
-                     "Distributed III")
+                     "Distributed IV")
 
 
 def surviving_mp_degree(num_chips_left: int, num_kv_heads: int) -> int:
@@ -383,4 +383,4 @@ def surviving_mp_degree(num_chips_left: int, num_kv_heads: int) -> int:
 
 def shrink_serving_mesh(mesh, dead_chip: int, num_kv_heads: int):
     raise not_ported("shrink_serving_mesh (elastic serving resize)",
-                     "Distributed III")
+                     "Distributed IV")

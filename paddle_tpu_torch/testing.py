@@ -31,6 +31,29 @@ FLASH_TOL = {torch.bfloat16: (2 ** -6, 2 ** -4, 2 ** -7),
 #: (rtol, atol) of the flash forward's lse, fp32 on both sides
 LSE_TOL = (1e-5, 1e-5)
 
+# Ring attention (ops/ring_attention.py: every rank's hops of one ring)
+# against rows 5 and 6 over the whole sequence and against the plain
+# version, per tensor, as FLASH_TOL's (rtol, atol as a share of the rms,
+# most relative L2 error). Each block's output and gradients come out of
+# the kernels in the input dtype and are merged or summed in fp32, so a
+# bf16 ring rounds each tensor once more than the whole-sequence kernel
+# (out: a block's output, then the merge; dQ: up to P block terms, then
+# the sum): one more bf16 step at most, inside FLASH_TOL's two. A block
+# attended twice or skipped moves a row by a whole share of its
+# softmax.
+RING_TOL = FLASH_TOL
+
+# GPT-MoE trained through the compiled step (jit.TrainStep, a CUDA graph)
+# against the same steps run eagerly from the same weights and key
+# stream, fp32, as (rtol, atol) on each step's loss. Step 1 is the same
+# kernels on the same inputs; later steps differ by the compiled AdamW's
+# device scalars against the eager one's host numbers (low bits of the
+# weights), and a routing decision that flips on such a bit (a random-
+# routing draw against 2·p, a capacity edge) moves one token's FFN. A
+# lost expert, a wrong capacity or a gradient of the wrong scale moves
+# the loss by far more.
+MOE_LOSS_TOL = (1e-4, 1e-5)
+
 # LayerNorm, as (rtol, atol as a share of the plain tensor's rms): y and
 # dx are one rounding of an fp32 value (bf16: 8 mantissa bits); dw and db
 # sum thousands of rows in another order (blocks, then the blocks) before
@@ -188,13 +211,15 @@ MT_FIT = dict(rtol=1e-5, atol=1e-5)
 def key_bias_split(name, t, hidden: int):
     """``(key part, the rest)`` of a fused attention's QKV bias (ERNIE's
     ``self_attn.qkv_bias``, a ``FusedMultiTransformer``'s
-    ``qkv_biases.<i>``): ``t[h:2h]`` and the query and value parts;
+    ``qkv_biases.<i>``, GPT-MoE's ``attn.qkv.bias``): ``t[h:2h]`` and the
+    query and value parts;
     ``(None, t)`` for any other parameter. The key bias's true gradient
     is 0 (a softmax does not see a constant added to a row's scores), so
     what each side computes there is rounding noise, which AdamW scales
     to steps of up to ±lr: it is held to 2·lr·steps only."""
     if not (name.endswith("self_attn.qkv_bias")
-            or re.search(r"(^|\.)qkv_biases\.\d+$", name)):
+            or re.search(r"(^|\.)qkv_biases\.\d+$", name)
+            or re.search(r"(^|\.)attn\.qkv\.bias$", name)):
         return None, t
     h = hidden
     return t[h:2 * h], torch.cat([t[:h], t[2 * h:]])

@@ -2933,3 +2933,206 @@ def test_hybrid_step_equals_the_one_device_step_on_card(one_rank_nccl):
     rtol, atol = HYBRID_LOSS_TOL
     np.testing.assert_allclose(runs["hybrid"][0], runs["one"][0], rtol=rtol,
                                atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Distributed III: ring attention's blocks on rows 5 and 6, the MoE layer
+# and GPT-MoE on the card
+# ---------------------------------------------------------------------------
+
+def _ring_one_process(ra, q3, k3, v3, g3, p, scale, causal, kv_rep):
+    """Every rank's hops of one ``p``-rank ring in this process, each
+    hop's KV chunk read from the whole-sequence tensors and each chunk's
+    travelling dK/dV partials added into its home slot (as phase 37 of
+    ``chip_smoke.py`` runs them). Returns whole-sequence (out, dq, dk,
+    dv)."""
+    s = q3.shape[1] // p
+
+    def chunks(t):
+        return [t[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
+    qs, ks, vs, gs = (chunks(t) for t in (q3, k3, v3, g3))
+    outs, lses = [], []
+    for my in range(p):
+        held = [my]
+
+        def ex(kr, vr, held=held):
+            held[0] = (held[0] - 1) % p
+            return ks[held[0]], vs[held[0]]
+        out, lse = ra.ring_forward(qs[my], ks[my], vs[my], my, p, ex, scale,
+                                   causal, kv_rep)
+        outs.append(out)
+        lses.append(lse)
+    dks = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+           for k in ks]
+    dvs = [torch.zeros_like(t) for t in dks]
+    dqs = []
+    for my in range(p):
+        held = [my]
+
+        def ex_b(*ts, held=held):
+            dks[held[0]] += ts[-2]
+            dvs[held[0]] += ts[-1]
+            if len(ts) == 2:
+                return ts
+            held[0] = (held[0] - 1) % p
+            return (ks[held[0]], vs[held[0]], torch.zeros_like(ts[2]),
+                    torch.zeros_like(ts[3]))
+        dq, _, _ = ra.ring_backward(qs[my], ks[my], vs[my], outs[my],
+                                    lses[my], gs[my], my, p, ex_b, scale,
+                                    causal, kv_rep)
+        dqs.append(dq)
+    return (torch.cat(outs, 1), torch.cat(dqs, 1),
+            torch.cat(dks, 1).to(k3.dtype), torch.cat(dvs, 1).to(v3.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_rep", [1, 4])
+def test_ring_blocks_with_the_global_lse_match_plain(cuda, dtype, kv_rep):
+    """A causal diagonal block and a full one (rows 5) merged, then each
+    block's dQ and dK/dV (row 6) from the merged output and the global
+    LSE, against the plain versions on the same inputs (``FLASH_TOL``)."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    bh, s, d = 16, 512, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, g = rnd(bh, s, d), rnd(bh, s, d)
+    blocks = [(rnd(bh // kv_rep, s, d), rnd(bh // kv_rep, s, d), diag)
+              for diag in (True, False)]
+    sc = 1.0 / np.sqrt(d)
+    before = fa.flash_fwd_kernel.launches
+    parts = []
+    for k, v, diag in blocks:
+        out, lse = ra._block_fwd(q, k, v, sc, diag, kv_rep)
+        pout, plse = fa.flash_fwd_plain(q, k, v, sc, diag, kv_rep=kv_rep)
+        flash_close(out.to(dtype), pout, dtype, f"block out diag={diag}")
+        rms_close(lse, plse, *LSE_TOL, f"block lse diag={diag}")
+        parts.append((out, lse))
+    assert fa.flash_fwd_kernel.launches == before + 2
+    out, lse = ra._merge(*parts[0], *parts[1])
+    out = out.to(dtype)
+    before = (fa.flash_bwd_dq_kernel.launches,
+              fa.flash_bwd_dkv_kernel.launches)
+    for k, v, diag in blocks:
+        got = ra._block_bwd(q, k, v, out, lse, g, sc, diag, kv_rep)
+        want = fa.flash_bwd_plain(q, k, v, out, lse, g, sc, diag,
+                                  kv_rep=kv_rep)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            flash_close(a, b, dtype, f"block {name} diag={diag}")
+    assert (fa.flash_bwd_dq_kernel.launches,
+            fa.flash_bwd_dkv_kernel.launches) == (before[0] + 2,
+                                                  before[1] + 2)
+
+
+@pytest.mark.parametrize("kv_rep", [1, 4])
+def test_one_process_ring_matches_whole_sequence_kernels(cuda, kv_rep):
+    """bf16, causal, 4 ranks of 512 tokens: the ring's output and
+    gradients against rows 5 and 6 over the whole sequence and against
+    the plain versions (``RING_TOL``), 10 launches of each kernel."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.testing import RING_TOL
+    bh, s, d, p = 8, 2048, 128, 4
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+    q, g = rnd(bh, s, d), rnd(bh, s, d)
+    k, v = rnd(bh // kv_rep, s, d), rnd(bh // kv_rep, s, d)
+    sc = 1.0 / np.sqrt(d)
+    counters = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                fa.flash_bwd_dkv_kernel)
+    for c in counters:
+        c.launches = 0
+    ring = _ring_one_process(ra, q, k, v, g, p, sc, True, kv_rep)
+    assert [c.launches for c in counters] == [10, 10, 10]
+    wout, wlse = fa.flash_fwd_kernel(q, k, v, sc, True, kv_rep=kv_rep)
+    whole = (wout,) + fa.flash_attention_bwd(q, k, v, wout, wlse, g, sc,
+                                             True, kv_rep=kv_rep)
+    pout, plse = fa.flash_fwd_plain(q, k, v, sc, True, kv_rep=kv_rep)
+    plain = (pout,) + fa.flash_bwd_plain(q, k, v, pout, plse, g, sc, True,
+                                         kv_rep=kv_rep)
+    tol = RING_TOL[torch.bfloat16]
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), ring, whole, plain):
+        l2_close(a, b, tol, f"ring {name} vs whole")
+        l2_close(a, c, tol, f"ring {name} vs plain")
+
+
+@pytest.mark.parametrize("gate", ["gshard", "switch", "naive"])
+def test_moe_layer_on_card_matches_cpu(cuda, gate):
+    """fp32, TF32 off: ``MoELayer`` (gather dispatch, GShard's random
+    routing and Switch's jitter from the key stream) on CUDA tensors
+    against the same weights on the CPU: output, ``l_aux`` and every
+    gradient (``CARD_CPU_TOL``)."""
+    import copy
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.core import place as tplace
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.testing import CARD_CPU_TOL
+    prev = tplace._current_place[0]
+    TP.set_device("cpu")
+    try:
+        TP.seed(0)
+        nn = TP.nn
+        cpu_layer = MoELayer(
+            16, [nn.Sequential(nn.Linear(16, 32), nn.GELU(),
+                               nn.Linear(32, 16)) for _ in range(4)],
+            gate=gate)
+    finally:
+        tplace._current_place[0] = prev
+    card_layer = copy.deepcopy(cpu_layer).cuda()
+    x = torch.randn(64, 16, generator=torch.Generator().manual_seed(1))
+    gout = torch.randn(64, 16, generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev, layer in (("cpu", cpu_layer), ("cuda", card_layer)):
+        xi = x.to(dev).detach().requires_grad_(True)
+        TP.seed(4)
+        y = layer(xi)
+        ((y * gout.to(dev)).sum() + 0.01 * layer.l_aux).backward()
+        runs[dev] = [y.detach().cpu(), layer.l_aux.detach().cpu(),
+                     xi.grad.cpu()] + [p.grad.cpu()
+                                       for p in layer.parameters()]
+    rtol, atol = CARD_CPU_TOL["out"]
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+
+
+def test_gpt_moe_train_step_on_card_matches_cpu(cuda):
+    """GPT-MoE tiny (d 64 heads: rows 5 and 6; LayerNorm: row 8), fp32,
+    three ``jit.TrainStep`` steps as a CUDA graph on the card against the
+    same on the CPU (``MOE_LOSS_TOL``), with L, L, L and 2L+1, 2L+1
+    launches a step of rows 5, 6 and 8."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt_moe import GPTMoEForCausalLM, gpt_moe_tiny
+    from paddle_tpu_torch.testing import MOE_LOSS_TOL
+    cfg = gpt_moe_tiny(hidden_size=128, num_attention_heads=2,
+                       intermediate_size=256)
+    TP.seed(0)
+    cpu_net = GPTMoEForCausalLM(cfg, device="cpu")
+    ids = torch.randint(0, cfg.vocab_size, (4, 32),
+                        generator=torch.Generator().manual_seed(3))
+    labels = torch.roll(ids, -1, 1)
+    counters = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+                fa.flash_bwd_dkv_kernel, ln.layer_norm, ln.layer_norm_bwd)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        net = GPTMoEForCausalLM(cfg, device=dev)
+        net.set_state_dict({k: v.detach().cpu() for k, v in
+                            cpu_net.state_dict().items()})
+        opt = optimizer.AdamW(learning_rate=1e-3,
+                              parameters=net.parameters())
+        step = jit.TrainStep(net, lambda m, i, l: m.compute_loss(i, l), opt)
+        for c in counters:
+            c.launches = 0
+        TP.seed(7)
+        runs[dev] = [float(step(ids.to(dev), labels.to(dev)))
+                     for _ in range(3)]
+        if dev == "cuda":
+            n = cfg.num_hidden_layers
+            assert [c.launches for c in counters] == [
+                3 * n, 3 * n, 3 * n, 3 * (2 * n + 1), 3 * (2 * n + 1)]
+    rtol, atol = MOE_LOSS_TOL
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=rtol,
+                               atol=atol)

@@ -8,7 +8,8 @@ job a world size: 2, 4 and 8 ranks, every plan in it, workers in
 plans are the ``__graft_entry__.dryrun_multichip`` configs of
 Distributed II (``__graft_entry__.py:79-128``: the dp x pp x sharding x
 mp step with the virtual pipeline, 1F1B, Ulysses ``seq_shard``, the
-degree-4 plans ``pp4_vpp2_mp2``, ``mp4_sh2`` and ``sh4_dp2``) and
+degree-4 plans ``pp4_vpp2_mp2``, ``mp4_sh2`` and ``sh4_dp2``, and the
+ring-attention ``_dryrun_sep(mode="ring")`` of Distributed III) and
 smaller ones for each option (the virtual pipeline at two stages, 1F1B
 with mp, ``zero_gather="per_step"`` against the reference's per-layer
 run, ``k_steps`` over two calls, the ``attn``, ``dots`` and ``offload``
@@ -77,7 +78,10 @@ PLANS = {
         ("dryrun_1f1b", {"dp": 2, "pp": 2, "mp": 2},
          dict(layers=4, M=4, B=4, S=32, seed=3, pipeline_schedule="1f1b")),
         ("dryrun_sep", {"dp": 2, "sep": 2, "mp": 2},
-         dict(layers=2, M=1, B=4, S=64, seed=1, seq_shard=True))],
+         dict(layers=2, M=1, B=4, S=64, seed=1, seq_shard=True)),
+        ("dryrun_ring", {"dp": 2, "sep": 2, "mp": 2},
+         dict(layers=2, M=1, B=4, S=64, seed=5, seq_shard=True,
+              sep_mode="ring"))],
 }
 #: the reference's per-layer run that the port's per-step one is held
 #: to (the reference's own test holds the two equal, test_llama.py:104)
@@ -238,10 +242,23 @@ def test_the_references_sharded_checkpoint_loads(refs, tmp_path):
 
 
 def test_ring_sep_mode_waits_for_distributed_iii():
+    """Ring attention came with Distributed III: ``sep_mode="ring"``
+    builds over a sep axis (its step is ``dryrun_ring`` above), and its
+    head check is the reference's: heads divisible by mp only, where
+    Ulysses needs mp·sep."""
     from paddle_tpu_torch.models import llama as TL
     from paddle_tpu_torch.parallel import mesh as tmesh
-    cfg = TL.llama_tiny(num_hidden_layers=2, sep_mode="ring")
     mesh = tmesh.Mesh(np.arange(2).reshape(1, 1, 1, 2, 1),
                       tmesh.HYBRID_ORDER)
-    with pytest.raises(NotImplementedError, match="Distributed III"):
-        TL.build_hybrid_train_step(cfg, mesh, seq_shard=True, device="cpu")
+    for mode in ("ring", "ulysses"):
+        cfg = TL.llama_tiny(num_hidden_layers=2, sep_mode=mode,
+                            num_attention_heads=3, num_key_value_heads=3,
+                            hidden_size=48)
+        if mode == "ring":
+            step, _ = TL.build_hybrid_train_step(cfg, mesh, seq_shard=True,
+                                                 device="cpu")
+            assert callable(step)
+        else:
+            with pytest.raises(ValueError, match="mp\\*sep"):
+                TL.build_hybrid_train_step(cfg, mesh, seq_shard=True,
+                                           device="cpu")

@@ -33,7 +33,8 @@ from paddle_tpu_torch.testing import one_cpu_thread
 one_cpu_thread()
 
 _JAX = "JAX-only: a Pallas/XLA or jax-device construct with no torch form"
-_D3 = "Queue A item 1 (Distributed III: context parallelism, MoE, launch)"
+_D4 = ("Queue A item 1 (Distributed IV: tensor-parallel serving, elastic "
+       "resize, auto_parallel)")
 _Q = "Queue A item 2 (other workloads: quantization)"
 _TAIL = "Queue A item 3 (long tail)"
 
@@ -56,35 +57,21 @@ DEFERRED = {
     "ops.paged_attention.paged_write_array": _JAX,
     "ops.paged_attention.ragged_paged_attention_array": _JAX,
     "ops.rms_norm.rms_norm_array": _JAX,
-    "ops.paged_attention.PagedKVCacheManager.shard_heads": _D3,
-    "ops.moe_ops": _D3,
-    "models.gpt_moe": _D3,
-    "ops.ring_attention": _D3,
-    "incubate.distributed": _D3 + " (the MoE package)",
-    "serving.elastic": _D3,
-    "serving.ElasticServingController": _D3,
-    "serving.FlightSnapshot": _D3,
-    "serving.ResizeRecord": _D3,
-    "distributed.auto_parallel": _D3,
-    "distributed.shard_tensor": _D3,
-    "distributed.ProcessMesh": _D3,
-    "distributed.Shard": _D3,
-    "distributed.Replicate": _D3,
-    "distributed.Partial": _D3,
-    "distributed.reshard": _D3,
-    "distributed.shard_layer": _D3,
-    "distributed.dtensor_from_fn": _D3,
-    "distributed.Strategy": _D3,
-    "distributed.launch.main": _D3 + " (the launch CLI)",
-    "distributed.launch.controller": _D3 + " (the launch CLI)",
-    "distributed.launch.master": _D3 + " (the launch CLI)",
-    "distributed.launch.context.Args": _D3 + " (the launch CLI)",
-    "distributed.launch.context.parse_args": _D3 + " (the launch CLI)",
-    "distributed.launch.context.Context": _D3 + " (the launch CLI)",
-    "distributed.launch.job.Status": _D3 + " (the launch CLI)",
-    "distributed.launch.job.Container": _D3 + " (the launch CLI)",
-    "distributed.launch.job.Pod": _D3 + " (the launch CLI)",
-    "distributed.launch.job.Job": _D3 + " (the launch CLI)",
+    "ops.paged_attention.PagedKVCacheManager.shard_heads": _D4,
+    "serving.elastic": _D4,
+    "serving.ElasticServingController": _D4,
+    "serving.FlightSnapshot": _D4,
+    "serving.ResizeRecord": _D4,
+    "distributed.auto_parallel": _D4,
+    "distributed.shard_tensor": _D4,
+    "distributed.ProcessMesh": _D4,
+    "distributed.Shard": _D4,
+    "distributed.Replicate": _D4,
+    "distributed.Partial": _D4,
+    "distributed.reshard": _D4,
+    "distributed.shard_layer": _D4,
+    "distributed.dtensor_from_fn": _D4,
+    "distributed.Strategy": _D4,
     "nn.quant": _Q,
     "incubate.nn.FusedMultiTransformerInt8": _Q,
     "incubate.nn.layer.fused_transformer.FusedMultiTransformerInt8": _Q,

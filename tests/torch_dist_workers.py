@@ -808,3 +808,179 @@ def _save_train_state(D, net, opt, path, step):
     if tuple(m.shape) != tuple(p.shape):          # a ZeRO slab on dim 0
         m = D.collective._raw_all_gather(m, step._sharding, 0)
     return key, pmesh.gather_slab(m, p._sharding_spec).numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# Distributed III: ring attention, expert parallelism, GPT-MoE
+# ---------------------------------------------------------------------------
+
+def _np_grad(t):
+    return None if t.grad is None else t.grad.detach().numpy().copy()
+
+
+def ring_scenarios(out_dir: str, cases, flash_cases) -> None:
+    """Ring attention over a sep group of every rank. ``cases``: name ->
+    ``(q, k, v, g, causal)`` global (B, S, H, D) arrays; each rank runs
+    ``ring_attention_array`` on its chunk and backpropagates its chunk
+    of the cotangent ``g``, recording its chunk of out, dq, dk and dv.
+    ``flash_cases``: the same through ``ring_flash_attention`` with the
+    global arrays on every rank (every rank records the global result
+    and gradients)."""
+    import torch
+    D = _init_gloo()
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    r, n = D.get_rank(), D.get_world_size()
+    pmesh.set_global_mesh(pmesh.build_mesh({"sep": n}))
+    out = {"rank": r}
+    for name, (q, k, v, g, causal) in cases.items():
+        s = q.shape[1] // n
+        rows = slice(r * s, (r + 1) * s)
+        tq, tk, tv = (torch.tensor(a[:, rows], requires_grad=True)
+                      for a in (q, k, v))
+        o = ra.ring_attention_array(tq, tk, tv, "sep", causal=causal)
+        o.backward(torch.from_numpy(g[:, rows].copy()))
+        out[name] = dict(out=o.detach().numpy().copy(), dq=_np_grad(tq),
+                         dk=_np_grad(tk), dv=_np_grad(tv))
+    for name, (q, k, v, g, causal) in flash_cases.items():
+        tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+        o = ra.ring_flash_attention(tq, tk, tv, causal=causal)
+        o.backward(torch.from_numpy(g))
+        out[name] = dict(out=o.detach().numpy().copy(), dq=_np_grad(tq),
+                         dk=_np_grad(tk), dv=_np_grad(tv))
+    pmesh.set_global_mesh(None)
+    _finish(D, out, out_dir, r)
+
+
+def moe_expert(kind: str, nn, d: int):
+    """An expert of the MoE scenarios: ``"ffn"`` (Linear → GELU → Linear,
+    the expert-parallel path's shape) or ``"single"`` (one Linear in a
+    Layer of its own, which keeps the gather path)."""
+    if kind == "ffn":
+        return nn.Sequential(nn.Linear(d, 2 * d), nn.GELU(),
+                             nn.Linear(2 * d, d))
+
+    class Single(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(d, d)
+
+        def forward(self, x):
+            return self.fc(x)
+    return Single()
+
+
+def moe_scenarios(out_dir: str, layers, ffn_cases) -> None:
+    """``MoELayer`` over a moe group of every rank. ``layers``: name ->
+    options (``d``, ``E``, ``expert``, ``gate``, ``topk``, ``cap``,
+    ``rr``, ``training``, ``state`` (the reference's weights), the
+    global ``x`` and cotangent ``g``, ``coef``, ``seed``, ``clip``).
+    Each rank feeds its rows of ``x`` and backpropagates ``sum(y·g) +
+    coef·l_aux``; it records its rows of the output and of dx, its
+    ``l_aux`` and its parameter gradients, and with ``clip`` the
+    gradients through ``ClipGradForMOEByGlobalNorm`` after the
+    replicated ones are summed over the group. ``ffn_cases``: name ->
+    ``(x, logits, w1, w2, capacity, topk)`` global arrays through
+    ``expert_parallel_ffn`` (rows and experts split over the ranks)."""
+    import torch
+    D = _init_gloo()
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm, MoELayer)
+    from paddle_tpu_torch.ops import moe_ops
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    r, n = D.get_rank(), D.get_world_size()
+    mesh = pmesh.build_mesh({"dp": n})
+    pmesh.set_global_mesh(mesh)
+    group = C.Group("dp", mesh)
+    out = {"rank": r}
+    for name, o in layers.items():
+        d, E = o["d"], o["E"]
+        layer = MoELayer(d, [moe_expert(o["expert"], nn, d)
+                             for _ in range(E)],
+                         gate=o["gate"], topk=o.get("topk"),
+                         capacity_factor=o["cap"], moe_group=group,
+                         random_routing=o.get("rr", True))
+        layer.set_state_dict(o["state"])
+        if not o["training"]:
+            layer.eval()
+        t = o["x"].shape[0] // n
+        rows = slice(r * t, (r + 1) * t)
+        x = torch.tensor(o["x"][rows], requires_grad=True)
+        TP.seed(o["seed"])
+        y = layer(x)
+        loss = (y * torch.from_numpy(o["g"][rows].copy())).sum() \
+            + o["coef"] * layer.l_aux
+        loss.backward()
+        named = list(layer.named_parameters())
+        res = dict(out=y.detach().numpy().copy(), dx=_np_grad(x),
+                   aux=float(layer.l_aux), ep=layer._ep_parts is not None,
+                   grads={k: _np_grad(p) for k, p in named})
+        if o.get("clip"):
+            pairs = [(p, p.grad if getattr(p, "expert", False)
+                      else C._raw_all_reduce(p.grad, group)) for _, p in named]
+            clip = ClipGradForMOEByGlobalNorm(o["clip"], moe_group=group)
+            res["clipped"] = {k: g2.numpy().copy() for (k, _), (_, g2)
+                              in zip(named, clip(pairs))}
+        out[name] = res
+    for name, (x, logits, w1, w2, cap, topk) in ffn_cases.items():
+        t, e = x.shape[0] // n, w1.shape[0] // n
+        rows, mine = slice(r * t, (r + 1) * t), slice(r * e, (r + 1) * e)
+        y = moe_ops.expert_parallel_ffn(
+            torch.from_numpy(x[rows]), torch.from_numpy(logits[rows]),
+            torch.from_numpy(w1[mine]), torch.from_numpy(w2[mine]), group,
+            num_experts=w1.shape[0], capacity=cap, topk=topk)
+        out[name] = y.numpy().copy()
+    pmesh.set_global_mesh(None)
+    _finish(D, out, out_dir, r)
+
+
+def gpt_moe_scenarios(out_dir: str, runs) -> None:
+    """GPT-MoE trained through the Fleet path as
+    ``__graft_entry__._dryrun_expert`` does: ``fleet.init`` with
+    ``dp_degree`` the world size, the ``"dp"`` group as ``moe_group``,
+    ``fleet.distributed_model(net).compile_train_step``. ``runs``: name
+    -> (config keywords, the reference's weights, global ids, labels,
+    steps, seed). Every rank passes the global batch; it records the
+    losses, its final weights and whether the expert-parallel path
+    engaged."""
+    import torch
+    D = _init_gloo()
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import topology as topo
+    from paddle_tpu_torch.models.gpt_moe import (GPTMoEForCausalLM,
+                                                 gpt_moe_tiny)
+    from paddle_tpu_torch.parallel import mesh as pmesh
+    r, n = D.get_rank(), D.get_world_size()
+    out = {"rank": r}
+    for name, (cfg_kw, state, ids, labels, steps, seed) in runs.items():
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": n}
+        fleet.init(is_collective=True, strategy=strategy)
+        group = C.Group("dp", pmesh.get_global_mesh())
+        cfg = gpt_moe_tiny(**cfg_kw)
+        net = GPTMoEForCausalLM(cfg, moe_group=group, device="cpu")
+        net.set_state_dict(state)
+        opt = optimizer.AdamW(learning_rate=1e-3,
+                              parameters=net.parameters())
+        dm = fleet.distributed_model(net)
+        dopt = fleet.distributed_optimizer(opt)
+        step = dm.compile_train_step(
+            lambda m, i, l: m.compute_loss(i, l), dopt)
+        TP.seed(seed)
+        losses = [float(step(TP.to_tensor(ids), TP.to_tensor(labels)))
+                  for _ in range(steps)]
+        out[name] = dict(
+            losses=losses,
+            ep=any(getattr(b.mlp, "_ep_parts", None) is not None
+                   for b in net.blocks),
+            params={k: p.detach().numpy().copy()
+                    for k, p in net.named_parameters()})
+        pmesh.set_global_mesh(None)
+        topo.set_hybrid_communicate_group(None)
+    _finish(D, out, out_dir, r)
