@@ -422,6 +422,35 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     runs a trainer that joins NCCL, all-reduces and takes one GPT-MoE
     tiny step (exit 0); a trainer exiting 3 makes the launcher exit
     non-zero with its ``failure.json``.
+38. Distributed IV (run while phase 7's weights are on the card). (a) A
+    tiny fp32 engine (h 512, 4 heads of 128, 2 layers), greedy and
+    seeded sampled requests mixed, with the prefix cache and speculation
+    on and off, over ``serving_mesh(n, [cuda:0] * n)`` for n 1, 2 and 4
+    (logical chips on one card, each with its own weight and pool slabs)
+    through the CUDA graphs: tokens equal to the CPU engine's at mp 1.
+    (b) Row 3 on the head slabs of a serving mesh at the 7B serve's
+    packed shapes (256 tokens, 8 rows, d 128, bf16): 16 and 8 heads of
+    MHA (mp 2 and 4) and 8 query heads over 2 kv heads (GQA 32/8 at mp
+    4): each chip's kernel on its contiguous slabs against the whole
+    call's slice and its plain version (``testing.RAGGED_SLAB_TOL``),
+    the launches, one chip's ms, every chip's in turn and the whole
+    call's. (c) Llama-2-7B (phase 7's weights, 32 layers, bf16) over
+    ``serving_mesh(4, [cuda:0] * 4)``: the first micro-round's logits
+    against the one-chip step's (and the same over 2 layers in fp32),
+    then phase 7's 12 prompts through the
+    CUDA graphs, greedy tokens equal to phase 7's up to a near-tie
+    (``testing.TP_SERVE_TOL``), step walls, device ms by kind, the
+    all-reduce adds alone, idle share, capture seconds, peak memory,
+    rows 1 and 3's launches per micro-round (row 3: 4 x 32). (d)
+    ``test_elastic.py``'s seeded chip-loss storm at tiny widths, fp32,
+    on the card: byte-identical to the fault-free storm and the CPU's;
+    then one ``lose_chip`` on a 2-replica 7B fleet (2 logical chips a
+    replica, mp 2 -> 1), the resize arc timed on the host clock with the
+    rebuilt replica's first step. (e) ``auto_parallel`` (``shard_tensor``,
+    ``reshard``, ``shard_layer``, ``Engine.fit``) over a one-rank NCCL
+    group against the CPU. (f) Only with two cards: a serving mesh over
+    cuda:0 and cuda:1 (the NCCL all-reduce); otherwise it says why it
+    did not run.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -430,6 +459,7 @@ result line, when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import itertools
@@ -445,7 +475,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 37
+N_PHASES = 38
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -2943,8 +2973,8 @@ def fleet_7b_phase(torch, L, D, rn, pa, cfg, params, serve, greedy):
 
 
 def fleet_released(torch, allocated0, report):
-    """After phase 24 returns (its replicas out of scope): the card holds
-    what it held before the phase, within 1 GiB."""
+    """After a fleet phase returns (its replicas out of scope): the card
+    holds what it held before the phase, within 1 GiB."""
     _free_card(torch)
     kept = torch.cuda.memory_allocated() - allocated0
     report["kept_gb_after_release"] = kept / 1e9
@@ -8861,6 +8891,629 @@ def launch_cli_phase(torch):
                 failing_launch_s=bad_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 38: Distributed IV — tensor-parallel serving over a serving mesh,
+# elastic resize after a lost chip, auto_parallel
+# ---------------------------------------------------------------------------
+
+#: chips of (c)'s serving mesh (logical chips on cuda:0)
+TP_CHIPS = 4
+#: (b)'s head slabs: (name, whole-call nh, whole-call nkv, chips)
+SLAB_CASES = (("mha_mp2", 32, 32, 2), ("mha_mp4", 32, 32, 4),
+              ("gqa_mp4", 32, 8, 4))
+
+
+def _logical_mesh(torch, n):
+    """A serving mesh of ``n`` logical chips on cuda:0."""
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
+    return serving_mesh(n, [torch.device("cuda", 0)] * n)
+
+
+def _tp_tiny_cfg(torch, L):
+    return L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                        num_key_value_heads=4, intermediate_size=1024,
+                        num_hidden_layers=2, dtype=torch.float32)
+
+
+def _serve_mixed(eng, params, prompts, S):
+    """Serve ``prompts`` with every other request sampled (seeded);
+    returns the tokens in submission order."""
+    subs = [dict(sampler=S.SamplerConfig(temperature=0.8, top_p=0.9,
+                                         seed=5 + i)) if i % 2 else {}
+            for i in range(len(prompts))]
+    return _serve_subs(eng, params, prompts, subs)[0]
+
+
+def tp_tiny_phase(torch, L, D):
+    """(a) A tiny fp32 model (h 512, 4 heads of 128, 2 layers) served with
+    greedy and seeded sampled requests mixed, the prefix cache and
+    speculation on and off (the cache's second, warm serve too), over
+    serving meshes of 1, 2 and 4 logical chips on cuda:0 through the
+    CUDA graphs: every degree's tokens equal the CPU engine's at mp 1."""
+    from paddle_tpu_torch.inference import sampling as S
+    cfg = _tp_tiny_cfg(torch, L)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    params_gpu = {k: v.cuda() for k, v in params_cpu.items()}
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3, 29, 12)]
+    report = {}
+    for pc in (False, True):
+        for spec in (False, True):
+            kw = dict(num_slots=2, page_size=16, max_seq_len=128, chunk=4,
+                      prefix_cache=pc, speculative=spec,
+                      step_tokens=10 if spec else None)
+            runs = {}
+            for mp, dev in ((1, "cpu"), (1, "cuda"), (2, "cuda"),
+                            (4, "cuda")):
+                mesh = _logical_mesh(torch, mp) if dev == "cuda" else None
+                eng = D.ContinuousBatchingEngine(
+                    cfg, D.GenerationConfig(max_new_tokens=8),
+                    mesh=mesh, device=None if mesh else dev, **kw)
+                params = params_gpu if dev == "cuda" else params_cpu
+                out = [_serve_mixed(eng, params, prompts, S)]
+                if pc:
+                    out.append(_serve_mixed(eng, params, prompts, S))
+                if eng.num_chips != mp:
+                    raise AssertionError(f"{eng.num_chips} chips, not {mp}")
+                runs[f"{dev}_mp{mp}"] = out
+            want = runs.pop("cpu_mp1")
+            bad = [k for k, v in runs.items() if v != want]
+            if bad:
+                raise AssertionError(f"prefix_cache={pc} speculative={spec}"
+                                     f": {bad} differ from the CPU engine")
+            report[f"cache{int(pc)}_spec{int(spec)}"] = dict(
+                degrees=[1, 2, 4], serves=len(want), tokens=want[0][:2])
+    return report
+
+
+def _ragged_want_at(torch, pa, calls, nh, nkv, tokens=256, rows=8,
+                    span=1024):
+    """The launches of ``calls`` calls of the ragged op at the 7B engine's
+    packed shapes with ``nh`` query and ``nkv`` kv heads."""
+    routes = pa.ragged_route(torch.bfloat16, 16, nh, nkv)
+    _, n_chunks = pa.ragged_split(tokens, rows, span, nh, nkv, 128,
+                                  torch.bfloat16, "cuda")
+    return {"ragged_paged_attention": calls,
+            "ragged_wgmma": calls * ("wgmma" in routes),
+            "ragged_key_split": calls,
+            "ragged_merge": calls * (n_chunks > 1)}
+
+
+def head_slab_phase(torch, pa):
+    """(b) Row 3 on the head slabs of a serving mesh at the 7B serve's
+    packed shapes (phase 3's mixed batch: 256 tokens over 8 rows, 1024-key
+    tables, d 128, bf16): each chip's kernel on its contiguous slabs
+    (``ragged_paged_attention_chips``) against the whole-heads kernel's
+    slice (bitwise where the key split is the same) and against its plain
+    version (``testing.RAGGED_SLAB_TOL``), pads exactly 0; the device ms
+    of one chip's call, of every chip's in turn and of the whole call;
+    the launches; one chip's bound."""
+    from paddle_tpu_torch import testing
+    bf16 = torch.bfloat16
+    rtol, atol = testing.RAGGED_SLAB_TOL[bf16]
+    report = {}
+    for name, nh, nkv, chips in SLAB_CASES:
+        args, dec, real, nbytes, ops = ragged_batch(torch, nkv, bf16, nh=nh)
+        q, k, v, bt, tr, pos, kvl = args
+        meta = (bt, tr, pos, kvl)
+        devs = [torch.device("cuda", 0)] * chips
+        qs = pa.split_heads(q, chips, devs)
+        ks = pa.HeadShards.split(k, devs).slabs
+        vs = pa.HeadShards.split(v, devs).slabs
+        hq, hk = nh // chips, nkv // chips
+        whole = pa.ragged_paged_attention_kernel(q, k, v, *meta, dec)
+        _reset_ragged(pa)
+        outs = pa.ragged_paged_attention_chips(qs, ks, vs, *meta,
+                                               decoding=dec)
+        torch.cuda.synchronize()
+        launches = _ragged_launches(pa)
+        want = _ragged_want_at(torch, pa, chips, hq, hk)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+        pads = torch.from_numpy(~real).cuda()
+        err_whole, err_plain, bitwise = 0.0, 0.0, []
+        for c, out in enumerate(outs):
+            sl = whole[:, c * hq:(c + 1) * hq]
+            bitwise.append(bool(torch.equal(out, sl)))
+            err_whole = max(err_whole, check_close(
+                torch, f"{name} chip {c} vs whole", out, sl, rtol, atol))
+            plain = pa.ragged_paged_attention_plain(qs[c], ks[c], vs[c],
+                                                    *meta)
+            err_plain = max(err_plain, check_close(
+                torch, f"{name} chip {c} vs plain", out, plain, rtol, atol))
+            if not bool((out[pads] == 0).all()):
+                raise AssertionError("pad slots must come out exactly 0")
+        meta_bytes = sum(a.numel() * 4 for a in meta)
+        bms, by = bound_ms((nbytes - meta_bytes) / chips + meta_bytes,
+                           ops / chips, "bf16")
+        split = pa.ragged_split(256, bt.shape[0], 1024, hq, hk, 128, bf16,
+                                "cuda")
+        report[name] = dict(
+            nh=hq, nkv=hk, chips=chips, routes=list(pa.ragged_route(
+                bf16, 16, hq, hk)), chunk=split[0], n_chunks=split[1],
+            whole_split=list(pa.ragged_split(256, bt.shape[0], 1024, nh, nkv,
+                                             128, bf16, "cuda")),
+            bitwise_to_whole=bitwise, max_abs_err_whole=err_whole,
+            max_abs_err=err_plain, rtol=rtol, atol=atol, launches=launches,
+            ms=device_ms(torch, lambda: pa.ragged_paged_attention_kernel(
+                qs[0], ks[0], vs[0], *meta, dec)),
+            all_chips_ms=device_ms(
+                torch, lambda: pa.ragged_paged_attention_chips(
+                    qs, ks, vs, *meta, decoding=dec)),
+            whole_ms=device_ms(torch, lambda: pa.
+                               ragged_paged_attention_kernel(q, k, v, *meta,
+                                                             dec)),
+            plain_ms=device_ms(torch, lambda: pa.ragged_paged_attention_plain(
+                qs[0], ks[0], vs[0], *meta), iters=2, replays=2),
+            bound_ms=bms, bound_by=by)
+        del args, qs, ks, vs, whole, outs
+        torch.cuda.empty_cache()
+    return report
+
+
+def _first_step_logits(torch, L, pa, cfg, params, placed, mesh, prompts):
+    """The logits of one packed micro-round (8 rows, each its prompt's
+    first 32 tokens: 256 tokens, the engine's first micro-round shape)
+    through the one-chip step and the mesh step, each on fresh pools."""
+    rows, n = 8, 32
+    ids = np.concatenate([p[:n] for p in prompts[:rows]]).astype(np.int32)
+    tr = np.repeat(np.arange(rows), n).astype(np.int32)
+    pos = np.tile(np.arange(n), rows).astype(np.int32)
+    bt = (1 + np.arange(rows * 2).reshape(rows, 2)).astype(np.int32)
+    cuda = [torch.from_numpy(a).cuda() for a in (
+        ids, tr, pos, np.full(rows, n, np.int32),
+        (np.arange(rows) * n + n - 1).astype(np.int32), bt)]
+    ids_t, tr_t, pos_t, kvl, last, bt_t = cuda
+    dec = torch.zeros(rows * n, dtype=torch.bool, device="cuda")
+    shape = (cfg.num_hidden_layers, rows * 2 + 1, 16,
+             cfg.num_key_value_heads, cfg.head_dim)
+    out = []
+    for p, m in ((params, None), (placed, mesh)):
+        kp = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+        vp = torch.zeros_like(kp)
+        if m is not None:
+            devs = m.devices.reshape(-1).tolist()
+            kp, vp = (pa.HeadShards.split(t, devs) for t in (kp, vp))
+        out.append(L.ragged_step(p, ids_t, tr_t, pos_t, kvl, last, kp, vp,
+                                 bt_t, cfg, m, "mp", decoding=dec)[0])
+        del kp, vp
+    return out
+
+
+def _logits_diff(got, want):
+    """Relative L2 and largest |difference| of two logits tensors, the
+    rms of ``want`` and the rows whose argmax agrees."""
+    ref, diff = want.float(), got.float() - want.float()
+    return dict(rel_l2=float(diff.norm() / ref.norm()),
+                max_abs=float(diff.abs().max()),
+                logits_rms=float(ref.pow(2).mean().sqrt()),
+                same_argmax=int((got.argmax(-1) == want.argmax(-1)).sum()))
+
+
+def _one_chip_top2(torch, L, cfg, params, seq):
+    """The top-2 margin of the one-chip step's logits after ``seq`` (a
+    prefill of the whole sequence on fresh pools)."""
+    t = len(seq)
+    width = -(-t // 16)
+    bt = torch.arange(1, width + 1, dtype=torch.int32,
+                      device="cuda")[None]
+    kp = torch.zeros((cfg.num_hidden_layers, width + 1, 16,
+                      cfg.num_key_value_heads, cfg.head_dim),
+                     dtype=cfg.dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    logits = L.ragged_step(
+        params, torch.tensor(seq, **i32), torch.zeros(t, **i32),
+        torch.arange(t, **i32), torch.tensor([t], **i32),
+        torch.tensor([t - 1], **i32), kp, vp, bt, cfg,
+        decoding=torch.zeros(t, dtype=torch.bool, device="cuda"))[0][0]
+    top = torch.topk(logits.float(), 2)
+    return (float(top.values[0] - top.values[1]),
+            [int(i) for i in top.indices])
+
+
+def _all_reduce_ms(torch, chips, tokens, hidden):
+    """Device ms of one serving all-reduce of ``chips`` fp32 (tokens,
+    hidden) partials on one card (the chips - 1 adds)."""
+    from paddle_tpu_torch.parallel.mesh import serving_all_reduce
+    parts = [torch.randn(tokens, hidden, device="cuda")
+             for _ in range(chips)]
+    return device_ms(torch, lambda: serving_all_reduce(parts))
+
+
+def tp_7b_phase(torch, L, D, rn, pa, cfg, params, greedy):
+    """(c) Llama-2-7B (phase 7's weights, 32 layers, bf16) over
+    ``serving_mesh(4, [cuda:0] * 4)``: the first micro-round's logits
+    against the one-chip step's, and the same step in fp32 over 2 layers
+    (``testing.TP_SERVE_TOL``); phase 7's 12 prompts served through the
+    CUDA graphs, greedy tokens equal to phase 7's up to a near-tie (the
+    mesh's token in the one-chip top-2 there, the margin under the
+    bound); step walls, device ms by kind (a prefill and a decode step,
+    torch.profiler), the all-reduce adds alone, idle share, capture
+    seconds, peak memory; rows 1 and 3's launches per micro-round (row
+    1: once a norm, the chips share the card; row 3: a call a chip and
+    layer)."""
+    from paddle_tpu_torch import testing
+    tol = testing.TP_SERVE_TOL
+    n_layers = cfg.num_hidden_layers
+    mesh = _logical_mesh(torch, TP_CHIPS)
+    prompts = serve_load(cfg)
+    t0 = time.perf_counter()
+    placed = L.shard_params_tp(params, mesh, cfg)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    one, tp = _first_step_logits(torch, L, pa, cfg, params, placed, mesh,
+                                 prompts)
+    del placed
+    _free_card(torch)
+    first = _logits_diff(tp, one)
+    rms = first["logits_rms"]
+    if not (first["rel_l2"] <= tol["rel_l2"]
+            and first["max_abs"] <= tol["max_abs"] * rms):
+        raise AssertionError(f"first-step logits over the mesh: {first} "
+                             f"(bounds {tol})")
+    # the same step in fp32 over 2 layers: the sum order only
+    c32 = dataclasses.replace(cfg, num_hidden_layers=2, dtype=torch.float32)
+    p32 = {k: (v[:2] if k in L.LAYER_KEYS else v).float()
+           for k, v in params.items()}
+    one32, tp32 = _first_step_logits(torch, L, pa, c32, p32,
+                                     L.shard_params_tp(p32, mesh, c32),
+                                     mesh, prompts)
+    fp32 = _logits_diff(tp32, one32)
+    del p32, one32, tp32
+    _free_card(torch)
+    if not fp32["rel_l2"] <= tol["fp32_rel_l2"]:
+        raise AssertionError(f"fp32 first-step logits over the mesh: "
+                             f"{fp32} (bound {tol['fp32_rel_l2']})")
+    eng = _serve_engine(D, cfg, step_tokens=256, mesh=mesh)
+
+    def reset():
+        rn.rms_norm.launches = 0
+        _reset_ragged(pa)
+    outs, report = _serve_run(torch, eng, params, prompts, reset)
+    launches = {"rms_norm_fwd": rn.rms_norm.launches,
+                **_ragged_launches(pa)}
+    rounds = eng.micro_rounds
+    hq, hk = (cfg.num_attention_heads // TP_CHIPS,
+              cfg.num_key_value_heads // TP_CHIPS)
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+            **_ragged_want_at(torch, pa, TP_CHIPS * n_layers * rounds, hq,
+                              hk)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    _check_outputs(cfg, outs, eng)
+    programs = _programs(eng, "cbe.unified_step")
+    if programs["misses"] != 1 or eng.compile_misses[0][1][5] != TP_CHIPS:
+        raise AssertionError(f"program builds {eng.compile_misses}")
+    # tokens: equal to phase 7's up to a near-tie of the one-chip logits
+    diverged = []
+    for i, (got, want_t) in enumerate(zip(outs, greedy)):
+        j = next((j for j, (a, b) in enumerate(zip(got, want_t))
+                  if a != b), None)
+        if j is None:
+            continue
+        margin, top2 = _one_chip_top2(
+            torch, L, cfg, params, list(prompts[i]) + list(want_t[:j]))
+        diverged.append(dict(request=i, at=j, margin=margin,
+                             margin_share=margin / rms, one_chip_top2=top2,
+                             tokens=[got[j], want_t[j]]))
+        if margin > tol["margin"] * rms or got[j] not in top2:
+            raise AssertionError(f"request {i} left phase 7's tokens at "
+                                 f"{j}: {diverged[-1]} (margin bound "
+                                 f"{tol['margin'] * rms})")
+    breakdown = step_breakdown(torch, eng, params, cfg.vocab_size)
+    reduce_ms = _all_reduce_ms(torch, TP_CHIPS, 256, cfg.hidden_size)
+    report.update(
+        chips=TP_CHIPS, mesh=repr(mesh), place_s=place_s,
+        first_step=first, first_step_fp32_2_layers=fp32, bounds=tol,
+        identical_requests=sum(
+            a == b for a, b in zip(outs, greedy)), diverged=diverged,
+        micro_rounds=rounds, launches=launches,
+        launches_per_micro_round={k: v / rounds for k, v in
+                                  launches.items()},
+        programs=programs, breakdown=breakdown,
+        all_reduce_ms=dict(one=reduce_ms, per_micro_round=2 * n_layers
+                           * reduce_ms))
+    del eng
+    _free_card(torch)
+    return report
+
+
+class _Clock:
+    """A fake clock for the storm (the tests' ``FakeClock``)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+    def sleep(self, dt):
+        self.t += dt
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def _elastic_fleet(torch, D, S, cfg, n, mp, device, clock, injector=None,
+                   engine_kw=None, max_new=8, sleep=None):
+    """``test_elastic.py``'s fleet: ``n`` replicas, each over a serving
+    mesh of ``mp`` chips (logical chips on ``device``), the controller
+    rebuilding from the same factories."""
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
+    kw = engine_kw or dict(num_slots=2, page_size=4, max_seq_len=64,
+                           chunk=2)
+
+    def engine_factory(mesh):
+        return D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=max_new, seed=3),
+            mesh=mesh, device=None if mesh is not None else device, **kw)
+
+    def handle_factory(rid, eng):
+        return S.ReplicaHandle(
+            rid, eng, config=S.SchedulerConfig(max_step_retries=1,
+                                               retry_backoff_s=0.01),
+            health_config=S.HealthConfig(suspect_after=1, eject_after=2,
+                                         probe_cooldown_s=0.4),
+            clock=clock, sleep=sleep or clock.sleep)
+
+    handles = [handle_factory(i, engine_factory(serving_mesh(
+        mp, [torch.device(device)] * mp))) for i in range(n)]
+    router = S.FleetRouter(handles, config=S.RouterConfig(
+        failover_backoff_s=0.05), clock=clock, sleep=sleep or clock.sleep,
+        fault_injector=injector)
+    ctl = S.ElasticServingController(router, engine_factory, handle_factory,
+                                     fault_injector=injector, clock=clock)
+    return router, ctl
+
+
+def _storm_prompts(vocab, n=8, seed=31):
+    rng = np.random.RandomState(seed)
+    base = rng.randint(1, vocab, (4,)).astype(np.int32)
+    out = []
+    for i in range(n):
+        if i % 3 == 0:
+            tail = rng.randint(1, vocab, (3,))
+            out.append(np.concatenate([base, tail]).astype(np.int32))
+        else:
+            out.append(rng.randint(1, vocab, (int(rng.randint(4, 9)),))
+                       .astype(np.int32))
+    return out
+
+
+def _detach_fleet(recorder):
+    """Drop the router and the controller the flight recorder holds (it
+    keeps the last fleet attached, and with it the fleet's engines)."""
+    recorder.attach_router(None)
+    recorder.attach_elastic(None)
+
+
+def _drive(router, ctl, clock, params, submissions, max_steps=400):
+    handles, step = [], 0
+    submissions = dict(submissions)
+    while step < max_steps:
+        for p in submissions.pop(step, []):
+            handles.append(router.submit(p))
+        if not submissions and not router.pending and not ctl.resizing:
+            break
+        ctl.step(params)
+        clock.advance(0.05)
+        step += 1
+    if step >= max_steps:
+        raise AssertionError(f"storm did not finish: {router.statusz()}")
+    return handles
+
+
+def elastic_storm_phase(torch, L, D):
+    """(d) ``test_seeded_chip_storm_end_to_end_byte_identical``'s storm at
+    tiny widths on the card (llama_tiny with 4 heads of 64, the kernels'
+    smallest head dim: h 256, 2 layers, fp32, the reference's seed-3
+    draws): 2 replicas of 2 logical chips under
+    ``FaultInjector.seeded_chips(11, 10, 2, 2, n_faults=2)``; the tokens
+    equal the fault-free storm's on the card and the CPU's, every arc
+    rejoined."""
+    from paddle_tpu_torch import serving as S
+    from paddle_tpu_torch.observability.flight import flight_recorder
+    from paddle_tpu_torch.resilience import FaultInjector
+    cfg = L.llama_tiny(hidden_size=256, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    prompts = _storm_prompts(cfg.vocab_size)
+    subs = {0: prompts[:6], 8: prompts[6:]}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = L.init_stacked_params(cfg, seed=3, device=dev)
+        for faults in (False, True):
+            if dev == "cpu" and faults:
+                continue
+            clock = _Clock()
+            inj = (FaultInjector.seeded_chips(11, 10, 2, 2, n_faults=2)
+                   if faults else None)
+            router, ctl = _elastic_fleet(torch, D, S, cfg, 2, 2, dev, clock,
+                                         inj)
+            try:
+                hs = _drive(router, ctl, clock, params, subs)
+            finally:
+                _detach_fleet(flight_recorder)
+            out[(dev, faults)] = [h.stream.tokens for h in hs]
+            if faults:
+                if inj.schedule or len(ctl.resizes) != 2 or not all(
+                        r.done for r in ctl.resizes):
+                    raise AssertionError("the storm's arcs did not finish")
+                arcs = [dict(kind=r.kind, replica=r.replica, chip=r.chip,
+                             step=r.step, chips=[r.from_chips, r.to_chips])
+                        for r in ctl.resizes]
+    if not out[("cuda", True)] == out[("cuda", False)] == out[("cpu",
+                                                               False)]:
+        raise AssertionError("the chip-loss storm's tokens differ from the "
+                             "fault-free storm's or the CPU's")
+    return dict(requests=len(prompts), arcs=arcs, byte_identical=True,
+                tokens=out[("cuda", True)][:2])
+
+
+def elastic_7b_phase(torch, D, rn, pa, cfg, params):
+    """(d) One ``lose_chip`` on a 2-replica fleet at Llama-2-7B widths
+    (phase 7's weights, 32 layers, bf16; each replica over 2 logical
+    chips on cuda:0, 4 slots, page 16, max_seq_len 1024): phase 7's
+    first 8 prompts, replica 0's chip 1 dies at fleet step 3; the
+    ``ResizeRecord``'s phases on the host clock (chip lost, checkpointed,
+    ejected, resharded, rejoined) and the rebuilt one-chip replica's
+    first step after it (its program's build and capture included):
+    the time to recover from a lost chip. Two more prompts are submitted
+    once the replica has rejoined (the least loaded, it takes them).
+    Every request completes with 32 valid tokens; rows 1 and 3's
+    launches."""
+    from paddle_tpu_torch import serving as S
+    from paddle_tpu_torch.observability.flight import flight_recorder
+    from paddle_tpu_torch.resilience import Fault, FaultInjector
+    load = serve_load(cfg)
+    prompts, late = load[:8], load[8:10]
+    inj = FaultInjector(schedule=[Fault("chip_die", 3, replica=0, chip=1)])
+    rn.rms_norm.launches = 0
+    _reset_ragged(pa)
+    router, ctl = _elastic_fleet(
+        torch, D, S, cfg, 2, 2, "cuda", time.perf_counter, inj,
+        engine_kw=dict(num_slots=4, page_size=16, max_seq_len=1024,
+                       chunk=8, step_tokens=256),
+        max_new=NEW_TOKENS, sleep=time.sleep)
+    try:
+        return _lose_chip_run(torch, cfg, rn, pa, router, ctl, params,
+                              prompts, late)
+    finally:
+        _detach_fleet(flight_recorder)
+
+
+def _lose_chip_run(torch, cfg, rn, pa, router, ctl, params, prompts, late):
+    """:func:`elastic_7b_phase`'s run of the fleet and its report."""
+    handles = [router.submit(p) for p in prompts]
+    t0 = time.perf_counter()
+    rebuilt_first_step = None
+    steps = 0
+    while router.pending or ctl.resizing:
+        before = router.replicas[0].engine
+        ctl.step(params)
+        steps += 1
+        if ctl.resizes and late:
+            handles += [router.submit(p) for p in late]
+            late = []
+        eng0 = router.replicas[0].engine
+        if (ctl.resizes and rebuilt_first_step is None and eng0 is before
+                and eng0.micro_rounds > 0 and eng0.num_chips == 1):
+            torch.cuda.synchronize()
+            rebuilt_first_step = time.perf_counter()
+        if steps > 400:
+            raise AssertionError(f"fleet did not finish: {router.statusz()}")
+    wall = time.perf_counter() - t0
+    [rec] = ctl.resizes
+    if not rec.done or (rec.from_chips, rec.to_chips) != (2, 1):
+        raise AssertionError(f"resize {rec.as_dict()}")
+    toks = [h.stream.tokens for h in handles]
+    _check_outputs(cfg, toks, router.replicas[1].engine)
+    lost = rec.phases[0][1]
+    arc = {p: t - lost for p, t in rec.phases}
+    report = dict(
+        replicas=2, chips=[2, 2], requests=len(handles), steps=steps,
+        wall_s=wall, resize=dict(
+            kind=rec.kind, step=rec.step, flights=len(rec.flights),
+            phases_s=arc, rejoined_s=arc["rejoined"],
+            first_step_after_rejoin_s=(None if rebuilt_first_step is None
+                                       else rebuilt_first_step - lost),
+            capture_s=dict(router.replicas[0].engine.capture_seconds)),
+        failovers=sum(h.failovers for h in handles),
+        launches={"rms_norm_fwd": rn.rms_norm.launches,
+                  **_ragged_launches(pa)})
+    return report
+
+
+def auto_parallel_phase(torch):
+    """(e) ``auto_parallel`` over a one-rank NCCL group: ``shard_tensor``,
+    ``reshard`` (Shard -> Replicate: an NCCL all-gather of one rank;
+    Replicate -> Shard(1): a cut), ``shard_layer`` and 4 ``Engine.fit``
+    steps of a small MLP (fp32, AdamW, ``jit.TrainStep``), with the same
+    calls on the CPU without a process group: equal results."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import distributed as Dd
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.io import TensorDataset
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(8, 6).astype(np.float32)
+    X = rng.randn(32, 6).astype(np.float32)
+    Y = (X @ rng.randn(6, 2)).astype(np.float32)
+    init = {}
+    results = {}
+    for dev in ("gpu", "cpu"):
+        P.set_device(dev)
+        saved = _one_rank_nccl(Dd) if dev == "gpu" else None
+        try:
+            mesh = Dd.ProcessMesh([0], dim_names=["x"])
+            s = Dd.shard_tensor(x, mesh, [Dd.Shard(0)])
+            rep = Dd.reshard(s, mesh, [Dd.Replicate()])
+            cut = Dd.reshard(rep, mesh, [Dd.Shard(1)])
+            net = P.nn.Sequential(P.nn.Linear(6, 16), P.nn.Tanh(),
+                                  P.nn.Linear(16, 2))
+            if not init:
+                init.update({k: v.detach().cpu().clone()
+                             for k, v in net.state_dict().items()})
+            net.set_state_dict(init)
+            Dd.shard_layer(net, mesh)
+            eng = Engine(net, loss=lambda p, y: ((p - y) ** 2).mean(),
+                         optimizer=P.optimizer.AdamW(
+                             learning_rate=1e-2,
+                             parameters=net.parameters()))
+            hist = eng.fit(TensorDataset([X, Y]), epochs=1, batch_size=8)
+            results[dev] = dict(
+                tensors=[t._value.cpu() for t in (s, rep, cut)],
+                specs=[tuple(t._sharding_spec) for t in (s, rep, cut)],
+                loss=hist[-1]["loss"],
+                weights={k: v.detach().cpu()
+                         for k, v in net.state_dict().items()})
+        finally:
+            if saved is not None:
+                Dd.destroy_process_group()
+                _restore_env(saved)
+    P.set_device("gpu")
+    g, c = results["gpu"], results["cpu"]
+    if g["specs"] != c["specs"] or not all(
+            torch.equal(a, b) for a, b in zip(g["tensors"], c["tensors"])):
+        raise AssertionError("shard_tensor / reshard differ card vs cpu")
+    rtol, atol = testing.CARD_CPU_TOL["loss"]
+    if not math.isclose(g["loss"], c["loss"], rel_tol=rtol, abs_tol=atol):
+        raise AssertionError(f"Engine.fit loss {g['loss']} != {c['loss']}")
+    wdiff = max(float((g["weights"][k] - c["weights"][k]).abs().max())
+                for k in g["weights"])
+    return dict(loss=g["loss"], cpu_loss=c["loss"], steps=4,
+                weights_max_abs_diff=wdiff, specs=g["specs"])
+
+
+def tp_two_cards_phase(torch, L, D):
+    """(f) A serving mesh over two cards (the NCCL branch of
+    ``serving_all_reduce``): the tiny engine at mp 2 over cuda:0 and
+    cuda:1 against the CPU engine. Runs only where the machine has two
+    cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return dict(ran=False, reason=f"{n} CUDA device visible: the NCCL "
+                    "branch needs two cards")
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
+    cfg = _tp_tiny_cfg(torch, L)
+    params = L.init_params(cfg, seed=SEED, device="cpu")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, (n_,)).astype(np.int32)
+               for n_ in (5, 40, 17)]
+    kw = dict(num_slots=2, page_size=16, max_seq_len=128, chunk=4)
+    want = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=8), device="cpu",
+        **kw).serve(params, prompts)
+    eng = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=8), mesh=serving_mesh(2),
+        **kw)
+    got = eng.serve({k: v.cuda(0) for k, v in params.items()}, prompts)
+    if got != want:
+        raise AssertionError("two-card mesh tokens differ from the CPU's")
+    return dict(ran=True, cards=n, tokens=got[:2])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8968,6 +9621,33 @@ def main() -> int:
                                  greedy_tokens)
     done(34, f"(d) Llama-2-7B bf16 unified and speculative serves with "
          f"fused_tail=True on {card}", fused7)
+    t38 = time.perf_counter()
+    done(38, "(a) tiny fp32 engines (greedy and seeded sampled, prefix "
+         "cache and speculation on and off) over serving meshes of 1, 2 "
+         "and 4 logical chips on cuda:0, card == cpu tokens",
+         tp_tiny_phase(torch, L, D))
+    slabs = head_slab_phase(torch, pa)
+    done(38, "(b) row 3 on the head slabs of serving meshes at the 7B "
+         "serve's packed shapes vs the whole call and vs plain", slabs)
+    allocated38 = torch.cuda.memory_allocated()
+    tp7 = tp_7b_phase(torch, L, D, rn, pa, cfg7b, params7b, greedy_tokens)
+    done(38, f"(c) Llama-2-7B bf16 over serving_mesh({TP_CHIPS}, [cuda:0] "
+         f"* {TP_CHIPS}) against phase 7 on {card}", tp7)
+    storm = elastic_storm_phase(torch, L, D)
+    done(38, "(d) the seeded chip-loss storm of two 2-chip replicas, tiny "
+         "fp32, byte-identical to the fault-free storm and the CPU's",
+         storm)
+    el7 = elastic_7b_phase(torch, D, rn, pa, cfg7b, params7b)
+    fleet_released(torch, allocated38, el7)
+    done(38, f"(d) lose_chip on a 2-replica Llama-2-7B bf16 fleet (mp 2 -> "
+         f"1), the resize arc timed, on {card}", el7)
+    done(38, "(e) auto_parallel (shard_tensor, reshard, shard_layer, "
+         "Engine.fit) over a one-rank NCCL group == the CPU",
+         auto_parallel_phase(torch))
+    done(38, f"(f) a serving mesh over two cards (NCCL all-reduce) (phase "
+         f"38 in {time.perf_counter() - t38:.1f} s)",
+         tp_two_cards_phase(torch, L, D))
+    _free_card(torch)
     gens = generate_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b)
     done(22, f"Llama-2-7B bf16 generate engines on {card}", gens)
     del params7b             # the training phases need the memory
@@ -9154,7 +9834,8 @@ def main() -> int:
              + rl["rms_norm_fwd"] + pl["rms_norm_fwd"]
              + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
              + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"]
-             + hl["rms_norm_fwd"],
+             + hl["rms_norm_fwd"] + tp7["launches"]["rms_norm_fwd"]
+             + el7["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -9170,7 +9851,9 @@ def main() -> int:
              + specl["ragged_paged_attention"]
              + pl["ragged_paged_attention"]
              + hosts["launches"]["ragged_paged_attention"]
-             + fused7["launches"]["ragged_paged_attention"],
+             + fused7["launches"]["ragged_paged_attention"]
+             + tp7["launches"]["ragged_paged_attention"]
+             + el7["launches"]["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),

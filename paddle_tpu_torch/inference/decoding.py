@@ -118,8 +118,9 @@ from ..observability.memory import memory_armed, memory_ledger
 from ..observability.profiling import chain_armed as _chain_armed
 from ..observability.profiling import note_chain as _note_chain
 from ..observability.runtime import recompiles
-from ..ops._common import not_ported as _later, resolve_device
+from ..ops._common import resolve_device
 from ..ops.paged_attention import PagedKVCacheManager
+from ..parallel import mesh as _pmesh
 from ..profiler.record import emit_span, emit_spans, make_span, spans_armed
 from . import constrain as _constrain
 from . import prng
@@ -215,7 +216,11 @@ class _Programs:
     def _program(self, body: Callable[..., torch.Tensor], inputs: dict,
                  params) -> Program:
         graphs = None
-        if self.device.type == "cuda" and self._graphs:
+        mesh = getattr(self, "_mesh", None)
+        # a graph is captured on one device: a mesh over distinct cards
+        # runs its programs eagerly
+        one_card = mesh is None or mesh.shared
+        if self.device.type == "cuda" and self._graphs and one_card:
             if self._graph_pool is None:
                 self._graph_pool = GraphPool(self.device)
             graphs = self._graph_pool
@@ -530,9 +535,18 @@ class ContinuousBatchingEngine(_Programs):
     finished requests; ``cancel(rid)``; ``serve(params, prompts)``
     streams a whole list through. The serving layer's hooks:
     ``token_callback``, ``finish_callback``, ``num_free_slots``,
-    ``num_queued``, ``num_chips`` (1) and ``mesh`` (None).
-    The parameters are the reference's, in its order; ``mesh`` other
-    than None (multi-chip serving, Distributed IV) raises.
+    ``num_queued``, ``num_chips`` and ``mesh``.
+    The parameters are the reference's, in its order.
+    ``mesh`` (``parallel.mesh.serving_mesh``, l.379-445) serves over a
+    tensor-parallel mesh: the unified step only, a degree that divides
+    the head counts, the pools head-sharded
+    (``PagedKVCacheManager.shard_heads``) and the caller's params placed
+    once per params object (``_place_params``,
+    ``models.llama.shard_params_tp``); the programs run
+    ``models.llama.ragged_step(mesh=)``. The engine lives on the mesh's
+    first device. Its programs are CUDA graphs when the chips share
+    that card (the key carries the chip count); over distinct cards
+    they run eagerly.
     ``fused_tail=True`` (or :meth:`enable_fused_tail`, the fusion pass's
     ``decode_tail`` region) feeds the unified and speculative programs
     from a packed plan: two uploads a step instead of one per plan
@@ -567,13 +581,40 @@ class ContinuousBatchingEngine(_Programs):
             raise ValueError(
                 "fused_tail packs the unified ragged step's plan; "
                 "construct with unified=True")
-        if mesh is not None:
-            raise _later("mesh= (multi-chip serving)", "Distributed IV")
         if speculative and not unified:
             raise ValueError(
                 "speculative decoding rides the unified ragged step; "
                 "construct with unified=True")
         self.config = generation_config or GenerationConfig()
+        mcfg = model_config
+        # multi-chip TP serving (l.409-440): a degree-1 mesh is kept too,
+        # it pins the replica to its surviving device
+        self._mp_axis = mp_axis
+        if mesh is not None and mp_axis not in mesh.shape:
+            raise ValueError(
+                f"serving mesh has no {mp_axis!r} axis (axes: "
+                f"{tuple(mesh.shape)}) — build it with "
+                "parallel.mesh.serving_mesh(...) or pass mp_axis naming "
+                "the TP axis")
+        chips = int(mesh.shape[mp_axis]) if mesh is not None else 1
+        self._mesh = mesh
+        if mesh is not None:
+            if chips > 1 and not unified:
+                raise ValueError(
+                    "multi-chip serving shards the unified ragged step; "
+                    "construct with unified=True")
+            if (mcfg.num_key_value_heads % chips
+                    or mcfg.num_attention_heads % chips):
+                raise ValueError(
+                    f"TP degree {chips} must divide num_attention_heads="
+                    f"{mcfg.num_attention_heads} and num_key_value_heads="
+                    f"{mcfg.num_key_value_heads} (whole GQA groups per "
+                    "chip — pick a degree via mesh.surviving_mp_degree)")
+            home = mesh.devices.reshape(-1)[0]
+            if device is not None and _pmesh._device(device) != home:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {home}")
+            device = home
         self._init_programs(resolve_device(device))
         self.model_config = model_config
         self.num_slots = num_slots
@@ -586,7 +627,6 @@ class ContinuousBatchingEngine(_Programs):
                                                              page_size)
         # pool sized for every slot at max length unless told otherwise
         pool = num_pages or (num_slots * self._table_width + 1)
-        mcfg = model_config
         geo = (mcfg.num_hidden_layers, pool, page_size,
                mcfg.num_key_value_heads, mcfg.head_dim)
         self.cache = None
@@ -599,6 +639,10 @@ class ContinuousBatchingEngine(_Programs):
         else:
             self.mgr = PagedKVCacheManager(*geo, dtype=mcfg.dtype,
                                            device=self.device)
+        if mesh is not None:
+            self.mgr.shard_heads(mesh, mp_axis)
+        # one-slot placement cache (l.442): (caller's params, placed)
+        self._placed_params: Tuple = (None, None)
         # the page books are audited after every step that can move them:
         # with the cache, and with speculation (growth and rollback). The
         # audit is O(pool) host work a step; ``check_invariants=False``
@@ -756,6 +800,7 @@ class ContinuousBatchingEngine(_Programs):
         in place."""
         K, tb, n_rows = self.chunk, self._step_tokens, self.num_slots
         mgr, mcfg, carry = self.mgr, self.model_config, self._tok_dev
+        mesh, mp_axis = self._mesh, self._mp_axis
         gcarry, samp, gtable = (self._gstate_dev, self._samp_dev,
                                 self._arena.table)
         epilogue = self._epilogue_on
@@ -778,7 +823,8 @@ class ContinuousBatchingEngine(_Programs):
                 logits, _, _ = L.ragged_step(
                     params, ids_eff, token_row[k], positions[k], kv_lens[k],
                     last_idx[k], mgr.k_pages, mgr.v_pages, bt, mcfg,
-                    logits_epilogue=hook, decoding=decoding[k])
+                    mesh, mp_axis, logits_epilogue=hook,
+                    decoding=decoding[k])
                 nxt, ngst = tail(logits, kv_lens[k], samp, gst, gtable)
                 emitted.append(tok)
                 tok = torch.where(sample_mask[k], nxt, tok)
@@ -800,8 +846,8 @@ class ContinuousBatchingEngine(_Programs):
                     lg.float(), g, gtable)) if epilogue else None)
                 return L.ragged_step(
                     params, ids_eff, token_row, positions, kv_lens,
-                    last_idx, mgr.k_pages, mgr.v_pages, bt, mcfg,
-                    logits_epilogue=hook, decoding=decoding)[0]
+                    last_idx, mgr.k_pages, mgr.v_pages, bt, mcfg, mesh,
+                    mp_axis, logits_epilogue=hook, decoding=decoding)[0]
 
             fused = build_fused_unified_step(
                 model_step,
@@ -918,6 +964,7 @@ class ContinuousBatchingEngine(_Programs):
         grammar state in place."""
         T, n_rows, k1 = self._spec_tokens, self.num_slots, self.spec_k + 1
         mgr, mcfg = self.mgr, self.model_config
+        mesh, mp_axis = self._mesh, self._mp_axis
         gcarry, samp, gtable = (self._gstate_dev, self._samp_dev,
                                 self._arena.table)
         tail = (_sampling.spec_sample_rows if self._epilogue_on
@@ -936,7 +983,8 @@ class ContinuousBatchingEngine(_Programs):
                 drafts, draft_len, sampled, bt):
             logits, _, _ = L.ragged_step(
                 params, ids, token_row, positions, kv_lens, cand_idx,
-                mgr.k_pages, mgr.v_pages, bt, mcfg, decoding=decoding)
+                mgr.k_pages, mgr.v_pages, bt, mcfg, mesh, mp_axis,
+                decoding=decoding)
             lg = logits.reshape(n_rows, k1, -1)
             pos_base = positions[cand_idx.reshape(n_rows, k1)[:, 0].long()]
             toks, accepted, ngst = tail(lg, drafts, draft_len, pos_base,
@@ -950,7 +998,7 @@ class ContinuousBatchingEngine(_Programs):
                 lambda ids, token_row, positions, kv_lens, cand_idx, bt,
                 decoding: L.ragged_step(
                     params, ids, token_row, positions, kv_lens, cand_idx,
-                    mgr.k_pages, mgr.v_pages, bt, mcfg,
+                    mgr.k_pages, mgr.v_pages, bt, mcfg, mesh, mp_axis,
                     decoding=decoding)[0],
                 lambda lg, drafts, draft_len, pos_base, gst: tail(
                     lg, drafts, draft_len, pos_base, samp, gst, gtable),
@@ -974,14 +1022,23 @@ class ContinuousBatchingEngine(_Programs):
 
     @property
     def num_chips(self) -> int:
-        """Chips the engine is sharded over (1: the port serves on one
-        card)."""
+        """TP chips this engine is sharded over (1 = single-chip)."""
         return self.mgr.mesh_chips
 
     @property
     def mesh(self):
-        """The serving mesh (None: single card)."""
-        return None
+        """The serving TP mesh (None when single-chip)."""
+        return self._mesh
+
+    def _place_params(self, params):
+        """Shard the caller's params onto this engine's mesh (l.659),
+        cached by object identity: the serving loop passes one params
+        object; a fresh object (a weight swap) places again."""
+        if self._placed_params[0] is params:
+            return self._placed_params[1]
+        placed = L.shard_params_tp(params, self._mesh, self.model_config)
+        self._placed_params = (params, placed)
+        return placed
 
     @property
     def num_free_slots(self) -> int:
@@ -1315,12 +1372,14 @@ class ContinuousBatchingEngine(_Programs):
         the prefix cache or speculation, the page books are audited
         after every round (every page is free, live or cached: the
         anchor of the shared-ownership model)."""
+        placed = (self._place_params(params) if self._mesh is not None
+                  else params)
         if self._speculative:
-            n = self._step_spec(params)
+            n = self._step_spec(placed)
         elif self._unified:
-            n = self._step_unified(params)
+            n = self._step_unified(placed)
         else:
-            n = self._step_legacy(params)
+            n = self._step_legacy(placed)
         if self._check_invariants:
             self.mgr.check_conservation()
         if self.cache is not None:
@@ -1517,7 +1576,8 @@ class ContinuousBatchingEngine(_Programs):
         self._unified_step = prog = self._fetch(
             self._unified_step, "cbe.unified_step",
             (self.num_slots, self.chunk, self._step_tokens,
-             self._table_width, self._fused_tail, 1, self._epilogue_on),
+             self._table_width, self._fused_tail, self.num_chips,
+             self._epilogue_on),
             self._build_unified_step, params)
         # armed-only chain taps (observability.profiling): the plan ->
         # dispatch -> unpack phases; one list index per step disarmed
@@ -1891,7 +1951,8 @@ class ContinuousBatchingEngine(_Programs):
         self._spec_step = prog = self._fetch(
             self._spec_step, "cbe.spec_step",
             (self.num_slots, self._spec_tokens, self.spec_k,
-             self._table_width, self._fused_tail, 1, self._epilogue_on),
+             self._table_width, self._fused_tail, self.num_chips,
+             self._epilogue_on),
             self._build_spec_step, params)
         armed_chain = _chain_armed[0]
         tc0 = time.perf_counter_ns() if armed_chain else 0

@@ -44,8 +44,11 @@ from ..ops._common import add_launch_counts, launch_counts
 
 def params_key(params) -> tuple:
     """What a program captured of its params: each tensor's name,
-    address, shape and dtype. A graph reads its weights at the captured
-    addresses, so other tensors mean a rebuild."""
+    address, shape and dtype (of every chip's dict, for a serving mesh's
+    list of them). A graph reads its weights at the captured addresses,
+    so other tensors mean a rebuild."""
+    if isinstance(params, (list, tuple)):
+        return tuple(params_key(p) for p in params)
     return tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
                  for k, v in params.items())
 

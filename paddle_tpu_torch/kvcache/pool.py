@@ -43,7 +43,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Set
 
 from ..core.host_arrays import from_host, to_host
-from ..ops.paged_attention import PagedKVCacheManager
+from ..ops.paged_attention import HeadShards, PagedKVCacheManager
 
 
 class RefcountedKVCacheManager(PagedKVCacheManager):
@@ -163,9 +163,13 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
 
     def copy_page(self, src: int, dst: int) -> None:
         """Device-side COW: copy ``src``'s slab (every layer) into
-        ``dst``, in place: one page slab moves, never the whole pool."""
-        self.k_pages[:, dst].copy_(self.k_pages[:, src])
-        self.v_pages[:, dst].copy_(self.v_pages[:, src])
+        ``dst``, in place: one page slab moves, never the whole pool. A
+        head-sharded pool copies on every chip."""
+        for pool in (self.k_pages, self.v_pages):
+            if isinstance(pool, HeadShards):
+                pool.copy_within((slice(None), dst), (slice(None), src))
+            else:
+                pool[:, dst].copy_(pool[:, src])
 
     # -- page-granular export/import (migration) -----------------------------
 
@@ -203,14 +207,19 @@ class RefcountedKVCacheManager(PagedKVCacheManager):
 
     def write_page(self, page: int, k_slab, v_slab) -> None:
         """Write a host-provided slab pair into ``page``, in place on the
-        current stream (bf16 bit patterns move unchanged)."""
+        current stream (bf16 bit patterns move unchanged); a head-sharded
+        pool takes each chip's heads into its slab."""
         for pool, slab in ((self.k_pages, k_slab), (self.v_pages, v_slab)):
             src = from_host(slab, pool.dtype, pool.device)
-            if tuple(src.shape) != tuple(pool[:, page].shape):
+            want = (pool.shape[0],) + tuple(pool.shape[2:])
+            if tuple(src.shape) != want:
                 raise ValueError(
                     f"slab shape {tuple(src.shape)} != page geometry "
-                    f"{tuple(pool[:, page].shape)}")
-            pool[:, page].copy_(src)
+                    f"{want}")
+            if isinstance(pool, HeadShards):
+                pool.write((slice(None), page), src)
+            else:
+                pool[:, page].copy_(src)
 
     # -- accounting ----------------------------------------------------------
 

@@ -267,11 +267,23 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     Returns (logits (C, V), k_pages, v_pages).
 
     The port updates the pools IN PLACE (the returned pools are the
-    arguments) where the JAX function returns new arrays. A ``mesh``
-    (tensor-parallel serving) comes with Distributed IV and raises.
+    arguments) where the JAX function returns new arrays.
+
+    Tensor-parallel serving (``mesh``, a ``parallel.mesh.ServingMesh``
+    whose ``mp_axis`` degree is above 1; l.1205-1291): ``params`` is
+    :func:`shard_params_tp`'s list of per-chip dicts and the pools are
+    the manager's ``ops.paged_attention.HeadShards``
+    (``PagedKVCacheManager.shard_heads``). Each chip projects its own
+    heads, scatters its K/V into its own pool slab and runs attention on
+    its heads (:func:`_ragged_step_tp`); ``wo`` and ``w_down`` give fp32
+    partials that ``parallel.mesh.serving_all_reduce`` sums. A degree-1
+    mesh runs the one-chip step.
     """
-    if mesh is not None:
-        raise _later("ragged_step(mesh=)", "Distributed IV")
+    if mesh is not None and mesh.shape.get(mp_axis, 1) > 1:
+        return _ragged_step_tp(params, ids, token_row, positions, kv_lens,
+                               last_idx, k_pages, v_pages, block_tables,
+                               config, mesh, mp_axis, logits_epilogue,
+                               decoding)
     _check_dense(params)
     t = ids.shape[0]
     d = config.head_dim
@@ -323,6 +335,113 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     # lm_head over ONLY the requested rows: (C, h) @ (h, V)
     h_last = x[0][last_idx.long()]
     logits = h_last @ params["lm_head"]
+    if logits_epilogue is not None:
+        logits = logits_epilogue(logits)
+    return logits, k_pages, v_pages
+
+
+def _partial_mm(a, w):
+    """``a @ w`` as an fp32 partial (a row-parallel product, summed over
+    the chips before its one rounding): ``torch.mm(..., out_dtype=fp32)``
+    for 16-bit operands on the card, the fp32 product of their values on
+    the CPU."""
+    if a.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        return torch.mm(a, w, out_dtype=torch.float32)
+    return a.float() @ w.float()
+
+
+def _ragged_step_tp(chip_params, ids, token_row, positions, kv_lens,
+                    last_idx, k_pages, v_pages, block_tables,
+                    config: LlamaConfig, mesh, mp_axis: str,
+                    logits_epilogue, decoding):
+    """:func:`ragged_step` over a serving mesh (its docstring). The work
+    that the reference replicates (the embedding, the norms, the logits)
+    runs once on each device that holds chips (on logical chips that
+    share a card, once); the logits are the first chip's.
+
+    Where the bits can differ from the one-chip step: ``wo`` and
+    ``w_down`` sum the chips' fp32 partials in chip order before their
+    one rounding, where one GEMM rounds its own fp32 accumulation once;
+    the column-parallel products are narrower GEMMs, which cuBLAS may
+    run with another kernel or split; and row 3 picks its key split
+    from the chip's head counts (``ops.paged_attention.ragged_split``).
+    In fp32 each is a sum in another order; in bf16 such a sum may round
+    the other way by a step (``testing.TP_SERVE_TOL`` has the sizes
+    measured at Llama-2-7B widths)."""
+    from ..parallel.mesh import serving_all_reduce
+    n = mesh.shape[mp_axis]
+    devs = mesh.devices.reshape(-1).tolist()
+    if not isinstance(chip_params, (list, tuple)) or len(chip_params) != n:
+        raise ValueError(f"a step over {n} chips takes shard_params_tp's "
+                         f"{n} per-chip param dicts")
+    ks, vs = k_pages.slabs, v_pages.slabs
+    t = ids.shape[0]
+    d = config.head_dim
+    eps = config.rms_norm_eps
+    page = ks[0].shape[2]
+    n_rows, width = block_tables.shape
+    s_max = width * page
+    scale = 1.0 / math.sqrt(d)
+    pos_c = positions.clamp(max=s_max - 1)
+    pos_l = pos_c.long()
+    valid = token_row >= 0
+    row_c = token_row.long().clamp(0, n_rows - 1)
+    phys = block_tables.reshape(-1).long()[row_c * width + pos_l // page]
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    page_off = pos_l % page
+    # the first chip on each device: it holds the device's replica
+    first: Dict[Any, int] = {}
+    for c, dev in enumerate(devs):
+        first.setdefault(dev, c)
+    geo = {}
+    for dev in first:
+        cos_full, sin_full = _rope_cache(s_max, d, float(config.rope_theta),
+                                         str(dev))
+        pl = pos_l.to(dev)
+        geo[dev] = (cos_full[pl][None], sin_full[pl][None], phys.to(dev),
+                    page_off.to(dev))
+    x = chip_params[0]["embed"][ids.long().to(devs[0])][None]   # (1, T, h)
+    dtype = x.dtype
+    xs = {dev: x.to(dev) for dev in first}
+
+    def all_reduce_add(parts, base):
+        sums = serving_all_reduce(parts)
+        return {dev: base[dev] + sums[c].to(dtype)[None]
+                for dev, c in first.items()}
+
+    for l in range(config.num_hidden_layers):
+        xn = {dev: rms_norm(xs[dev], chip_params[c]["ln1"][l], eps)
+              for dev, c in first.items()}
+        qs = []
+        for c, (p, dev) in enumerate(zip(chip_params, devs)):
+            cos, sin, ph, off = geo[dev]
+            q = (xn[dev] @ p["wq"][l]).reshape(1, t, -1, d)
+            k = (xn[dev] @ p["wk"][l]).reshape(1, t, -1, d)
+            v = (xn[dev] @ p["wv"][l]).reshape(1, t, -1, d)
+            q, k = rope_ops.apply_rope_array(q, k, cos, sin)
+            kp, vp = ks[c][l], vs[c][l]                    # views, in place
+            kp[ph, off] = k[0].to(kp.dtype)
+            vp[ph, off] = v[0].to(vp.dtype)
+            qs.append(q[0].contiguous())
+        attn = pa.ragged_paged_attention_chips(
+            qs, [kp[l] for kp in ks], [vp[l] for vp in vs], block_tables,
+            token_row, pos_c, kv_lens, scale, decoding=decoding)
+        xo = all_reduce_add([_partial_mm(a.reshape(t, -1), p["wo"][l])
+                             for a, p in zip(attn, chip_params)], xs)
+        xn2 = {dev: rms_norm(xo[dev], chip_params[c]["ln2"][l], eps)
+               for dev, c in first.items()}
+        parts = []
+        for p, dev in zip(chip_params, devs):
+            g = xn2[dev][0] @ p["w_gate"][l]
+            u = xn2[dev][0] @ p["w_up"][l]
+            parts.append(_partial_mm(F.silu(g) * u, p["w_down"][l]))
+        xs = all_reduce_add(parts, xo)
+
+    x = rms_norm(xs[devs[0]], chip_params[0]["ln_f"], eps)
+    h_last = x[0][last_idx.long().to(devs[0])]
+    logits = h_last @ chip_params[0]["lm_head"]
     if logits_epilogue is not None:
         logits = logits_epilogue(logits)
     return logits, k_pages, v_pages
@@ -954,19 +1073,46 @@ def serving_param_specs(config: LlamaConfig) -> Dict[str, Any]:
 
 
 def shard_params_tp(params: Dict[str, Any], mesh, config: LlamaConfig):
-    """This rank's slabs of a stacked-param dict under
-    :func:`serving_param_specs` (l.323). On a one-rank mesh every slab
-    is the whole tensor (the same tensors come back); a serving engine
-    over more than one rank comes with Distributed IV."""
-    from ..parallel.mesh import SlabSharding
-    if mesh.devices.size > 1:
-        raise _later(f"shard_params_tp over {dict(mesh.shape)} (a "
-                     "tensor-parallel serving engine)", "Distributed IV")
-    _check_dense(params)
+    """Place a stacked-param dict on a serving TP mesh under
+    :func:`serving_param_specs` (l.323). Over a ``ServingMesh`` of more
+    than one chip: a list of one dict a chip, in chip order, each on its
+    chip's device: a split weight is the chip's contiguous slab (the
+    reference's device shard), a whole one the tensor itself where it
+    already lies on that device. A degree-1 serving mesh gives the dict
+    on its device. Over a process ``Mesh`` (``parallel.mesh.Mesh``):
+    this rank's slabs. Weight-only int8 leaves wait for the quantization
+    item and raise."""
+    from ..parallel.mesh import ServingMesh, SlabSharding
+    for k, v in params.items():
+        if isinstance(v, dict):
+            raise _later(f"shard_params_tp of the weight-only int8 leaf "
+                         f"{k!r}", "quantization")
     specs = serving_param_specs(config)
-    return {k: (v if SlabSharding(mesh, specs.get(k, ())).num_parts(0)
-                == 1 else SlabSharding(mesh, specs[k]).shard(v))
-            for k, v in params.items()}
+    if not isinstance(mesh, ServingMesh):
+        return {k: (v if SlabSharding(mesh, specs.get(k, ())).num_parts(0)
+                    == 1 else SlabSharding(mesh, specs[k]).shard(v))
+                for k, v in params.items()}
+    devs = mesh.devices.reshape(-1).tolist()
+    if len(devs) == 1:
+        return {k: v.to(devs[0]) for k, v in params.items()}
+    n = len(devs)
+    out = []
+    for c, dev in enumerate(devs):
+        chip = {}
+        for k, v in params.items():
+            spec = specs.get(k, ())
+            dims = [i for i, e in enumerate(spec) if e is not None]
+            if not dims:
+                chip[k] = v.to(dev)
+                continue
+            dim, = dims
+            if v.shape[dim] % n:
+                raise ValueError(f"{k}: dim {dim} ({v.shape[dim]}) does not "
+                                 f"split over {n} chips")
+            w = v.shape[dim] // n
+            chip[k] = v.narrow(dim, c * w, w).to(dev).contiguous()
+        out.append(chip)
+    return out
 
 
 def _decoder_layer_manual(p, x, cos, sin, config: LlamaConfig, mp_axis,

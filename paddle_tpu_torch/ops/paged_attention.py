@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ._common import (check_cuda_tensor, count_launches, load_cuda_library,
-                      not_ported, resolve_device, sm_count)
+                      resolve_device, sm_count)
 
 _NEG_INF = -1e30  # additive mask fill — the same value as the kernels'
 
@@ -398,11 +398,26 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
     """CPU tensors: the plain version (a token's result does not depend
     on its route there; ``decoding`` is unused). CUDA tensors: the CUDA
     kernels, which need ``decoding``
-    (:func:`ragged_paged_attention_kernel`). A ``mesh`` (the reference's
-    head-sharded wrapper) comes with Distributed IV and raises."""
-    if mesh is not None:
-        raise not_ported("ragged_paged_attention(mesh=)",
-                         "Distributed IV")
+    (:func:`ragged_paged_attention_kernel`).
+
+    ``mesh`` (a ``parallel.mesh.ServingMesh`` whose ``mp_axis`` degree
+    is above 1) runs the head-sharded wrapper of the reference
+    (``_ragged_paged_attention_shard_mapped``, l.383): each chip runs
+    the op on its whole GQA groups (:func:`ragged_paged_attention_chips`)
+    and the outputs are joined on the head axis on ``q``'s device.
+    There is no collective: attention has no sum across heads. The
+    pools are :class:`HeadShards` (a sharded manager's) or whole
+    tensors, which are cut into one contiguous slab a chip first."""
+    if mesh is not None and mesh.shape.get(mp_axis, 1) > 1:
+        chips = mesh.shape[mp_axis]
+        devs = mesh.devices.reshape(-1).tolist()
+        ks, vs = (p.slabs if isinstance(p, HeadShards)
+                  else HeadShards.split(p, devs).slabs
+                  for p in (k_pages, v_pages))
+        outs = ragged_paged_attention_chips(
+            split_heads(q, chips, devs), ks, vs, block_tables, token_row,
+            positions, kv_lens, scale, decoding=decoding)
+        return torch.cat([o.to(q.device) for o in outs], dim=1)
     if q.is_cuda:
         return ragged_paged_attention_kernel(
             q, k_pages, v_pages, block_tables, token_row, positions,
@@ -410,6 +425,95 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_row,
     return ragged_paged_attention_plain(
         q, k_pages, v_pages, block_tables, token_row, positions, kv_lens,
         scale)
+
+
+def split_heads(x, chips: int, devices) -> List[torch.Tensor]:
+    """``x`` (..., heads, d) cut into ``chips`` contiguous head slabs in
+    chip order, each on its chip's device."""
+    n = x.shape[-2]
+    if n % chips:
+        raise ValueError(f"{n} heads do not split over {chips} chips")
+    k = n // chips
+    return [x[..., c * k:(c + 1) * k, :].to(devices[c]).contiguous()
+            for c in range(chips)]
+
+
+def ragged_paged_attention_chips(qs, k_slabs, v_slabs, block_tables,
+                                 token_row, positions, kv_lens,
+                                 scale: Optional[float] = None, *,
+                                 decoding=None) -> List[torch.Tensor]:
+    """The op on every chip of a serving mesh: chip ``c`` runs it on its
+    query heads ``qs[c]`` (T, nh/n, d) and its pool slabs (P, page,
+    nkv/n, d), each on the chip's device (the row metadata is
+    replicated: copied to a chip's device where it lies elsewhere).
+    Returns the chips' outputs (T, nh/n, d), in chip order. Each chip's
+    kernel reads only its own contiguous slab."""
+    meta = {}
+    outs = []
+    for q, kp, vp in zip(qs, k_slabs, v_slabs):
+        dev = q.device
+        if dev not in meta:
+            meta[dev] = [None if a is None else a.to(dev) for a in (
+                block_tables, token_row, positions, kv_lens, decoding)]
+        bt, tr, pos, kvl, dec = meta[dev]
+        outs.append(ragged_paged_attention(q, kp, vp, bt, tr, pos, kvl,
+                                           scale, decoding=dec))
+    return outs
+
+
+class HeadShards:
+    """A tensor cut on its head axis (the second last) over the chips of
+    a serving mesh: ``slabs[c]`` is chip ``c``'s contiguous slab on its
+    device. The reference keeps one global array placed over the
+    devices; here each chip's slab is a tensor of its own, and
+    ``shape``, ``dtype`` and ``nbytes`` describe the global tensor.
+    Indexing gives the global tensor's part, its heads joined in chip
+    order on the first chip's device (a copy: write through
+    :meth:`write`)."""
+
+    def __init__(self, slabs):
+        self.slabs = list(slabs)
+
+    @classmethod
+    def split(cls, x, devices) -> "HeadShards":
+        return cls(split_heads(x, len(devices), devices))
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.slabs[0].shape)
+        s[-2] = sum(t.shape[-2] for t in self.slabs)
+        return torch.Size(s)
+
+    @property
+    def dtype(self):
+        return self.slabs[0].dtype
+
+    @property
+    def device(self):
+        return self.slabs[0].device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(t.nbytes) for t in self.slabs)
+
+    def __getitem__(self, idx):
+        dev = self.slabs[0].device
+        return torch.cat([t[idx].to(dev) for t in self.slabs], dim=-2)
+
+    def write(self, idx, value) -> None:
+        """``global[idx] = value``: each chip's heads of ``value`` into
+        its slab, in place."""
+        off = 0
+        for t in self.slabs:
+            k = t.shape[-2]
+            t[idx] = value[..., off:off + k, :].to(t.device)
+            off += k
+
+    def copy_within(self, idx_dst, idx_src) -> None:
+        """``global[idx_dst] = global[idx_src]``, chip by chip, in
+        place."""
+        for t in self.slabs:
+            t[idx_dst].copy_(t[idx_src])
 
 
 #: op calls on the card since the last reset (the plain version never
@@ -662,8 +766,8 @@ class PagedKVCacheManager:
         self._tables: dict = {}   # seq_id -> List[int]
         self._lens: dict = {}     # seq_id -> int
         self._page_nb: int = 0    # page_nbytes memo (geometry is fixed)
-        #: chips the pool is sharded over (1: the port serves on one
-        #: card); the memory ledger splits per-chip bytes off it
+        #: chips the pool is head-sharded over (:meth:`shard_heads`); the
+        #: memory ledger splits per-chip bytes off it
         self.mesh_chips: int = 1
 
     # -- allocation ---------------------------------------------------------
@@ -809,6 +913,31 @@ class PagedKVCacheManager:
                 f"page conservation violated: {len(free)} free + "
                 f"{len(owned_set)} owned = {total} != "
                 f"{self.usable_pages} usable")
+
+    # -- multi-chip layout (tensor-parallel serving) -------------------------
+
+    def shard_heads(self, mesh, mp_axis: str = "mp") -> None:
+        """Head-shard both pools over the mesh's ``mp_axis`` (l.604):
+        whole GQA (kv-head) groups per chip, each chip's share of both
+        pools one contiguous tensor on its device (:class:`HeadShards`:
+        the kernel reads a chip's slab, never a view of the whole pool).
+        Pure layout: the page books are host-side and chip-agnostic. The
+        kv-head count must divide by the degree. A degree-1 mesh keeps
+        the plain tensors, on its device."""
+        chips = int(mesh.shape[mp_axis])
+        nkv = self.k_pages.shape[3]
+        if nkv % chips:
+            raise ValueError(
+                f"num_kv_heads={nkv} must divide by the TP degree "
+                f"{chips} (whole GQA groups per chip)")
+        devs = mesh.devices.reshape(-1).tolist()
+        if chips == 1:
+            self.k_pages = self.k_pages.to(devs[0])
+            self.v_pages = self.v_pages.to(devs[0])
+        else:
+            self.k_pages = HeadShards.split(self.k_pages, devs)
+            self.v_pages = HeadShards.split(self.v_pages, devs)
+        self.mesh_chips = chips
 
     # -- views --------------------------------------------------------------
 

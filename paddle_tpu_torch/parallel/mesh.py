@@ -21,9 +21,16 @@ rank holds under a ``PartitionSpec`` (the reference places the global
 array over the devices; here each rank keeps its slab): rank ``r``'s
 slab is the reference's device ``r`` shard. :func:`shard_slab` cuts a
 global tensor to this rank's slab and :func:`gather_slab` puts the
-ranks' slabs back together (collective). ``serving_mesh`` and
-``shrink_serving_mesh`` come with Distributed IV (tensor-parallel
-serving) and raise.
+ranks' slabs back together (collective).
+
+A serving mesh is another thing: :func:`serving_mesh` gives a
+:class:`ServingMesh`, the devices of ONE process on the one ``mp`` axis
+(the reference's serving replica is one controller over its devices,
+and so is the port's). A tensor-parallel engine over it holds every
+chip's weight and pool slabs and runs each chip's share of a layer;
+:func:`serving_all_reduce` sums the row-parallel partials. The chips may
+share a device (logical chips, named by the caller: one card holds
+them all) or each have their own card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..ops._common import not_ported
 
 HYBRID_ORDER = ("dp", "pp", "sharding", "sep", "mp")
 
@@ -367,9 +373,69 @@ def slab_info(t) -> Optional[SlabInfo]:
     return getattr(v, "_slab", None)
 
 
-def serving_mesh(num_chips: int, devices: Optional[Sequence] = None):
-    raise not_ported("serving_mesh (tensor-parallel serving replicas)",
-                     "Distributed IV")
+class ServingMesh:
+    """A serving replica's tensor-parallel mesh: devices of this process
+    on the one ``mp`` axis. ``devices`` is the device array, ``shape``
+    ``{"mp": n}`` and ``axis_names`` ``("mp",)``, as a
+    ``jax.sharding.Mesh`` has them. ``chips`` names each chip by its
+    index in the device list the first mesh was built from, so a chip
+    keeps its name after :func:`shrink_serving_mesh` drops another one
+    (two logical chips on one device differ only by it)."""
+
+    def __init__(self, devices: Sequence, chips: Optional[Sequence[int]]
+                 = None, axis_name: str = "mp"):
+        devs = [_device(d) for d in devices]
+        if not devs:
+            raise ValueError("a serving mesh needs a device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a serving mesh's devices are all CPU or all "
+                             f"CUDA, got {devs}")
+        self.devices = np.empty(len(devs), dtype=object)
+        self.devices[:] = devs
+        self.chips = tuple(range(len(devs)) if chips is None
+                           else (int(c) for c in chips))
+        self.axis_names = (axis_name,)
+        self.shape = {axis_name: len(devs)}
+
+    @property
+    def shared(self) -> bool:
+        """Whether every chip lies on one device (logical chips)."""
+        return len(set(self.devices.tolist())) == 1
+
+    def __repr__(self):
+        return f"ServingMesh({self.shape}, {self.devices.tolist()})"
+
+
+def _device(d):
+    """``torch.device(d)`` with a CUDA device's index made explicit (a
+    tensor's ``.device`` carries it, ``torch.device("cuda")`` does
+    not)."""
+    import torch
+    dev = torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def serving_mesh(num_chips: int, devices: Optional[Sequence] = None
+                 ) -> ServingMesh:
+    """A serving replica's TP mesh (l.92): ``num_chips`` devices on the
+    ``mp`` axis. ``devices=None`` means the visible CUDA devices (none
+    raises); a list names them, and a device it repeats holds that many
+    logical chips (one card standing in for a mesh). More chips than
+    devices raises, as in the reference."""
+    if devices is None:
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass devices="
+                               "[torch.device('cpu')] * n for CPU chips")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = list(devices)
+    if num_chips < 1 or num_chips > len(devs):
+        raise ValueError(
+            f"serving mesh needs 1..{len(devs)} chips, got {num_chips}")
+    return ServingMesh(devs[:num_chips])
 
 
 def surviving_mp_degree(num_chips_left: int, num_kv_heads: int) -> int:
@@ -381,6 +447,41 @@ def surviving_mp_degree(num_chips_left: int, num_kv_heads: int) -> int:
     return 1
 
 
-def shrink_serving_mesh(mesh, dead_chip: int, num_kv_heads: int):
-    raise not_ported("shrink_serving_mesh (elastic serving resize)",
-                     "Distributed IV")
+def shrink_serving_mesh(mesh: ServingMesh, dead_chip: int,
+                        num_kv_heads: int) -> ServingMesh:
+    """The surviving serving mesh after ``dead_chip`` (an index into the
+    mesh's flat device order) is lost (l.117): drop that chip and
+    rebuild at the largest head-divisible degree the survivors support.
+    An out-of-range index raises."""
+    devs = mesh.devices.reshape(-1).tolist()
+    if not 0 <= int(dead_chip) < len(devs):
+        raise ValueError(
+            f"dead chip index {dead_chip} outside the mesh's "
+            f"{len(devs)} devices")
+    keep = [i for i in range(len(devs)) if i != int(dead_chip)]
+    if not keep:
+        raise ValueError("mesh has no surviving devices")
+    keep = keep[:surviving_mp_degree(len(keep), num_kv_heads)]
+    return ServingMesh([devs[i] for i in keep],
+                       [mesh.chips[i] for i in keep], mesh.axis_names[0])
+
+
+def serving_all_reduce(partials: Sequence) -> List:
+    """The row-parallel all-reduce of a serving mesh: ``partials`` holds
+    one fp32 tensor a chip, in chip order; returns the sum as each chip
+    holds it. Chips that share a device: one tensor, the partials added
+    in chip order (``((p0 + p1) + p2) + ...``), given to every chip.
+    Chips on distinct cards: ``torch.cuda.nccl.all_reduce`` from this
+    one process, in place (NCCL's ring order). Other layouts raise."""
+    devs = [p.device for p in partials]
+    if len(set(devs)) == 1:
+        acc = partials[0]
+        for p in partials[1:]:
+            acc = acc + p
+        return [acc] * len(partials)
+    if len(set(devs)) != len(devs) or devs[0].type != "cuda":
+        raise ValueError(f"a serving mesh's chips share one device or each "
+                         f"have their own card, got {devs}")
+    import torch.cuda.nccl as nccl
+    nccl.all_reduce(list(partials))
+    return list(partials)

@@ -8,9 +8,10 @@ prefix-aware router over N engine replicas with circuit-breaker failure
 detection, graceful drain and mid-stream failover (:mod:`.router`,
 :mod:`.replica`, :mod:`.health`), disaggregated prefill/decode roles
 with a wire-framed KV page handoff (:mod:`.roles`, :mod:`.wire`) and a
-signal-driven autoscaler (:mod:`.autoscale`); and the host tier —
-engine processes behind one router, with page migration between them
-and telemetry federation (:mod:`.multihost`).
+signal-driven autoscaler (:mod:`.autoscale`) and elastic mesh resize
+for TP-sharded replicas that survive chip loss (:mod:`.elastic`); and
+the host tier — engine processes behind one router, with page migration
+between them and telemetry federation (:mod:`.multihost`).
 
 Quick start::
 
@@ -27,13 +28,14 @@ Quick start::
         sched.step(params)
     tokens = handle.stream.result()
     print(sched.metrics.to_prometheus_text())
-
-Not yet ported: ``elastic`` (mesh resize).
 """
 
 from .autoscale import (  # noqa: F401
     AutoscaleConfig, AutoscaleController, AutoscalePolicy, Decision,
     ScaleRecord,
+)
+from .elastic import (  # noqa: F401
+    ElasticServingController, FlightSnapshot, ResizeRecord,
 )
 from .health import (  # noqa: F401
     HealthConfig, HealthTracker, ReplicaState,
@@ -66,4 +68,5 @@ __all__ = [
     "encode_pages", "decode_pages",
     "DisaggRouter", "ReplicaRole", "AutoscaleConfig", "AutoscaleController",
     "AutoscalePolicy", "Decision", "ScaleRecord",
+    "ElasticServingController", "FlightSnapshot", "ResizeRecord",
 ]

@@ -86,6 +86,41 @@ CARD_CPU_TOL = dict(out=(1e-4, 1e-5), loss=(1e-5, 1e-6))
 HYBRID_LOSS_TOL = (1e-3, 1e-4)
 
 
+# The ragged kernels (row 3) on one chip's head slab of a serving mesh,
+# as (rtol, atol) by dtype, against the whole-heads kernel's slice of the
+# same call and against the plain version on the slab. Against the plain
+# version: the tolerance of phase 3 (the plain version rounds P to bf16
+# before P·V, the key split keeps it fp32). Against the whole call: a
+# slab of fewer heads may take another key split (ops.paged_attention.
+# ragged_split picks it from nh and nkv), so a decoded token's parts are
+# merged in another grouping: fp32 sums in another order, then one bf16
+# rounding that may go the other way (one bf16 step). Where the split
+# is the same, the slab's output is the whole call's slice bitwise.
+RAGGED_SLAB_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-5)}
+
+
+# Llama-2-7B served over a serving mesh of 4 chips against the same
+# weights on one chip (chip_smoke phase 38 against phase 7). The
+# row-parallel products (wo, w_down) sum four fp32 partials before their
+# one rounding where one GEMM rounds its own fp32 sum. In fp32 that is a
+# sum order: the first step's logits over 2 layers at 7B widths differ
+# by a relative L2 of 3.3e-6, as the one-chip step's own against a
+# repacked batch (3.8e-6; fp32_rel_l2). In bf16 each such rounding may
+# go the other way by one bf16 step and the residual stream carries it:
+# the first step's logits differ by a relative L2 of 2.7e-3 after one
+# layer, 0.011 after 4, 0.028 after 16 and 0.044 after 32 (the same at
+# mp 2 and 4), the largest |difference| 0.21 of the logits' rms
+# (measured on an H100 by scripts/tp_logits_by_depth.py; rel_l2, and
+# max_abs as a share of the rms). Past the first step a greedy token may
+# leave the one-chip stream only at a near-tie: the one-chip top-2 there
+# must hold the mesh's token, with a margin under `margin` of the rms
+# (twice max_abs: two logits each moved by up to max_abs). A lost chip's
+# partial or a slab attended with another chip's pool moves the logits
+# by their own size.
+TP_SERVE_TOL = dict(rel_l2=2 ** -4, max_abs=0.375, margin=0.75,
+                    fp32_rel_l2=2 ** -16)
+
+
 # The eager Tensor path (scripts/eager_llama_step.py at tiny widths) on
 # the card against the CPU, by precision. "loss" is (rtol, atol); "grads"
 # is l2_close's (rtol, atol as a share of the CPU gradient's rms, most

@@ -151,20 +151,26 @@ def test_submit_and_admission_limits():
 
 @pytest.mark.parametrize("kwargs,ported", [
     (dict(speculative=True), True), (dict(fused_tail=True), True),
-    (dict(mesh=object()), False),
+    (dict(mesh="serving_mesh(2)"), True),
     (dict(generation_config=TD.GenerationConfig(do_sample=True)), True)],
     ids=["speculative", "fused_tail", "mesh", "do_sample"])
 def test_unported_engine_options_raise(kwargs, ported):
-    """``mesh`` comes with a later slice and raises; speculative
-    decoding and ``do_sample`` (the sampling slice) and ``fused_tail``
-    (the jit slice) are ported and construct (tests/test_torch_sampling.py,
-    tests/test_torch_speculative.py and tests/test_torch_fusion.py hold
-    them to the JAX engine)."""
+    """Every option of the JAX engine is ported now and constructs:
+    speculative decoding and ``do_sample`` (the sampling slice),
+    ``fused_tail`` (the jit slice) and ``mesh`` (tensor-parallel
+    serving; tests/test_torch_sampling.py, tests/test_torch_speculative.py,
+    tests/test_torch_fusion.py and tests/test_torch_multichip_serving.py
+    hold them to the JAX engine)."""
+    if "mesh" in kwargs:
+        from paddle_tpu_torch.parallel.mesh import serving_mesh
+        kwargs = dict(mesh=serving_mesh(2, [torch.device("cpu")] * 2))
     if ported:
         eng = TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu",
                                           **kwargs)
         assert (eng.spec is not None) == bool(kwargs.get("speculative"))
         assert eng._fused_tail == bool(kwargs.get("fused_tail"))
+        assert eng.num_chips == (2 if "mesh" in kwargs else 1)
+        assert eng.mesh is kwargs.get("mesh")
         return
     with pytest.raises(NotImplementedError, match="slice"):
         TD.ContinuousBatchingEngine(TL.llama_tiny(), device="cpu", **kwargs)

@@ -5,8 +5,10 @@ speculative; bf16 speculative streams equal to the plain ones), the
 generate engines, the Llama and ERNIE training steps
 and main-grad training of the imperative Llama on the card against the
 same on the CPU, the hybrid step over one NCCL rank against the CPU and
-the one-device step, and the training steps' launch counts. Marked ``gpu``; they skip where no CUDA device is
-present. Run on the card (the machine there has no JAX, so skip the
+the one-device step, the training steps' launch counts, and
+tensor-parallel serving over logical chips on one card (the engine
+against the CPU, row 3 on each chip's head slab). Marked ``gpu``; they
+skip where no CUDA device is present. Run on the card (the machine there has no JAX, so skip the
 conftest):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
@@ -3136,3 +3138,114 @@ def test_gpt_moe_train_step_on_card_matches_cpu(cuda):
     rtol, atol = MOE_LOSS_TOL
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=rtol,
                                atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Distributed IV: tensor-parallel serving over logical chips on one card
+# ---------------------------------------------------------------------------
+
+def _logical_mesh(n):
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
+    return serving_mesh(n, [torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_tp_engine_on_card_matches_cpu(cuda, mp, prefix_cache):
+    """A tiny fp32 engine over ``mp`` logical chips on the card (CUDA
+    graphs), greedy and seeded sampled requests mixed, against the CPU
+    engine at one chip: the same tokens; rows 1 and 3 ran (row 3 once a
+    chip and layer)."""
+    cfg = L.llama_tiny(hidden_size=512, num_attention_heads=4,
+                       num_key_value_heads=4, intermediate_size=1024,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params = L.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3)]
+    kw = dict(num_slots=2, page_size=16, max_seq_len=128, chunk=4,
+              prefix_cache=prefix_cache)
+
+    def serve(eng, p):
+        rids = [eng.submit(x, sampler=SamplerConfig(temperature=0.8,
+                                                    seed=5 + i)
+                           if i % 2 else None)
+                for i, x in enumerate(prompts)]
+        out = {}
+        while len(out) < len(rids):
+            eng.step(p)
+            out.update(eng.collect())
+        return [out[r] for r in rids]
+
+    want = serve(D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=8), device="cpu", **kw),
+        params)
+    eng = D.ContinuousBatchingEngine(
+        cfg, D.GenerationConfig(max_new_tokens=8), mesh=_logical_mesh(mp),
+        **kw)
+    r0 = pa.ragged_paged_attention.launches
+    got = serve(eng, {k: v.cuda() for k, v in params.items()})
+    assert got == want
+    assert eng.num_chips == mp
+    assert pa.ragged_paged_attention.launches - r0 == \
+        mp * cfg.num_hidden_layers * eng.micro_rounds
+    assert all(s.is_cuda and s.is_contiguous()
+               for s in eng.mgr.k_pages.slabs)
+
+
+@pytest.mark.parametrize("nh,nkv,chips", [(32, 32, 2), (32, 32, 4),
+                                          (32, 8, 4)],
+                         ids=["mha_mp2", "mha_mp4", "gqa_mp4"])
+def test_ragged_head_slabs_match_whole_and_plain(cuda, nh, nkv, chips):
+    """Row 3 on each chip's contiguous head slab at the 7B serve's packed
+    shapes (bf16) against the whole call's slice and the plain version on
+    the slab (``testing.RAGGED_SLAB_TOL``); pads exactly 0."""
+    from paddle_tpu_torch.testing import RAGGED_SLAB_TOL
+    rtol, atol = RAGGED_SLAB_TOL[torch.bfloat16]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n_rows, width, page, d, T = 8, 64, 16, 128, 256
+    pool = (n_rows * width + 1, page, nkv, d)
+    k = torch.randn(pool, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(pool, generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((T, nh, d), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    bt = (1 + torch.arange(n_rows * width, device=cuda,
+                           dtype=torch.int32)).reshape(n_rows, width)
+    # seven rows: four decode tokens, a 180-token prompt chunk, a warm
+    # 60-token chunk, an idle row; pads after
+    rows = [(999, 1), (516, 1), (94, 1), (300, 1), (0, 180), (400, 60)]
+    tr = torch.full((T,), -1, dtype=torch.int32)
+    pos = torch.zeros(T, dtype=torch.int32)
+    dec = torch.zeros(T, dtype=torch.bool)
+    kvl = torch.zeros(n_rows, dtype=torch.int32)
+    c = 0
+    for r, (p0, n) in enumerate(rows):
+        tr[c:c + n], pos[c:c + n] = r, p0 + torch.arange(n)
+        dec[c:c + n] = n == 1
+        kvl[r] = p0 + n
+        c += n
+    tr, pos, dec, kvl = (a.to(cuda) for a in (tr, pos, dec, kvl))
+    meta = (bt, tr, pos, kvl)
+    whole = pa.ragged_paged_attention_kernel(q, k, v, *meta, dec)
+    devs = [torch.device("cuda", 0)] * chips
+    qs = pa.split_heads(q, chips, devs)
+    ks = pa.HeadShards.split(k, devs).slabs
+    vs = pa.HeadShards.split(v, devs).slabs
+    n0 = pa.ragged_paged_attention.launches
+    outs = pa.ragged_paged_attention_chips(qs, ks, vs, *meta, decoding=dec)
+    assert pa.ragged_paged_attention.launches - n0 == chips
+    hq = nh // chips
+    for ci, out in enumerate(outs):
+        torch.testing.assert_close(
+            out.float(), whole[:, ci * hq:(ci + 1) * hq].float(),
+            rtol=rtol, atol=atol)
+        plain = pa.ragged_paged_attention_plain(qs[ci], ks[ci], vs[ci],
+                                                *meta)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                                   atol=atol)
+        assert bool((out[tr < 0] == 0).all())
+    # the wrapper over the mesh joins the chips' outputs on heads
+    mesh = _logical_mesh(chips)
+    joined = pa.ragged_paged_attention(q, k, v, *meta, mesh=mesh,
+                                       decoding=dec)
+    assert torch.equal(joined, torch.cat(outs, dim=1))

@@ -177,11 +177,16 @@ def test_check_invariants_gates_the_page_audit(check, monkeypatch):
 def test_engine_mesh_and_mp_axis():
     from paddle_tpu_torch.inference.decoding import ContinuousBatchingEngine
     cfg, _ = _tiny_engine_args()
-    # the reference's defaults are accepted; a mesh is a later slice
+    # the reference's defaults are accepted; a mesh without the named
+    # axis raises the reference's error
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
     ContinuousBatchingEngine(cfg, mp_axis="mp", mesh=None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(cfg, mesh=object(), mp_axis="tp",
+    mesh = serving_mesh(2, [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="no 'tp' axis"):
+        ContinuousBatchingEngine(cfg, mesh=mesh, mp_axis="tp",
                                  device="cpu")
+    assert ContinuousBatchingEngine(cfg, mesh=mesh, mp_axis="mp",
+                                    device="cpu").num_chips == 2
 
 
 def test_rms_norm_takes_weight_and_epsilon():
@@ -225,9 +230,15 @@ def test_ragged_paged_attention_ninth_positional_is_mesh():
                                    "mp")
     b = TPA.ragged_paged_attention(q, kp, vp, bt, row, pos, lens, 0.5)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    # the ninth positional takes a serving mesh: one chip runs the whole
+    # call, two cannot split this pool's one kv head
+    from paddle_tpu_torch.parallel.mesh import serving_mesh
+    cpu = torch.device("cpu")
+    assert torch.equal(TPA.ragged_paged_attention(
+        q, kp, vp, bt, row, pos, lens, 0.5, serving_mesh(1, [cpu])), b)
+    with pytest.raises(ValueError, match="split"):
         TPA.ragged_paged_attention(q, kp, vp, bt, row, pos, lens, 0.5,
-                                   object())
+                                   serving_mesh(2, [cpu] * 2))
 
 
 def test_ernie_classifier_third_positional_is_dropout():

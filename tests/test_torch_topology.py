@@ -107,10 +107,16 @@ def test_global_mesh_queries_at_one_process():
     assert tuple(ns.spec) == ("dp", None) and ns.mesh is m
     assert ns.index((4, 3)) == (slice(0, 4), slice(0, 3))
     assert ns.replica_id() == 0
-    for fn, args in ((tmesh.serving_mesh, (2,)),
-                     (tmesh.shrink_serving_mesh, (m, 0, 4))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn(*args)
+    # a serving mesh is this process's devices on one mp axis, apart
+    # from the rank mesh; without a card, devices=None raises
+    import torch
+    sm = tmesh.serving_mesh(2, [torch.device("cpu")] * 2)
+    assert sm.shape == {"mp": 2} and sm.shared
+    small = tmesh.shrink_serving_mesh(sm, 0, 4)
+    assert small.shape == {"mp": 1} and small.chips == (1,)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.serving_mesh(2)
     assert tmesh.surviving_mp_degree(3, 4) == rmesh.surviving_mp_degree(3, 4)
 
 

@@ -984,3 +984,35 @@ def gpt_moe_scenarios(out_dir: str, runs) -> None:
         pmesh.set_global_mesh(None)
         topo.set_hybrid_communicate_group(None)
     _finish(D, out, out_dir, r)
+
+
+# ---------------------------------------------------------------------------
+# auto_parallel: shard_tensor and reshard over the job's ranks
+# ---------------------------------------------------------------------------
+
+def auto_parallel_scenarios(out_dir: str, x: np.ndarray) -> None:
+    """``shard_tensor`` and ``reshard`` of the global ``x`` (4, 6) over a
+    2-rank mesh, each rank's slab out: Shard(0) over a flat mesh,
+    Shard→Replicate (an all-gather), Replicate→Shard(1) (a cut), and
+    [Replicate, Shard(1)] over a (1, 2) mesh."""
+    D = _init_gloo()
+    import torch
+    r = D.get_rank()
+    out = {}
+    flat = D.ProcessMesh([0, 1], dim_names=["x"])
+    grid = D.ProcessMesh([[0, 1]], dim_names=["a", "b"])
+    s0 = D.shard_tensor(x, flat, [D.Shard(0)])
+    out["shard0"] = (_np(s0), tuple(s0._sharding_spec), s0.is_distributed,
+                     s0._value._slab.pieces)
+    rep = D.reshard(s0, flat, [D.Replicate()])
+    out["to_replicate"] = (_np(rep), tuple(rep._sharding_spec))
+    s1 = D.reshard(rep, flat, [D.Shard(1)])
+    out["to_shard1"] = _np(s1)
+    s01 = D.reshard(s0, flat, [D.Shard(1)])
+    out["shard0_to_shard1"] = _np(s01)
+    g = D.shard_tensor(torch.from_numpy(x), grid,
+                       [D.Replicate(), D.Shard(1)])
+    out["grid"] = (_np(g), tuple(g._sharding_spec))
+    out["dtensor_from_fn"] = _np(D.dtensor_from_fn(
+        np.arange, flat, [D.Shard(0)], 8, dtype=np.float32))
+    _finish(D, out, out_dir, r)
