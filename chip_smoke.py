@@ -451,6 +451,33 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     group against the CPU. (f) Only with two cards: a serving mesh over
     cuda:0 and cuda:1 (the NCCL all-reduce); otherwise it says why it
     did not run.
+39. Other workloads: int8 serving and vision, TF32 off. (a) and (b) run
+    while phase 7's weights are on the card, (c) to (f) last. (a) Tiny
+    fp32 card == CPU: phase 5's config with all eight Llama keys
+    weight-only int8 (the card's int8 bytes the CPU's) served by the
+    unified and legacy engines with FLAGS_serving_a8w8_prefill on and
+    off, identical greedy tokens; ``_int8_mm``'s int32 product and
+    output bitwise; ``FusedMultiTransformerInt8`` prefill and decode
+    within ``testing.INT8_CARD_CPU_TOL``; a ResNet-18 SGD step within
+    ``testing.VISION_CARD_CPU_TOL``; two ViT ``build_vit_train_step``
+    steps (2 heads of 64) within ``CARD_CPU_TOL`` and
+    ``trained_weights_close``. (b) Llama-2-7B weight-only int8
+    (``quantize_stacked_params`` of phase 7's weights) served with phase
+    7's load through the CUDA graphs, A8W8 prefill on: step walls,
+    tokens/s, peak memory, weight bytes, builds and capture seconds, rows
+    1 and 3's launches checked against the micro-rounds, a profiled
+    prefill and decode step, the greedy streams equal to phase 7's
+    (counted, not asserted); then the flag off once: one more counted
+    build, the weight-only route's step walls. (c)
+    ``FusedMultiTransformerInt8`` at BERT-large geometry (24 layers, h
+    1024, 16 heads, bf16, (8, 512)) against the bf16 stack: device ms of
+    each, relative L2, rows 5 and 8's launches. (d) ResNet-50, B 128 at
+    224², AMP O2 bf16, Momentum through ``jit.TrainStep``; (e) ViT-L/16,
+    B 32 at 224², bf16, ``build_vit_train_step`` with rows 5, 6 and 8's
+    launches a step checked and MFU by the reference bench's FLOP count;
+    (f) PP-YOLOE-s, B 16 at 320², AdamW through ``jit.TrainStep``, then
+    ``predict_with_nms``: 3 warm-up and 5 timed steps each, ms/step,
+    img/s, peak memory, finite losses.
 
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -475,7 +502,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 38
+N_PHASES = 39
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -1496,7 +1523,8 @@ def sampling_parity_phase(torch, L, D):
             eng._graphs = graphs
             outs.append(_serve_subs(eng, params, prompts, subs)[0])
             name = "cbe.spec_step" if spec else "cbe.unified_step"
-            if [(n, k[-1]) for n, k in eng.compile_misses] != [(name, True)]:
+            # k[6]: the sampling epilogue (the prefill flags follow it)
+            if [(n, k[6]) for n, k in eng.compile_misses] != [(name, True)]:
                 raise AssertionError(f"program builds {eng.compile_misses}")
         if not outs[0] == outs[1] == outs[2]:
             raise AssertionError(f"mixed serve (speculative {spec}): "
@@ -1688,7 +1716,7 @@ def sampling_7b_phase(torch, L, D, C, rn, pa, cfg, params, greedy,
         for toks, sub in zip(outs, subs):
             if "grammar" in sub:
                 _check_legal(gram, toks)
-        if [(n, k[-1]) for n, k in eng.compile_misses] != [
+        if [(n, k[6]) for n, k in eng.compile_misses] != [
                 ("cbe.unified_step", True)]:
             raise AssertionError(f"program builds {eng.compile_misses}")
         generated = NEW_TOKENS * len(prompts)
@@ -1822,7 +1850,8 @@ def _generate_run(torch, D, rn, cfg, params, ids, max_new, graphs,
     rms = rn.rms_norm.launches
     if not np.array_equal(first, toks):
         raise AssertionError("a replay's tokens differ from the first run's")
-    key = (D._bucket(ids.shape[1]), max_new, ids.shape[0])
+    key = (D._bucket(ids.shape[1]), max_new, ids.shape[0]) \
+        + D._prefill_flags()
     if eng.compile_misses != [("generation_engine.run", key)]:
         raise AssertionError(f"program builds {eng.compile_misses}")
     want = (2 * cfg.num_hidden_layers + 1) * max_new
@@ -9514,6 +9543,516 @@ def tp_two_cards_phase(torch, L, D):
     return dict(ran=True, cards=n, tokens=got[:2])
 
 
+# ---------------------------------------------------------------------------
+# phase 39: other workloads — int8 serving and vision
+# ---------------------------------------------------------------------------
+
+#: the counters phase 39 reads, by the kernel line's names
+P39_KERNELS = ("rms_norm_fwd", "ragged_paged_attention",
+               "paged_decode_attention", "flash_attention_fwd",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+               "layer_norm_fwd", "layer_norm_bwd")
+
+
+def _p39_counters(rn, pa, fa, ln):
+    return dict(zip(P39_KERNELS, (
+        rn.rms_norm, pa.ragged_paged_attention, pa.paged_attention,
+        fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel, fa.flash_bwd_dkv_kernel,
+        ln.layer_norm, ln.layer_norm_bwd)))
+
+
+def _read(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _add(total, part):
+    for k, n in part.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _rel(got, want):
+    """(relative L2 error, largest |difference| as a share of the rms)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    rms = want.pow(2).mean().sqrt().item()
+    return dict(rel_l2=((got - want).norm() / want.norm()).item(),
+                max_abs_share=(got - want).abs().max().item() / rms)
+
+
+def _built_on_cpu(fn):
+    """``fn()`` with the framework's place set to the CPU (its layers
+    built there), the place restored after."""
+    from paddle_tpu_torch.core import place
+    saved = place._current_place[0]
+    place.set_device("cpu")
+    try:
+        return fn()
+    finally:
+        place._current_place[0] = saved
+
+
+def int8_tiny_phase(torch, L, D, rn, pa, fa, ln, ftb):
+    """(a) Tiny fp32 checks of the slice, card against CPU, TF32 off.
+    Phase 5's config with all eight Llama keys quantized
+    (``quantize_stacked_params``: the card's int8 bytes equal the CPU's)
+    served by the unified and the legacy engines with
+    FLAGS_serving_a8w8_prefill on and off: identical greedy tokens, rows
+    1, 3 and 4 counted on the card. ``_int8_mm`` at (40, 256) x (256,
+    512): the int32 product and the output bitwise the CPU's.
+    ``FusedMultiTransformerInt8`` (2 layers, h 128, 2 heads of 64)
+    prefill with a cache and one decode step within
+    ``testing.INT8_CARD_CPU_TOL``. ResNet-18 (4 images of 64²) one SGD
+    step: loss and gradients within ``testing.VISION_CARD_CPU_TOL``; a
+    ViT (h 128, 2 heads of 64: the kernels take d 64 or 128) two
+    ``build_vit_train_step`` steps at lr 1e-3: the first loss within
+    ``CARD_CPU_TOL``, the second (after an AdamW step that may move a
+    noise-gradient element ±lr apart) within 1e-4, the weights by
+    ``trained_weights_close``."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedMultiTransformerInt8)
+    from paddle_tpu_torch.testing import (CARD_CPU_TOL, INT8_CARD_CPU_TOL,
+                                          VISION_CARD_CPU_TOL, l2_close,
+                                          trained_weights_close)
+    from paddle_tpu_torch.vision.models import resnet18
+    from paddle_tpu_torch.vision.models import vit as V
+    counters = _p39_counters(rn, pa, fa, ln)
+    launches, report = {}, {}
+
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    params_cpu = L.init_params(cfg, seed=SEED, device="cpu")
+    q_cpu = Q.quantize_stacked_params(params_cpu)
+    q_gpu = Q.quantize_stacked_params({k: v.cuda()
+                                       for k, v in params_cpu.items()})
+    for k, v in q_cpu.items():
+        if isinstance(v, dict) and not all(torch.equal(v[p], q_gpu[k][p].cpu())
+                                           for p in ("q", "scale")):
+            raise AssertionError(f"{k}: the card's int8 weights differ")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3, 29)]
+    serves = {}
+    for unified in (True, False):
+        for flag in (True, False):
+            TP.set_flags({"FLAGS_serving_a8w8_prefill": int(flag)})
+            try:
+                outs = []
+                for dev, params in (("cuda", q_gpu), ("cpu", q_cpu)):
+                    eng = D.ContinuousBatchingEngine(
+                        cfg, D.GenerationConfig(max_new_tokens=8),
+                        num_slots=2, page_size=16, max_seq_len=128, chunk=4,
+                        device=dev, unified=unified)
+                    _reset(counters)
+                    outs.append(_serve_checked(eng, params, prompts)[0])
+                    if dev == "cuda":
+                        _add(launches, _read(counters))
+            finally:
+                TP.set_flags({"FLAGS_serving_a8w8_prefill": 1})
+            if outs[0] != outs[1]:
+                raise AssertionError(f"int8 (unified {unified}, a8w8 {flag})"
+                                     f": card {outs[0]} != cpu {outs[1]}")
+            serves[f"{'unified' if unified else 'legacy'}_"
+                   f"{'a8w8' if flag else 'weight_only'}"] = outs[0]
+    report["serves"] = serves
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(40, 256, generator=gen)
+    wq = torch.randint(-127, 128, (256, 512), generator=gen,
+                       dtype=torch.int8)
+    ws = torch.rand(512, generator=gen) * 0.01
+    xq = torch.randint(-127, 128, (40, 256), generator=gen,
+                       dtype=torch.int8)
+    prod = (ftb.int32_product(xq.cuda(), wq.cuda()).cpu(),
+            ftb.int32_product(xq, wq))
+    mm = (ftb._int8_mm(x.cuda(), wq.cuda(), ws.cuda()).cpu(),
+          ftb._int8_mm(x, wq, ws))
+    if not (torch.equal(*prod) and torch.equal(*mm)):
+        raise AssertionError("_int8_mm on the card is not the CPU's bits")
+    report["int8_mm_bitwise"] = True
+
+    TP.seed(SEED)
+    fm_cpu = FusedMultiTransformer(128, 2, 256, num_layers=2, device="cpu")
+    fm_gpu = FusedMultiTransformer(128, 2, 256, num_layers=2, device="cuda")
+    fm_gpu.set_state_dict(fm_cpu.state_dict())
+    outs = {}
+    for dev, fm in (("cuda", fm_gpu), ("cpu", fm_cpu)):
+        q = FusedMultiTransformerInt8.from_float(
+            fm, qkv_in_scale=[4.0, 4.0])
+        xs = torch.randn(2, 17, 128, generator=torch.Generator()
+                         .manual_seed(SEED)).to(dev)
+        _reset(counters)
+        pre, cache = q(xs[:, :16], gen_cache_len=17)
+        step, cache = q(xs[:, 16:], caches=cache, time_step=16)
+        if dev == "cuda":
+            _add(launches, _read(counters))
+        outs[dev] = (pre, step, cache)
+    report["fused_int8"] = {
+        name: l2_close(outs["cuda"][i].cpu(), outs["cpu"][i],
+                       INT8_CARD_CPU_TOL, f"FusedMultiTransformerInt8 {name}")
+        for i, name in enumerate(("prefill", "decode", "cache"))}
+
+    TP.seed(SEED)
+    net_cpu = _built_on_cpu(lambda: resnet18(num_classes=10))
+    net_gpu = resnet18(num_classes=10)
+    net_gpu.set_state_dict(net_cpu.state_dict())
+    x_np = np.random.RandomState(SEED).randn(4, 3, 64, 64).astype(np.float32)
+    y_np = np.array([3, 7, 0, 9], np.int64)
+    res = {}
+    for dev, net in (("cuda", net_gpu), ("cpu", net_cpu)):
+        opt = TP.optimizer.SGD(learning_rate=0.1, parameters=net.parameters())
+        loss = TP.nn.functional.cross_entropy(
+            net(torch.from_numpy(x_np).to(dev)),
+            torch.from_numpy(y_np).to(dev))
+        loss.backward()
+        res[dev] = (float(loss), {n: p.grad.detach().cpu()
+                                  for n, p in net.named_parameters()})
+        opt.step()
+    worst = max(_rel(res["cuda"][1][k], res["cpu"][1][k])["rel_l2"]
+                for k in res["cpu"][1])
+    loss_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    if loss_rel > VISION_CARD_CPU_TOL["loss"] or \
+            worst > VISION_CARD_CPU_TOL["grad_rel_l2"]:
+        raise AssertionError(f"ResNet-18 step: loss rel {loss_rel}, worst "
+                             f"gradient rel L2 {worst}")
+    report["resnet18"] = dict(loss=res["cuda"][0], loss_rel=loss_rel,
+                              worst_grad_rel_l2=worst,
+                              bounds=VISION_CARD_CPU_TOL)
+    del net_gpu, net_cpu
+
+    TP.seed(SEED)
+    vit = _built_on_cpu(lambda: V.vit_tiny_test(embed_dim=128, num_heads=2))
+    p_cpu = V.stacked_params_from_module(vit)
+    xv = np.random.RandomState(SEED).randn(4, 3, 16, 16).astype(np.float32)
+    yv = np.array([1, 5, 2, 9], np.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step, init = V.build_vit_train_step(num_heads=2, patch=4,
+                                            learning_rate=1e-3,
+                                            dtype=torch.float32)
+        params = {k: v.clone().to(dev) for k, v in p_cpu.items()}
+        opt = init(params)
+        _reset(counters)
+        losses = [float(step(params, opt, torch.from_numpy(xv).to(dev),
+                             torch.from_numpy(yv).to(dev))[0])
+                  for _ in range(2)]
+        if dev == "cuda":
+            _add(launches, _read(counters))
+        runs[dev] = (losses, {k: v.cpu() for k, v in params.items()})
+    rtol, atol = CARD_CPU_TOL["loss"]
+    np.testing.assert_allclose(runs["cuda"][0][0], runs["cpu"][0][0],
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(runs["cuda"][0][1], runs["cpu"][0][1],
+                               rtol=1e-4)
+    report["vit"] = dict(losses=runs["cuda"][0], cpu_losses=runs["cpu"][0],
+                         **trained_weights_close(
+                             runs["cuda"][1], runs["cpu"][1], 1e-3, 2,
+                             hidden=128, msg="ViT steps"))
+    return dict(report, launches=launches)
+
+
+def int8_7b_phase(torch, L, D, rn, pa, cfg, params, greedy):
+    """(b) Llama-2-7B with all eight keys weight-only int8
+    (``quantize_stacked_params`` of phase 7's weights) served by
+    ``ContinuousBatchingEngine`` with phase 7's load (12 requests, 8
+    slots, 32 new tokens) through the CUDA graphs, A8W8 prefill on:
+    step walls, tokens/s, peak memory, weight bytes, program builds and
+    capture seconds, rows 1 and 3's launches checked against the
+    micro-rounds, a profiled prefill and decode step, and how many greedy
+    streams equal phase 7's bf16 ones (reported, not asserted:
+    quantization may move tokens). Then FLAGS_serving_a8w8_prefill off
+    once: one more counted program build, and the weight-only route's
+    step walls on two of the prompts."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.observability.memory import pytree_nbytes
+    from paddle_tpu_torch.observability.runtime import recompiles
+    n_layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    qp = Q.quantize_stacked_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    prompts = serve_load(cfg)
+    eng = _serve_engine(D, cfg, step_tokens=256)
+
+    def reset():
+        rn.rms_norm.launches = 0
+        _reset_ragged(pa)
+    outs, report = _serve_run(torch, eng, qp, prompts, reset)
+    launches = {"rms_norm_fwd": rn.rms_norm.launches,
+                **_ragged_launches(pa)}
+    rounds = eng.micro_rounds
+    want = {"rms_norm_fwd": (2 * n_layers + 1) * rounds,
+            **_ragged_want(torch, pa, n_layers * rounds)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    _check_outputs(cfg, outs, eng)
+    programs = _programs(eng, "cbe.unified_step")
+    if not eng.compile_misses[0][1][7]:
+        raise AssertionError(f"the A8W8 flag is not in the key "
+                             f"{eng.compile_misses}")
+    breakdown = step_breakdown(torch, eng, qp, cfg.vocab_size)
+    before = recompiles.count("cbe.unified_step")
+    TP.set_flags({"FLAGS_serving_a8w8_prefill": 0})
+    try:
+        rn.rms_norm.launches = 0
+        _reset_ragged(pa)
+        t1 = time.perf_counter()
+        off, off_ms = _serve_checked(eng, qp, prompts[:2])
+        off_s = time.perf_counter() - t1
+        off_launches = {"rms_norm_fwd": rn.rms_norm.launches,
+                        "ragged_paged_attention":
+                            pa.ragged_paged_attention.launches}
+    finally:
+        TP.set_flags({"FLAGS_serving_a8w8_prefill": 1})
+    if recompiles.count("cbe.unified_step") != before + 1 or \
+            [k[7] for n, k in eng.compile_misses] != [True, False]:
+        raise AssertionError(f"the flag flip: {eng.compile_misses}")
+    identical = sum(a == b for a, b in zip(outs, greedy))
+    prefix = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                   len(a)) for a, b in zip(outs, greedy)]
+    steps = report["steps"]
+    report.update(
+        steady_mean_step_ms=(report["mean_step_ms"] * steps
+                             - report["first_step_ms"]) / (steps - 1),
+        first_token_equal_to_phase7=sum(p > 0 for p in prefix),
+        tokens_equal_to_phase7_before_first_difference=prefix)
+    report.update(
+        quantize_s=quant_s, weight_bytes=pytree_nbytes(qp),
+        bf16_weight_bytes=pytree_nbytes(params), micro_rounds=rounds,
+        launches=launches, launches_per_micro_round={
+            k: v / rounds for k, v in launches.items()},
+        programs=programs, breakdown=breakdown,
+        identical_to_phase7=identical, of=len(greedy),
+        weight_only=dict(requests=2, steps=len(off_ms), serve_s=off_s,
+                         step_ms=off_ms,
+                         steady_mean_step_ms=float(np.mean(off_ms[1:])),
+                         capture_s=eng.capture_seconds.get(
+                             "cbe.unified_step"),
+                         misses=len(eng.compile_misses),
+                         identical_to_a8w8=sum(
+                             a == b for a, b in zip(off, outs[:2]))))
+    report["launches"] = _add(dict(launches), off_launches)
+    del eng, qp
+    _free_card(torch)
+    return report
+
+
+def int8_fused_phase(torch, ftb, fa, ln):
+    """(c) ``FusedMultiTransformerInt8`` at BERT-large geometry (24
+    layers, h 1024, 16 heads, ff 4096, bf16) against the bf16
+    ``FusedMultiTransformer`` it was quantized from (seeded
+    Xavier weights), a (8, 512) prefill: device ms of each (one CUDA
+    graph of the call), the relative L2 and largest difference of the
+    int8 output, and rows 5 and 8's launches of one int8 prefill (24
+    and 48)."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedMultiTransformerInt8)
+    n_layers, h, heads, ff, b, s = 24, 1024, 16, 4096, 8, 512
+    TP.seed(SEED)
+    fm = FusedMultiTransformer(h, heads, ff, num_layers=n_layers,
+                               dtype=torch.bfloat16, device="cuda")
+    q = FusedMultiTransformerInt8.from_float(fm)
+    x = torch.randn(b, s, h, generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED), device="cuda").to(torch.bfloat16)
+    counters = dict(flash_attention_fwd=fa.flash_fwd_kernel,
+                    layer_norm_fwd=ln.layer_norm)
+    _reset(counters)
+    got = q(x)
+    launches = _read(counters)
+    want = dict(flash_attention_fwd=n_layers, layer_norm_fwd=2 * n_layers)
+    if launches != want:
+        raise AssertionError(f"int8 stack launches {launches} != {want}")
+    ref = fm(x)
+    close = _rel(got.float(), ref.float())
+    if not (torch.isfinite(got).all() and close["rel_l2"] < 0.1):
+        raise AssertionError(f"int8 stack far from the bf16 one: {close}")
+    with torch.no_grad():
+        bf16_ms = device_ms(torch, lambda: fm(x), iters=3, replays=3)
+        int8_ms = device_ms(torch, lambda: q(x), iters=3, replays=3)
+    report = dict(geometry=dict(layers=n_layers, hidden=h, heads=heads,
+                                ffn=ff, batch=b, seq=s),
+                  bf16_ms=bf16_ms, int8_ms=int8_ms,
+                  speedup=bf16_ms / int8_ms, **close,
+                  launches=launches)
+    del fm, q
+    _free_card(torch)
+    return report
+
+
+def _vision_steps(torch, step, args, counters, warm, timed, want=None):
+    """``warm`` + ``timed`` calls of a train step, each synchronized and
+    timed on the host clock, the counters zeroed before each and (with
+    ``want``) checked after it. Returns the losses, the timed steps' ms
+    and the launch totals."""
+    losses, ms, totals = [], [], {}
+    for i in range(warm + timed):
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*args)
+        losses.append(float(getattr(loss, "_value", loss)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = _read(counters)
+        if want is not None and got != want:
+            raise AssertionError(f"step {i}: launches {got} != {want}")
+        _add(totals, got)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    return losses, ms[warm:], totals
+
+
+VISION_WARM, VISION_STEPS = 3, 5
+
+
+def resnet50_phase(torch):
+    """(d) ResNet-50 (1000 classes) as ``benchmarks/bench_resnet.py``
+    trains it: B 128 at 224², ``amp.decorate(level="O2",
+    dtype="bfloat16")``, Momentum (lr 0.1, 0.9) through ``jit.TrainStep``
+    (a CUDA graph); 3 warm-up and 5 timed steps: ms/step (median), img/s,
+    peak memory, finite losses."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import amp, jit, optimizer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    b, side = 128, 224
+    TP.seed(SEED)
+    net = resnet50(num_classes=1000)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=net.parameters())
+    amp.decorate(models=net, optimizers=opt, level="O2", dtype="bfloat16")
+
+    def loss_fn(model, x, y):
+        return F.cross_entropy(model(x).astype("float32"), y)
+
+    step = jit.TrainStep(net, loss_fn, opt)
+    rng = np.random.RandomState(SEED)
+    x = TP.to_tensor(rng.randn(b, 3, side, side).astype(np.float32)) \
+        .astype("bfloat16")
+    y = TP.to_tensor(rng.randint(0, 1000, (b,)).astype(np.int64))
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, _ = _vision_steps(torch, step, (x, y), {}, VISION_WARM,
+                                  VISION_STEPS)
+    step_ms = float(np.median(ms))
+    report = dict(batch=b, side=side, amp="O2 bf16", optimizer="Momentum",
+                  steps=dict(warm=VISION_WARM, timed=VISION_STEPS),
+                  losses=losses, step_ms=ms, median_step_ms=step_ms,
+                  img_per_s=b / (step_ms / 1e3),
+                  captures=step.programs.captures,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del step, net, opt, x
+    _free_card(torch)
+    return report
+
+
+def vit_l_phase(torch, fa, ln):
+    """(e) ViT-L/16 (1000 classes) through ``build_vit_train_step`` as
+    ``bench_workloads.py``'s stacked path sets it up: weights of two or
+    more dims in bf16, biases and the rest fp32, fp32 AdamW moments, B 32
+    at 224², ``remat="dots"``, one CUDA graph; 3 warm-up and 5 timed
+    steps: ms/step, img/s, MFU against 989 TFLOP/s by the bench's FLOP
+    count (6 · (params − the head's 1000·1024) · 197 tokens an image),
+    peak memory; rows 5, 6 and 8's launches a step checked (the layer
+    recomputed in the backward runs its forward again: flash forward
+    2·24, dQ and dK/dV 24, LayerNorm forward 4·24 + 1, backward
+    2·24 + 1)."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.vision.models import vit as V
+    b, side, n_layers = 32, 224, 24
+    TP.seed(SEED)
+    net = V.vit_large_patch16_224(class_num=1000)
+    n_params = sum(p.numel() for p in net.parameters())
+    params = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
+                  and v.dim() > 1 else v)
+              for k, v in V.stacked_params_from_module(net).items()}
+    del net
+    step, init = V.build_vit_train_step(num_heads=16, patch=16,
+                                        learning_rate=1e-4,
+                                        dtype=torch.bfloat16)
+    opt = init(params)
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(b, 3, side, side).astype(np.float32)) \
+        .cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, (b,)).astype(np.int32)).cuda()
+    counters = dict(_flash_counters(fa), layer_norm_fwd=ln.layer_norm,
+                    layer_norm_bwd=ln.layer_norm_bwd)
+    want = {"flash_attention_fwd": 2 * n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "layer_norm_fwd": 4 * n_layers + 1,
+            "layer_norm_bwd": 2 * n_layers + 1}
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, totals = _vision_steps(
+        torch, lambda: step(params, opt, x, y)[0], (), counters,
+        VISION_WARM, VISION_STEPS, want)
+    step_ms = float(np.median(ms))
+    img_s = b / (step_ms / 1e3)
+    tokens = (side // 16) ** 2 + 1
+    flops_img = 6.0 * (n_params - 1000 * 1024) * tokens
+    report = dict(batch=b, side=side, params_m=n_params / 1e6,
+                  steps=dict(warm=VISION_WARM, timed=VISION_STEPS),
+                  losses=losses, step_ms=ms, median_step_ms=step_ms,
+                  img_per_s=img_s, flops_per_img=flops_img,
+                  mfu=flops_img * img_s / PEAK_OPS_PER_S["bf16"],
+                  captures=step.programs.captures,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  launches_per_step=want, launches=totals)
+    del step, params, opt
+    _free_card(torch)
+    return report
+
+
+def ppyoloe_phase(torch):
+    """(f) PP-YOLOE-s (80 classes, width 0.5, depth 0.33) as
+    ``bench_workloads.py`` trains it: B 16 at 320², 8 ground truths an
+    image, AdamW (lr 1e-4) through ``jit.TrainStep`` over
+    ``compute_loss``; 3 warm-up and 5 timed steps (ms/step, img/s, peak
+    memory, finite losses); then ``predict_with_nms`` on the batch in
+    eval mode: the detections an image."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.vision.models.ppyoloe import PPYOLOE
+    b, side, g = 16, 320, 8
+    net = PPYOLOE(num_classes=80, width_mult=0.5, depth_mult=0.33)
+    TP.seed(SEED)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters())
+    step = jit.TrainStep(
+        net, lambda model, x, gb, gl: model.compute_loss(x, gb, gl), opt)
+    rng = np.random.RandomState(SEED)
+    x = TP.to_tensor(rng.randn(b, 3, side, side).astype(np.float32))
+    gb = rng.rand(b, g, 4).astype(np.float32) * side
+    gb[..., 2:] = np.maximum(gb[..., 2:], gb[..., :2] + 4)
+    gl = rng.randint(0, 80, (b, g)).astype(np.int32)
+    args = (x, TP.to_tensor(gb), TP.to_tensor(gl))
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, _ = _vision_steps(torch, step, args, {}, VISION_WARM,
+                                  VISION_STEPS)
+    step_ms = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    net.eval()
+    t0 = time.perf_counter()
+    dets = net.predict_with_nms(x, score_threshold=0.0, top_k=100,
+                                nms_threshold=0.6, keep_top_k=30)
+    nms_s = time.perf_counter() - t0
+    if len(dets) != b or not all(
+            d[0].shape[1] == 4 and 0 < d[0].shape[0] <= 30 for d in dets):
+        raise AssertionError("predict_with_nms: bad detections")
+    report = dict(batch=b, side=side, ground_truths=g,
+                  params_m=sum(p.numel() for p in net.parameters()) / 1e6,
+                  steps=dict(warm=VISION_WARM, timed=VISION_STEPS),
+                  losses=losses, step_ms=ms, median_step_ms=step_ms,
+                  img_per_s=b / (step_ms / 1e3),
+                  captures=step.programs.captures, peak_mem_gb=peak,
+                  predict_with_nms_s=nms_s,
+                  detections=[int(d[0].shape[0]) for d in dets])
+    del step, net, opt
+    _free_card(torch)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9648,6 +10187,16 @@ def main() -> int:
          f"38 in {time.perf_counter() - t38:.1f} s)",
          tp_two_cards_phase(torch, L, D))
     _free_card(torch)
+    t39 = time.perf_counter()
+    i8_tiny = int8_tiny_phase(torch, L, D, rn, pa, fa, ln, ftb)
+    done(39, "(a) int8 Llama on both pipelines with A8W8 on and off, "
+         "_int8_mm, FusedMultiTransformerInt8, a ResNet-18 step and two ViT "
+         "steps, card == cpu", i8_tiny)
+    i8_7b = int8_7b_phase(torch, L, D, rn, pa, cfg7b, params7b,
+                          greedy_tokens)
+    done(39, f"(b) Llama-2-7B weight-only int8 (A8W8 prefill) served with "
+         f"phase 7's load on {card}", i8_7b)
+    t39 = time.perf_counter() - t39
     gens = generate_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b)
     done(22, f"Llama-2-7B bf16 generate engines on {card}", gens)
     del params7b             # the training phases need the memory
@@ -9800,6 +10349,26 @@ def main() -> int:
     cli = launch_cli_phase(torch)
     done(37, f"(c) python -m paddle_tpu_torch.distributed.launch on {card} "
          f"(phase 37 in {time.perf_counter() - t37:.1f} s)", cli)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t39c = time.perf_counter()
+    i8_fused = int8_fused_phase(torch, ftb, fa, ln)
+    done(39, f"(c) FusedMultiTransformerInt8 at BERT-large geometry against "
+         f"the bf16 stack on {card}", i8_fused)
+    r50 = resnet50_phase(torch)
+    done(39, f"(d) ResNet-50 (B 128, 224², AMP O2 bf16, Momentum) through "
+         f"jit.TrainStep on {card}", r50)
+    vitl = vit_l_phase(torch, fa, ln)
+    done(39, f"(e) ViT-L/16 (B 32, 224², bf16) through build_vit_train_step "
+         f"on {card}", vitl)
+    pp = ppyoloe_phase(torch)
+    done(39, f"(f) PP-YOLOE-s (B 16, 320²) through jit.TrainStep, then "
+         f"predict_with_nms, on {card} (phase 39 in "
+         f"{t39 + time.perf_counter() - t39c:.1f} s)", pp)
+    p39 = {}
+    for r in (i8_tiny, i8_7b, i8_fused, vitl):
+        _add(p39, r["launches"])
+    p39 = {k: p39.get(k, 0) for k in P39_KERNELS}
     d3 = {k: ring["launches"][k] + rf["launches"][k] + moe["launches"][k]
           for k in ring["launches"]}
     d3.update({k: moe["launches"][k] for k in ("layer_norm_fwd",
@@ -9835,7 +10404,7 @@ def main() -> int:
              + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
              + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"]
              + hl["rms_norm_fwd"] + tp7["launches"]["rms_norm_fwd"]
-             + el7["launches"]["rms_norm_fwd"],
+             + el7["launches"]["rms_norm_fwd"] + p39["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -9853,7 +10422,8 @@ def main() -> int:
              + hosts["launches"]["ragged_paged_attention"]
              + fused7["launches"]["ragged_paged_attention"]
              + tp7["launches"]["ragged_paged_attention"]
-             + el7["launches"]["ragged_paged_attention"],
+             + el7["launches"]["ragged_paged_attention"]
+             + p39["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),
@@ -9864,7 +10434,8 @@ def main() -> int:
                       "paddle_tpu/ops/paged_attention.py:650",
                       leg["paged_decode_attention"]
                       + plaunch["paged_decode_attention"]
-                      + rl["paged_decode_attention"],
+                      + rl["paged_decode_attention"]
+                      + p39["paged_decode_attention"],
                       dict(decode["nkv32_d128_bf16"], max_abs_err=max(
                           r["max_abs_err"] for k, r in decode.items()
                           if k != "resources"))),
@@ -9893,7 +10464,7 @@ def main() -> int:
             + mg[name] + leg.get(name, 0) + plaunch.get(name, 0)
             + gl[name] + rl.get(name, 0) + xr[name] + xs[name] + el[name]
             + ml[name] + mt["greedy"]["launches"][name] + rml[name]
-            + hl[name] + d3[name], r))
+            + hl[name] + d3[name] + p39[name], r))
     for name, key, line in (("layer_norm_fwd", "fwd", 45),
                             ("layer_norm_bwd", "bwd", 54)):
         kernels.append(_kernel_entry(
@@ -9903,7 +10474,7 @@ def main() -> int:
             + ml[name] + mt["greedy"]["launches"][name]
             + jmt["compiled"]["layer_norm_launches"][key == "bwd"]
             + (jpred["layer_norm_launches"] if key == "fwd" else 0)
-            + rcl[name] + d3[name],
+            + rcl[name] + d3[name] + p39[name],
             lnr[key]["bf16"]))
     # row 7: launched on main-grad training's own operands (phase 19);
     # its numbers at the q/k/v/o shape, bf16 into fp32

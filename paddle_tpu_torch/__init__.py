@@ -21,7 +21,7 @@ schema-generated ops, creation and the random stream (``seed``),
 ``grad``, ``set_flags``/``get_flags``, ``save``/``load`` and
 ``in_dynamic_mode``. It loads on first use (``_surface``), so ``import
 paddle_tpu_torch`` by itself imports nothing of torch and touches no
-card. Names of later slices (``vision``, ``linalg``, ...) raise
+card. Names of later slices (``linalg``, ``fft``, ...) raise
 ``NotImplementedError``.
 
 Ported so far:
@@ -58,7 +58,11 @@ Ported so far:
   tensors, NCCL for CUDA tensors), ``init_parallel_env``, ``spawn``,
   the rendezvous store, the process mesh (``parallel``) and topology,
   the RNG tracker, ``fleet``'s strategy, meta-optimizers and recompute,
-  and the Llama step's ``dots``/``attn``/``offload`` remat policies.
+  and the Llama step's ``dots``/``attn``/``offload`` remat policies;
+- other workloads: ``quantization`` (weight-only int8/int4, QAT and
+  PTQ), ``nn.quant``, int8 Llama serving (A8W8 prefill) and the int8
+  fused stack; ``vision`` (LeNet, VGG, MobileNet, ResNet, ViT,
+  PP-YOLOE, the detection ops, transforms and datasets).
 """
 
 __version__ = "0.1.0"
@@ -90,14 +94,13 @@ _SUBMODULES = frozenset((
     "amp", "autograd", "callbacks", "core", "creation", "device",
     "distributed", "flags", "framework", "hapi", "incubate", "inference",
     "io", "jit", "kvcache", "metric", "models", "nn", "observability",
-    "ops", "optimizer", "parallel", "profiler", "random", "regularizer",
-    "resilience", "serving", "static", "testing",
+    "ops", "optimizer", "parallel", "profiler", "quantization", "random",
+    "regularizer", "resilience", "serving", "static", "testing", "vision",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
 _LATER = {}
-for _n in ("vision", "quantization", "linalg",
-           "fft", "sparse", "distribution", "signal", "audio", "text",
+for _n in ("linalg", "fft", "sparse", "distribution", "signal", "audio", "text",
            "utils", "onnx", "geometric", "version", "hub"):
     _LATER.setdefault(_n, f"long tail ({_n})")
 

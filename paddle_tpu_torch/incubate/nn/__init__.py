@@ -1,8 +1,8 @@
 """Counterpart of ``paddle_tpu/incubate/nn``: the fused layers and the
-fused functional surface. ``FusedMultiTransformerInt8`` comes with the
-quantization slice."""
+fused functional surface."""
 
 from .layer.fused_transformer import (  # noqa: F401
     FusedMultiTransformer, FusedMultiHeadAttention, FusedFeedForward,
+    FusedMultiTransformerInt8,
 )
 from . import functional  # noqa: F401

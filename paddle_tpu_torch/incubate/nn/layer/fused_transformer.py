@@ -25,12 +25,16 @@ loops over them: the reference stacks them on every call
 step. It lists its parameters layer by layer, as the reference
 registers them (``ln_scales.0, ln_biases.0, ..., ffn2_biases.0,
 ln_scales.1, ...``; l.99-108): that order is what binds a saved
-optimizer state whose names are not this process's. Its int8 variant
-waits for the quantization slice.
+optimizer state whose names are not this process's.
+
+``FusedMultiTransformerInt8`` is the A8W8 stack: int8 projection
+weights with per-output-channel scales, run through the block op's
+``int8=True`` path (``ops.fused_transformer_block._int8_mm``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -246,3 +250,157 @@ class FusedFeedForward(Layer):
         if not pre:
             y = ftb.layer_norm_array(y, self.ln_scale, self.ln_bias, eps)
         return y
+
+
+class FusedMultiTransformerInt8(Layer):
+    """The A8W8 fused decoder stack (ref l.222-353): int8 projection
+    weights with fp32 per-output-channel scales; each of the four
+    products quantizes its activations (per token, or by the calibrated
+    ``*_in_scale`` lists, one range per layer) and runs int8×int8→int32.
+    Build it from a float stack with :meth:`from_float`. Post-LN raises,
+    as in the reference.
+
+    Its parameters are the reference's, layer by layer: ``ln_scales.i``,
+    ``ln_biases.i``, ``ffn_ln_scales.i``, ``ffn_ln_biases.i``, then for
+    each of ``qkv``, ``linear``, ``ffn1``, ``ffn2`` the int8 weight
+    ``<wk>_w_q.i``, its scale ``<wk>_w_scale.i`` and the bias
+    ``<wk>_b.i``; ``qkv_weights``, ``qkv_scales``, ``qkv_biases``, ...
+    are the reference's per-kind lists of them. The int8 weights are
+    kept column-major (``ops.fused_transformer_block.col_major``), the
+    layout the card's int8 GEMM takes."""
+
+    _WKEYS = ("qkv", "linear", "ffn1", "ffn2")
+    _LN = ("ln_scales", "ln_biases", "ffn_ln_scales", "ffn_ln_biases")
+    #: the block op's weight and bias keys of each projection
+    _OPNAME = {"qkv": "qkv_w", "linear": "out_w", "ffn1": "ffn1_w",
+               "ffn2": "ffn2_w"}
+    _OPBIAS = {"qkv": "qkv_b", "linear": "out_b", "ffn1": "ffn1_b",
+               "ffn2": "ffn2_b"}
+
+    def __init__(self, embed_dim, num_heads, dim_feedforward,
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 epsilon=1e-5, num_layers=1, qkv_in_scale=None,
+                 linear_in_scale=None, ffn1_in_scale=None,
+                 ffn2_in_scale=None, name=None, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if not normalize_before:
+            raise NotImplementedError("post-LN int8 stack not supported")
+        if embed_dim % num_heads:
+            raise ValueError("num_heads must divide embed_dim")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.dim_feedforward = dim_feedforward
+        self.activation = activation
+        self.epsilon = epsilon
+        self.num_layers = num_layers
+        self.in_scales = {"qkv": qkv_in_scale, "linear": linear_in_scale,
+                          "ffn1": ffn1_in_scale, "ffn2": ffn2_in_scale}
+        device = resolve_device(device)
+        H, Fh = embed_dim, dim_feedforward
+        wshapes = {"qkv": (H, 3 * H), "linear": (H, H),
+                   "ffn1": (H, Fh), "ffn2": (Fh, H)}
+
+        def const(shape, value, dt=dtype):
+            return nn.Parameter(torch.full(shape, value, dtype=dt,
+                                           device=device))
+
+        def frozen(value):
+            return nn.Parameter(value, requires_grad=False)
+
+        for n in self._LN:
+            v = 1.0 if n.endswith("scales") else 0.0
+            setattr(self, n, ParameterList(
+                [const((H,), v) for _ in range(num_layers)]))
+        for wk in self._WKEYS:
+            k, n = wshapes[wk]
+            setattr(self, f"{wk}_w_q", ParameterList(
+                [frozen(ftb.col_major(torch.zeros(
+                    (k, n), dtype=torch.int8, device=device)))
+                 for _ in range(num_layers)]))
+            setattr(self, f"{wk}_w_scale", ParameterList(
+                [frozen(torch.ones((n,), dtype=torch.float32,
+                                   device=device))
+                 for _ in range(num_layers)]))
+            setattr(self, f"{wk}_b", ParameterList(
+                [const((n,), 0.0) for _ in range(num_layers)]))
+        # the calibrated ranges, made on the device once (a captured
+        # program reads them there)
+        self._in_scale = {
+            self._OPNAME[wk] + "_in_scale": torch.as_tensor(
+                np.asarray(v, np.float32), device=device)
+            for wk, v in self.in_scales.items() if v is not None}
+
+    # the reference's per-kind lists
+    qkv_weights = property(lambda self: self.qkv_w_q)
+    qkv_scales = property(lambda self: self.qkv_w_scale)
+    qkv_biases = property(lambda self: self.qkv_b)
+    linear_weights = property(lambda self: self.linear_w_q)
+    linear_scales = property(lambda self: self.linear_w_scale)
+    linear_biases = property(lambda self: self.linear_b)
+    ffn1_weights = property(lambda self: self.ffn1_w_q)
+    ffn1_scales = property(lambda self: self.ffn1_w_scale)
+    ffn1_biases = property(lambda self: self.ffn1_b)
+    ffn2_weights = property(lambda self: self.ffn2_w_q)
+    ffn2_scales = property(lambda self: self.ffn2_w_scale)
+    ffn2_biases = property(lambda self: self.ffn2_b)
+
+    def _parameter_items(self, prefix, include_sublayers):
+        """Layer-major, in the reference's registration order."""
+        kinds = list(self._LN) + [f"{wk}_{part}" for wk in self._WKEYS
+                                  for part in ("w_q", "w_scale", "b")]
+        for i in range(self.num_layers):
+            for n in kinds:
+                name = f"{n}.{i}"
+                yield (f"{prefix}.{name}" if prefix else name,
+                       getattr(self, n)[i])
+
+    @classmethod
+    def from_float(cls, float_stack: "FusedMultiTransformer",
+                   qkv_in_scale=None, linear_in_scale=None,
+                   ffn1_in_scale=None, ffn2_in_scale=None):
+        """Quantize a float stack's projection weights (ref l.295-331);
+        the norms and biases are copied. Built on the float stack's
+        device, in its dtype."""
+        from ....quantization import weight_quantize
+
+        ref = float_stack.qkv_weights[0]
+        m = cls(float_stack.embed_dim, float_stack.num_heads,
+                float_stack.dim_feedforward,
+                activation=float_stack.activation,
+                epsilon=float_stack.epsilon,
+                num_layers=float_stack.num_layers,
+                qkv_in_scale=qkv_in_scale, linear_in_scale=linear_in_scale,
+                ffn1_in_scale=ffn1_in_scale, ffn2_in_scale=ffn2_in_scale,
+                dtype=ref.dtype, device=ref.device)
+        with torch.no_grad():
+            for i in range(m.num_layers):
+                for n in cls._LN:
+                    getattr(m, n)[i].copy_(getattr(float_stack, n)[i])
+                for wk in cls._WKEYS:
+                    q, s = weight_quantize(
+                        getattr(float_stack, f"{wk}_weights")[i])
+                    getattr(m, f"{wk}_w_q")[i].copy_(q)
+                    getattr(m, f"{wk}_w_scale")[i].copy_(s)
+                    getattr(m, f"{wk}_b")[i].copy_(
+                        getattr(float_stack, f"{wk}_biases")[i])
+        return m
+
+    def forward(self, src, attn_mask=None, caches=None, time_step=None,
+                gen_cache_len=None, seq_lens=None):
+        params = {"ln_scale": list(self.ln_scales),
+                  "ln_bias": list(self.ln_biases),
+                  "ffn_ln_scale": list(self.ffn_ln_scales),
+                  "ffn_ln_bias": list(self.ffn_ln_biases)}
+        for wk in self._WKEYS:
+            op = self._OPNAME[wk]
+            params[op + "_q"] = list(getattr(self, f"{wk}_w_q"))
+            params[op + "_scale"] = list(getattr(self, f"{wk}_w_scale"))
+            params[self._OPBIAS[wk]] = list(getattr(self, f"{wk}_b"))
+        params.update(self._in_scale)
+        out, kv = ftb.fused_multi_transformer_array(
+            src, params, num_heads=self.num_heads, act=self.activation,
+            epsilon=self.epsilon, attn_mask=attn_mask, cache_kv=caches,
+            time_step=time_step, max_cache_len=gen_cache_len,
+            seq_lens=seq_lens, int8=True)
+        return out if kv is None else (out, kv)

@@ -110,6 +110,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..flags import flag_value
 from ..kvcache import PrefixCache, RefcountedKVCacheManager
 from ..models import llama as L
 from ..observability.events import emit_event
@@ -140,6 +141,20 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
     seed: int = 0
+
+
+def _prefill_flags() -> Tuple:
+    """The host flags a prefill or unified program reads when it is
+    built (``models.llama._mm_prefill`` reads
+    FLAGS_serving_a8w8_prefill): every key of such a program ends with
+    them (the JAX engine's ``_prefill_flags``, l.38-53), so a
+    ``set_flags`` flip builds (on the card, captures) a new program, a
+    counted miss, and never keeps serving the old one. The two routing
+    flags are fixed in the port (``flags.py``) and kept for the key's
+    shape."""
+    return (bool(flag_value("serving_a8w8_prefill")),
+            bool(flag_value("use_pallas_kernels")),
+            bool(flag_value("use_pallas_rms_norm")))
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -228,13 +243,16 @@ class _Programs:
 
     def _fetch(self, prog: Optional[Program], name: str, key: tuple,
                build: Callable[..., Program], params) -> Program:
-        """``prog`` if it was built over ``params``, else a new build:
-        one counted miss ``(name, key)``."""
-        if prog is not None and prog.params_id == params_key(params):
+        """``prog`` if it was built under ``key`` over ``params``, else a
+        new build: one counted miss ``(name, key)``."""
+        if prog is not None and prog.key == key \
+                and prog.params_id == params_key(params):
             return prog
         self.compile_misses.append((name, key))
         recompiles.record_miss(name, key)
-        return build(params)
+        prog = build(params)
+        prog.key = key
+        return prog
 
     def _run(self, name: str, prog: Program) -> torch.Tensor:
         """Call ``prog``; its first call is timed to completion into
@@ -369,7 +387,7 @@ class GenerationEngine(_Programs):
         ids = np.asarray(input_ids)
         b, t = ids.shape
         bucket = _bucket(t)
-        key = (bucket, cfg.max_new_tokens, b)
+        key = (bucket, cfg.max_new_tokens, b) + _prefill_flags()
         prog = self._compiled.get(key)
         if prog is None and self.device.type == "cuda":
             self._compiled.clear()     # one key's graph and cache a time
@@ -476,7 +494,7 @@ class PagedGenerationEngine(_Programs):
         total = [n + cfg.max_new_tokens for n in lens]
         width = max(PagedKVCacheManager.pages_needed(n, page)
                     for n in total)
-        key = (t_bucket, cfg.max_new_tokens, b, width)
+        key = (t_bucket, cfg.max_new_tokens, b, width) + _prefill_flags()
         prog = self._compiled.get(key)
         if prog is None or self.device.type != "cuda":
             if self.device.type == "cuda":
@@ -1577,7 +1595,7 @@ class ContinuousBatchingEngine(_Programs):
             self._unified_step, "cbe.unified_step",
             (self.num_slots, self.chunk, self._step_tokens,
              self._table_width, self._fused_tail, self.num_chips,
-             self._epilogue_on),
+             self._epilogue_on) + _prefill_flags(),
             self._build_unified_step, params)
         # armed-only chain taps (observability.profiling): the plan ->
         # dispatch -> unpack phases; one list index per step disarmed
@@ -1692,7 +1710,8 @@ class ContinuousBatchingEngine(_Programs):
             while b_pad < real:
                 b_pad *= 2
             b_pad = min(b_pad, self.num_slots)
-            key = ("sfx", bucket, b_pad) if warm else (bucket, b_pad)
+            key = (("sfx", bucket, b_pad) if warm
+                   else (bucket, b_pad)) + _prefill_flags()
             build = (self._build_prefill_suffix if warm
                      else self._build_prefill)
             self._compiled_prefill[key] = prog = self._fetch(
@@ -1952,7 +1971,7 @@ class ContinuousBatchingEngine(_Programs):
             self._spec_step, "cbe.spec_step",
             (self.num_slots, self._spec_tokens, self.spec_k,
              self._table_width, self._fused_tail, self.num_chips,
-             self._epilogue_on),
+             self._epilogue_on) + _prefill_flags(),
             self._build_spec_step, params)
         armed_chain = _chain_armed[0]
         tc0 = time.perf_counter_ns() if armed_chain else 0

@@ -46,10 +46,12 @@ def params_key(params) -> tuple:
     """What a program captured of its params: each tensor's name,
     address, shape and dtype (of every chip's dict, for a serving mesh's
     list of them). A graph reads its weights at the captured addresses,
-    so other tensors mean a rebuild."""
+    so other tensors mean a rebuild. A weight-only int8 leaf
+    ``{"q", "scale"}`` gives both of its tensors."""
     if isinstance(params, (list, tuple)):
         return tuple(params_key(p) for p in params)
-    return tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
+    return tuple((k, params_key(v)) if isinstance(v, dict)
+                 else (k, v.data_ptr(), tuple(v.shape), v.dtype)
                  for k, v in params.items())
 
 
@@ -79,6 +81,8 @@ class Program:
         pin = device.type == "cuda"
         self.body = body
         self.params_id = params_id
+        #: the engine's cache key it was built under (``_fetch``)
+        self.key = None
         self.static = {n: torch.zeros(s, dtype=dt, device=device)
                        for n, (s, dt) in inputs.items()}
         self._staging = {n: torch.zeros(s, dtype=dt, pin_memory=pin)

@@ -28,6 +28,15 @@ and the paged decode attention of the legacy decode step
 (``ops/paged_attention.py``), and the causal flash attention forward
 (training and the legacy full prefill) and backward
 (``ops/flash_attention.py``).
+
+A projection weight may be a weight-only int8 leaf ``{"q", "scale"}``
+(``quantization.quantize_stacked_params``): :func:`_dense` dequantizes
+it to fp32 where the reference does, and :func:`_mm_prefill` runs the
+A8W8 product (``ops.fused_transformer_block._int8_mm``) where the
+reference does, under ``FLAGS_serving_a8w8_prefill``. A dequantized
+weight is fp32, so such a projection computes in fp32 (the reference's
+promotion) and the residual carry keeps its dtype where the reference
+casts it back.
 """
 
 from __future__ import annotations
@@ -51,10 +60,12 @@ from ..nn import functional as NF
 from ..nn.common_layers import (  # noqa: F401
     RMSNorm, init_layers, load_layer_state, to_tensor)
 from ..nn.layer import Layer, LayerList
+from ..flags import flag_value
 from ..ops import flash_attention as fa
 from ..ops import paged_attention as pa
 from ..ops import rope as rope_ops
-from ..ops._common import not_ported as _later, resolve_device
+from ..ops._common import resolve_device, true_div
+from ..ops.fused_transformer_block import _int8_mm, col_major, int32_product
 from ..ops.rms_norm import rms_norm
 from ..optimizer.adamw import adamw_update_
 
@@ -204,12 +215,22 @@ def params_from_numpy(np_params: Dict[str, Any], config: LlamaConfig,
                       device=None) -> Dict[str, torch.Tensor]:
     """Carry stacked weights across from numpy (e.g. ``np.asarray`` of
     each leaf of the JAX package's ``init_stacked_params``): same keys,
-    same layout, a plain copy onto ``device`` in ``config.dtype``."""
+    same layout, a plain copy onto ``device`` in ``config.dtype``. A
+    weight-only int8 leaf ``{"q", "scale"}`` carries across as int8 and
+    fp32 (:func:`place_int8`)."""
     dev = resolve_device(device)
     shapes = _param_shapes(config)
     out = {}
     for k, v in np_params.items():
-        _check_dense({k: v})
+        if isinstance(v, dict):
+            q = to_tensor(np.asarray(v["q"]))
+            if k in shapes and tuple(q.shape) != shapes[k]:
+                raise ValueError(f"{k}: shape {tuple(q.shape)}, expected "
+                                 f"{shapes[k]}")
+            out[k] = place_int8({"q": q,
+                                 "scale": to_tensor(np.asarray(v["scale"]))},
+                                dev)
+            continue
         t = to_tensor(np.asarray(v))
         if k in shapes and tuple(t.shape) != shapes[k]:
             raise ValueError(f"{k}: shape {tuple(t.shape)}, expected "
@@ -226,12 +247,72 @@ def _rope_cache(s_max: int, head_dim: int, theta: float, device: str):
     return rope_ops.build_rope_cache(s_max, head_dim, theta, device=device)
 
 
-def _check_dense(params) -> None:
+def place_int8(w, device) -> Dict[str, torch.Tensor]:
+    """An int8 leaf on ``device``: ``q`` int8 (column-major on the card,
+    the layout its int8 GEMM takes: ``ops.fused_transformer_block.
+    col_major``) and ``scale`` fp32, never cast to the model's dtype."""
+    q = w["q"].to(device=device, dtype=torch.int8)
+    return {"q": col_major(q) if q.is_cuda else q,
+            "scale": w["scale"].to(device=device, dtype=torch.float32)}
+
+
+def _check_real(params) -> None:
+    """A train step differentiates every leaf: an int8 leaf has no
+    gradient, and the reference's ``jax.value_and_grad`` refuses it
+    (a ``TypeError`` too)."""
     for k, v in params.items():
         if isinstance(v, dict):
-            raise NotImplementedError(
-                f"{k}: weight-only int8 leaves ({{'q', 'scale'}}) come "
-                "with the quantization slice")
+            raise TypeError(
+                f"{k}: a train step takes real-valued leaves; the weight-"
+                f"only int8 leaf {{'q', 'scale'}} has no gradient")
+
+
+def _layer_w(params, key: str, l: int):
+    """Layer ``l``'s weight ``key``: a tensor, or an int8 leaf's layer
+    ``{"q": (in, out), "scale": (out,)}``."""
+    w = params[key]
+    if isinstance(w, dict):
+        return {"q": w["q"][l], "scale": w["scale"][l]}
+    return w[l]
+
+
+def _dense(w):
+    """A possibly weight-only-quantized weight in its dense form (l.356):
+    an int8 leaf dequantizes to fp32
+    (``quantization.weight_dequantize``); a tensor passes through."""
+    if isinstance(w, dict):
+        from ..quantization import weight_dequantize
+        return weight_dequantize(w["q"], w["scale"])
+    return w
+
+
+def _mm(x, w):
+    """``x @ _dense(w)``, in the promoted dtype when they differ (an fp32
+    dequantized weight makes a bf16 product fp32, as ``jnp.einsum``
+    promotes)."""
+    w = _dense(w)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
+def _a8w8(x, w) -> bool:
+    """Whether ``_mm_prefill(x, w)`` takes the A8W8 product: an int8
+    leaf of one layer, ``FLAGS_serving_a8w8_prefill`` on, and more than
+    one row in dim -2 (the flat token count of a ragged step; t == 1 is
+    the decode shape, which stays weight-only)."""
+    return (isinstance(w, dict) and bool(flag_value("serving_a8w8_prefill"))
+            and w["q"].dim() == 2 and x.dim() >= 2 and x.shape[-2] > 1)
+
+
+def _mm_prefill(x, w):
+    """The prefill-side product ``x @ w`` (l.369): the A8W8
+    int8×int8→int32 product with per-token activation scales where
+    :func:`_a8w8` says so, else :func:`_mm`."""
+    if _a8w8(x, w):
+        return _int8_mm(x, w["q"], w["scale"])
+    return _mm(x, w)
 
 
 @torch.no_grad()
@@ -284,7 +365,6 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
                                last_idx, k_pages, v_pages, block_tables,
                                config, mesh, mp_axis, logits_epilogue,
                                decoding)
-    _check_dense(params)
     t = ids.shape[0]
     d = config.head_dim
     eps = config.rms_norm_eps
@@ -312,29 +392,32 @@ def ragged_step(params, ids, token_row, positions, kv_lens, last_idx,
     for l in range(config.num_hidden_layers):
         kp, vp = k_pages[l], v_pages[l]                    # views, in place
         xn = rms_norm(x, params["ln1"][l], eps)
-        q = (xn @ params["wq"][l]).reshape(1, t, -1, d)
-        k = (xn @ params["wk"][l]).reshape(1, t, -1, d)
-        v = (xn @ params["wv"][l]).reshape(1, t, -1, d)
+        q = _mm_prefill(xn, _layer_w(params, "wq", l)).reshape(1, t, -1, d)
+        k = _mm_prefill(xn, _layer_w(params, "wk", l)).reshape(1, t, -1, d)
+        v = _mm_prefill(xn, _layer_w(params, "wv", l)).reshape(1, t, -1, d)
         q, k = rope_ops.apply_rope_array(q, k, cos, sin)
         # scatter FIRST: every token attends through the page gather,
         # its own fresh K/V included
         kp[phys, page_off] = k[0].to(kp.dtype)
         vp[phys, page_off] = v[0].to(vp.dtype)
+        # the kernel takes q in the pool's dtype (an int8 model's fp32 q
+        # is rounded to a bf16 pool's here)
         attn = pa.ragged_paged_attention(
-            q[0].contiguous(), kp, vp, block_tables, token_row, pos_c,
-            kv_lens, scale=scale, decoding=decoding)       # (T, nh, d)
-        xo = x + (attn.reshape(1, t, -1) @ params["wo"][l]
-                  ).to(x.dtype)
+            q[0].to(kp.dtype).contiguous(), kp, vp, block_tables,
+            token_row, pos_c, kv_lens, scale=scale,
+            decoding=decoding)                             # (T, nh, d)
+        xo = x + _mm_prefill(attn.reshape(1, t, -1),
+                             _layer_w(params, "wo", l)).to(x.dtype)
         xn2 = rms_norm(xo, params["ln2"][l], eps)
-        g = xn2 @ params["w_gate"][l]
-        u = xn2 @ params["w_up"][l]
-        xo = xo + (F.silu(g) * u) @ params["w_down"][l]
+        g = _mm_prefill(xn2, _layer_w(params, "w_gate", l))
+        u = _mm_prefill(xn2, _layer_w(params, "w_up", l))
+        xo = xo + _mm(F.silu(g) * u, _layer_w(params, "w_down", l))
         x = xo.to(x.dtype)
 
     x = rms_norm(x, params["ln_f"], eps)
     # lm_head over ONLY the requested rows: (C, h) @ (h, V)
     h_last = x[0][last_idx.long()]
-    logits = h_last @ params["lm_head"]
+    logits = _mm(h_last, params["lm_head"])
     if logits_epilogue is not None:
         logits = logits_epilogue(logits)
     return logits, k_pages, v_pages
@@ -344,9 +427,9 @@ def _partial_mm(a, w):
     """``a @ w`` as an fp32 partial (a row-parallel product, summed over
     the chips before its one rounding): ``torch.mm(..., out_dtype=fp32)``
     for 16-bit operands on the card, the fp32 product of their values on
-    the CPU."""
-    if a.dtype == torch.float32:
-        return a @ w
+    the CPU. An int8 leaf is dequantized (:func:`_mm`)."""
+    if isinstance(w, dict) or a.dtype == torch.float32:
+        return _mm(a, w).float()
     if a.is_cuda:
         return torch.mm(a, w, out_dtype=torch.float32)
     return a.float() @ w.float()
@@ -417,34 +500,64 @@ def _ragged_step_tp(chip_params, ids, token_row, positions, kv_lens,
         qs = []
         for c, (p, dev) in enumerate(zip(chip_params, devs)):
             cos, sin, ph, off = geo[dev]
-            q = (xn[dev] @ p["wq"][l]).reshape(1, t, -1, d)
-            k = (xn[dev] @ p["wk"][l]).reshape(1, t, -1, d)
-            v = (xn[dev] @ p["wv"][l]).reshape(1, t, -1, d)
+            q = _mm_prefill(xn[dev], _layer_w(p, "wq", l)).reshape(1, t, -1, d)
+            k = _mm_prefill(xn[dev], _layer_w(p, "wk", l)).reshape(1, t, -1, d)
+            v = _mm_prefill(xn[dev], _layer_w(p, "wv", l)).reshape(1, t, -1, d)
             q, k = rope_ops.apply_rope_array(q, k, cos, sin)
             kp, vp = ks[c][l], vs[c][l]                    # views, in place
             kp[ph, off] = k[0].to(kp.dtype)
             vp[ph, off] = v[0].to(vp.dtype)
-            qs.append(q[0].contiguous())
+            qs.append(q[0].to(kp.dtype).contiguous())
         attn = pa.ragged_paged_attention_chips(
             qs, [kp[l] for kp in ks], [vp[l] for vp in vs], block_tables,
             token_row, pos_c, kv_lens, scale, decoding=decoding)
-        xo = all_reduce_add([_partial_mm(a.reshape(t, -1), p["wo"][l])
-                             for a, p in zip(attn, chip_params)], xs)
+        wo = [_layer_w(p, "wo", l) for p in chip_params]
+        a2 = [a.reshape(t, -1) for a in attn]
+        if _a8w8(a2[0], wo[0]):
+            xo = _all_reduce_a8w8(a2, wo, xs, first, dtype)
+        else:
+            xo = all_reduce_add([_partial_mm(a, w) for a, w in zip(a2, wo)],
+                                xs)
         xn2 = {dev: rms_norm(xo[dev], chip_params[c]["ln2"][l], eps)
                for dev, c in first.items()}
         parts = []
         for p, dev in zip(chip_params, devs):
-            g = xn2[dev][0] @ p["w_gate"][l]
-            u = xn2[dev][0] @ p["w_up"][l]
-            parts.append(_partial_mm(F.silu(g) * u, p["w_down"][l]))
+            g = _mm_prefill(xn2[dev][0], _layer_w(p, "w_gate", l))
+            u = _mm_prefill(xn2[dev][0], _layer_w(p, "w_up", l))
+            parts.append(_partial_mm(F.silu(g) * u,
+                                     _layer_w(p, "w_down", l)))
         xs = all_reduce_add(parts, xo)
 
     x = rms_norm(xs[devs[0]], chip_params[0]["ln_f"], eps)
     h_last = x[0][last_idx.long().to(devs[0])]
-    logits = h_last @ chip_params[0]["lm_head"]
+    logits = _mm(h_last, chip_params[0]["lm_head"])
     if logits_epilogue is not None:
         logits = logits_epilogue(logits)
     return logits, k_pages, v_pages
+
+
+def _all_reduce_a8w8(parts, ws, base, first, dtype):
+    """The row-parallel A8W8 product ``wo`` over a serving mesh, as the
+    reference's sharded ``_int8_mm`` computes it: each token's
+    activation scale from the abs-max over ALL the chips' columns, each
+    chip's int8×int8→int32 partial, the int32 sum (exact, so the result
+    is the one-chip product's bits), then the dequantize multiply with
+    the replicated ``scale``. Returns ``{device: base + result}``."""
+    from ..parallel.mesh import serving_all_reduce
+    dev0 = parts[0].device
+    amax = torch.stack([a.float().abs().amax(dim=-1, keepdim=True).to(dev0)
+                        for a in parts]).amax(dim=0)
+    xs0 = true_div(torch.clamp(amax, min=1e-6), 127.0)   # (T, 1)
+    y = []
+    for a, w in zip(parts, ws):
+        xs = xs0.to(a.device)
+        xq = torch.clamp(torch.round(a.float() / xs), -127, 127).to(
+            torch.int8)
+        y.append(int32_product(xq, w["q"]))
+    sums = serving_all_reduce(y)
+    return {dev: base[dev] + (sums[c].float() * xs0.to(dev)
+                              * ws[c]["scale"]).to(dtype)[None]
+            for dev, c in first.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -466,19 +579,21 @@ def _paged_prefill_layer(params, l, x, cos, sin, phys, page_off, k_pages,
     eps = config.rms_norm_eps
     kp, vp = k_pages[l], v_pages[l]                        # views, in place
     xn = rms_norm(x, params["ln1"][l], eps)
-    q = (xn @ params["wq"][l]).reshape(b, t, -1, d)
-    k = (xn @ params["wk"][l]).reshape(b, t, -1, d)
-    v = (xn @ params["wv"][l]).reshape(b, t, -1, d)
+    q = _mm_prefill(xn, _layer_w(params, "wq", l)).reshape(b, t, -1, d)
+    k = _mm_prefill(xn, _layer_w(params, "wk", l)).reshape(b, t, -1, d)
+    v = _mm_prefill(xn, _layer_w(params, "wv", l)).reshape(b, t, -1, d)
     q, k = rope_ops.apply_rope_array(q, k, cos, sin)
     if scatter_first:
         kp[phys, page_off] = k.to(kp.dtype)
         vp[phys, page_off] = v.to(vp.dtype)
     attn = attn_fn(q, k, v, kp, vp)
-    xo = x + (attn.reshape(b, t, -1) @ params["wo"][l]).to(x.dtype)
+    xo = x + _mm_prefill(attn.reshape(b, t, -1),
+                         _layer_w(params, "wo", l)).to(x.dtype)
     xn2 = rms_norm(xo, params["ln2"][l], eps)
-    g = xn2 @ params["w_gate"][l]
-    u = xn2 @ params["w_up"][l]
-    xo = xo + (F.silu(g) * u) @ params["w_down"][l]
+    g = _mm_prefill(xn2, _layer_w(params, "w_gate", l))
+    u = _mm_prefill(xn2, _layer_w(params, "w_up", l))
+    # w_down stays weight-only here, as in the reference (l.1083)
+    xo = xo + _mm(F.silu(g) * u, _layer_w(params, "w_down", l))
     if not scatter_first:
         kp[phys, page_off] = k.to(kp.dtype)
         vp[phys, page_off] = v.to(vp.dtype)
@@ -513,7 +628,6 @@ def prefill_paged(params, ids, seq_lens, k_pages, v_pages, block_tables,
     IN PLACE (the returned pools are the arguments). Causal attention
     within the padded prompt goes through the flash kernels
     (``ops.flash_attention.sdpa_array``)."""
-    _check_dense(params)
     b, t = ids.shape
     d = config.head_dim
     page = k_pages.shape[2]
@@ -531,7 +645,7 @@ def prefill_paged(params, ids, seq_lens, k_pages, v_pages, block_tables,
         x = _paged_prefill_layer(params, l, x, cos, sin, phys, page_off,
                                  k_pages, v_pages, attn, False, config)
     x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
-    return x @ params["lm_head"], k_pages, v_pages
+    return _mm(x, params["lm_head"]), k_pages, v_pages
 
 
 @torch.no_grad()
@@ -550,7 +664,6 @@ def prefill_paged_suffix(params, ids, seq_lens, start_pos, k_pages, v_pages,
     lengths; start_pos: (B,) cached-prefix lengths (0 = cold row).
     Returns (logits (B, T, V), k_pages, v_pages), pools updated in
     place."""
-    _check_dense(params)
     b, t = ids.shape
     d = config.head_dim
     page = k_pages.shape[2]
@@ -576,7 +689,7 @@ def prefill_paged_suffix(params, ids, seq_lens, start_pos, k_pages, v_pages,
         x = _paged_prefill_layer(params, l, x, cos, sin, phys, page_off,
                                  k_pages, v_pages, attn, True, config)
     x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
-    return x @ params["lm_head"], k_pages, v_pages
+    return _mm(x, params["lm_head"]), k_pages, v_pages
 
 
 @torch.no_grad()
@@ -593,8 +706,12 @@ def decode_step_paged(params, tok, positions, k_pages, v_pages, block_tables,
     to the end of a legacy decode chunk): its write goes to page 0, its
     rope is taken at the last position, and attention reads the whole
     table. Its logits are garbage the engine drops. The JAX function
-    drops that write and gives the row NaN logits."""
-    _check_dense(params)
+    drops that write and gives the row NaN logits.
+
+    Weight-only int8 leaves dequantize here (a decode token takes no
+    A8W8 product); as in the reference, the attention output's
+    projection is not cast back, so an int8 model's layer carries fp32
+    from there to its end (l.1356-1362)."""
     b = tok.shape[0]
     d = config.head_dim
     eps = config.rms_norm_eps
@@ -609,21 +726,23 @@ def decode_step_paged(params, tok, positions, k_pages, v_pages, block_tables,
     for l in range(config.num_hidden_layers):
         kp, vp = k_pages[l], v_pages[l]                    # views, in place
         xn = rms_norm(x, params["ln1"][l], eps)
-        q = (xn @ params["wq"][l]).reshape(b, 1, -1, d)
-        k = (xn @ params["wk"][l]).reshape(b, 1, -1, d)
-        v = (xn @ params["wv"][l]).reshape(b, 1, -1, d)
+        q = _mm(xn, _layer_w(params, "wq", l)).reshape(b, 1, -1, d)
+        k = _mm(xn, _layer_w(params, "wk", l)).reshape(b, 1, -1, d)
+        v = _mm(xn, _layer_w(params, "wv", l)).reshape(b, 1, -1, d)
         q, k = rope_ops.apply_rope_array(q, k, cos, sin)
-        pa.paged_write(kp, vp, k[:, 0], v[:, 0], block_tables, positions)
-        attn = pa.paged_attention(q[:, 0].contiguous(), kp, vp, block_tables,
-                                  kv_lens, scale=scale)    # (B, nh, d)
-        xo = x + (attn.reshape(b, 1, -1) @ params["wo"][l]).to(x.dtype)
+        pa.paged_write(kp, vp, k[:, 0].to(kp.dtype), v[:, 0].to(vp.dtype),
+                       block_tables, positions)
+        attn = pa.paged_attention(q[:, 0].to(kp.dtype).contiguous(), kp, vp,
+                                  block_tables, kv_lens,
+                                  scale=scale)             # (B, nh, d)
+        xo = x + _mm(attn.reshape(b, 1, -1), _layer_w(params, "wo", l))
         xn2 = rms_norm(xo, params["ln2"][l], eps)
-        g = xn2 @ params["w_gate"][l]
-        u = xn2 @ params["w_up"][l]
-        xo = xo + (F.silu(g) * u) @ params["w_down"][l]
+        g = _mm_prefill(xn2, _layer_w(params, "w_gate", l))
+        u = _mm_prefill(xn2, _layer_w(params, "w_up", l))
+        xo = xo + _mm(F.silu(g) * u, _layer_w(params, "w_down", l))
         x = xo.to(x.dtype)
     x = rms_norm(x, params["ln_f"], eps)
-    return x[:, 0] @ params["lm_head"], k_pages, v_pages
+    return _mm(x[:, 0], params["lm_head"]), k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------
@@ -681,19 +800,21 @@ def _decoder_layer_cached_full(params, l, x, cos, sin, kf, vf, kv_len,
     d = config.head_dim
     eps = config.rms_norm_eps
     xn = rms_norm(x, params["ln1"][l], eps)
-    q = (xn @ params["wq"][l]).reshape(b, t, -1, d)
-    k = (xn @ params["wk"][l]).reshape(b, t, -1, d)
-    v = (xn @ params["wv"][l]).reshape(b, t, -1, d)
+    q = _mm_prefill(xn, _layer_w(params, "wq", l)).reshape(b, t, -1, d)
+    k = _mm_prefill(xn, _layer_w(params, "wk", l)).reshape(b, t, -1, d)
+    v = _mm_prefill(xn, _layer_w(params, "wv", l)).reshape(b, t, -1, d)
     q, k = rope_ops.apply_rope_array(q, k, cos, sin)
     slots = kv_len - t + torch.arange(t, device=x.device)
     kf[l].index_copy_(1, slots, k.to(kf.dtype))
     vf[l].index_copy_(1, slots, v.to(vf.dtype))
     attn = _cached_attention(q, kf[l], vf[l], kv_len, config)
-    x = x + (attn.reshape(b, t, -1) @ params["wo"][l]).to(x.dtype)
+    x = x + _mm_prefill(attn.reshape(b, t, -1),
+                        _layer_w(params, "wo", l)).to(x.dtype)
     xn = rms_norm(x, params["ln2"][l], eps)
-    g = xn @ params["w_gate"][l]
-    u = xn @ params["w_up"][l]
-    return x + ((F.silu(g) * u) @ params["w_down"][l]).to(x.dtype)
+    g = _mm_prefill(xn, _layer_w(params, "w_gate", l))
+    u = _mm_prefill(xn, _layer_w(params, "w_up", l))
+    return x + _mm_prefill(F.silu(g) * u,
+                           _layer_w(params, "w_down", l)).to(x.dtype)
 
 
 @torch.no_grad()
@@ -703,7 +824,6 @@ def prefill_stacked(params, ids, cache, config: LlamaConfig):
     of (L, B, S_max, nkv, d), updated IN PLACE and returned. Returns
     (per-position logits (B, T, V), cache); the caller picks each row's
     last real position."""
-    _check_dense(params)
     b, t = ids.shape
     s_max = cache["k"].shape[2]
     cos_full, sin_full = _rope_cache(s_max, config.head_dim,
@@ -717,7 +837,7 @@ def prefill_stacked(params, ids, cache, config: LlamaConfig):
                                        sin_full[:t], cache["k"], cache["v"],
                                        kv_len, config)
     x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
-    return x @ params["lm_head"], cache
+    return _mm(x, params["lm_head"]), cache
 
 
 @torch.no_grad()
@@ -728,7 +848,6 @@ def decode_step_stacked(params, tok, pos, cache, config: LlamaConfig):
     written at ``pos`` on the device, so a CUDA graph replays the step
     at any position. Returns (logits (B, V), cache), the cache updated
     IN PLACE."""
-    _check_dense(params)
     s_max = cache["k"].shape[2]
     cos_full, sin_full = _rope_cache(s_max, config.head_dim,
                                      float(config.rope_theta),
@@ -741,7 +860,7 @@ def decode_step_stacked(params, tok, pos, cache, config: LlamaConfig):
         x = _decoder_layer_cached_full(params, l, x, cos, sin, cache["k"],
                                        cache["v"], kv_len, config)
     x = rms_norm(x, params["ln_f"], config.rms_norm_eps)
-    return x[:, 0] @ params["lm_head"], cache
+    return _mm(x[:, 0], params["lm_head"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -757,21 +876,21 @@ def decoder_layer(p, x, cos, sin, config: LlamaConfig):
     d = config.head_dim
     eps = config.rms_norm_eps
     xn = rms_norm(x, p["ln1"], eps)
-    q = (xn @ p["wq"]).reshape(b, s, -1, d)
-    k = (xn @ p["wk"]).reshape(b, s, -1, d)
-    v = (xn @ p["wv"]).reshape(b, s, -1, d)
+    q = _mm(xn, p["wq"]).reshape(b, s, -1, d)
+    k = _mm(xn, p["wk"]).reshape(b, s, -1, d)
+    v = _mm(xn, p["wv"]).reshape(b, s, -1, d)
     q, k = rope_ops.apply_rope_array(q, k, cos, sin)
     attn = fa.sdpa_array(q, k, v, scale=1.0 / math.sqrt(d), causal=True)
-    out = attn.reshape(b, s, -1) @ p["wo"]
+    out = _mm(attn.reshape(b, s, -1), p["wo"])
     # the reference pins the residual carry to x's dtype (l.457/465)
     x = x + out.to(x.dtype)
     xn = rms_norm(x, p["ln2"], eps)
-    dn = (F.silu(xn @ p["w_gate"]) * (xn @ p["w_up"])) @ p["w_down"]
+    dn = _mm(F.silu(_mm(xn, p["w_gate"])) * _mm(xn, p["w_up"]), p["w_down"])
     return x + dn.to(x.dtype)
 
 
 def _layer(params, l):
-    return {k: params[k][l] for k in LAYER_KEYS}
+    return {k: _layer_w(params, k, l) for k in LAYER_KEYS}
 
 
 #: the matmuls the ``dots`` policy keeps (``jax.checkpoint_policies.
@@ -899,10 +1018,10 @@ def _token_ce(logits, labels):
 def forward_stacked(params, ids, config: LlamaConfig, *,
                     remat: bool = False, remat_policy: str = "full"):
     """Single-device forward over the stacked layout → logits (B, S, V).
-    ``remat``: each layer is a checkpoint (see :func:`_hidden`)."""
-    _check_dense(params)
-    return _hidden(params, ids, config, remat=remat,
-                   remat_policy=remat_policy) @ params["lm_head"]
+    ``remat``: each layer is a checkpoint (see :func:`_hidden`). Int8
+    leaves dequantize in each product (:func:`_dense`)."""
+    return _mm(_hidden(params, ids, config, remat=remat,
+                       remat_policy=remat_policy), params["lm_head"])
 
 
 def loss_stacked(params, ids, labels, config: LlamaConfig, *,
@@ -978,7 +1097,7 @@ def build_train_step(config: LlamaConfig, learning_rate: float = 1e-3,
     lr = float(learning_rate)
 
     def one_step(params, opt_state, ids, labels):
-        _check_dense(params)
+        _check_real(params)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         n_micro = ids.shape[0]
@@ -1080,37 +1199,64 @@ def shard_params_tp(params: Dict[str, Any], mesh, config: LlamaConfig):
     reference's device shard), a whole one the tensor itself where it
     already lies on that device. A degree-1 serving mesh gives the dict
     on its device. Over a process ``Mesh`` (``parallel.mesh.Mesh``):
-    this rank's slabs. Weight-only int8 leaves wait for the quantization
-    item and raise."""
+    this rank's slabs.
+
+    A weight-only int8 leaf ``{"q", "scale"}`` (l.335-345): ``q`` splits
+    like the dense weight; ``scale`` (L, out) splits along ``out`` for a
+    column-parallel weight and is whole for a row-parallel one (its out
+    dim is not split). On the card each ``q`` slab is column-major
+    (:func:`place_int8`)."""
     from ..parallel.mesh import ServingMesh, SlabSharding
-    for k, v in params.items():
-        if isinstance(v, dict):
-            raise _later(f"shard_params_tp of the weight-only int8 leaf "
-                         f"{k!r}", "quantization")
     specs = serving_param_specs(config)
+    int8 = {k for k, v in params.items() if isinstance(v, dict)}
     if not isinstance(mesh, ServingMesh):
-        return {k: (v if SlabSharding(mesh, specs.get(k, ())).num_parts(0)
-                    == 1 else SlabSharding(mesh, specs[k]).shard(v))
-                for k, v in params.items()}
+        from ..parallel.mesh import PartitionSpec as P
+
+        def rank_slab(v, spec):
+            sh = SlabSharding(mesh, spec)
+            return v if sh.num_parts(0) == 1 else sh.shard(v)
+
+        out = {}
+        for k, v in params.items():
+            spec = specs.get(k, ())
+            if k in int8:
+                out_axis = spec[-1] if len(spec) == 3 else None
+                out[k] = {"q": rank_slab(v["q"], spec),
+                          "scale": rank_slab(v["scale"], P(
+                              *([None] * (v["scale"].dim() - 1)
+                                + [out_axis])))}
+            else:
+                out[k] = rank_slab(v, spec)
+        return out
     devs = mesh.devices.reshape(-1).tolist()
     if len(devs) == 1:
-        return {k: v.to(devs[0]) for k, v in params.items()}
+        return {k: (place_int8(v, devs[0]) if k in int8 else v.to(devs[0]))
+                for k, v in params.items()}
     n = len(devs)
+
+    def slab(k, v, dim, c, dev):
+        if v.shape[dim] % n:
+            raise ValueError(f"{k}: dim {dim} ({v.shape[dim]}) does not "
+                             f"split over {n} chips")
+        w = v.shape[dim] // n
+        return v.narrow(dim, c * w, w).to(dev).contiguous()
+
     out = []
     for c, dev in enumerate(devs):
         chip = {}
         for k, v in params.items():
             spec = specs.get(k, ())
             dims = [i for i, e in enumerate(spec) if e is not None]
-            if not dims:
+            if k in int8:
+                q = slab(k, v["q"], dims[0], c, dev) if dims else v["q"]
+                col = dims and dims[0] == len(spec) - 1
+                scale = (slab(k, v["scale"], v["scale"].dim() - 1, c, dev)
+                         if col else v["scale"])
+                chip[k] = place_int8({"q": q, "scale": scale}, dev)
+            elif not dims:
                 chip[k] = v.to(dev)
-                continue
-            dim, = dims
-            if v.shape[dim] % n:
-                raise ValueError(f"{k}: dim {dim} ({v.shape[dim]}) does not "
-                                 f"split over {n} chips")
-            w = v.shape[dim] // n
-            chip[k] = v.narrow(dim, c * w, w).to(dev).contiguous()
+            else:
+                chip[k] = slab(k, v, dims[0], c, dev)
         out.append(chip)
     return out
 
@@ -1493,7 +1639,7 @@ def build_hybrid_train_step(config: LlamaConfig, mesh,
         return grads
 
     def one_step(params, opt_state, ids_g, labels_g):
-        _check_dense(params)
+        _check_real(params)
         ids, labels = batch_slab(ids_g), batch_slab(labels_g)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}

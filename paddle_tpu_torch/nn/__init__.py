@@ -2,8 +2,7 @@
 base and its containers, ``ParamAttr``, the standard layers, the
 recurrent layers, beam-search decoding, the Transformer family, the
 ``layers_extra`` batch,
-``functional``, ``initializer`` and ``utils``. ``nn.quant`` (the
-quantization slice) is not ported and raises."""
+``functional``, ``initializer``, ``utils`` and ``quant``."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -44,8 +43,11 @@ from .layers_extra import (  # noqa: F401
 )
 
 
+
 def __getattr__(name):
+    # ``quant`` imports ``quantization``, which imports this package: it
+    # loads on first use, so importing either first works
     if name == "quant":
-        from ..ops._common import not_ported
-        raise not_ported("paddle_tpu_torch.nn.quant", "quantization")
+        import importlib
+        return importlib.import_module(".quant", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

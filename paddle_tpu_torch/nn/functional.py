@@ -36,6 +36,7 @@ from ..core.dtype import canonical_dtype, convert_dtype
 from ..core.tensor import Tensor
 from ..ops import flash_attention as fa
 from ..ops import rms_norm as rn
+from ..ops._common import true_div
 from ..ops.fused_transformer_block import layer_norm_array
 
 _NEG_INF = -1e30        # the reference's masked-score fill (flash_attention.py)
@@ -969,8 +970,11 @@ def _jax_resize(v, out_hw, method):
         if n_in == n_out:
             continue
         if method == "nearest":
-            idx = torch.floor((torch.arange(n_out, dtype=torch.float32)
-                               + 0.5) * n_in / n_out).long().to(v.device)
+            # made on the tensor's device: a captured program copies
+            # nothing from the host
+            pos = (torch.arange(n_out, dtype=torch.float32, device=v.device)
+                   + 0.5) * n_in
+            idx = torch.floor(true_div(pos, n_out)).long()
             v = v.index_select(axis, idx)
             continue
         kern = _triangle if method == "linear" else _keys_cubic

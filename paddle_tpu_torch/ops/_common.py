@@ -57,6 +57,13 @@ def exporting():
         _exporting[0] = prev
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as an IEEE division on every device: a CUDA
+    division by a Python number multiplies by its reciprocal, which can
+    differ from the CPU's (and XLA's) quotient in the last bit."""
+    return x / torch.full_like(x, d)
+
+
 def next_multiple(x: int, m: int) -> int:
     """The least multiple of ``m`` that is at least ``x``."""
     return ((x + m - 1) // m) * m

@@ -14,8 +14,15 @@ stacked on a call). Prefill attention is the causal flash kernels
 plain einsums over the whole cache slab. The KV cache is one tensor
 ``[L, 2, B, nh, S, hd]`` (k = 0, v = 1); a decode step writes its new
 K/V into it in place at ``time_step`` (the reference returns an updated
-copy), so a step never copies the cache. The int8 stack
-(``int8=True``) waits for the quantization slice.
+copy), so a step never copies the cache.
+
+The int8 stack (``int8=True``) runs its four projections through
+:func:`_int8_mm`: activations quantized per token (or by a calibrated
+``in_scale``), an int8×int8→int32 product, one fp32 dequantize
+multiply. The reference leaves that product to XLA outside any Pallas
+kernel, so it is a library call here: ``torch._int_mm`` (cuBLASLt's
+int8 GEMM) on the card, an exact int32 product on the CPU. Both are
+exact, so the card's int32 result is the CPU's bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flash_attention as fa
-from ._common import not_ported, resolve_device
+from ._common import next_multiple, resolve_device, true_div
 from .layer_norm_fused import _stats, layer_norm
 
 #: ``jax.nn.gelu`` defaults to the tanh approximation; the reference's FFN
@@ -46,7 +53,8 @@ def layer_norm_array(x, scale=None, bias=None, eps=1e-5):
     (``ops/layer_norm_fused.py``: the Triton kernels for CUDA tensors);
     otherwise the plain form, scale and bias optional."""
     if scale is not None and bias is not None:
-        return layer_norm(x, scale, bias, eps)
+        # the kernel takes contiguous rows (a sliced input is copied)
+        return layer_norm(x.contiguous(), scale, bias, eps)
     xf = x.float()
     mu, inv = _stats(xf, eps)
     y = (xf - mu) * inv
@@ -122,18 +130,74 @@ def _update_slab(cache, new, start: int):
     cache[:, :, start:start + new.shape[2]] = new
 
 
+def col_major(w):
+    """``w`` (..., K, N) with the same values, laid out column-major in
+    its last two dims: the layout the card's int8 GEMM takes at every
+    row count (a row-major ``(K, N)`` operand is refused by cuBLASLt at
+    some small shapes and runs ~5× slower at others)."""
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def int32_product(xq, wq):
+    """``xq (M, K) int8 @ wq (K, N) int8`` accumulated in int32, exact.
+    On the card ``torch._int_mm``: its rows are zero-padded to a
+    multiple of 8 of at least 24 (it refuses 16 rows or fewer; rows are
+    independent, so the padding changes no result), ``wq`` is taken
+    column-major (:func:`col_major`, no copy when it already is), and K
+    and N must be multiples of 8, else it raises: the int8 product is
+    never routed around. On the CPU an int32 matmul."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    if not xq.is_cuda:
+        return xq.to(torch.int32) @ wq.to(torch.int32)
+    if k % 8 or n % 8:
+        raise ValueError(
+            f"the card's int8 GEMM needs K and N multiples of 8; got "
+            f"K={k}, N={n}")
+    if wq.stride(0) != 1:
+        wq = col_major(wq)
+    rows = next_multiple(max(m, 17), 8)
+    if rows != m:
+        xq = torch.cat([xq, xq.new_zeros(rows - m, k)])
+    return torch._int_mm(xq.contiguous(), wq)[:m]
+
+
+def _int8_mm(x, wq, w_scale, in_scale=None):
+    """A8W8 product (l.131-151): x (..., K) float, wq (K, N) int8,
+    w_scale (N,) per output channel. Activations are quantized per
+    token (step ``max(amax, 1e-6) / 127``) unless a calibrated
+    ``in_scale`` is given, the max-abs RANGE (step ``in_scale / 127``).
+    int8×int8→int32 (:func:`int32_product`), then ``y · xs · w_scale``
+    in fp32, in the reference's order."""
+    xf = x.float()
+    if in_scale is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        xs = torch.clamp(amax, min=1e-6)                    # (..., 1)
+    else:
+        xs = torch.as_tensor(in_scale, dtype=torch.float32, device=x.device)
+    xs = true_div(xs, 127.0)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    y = int32_product(xq.reshape(-1, xq.shape[-1]), wq)
+    y = y.reshape(xq.shape[:-1] + (wq.shape[1],))
+    return y.float() * xs * w_scale
+
+
 def _one_layer(x, p, *, num_heads, act, eps, attn_mask, kv_cache, time_step,
-               seq_lens=None):
+               seq_lens=None, mm=None):
     """One pre-LN decoder layer (l.154-185): LN, QKV, attention (causal
     flash prefill, or the cached decode over ``kv_cache = (k, v)``
     slabs, written in place at ``time_step``), out projection and
     residual, LN, FFN and residual. ``p`` maps the stacked keys
     (``ln_scale``, ``qkv_w``, ...) to this layer's tensors. Returns
     ``(y, (k, v))``: the updated slabs in decode, this layer's new K/V
-    in prefill."""
+    in prefill. ``mm(t, w_key, b_key)`` replaces the four projections
+    (the int8 stack's :func:`_int8_mm`)."""
+    if mm is None:
+        def mm(t, wk, bk):
+            return t @ p[wk] + p[bk]
     b, s, h = x.shape
     xn = layer_norm_array(x, p["ln_scale"], p["ln_bias"], eps)
-    qkv = xn @ p["qkv_w"] + p["qkv_b"]
+    qkv = mm(xn, "qkv_w", "qkv_b")
     q, k, v = _split_heads(qkv, num_heads)
     if kv_cache is not None and time_step is not None:
         k_cache, v_cache = kv_cache
@@ -146,16 +210,28 @@ def _one_layer(x, p, *, num_heads, act, eps, attn_mask, kv_cache, time_step,
         attn = _prefill_attention(q, k, v, attn_mask)
         new_kv = (k, v)
     attn = attn.transpose(1, 2).reshape(b, s, h)
-    x = x + (attn @ p["out_w"] + p["out_b"]).to(x.dtype)
+    x = x + mm(attn, "out_w", "out_b").to(x.dtype)
     xn = layer_norm_array(x, p["ffn_ln_scale"], p["ffn_ln_bias"], eps)
-    f = _ACTS[act](xn @ p["ffn1_w"] + p["ffn1_b"])
-    x = x + (f @ p["ffn2_w"] + p["ffn2_b"]).to(x.dtype)
+    f = _ACTS[act](mm(xn, "ffn1_w", "ffn1_b"))
+    x = x + mm(f, "ffn2_w", "ffn2_b").to(x.dtype)
     return x, new_kv
 
 
 _KEYS = ("ln_scale", "ln_bias", "qkv_w", "qkv_b", "out_w", "out_b",
          "ffn_ln_scale", "ffn_ln_bias", "ffn1_w", "ffn1_b", "ffn2_w",
          "ffn2_b")
+#: the int8 stack's projections: ``<w>_q``, ``<w>_scale`` and an optional
+#: calibrated ``<w>_in_scale`` in place of each ``<w>``
+_INT8_W = ("qkv_w", "out_w", "ffn1_w", "ffn2_w")
+
+
+def _int8_keys(params) -> tuple:
+    keys = [k for k in _KEYS if k not in _INT8_W]
+    for w in _INT8_W:
+        keys += [w + "_q", w + "_scale"]
+        if w + "_in_scale" in params:
+            keys.append(w + "_in_scale")
+    return tuple(keys)
 
 
 def fused_multi_transformer_array(
@@ -172,38 +248,57 @@ def fused_multi_transformer_array(
     (``time_step`` set): ``cache_kv`` is required and is updated IN
     PLACE, the new tokens' K/V written at ``time_step``; it is returned.
 
+    ``int8=True`` (l.205-213): the projection weights arrive quantized,
+    ``<w>_q`` int8 and ``<w>_scale`` per output channel, with optional
+    calibrated ``<w>_in_scale`` (one per layer), and the four products
+    run through :func:`_int8_mm`. Their fp32 outputs make q, k and v
+    fp32 (the reference's promotion); a prefill's new cache then takes
+    their dtype, as the reference's stacked K/V do.
+
     Returns ``(out, cache_kv)``, the cache ``[L, 2, B, nh, Sc, hd]`` or
     None when none was asked for."""
-    if int8:
-        raise not_ported("fused_multi_transformer_array(int8=True)",
-                         "quantization")
-    n_layers = len(params["qkv_w"])
+    keys = _int8_keys(params) if int8 else _KEYS
+    n_layers = len(params["qkv_w_q" if int8 else "qkv_w"])
 
     def layer(i):
-        return {key: params[key][i] for key in _KEYS}
+        return {key: params[key][i] for key in keys}
+
+    def make_mm(p):
+        if not int8:
+            return None
+
+        def mm(t, wk, bk):
+            return _int8_mm(t, p[wk + "_q"], p[wk + "_scale"],
+                            p.get(wk + "_in_scale")) + p[bk]
+
+        return mm
 
     if time_step is not None:
         if cache_kv is None:
             raise ValueError("decode mode (time_step set) requires cache_kv")
         for i in range(n_layers):
+            p = layer(i)
             x, _ = _one_layer(
-                x, layer(i), num_heads=num_heads, act=act, eps=epsilon,
+                x, p, num_heads=num_heads, act=act, eps=epsilon,
                 attn_mask=None, kv_cache=(cache_kv[i, 0], cache_kv[i, 1]),
-                time_step=time_step, seq_lens=seq_lens)
+                time_step=time_step, seq_lens=seq_lens, mm=make_mm(p))
         return x, cache_kv
     b, s, h = x.shape
-    out_cache = None
+    target = None
     if max_cache_len is not None or cache_kv is not None:
         target = max_cache_len or cache_kv.shape[4]
         if target < s:
             raise ValueError(f"sequence {s} exceeds cache length {target}")
-        out_cache = torch.zeros((n_layers, 2, b, num_heads, target,
-                                 h // num_heads), dtype=x.dtype,
-                                device=x.device)
+    out_cache = None
     for i in range(n_layers):
+        p = layer(i)
         x, (k, v) = _one_layer(
-            x, layer(i), num_heads=num_heads, act=act, eps=epsilon,
-            attn_mask=attn_mask, kv_cache=None, time_step=None)
+            x, p, num_heads=num_heads, act=act, eps=epsilon,
+            attn_mask=attn_mask, kv_cache=None, time_step=None,
+            mm=make_mm(p))
+        if target is not None and out_cache is None:
+            out_cache = k.new_zeros((n_layers, 2, b, num_heads, target,
+                                     h // num_heads))
         if out_cache is not None:
             out_cache[i, 0, :, :, :s] = k
             out_cache[i, 1, :, :, :s] = v

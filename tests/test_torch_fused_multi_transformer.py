@@ -14,9 +14,11 @@ import paddle_tpu as paddle
 import paddle_tpu.incubate.nn.functional as JF
 from paddle_tpu.incubate.nn.layer import fused_transformer as JFT
 from paddle_tpu.ops import fused_transformer_block as JB
+import paddle_tpu.quantization as JQ
 import paddle_tpu_torch.incubate.nn.functional as TF
 from paddle_tpu_torch.incubate.nn.layer import fused_transformer as TFT
 from paddle_tpu_torch.ops import fused_transformer_block as TB
+import paddle_tpu_torch.quantization as TQ
 from paddle_tpu_torch.testing import one_cpu_thread
 
 one_cpu_thread()
@@ -261,10 +263,26 @@ def test_fused_softmax_masks_match_jax():
 
 
 def test_int8_and_training_dropout_raise_not_ported():
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TB.fused_multi_transformer_array(torch.from_numpy(_x()), tp,
-                                         num_heads=NH, int8=True)
+    """The int8 stack runs (``int8=True`` over quantized weights, with a
+    calibrated range on one projection): the JAX stack's output on the
+    same int8 weights."""
+    jp, tp = _params()
+    for params, wq in ((jp, None), (tp, None)):
+        for w in ("qkv_w", "out_w", "ffn1_w", "ffn2_w"):
+            pairs = [(JQ if params is jp else TQ).weight_quantize(
+                params[w][i], **({} if params is jp else {"device": "cpu"}))
+                for i in range(L)]
+            stack = jnp.stack if params is jp else torch.stack
+            params[w + "_q"] = stack([q for q, _ in pairs])
+            params[w + "_scale"] = stack([s for _, s in pairs])
+        params["out_w_in_scale"] = (jnp.asarray([2.0, 3.0], jnp.float32)
+                                    if params is jp else
+                                    torch.tensor([2.0, 3.0]))
+    jout, _ = JB.fused_multi_transformer_array(jnp.asarray(_x()), jp,
+                                               num_heads=NH, int8=True)
+    tout, _ = TB.fused_multi_transformer_array(torch.from_numpy(_x()), tp,
+                                               num_heads=NH, int8=True)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **OUT)
     # training dropout runs now (the eager key stream is ported): the same
     # seed draws the JAX package's mask, so the outputs agree
     import paddle_tpu_torch

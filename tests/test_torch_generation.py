@@ -24,6 +24,9 @@ one_cpu_thread()
 # two layers of products, norms and softmax summed in different orders by
 # XLA and PyTorch (tests/test_torch_legacy_model.py's bound)
 STEP = dict(rtol=1e-4, atol=1e-5)
+#: the prefill flags every prefill program's key ends with (A8W8 on, the
+#: two routing flags the port fixes)
+FLAGS = (True, True, True)
 
 
 def _weights(seed, nkv=4):
@@ -160,7 +163,7 @@ def test_llama_engine_do_sample_matches_jax(gen):
 
 def test_generation_miss_records_match_jax(monkeypatch):
     """The JAX engine's ``recompiles.record_miss`` calls (names, keys
-    without the flags) over: two prompt lengths in one bucket (one
+    with the flags) over: two prompt lengths in one bucket (one
     miss; each length its own tokens), another bucket, and a new
     ``generation_config`` (programs dropped, one miss)."""
     jcfg, jparams, cfg, params = _weights(3)
@@ -181,10 +184,11 @@ def test_generation_miss_records_match_jax(monkeypatch):
                              else TI.GenerationConfig(**g))
         np.testing.assert_array_equal(tout, jout)
     assert [n for n, _ in want] == ["generation_engine.run"] * 3
-    assert teng.compile_misses == [(n, k[:3]) for n, k in want]
-    assert teng.compile_misses == [("generation_engine.run", (16, 4, 2)),
-                                   ("generation_engine.run", (32, 4, 2)),
-                                   ("generation_engine.run", (16, 3, 2))]
+    assert teng.compile_misses == want
+    assert teng.compile_misses == [
+        ("generation_engine.run", (16, 4, 2) + FLAGS),
+        ("generation_engine.run", (32, 4, 2) + FLAGS),
+        ("generation_engine.run", (16, 3, 2) + FLAGS)]
     assert set(teng.compile_seconds) == {"generation_engine.run"}
     assert teng.capture_seconds == {"generation_engine.run": 0.0}
 
@@ -207,7 +211,8 @@ def test_generation_engine_takes_a_kvcache_and_new_weights():
     np.testing.assert_array_equal(first, TI.llama_engine(
         cfg, gen, device="cpu").generate(params, prompt))
     swapped = eng.generate(other, prompt)
-    assert eng.compile_misses == [("generation_engine.run", (16, 4, 2))] * 2
+    assert eng.compile_misses == [
+        ("generation_engine.run", (16, 4, 2) + FLAGS)] * 2
     np.testing.assert_array_equal(swapped, TI.llama_engine(
         cfg, gen, device="cpu").generate(other, prompt))
     assert not np.array_equal(first, swapped)
@@ -223,8 +228,8 @@ def test_paged_engine_program_per_key_matches_jax(monkeypatch, gen):
     table) build one program and give the JAX engine's tokens each; a
     call of another key builds a second, and both programs stay (on the
     CPU each call runs over a new pool, every page free after it). The
-    miss records equal the JAX engine's ``paged_engine.run`` records
-    without the flags."""
+    miss records equal the JAX engine's ``paged_engine.run`` records,
+    the flags included."""
     jcfg, jparams, cfg, params = _weights(9)
     want = []
     monkeypatch.setattr(JD.recompiles, "record_miss",
@@ -241,9 +246,10 @@ def test_paged_engine_program_per_key_matches_jax(monkeypatch, gen):
     for prompts in batches:
         np.testing.assert_array_equal(teng.generate(params, prompts),
                                       jeng.generate(jparams, prompts))
-    assert teng.compile_misses == [(n, k[:4]) for n, k in want]
-    assert teng.compile_misses == [("paged_engine.run", (32, 5, 4, 7)),
-                                   ("paged_engine.run", (64, 5, 4, 12))]
+    assert teng.compile_misses == want
+    assert teng.compile_misses == [
+        ("paged_engine.run", (32, 5, 4, 7) + FLAGS),
+        ("paged_engine.run", (64, 5, 4, 12) + FLAGS)]
     assert len(teng._compiled) == 2
     teng._mgr.check_conservation()
     assert teng._mgr.num_free_pages == teng._mgr.usable_pages

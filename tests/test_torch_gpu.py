@@ -7,7 +7,9 @@ and main-grad training of the imperative Llama on the card against the
 same on the CPU, the hybrid step over one NCCL rank against the CPU and
 the one-device step, the training steps' launch counts, and
 tensor-parallel serving over logical chips on one card (the engine
-against the CPU, row 3 on each chip's head slab). Marked ``gpu``; they
+against the CPU, row 3 on each chip's head slab), and the int8 serving
+and vision paths against the CPU (``_int8_mm`` bitwise, the int8 Llama's
+tokens, the int8 fused stack, a ResNet-18 and a ViT step). Marked ``gpu``; they
 skip where no CUDA device is present. Run on the card (the machine there has no JAX, so skip the
 conftest):
 
@@ -594,7 +596,8 @@ def test_generation_engine_on_card_matches_cpu(cuda, gen):
         eng._graphs = graphs
         p = {k: t.to(dev) for k, t in params.items()}
         outs.append([eng.generate(p, ids) for ids in calls])
-        assert eng.compile_misses == [("generation_engine.run", (16, 7, 3))]
+        assert eng.compile_misses == [("generation_engine.run",
+                                       (16, 7, 3, True, True, True))]
     for card in outs[1:]:
         for a, b in zip(card, outs[0]):
             np.testing.assert_array_equal(a, b)
@@ -658,9 +661,11 @@ def test_paged_generation_engine_graph_one_build(cuda):
             assert len(eng._compiled) == 1
         outs.append(out)
         assert pools[0] is pools[1] and pools[2] is not pools[1]
-        assert eng.compile_misses == [("paged_engine.run", (64, 7, 3, 3)),
-                                      ("paged_engine.run", (16, 7, 2, 1)),
-                                      ("paged_engine.run", (64, 7, 3, 3))]
+        flags = (True, True, True)
+        assert eng.compile_misses == [
+            ("paged_engine.run", (64, 7, 3, 3) + flags),
+            ("paged_engine.run", (16, 7, 2, 1) + flags),
+            ("paged_engine.run", (64, 7, 3, 3) + flags)]
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 
@@ -722,7 +727,7 @@ def test_sampled_constrained_serve_on_card_matches_cpu(cuda, speculative):
         outs.append(_serve_kinds(eng, {k: t.to(dev) for k, t in
                                        params.items()}, prompts, subs))
         name = "cbe.spec_step" if speculative else "cbe.unified_step"
-        assert [(n, k[-1]) for n, k in eng.compile_misses] == [(name, True)]
+        assert [(n, k[6]) for n, k in eng.compile_misses] == [(name, True)]
         assert eng.sampling_counts["paddle_sampling_violations_total"] == 0
     assert outs[1] == outs[2] == outs[0]
     for i, toks in enumerate(outs[0]):
@@ -3249,3 +3254,141 @@ def test_ragged_head_slabs_match_whole_and_plain(cuda, nh, nkv, chips):
     joined = pa.ragged_paged_attention(q, k, v, *meta, mesh=mesh,
                                        decoding=dec)
     assert torch.equal(joined, torch.cat(outs, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and vision (chip_smoke phase 39 (a))
+# ---------------------------------------------------------------------------
+
+def test_int8_product_on_card_is_the_cpu_bits(cuda):
+    """``_int8_mm``'s int32 product and its dequantized output are the
+    CPU's bit for bit, at row counts under the card GEMM's minimum and
+    with a row-major weight; K or N off a multiple of 8 raises."""
+    from paddle_tpu_torch.ops import fused_transformer_block as ftb
+    gen = torch.Generator().manual_seed(0)
+    for m in (1, 16, 40):
+        x = torch.randn(m, 256, generator=gen)
+        wq = torch.randint(-127, 128, (256, 96), generator=gen,
+                           dtype=torch.int8)
+        ws = torch.rand(96, generator=gen) * 0.01
+        got = ftb._int8_mm(x.to(cuda), wq.to(cuda), ws.to(cuda))
+        assert torch.equal(got.cpu(), ftb._int8_mm(x, wq, ws))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ftb.int32_product(torch.zeros(4, 12, dtype=torch.int8, device=cuda),
+                          torch.zeros(12, 8, dtype=torch.int8, device=cuda))
+
+
+def _int8_tiny_llama():
+    cfg = L.llama_tiny(hidden_size=256, num_attention_heads=2,
+                       num_key_value_heads=2, intermediate_size=512,
+                       num_hidden_layers=2, dtype=torch.float32)
+    from paddle_tpu_torch.quantization import quantize_stacked_params
+    return cfg, quantize_stacked_params(L.init_params(cfg, seed=0,
+                                                      device="cpu"))
+
+
+@pytest.mark.parametrize("a8w8", [True, False])
+@pytest.mark.parametrize("unified", [True, False])
+def test_int8_llama_engines_on_card_match_cpu(cuda, unified, a8w8):
+    """The int8 tiny Llama (all eight keys) on both pipelines, A8W8 on and
+    off: greedy tokens on the card (kernels, CUDA graphs) equal the
+    CPU's."""
+    import paddle_tpu_torch as TP
+    cfg, qp = _int8_tiny_llama()
+    qg = {k: ({p: t.to(cuda) for p, t in v.items()} if isinstance(v, dict)
+              else v.to(cuda)) for k, v in qp.items()}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 17, 3)]
+    TP.set_flags({"FLAGS_serving_a8w8_prefill": int(a8w8)})
+    try:
+        outs = [D.ContinuousBatchingEngine(
+            cfg, D.GenerationConfig(max_new_tokens=6), num_slots=2,
+            page_size=16, max_seq_len=128, chunk=4, device=dev,
+            unified=unified).serve(p, prompts)
+            for dev, p in ((cuda, qg), ("cpu", qp))]
+    finally:
+        TP.set_flags({"FLAGS_serving_a8w8_prefill": 1})
+    assert outs[0] == outs[1]
+
+
+def test_fused_int8_stack_on_card_matches_cpu(cuda):
+    """``FusedMultiTransformerInt8`` (h 128, 2 heads of 64) prefill with a
+    cache and a decode step, card against CPU, within
+    ``testing.INT8_CARD_CPU_TOL``."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedMultiTransformerInt8)
+    from paddle_tpu_torch.testing import INT8_CARD_CPU_TOL
+    TP.seed(0)
+    fm = FusedMultiTransformer(128, 2, 256, num_layers=2, device="cpu")
+    fg = FusedMultiTransformer(128, 2, 256, num_layers=2, device=cuda)
+    fg.set_state_dict(fm.state_dict())
+    x = torch.randn(2, 9, 128, generator=torch.Generator().manual_seed(1))
+    res = []
+    for net, dev in ((fg, cuda), (fm, "cpu")):
+        q = FusedMultiTransformerInt8.from_float(net, ffn1_in_scale=[5., 5.])
+        pre, cache = q(x[:, :8].to(dev), gen_cache_len=9)
+        step, _ = q(x[:, 8:].to(dev), caches=cache, time_step=8)
+        res.append((pre.cpu(), step.cpu()))
+    for got, want in zip(*res):
+        l2_close(got, want, INT8_CARD_CPU_TOL, "int8 stack")
+
+
+def test_vision_steps_on_card_match_cpu(cuda):
+    """A ResNet-18 SGD step (``testing.VISION_CARD_CPU_TOL``) and two
+    ``build_vit_train_step`` steps of a ViT with heads of 64, card against
+    CPU: the first loss (same weights) within ``CARD_CPU_TOL``; the
+    second after an AdamW step, in which an element whose gradient is
+    rounding noise may move ±lr apart (``trained_weights_close``, which
+    holds the weights), within 1e-4 (measured 5.5e-5 at lr 1e-2, so lr
+    is 1e-3 here)."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.testing import CARD_CPU_TOL, VISION_CARD_CPU_TOL
+    from paddle_tpu_torch.vision.models import resnet18
+    from paddle_tpu_torch.vision.models import vit as V
+    saved = place._current_place[0]
+    place.set_device("cpu")
+    try:
+        TP.seed(0)
+        rc = resnet18(num_classes=10)
+        vit = V.vit_tiny_test(embed_dim=128, num_heads=2)
+    finally:
+        place._current_place[0] = saved
+    rg = resnet18(num_classes=10)
+    rg.set_state_dict(rc.state_dict())
+    x = np.random.RandomState(0).randn(4, 3, 64, 64).astype(np.float32)
+    y = np.array([3, 7, 0, 9], np.int64)
+    res = []
+    for net, dev in ((rg, cuda), (rc, "cpu")):
+        loss = TP.nn.functional.cross_entropy(
+            net(torch.from_numpy(x).to(dev)), torch.from_numpy(y).to(dev))
+        loss.backward()
+        res.append((float(loss), {n: p.grad.cpu().double()
+                                  for n, p in net.named_parameters()}))
+    assert abs(res[0][0] - res[1][0]) <= VISION_CARD_CPU_TOL["loss"] * abs(
+        res[1][0])
+    for k, want in res[1][1].items():
+        got = res[0][1][k]
+        assert (got - want).norm() <= VISION_CARD_CPU_TOL["grad_rel_l2"] \
+            * want.norm(), k
+    p0 = V.stacked_params_from_module(vit)
+    xv = np.random.RandomState(1).randn(4, 3, 16, 16).astype(np.float32)
+    yv = np.array([1, 5, 2, 9], np.int32)
+    runs = []
+    for dev in (cuda, "cpu"):
+        step, init = V.build_vit_train_step(num_heads=2, patch=4,
+                                            learning_rate=1e-3,
+                                            dtype=torch.float32)
+        params = {k: v.clone().to(dev) for k, v in p0.items()}
+        opt = init(params)
+        losses = [float(step(params, opt, torch.from_numpy(xv).to(dev),
+                             torch.from_numpy(yv).to(dev))[0])
+                  for _ in range(2)]
+        runs.append((losses, {k: v.cpu() for k, v in params.items()}))
+    rtol, atol = CARD_CPU_TOL["loss"]
+    np.testing.assert_allclose(runs[0][0][0], runs[1][0][0], rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(runs[0][0][1], runs[1][0][1], rtol=1e-4)
+    trained_weights_close(runs[0][1], runs[1][1], 1e-3, 2, hidden=128)

@@ -114,10 +114,18 @@ def test_params_from_numpy_carries_jax_weights():
 
 
 def test_params_from_numpy_refuses_int8_and_bad_shapes():
-    cfg = TL.llama_tiny(num_hidden_layers=1)
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TL.params_from_numpy({"wq": {"q": np.zeros((1, 64, 64), np.int8),
-                                     "scale": np.ones((1, 64))}}, cfg,
+    """An int8 leaf carries across as int8 q and fp32 scale (never cast
+    to the config's dtype); a leaf of the wrong shape is refused, dense
+    or int8."""
+    cfg = TL.llama_tiny(num_hidden_layers=1, dtype=torch.bfloat16)
+    got = TL.params_from_numpy({"wq": {"q": np.ones((1, 64, 64), np.int8),
+                                       "scale": np.ones((1, 64))}}, cfg,
+                               device="cpu")
+    assert got["wq"]["q"].dtype == torch.int8
+    assert got["wq"]["scale"].dtype == torch.float32
+    with pytest.raises(ValueError, match="shape"):
+        TL.params_from_numpy({"wq": {"q": np.zeros((1, 64, 32), np.int8),
+                                     "scale": np.ones((1, 32))}}, cfg,
                              device="cpu")
     with pytest.raises(ValueError, match="shape"):
         TL.params_from_numpy({"wq": np.zeros((1, 64, 32), np.float32)},
@@ -227,10 +235,26 @@ def test_ragged_step_clamps_positions_past_the_table():
 
 
 def test_ragged_step_refuses_int8_weights():
+    """Int8 leaves of every projection and ``lm_head`` run: the logits
+    and pools are the JAX step's on the same quantized weights (the
+    A8W8 products' int32 sums are exact; the fp32 rest within STEP).
+    Page 0, the pad page, is left out as in the dense test above."""
+    from paddle_tpu.quantization import quantize_stacked_params
     jcfg, cfg, params, arrays, kp, vp, bt = _step_inputs(0)
-    tp = TL.params_from_numpy(params, cfg, "cpu")
-    tp["wq"] = {"q": tp["wq"].to(torch.int8), "scale": torch.ones(2, 64)}
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TL.ragged_step(tp, *(torch.from_numpy(a) for a in arrays),
-                       torch.from_numpy(kp), torch.from_numpy(vp),
-                       torch.from_numpy(bt), cfg)
+    qp = quantize_stacked_params({k: jnp.asarray(v)
+                                  for k, v in params.items()})
+    tp = TL.params_from_numpy(
+        {k: ({kk: np.asarray(vv) for kk, vv in v.items()}
+             if isinstance(v, dict) else np.asarray(v))
+         for k, v in qp.items()}, cfg, "cpu")
+    got = TL.ragged_step(tp, *(torch.from_numpy(a) for a in arrays),
+                         torch.from_numpy(kp.copy()),
+                         torch.from_numpy(vp.copy()),
+                         torch.from_numpy(bt), cfg)
+    want = JL.ragged_step(qp, *(jnp.asarray(a) for a in arrays),
+                          jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(bt), jcfg)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **STEP)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy()[:, 1:], np.asarray(w)[:, 1:],
+                                   **STEP)

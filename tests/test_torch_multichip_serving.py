@@ -172,7 +172,8 @@ def test_shard_params_tp_placements():
     """Column-parallel QKV/gate/up, row-parallel wo/down, whole
     embed/lm_head/norms: chip c's tensor equals the JAX array's shard on
     device c, bitwise; whole tensors stay the caller's on a shared
-    device. The int8 leaves wait for the quantization item."""
+    device. Int8 leaves (``wq`` column-, ``wo`` row-parallel): each
+    chip's ``q`` and ``scale`` slabs equal the JAX device shards."""
     jplaced = JL.shard_params_tp(JPARAMS, jmesh.serving_mesh(4), JCFG)
     placed = TL.shard_params_tp(PARAMS, _tmesh(4), CFG)
     assert len(placed) == 4
@@ -188,11 +189,21 @@ def test_shard_params_tp_placements():
     one = TL.shard_params_tp(PARAMS, tmesh.serving_mesh(1, [CPU]), CFG)
     assert all(one[k] is PARAMS[k] for k in PARAMS)
     from paddle_tpu.quantization import quantize_stacked_params
-    qp = quantize_stacked_params(JPARAMS, keys=("wq",))
-    int8 = dict(PARAMS, wq={k: torch.from_numpy(np.array(v))
-                            for k, v in qp["wq"].items()})
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TL.shard_params_tp(int8, _tmesh(4), CFG)
+    qp = quantize_stacked_params(JPARAMS, keys=("wq", "wo"))
+    jq = JL.shard_params_tp(qp, jmesh.serving_mesh(4), JCFG)
+    int8 = dict(PARAMS, **{w: {k: torch.from_numpy(np.array(v))
+                               for k, v in qp[w].items()}
+                           for w in ("wq", "wo")})
+    placed = TL.shard_params_tp(int8, _tmesh(4), CFG)
+    for c, chip in enumerate(placed):
+        for w in ("wq", "wo"):
+            for part in ("q", "scale"):
+                np.testing.assert_array_equal(
+                    chip[w][part].numpy(), _shard_on(jq[w][part], c),
+                    (w, part))
+    assert placed[0]["wq"]["scale"].shape[1] == \
+        qp["wq"]["scale"].shape[1] // 4           # column-parallel scale
+    assert placed[0]["wo"]["scale"].shape == qp["wo"]["scale"].shape
 
 
 def test_pool_head_sharding_and_validation():

@@ -73,7 +73,8 @@ def test_miss_record_matches_jax_engine(monkeypatch, kw):
     """The same storm builds the same programs in the same order: one
     ``cbe.unified_step`` (unified), or one ``cbe.decode_chunk`` and one
     ``cbe.prefill`` per ``(bucket, b_pad)`` / ``("sfx", bucket, b_pad)``
-    (legacy). The JAX keys carry more after the port's (flags, chips)."""
+    (legacy). The unified key is the JAX engine's, the prefill flags
+    included (the JAX legacy keys carry the chip count after them)."""
     want = []
     monkeypatch.setattr(JD.recompiles, "record_miss",
                         lambda name, key: want.append((name, key)))
@@ -89,10 +90,11 @@ def test_miss_record_matches_jax_engine(monkeypatch, kw):
     names = {n for n, _ in got}
     if kw["unified"]:
         # (slots, chunk, step tokens, table width, fused tail, chips,
-        # epilogue): the JAX key without its flags
+        # epilogue, A8W8 flag, the two fixed routing flags)
         assert got == [("cbe.unified_step", (2, 3, teng._step_tokens,
                                              teng._table_width, False, 1,
-                                             False))]
+                                             False, True, True, True))]
+        assert got == want
     else:
         assert names == {"cbe.prefill", "cbe.decode_chunk"}
         assert got.count(("cbe.decode_chunk", (2, 3))) == 1

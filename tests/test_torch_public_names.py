@@ -33,8 +33,7 @@ from paddle_tpu_torch.testing import one_cpu_thread
 one_cpu_thread()
 
 _JAX = "JAX-only: a Pallas/XLA or jax-device construct with no torch form"
-_Q = "Queue A item 1 (other workloads: quantization)"
-_TAIL = "Queue A item 2 (long tail)"
+_TAIL = "Queue A item 1 (long tail)"
 
 #: reference name -> why the port does not have it yet
 DEFERRED = {
@@ -57,9 +56,6 @@ DEFERRED = {
     "ops.rms_norm.rms_norm_array": _JAX,
     "distributed.auto_parallel.api.ProcessMesh.jax_mesh": _JAX + " (the "
     "port's ProcessMesh.rank_mesh is its mesh of ranks)",
-    "nn.quant": _Q,
-    "incubate.nn.FusedMultiTransformerInt8": _Q,
-    "incubate.nn.layer.fused_transformer.FusedMultiTransformerInt8": _Q,
     "incubate.autograd": _TAIL,
     "profiler.profiler": _TAIL + " (profiler/)",
     "profiler.statistic": _TAIL + " (profiler/)",

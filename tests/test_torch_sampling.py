@@ -562,7 +562,7 @@ def test_lazy_epilogue_costs_exactly_one_counted_rebuild(monkeypatch):
         _run(eng, params, prompts, [{}, {"sampler": cls(**sc)}])
     got = teng.compile_misses
     assert [n for n, _ in got] == ["cbe.unified_step"] * 2
-    assert [k[-1] for _, k in got] == [False, True]
+    assert [k[6] for _, k in got] == [False, True]     # the epilogue
     assert all(tuple(wk[:len(gk)]) == gk
                for (_, gk), (_, wk) in zip(got, recorded))
     assert len(recorded) == 2

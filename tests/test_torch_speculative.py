@@ -297,8 +297,10 @@ def test_spec_storm_builds_one_program():
         results.update(eng.collect())
         steps += 1
         assert steps < 2000
+    # the key ends with the prefill flags (A8W8 on, the fixed routes)
     assert eng.compile_misses == [("cbe.spec_step", (
-        4, eng._spec_tokens, 4, eng._table_width, False, 1, False))]
+        4, eng._spec_tokens, 4, eng._table_width, False, 1, False, True,
+        True, True))]
     assert eng.spec_rounds == steps
 
 

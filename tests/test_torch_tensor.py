@@ -297,9 +297,12 @@ def test_importing_the_package_touches_no_torch():
 
 
 def test_later_names_raise_not_ported():
-    for name in ("vision", "linalg", "quantization"):
+    for name in ("linalg", "fft", "sparse"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(TP, name)
+    # ported since: the other-workloads slice
+    assert TP.vision.models.resnet50 is not None
+    assert TP.quantization.weight_quantize is TP.nn.quant.weight_quantize
     # ported since: jit and static (the compiled-program slice)
     assert TP.jit.to_static is not None and TP.static.Executor is not None
     # ported since: the checkpoint tier, the data pipeline, nn whole, the
