@@ -301,11 +301,12 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     dispatcher's µs per op disarmed and armed, and peak memory beside
     phase 12's step.
 
-32. GPT-2 XL's widths cut to 8 layers (the machine's 45 GiB of disk
-    writes a call) under phase 28's recipe driven by ``ResilientTrainer``
-    (right after phase 28): six steps in a plain loop, then the chaos
-    run with fresh objects (``save_interval=2``, ``keep=2``, async saves
-    of the 4.6 GB ``TrainState`` under ``build/``): a preemption at step
+32. GPT-2 XL's widths cut to 4 layers (the machine's 45 GiB of disk
+    writes a call, and the smoke's time limit) under phase 28's recipe
+    driven by ``ResilientTrainer`` (right after phase 28): six steps in a
+    plain loop, then the chaos run with fresh objects
+    (``save_interval=2``, ``keep=2``, async saves of the 2.8 GB
+    ``TrainState`` under ``build/``): a preemption at step
     2 through the real SIGTERM path with its flush corrupted by a
     ``truncate_shard`` fault, a resume by a new model, optimizer,
     scheduler and scaler from another seed that skips the corrupt
@@ -479,6 +480,30 @@ kernels are built for sm_90a with nvcc and Triton at first use, into
     ``predict_with_nms``: 3 warm-up and 5 timed steps each, ms/step,
     img/s, peak memory, finite losses.
 
+40. The long tail, TF32 off, while phase 7's weights are on the card.
+    (a) Phase 7's serve (its engine geometry, weights and 12 prompts,
+    CUDA graphs) unprofiled, then with its first 8 steps under
+    ``Profiler(targets=[CPU, GPU], scheduler=(2, 6),
+    on_trace_ready=export_chrome_tracing(dir))``: the host export holds
+    the window's 4 ``ProfileStep`` spans; the device trace names row 1's
+    and row 3's kernels exactly as often as their launch counters counted
+    over the window; the tokens equal the unprofiled run's and phase 7's;
+    the window's step walls with and without the profiler, and
+    ``summary()``'s top lines. (b) The slice's modules on the card
+    against the port's CPU path: ``linalg`` at (4096, 4096) fp32
+    (``solve``, ``cholesky``, ``qr``, ``eigh``, ``inv``, ``slogdet``,
+    ``lu``; ``svd`` at 2048, ``lstsq`` at (4096, 2048)) by residual and
+    orthogonality bounds and card == CPU where the host is quick;
+    ``stft``/``istft``, ``MelSpectrogram`` (80 mels) and ``MFCC`` (40)
+    over 32 clips of 10 s at 16 kHz (n_fft 512, hop 160, window 400);
+    2^20 draws of each distribution family under the same key against
+    the CPU's (flipped rejection decisions counted); ``sparse.matmul``
+    and ``send_u_recv`` (sum, mean, max) on a seeded graph of
+    ogbn-arxiv's size; ``viterbi_decode`` at (64, 256) with 50 tags, the
+    paths equal. The bounds are ``testing``'s LINALG_CARD_TOL,
+    SIGNAL_CARD_TOL, DRAW_TOL with DRAW_CARD_FLIPS and GRAPH_CARD_TOL.
+    (a)'s launches join rows 1 and 3 in the kernels line.
+
 The line before the card line lists every kernel with its numbers; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -502,7 +527,7 @@ import time
 
 import numpy as np
 
-N_PHASES = 39
+N_PHASES = 40
 #: phase 24 (b)'s debug bundles, replayed by phase 29 (under ``build/``)
 BUNDLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke_bundles")
@@ -5641,12 +5666,13 @@ def gpt2_xl_recipe_phase(torch, G, ln, fa, plain):
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "smoke_checkpoints")
 RESILIENT_STEPS = 6
-#: GPT-2 XL's widths cut to 8 of its 48 layers: the card's machine allows
+#: GPT-2 XL's widths cut to 4 of its 48 layers: the card's machine allows
 #: a call 45 GiB of disk writes (deleted files count), and the phase's
 #: five saves of the whole model's 21.8 GB TrainState would write 109 GB;
-#: at 8 layers a save is 4.6 GB (the embeddings and 8 layers, 14 bytes a
-#: parameter)
-RESILIENT_LAYERS = 8
+#: at 4 layers a save is 2.8 GB (the embeddings and 4 layers, 14 bytes a
+#: parameter). 8 layers (4.6 GB a save) made this phase ~87 s of a smoke
+#: that must stay inside its time limit.
+RESILIENT_LAYERS = 4
 
 
 class _IOLog:
@@ -10053,7 +10079,473 @@ def ppyoloe_phase(torch):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the long tail — the Profiler around the 7B serve, and the
+# slice's modules on the card against the CPU
+# ---------------------------------------------------------------------------
+
+#: the profiled serve: steps driven under the Profiler, and its window
+PROFILE_STEPS = 8
+PROFILE_WINDOW = (2, 6)
+#: the kernels of rows 1 and 3 by the names the device trace gives them,
+#: with the counter each is held to
+P40_TRACE_NAMES = (("_rms_norm_fwd", "rms_norm_fwd"),
+                   ("ragged_tiles_kernel", "ragged_wgmma"),
+                   ("ragged_key_split_kernel", "ragged_key_split"),
+                   ("decode_merge_kernel", "ragged_merge"))
+
+
+def _device_counts(prof, names):
+    """Kernel launches in a torch.profiler trace whose names hold each of
+    ``names``."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.key:
+                out[n] += e.count
+    return out
+
+
+def _p40_counts(rn, pa):
+    return {"rms_norm_fwd": rn.rms_norm.launches, **_ragged_launches(pa)}
+
+
+def _profiled_serve(torch, eng, params, prompts, prof, rn, pa):
+    """Serve ``prompts`` step by step; with ``prof`` the first
+    ``PROFILE_STEPS`` steps run under it (``prof.step()`` after each), the
+    counters zeroed as its window opens and read as it closes. Returns
+    the tokens, each step's wall (ms) and the window's counts."""
+    rids = [eng.submit(p) for p in prompts]
+    results, walls, counts = {}, [], None
+    lo, hi = PROFILE_WINDOW
+    i = 0
+    while len(results) < len(rids) or i < PROFILE_STEPS:
+        if prof is not None and i == lo:
+            start = _p40_counts(rn, pa)
+        t0 = time.perf_counter()
+        eng.step(params)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        results.update(eng.collect())
+        if prof is not None and i < PROFILE_STEPS:
+            prof.step()
+            if i + 1 == hi:
+                end = _p40_counts(rn, pa)
+                counts = {k: end[k] - start[k] for k in end}
+            if i + 1 == PROFILE_STEPS:
+                prof.stop()
+        i += 1
+        if i > 200:
+            raise AssertionError("the profiled serve did not finish")
+    return [results[r] for r in rids], walls, counts
+
+
+def profiler_7b_phase(torch, D, rn, pa, cfg, params, greedy):
+    """(a) Phase 7's serve (same engine geometry, weights and prompts,
+    CUDA graphs) once unprofiled and once with its first 8 steps under
+    ``Profiler(targets=[CPU, GPU], scheduler=(2, 6),
+    on_trace_ready=export_chrome_tracing(dir))``: the host export holds
+    the window's 4 step spans, the device trace names rows 1 and 3's
+    kernels as many times as their launch counters counted over the
+    window, the tokens equal the unprofiled run's and phase 7's, and the
+    window's step walls stand beside the same steps unprofiled."""
+    from paddle_tpu_torch import profiler as P
+    prompts = serve_load(cfg)
+    phase_start = _p40_counts(rn, pa)
+    trace_dir = os.path.join("build", "p40_profiler")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    eng = _serve_engine(D, cfg, step_tokens=256)
+    # the first serve builds and captures the step program; the second is
+    # the unprofiled run the profiled one is compared with
+    t0 = time.perf_counter()
+    warm, _, _ = _profiled_serve(torch, eng, params, prompts, None, rn, pa)
+    build_s = time.perf_counter() - t0
+    plain, plain_ms, _ = _profiled_serve(torch, eng, params, prompts, None,
+                                         rn, pa)
+    prof = P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+                      scheduler=PROFILE_WINDOW, log_dir=trace_dir,
+                      on_trace_ready=P.export_chrome_tracing(trace_dir))
+    prof.start()
+    toks, prof_ms, counts = _profiled_serve(torch, eng, params, prompts,
+                                            prof, rn, pa)
+    if not toks == plain == warm or (greedy is not None and toks != greedy):
+        raise AssertionError("the profiled serve's tokens differ from the "
+                             "unprofiled run's or phase 7's")
+    with open(prof.last_export_path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted(e["name"] for e in events if e.get("cat") == "ProfileStep")
+    lo, hi = PROFILE_WINDOW
+    if steps != sorted(f"ProfileStep#{k}" for k in range(lo, hi)):
+        raise AssertionError(f"host export's step spans {steps}")
+    seen = _device_counts(prof.device_profile,
+                          [n for n, _ in P40_TRACE_NAMES])
+    for name, key in P40_TRACE_NAMES:
+        if seen[name] != counts[key]:
+            raise AssertionError(f"device trace: {name} {seen[name]} times, "
+                                 f"its counter {counts[key]}")
+    if counts["ragged_paged_attention"] != counts["ragged_wgmma"] or \
+            counts["rms_norm_fwd"] <= 0:
+        raise AssertionError(f"window counts {counts}")
+    window = slice(lo, hi)
+    _check_outputs(cfg, toks, eng)
+    summary = prof.summary(time_unit="ms").splitlines()
+    phase_end = _p40_counts(rn, pa)
+    del eng
+    _free_card(torch)
+    return dict(
+        launches={k: phase_end[k] - phase_start[k] for k in phase_end},
+        steps=len(prof_ms), build_and_first_serve_s=build_s,
+        window_steps=hi - lo, step_spans=steps,
+        window_launches=counts, device_trace_counts=seen,
+        window_step_ms_profiled=prof_ms[window],
+        window_step_ms_unprofiled=plain_ms[window],
+        mean_step_ms_profiled=float(np.mean(prof_ms[window])),
+        mean_step_ms_unprofiled=float(np.mean(plain_ms[window])),
+        profiler_overhead_ms_a_step=float(np.mean(prof_ms[window])
+                                          - np.mean(plain_ms[window])),
+        host_export=os.path.basename(prof.last_export_path),
+        host_events=len(events),
+        device_trace=os.path.basename(prof.device_trace_path),
+        device_trace_mb=os.path.getsize(prof.device_trace_path) / 1e6,
+        summary_top=summary[:8])
+
+
+def _cuda_ms(torch, fn):
+    """One warm call, then one call timed with CUDA events: (result,
+    ms)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _host_rel_l2(a, b):
+    """||a - b|| / ||b|| in fp64 (complex128 for complex) on the host."""
+    a, b = (t.detach().cpu() for t in (a, b))
+    a, b = ((t.cdouble() if t.is_complex() else t.double()) for t in (a, b))
+    return float((a - b).norm() / b.norm())
+
+
+def _held(name, value, bound, report):
+    """Record ``value`` in ``report``; one over its bound is listed under
+    ``report["_over"]`` (:func:`_check_held` raises for the list, once
+    every value is recorded)."""
+    report[name] = value
+    if not value <= bound:
+        report.setdefault("_over", []).append(f"{name} {value} > {bound}")
+
+
+def _check_held(report):
+    over = report.pop("_over", None)
+    if over:
+        raise AssertionError(f"over their bounds: {over}; all: {report}")
+    return report
+
+
+def linalg_card_phase(torch, TP):
+    """(b) ``linalg`` at (4096, 4096) fp32 (svd and lstsq at 2048):
+    residual and orthogonality bounds on the card, the card's results
+    against the port's CPU path where the CPU is quick enough, each
+    call's device ms (``testing.LINALG_CARD_TOL``)."""
+    from paddle_tpu_torch.testing import LINALG_CARD_TOL as T
+    g = torch.Generator().manual_seed(SEED)
+    n, m = 4096, 2048
+    a = torch.randn(n, n, generator=g) / math.sqrt(n) + 3 * torch.eye(n)
+    s = a @ a.T
+    b = torch.randn(n, 8, generator=g)
+    am = torch.randn(n, m, generator=g) / math.sqrt(n)
+    sq = am[:m]
+    bm = torch.randn(n, 4, generator=g)
+    la = TP.linalg
+    cuda = {k: TP.to_tensor(v.numpy()) for k, v in
+            dict(a=a, s=s, b=b, am=am, sq=sq, bm=bm).items()}
+    TP.set_device("cpu")
+    host = {k: TP.to_tensor(v.numpy()) for k, v in
+            dict(a=a, s=s, b=b, am=am, sq=sq, bm=bm).items()}
+    TP.set_device("gpu")
+    v = {k: t._value for k, t in cuda.items()}
+    out, ms = {}, {}
+    eye = torch.eye(n, device="cuda")
+    x, ms["solve"] = _cuda_ms(torch, lambda: la.solve(cuda["a"], cuda["b"]))
+    _held("solve_residual", _host_rel_l2(v["a"] @ x._value, v["b"]),
+          T["residual"], out)
+    _held("solve_card_cpu", _host_rel_l2(x._value, la.solve(host["a"],
+                                                    host["b"])._value),
+          T["card_cpu"], out)
+    lo, ms["cholesky"] = _cuda_ms(torch, lambda: la.cholesky(cuda["s"]))
+    lv = lo._value
+    _held("cholesky_residual", _host_rel_l2(lv @ lv.T, v["s"]), T["residual"], out)
+    _held("cholesky_card_cpu", _host_rel_l2(lv, la.cholesky(host["s"])._value),
+          T["card_cpu"], out)
+    (q, r), ms["qr"] = _cuda_ms(torch, lambda: la.qr(cuda["a"]))
+    _held("qr_residual", _host_rel_l2(q._value @ r._value, v["a"]), T["residual"],
+          out)
+    _held("qr_orthogonality", float((q._value.T @ q._value - eye).abs()
+                                    .max()), T["orthogonality"], out)
+    (w, vec), ms["eigh"] = _cuda_ms(torch, lambda: la.eigh(cuda["s"]))
+    wv, vv = w._value, vec._value
+    _held("eigh_residual", _host_rel_l2(v["s"] @ vv, vv * wv), T["residual"], out)
+    _held("eigh_orthogonality", float((vv.T @ vv - eye).abs().max()),
+          T["orthogonality"], out)
+    inv, ms["inv"] = _cuda_ms(torch, lambda: la.inv(cuda["a"]))
+    _held("inv_residual", float((v["a"] @ inv._value - eye).abs().max()),
+          T["orthogonality"], out)
+    _held("inv_card_cpu", _host_rel_l2(inv._value, la.inv(host["a"])._value),
+          T["card_cpu"], out)
+    sd, ms["slogdet"] = _cuda_ms(torch, lambda: la.slogdet(cuda["a"]))
+    want = la.slogdet(host["a"])._value
+    if float(sd._value[0]) != float(want[0]):
+        raise AssertionError("slogdet sign card != cpu")
+    _held("slogdet_card_cpu", abs(float(sd._value[1]) - float(want[1]))
+          / abs(float(want[1])), T["card_cpu"], out)
+    (packed, piv), ms["lu"] = _cuda_ms(torch, lambda: la.lu(cuda["a"]))
+    p_, l_, u_ = la.lu_unpack(packed, piv)
+    _held("lu_residual", _host_rel_l2(p_._value @ l_._value @ u_._value, v["a"]),
+          T["residual"], out)
+    (u, sv, vh), ms["svd_2048"] = _cuda_ms(torch, lambda: la.svd(cuda["sq"]))
+    _held("svd_residual", _host_rel_l2((u._value * sv._value) @ vh._value, v["sq"]),
+          T["residual"], out)
+    eye_m = torch.eye(m, device="cuda")
+    _held("svd_orthogonality", float((u._value.T @ u._value - eye_m).abs()
+                                     .max()), T["orthogonality"], out)
+    _held("svd_card_cpu", _host_rel_l2(sv._value, torch.linalg.svdvals(
+        host["sq"]._value)), T["card_cpu"], out)
+    (xs, res, rank, _), ms["lstsq_4096x2048"] = _cuda_ms(
+        torch, lambda: la.lstsq(cuda["am"], cuda["bm"]))
+    # the least-squares solution's residual is orthogonal to A's columns
+    normal = v["am"].T @ (v["am"] @ xs._value - v["bm"])
+    _held("lstsq_normal_equations", float(
+        normal.norm() / (v["am"].T @ v["bm"]).norm()), T["residual"], out)
+    if int(rank._value) != m:
+        raise AssertionError(f"lstsq rank {int(rank._value)}")
+    return _check_held(dict(out, device_ms=ms))
+
+
+def signal_card_phase(torch, TP):
+    """(b) ``signal.stft``/``istft``, ``MelSpectrogram`` (80 mels) and
+    ``MFCC`` (40 coefficients) over 32 clips of 10 s at 16 kHz (n_fft
+    512, hop 160, window 400): the round trip's error, card against CPU,
+    each call's device ms (``testing.SIGNAL_CARD_TOL``)."""
+    from paddle_tpu_torch.testing import SIGNAL_CARD_TOL as T
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(32, 160000, generator=g) * 0.1
+    win = TP.audio.functional.get_window("hann", 400)._value
+    kw = dict(hop_length=160, win_length=400)
+    out, ms = {}, {}
+    res = {}
+    for dev in ("gpu", "cpu"):
+        TP.set_device(dev)
+        xt = TP.to_tensor(x.numpy())
+        w = TP.to_tensor(win.cpu().numpy())
+        mel = TP.audio.features.MelSpectrogram(
+            sr=16000, n_fft=512, n_mels=80, f_min=0.0, **kw)
+        mfcc = TP.audio.features.MFCC(sr=16000, n_mfcc=40, n_fft=512,
+                                      n_mels=80, f_min=0.0, **kw)
+        fns = dict(
+            stft=lambda: TP.signal.stft(xt, 512, window=w, **kw),
+            mel=lambda: mel(xt), mfcc=lambda: mfcc(xt))
+        if dev == "gpu":
+            got = {k: _cuda_ms(torch, f) for k, f in fns.items()}
+            ms.update({k: t for k, (_, t) in got.items()})
+            res["gpu"] = {k: r._value for k, (r, _) in got.items()}
+            back, ms["istft"] = _cuda_ms(torch, lambda: TP.signal.istft(
+                got["stft"][0], 512, window=w, length=x.shape[1], **kw))
+            _held("istft_round_trip", _host_rel_l2(back._value, xt._value),
+                  T["round_trip"], out)
+        else:
+            res["cpu"] = {k: f()._value for k, f in fns.items()}
+    TP.set_device("gpu")
+    for k in res["gpu"]:
+        _held(f"{k}_card_cpu", _host_rel_l2(res["gpu"][k], res["cpu"][k]),
+              T["card_cpu"], out)
+    out["frames"] = int(res["gpu"]["stft"].shape[-1])
+    return _check_held(dict(out, device_ms=ms))
+
+
+#: family -> (constructor over the distribution module and a to_tensor,
+#: discrete, whether each element's draw is its own: a whole-array
+#: rejection loop (Hörmann's Poisson, BTRS) updates accepted elements
+#: while any other is still drawing, so its CPU draw must be the whole
+#: array's)
+P40_FAMILIES = {
+    "Normal": (lambda D, t: D.Normal(t(0.5), t(2.0)), False, True),
+    "Uniform": (lambda D, t: D.Uniform(t(-1.0), t(3.0)), False, True),
+    "Exponential": (lambda D, t: D.Exponential(t(1.5)), False, True),
+    "Laplace": (lambda D, t: D.Laplace(t(0.0), t(1.0)), False, True),
+    "Gumbel": (lambda D, t: D.Gumbel(t(1.0), t(2.0)), False, True),
+    "Cauchy": (lambda D, t: D.Cauchy(t(0.0), t(1.0)), False, True),
+    "LogNormal": (lambda D, t: D.LogNormal(t(0.0), t(0.5)), False, True),
+    "Gamma": (lambda D, t: D.Gamma(t(0.7), t(2.0)), False, True),
+    "Chi2": (lambda D, t: D.Chi2(t(4.0)), False, True),
+    "Beta": (lambda D, t: D.Beta(t(2.0), t(0.5)), False, True),
+    "StudentT": (lambda D, t: D.StudentT(t(5.0)), False, True),
+    "Bernoulli": (lambda D, t: D.Bernoulli(t(0.3)), True, True),
+    "Geometric": (lambda D, t: D.Geometric(t(0.2)), True, True),
+    "Poisson_knuth": (lambda D, t: D.Poisson(t(3.5)), True, True),
+    "Poisson_rejection": (lambda D, t: D.Poisson(t(40.0)), True, False),
+    "Binomial_inversion": (lambda D, t: D.Binomial(t(20.0), t(0.3)), True,
+                           True),
+    "Binomial_btrs": (lambda D, t: D.Binomial(t(200.0), t(0.4)), True,
+                      False),
+    "Categorical": (lambda D, t: D.Categorical(t(np.log(np.array(
+        [0.1, 0.2, 0.3, 0.4], np.float32)))), True, True),
+    "MultivariateNormal": (lambda D, t: D.MultivariateNormal(
+        t(np.zeros(2, np.float32)), covariance_matrix=t(np.array(
+            [[2.0, 0.5], [0.5, 1.0]], np.float32))), False, True),
+    "Dirichlet": (lambda D, t: D.Dirichlet(t(np.array(
+        [0.5, 1.0, 2.0, 4.0], np.float32))), False, True),
+    "Multinomial": (lambda D, t: D.Multinomial(10, t(np.array(
+        [0.1, 0.2, 0.3, 0.4], np.float32))), True, True),
+}
+P40_DRAWS = 2 ** 20
+#: the CPU's share of an element-wise family's draws (a prefix: element
+#: i's bits and keys do not depend on the array's size)
+P40_CPU_DRAWS = 2 ** 16
+
+
+def distribution_card_phase(torch, TP):
+    """(b) 2^20 draws of each family on the card against the CPU's under
+    the same key (a 2^16 prefix where each element's draw is its own, the
+    whole array where a rejection loop runs over it): discrete draws
+    equal, continuous within ``testing.DRAW_TOL``, flipped decisions
+    counted (``testing.DRAW_CARD_FLIPS``); draws per second; and the
+    Dirichlet and Multinomial."""
+    from paddle_tpu_torch.testing import DRAW_CARD_FLIPS, DRAW_TOL
+    out = {}
+    def to_tensor(v):
+        return TP.to_tensor(np.float32(v) if np.isscalar(v) else v)
+
+    for name, (mk, discrete, own) in P40_FAMILIES.items():
+        kind = ("gamma" if name in ("Gamma", "Chi2", "Beta", "StudentT",
+                                    "Dirichlet") else "normal")
+        draws = {}
+        for dev in ("gpu", "cpu"):
+            TP.set_device(dev)
+            TP.seed(SEED + 40)
+            d = mk(TP.distribution, to_tensor)
+            n = P40_DRAWS if dev == "gpu" or not own else P40_CPU_DRAWS
+            if dev == "gpu":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                draws[dev] = d.sample((n,))._value
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            else:
+                draws[dev] = d.sample((n,))._value
+        TP.set_device("gpu")
+        got = draws["gpu"][:draws["cpu"].shape[0]].cpu()
+        want = draws["cpu"]
+        if discrete:
+            flips = int((got != want).sum())
+        else:
+            rtol, atol = DRAW_TOL[kind]
+            flips = int((~torch.isclose(got, want, rtol=rtol,
+                                        atol=atol)).sum())
+        if not bool(torch.isfinite(draws["gpu"]).all()):
+            raise AssertionError(f"{name}: non-finite draws")
+        _held(f"{name}_flips", flips,
+              DRAW_CARD_FLIPS * want.numel(), out)
+        out[f"{name}_compared"] = int(want.numel())
+        out[f"{name}_draws_per_s"] = P40_DRAWS / sec
+    return _check_held(out)
+
+
+#: ogbn-arxiv's size (the OGB node-property benchmark's citation graph)
+ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATURES = 169343, 1166243, 128
+
+
+def graph_card_phase(torch, TP):
+    """(b) ``sparse.matmul`` and ``geometric.send_u_recv`` (sum, mean,
+    max) on a seeded graph of ogbn-arxiv's size (169,343 nodes,
+    1,166,243 edges, 128 features), card against CPU, device ms; and
+    ``viterbi_decode`` at (64, 256) with 50 tags, paths card == CPU
+    (``testing.GRAPH_CARD_TOL``)."""
+    from paddle_tpu_torch.testing import GRAPH_CARD_TOL as T
+    rng = np.random.RandomState(SEED)
+    src = rng.randint(0, ARXIV_NODES, ARXIV_EDGES).astype(np.int32)
+    dst = rng.randint(0, ARXIV_NODES, ARXIV_EDGES).astype(np.int32)
+    x = rng.randn(ARXIV_NODES, ARXIV_FEATURES).astype(np.float32)
+    w = rng.rand(ARXIV_EDGES).astype(np.float32)
+    emis = rng.randn(64, 256, 50).astype(np.float32)
+    trans = rng.randn(50, 50).astype(np.float32)
+    lens = rng.randint(1, 257, 64).astype(np.int32)
+    out, ms, res = {}, {}, {}
+    for dev in ("gpu", "cpu"):
+        TP.set_device(dev)
+        xt, st, dt = (TP.to_tensor(a) for a in (x, src, dst))
+        adj = TP.sparse.sparse_coo_tensor(np.stack([dst, src]),
+                                          TP.to_tensor(w),
+                                          shape=(ARXIV_NODES, ARXIV_NODES))
+        fns = {f"send_u_recv_{op}": (lambda op=op: TP.geometric.send_u_recv(
+            xt, st, dt, op, out_size=ARXIV_NODES)) for op in
+            ("sum", "mean", "max")}
+        fns["sparse_matmul"] = lambda: TP.sparse.matmul(adj, xt)
+        fns["viterbi"] = lambda: TP.text.viterbi_decode(
+            TP.to_tensor(emis), TP.to_tensor(trans), TP.to_tensor(lens))
+        if dev == "gpu":
+            got = {k: _cuda_ms(torch, f) for k, f in fns.items()}
+            ms.update({k: t for k, (_, t) in got.items()})
+            res[dev] = {k: r for k, (r, _) in got.items()}
+        else:
+            res[dev] = {k: f() for k, f in fns.items()}
+    TP.set_device("gpu")
+    for k in fns:
+        if k == "viterbi":
+            (gs, gp), (cs, cp) = res["gpu"][k], res["cpu"][k]
+            if not torch.equal(gp._value.cpu(), cp._value):
+                raise AssertionError("viterbi paths card != cpu")
+            _held("viterbi_scores_card_cpu", _host_rel_l2(gs._value, cs._value),
+                  T["sum"], out)
+            continue
+        got, want = res["gpu"][k]._value, res["cpu"][k]._value
+        if k.endswith("max"):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{k}: card != cpu")
+            out[f"{k}_equal"] = True
+        else:
+            _held(f"{k}_card_cpu", _host_rel_l2(got, want), T["sum"], out)
+    return _check_held(dict(out, device_ms=ms))
+
+
+def long_tail_phase(torch):
+    """(b) the slice's modules on the card against the port's CPU path,
+    TF32 off (each part switches the current place between the card and
+    the host; the place it found is restored)."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.core import place as tplace
+    saved = tplace._current_place[0]
+    try:
+        return _long_tail(torch, TP)
+    finally:
+        tplace._current_place[0] = saved
+
+
+def _long_tail(torch, TP):
+    t0 = time.perf_counter()
+    rep = dict(linalg=linalg_card_phase(torch, TP))
+    rep["linalg_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rep["signal_audio"] = signal_card_phase(torch, TP)
+    rep["signal_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rep["distribution"] = distribution_card_phase(torch, TP)
+    rep["distribution_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rep["graph_text"] = graph_card_phase(torch, TP)
+    rep["graph_s"] = time.perf_counter() - t1
+    _free_card(torch)
+    return rep
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
@@ -10112,7 +10604,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     def done(n, what, report):
-        print(f"[{n}/{N_PHASES}] {what}:", json.dumps(report), flush=True)
+        # the run's seconds so far: the smoke must stay inside its limit
+        print(f"[{n}/{N_PHASES}] (at {time.perf_counter() - t_run:.1f} s) "
+              f"{what}:", json.dumps(report), flush=True)
 
     rms = rms_norm_phase(torch, rn)
     done(3, "rms_norm kernel vs plain", rms)
@@ -10197,6 +10691,15 @@ def main() -> int:
     done(39, f"(b) Llama-2-7B weight-only int8 (A8W8 prefill) served with "
          f"phase 7's load on {card}", i8_7b)
     t39 = time.perf_counter() - t39
+    t40 = time.perf_counter()
+    p40 = profiler_7b_phase(torch, D, rn, pa, cfg7b, params7b, greedy_tokens)
+    done(40, f"(a) Llama-2-7B bf16 serve under Profiler(targets=[CPU, GPU], "
+         f"scheduler={PROFILE_WINDOW}) against the same serve unprofiled "
+         f"on {card}", p40)
+    tail = long_tail_phase(torch)
+    done(40, f"(b) linalg, signal and audio features, distribution draws, "
+         f"sparse, geometric and text on the card against the CPU on "
+         f"{card} (phase 40 in {time.perf_counter() - t40:.1f} s)", tail)
     gens = generate_7b_phase(torch, L, D, rn, pa, fa, cfg7b, params7b)
     done(22, f"Llama-2-7B bf16 generate engines on {card}", gens)
     del params7b             # the training phases need the memory
@@ -10404,7 +10907,8 @@ def main() -> int:
              + hosts["launches"]["rms_norm_fwd"] + el["rms_norm_fwd"]
              + fused7["launches"]["rms_norm_fwd"] + rml["rms_norm_fwd"]
              + hl["rms_norm_fwd"] + tp7["launches"]["rms_norm_fwd"]
-             + el7["launches"]["rms_norm_fwd"] + p39["rms_norm_fwd"],
+             + el7["launches"]["rms_norm_fwd"] + p39["rms_norm_fwd"]
+             + p40["launches"]["rms_norm_fwd"],
              max_abs_err=rb["max_abs_err"], ms=rb["ms"],
              plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
              bound_by=rb["bound_by"], library_ms=rb["library_ms"]),
@@ -10423,7 +10927,8 @@ def main() -> int:
              + fused7["launches"]["ragged_paged_attention"]
              + tp7["launches"]["ragged_paged_attention"]
              + el7["launches"]["ragged_paged_attention"]
-             + p39["ragged_paged_attention"],
+             + p39["ragged_paged_attention"]
+             + p40["launches"]["ragged_paged_attention"],
              max_abs_err=ab["max_abs_err"], ms=ab["ms"],
              plain_ms=ab["plain_ms"], bound_ms=ab["bound_ms"],
              bound_by=ab["bound_by"], library_ms=ab["library_ms"]),

@@ -21,8 +21,7 @@ schema-generated ops, creation and the random stream (``seed``),
 ``grad``, ``set_flags``/``get_flags``, ``save``/``load`` and
 ``in_dynamic_mode``. It loads on first use (``_surface``), so ``import
 paddle_tpu_torch`` by itself imports nothing of torch and touches no
-card. Names of later slices (``linalg``, ``fft``, ...) raise
-``NotImplementedError``.
+card.
 
 Ported so far:
 
@@ -62,7 +61,12 @@ Ported so far:
 - other workloads: ``quantization`` (weight-only int8/int4, QAT and
   PTQ), ``nn.quant``, int8 Llama serving (A8W8 prefill) and the int8
   fused stack; ``vision`` (LeNet, VGG, MobileNet, ResNet, ViT,
-  PP-YOLOE, the detection ops, transforms and datasets).
+  PP-YOLOE, the detection ops, transforms and datasets);
+- the long tail: ``profiler`` (``Profiler`` with its device trace),
+  ``linalg``, ``fft``, ``signal``, ``incubate.autograd``, ``sparse``,
+  ``geometric``, ``distribution`` (draws on the key stream with
+  ``jax.random``'s algorithms), ``audio``, ``text``, ``utils``,
+  ``version``, ``hub`` and ``onnx``.
 """
 
 __version__ = "0.1.0"
@@ -91,18 +95,18 @@ def device_count() -> int:
 
 #: subpackages and modules of the port, imported on first use
 _SUBMODULES = frozenset((
-    "amp", "autograd", "callbacks", "core", "creation", "device",
-    "distributed", "flags", "framework", "hapi", "incubate", "inference",
-    "io", "jit", "kvcache", "metric", "models", "nn", "observability",
-    "ops", "optimizer", "parallel", "profiler", "quantization", "random",
-    "regularizer", "resilience", "serving", "static", "testing", "vision",
+    "amp", "audio", "autograd", "callbacks", "core", "creation", "device",
+    "distributed", "distribution", "fft", "flags", "framework", "geometric",
+    "hapi", "hub", "incubate", "inference", "io", "jit", "kvcache", "linalg",
+    "metric", "models", "nn", "observability", "onnx", "ops", "optimizer",
+    "parallel", "profiler", "quantization", "random", "regularizer",
+    "resilience", "serving", "signal", "sparse", "static", "testing",
+    "text", "utils", "version", "vision",
 ))
 
 #: names of ``paddle_tpu``'s top level that later slices of the port bring
+#: (none is left)
 _LATER = {}
-for _n in ("linalg", "fft", "sparse", "distribution", "signal", "audio", "text",
-           "utils", "onnx", "geometric", "version", "hub"):
-    _LATER.setdefault(_n, f"long tail ({_n})")
 
 
 def __getattr__(name):

@@ -2,7 +2,7 @@
 context.py``: the CLI's arguments (``Args``, ``parse_args``, the
 reference's flags), the environment, and the local devices
 (``Context``); the helpers ``spawn`` shares (``free_port``,
-``free_ports``, ``node_ip``, ``detect_devices``). Environment variables
+``free_ports``, ``reserve_ports``, ``node_ip``, ``detect_devices``). Environment variables
 keep the reference's ``PADDLE_*`` names so trainer scripts port
 unchanged.
 """
@@ -13,13 +13,36 @@ import argparse
 import os
 import socket
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def reserve_ports(n: int) -> Tuple[List[int], List[socket.socket]]:
+    """``n`` free local ports, each kept bound by a socket the caller
+    holds (``SO_REUSEADDR``, not listening) until it closes them. While
+    held, no other process is handed the port, by ``bind(0)`` or as a
+    connection's source port, and a trainer's rendezvous server (which
+    binds with ``SO_REUSEADDR`` too) can still take it: the window in
+    which :func:`free_ports`' ports can be taken by another process
+    before the trainer binds is closed."""
+    socks, ports = [], []
+    try:
+        for _ in range(n):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            socks.append(s)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    except BaseException:
+        for s in socks:
+            s.close()
+        raise
+    return ports, socks
 
 
 def free_ports(n: int) -> List[int]:

@@ -17,7 +17,7 @@ import sys
 import time
 from typing import Dict, List
 
-from .context import Context, free_ports
+from .context import Context, reserve_ports
 from .job import Job, Status, build_trainer_env
 from .master import make_master
 
@@ -40,13 +40,19 @@ class CollectiveController:
                                   ctx.is_multi_node, timeout_s=timeout_s)
         self.node_rank = ctx.args.rank
         self.gen = self.master.get_gen()
+        #: the sockets holding this node's trainer ports (reserve_ports)
+        self._held = []
 
     # -- job construction ---------------------------------------------------
 
     def build_job(self) -> None:
         ctx = self.ctx
         nproc = ctx.local_nproc
-        ports = free_ports(nproc)
+        # the local ports stay held until the next build or stop: worker
+        # 0's is the trainers' rendezvous, bound by it (SO_REUSEADDR) when
+        # it starts, and no other process can take it in between
+        self._release_ports()
+        ports, self._held = reserve_ports(nproc)
         local_eps = [f"{ctx.node_ip}:{p}" for p in ports]
         self.node_rank, peers = self.master.sync_peers(
             local_eps, ctx.args.rank, ctx.nnodes_min, ctx.nnodes_max,
@@ -240,6 +246,12 @@ class CollectiveController:
                     return self.RESTART
             time.sleep(poll_interval)
 
+    def _release_ports(self) -> None:
+        for s in self._held:
+            s.close()
+        self._held = []
+
     def stop(self):
         self.job.pod.stop(force=True)
+        self._release_ports()
         self.master.close()

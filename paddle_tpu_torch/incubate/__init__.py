@@ -1,4 +1,6 @@
-"""Counterpart of ``paddle_tpu/incubate``: the fused layers (``nn``) and
-the MoE package (``distributed``)."""
+"""Counterpart of ``paddle_tpu/incubate``: the fused layers (``nn``),
+the MoE package (``distributed``) and functional higher-order autograd
+(``autograd``)."""
 
+from . import autograd  # noqa: F401
 from . import distributed  # noqa: F401

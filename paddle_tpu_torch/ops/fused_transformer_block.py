@@ -134,32 +134,51 @@ def col_major(w):
     """``w`` (..., K, N) with the same values, laid out column-major in
     its last two dims: the layout the card's int8 GEMM takes at every
     row count (a row-major ``(K, N)`` operand is refused by cuBLASLt at
-    some small shapes and runs ~5× slower at others)."""
-    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+    some small shapes and runs ~5× slower at others). The buffer is
+    zero-padded to K and N multiples of 8, which that GEMM needs, and
+    the result is its ``[..., :K, :N]`` view: the shape and values are
+    ``w``'s, and :func:`int32_product` takes the padded buffer whole."""
+    k, n = w.shape[-2:]
+    buf = w.new_zeros(w.shape[:-2] + (next_multiple(n, 8),
+                                      next_multiple(k, 8)))
+    buf[..., :n, :k] = w.transpose(-1, -2)
+    return buf.transpose(-1, -2)[..., :k, :n]
+
+
+def _padded_operand(wq, kp: int, np_: int):
+    """The ``(kp, np_)`` column-major operand whose ``[:K, :N]`` is
+    ``wq``: the buffer :func:`col_major` laid out (no copy), else a
+    fresh one. What the operand holds past K and N does not matter: the
+    activations' padded columns are zeros and the padded output columns
+    are cut off."""
+    fits = (wq.stride(0) == 1 and wq.stride(1) == kp
+            and (wq.storage_offset() + kp * np_) * wq.element_size()
+            <= wq.untyped_storage().nbytes())
+    if not fits:
+        wq = col_major(wq)
+    return wq.as_strided((kp, np_), (1, kp))
 
 
 def int32_product(xq, wq):
     """``xq (M, K) int8 @ wq (K, N) int8`` accumulated in int32, exact.
-    On the card ``torch._int_mm``: its rows are zero-padded to a
-    multiple of 8 of at least 24 (it refuses 16 rows or fewer; rows are
-    independent, so the padding changes no result), ``wq`` is taken
-    column-major (:func:`col_major`, no copy when it already is), and K
-    and N must be multiples of 8, else it raises: the int8 product is
-    never routed around. On the CPU an int32 matmul."""
+    On the card ``torch._int_mm``, which takes rows over 16 and K and N
+    multiples of 8: the rows are zero-padded to a multiple of 8 of at
+    least 24, K is zero-padded on both operands and N on the weight's
+    columns (cut off after), so any shape runs and no padding changes a
+    result. ``wq`` is taken column-major and padded as :func:`col_major`
+    lays it out once (a weight laid out otherwise is copied so on each
+    call). On the CPU an int32 matmul."""
     m, k = xq.shape
     n = wq.shape[1]
     if not xq.is_cuda:
         return xq.to(torch.int32) @ wq.to(torch.int32)
-    if k % 8 or n % 8:
-        raise ValueError(
-            f"the card's int8 GEMM needs K and N multiples of 8; got "
-            f"K={k}, N={n}")
-    if wq.stride(0) != 1:
-        wq = col_major(wq)
+    kp, np_ = next_multiple(k, 8), next_multiple(n, 8)
+    w = _padded_operand(wq, kp, np_)
     rows = next_multiple(max(m, 17), 8)
-    if rows != m:
-        xq = torch.cat([xq, xq.new_zeros(rows - m, k)])
-    return torch._int_mm(xq.contiguous(), wq)[:m]
+    if rows != m or kp != k:
+        xq = F.pad(xq, (0, kp - k, 0, rows - m))
+    y = torch._int_mm(xq.contiguous(), w)[:m]
+    return y if np_ == n else y[:, :n].contiguous()
 
 
 def _int8_mm(x, wq, w_scale, in_scale=None):

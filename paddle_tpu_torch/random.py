@@ -212,5 +212,284 @@ def categorical_draw(key, logits: torch.Tensor, shape) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+
+# ---------------------------------------------------------------------------
+# the distributions' draws (``paddle_tpu/distribution``): jax.random's
+# algorithms over the same keys, fp32
+# ---------------------------------------------------------------------------
+
+#: fp32 machine epsilon and ``epsneg`` (``jnp.finfo(jnp.float32)``)
+_EPS = float(np.finfo(np.float32).eps)
+_EPSNEG = float(np.finfo(np.float32).epsneg)
+_THIRD = float(np.float32(1.0 / 3.0))
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to fp32, as XLA contracts it on the
+    CPU (the product of two fp32 values is exact in fp64)."""
+    return (a.double() * b.double() + c).float()
+
+
+def exponential_draw(key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``."""
+    return -torch.log1p(-uniform_draw(key, shape, device=device))
+
+
+def laplace_draw(key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.laplace``: ``sign(u)·log1p(-|u|)``, ``u`` uniform on
+    ``[-1 + epsneg, 1)``."""
+    u = uniform_draw(key, shape, -1.0 + _EPSNEG, 1.0, device)
+    return torch.sign(u) * torch.log1p(-u.abs())
+
+
+def cauchy_draw(key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.cauchy``: ``tan(π·(u − 0.5))``, ``u`` uniform on
+    ``[eps, 1)``."""
+    u = uniform_draw(key, shape, _EPS, 1.0, device)
+    return torch.tan(float(np.float32(np.pi)) * (u - 0.5))
+
+
+def geometric_draw(key, p: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.geometric`` (trials to the first success, 1-based),
+    as fp32: ``floor(log u / log1p(−p)) + 1``."""
+    u = uniform_draw(key, shape, device=p.device)
+    return torch.floor(torch.log(u) / torch.log1p(-p).expand(u.shape)) + 1
+
+
+def _gamma_one(keys: torch.Tensor, alpha: torch.Tensor,
+               log_space: bool) -> torch.Tensor:
+    """``jax.random``'s ``_gamma_one`` (Marsaglia and Tsang) for a batch
+    of elements, each with its own key: the same splits and the same
+    rejection loop, run together with finished elements frozen."""
+    boost = alpha >= 1
+    a = torch.where(boost, alpha, alpha + 1)
+    d = a - _THIRD
+    # XLA rewrites 1/3 / sqrt(d) as 1/3 · rsqrt(d); its CPU rsqrt is an
+    # approximation refined by a Newton step, here correctly rounded
+    # (the two agree in ~9 of 10 elements, else by an ulp)
+    c = _THIRD * torch.rsqrt(d.double()).float()
+    ks = prng.split(keys, 2)
+    key, subkey = ks[..., 0, :], ks[..., 1, :]
+    X = torch.zeros_like(a)
+    V = torch.ones_like(a)
+    U = torch.full_like(a, 2.0)
+
+    def reject(X, V, U):
+        return ((U >= 1 - 0.0331 * (X * X))
+                & (torch.log(U) >= X * 0.5 + d * (1 - V + torch.log(V))))
+
+    live = reject(X, V, U)
+    while bool(live.any()):
+        k3 = prng.split(key, 3)
+        key = torch.where(live[..., None], k3[..., 0, :], key)
+        xk, uk = k3[..., 1, :], k3[..., 2, :]
+        x = torch.zeros_like(a)
+        v = torch.full_like(a, -1.0)
+        draw = live.clone()
+        while bool(draw.any()):
+            s2 = prng.split(xk, 2)
+            xk = torch.where(draw[..., None], s2[..., 0, :], xk)
+            xn = normal_draw(s2[..., 1, :], ())
+            vn = _fma(xn, c, 1.0)
+            x = torch.where(draw, xn, x)
+            v = torch.where(draw, vn, v)
+            draw = draw & (v <= 0)
+        Un = uniform_draw(uk, ())
+        X = torch.where(live, x * x, X)
+        V = torch.where(live, v * v * v, V)
+        U = torch.where(live, Un, U)
+        live = live & reject(X, V, U)
+    if log_space:
+        log_s = -exponential_draw(subkey, ())
+        log_boost = torch.where(boost | (log_s == 0), torch.zeros_like(a),
+                                log_s * (1 / alpha))
+        return torch.log(d) + torch.log(V) + log_boost
+    s = 1 - uniform_draw(subkey, ())
+    b = torch.where(boost, torch.ones_like(a), torch.pow(s, 1 / alpha))
+    return d * V * b
+
+
+def gamma_draw(key, a: torch.Tensor, shape: Sequence[int],
+               log_space: bool = False) -> torch.Tensor:
+    """``jax.random.gamma`` (``loggamma`` with ``log_space``): ``a``
+    broadcast to ``shape``, one key a element from ``split(key, n)``."""
+    shape = tuple(shape)
+    a = a.float().expand(shape).reshape(-1)
+    keys = prng.split(_on(key, a.device), a.numel())
+    return _gamma_one(keys, a, log_space).reshape(shape)
+
+
+def beta_draw(key, a: torch.Tensor, b: torch.Tensor,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.beta``: two log-space gammas under the split keys,
+    ``ga / (ga + gb)`` scaled by their max."""
+    ka, kb = prng.split(_on(key, a.device), 2).unbind(-2)
+    la = gamma_draw(ka, a, shape, log_space=True)
+    lb = gamma_draw(kb, b, shape, log_space=True)
+    m = torch.maximum(la, lb)
+    ga, gb = torch.exp(la - m), torch.exp(lb - m)
+    return ga / (ga + gb)
+
+
+def dirichlet_draw(key, alpha: torch.Tensor,
+                   shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.dirichlet``: log-space gammas of ``shape +
+    alpha.shape[-1:]``, softmaxed over the last axis."""
+    lg = gamma_draw(key, alpha, tuple(shape) + tuple(alpha.shape[-1:]),
+                    log_space=True)
+    return torch.softmax(lg, dim=-1)
+
+
+def t_draw(key, df: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.t``: ``n·sqrt(df/2 / gamma(df/2))`` under the split
+    keys."""
+    kn, kg = prng.split(_on(key, df.device), 2).unbind(-2)
+    n = normal_draw(kn, shape)
+    half = df.float() / 2
+    g = gamma_draw(kg, half, shape)
+    return n * torch.sqrt(half / g)
+
+
+def _poisson_knuth(key, lam, shape):
+    k = torch.zeros(shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros(shape, device=lam.device)
+    while bool((log_prod > -lam).any()):
+        key, sub = prng.split(key, 2).unbind(-2)
+        k = torch.where(log_prod > -lam, k + 1, k)
+        log_prod = log_prod + torch.log(uniform_draw(sub, shape))
+    return k - 1
+
+
+def _poisson_rejection(key, lam, shape):
+    log_lam = torch.log(lam)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    k_out = torch.full(shape, -1.0, device=lam.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=lam.device)
+    while not bool(accepted.all()):
+        key, k0, k1 = prng.split(key, 3).unbind(-2)
+        u = uniform_draw(k0, shape) - 0.5
+        v = uniform_draw(k1, shape)
+        us = 0.5 - u.abs()
+        k = torch.floor((2 * a / us + b) * u + lam + 0.43)
+        s = torch.log(v * inv_alpha / (a / (us * us) + b))
+        t = -lam + k * log_lam - torch.lgamma(k + 1)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((us < 0.013) & (v > us))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out.to(torch.int32)
+
+
+def poisson_draw(key, lam: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.poisson`` (int32): Knuth's product of uniforms below
+    λ = 10, Hörmann's transformed rejection above, both run over the
+    whole array under the same key, as JAX runs them."""
+    shape = tuple(shape)
+    key = _on(key, lam.device)
+    lam = lam.float().expand(shape)
+    knuth = torch.isnan(lam) | (lam < 10)
+    lk = torch.where(knuth, lam, torch.zeros_like(lam))
+    lr = torch.where(knuth, torch.full_like(lam, 1e5), lam)
+    out = torch.where(knuth, _poisson_knuth(key, lk, shape),
+                      _poisson_rejection(key, lr, shape))
+    return torch.where(lam == 0, torch.zeros_like(out), out)
+
+
+_STIRLING_TAIL = (0.0810614667953272, 0.0413406959554092,
+                  0.0276779256849983, 0.02079067210376509,
+                  0.0166446911898211, 0.0138761288230707,
+                  0.0118967099458917, 0.0104112652619720,
+                  0.00925546218271273, 0.00833056343336287)
+
+
+def _stirling_approx_tail(k):
+    vals = torch.tensor(_STIRLING_TAIL, dtype=k.dtype, device=k.device)
+    use = k <= 9
+    kc = k.clamp(0.0, 9.0)
+    kp1sq = (kc + 1) * (kc + 1)
+    approx = (1.0 / 12 - (1.0 / 360 - 1.0 / 1260 / kp1sq) / kp1sq) / (kc + 1)
+    return torch.where(use, vals[torch.floor(kc).long()], approx)
+
+
+def _binomial_inversion(key, count, prob, shape):
+    log1mp = torch.log1p(-prob)
+    num_geom = torch.zeros(shape, device=prob.device)
+    geom_sum = torch.zeros(shape, device=prob.device)
+    while bool((geom_sum <= count).any()):
+        sub, key = prng.split(key, 2).unbind(-2)
+        num_geom = torch.where(geom_sum <= count, num_geom + 1, num_geom)
+        u = uniform_draw(sub, shape)
+        geom_sum = geom_sum + torch.ceil(torch.log(u) / log1mp)
+    return num_geom - 1
+
+
+def _btrs(key, count, prob, shape):
+    std = torch.sqrt(count * prob * (1 - prob))
+    b = 1.15 + 2.53 * std
+    a = -0.0873 + 0.0248 * b + 0.01 * prob
+    c = count * prob + 0.5
+    v_r = 0.92 - 4.2 / b
+    r = prob / (1 - prob)
+    alpha = (2.83 + 5.1 / b) * std
+    m = torch.floor((count + 1) * prob)
+    k_out = torch.full(shape, -1.0, device=prob.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=prob.device)
+    while not bool(accepted.all()):
+        key, k0, k1 = prng.split(key, 3).unbind(-2)
+        u = uniform_draw(k0, shape)
+        v = uniform_draw(k1, shape)
+        u = u - 0.5
+        us = 0.5 - u.abs()
+        accept1 = (us >= 0.07) & (v <= v_r)
+        k = torch.floor((2 * a / us + b) * u + c)
+        reject = (k < 0) | (k > count)
+        v = torch.log(v * alpha / (a / (us * us) + b))
+        ub = ((m + 0.5) * torch.log((m + 1) / (r * (count - m + 1)))
+              + (count + 1) * torch.log((count - m + 1) / (count - k + 1))
+              + (k + 0.5) * torch.log(r * (count - k + 1) / (k + 1))
+              + _stirling_approx_tail(m) + _stirling_approx_tail(count - m)
+              - _stirling_approx_tail(k) - _stirling_approx_tail(count - k))
+        accept = accept1 | (~reject & (v <= ub))
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out
+
+
+def binomial_draw(key, count: torch.Tensor, prob: torch.Tensor,
+                  shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.binomial`` (fp32): inversion by geometric sums where
+    ``n·q ≤ 10``, BTRS rejection elsewhere (``q = min(p, 1 − p)``), both
+    run over the whole array under the same key; NaN for a negative or
+    NaN count or an invalid p, inf for an infinite count."""
+    shape = tuple(shape)
+    key = _on(key, prob.device)
+    prob = prob.float().expand(shape)
+    count = count.float().expand(shape)
+    lt_half = prob < 0.5
+    q = torch.where(lt_half, prob, 1.0 - prob)
+    bad_count = torch.isnan(count) | (count < 0.0)
+    inf_count = torch.isinf(count)
+    q_nan = torch.isnan(q)
+    q_neg = q < 0.0
+    q = torch.where(q_nan | q_neg, torch.full_like(q, 0.01), q)
+    inv = bad_count | (count * q <= 10.0)
+    count = torch.floor(count)
+    c_inv = torch.where(inv, count, torch.zeros_like(count))
+    c_btrs = torch.where(inv, torch.full_like(count, 1e4), count)
+    q_btrs = torch.where(inv, torch.full_like(q, 0.5), q)
+    out = torch.where(inv, _binomial_inversion(key, c_inv, q, shape),
+                      _btrs(key, c_btrs, q_btrs, shape))
+    invalid = q_neg | q_nan | bad_count
+    out = torch.where(invalid, torch.full_like(out, float("nan")), out)
+    out = torch.where(inf_count & ~invalid, torch.full_like(out, float("inf")),
+                      out)
+    return torch.where(lt_half | bad_count | q_nan | inf_count, out,
+                       count - out)
+
+
 __all__ = ["seed", "next_key", "get_rng_state", "set_rng_state",
            "traced_key_scope"]

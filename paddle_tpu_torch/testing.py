@@ -206,6 +206,60 @@ MAIN_GRAD_TOL = (2 ** -6, 2 ** -4, 2 ** -7)
 MAIN_GRAD_PARITY_TOL = (1e-3, 1e-2, 1e-4)
 
 
+# A distribution's continuous draws (``distribution``, ``random``'s
+# ``*_draw``) against ``jax.random``'s on the same key, as (rtol, atol);
+# the atol is for draws of order 1, where ``loc + scale·x`` cancels.
+# ``normal``: normal, uniform, exponential, Laplace, Gumbel, Cauchy and
+# log-normal draws: XLA's erfinv, log and tan against torch's, an ulp or
+# three of the result (measured: 3 ulps; |Δ| ≤ 3e-7·(1 + |x|)), inside
+# ``random.normal_draw``'s stated 1e-6. ``gamma``: the Marsaglia-Tsang
+# family (gamma, chi2, beta, Dirichlet, Student's t): each sample is
+# d·(1 + c·x)³ with c = 1/3·rsqrt(d), and XLA's CPU rsqrt is a refined
+# approximation that differs from the correctly rounded one by an ulp
+# in ~1 of 10 elements; near the cancellation of 1 + c·x that ulp and
+# the normal's grow to ~25 ulps of the sample (measured 2.5e-6 relative
+# over 20000 draws). Accept decisions are not loosened: a flipped one
+# gives an unrelated value and is counted as such.
+DRAW_TOL = dict(normal=(1e-6, 1e-6), gamma=(4e-6, 1e-6))
+
+# The long tail's card checks (chip_smoke phase 40 (b), the gpu tests),
+# fp32 with TF32 off, measured on an H100. ``linalg`` (cuSOLVER and
+# cuBLAS on the card, LAPACK on the host) at n = 4096 on well-conditioned
+# inputs (3·I plus a normalised random matrix, and its Gram matrix; svd
+# and lstsq on random (2048, 2048) and (4096, 2048) ones): ``residual``
+# the relative Frobenius error of what a call promises (||A x - b|| /
+# ||b||, ||L Lᵀ - S|| / ||S||, ||U S Vᵀ - A|| / ||A||, the normal
+# equations' ||Aᵀ(A x - b)|| / ||Aᵀ b||), measured 2e-7 to 8.7e-6 (the
+# svd); ``orthogonality`` the largest entry of QᵀQ - I (and of A·A⁻¹ -
+# I), measured 3.9e-6 to 5.5e-5 (the svd's U); ``card_cpu`` the relative
+# L2 distance of the card's result to the CPU's, measured 1.1e-7 to
+# 3.2e-6. Backward-stable fp32 algorithms leave a few ulps times √n; a
+# wrong pivot, a lost block or the Jacobi SVD stopping short (6.4e-4,
+# 1.0e-3: why ``linalg`` asks cuSOLVER for gesvd) is over.
+LINALG_CARD_TOL = dict(residual=1e-4, orthogonality=1e-3, card_cpu=1e-4)
+
+# ``signal``/``audio`` over 32 clips of 10 s (relative L2): the stft →
+# istft round trip (a hann window of 400 at hop 160 meets the envelope
+# division everywhere past the padding; measured 1.8e-7), and the card's
+# stft, mel spectrogram and MFCC against the CPU's (cuFFT against
+# pocketfft, an fp32 rounding of each bin apart, then the mel product
+# and the log; measured 1.8e-7, 3.5e-6, 8.2e-7).
+SIGNAL_CARD_TOL = dict(round_trip=1e-5, card_cpu=1e-5)
+
+# The share of a family's draws that may differ card against CPU under
+# the same key beyond ``DRAW_TOL`` (discrete: at all): a rejection
+# sampler's accept test on the card and the host can fall on opposite
+# sides by an ulp of log, lgamma or pow, which gives an unrelated value.
+# Measured at 2^20 draws: 5 (4.8e-6 of them) for Hörmann's Poisson
+# sampler at λ 40, none elsewhere; each one is counted.
+DRAW_CARD_FLIPS = 1e-4
+
+# ``geometric``/``sparse`` sums (``index_add`` with atomics on the card,
+# in order on the host) and Viterbi scores, card against CPU, relative
+# L2: a sum of up to ~30 fp32 messages a row in another order (measured
+# 2.0e-8 at ogbn-arxiv's size; the Viterbi scores equal). max is equal.
+GRAPH_CARD_TOL = dict(sum=1e-5)
+
 def close(got, want, rtol, atol, msg) -> float:
     """``got`` finite and within (rtol, atol) of ``want``, both taken in
     fp32. Returns max |got − want|."""

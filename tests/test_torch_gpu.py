@@ -8,8 +8,12 @@ same on the CPU, the hybrid step over one NCCL rank against the CPU and
 the one-device step, the training steps' launch counts, and
 tensor-parallel serving over logical chips on one card (the engine
 against the CPU, row 3 on each chip's head slab), and the int8 serving
-and vision paths against the CPU (``_int8_mm`` bitwise, the int8 Llama's
-tokens, the int8 fused stack, a ResNet-18 and a ViT step). Marked ``gpu``; they
+and vision paths against the CPU (``_int8_mm`` bitwise at any K and N,
+the int8 Llama's tokens, the int8 fused stack, a ResNet-18 and a ViT
+step), and the long tail (the ``Profiler``'s device trace against the
+launch counters; ``linalg``, ``fft``/``signal``/``audio``, the
+distributions' draws, ``sparse``, ``geometric``, ``text`` and
+``incubate.autograd`` against the CPU). Marked ``gpu``; they
 skip where no CUDA device is present. Run on the card (the machine there has no JAX, so skip the
 conftest):
 
@@ -3262,20 +3266,53 @@ def test_ragged_head_slabs_match_whole_and_plain(cuda, nh, nkv, chips):
 
 def test_int8_product_on_card_is_the_cpu_bits(cuda):
     """``_int8_mm``'s int32 product and its dequantized output are the
-    CPU's bit for bit, at row counts under the card GEMM's minimum and
-    with a row-major weight; K or N off a multiple of 8 raises."""
+    CPU's bit for bit, at row counts under the card GEMM's minimum, with
+    a row-major weight, and with K or N off a multiple of 8 (zero-padded
+    for the card's GEMM, with the weight laid out by ``col_major`` or
+    not)."""
     from paddle_tpu_torch.ops import fused_transformer_block as ftb
     gen = torch.Generator().manual_seed(0)
-    for m in (1, 16, 40):
-        x = torch.randn(m, 256, generator=gen)
-        wq = torch.randint(-127, 128, (256, 96), generator=gen,
+    for m, k, n in ((1, 256, 96), (16, 256, 96), (40, 256, 96),
+                    (5, 100, 260), (40, 100, 260), (33, 12, 8),
+                    (20, 260, 100), (3, 7, 3)):
+        x = torch.randn(m, k, generator=gen)
+        wq = torch.randint(-127, 128, (k, n), generator=gen,
                            dtype=torch.int8)
-        ws = torch.rand(96, generator=gen) * 0.01
-        got = ftb._int8_mm(x.to(cuda), wq.to(cuda), ws.to(cuda))
-        assert torch.equal(got.cpu(), ftb._int8_mm(x, wq, ws))
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ftb.int32_product(torch.zeros(4, 12, dtype=torch.int8, device=cuda),
-                          torch.zeros(12, 8, dtype=torch.int8, device=cuda))
+        ws = torch.rand(n, generator=gen) * 0.01
+        want = ftb._int8_mm(x, wq, ws)
+        for w in (wq.to(cuda), ftb.col_major(wq.to(cuda))):
+            got = ftb._int8_mm(x.to(cuda), w, ws.to(cuda))
+            assert torch.equal(got.cpu(), want), (m, k, n)
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8)
+        assert torch.equal(
+            ftb.int32_product(xq.to(cuda), ftb.col_major(wq.to(cuda))).cpu(),
+            ftb.int32_product(xq, wq)), (m, k, n)
+
+
+def test_int8_stack_off_a_multiple_of_8_on_card_matches_cpu(cuda):
+    """``FusedMultiTransformerInt8`` at FFN 260 (``ffn1``'s N and
+    ``ffn2``'s K off a multiple of 8; hidden 128, two heads of 64, the
+    flash kernels' head size): prefill and a decode step on the card
+    against the CPU within ``testing.INT8_CARD_CPU_TOL``."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              FusedMultiTransformerInt8)
+    from paddle_tpu_torch.testing import INT8_CARD_CPU_TOL
+    TP.seed(0)
+    torch.manual_seed(0)
+    fm = FusedMultiTransformer(128, 2, 260, num_layers=2, device="cpu")
+    fg = FusedMultiTransformer(128, 2, 260, num_layers=2, device=cuda)
+    fg.set_state_dict(fm.state_dict())
+    x = torch.randn(2, 9, 128, generator=torch.Generator().manual_seed(1))
+    res = []
+    for net, dev in ((fg, cuda), (fm, "cpu")):
+        q = FusedMultiTransformerInt8.from_float(net)
+        pre, cache = q(x[:, :8].to(dev), gen_cache_len=9)
+        step, _ = q(x[:, 8:].to(dev), caches=cache, time_step=8)
+        res.append((pre.cpu(), step.cpu()))
+    for got, want in zip(*res):
+        l2_close(got, want, INT8_CARD_CPU_TOL, "int8 stack at FFN 260")
 
 
 def _int8_tiny_llama():
@@ -3321,6 +3358,9 @@ def test_fused_int8_stack_on_card_matches_cpu(cuda):
                                               FusedMultiTransformerInt8)
     from paddle_tpu_torch.testing import INT8_CARD_CPU_TOL
     TP.seed(0)
+    # the layers draw their weights from torch's generator: seeded here,
+    # so they do not depend on what the tests before this one drew
+    torch.manual_seed(0)
     fm = FusedMultiTransformer(128, 2, 256, num_layers=2, device="cpu")
     fg = FusedMultiTransformer(128, 2, 256, num_layers=2, device=cuda)
     fg.set_state_dict(fm.state_dict())
@@ -3392,3 +3432,229 @@ def test_vision_steps_on_card_match_cpu(cuda):
                                atol=atol)
     np.testing.assert_allclose(runs[0][0][1], runs[1][0][1], rtol=1e-4)
     trained_weights_close(runs[0][1], runs[1][1], 1e-3, 2, hidden=128)
+
+
+# ---------------------------------------------------------------------------
+# the long tail (chip_smoke phase 40): the Profiler's device trace and the
+# slice's modules on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _rel_l2(got, want):
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _on(dev):
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.core import place as tplace
+    saved = tplace._current_place[0]
+    TP.set_device(dev)
+    return saved
+
+
+def _restore(saved):
+    from paddle_tpu_torch.core import place as tplace
+    tplace._current_place[0] = saved
+
+
+def test_profiler_device_trace_counts_the_kernels(cuda, tmp_path):
+    """``Profiler(targets=[CPU, GPU])`` over steps that launch row 1: the
+    host export holds the window's step spans, and the device trace names
+    ``_rms_norm_fwd`` as often as its counter counted in the window."""
+    from paddle_tpu_torch import profiler as P
+    x = torch.randn(64, 4096, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(4096, device=cuda, dtype=torch.bfloat16)
+    rn.rms_norm(x, w, 1e-5)
+    prof = P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+                      scheduler=(1, 3), log_dir=str(tmp_path),
+                      on_trace_ready=P.export_chrome_tracing(str(tmp_path)))
+    prof.start()
+    for i in range(4):
+        if i == 1:
+            n0 = rn.rms_norm.launches
+        for _ in range(3):
+            rn.rms_norm(x, w, 1e-5)
+        torch.cuda.synchronize()
+        prof.step()
+        if i == 2:
+            launched = rn.rms_norm.launches - n0
+    prof.stop()
+    from torch.autograd import DeviceType
+    seen = sum(e.count for e in prof.device_profile.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and "_rms_norm_fwd" in e.key)
+    assert seen == launched == 6
+    import json
+    with open(prof.last_export_path) as f:
+        steps = sorted(e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "ProfileStep")
+    assert steps == ["ProfileStep#1", "ProfileStep#2"]
+    assert prof.device_trace_path.startswith(str(tmp_path))
+
+
+def test_linalg_on_card_matches_cpu(cuda):
+    from paddle_tpu_torch import linalg as la
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.testing import LINALG_CARD_TOL as T
+    g = torch.Generator().manual_seed(0)
+    n = 256
+    a = (torch.randn(n, n, generator=g) / n ** 0.5 + 3 * torch.eye(n))
+    s = a @ a.T
+    b = torch.randn(n, 4, generator=g)
+    tall = torch.randn(n, 64, generator=g)
+    saved = _on("gpu")
+    try:
+        res = {}
+        for dev in ("gpu", "cpu"):
+            TP.set_device(dev)
+            A, S, B, M = (TP.to_tensor(t.numpy()) for t in (a, s, b, tall))
+            res[dev] = dict(
+                solve=la.solve(A, B), chol=la.cholesky(S), inv=la.inv(A),
+                slogdet=la.slogdet(A), eigvalsh=la.eigvalsh(S),
+                svdvals=la.svd(M)[1], lstsq=la.lstsq(M, B)[0],
+                lu=la.lu(A, get_infos=True),
+                lowrank=la.svd_lowrank(M, 6)[1],
+                det_grad=None)
+        for k in ("solve", "chol", "inv", "slogdet", "eigvalsh", "svdvals",
+                  "lstsq", "lowrank"):
+            assert _rel_l2(res["gpu"][k]._value, res["cpu"][k]._value) \
+                <= T["card_cpu"], k
+        (gp, gpiv, ginfo), (cp, cpiv, cinfo) = res["gpu"]["lu"], \
+            res["cpu"]["lu"]
+        assert torch.equal(gpiv._value.cpu(), cpiv._value)
+        assert int(ginfo._value) == int(cinfo._value) == 0
+        assert _rel_l2(gp._value, cp._value) <= T["card_cpu"]
+        TP.set_device("gpu")
+        q, r = la.qr(TP.to_tensor(a.numpy()))
+        assert _rel_l2(q._value @ r._value, a.to(cuda)) <= T["residual"]
+        w, v = la.eigh(TP.to_tensor(s.numpy()))
+        sv = s.to(cuda)
+        assert _rel_l2(sv @ v._value, v._value * w._value) <= T["residual"]
+    finally:
+        _restore(saved)
+
+
+def test_fft_signal_audio_on_card_match_cpu(cuda):
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.testing import SIGNAL_CARD_TOL as T
+    x = np.random.RandomState(0).randn(4, 16000).astype(np.float32) * 0.1
+    saved = _on("gpu")
+    try:
+        res = {}
+        for dev in ("gpu", "cpu"):
+            TP.set_device(dev)
+            xt = TP.to_tensor(x)
+            win = TP.audio.functional.get_window("hann", 400)
+            spec = TP.signal.stft(xt, 512, 160, 400, win)
+            back = TP.signal.istft(spec, 512, 160, 400, win, length=16000)
+            mfcc = TP.audio.features.MFCC(sr=16000, n_mfcc=40, n_fft=512,
+                                          hop_length=160, win_length=400,
+                                          n_mels=80, f_min=0.0)
+            res[dev] = dict(fft=TP.fft.rfft2(xt), spec=spec,
+                            mfcc=mfcc(xt), back=back)
+            assert _rel_l2(back._value, xt._value) <= T["round_trip"]
+        for k in ("fft", "spec", "mfcc"):
+            g_, c_ = res["gpu"][k]._value, res["cpu"][k]._value
+            if g_.is_complex():
+                g_, c_ = torch.view_as_real(g_), torch.view_as_real(c_)
+            assert _rel_l2(g_, c_) <= T["card_cpu"], k
+    finally:
+        _restore(saved)
+
+
+_CARD_FAMILIES = {
+    "Normal": lambda D, t: D.Normal(t(0.5), t(2.0)),
+    "Gamma": lambda D, t: D.Gamma(t(0.7), t(2.0)),
+    "Beta": lambda D, t: D.Beta(t(2.0), t(0.5)),
+    "StudentT": lambda D, t: D.StudentT(t(5.0)),
+    "Cauchy": lambda D, t: D.Cauchy(t(0.0), t(1.0)),
+    "Laplace": lambda D, t: D.Laplace(t(0.0), t(1.0)),
+    "Bernoulli": lambda D, t: D.Bernoulli(t(0.3)),
+    "Geometric": lambda D, t: D.Geometric(t(0.2)),
+    "Poisson": lambda D, t: D.Poisson(t(np.array([0.5, 3.5, 9.9, 10.0, 40.0],
+                                                 np.float32))),
+    "Binomial": lambda D, t: D.Binomial(t(np.array([5.0, 20.0, 200.0],
+                                                   np.float32)),
+                                        t(np.array([0.3, 0.9, 0.4],
+                                                   np.float32))),
+    "Categorical": lambda D, t: D.Categorical(t(np.log(np.array(
+        [0.1, 0.2, 0.3, 0.4], np.float32)))),
+    "Dirichlet": lambda D, t: D.Dirichlet(t(np.array([0.5, 1.0, 2.0],
+                                                     np.float32))),
+    "Multinomial": lambda D, t: D.Multinomial(
+        10, t(np.array([0.1, 0.2, 0.3, 0.4], np.float32))),
+}
+_DISCRETE = {"Bernoulli", "Geometric", "Poisson", "Binomial", "Categorical",
+             "Multinomial"}
+
+
+@pytest.mark.parametrize("name", sorted(_CARD_FAMILIES))
+def test_distribution_draws_on_card_match_cpu(cuda, name):
+    """The same key's draws on the card and the host: discrete equal,
+    continuous within ``DRAW_TOL``; flipped rejection decisions within
+    ``DRAW_CARD_FLIPS``."""
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.testing import DRAW_CARD_FLIPS, DRAW_TOL
+    saved = _on("gpu")
+    try:
+        draws = {}
+        for dev in ("gpu", "cpu"):
+            TP.set_device(dev)
+            TP.seed(3)
+            d = _CARD_FAMILIES[name](TP.distribution,
+                                     lambda v: TP.to_tensor(np.float32(v))
+                                     if np.isscalar(v) else TP.to_tensor(v))
+            draws[dev] = d.sample((4096,))._value.cpu()
+        got, want = draws["gpu"], draws["cpu"]
+        if name in _DISCRETE:
+            flips = int((got != want).sum())
+        else:
+            kind = "gamma" if name in ("Gamma", "Beta", "StudentT",
+                                       "Dirichlet") else "normal"
+            rtol, atol = DRAW_TOL[kind]
+            flips = int((~torch.isclose(got, want, rtol=rtol,
+                                        atol=atol)).sum())
+        assert flips <= DRAW_CARD_FLIPS * want.numel(), flips
+    finally:
+        _restore(saved)
+
+
+def test_sparse_geometric_text_autograd_on_card_match_cpu(cuda):
+    import paddle_tpu_torch as TP
+    from paddle_tpu_torch.testing import GRAPH_CARD_TOL as T
+    rng = np.random.RandomState(0)
+    src = rng.randint(0, 500, 4000).astype(np.int32)
+    dst = rng.randint(0, 500, 4000).astype(np.int32)
+    x = rng.randn(500, 16).astype(np.float32)
+    emis = rng.randn(8, 20, 6).astype(np.float32)
+    trans = rng.randn(6, 6).astype(np.float32)
+    lens = rng.randint(1, 21, 8).astype(np.int32)
+    saved = _on("gpu")
+    try:
+        res = {}
+        for dev in ("gpu", "cpu"):
+            TP.set_device(dev)
+            xt = TP.to_tensor(x)
+            adj = TP.sparse.sparse_coo_tensor(
+                np.stack([dst, src]), TP.to_tensor(np.ones(4000, np.float32)),
+                shape=(500, 500))
+            out = {op: TP.geometric.send_u_recv(
+                xt, TP.to_tensor(src), TP.to_tensor(dst), op)._value
+                for op in ("sum", "mean", "max", "min")}
+            out["matmul"] = TP.sparse.matmul(adj, xt)._value
+            out["coalesced"] = adj.coalesce().to_dense()._value
+            s, p = TP.text.viterbi_decode(TP.to_tensor(emis),
+                                          TP.to_tensor(trans),
+                                          TP.to_tensor(lens))
+            out["viterbi"], out["paths"] = s._value, p._value
+            out["hessian"] = TP.incubate.autograd.hessian(
+                lambda v: (v * v * v).sum(), TP.to_tensor(x[0]))._value
+            res[dev] = out
+        for k in ("sum", "mean", "matmul", "coalesced", "viterbi",
+                  "hessian"):
+            assert _rel_l2(res["gpu"][k], res["cpu"][k]) <= T["sum"], k
+        for k in ("max", "min", "paths"):
+            assert torch.equal(res["gpu"][k].cpu(), res["cpu"][k]), k
+    finally:
+        _restore(saved)

@@ -196,3 +196,41 @@ def test_elastic_range_settles_below_max(tmp_path):
     assert r.returncode == 0, (r.stdout, r.stderr)
     data = json.loads((tmp_path / "rank0.json").read_text())
     assert data["world"] == 1
+
+
+def test_reserved_ports_are_held_until_released():
+    """``reserve_ports`` keeps each port bound: no ``bind(0)`` of another
+    socket is handed it while held, a plain bind of it is refused, and a
+    rendezvous server binding with ``SO_REUSEADDR`` (as rank 0's store
+    does) takes it; after release it is free again. ``spawn`` holds its
+    job's ports this way until the job ends."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.launch.context import reserve_ports
+    ports, held = reserve_ports(2)
+    try:
+        assert len(set(ports)) == 2
+        seen = set()
+        for _ in range(500):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                seen.add(s.getsockname()[1])
+        assert not seen & set(ports)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", ports[0]))
+                raise AssertionError("a held port was bound")
+            except OSError:
+                pass
+        store = dist.TCPStore("127.0.0.1", ports[1], 1, True,
+                              datetime.timedelta(seconds=10),
+                              wait_for_workers=False)
+        store.set("k", "v")
+        assert store.get("k") == b"v"
+        del store
+    finally:
+        for s in held:
+            s.close()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", ports[0]))

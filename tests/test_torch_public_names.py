@@ -33,7 +33,6 @@ from paddle_tpu_torch.testing import one_cpu_thread
 one_cpu_thread()
 
 _JAX = "JAX-only: a Pallas/XLA or jax-device construct with no torch form"
-_TAIL = "Queue A item 1 (long tail)"
 
 #: reference name -> why the port does not have it yet
 DEFERRED = {
@@ -56,17 +55,6 @@ DEFERRED = {
     "ops.rms_norm.rms_norm_array": _JAX,
     "distributed.auto_parallel.api.ProcessMesh.jax_mesh": _JAX + " (the "
     "port's ProcessMesh.rank_mesh is its mesh of ranks)",
-    "incubate.autograd": _TAIL,
-    "profiler.profiler": _TAIL + " (profiler/)",
-    "profiler.statistic": _TAIL + " (profiler/)",
-    "profiler.Profiler": _TAIL + " (profiler/)",
-    "profiler.ProfilerState": _TAIL + " (profiler/)",
-    "profiler.ProfilerTarget": _TAIL + " (profiler/)",
-    "profiler.SortedKeys": _TAIL + " (profiler/)",
-    "profiler.export_chrome_tracing": _TAIL + " (profiler/)",
-    "profiler.export_protobuf": _TAIL + " (profiler/)",
-    "profiler.make_scheduler": _TAIL + " (profiler/)",
-    "profiler.summary": _TAIL + " (profiler/)",
 }
 
 

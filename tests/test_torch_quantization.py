@@ -684,3 +684,32 @@ def test_forward_stacked_with_int8_leaves_matches_jax():
     want = JL.forward_stacked(JQP, jnp.asarray(ids), JCFG)
     got = TL.forward_stacked(QP, torch.from_numpy(ids), CFG)
     np.testing.assert_allclose(_np(got), _np(want), **OUT)
+
+
+@pytest.mark.parametrize("shape", [(100, 260), (12, 8), (3, 7, 5),
+                                   (256, 96)])
+def test_col_major_pads_to_multiples_of_8(shape):
+    """``col_major`` keeps the values and shape, lays them out
+    column-major in a buffer zero-padded to K and N multiples of 8, and
+    ``int32_product``'s padded operand is that buffer, uncopied, whose
+    ``[:K, :N]`` is the weight; a weight laid out otherwise gets a fresh
+    padded copy with the same leading block."""
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    c = TB.col_major(w)
+    assert c.shape == w.shape and torch.equal(c, w)
+    k, n = shape[-2:]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert c.stride()[-2:] == (1, kp)
+    layers = [c] if c.dim() == 2 else list(c)
+    for layer, orig in zip(layers, [w] if w.dim() == 2 else list(w)):
+        op = TB._padded_operand(layer, kp, np_)
+        assert op.shape == (kp, np_)
+        assert op.untyped_storage().data_ptr() == \
+            c.untyped_storage().data_ptr()
+        assert torch.equal(op[:k, :n], orig)
+        assert not op[k:].any() and not op[:, n:].any()
+        fresh = TB._padded_operand(orig.contiguous(), kp, np_)
+        assert fresh.untyped_storage().data_ptr() != \
+            orig.untyped_storage().data_ptr()
+        assert torch.equal(fresh[:k, :n], orig)
